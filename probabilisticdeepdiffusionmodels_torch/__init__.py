@@ -1,0 +1,7 @@
+"""PyTorch port of probabilisticdeepdiffusionmodels_tpu for NVIDIA Hopper.
+
+Slice 1: schedule -> respacing -> UNet forward -> ancestral reverse loop,
+with the three Pallas TPU kernels of the UNet forward replaced by
+hand-written CUDA kernels (``csrc/``).  The JAX package stays the reference
+the port is tested against; this package imports nothing of it.
+"""

@@ -1,0 +1,64 @@
+// Helpers shared by the kernels: dtype conversion and the bf16 tensor-core
+// product (mma.sync m16n8k16, float32 accumulation).
+//
+// Fragment layout of mma.sync.m16n8k16 (PTX ISA, "Matrix Fragments for
+// mma.m16n8k16"), with g = lane / 4 and t = lane % 4:
+//   A (16x16, row major), four 32-bit registers of two bf16 each:
+//     a[0] = A[g][2t..2t+1]     a[1] = A[g+8][2t..2t+1]
+//     a[2] = A[g][2t+8..2t+9]   a[3] = A[g+8][2t+8..2t+9]
+//   B (16x8, "col": k pairs packed), two registers:
+//     b[0] = B[2t..2t+1][g]     b[1] = B[2t+8..2t+9][g]
+//   C/D (16x8 float32): c[0..1] = C[g][2t..2t+1], c[2..3] = C[g+8][2t..2t+1]
+// The lower 16 bits of a register hold the element with the lower k index.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace pddm {
+
+template <typename T> __device__ __forceinline__ float to_f(T v);
+template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);  // round to nearest even
+}
+
+__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// c += A * B for one 16x8x16 tile.
+__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
+                                               const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ float silu_f(float v) { return v / (1.f + expf(-v)); }
+
+// Raise the dynamic shared-memory limit of `kernel` when it needs more than
+// the default 48 KB.
+template <typename K>
+inline cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+}  // namespace pddm

@@ -1,0 +1,149 @@
+"""NN primitives for the UNet, channels last (NHWC).
+
+PyTorch counterparts of ``probabilisticdeepdiffusionmodels_tpu/models/layers.py``:
+
+  * parameters are float32 and are cast to the compute dtype where they are
+    used (Flax's ``param_dtype=float32`` with ``dtype=bfloat16``);
+  * convolutions pad like JAX ``SAME`` (for a stride-2 3x3 conv on an even
+    size that is (0, 1), not torch's (1, 1));
+  * GroupNorm uses gcd(32, C) groups, computes in float32 and casts back;
+  * init is torch's Conv/Linear default, U(-1/sqrt(fan_in), 1/sqrt(fan_in))
+    for weight and bias, with zero init where the JAX model zero-inits.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.groupnorm import group_norm_silu
+
+__all__ = [
+    "Conv",
+    "FusedConv3x3",
+    "Linear",
+    "GroupNorm32",
+    "silu",
+    "avg_pool_nd",
+    "nearest_upsample_nd",
+]
+
+
+def _uniform_(p: torch.Tensor, fan_in: int, generator: Optional[torch.Generator]):
+    bound = 1.0 / math.sqrt(fan_in)
+    with torch.no_grad():
+        p.uniform_(-bound, bound, generator=generator)
+
+
+def _same_pads(size: int, k: int, stride: int):
+    """(low, high) padding of JAX ``SAME`` along one axis."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+class Conv(nn.Module):
+    """k x k 2-D convolution on NHWC input with JAX ``SAME`` padding (k > 1)
+    or ``VALID`` (k = 1).  ``weight`` is OIHW."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
+                 stride: int = 1, zero_init: bool = False,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.kernel_size, self.stride, self.dtype = kernel_size, stride, dtype
+        k = kernel_size
+        self.weight = nn.Parameter(torch.zeros(out_ch, in_ch, k, k))
+        self.bias = nn.Parameter(torch.zeros(out_ch))
+        if not zero_init:
+            _uniform_(self.weight, in_ch * k * k, generator)
+            _uniform_(self.bias, in_ch * k * k, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
+        k, s = self.kernel_size, self.stride
+        padding = 0
+        if k > 1:
+            ph = _same_pads(x.shape[1], k, s)
+            pw = _same_pads(x.shape[2], k, s)
+            if ph[0] == ph[1] and pw[0] == pw[1]:
+                padding = (ph[0], pw[0])
+            else:  # asymmetric SAME padding, applied in NHWC
+                x = F.pad(x, (0, 0, pw[0], pw[1], ph[0], ph[1]))
+        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(self.dtype),
+                     self.bias.to(self.dtype), stride=s, padding=padding)
+        return y.permute(0, 2, 3, 1).contiguous()
+
+
+class FusedConv3x3(nn.Module):
+    """Weight and bias of a 3x3 conv that ``ops.gn_conv.gn_silu_conv3x3``
+    computes; ``weight`` is (3, 3, Cout, Cin), the kernel's layout."""
+
+    def __init__(self, in_ch: int, out_ch: int, zero_init: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(3, 3, out_ch, in_ch))
+        self.bias = nn.Parameter(torch.zeros(out_ch))
+        if not zero_init:
+            _uniform_(self.weight, in_ch * 9, generator)
+            _uniform_(self.bias, in_ch * 9, generator)
+
+
+class Linear(nn.Module):
+    """Dense layer in ``dtype`` with torch-default init; ``weight`` is (out, in)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 zero_init: bool = False, dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.zeros(out_features, in_features))
+        self.bias = nn.Parameter(torch.zeros(out_features))
+        if not zero_init:
+            _uniform_(self.weight, in_features, generator)
+            _uniform_(self.bias, in_features, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
+                        self.bias.to(self.dtype))
+
+
+class GroupNorm32(nn.Module):
+    """GroupNorm with gcd(32, C) groups over channels-last input, float32
+    statistics, output in the input dtype.  ``forward`` runs
+    ``ops.groupnorm.group_norm_silu`` (the CUDA kernel on the card);
+    ResBlocks instead fold ``weight``/``bias`` into the fused conv."""
+
+    def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5):
+        super().__init__()
+        self.groups = math.gcd(num_groups, channels)
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return group_norm_silu(x.contiguous(), self.weight, self.bias,
+                               self.groups, self.eps, silu=False)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """x * sigmoid(x)."""
+    return x * torch.sigmoid(x)
+
+
+def avg_pool_nd(x: torch.Tensor, window: int = 2) -> torch.Tensor:
+    """Stride-``window`` average pool of NHWC input."""
+    y = F.avg_pool2d(x.permute(0, 3, 1, 2), window, window)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def nearest_upsample_nd(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour 2x upsample of NHWC input (2-D only)."""
+    if x.dim() != 4:
+        raise NotImplementedError("only 2-D nearest upsampling is ported")
+    b, h, w, c = x.shape
+    return x[:, :, None, :, None, :].expand(b, h, 2, w, 2, c).reshape(b, 2 * h, 2 * w, c)

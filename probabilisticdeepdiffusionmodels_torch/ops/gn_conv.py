@@ -1,0 +1,128 @@
+"""GroupNorm (+ emb add | FiLM) + SiLU + 3x3 conv: the folded affine, the
+plain torch version and the CUDA kernel.
+
+``gn_affine`` folds the float32 GroupNorm statistics, the GN affine and the
+ResBlock's timestep-embedding add or FiLM scale/shift into one
+per-(sample, channel) scale ``a`` and offset ``off``, exactly as
+``probabilisticdeepdiffusionmodels_tpu/ops/gn_conv_pallas.py:gn_affine``;
+the fused op is then ``conv3x3_SAME(silu(x*a + off)) + bias``.
+
+Weight layout: the kernel reads the 3x3 weight as (kh, kw, Cout, Cin)
+("HWOI"), so for one tap and one output channel the input channels are
+contiguous and two neighbouring input channels form one 32-bit operand of
+the tensor-core product.  ``convert.params_from_flax`` re-lays the JAX HWIO
+kernel out once; the port's own init creates it in this layout.
+
+Kernel (``csrc/gn_conv.cu``) — replaces ``gn_silu_conv3x3_pallas`` /
+``_kernel`` in ``gn_conv_pallas.py``.  On the H100 it is bound by
+tensor-core operations (2*9*Cin*Cout per output pixel against a few bytes
+per pixel).  It is an implicit GEMM: one block computes 64 output pixels x
+64 output channels; for each 32-channel slice of the input it stages the
+block's input tile plus a one-pixel halo in shared memory, applying
+``silu(x*a + off)`` once per element as it loads (the halo outside the
+image is zero *after* the activation, as the Pallas kernel pads after the
+SiLU), then runs the 9 taps as shifted reads of that tile.  bf16 uses
+``mma.sync`` m16n8k16 with float32 accumulation; float32 uses scalar FMAs.
+The bias is added in float32 and the output stored in the input dtype.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+__all__ = ["gn_affine", "gn_silu_conv3x3", "gn_silu_conv3x3_plain"]
+
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def gn_affine(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+              num_groups: int, eps: float, emb: Optional[torch.Tensor] = None,
+              film: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """Per-(B, C) float32 scale/offset with
+
+      normalize(x + emb) * gamma + beta          == x * a + off   (emb mode)
+      (normalize(x)*gamma + beta)*(1+s) + shift  == x * a + off   (FiLM mode)
+
+    x: (B, *spatial, C); emb: (B, C) or None; film: ((B, C), (B, C)) or None.
+    """
+    b, c = x.shape[0], x.shape[-1]
+    g = num_groups
+    xf = x.float().reshape(b, -1, c)
+    mu_c = xf.mean(dim=1)
+    m2_c = (xf * xf).mean(dim=1)
+    if emb is not None:
+        e = emb.float()
+        m2_c = m2_c + 2.0 * e * mu_c + e * e
+        mu_c = mu_c + e
+    mu_g = mu_c.reshape(b, g, c // g).mean(dim=2)
+    m2_g = m2_c.reshape(b, g, c // g).mean(dim=2)
+    rstd_g = torch.rsqrt(m2_g - mu_g * mu_g + eps)
+    mean_ch = mu_g.repeat_interleave(c // g, dim=1)
+    rstd_ch = rstd_g.repeat_interleave(c // g, dim=1)
+    a = rstd_ch * gamma.float()[None, :]
+    off = beta.float()[None, :] - mean_ch * a
+    if emb is not None:
+        off = off + emb.float() * a
+    if film is not None:
+        s, shift = film
+        s = 1.0 + s.float()
+        a = a * s
+        off = off * s + shift.float()
+    return a, off
+
+
+def gn_silu_conv3x3_plain(x: torch.Tensor, a: torch.Tensor, off: torch.Tensor,
+                          w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """x: (B, H, W, Cin); a/off: (B, Cin) float32; w: (3, 3, Cout, Cin);
+    bias: (Cout,).  Returns (B, H, W, Cout) in x's dtype.
+
+    The activation is rounded to x's dtype, the weight cast to it, and the
+    conv accumulated in float32, as the kernel and the Pallas kernel do.
+    """
+    y = x.float() * a[:, None, None, :] + off[:, None, None, :]
+    y = (y * torch.sigmoid(y)).to(x.dtype).float()
+    w_oihw = w.to(x.dtype).float().permute(2, 3, 0, 1)
+    out = F.conv2d(y.permute(0, 3, 1, 2), w_oihw, padding=1)
+    out = out.permute(0, 2, 3, 1) + bias.float()
+    return out.to(x.dtype).contiguous()
+
+
+def gn_silu_conv3x3(x: torch.Tensor, a: torch.Tensor, off: torch.Tensor,
+                    w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Fused ``conv3x3_SAME(silu(x*a + off)) + bias``; shapes as the plain
+    version.  A CPU tensor takes the plain version; a CUDA tensor launches
+    the kernel or raises."""
+    if x.device.type == "cpu":
+        return gn_silu_conv3x3_plain(x, a, off, w, bias)
+    if x.device.type != "cuda":
+        raise ValueError(f"gn_silu_conv3x3: unsupported device {x.device}")
+    if x.dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"gn_silu_conv3x3 kernel takes float32/bfloat16, got {x.dtype}")
+    if x.dim() != 4 or not x.is_contiguous():
+        raise ValueError("x must be a contiguous (B, H, W, Cin) tensor")
+    b, h, wd, cin = x.shape
+    if w.dim() != 4 or w.shape[:2] != (3, 3) or w.shape[3] != cin:
+        raise ValueError(f"w must be (3, 3, Cout, {cin}), got {tuple(w.shape)}")
+    cout = w.shape[2]
+    if a.shape != (b, cin) or off.shape != (b, cin):
+        raise ValueError(f"a/off must be ({b}, {cin})")
+    if bias.shape != (cout,):
+        raise ValueError(f"bias must be ({cout},)")
+    a = a.to(device=x.device, dtype=torch.float32).contiguous()
+    off = off.to(device=x.device, dtype=torch.float32).contiguous()
+    w = w.to(device=x.device, dtype=x.dtype).contiguous()
+    bias = bias.to(device=x.device, dtype=torch.float32).contiguous()
+    out = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
+    _build.launch("pddm_gn_silu_conv3x3", x.data_ptr(), a.data_ptr(),
+                  off.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                  b, h, wd, cin, cout, int(x.dtype == torch.bfloat16))
+    gn_silu_conv3x3.launches += 1
+    return out
+
+
+gn_silu_conv3x3.launches = 0
