@@ -16,7 +16,15 @@
    on the plain versions with the same weights and noise, one timed bf16
    forward at batch 128 with its device profile, and the 250-step chain of
    ``bench.py`` (bf16, batch 128) three times in a row, whose img/s is the
-   sampler's headline metric.
+   sampler's headline metric;
+5. the probe: ``ops/probe_mma.py``'s entry point for float32 and bf16, its
+   kernel held against its plain version and timed beside ``torch.matmul``;
+6. training: float32 gradients of one eps-MSE loss with the kernels against
+   the same loss on the plain versions (batch cut to 8); the train step of
+   ``scripts/bench_train.py`` (bf16, batch 128, Adam 2e-4, EMA 0.9999,
+   uniform t) timed over two passes of 10 steps with the launch counts
+   asserted, its forward / backward / update split and a device profile;
+   and a few importance-sampled steps on a warmed-up history.
 
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Any failure raises and
@@ -30,6 +38,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -50,6 +59,16 @@ CHAIN_BATCH = 32
 FORWARD_BATCH = 128
 PER_FORWARD = {"gn_silu_conv3x3": 61, "qkv_attention": 15, "group_norm_silu": 15}
 F32_CHAIN_TOL = 1e-3   # kernels vs plain, float32, after 20 steps (sums in another order)
+GRAD_BATCH = 8         # float32 gradient check at full width, batch cut from 128
+# float32 gradients, kernels vs plain: the forward sums run in another order,
+# the backward code is the same on both sides
+F32_GRAD_TOL = 1e-3
+# the conv's backward recompute on bf16 operands against the float32 plain
+# version's: both round each gradient to bf16 once; the float32 sums differ
+RECOMPUTE_TOL = 1e-2
+TRAIN_BATCH = 128      # scripts/bench_train.py's first batch size
+TRAIN_WARMUP, TRAIN_STEPS, TRAIN_PASSES = 3, 10, 2
+IMPORTANCE_STEPS = 3
 
 # H100 SXM published peaks (NVIDIA data sheet), dense
 PEAK_BYTES = 3.35e12
@@ -59,11 +78,13 @@ REPLACES = {
     "gn_silu_conv3x3": "probabilisticdeepdiffusionmodels_tpu/ops/gn_conv_pallas.py:180",
     "group_norm_silu": "probabilisticdeepdiffusionmodels_tpu/ops/groupnorm_pallas.py:112",
     "qkv_attention": "probabilisticdeepdiffusionmodels_tpu/ops/attention_pallas.py:67",
+    "probe_mma": "scripts/probe_mosaic_bf16.py:21",
 }
 SOURCES = {
     "gn_silu_conv3x3": f"{PKG}/csrc/gn_conv.cu",
     "group_norm_silu": f"{PKG}/csrc/groupnorm.cu",
     "qkv_attention": f"{PKG}/csrc/attention.cu",
+    "probe_mma": f"{PKG}/csrc/probe_mma.cu",
 }
 
 
@@ -193,26 +214,52 @@ def library_call(torch, F, name, args, kwargs):
     return lambda: F.conv2d(y, w_oihw, b, padding=1)
 
 
-def profile_forward(torch, forward, top=12):
-    """Device time of one forward by CUDA kernel name (torch.profiler), the
-    idle share of the profiled forward's wall time (the profiler's own host
-    cost included), and the heaviest kernels; ``all`` lists every kernel."""
+def recompute_check(torch, gn_conv, args):
+    """The fused conv's backward at one bf16 site: the largest difference,
+    relative to each gradient's largest element, between the gradients of
+    the bf16-operand recompute the kernel's backward runs and those of the
+    float32 plain version, and the ms of each (recompute + autograd.grad)."""
+    x, a, off, w, bias = args
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (x, a, off, w.to(x.dtype), bias)]
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    g = torch.randn(x.shape[:3] + (w.shape[2],), device="cuda", generator=gen).to(x.dtype)
+
+    def grads(fn):
+        return torch.autograd.grad(fn(*leaves), leaves, g)
+
+    want = grads(gn_conv.gn_silu_conv3x3_plain)
+    got = grads(gn_conv._grad_reference)
+    err = max(float((p.float() - q.float()).abs().max()) / max(1e-30, float(q.float().abs().max()))
+              for p, q in zip(got, want))
+    return {"max_rel_err": err, "tol": RECOMPUTE_TOL,
+            "bf16_recompute_ms": sync_time(torch, lambda: grads(gn_conv._grad_reference)),
+            "f32_recompute_ms": sync_time(torch, lambda: grads(gn_conv.gn_silu_conv3x3_plain))}
+
+
+def profile_device(torch, fn, top=12):
+    """Device time of one call of ``fn`` by CUDA kernel name
+    (torch.profiler), the idle share of the profiled call's wall time (the
+    profiler's own host cost included), and the heaviest kernels; ``all``
+    lists every kernel."""
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.no_grad():
-        forward()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t_start = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t_start = time.perf_counter()
-            forward()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t_start) * 1e3
+        wall_ms = (time.perf_counter() - t_start) * 1e3
     kernels = []
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0.0)
-        if us > 0 and getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
+        # user annotations (``Optimizer.step#Adam.step``) span kernels that
+        # are counted on their own
+        if (us > 0 and getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA
+                and not getattr(ev, "is_user_annotation", False)):
             kernels.append((us / 1e3, ev.count, ev.key))
     kernels.sort(reverse=True)
     busy_ms = sum(k[0] for k in kernels)
@@ -230,6 +277,202 @@ def fill_zero_params(torch, model, seed):
         for p in model.parameters():
             if not p.any():
                 p.copy_(0.02 * torch.randn(p.shape, generator=gen))
+
+
+def probe_phase(torch):
+    """Drive ``ops/probe_mma.py``'s entry point for both dtypes with the
+    count at 0, then hold each kernel against its plain version and time it
+    beside ``torch.matmul``; returns the kernel's summary (times summed over
+    the two dtypes, as the entry point runs both)."""
+    import importlib
+
+    probe = importlib.import_module(f"{PKG}.ops.probe_mma")
+    dtypes = (torch.float32, torch.bfloat16)
+    operands = {dt: probe.random_operands(dt, "cuda") for dt in dtypes}
+    probe.probe_mma.launches = 0
+    outs = {dt: probe.try_dtype(dt, *operands[dt]) for dt in dtypes}
+    torch.cuda.synchronize()
+    launched = probe.probe_mma.launches
+    if launched != len(dtypes):
+        raise AssertionError(f"probe: {launched} launches for {len(dtypes)} dtypes")
+    s = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bytes_ms=0.0,
+             ops_ms=0.0, bound_ms=0.0, launches=launched)
+    rows = []
+    for dt in dtypes:
+        a, b = operands[dt]
+        ref = probe.probe_mma_plain(a, b)
+        err = float((outs[dt] - ref).abs().max())
+        tol = probe.TOL * float(ref.abs().max())
+        dtype = str(dt).replace("torch.", "")
+        t_bytes = (2 * a.numel() * a.element_size() + ref.numel() * 4) / PEAK_BYTES * 1e3
+        t_ops = 2.0 * probe.SIZE ** 3 / PEAK_FLOPS[dtype] * 1e3
+        row = {"dtype": dtype, "max_abs_err": err, "tol": tol,
+               "ms": sync_time(torch, lambda: probe.probe_mma(a, b)),
+               "plain_ms": sync_time(torch, lambda: probe.probe_mma_plain(a, b)),
+               "library_ms": sync_time(torch, lambda: torch.matmul(a, b)),
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        rows.append(row)
+        if not err <= tol:
+            raise AssertionError(f"probe {dtype}: kernel vs plain max abs err {err} > {tol}")
+        s["max_abs_err"] = max(s["max_abs_err"], err)
+        for key, val in (("ms", row["ms"]), ("plain_ms", row["plain_ms"]),
+                         ("library_ms", row["library_ms"]), ("bytes_ms", t_bytes),
+                         ("ops_ms", t_ops), ("bound_ms", row["bound_ms"])):
+            s[key] += val
+    emit({"phase": "probe_mma", "launches": launched, "dtypes": rows})
+    return s
+
+
+def train_phases(torch, ops, model, gen):
+    """The training phases; returns the train step's kernel launches per
+    pass and its device profile by kernel name."""
+    from probabilisticdeepdiffusionmodels_torch.core import (
+        DiffusionTables,
+        NoiseSchedule,
+        mean_flat,
+        q_sample,
+    )
+    from probabilisticdeepdiffusionmodels_torch.engine import AdamChain
+    from probabilisticdeepdiffusionmodels_torch.models import get_model
+    from probabilisticdeepdiffusionmodels_torch.train import (
+        TrainState,
+        make_train_step,
+        sample_importance,
+        sample_uniform,
+    )
+
+    tables = DiffusionTables.from_schedule(NoiseSchedule.create(1000, "linear"), "cuda")
+
+    # float32 gradients: kernels against plain versions, one loss, same
+    # x0, t and noise, the sampler model's weights (zero-init points filled)
+    model32 = get_model(RESOLUTION, dict(MODEL_CFG, compute_dtype="float32"),
+                        device="cuda", seed=0)
+    model32.load_state_dict(model.state_dict())
+    model32.train()
+    xg = torch.randn(GRAD_BATCH, RESOLUTION, RESOLUTION, 3, device="cuda", generator=gen)
+    tg = torch.randint(1, 1001, (GRAD_BATCH,), device="cuda", generator=gen)
+    ng = torch.randn(xg.shape, device="cuda", generator=gen)
+
+    def loss_and_grads():
+        model32.zero_grad(set_to_none=True)
+        out = model32(q_sample(tables, xg, ng, tg), tg)
+        loss = mean_flat((ng - out) ** 2).mean()
+        loss.backward()
+        return out, loss, {n: p.grad.detach().clone() for n, p in model32.named_parameters()}
+
+    ops.reset()
+    out_k, loss_k, g_k = loss_and_grads()
+    if out_k.grad_fn is None:
+        raise AssertionError("model(x, t) on CUDA has no grad_fn")
+    if ops.counts() != PER_FORWARD:
+        raise AssertionError(f"float32 loss launches {ops.counts()} != {PER_FORWARD}")
+    with ops.plain_versions():
+        _, loss_p, g_p = loss_and_grads()
+    worst, worst_name = 0.0, None
+    for name, gp in g_p.items():
+        rel = float((g_k[name] - gp).abs().max()) / max(1e-6, float(gp.abs().max()))
+        if rel >= worst:
+            worst, worst_name = rel, name
+    zero = [name for name, gp in g_p.items() if not gp.any()]
+    emit({"phase": "train_grads_f32_vs_plain", "batch": GRAD_BATCH,
+          "batch_cut_from": TRAIN_BATCH, "params": len(g_p), "loss_kernels": float(loss_k.detach()),
+          "loss_plain": float(loss_p.detach()), "max_rel_err": worst, "worst_param": worst_name,
+          "tol": F32_GRAD_TOL, "all_zero_grads": zero})
+    if not worst <= F32_GRAD_TOL or zero:
+        raise AssertionError(f"float32 gradients: kernels vs plain {worst} at {worst_name} "
+                             f"(tol {F32_GRAD_TOL}); all-zero gradients: {zero}")
+    del model32, g_k, g_p, out_k
+
+    # the bf16 train step of scripts/bench_train.py at batch 128
+    tmodel = get_model(RESOLUTION, MODEL_CFG, device="cuda", seed=0)
+    state = TrainState(tmodel, AdamChain(tmodel.parameters(), 2e-4), 1000,
+                       torch.Generator(device="cuda").manual_seed(5), ema_decay=0.9999)
+    step = make_train_step(tables)
+    xb = torch.randn(TRAIN_BATCH, RESOLUTION, RESOLUTION, 3, device="cuda", generator=gen)
+    for _ in range(TRAIN_WARMUP):
+        step(state, xb)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    passes, expected = [], {n: TRAIN_STEPS * c for n, c in PER_FORWARD.items()}
+    for _ in range(TRAIN_PASSES):
+        ops.reset()
+        t_start = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            metrics = step(state, xb)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t_start
+        if ops.counts() != expected:
+            raise AssertionError(f"train step launches {ops.counts()} != {expected}")
+        passes.append({"ms_per_step": seconds / TRAIN_STEPS * 1e3,
+                       "img_per_s": TRAIN_BATCH * TRAIN_STEPS / seconds})
+    train_launches = ops.counts()
+    peak = torch.cuda.max_memory_allocated()
+    loss, grad_norm = float(metrics["loss"]), float(metrics["grad_norm"])
+    if not (math.isfinite(loss) and math.isfinite(grad_norm)):
+        raise AssertionError(f"train step: loss {loss}, grad_norm {grad_norm}")
+
+    # one step by parts, as make_train_step runs it, with CUDA events between
+    t, _ = sample_uniform(state.generator, TRAIN_BATCH, 1000)
+    noise = torch.randn(xb.shape, generator=state.generator, device="cuda")
+    x_t = q_sample(tables, xb, noise, t)
+    tmodel.train()
+    tmodel.zero_grad(set_to_none=True)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    ops.reset()
+    events[0].record()
+    per_sample = mean_flat(torch.square(noise - tmodel(x_t, t)))
+    loss_part = per_sample.mean()
+    events[1].record()
+    fwd_counts = ops.counts()
+    loss_part.backward()
+    events[2].record()
+    bwd_counts = ops.counts()
+    state.loss_history.update(t, per_sample.detach())
+    events[3].record()
+    state.apply_gradients()
+    events[4].record()
+    torch.cuda.synchronize()
+    if fwd_counts != PER_FORWARD or bwd_counts != fwd_counts:
+        raise AssertionError(f"one step: forward launched {fwd_counts}, backward added "
+                             f"{ {n: bwd_counts[n] - fwd_counts[n] for n in PER_FORWARD} }")
+    split = {name: events[i].elapsed_time(events[i + 1]) for i, name in
+             enumerate(("forward_ms", "backward_ms", "history_ms", "optimizer_ema_ms"))}
+    prof = profile_device(torch, lambda: step(state, xb), top=15)
+    all_kernels = prof.pop("all")
+    syncs = [k for k in all_kernels if "DtoH" in k["name"]]
+    if syncs:
+        raise AssertionError(f"the train step copies to the host: {syncs}")
+    emit({"phase": "train_step_bf16", "batch": TRAIN_BATCH, "steps_per_pass": TRAIN_STEPS,
+          "warmup_steps": TRAIN_WARMUP, "passes": passes, "launches_per_pass": train_launches,
+          "split_one_step": split, "max_memory_allocated_bytes": peak, "loss": loss,
+          "grad_norm": grad_norm, "profile": prof})
+
+    # importance sampling on a history warmed past min_counts through update
+    min_counts = 10
+    steps_t = torch.arange(1, 1001, device="cuda")
+    for _ in range(min_counts):
+        losses = 0.02 + steps_t.float() / 1000 + 0.01 * torch.rand(1000, device="cuda",
+                                                                    generator=gen)
+        state.loss_history.update(steps_t, losses)
+    if not bool(state.loss_history.is_warmed_up(min_counts)):
+        raise AssertionError("the loss history did not warm up")
+    _, weights = sample_importance(torch.Generator(device="cuda").manual_seed(6),
+                                   TRAIN_BATCH, state.loss_history, min_counts)
+    uniform_w = bool(torch.all(weights == 1.0 / TRAIN_BATCH))
+    imp_step = make_train_step(tables, sampling="importance", min_counts=min_counts)
+    losses = []
+    ops.reset()
+    for _ in range(IMPORTANCE_STEPS):
+        losses.append(float(imp_step(state, xb)["loss"]))
+    imp_expected = {n: IMPORTANCE_STEPS * c for n, c in PER_FORWARD.items()}
+    emit({"phase": "train_step_importance", "steps": IMPORTANCE_STEPS, "losses": losses,
+          "weights_min": float(weights.min()), "weights_max": float(weights.max()),
+          "launches": ops.counts()})
+    if uniform_w or not all(math.isfinite(v) for v in losses) or ops.counts() != imp_expected:
+        raise AssertionError(f"importance steps: weights all 1/B {uniform_w}, losses "
+                             f"{losses}, launches {ops.counts()}")
+    return train_launches, all_kernels
 
 
 def main(argv=None) -> int:
@@ -319,11 +562,17 @@ def main(argv=None) -> int:
                 "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        if name == "gn_silu_conv3x3" and dtype == "bfloat16":
+            site["grad_recompute"] = recompute_check(torch, ops.ops.gn_conv, a)
         per_site.append(site)
         emit(dict(phase="kernel_site", **site))
         if not err <= tol:
             raise AssertionError(f"{name} {site['shape']} {dtype}: kernel vs plain "
                                  f"max abs err {err} > {tol}")
+        rc = site.get("grad_recompute")
+        if rc and not rc["max_rel_err"] <= RECOMPUTE_TOL:
+            raise AssertionError(f"{name} {site['shape']}: bf16 backward recompute vs "
+                                 f"float32 differs by {rc['max_rel_err']} of the gradient")
         s = summary.setdefault(name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
                                           library_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
                                           bound_ms=0.0, calls=0))
@@ -393,7 +642,11 @@ def main(argv=None) -> int:
     kernel_ms = sum(s["ms"] for s in summary.values())
     emit({"phase": "forward_bf16", "batch": FORWARD_BATCH, "ms": fwd_ms,
           "kernel_ms_sum": kernel_ms})
-    prof = profile_forward(torch, lambda: model(x128, t128))
+    def forward128():
+        with torch.no_grad():
+            model(x128, t128)
+
+    prof = profile_device(torch, forward128)
     all_kernels = prof.pop("all")
     # the device's idle share of the unprofiled forward: its CUDA-event time
     # against the device time the profiler summed
@@ -418,15 +671,29 @@ def main(argv=None) -> int:
             raise AssertionError("250-step chain output is not finite")
     emit({"phase": "sampler_250_bf16", "steps": BENCH_STEPS, "batch": FORWARD_BATCH,
           "seconds": bench_s, "img_per_s": [FORWARD_BATCH / s for s in bench_s]})
+    del tables250, x0_250
+
+    # 5. the probe's entry point, float32 and bf16
+    summary["probe_mma"] = probe_phase(torch)
+
+    # 6. training
+    train_launches, train_profile = train_phases(torch, ops, model, gen)
 
     if args.out is not None:
         (args.out / "chip_smoke_sites.json").write_text(json.dumps(
-            {"nvidia_smi": smi, "sites": per_site, "forward_bf16_profile": all_kernels},
-            indent=1))
+            {"nvidia_smi": smi, "sites": per_site, "forward_bf16_profile": all_kernels,
+             "train_step_bf16_profile": train_profile}, indent=1))
 
+    # each kernel's main path: the sampler for the UNet's three, the probe's
+    # entry point for the probe; the train step's launches beside them
+    main_launches = dict(launches, probe_mma=summary["probe_mma"].pop("launches"))
+    by_path = {name: {"sampler_bf16": launches[name], "train_step_bf16": train_launches[name]}
+               for name in PER_FORWARD}
+    by_path["probe_mma"] = {"probe": main_launches["probe_mma"]}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-         "launches": launches[name], "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+         "launches": main_launches[name], "launches_by_path": by_path[name],
+         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
          "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
          "bound_by": "bytes" if s["bytes_ms"] >= s["ops_ms"] else "operations",
          "library_ms": s["library_ms"]}

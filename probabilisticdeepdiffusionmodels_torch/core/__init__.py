@@ -10,9 +10,12 @@ from .diffusion import (
     gather,
     expand_to,
     expand_to_mask,
+    q_mean_std,
+    q_sample,
     q_posterior,
     xstart_from_epsilon,
     model_mean_from_epsilon,
     p_step,
+    mean_flat,
     timestep_embedding,
 )

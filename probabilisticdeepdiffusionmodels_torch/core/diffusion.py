@@ -28,10 +28,13 @@ __all__ = [
     "gather",
     "expand_to",
     "expand_to_mask",
+    "q_mean_std",
+    "q_sample",
     "q_posterior",
     "xstart_from_epsilon",
     "model_mean_from_epsilon",
     "p_step",
+    "mean_flat",
     "timestep_embedding",
 ]
 
@@ -107,6 +110,20 @@ def expand_to_mask(mask: torch.Tensor, ndim: int) -> torch.Tensor:
     return mask.reshape(mask.shape + (1,) * (ndim - mask.ndim))
 
 
+def q_mean_std(tables: DiffusionTables, x0: torch.Tensor, t: torch.Tensor):
+    """Mean and std of q(x_t | x_0)."""
+    mean = x0 * expand_to(tables.alphas_hat_sqrt, t, x0.ndim)
+    std = expand_to(tables.one_min_alphas_hat_sqrt, t, x0.ndim)
+    return mean, std
+
+
+def q_sample(tables: DiffusionTables, x0: torch.Tensor, noise: torch.Tensor,
+             t: torch.Tensor) -> torch.Tensor:
+    """x_t = mean + noise * std for the given noise."""
+    mean, std = q_mean_std(tables, x0, t)
+    return mean + noise * std
+
+
 def q_posterior(tables: DiffusionTables, t: torch.Tensor, x0: torch.Tensor,
                 x_t: torch.Tensor):
     """Mean and variance of q(x_{t-1} | x_t, x_0), DDPM eq. (6)/(7)."""
@@ -158,6 +175,11 @@ def p_step(tables: DiffusionTables, x_t: torch.Tensor, t: torch.Tensor,
     sigma = expand_to(tables.sigma_table(sigma_mode), t, x_t.ndim)
     nonterminal = expand_to_mask(t > 1, x_t.ndim).to(x_t.dtype)
     return mean - sigma * z * nonterminal
+
+
+def mean_flat(x: torch.Tensor) -> torch.Tensor:
+    """Mean over all non-batch dims."""
+    return x.mean(dim=tuple(range(1, x.ndim)))
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,

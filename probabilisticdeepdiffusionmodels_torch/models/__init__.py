@@ -10,8 +10,10 @@ device that raises, so running on the CPU is an explicit request
 (``device="cpu"``).  On the card the three hand-written kernels always run:
 the ``use_pallas_attention``, ``pallas_attention_min_tokens``,
 ``use_pallas_gn`` and ``use_pallas_conv`` keys are accepted so the JAX
-configs load, and have no effect.  ``dropout`` is accepted; the port only
-samples, where dropout is the identity.
+configs load, and have no effect.  ``dropout`` acts in train mode
+(``model.train()``), where each ResBlock drops activations between its
+second SiLU and conv, as the JAX model does; in eval mode, the mode
+``get_model`` returns, it is the identity.
 """
 
 from __future__ import annotations
@@ -96,6 +98,7 @@ def get_unet(
         num_heads=num_heads,
         num_heads_upsample=num_heads_upsample,
         use_scale_shift_norm=use_scale_shift_norm,
+        dropout=dropout,
         dtype=_DTYPES[compute_dtype],
         generator=torch.Generator().manual_seed(seed),
     )

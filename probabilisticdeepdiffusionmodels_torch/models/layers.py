@@ -81,7 +81,8 @@ class Conv(nn.Module):
 
 class FusedConv3x3(nn.Module):
     """Weight and bias of a 3x3 conv that ``ops.gn_conv.gn_silu_conv3x3``
-    computes; ``weight`` is (3, 3, Cout, Cin), the kernel's layout."""
+    computes; ``weight`` is (3, 3, Cout, Cin), the kernel's layout.
+    ``conv`` is the same conv alone, for the ResBlock's dropout path."""
 
     def __init__(self, in_ch: int, out_ch: int, zero_init: bool = False,
                  generator: Optional[torch.Generator] = None):
@@ -91,6 +92,12 @@ class FusedConv3x3(nn.Module):
         if not zero_init:
             _uniform_(self.weight, in_ch * 9, generator)
             _uniform_(self.bias, in_ch * 9, generator)
+
+    def conv(self, y: torch.Tensor) -> torch.Tensor:
+        """3x3 SAME conv of NHWC ``y`` in its dtype."""
+        out = F.conv2d(y.permute(0, 3, 1, 2), self.weight.to(y.dtype).permute(2, 3, 0, 1),
+                       self.bias.to(y.dtype), padding=1)
+        return out.permute(0, 2, 3, 1).contiguous()
 
 
 class Linear(nn.Module):

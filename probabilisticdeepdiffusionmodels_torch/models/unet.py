@@ -12,7 +12,9 @@ conv3x3 op (``ops.gn_conv``), as the JAX model does with
 (``ops.groupnorm``) and every attention the fused-qkv op
 (``ops.attention``).  On a CUDA tensor each of those is a hand-written
 kernel.  The other convs (input conv, 1x1 skip, down/upsample) are
-``F.conv2d`` and the qkv/proj products ``F.linear``.
+``F.conv2d`` and the qkv/proj products ``F.linear``.  In train mode with
+``dropout > 0`` a ResBlock's second conv leaves the fused op, as the JAX
+model's does, because the dropout sits between the SiLU and the conv.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..core.diffusion import timestep_embedding
 from ..ops.attention import qkv_attention
@@ -46,15 +49,16 @@ def _gn_silu_conv(x: torch.Tensor, norm: GroupNorm32, conv: FusedConv3x3,
 
 
 class ResBlock(nn.Module):
-    """GN-SiLU-conv, timestep-embedding add or FiLM, GN-SiLU-zero-init conv,
-    plus the identity or a 1x1 (``use_conv_skip``: 3x3) conv skip."""
+    """GN-SiLU-conv, timestep-embedding add or FiLM, GN-SiLU-(dropout)-zero-
+    init conv, plus the identity or a 1x1 (``use_conv_skip``: 3x3) conv skip."""
 
     def __init__(self, in_ch: int, out_ch: int, emb_dim: int,
                  use_conv_skip: bool = False, use_scale_shift_norm: bool = False,
-                 dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0, dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.use_scale_shift_norm = use_scale_shift_norm
+        self.dropout = dropout
         self.in_norm = GroupNorm32(in_ch)
         self.in_conv = FusedConv3x3(in_ch, out_ch, generator=generator)
         self.emb_proj = Linear(emb_dim, 2 * out_ch if use_scale_shift_norm else out_ch,
@@ -69,11 +73,16 @@ class ResBlock(nn.Module):
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
         h = _gn_silu_conv(x, self.in_norm, self.in_conv)
         emb_out = self.emb_proj(silu(emb)).to(h.dtype)
-        if self.use_scale_shift_norm:
-            scale, shift = emb_out.chunk(2, dim=-1)
-            h = _gn_silu_conv(h, self.out_norm, self.out_conv, film=(scale, shift))
+        cond = (dict(film=tuple(emb_out.chunk(2, dim=-1))) if self.use_scale_shift_norm
+                else dict(emb=emb_out))
+        if self.training and self.dropout > 0:
+            # JAX models/unet.py:129-146: the unfused path, dropout after the SiLU
+            norm = self.out_norm
+            a, off = gn_affine(h, norm.weight, norm.bias, norm.groups, norm.eps, **cond)
+            act = silu(h.float() * a[:, None, None, :] + off[:, None, None, :]).to(h.dtype)
+            h = self.out_conv.conv(F.dropout(act, self.dropout))
         else:
-            h = _gn_silu_conv(h, self.out_norm, self.out_conv, emb=emb_out)
+            h = _gn_silu_conv(h, self.out_norm, self.out_conv, **cond)
         skip = x if self.skip_conv is None else self.skip_conv(x)
         return skip + h
 
@@ -140,7 +149,7 @@ class UNetModel(nn.Module):
                  conv_resample: bool = True, num_classes: Optional[int] = None,
                  cfg_null_class: bool = False, num_heads: int = 1,
                  num_heads_upsample: int = -1, use_scale_shift_norm: bool = False,
-                 dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0, dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         mc = model_channels
@@ -161,7 +170,7 @@ class UNetModel(nn.Module):
         def res(name, cin, cout):
             self.add_module(name, ResBlock(cin, cout, emb_dim,
                                            use_scale_shift_norm=use_scale_shift_norm,
-                                           dtype=dtype, generator=gen))
+                                           dropout=dropout, dtype=dtype, generator=gen))
             return name
 
         def attn(name, ch, heads):

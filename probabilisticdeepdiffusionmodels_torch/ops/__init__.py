@@ -1,4 +1,6 @@
-"""The three ops that hold hand-written CUDA kernels (``csrc/``).
+"""The ops that hold hand-written CUDA kernels (``csrc/``): the three of the
+UNet forward, differentiable through their plain versions, exported here,
+and the matrix-unit probe, in its own module ``ops.probe_mma``.
 
 Each wrapper runs its plain PyTorch version for a CPU tensor and launches
 its kernel for a CUDA tensor (or raises); each counts its launches in

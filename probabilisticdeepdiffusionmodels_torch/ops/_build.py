@@ -39,6 +39,8 @@ _SIGNATURES = {
                              _I, _I, _P],
     # x, a, off, w, bias, out, B, H, W, Cin, Cout, is_bf16, stream
     "pddm_gn_silu_conv3x3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # a, b, out, is_bf16, stream
+    "pddm_probe_mma": [_P, _P, _P, _I, _P],
 }
 
 _lock = threading.Lock()

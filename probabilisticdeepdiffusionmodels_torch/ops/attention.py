@@ -18,6 +18,11 @@ float32, and writes its (64, ch) output slice once.  bf16 uses
 ``mma.sync`` m16n8k16 tensor-core tiles with the score tile kept in
 registers (FlashAttention-2 layout); float32 uses the same tiling with
 scalar FMAs.
+
+Backward: the Pallas attention kernel has no custom VJP; JAX differentiates
+the op through ``qkv_attention_xla``.  So here too there is no backward
+kernel: the gradient is that of the plain version, recomputed from the saved
+input (``autograd.kernel_op``).
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import math
 import torch
 
 from . import _build
+from .autograd import kernel_op
 
 __all__ = ["qkv_attention", "qkv_attention_plain"]
 
@@ -60,7 +66,7 @@ def qkv_attention_plain(qkv: torch.Tensor, num_heads: int = 1) -> torch.Tensor:
 
 def qkv_attention(qkv: torch.Tensor, num_heads: int = 1) -> torch.Tensor:
     """(B, T, 3C) -> (B, T, C).  A CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel or raises."""
+    CUDA tensor launches the kernel or raises.  Differentiable in qkv."""
     if qkv.device.type == "cpu":
         return qkv_attention_plain(qkv, num_heads)
     if qkv.device.type != "cuda":
@@ -79,10 +85,17 @@ def qkv_attention(qkv: torch.Tensor, num_heads: int = 1) -> torch.Tensor:
     if (bf16 and ch not in _BF16_HEAD_DIMS) or ch > 128:
         raise ValueError(f"qkv_attention kernel: head dim {ch} unsupported "
                          f"(bf16: {_BF16_HEAD_DIMS}; float32: <= 128)")
+    return kernel_op(lambda qkv: _launch(qkv, num_heads),
+                                lambda qkv: qkv_attention_plain(qkv, num_heads), qkv)
+
+
+def _launch(qkv, num_heads):
+    b, t, c3 = qkv.shape
+    ch = c3 // (3 * num_heads)
     out = torch.empty((b, t, c3 // 3), dtype=qkv.dtype, device=qkv.device)
     scale = 1.0 / math.sqrt(math.sqrt(ch))
     _build.launch("pddm_qkv_attention", qkv.data_ptr(), out.data_ptr(),
-                  b, t, num_heads, ch, scale, int(bf16))
+                  b, t, num_heads, ch, scale, int(qkv.dtype == torch.bfloat16))
     qkv_attention.launches += 1
     return out
 

@@ -24,6 +24,13 @@ image is zero *after* the activation, as the Pallas kernel pads after the
 SiLU), then runs the 9 taps as shifted reads of that tile.  bf16 uses
 ``mma.sync`` m16n8k16 with float32 accumulation; float32 uses scalar FMAs.
 The bias is added in float32 and the output stored in the input dtype.
+
+Backward: no Pallas kernel has a backward kernel, so this op has none
+either.  As ``_fused_bwd`` in ``gn_conv_pallas.py`` does, the gradient is
+that of the plain math, recomputed from the saved inputs
+(``autograd.kernel_op``); for a bf16 input the recomputed conv takes
+bf16 operands (cuDNN accumulates in float32), the precision of the forward
+kernel's product, instead of the plain version's float32 conv.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .autograd import kernel_op
 
 __all__ = ["gn_affine", "gn_silu_conv3x3", "gn_silu_conv3x3_plain"]
 
@@ -76,6 +84,15 @@ def gn_affine(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return a, off
 
 
+def _affine_silu_conv(x, a, off, w, bias, conv_dtype):
+    y = x.float() * a[:, None, None, :] + off[:, None, None, :]
+    y = (y * torch.sigmoid(y)).to(x.dtype).to(conv_dtype)
+    w_oihw = w.to(x.dtype).to(conv_dtype).permute(2, 3, 0, 1)
+    out = F.conv2d(y.permute(0, 3, 1, 2), w_oihw, padding=1)
+    out = out.permute(0, 2, 3, 1).float() + bias.float()
+    return out.to(x.dtype).contiguous()
+
+
 def gn_silu_conv3x3_plain(x: torch.Tensor, a: torch.Tensor, off: torch.Tensor,
                           w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """x: (B, H, W, Cin); a/off: (B, Cin) float32; w: (3, 3, Cout, Cin);
@@ -84,19 +101,20 @@ def gn_silu_conv3x3_plain(x: torch.Tensor, a: torch.Tensor, off: torch.Tensor,
     The activation is rounded to x's dtype, the weight cast to it, and the
     conv accumulated in float32, as the kernel and the Pallas kernel do.
     """
-    y = x.float() * a[:, None, None, :] + off[:, None, None, :]
-    y = (y * torch.sigmoid(y)).to(x.dtype).float()
-    w_oihw = w.to(x.dtype).float().permute(2, 3, 0, 1)
-    out = F.conv2d(y.permute(0, 3, 1, 2), w_oihw, padding=1)
-    out = out.permute(0, 2, 3, 1) + bias.float()
-    return out.to(x.dtype).contiguous()
+    return _affine_silu_conv(x, a, off, w, bias, torch.float32)
+
+
+def _grad_reference(x, a, off, w, bias):
+    """What the kernel's backward differentiates: the plain version with the
+    conv on operands of x's dtype."""
+    return _affine_silu_conv(x, a, off, w, bias, x.dtype)
 
 
 def gn_silu_conv3x3(x: torch.Tensor, a: torch.Tensor, off: torch.Tensor,
                     w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """Fused ``conv3x3_SAME(silu(x*a + off)) + bias``; shapes as the plain
     version.  A CPU tensor takes the plain version; a CUDA tensor launches
-    the kernel or raises."""
+    the kernel or raises.  Differentiable in x, a, off, w and bias."""
     if x.device.type == "cpu":
         return gn_silu_conv3x3_plain(x, a, off, w, bias)
     if x.device.type != "cuda":
@@ -113,10 +131,18 @@ def gn_silu_conv3x3(x: torch.Tensor, a: torch.Tensor, off: torch.Tensor,
         raise ValueError(f"a/off must be ({b}, {cin})")
     if bias.shape != (cout,):
         raise ValueError(f"bias must be ({cout},)")
+    # the casts stay outside the Function, so autograd carries each gradient
+    # back to the float32 parameter it came from
     a = a.to(device=x.device, dtype=torch.float32).contiguous()
     off = off.to(device=x.device, dtype=torch.float32).contiguous()
     w = w.to(device=x.device, dtype=x.dtype).contiguous()
     bias = bias.to(device=x.device, dtype=torch.float32).contiguous()
+    return kernel_op(_launch, _grad_reference, x, a, off, w, bias)
+
+
+def _launch(x, a, off, w, bias):
+    b, h, wd, cin = x.shape
+    cout = w.shape[2]
     out = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
     _build.launch("pddm_gn_silu_conv3x3", x.data_ptr(), a.data_ptr(),
                   off.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),

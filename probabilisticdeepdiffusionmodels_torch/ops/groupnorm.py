@@ -13,6 +13,11 @@ squares in one pass (as the Pallas kernel does), reduces them across the
 block, then normalizes, applies the affine and the SiLU on a second pass
 whose reads hit the cache, and stores in the input dtype.  It is written in
 CUDA C++ like the other two kernels, so the port builds from one toolchain.
+
+Backward: no Pallas kernel has a backward kernel, so this op has none
+either.  As ``_gns_bwd`` in ``groupnorm_pallas.py`` does, the gradient is
+that of the plain version, recomputed from the saved inputs
+(``autograd.kernel_op``).
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .autograd import kernel_op
 
 __all__ = ["group_norm_silu", "group_norm_silu_plain"]
 
@@ -46,7 +52,8 @@ def group_norm_silu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                     num_groups: int = 32, eps: float = 1e-5,
                     silu: bool = True) -> torch.Tensor:
     """x: (B, *spatial, C), channels last; gamma/beta: (C,).  A CPU tensor
-    takes the plain version; a CUDA tensor launches the kernel or raises."""
+    takes the plain version; a CUDA tensor launches the kernel or raises.
+    Differentiable in x, gamma and beta."""
     if x.device.type == "cpu":
         return group_norm_silu_plain(x, gamma, beta, num_groups, eps, silu)
     if x.device.type != "cuda":
@@ -60,13 +67,21 @@ def group_norm_silu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         raise ValueError(f"{c} channels do not split into {num_groups} groups")
     if gamma.shape != (c,) or beta.shape != (c,):
         raise ValueError(f"gamma/beta must be ({c},)")
-    n = x.numel() // (b * c)
+    # the casts stay outside the Function (gradients reach float32 parameters)
     gamma = gamma.to(device=x.device, dtype=torch.float32).contiguous()
     beta = beta.to(device=x.device, dtype=torch.float32).contiguous()
+    return kernel_op(
+        lambda x, gamma, beta: _launch(x, gamma, beta, num_groups, eps, silu),
+        lambda x, gamma, beta: group_norm_silu_plain(x, gamma, beta, num_groups, eps, silu),
+        x, gamma, beta)
+
+
+def _launch(x, gamma, beta, num_groups, eps, silu):
+    b, c = x.shape[0], x.shape[-1]
     out = torch.empty_like(x)
     _build.launch("pddm_group_norm_silu", x.data_ptr(), gamma.data_ptr(),
-                  beta.data_ptr(), out.data_ptr(), b, n, c, num_groups,
-                  float(eps), int(silu), int(x.dtype == torch.bfloat16))
+                  beta.data_ptr(), out.data_ptr(), b, x.numel() // (b * c), c,
+                  num_groups, float(eps), int(silu), int(x.dtype == torch.bfloat16))
     group_norm_silu.launches += 1
     return out
 

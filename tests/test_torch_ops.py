@@ -262,3 +262,58 @@ def test_card_gn_conv_kernel_matches_plain(dtype):
         ref = gn_silu_conv3x3_plain(x, a, off, wt, bias)
         torch.testing.assert_close(out.float(), ref.float(), rtol=_TOL[dtype],
                                    atol=_TOL[dtype])
+
+
+# the main path's gradient sites: a 32x32 ResBlock conv, a 16x16 one, the
+# float32 output head; the widest attention norm and attention
+_GRAD_CONV_SHAPES = [(128, 32, 32, 128, 128), (128, 16, 16, 384, 256), (128, 32, 32, 128, 3)]
+# float32: the backward is the plain version's own, recomputed from the same
+# inputs; bf16: the conv's recompute takes bf16 operands where the plain
+# version takes float32 ones, and every gradient is rounded to bf16 once on
+# both sides, so they differ by the order of the float32 sums and a bf16 ulp
+_GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def _grads_match(fn, plain, leaves, g, dtype, counter):
+    out = fn(*leaves)
+    assert out.grad_fn is not None
+    launched = counter.launches
+    got = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    assert counter.launches == launched  # the backward launches no kernel
+    want = torch.autograd.grad(plain(*leaves), leaves, g)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == b.dtype == leaves[i].dtype
+        scale = float(b.float().abs().max())
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= _GRAD_TOL[dtype] * scale, (i, err, scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_card_kernel_gradients_match_plain(dtype):
+    """Each op's gradient with the kernel's forward against autograd through
+    the plain version, on the same leaves (float32 scale, offset, weight,
+    bias and affine, as the model's parameters are)."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(*shape, device="cuda", generator=gen)
+
+    for b, h, w, cin, cout in _GRAD_CONV_SHAPES:
+        dt = torch.float32 if cout == 3 else dtype
+        leaves = [randn(b, h, w, cin).to(dt), 1.0 + randn(b, cin, scale=0.1),
+                  randn(b, cin, scale=0.5), randn(3, 3, cout, cin, scale=1 / (3 * cin ** 0.5)),
+                  randn(cout)]
+        leaves = [t.requires_grad_(True) for t in leaves]
+        g = randn(b, h, w, cout).to(dt)
+        _grads_match(gn_silu_conv3x3, gn_silu_conv3x3_plain, leaves, g, dt, gn_silu_conv3x3)
+    x = (randn(128, 256, 256) + 0.5).to(dtype).requires_grad_(True)
+    affine = [randn(256).requires_grad_(True), randn(256).requires_grad_(True)]
+    _grads_match(lambda *a: group_norm_silu(*a, 32, silu=False),
+                 lambda *a: group_norm_silu_plain(*a, 32, silu=False),
+                 [x, *affine], randn(128, 256, 256).to(dtype), dtype, group_norm_silu)
+    qkv = randn(128, 256, 768).to(dtype).requires_grad_(True)
+    _grads_match(lambda q: qkv_attention(q, 4), lambda q: qkv_attention_plain(q, 4), [qkv],
+                 randn(128, 256, 256).to(dtype), dtype, qkv_attention)
