@@ -9,7 +9,8 @@
    ``bench.py`` builds it), then for each distinct shape holds the kernel
    against its plain PyTorch version on the recorded inputs and times the
    kernel, the plain version and one PyTorch library call that computes
-   the same function, beside the least time the card needs for the work;
+   the same function, beside the least time the card needs for the work,
+   and names the kernel design that ran at that site;
 4. main path: the 20-step ancestral sampler (linear T=1000 respaced to 20,
    clip=True) through ``get_model`` and ``p_sample_loop``: bf16 at batch 32
    with the launch counts asserted, float32 on the kernels against float32
@@ -24,7 +25,10 @@
    ``scripts/bench_train.py`` (bf16, batch 128, Adam 2e-4, EMA 0.9999,
    uniform t) timed over two passes of 10 steps with the launch counts
    asserted, its forward / backward / update split and a device profile;
-   and a few importance-sampled steps on a warmed-up history.
+   and a few importance-sampled steps on a warmed-up history;
+7. a second model: one bf16 forward of ``unet_celebahq64`` at 64x64 (head
+   widths 96 and 128, FiLM conditioning) at batch 8 on the kernels, with
+   the launch counts asserted, against the same model on the plain versions.
 
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Any failure raises and
@@ -52,6 +56,14 @@ MODEL_CFG = dict(name="unet", in_channels=3, model_channels=128, num_res_blocks=
                  attention_resolutions=[16, 8], channel_mult=[1, 2, 2, 2], num_heads=4,
                  compute_dtype="bfloat16")
 RESOLUTION = 32
+# config/model/unet_celebahq64.yaml of the JAX package, in bf16
+CELEBAHQ64_CFG = dict(name="unet", in_channels=3, model_channels=128, num_res_blocks=2,
+                      attention_resolutions=[16, 8], channel_mult=[1, 2, 3, 4], num_heads=4,
+                      use_scale_shift_norm=True, compute_dtype="bfloat16")
+CELEBAHQ64_RES, CELEBAHQ64_BATCH = 64, 8
+# a bf16 forward on the kernels against the plain versions: each op rounds
+# to bf16 in its own order, and the differences pass through ~60 layers
+BF16_FORWARD_TOL = 5e-2
 STEPS = 20
 BENCH_STEPS = 250      # bench.py's headline chain
 BENCH_REPEATS = 3      # chains timed in a row, each reported, for the spread
@@ -189,6 +201,16 @@ def work(name, args, kwargs):
     # group_norm_silu: x in, y out, affine; ~8 flops per element
     c = x.shape[-1]
     return 2 * x.numel() * s + 2 * c * 4, 8.0 * x.numel(), dtype
+
+
+def design(ops, name, args):
+    """The kernel design a call with these arguments runs."""
+    x = args[0]
+    if name == "gn_silu_conv3x3":
+        return ops.ops.conv_design(x, args[3].to(x.dtype).contiguous())
+    if name == "qkv_attention":
+        return ops.ops.attention_design(x)
+    return "block_per_group"
 
 
 def library_call(torch, F, name, args, kwargs):
@@ -475,6 +497,45 @@ def train_phases(torch, ops, model, gen):
     return train_launches, all_kernels
 
 
+def celeba_phase(torch, ops):
+    """One bf16 forward of unet_celebahq64 at 64x64 on the kernels, with one
+    launch per fused conv, attention and attention norm, against the same
+    model and inputs on the plain versions."""
+    from probabilisticdeepdiffusionmodels_torch.models import get_model, unet
+
+    model = get_model(CELEBAHQ64_RES, CELEBAHQ64_CFG, device="cuda", seed=7)
+    fill_zero_params(torch, model, seed=8)
+    n_res = sum(isinstance(m, unet.ResBlock) for m in model.modules())
+    n_attn = sum(isinstance(m, unet.AttentionBlock) for m in model.modules())
+    expected = {"gn_silu_conv3x3": 2 * n_res + 1, "qkv_attention": n_attn,
+                "group_norm_silu": n_attn}
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randn(CELEBAHQ64_BATCH, CELEBAHQ64_RES, CELEBAHQ64_RES, 3, device="cuda",
+                    generator=gen)
+    t = torch.randint(1, 1001, (CELEBAHQ64_BATCH,), device="cuda", generator=gen)
+    with torch.no_grad():
+        ops.reset()
+        out = model(x, t)
+        torch.cuda.synchronize()
+        launches = ops.counts()
+        with ops.plain_versions():
+            ref = model(x, t)
+    diff = float((out.float() - ref.float()).abs().max())
+    scale = max(1.0, float(ref.float().abs().max()))
+    heads = sorted({m.qkv.weight.shape[0] // 3 // m.num_heads for m in model.modules()
+                    if isinstance(m, unet.AttentionBlock)})
+    emit({"phase": "unet_celebahq64_bf16_vs_plain", "batch": CELEBAHQ64_BATCH,
+          "resolution": CELEBAHQ64_RES, "head_widths": heads, "launches": launches,
+          "max_abs_diff": diff, "ref_abs_max": scale, "tol": BF16_FORWARD_TOL * scale,
+          "finite": bool(torch.isfinite(out).all())})
+    if launches != expected:
+        raise AssertionError(f"unet_celebahq64 launches {launches} != {expected}")
+    if out.shape != x.shape or not bool(torch.isfinite(out).all()):
+        raise AssertionError("unet_celebahq64: output not finite or of the wrong shape")
+    if not diff <= BF16_FORWARD_TOL * scale:
+        raise AssertionError(f"unet_celebahq64: kernels vs plain differ by {diff}")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", type=pathlib.Path, default=None,
@@ -558,7 +619,7 @@ def main(argv=None) -> int:
         t_bytes = nbytes / PEAK_BYTES * 1e3
         t_ops = flops / PEAK_FLOPS[dtype] * 1e3
         site = {"kernel": name, "shape": [list(t.shape) for t in a if hasattr(t, "shape")][0],
-                "dtype": dtype, "calls_per_forward": n, "max_abs_err": err, "tol": tol,
+                "design": design(ops, name, a), "dtype": dtype, "calls_per_forward": n, "max_abs_err": err, "tol": tol,
                 "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
@@ -678,6 +739,9 @@ def main(argv=None) -> int:
 
     # 6. training
     train_launches, train_profile = train_phases(torch, ops, model, gen)
+
+    # 7. unet_celebahq64, bf16, kernels against plain versions
+    celeba_phase(torch, ops)
 
     if args.out is not None:
         (args.out / "chip_smoke_sites.json").write_text(json.dumps(

@@ -14,7 +14,9 @@ conv3x3 op (``ops.gn_conv``), as the JAX model does with
 kernel.  The other convs (input conv, 1x1 skip, down/upsample) are
 ``F.conv2d`` and the qkv/proj products ``F.linear``.  In train mode with
 ``dropout > 0`` a ResBlock's second conv leaves the fused op, as the JAX
-model's does, because the dropout sits between the SiLU and the conv.
+model's does, because the dropout sits between the SiLU and the conv; its
+masks come from the ``generator`` passed to the forward (the train state's,
+as JAX threads the step's dropout key), never from torch's default one.
 """
 
 from __future__ import annotations
@@ -23,7 +25,6 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from ..core.diffusion import timestep_embedding
 from ..ops.attention import qkv_attention
@@ -39,6 +40,16 @@ from .layers import (
 )
 
 __all__ = ["ResBlock", "AttentionBlock", "Downsample", "Upsample", "UNetModel"]
+
+
+def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout: zero each element with probability ``p`` and scale
+    the rest by 1/(1-p), the mask drawn from ``generator``."""
+    if generator is None:
+        raise ValueError("dropout > 0 in train mode needs a generator: pass "
+                         "model(..., generator=...) (the train step passes its state's)")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return x * keep.to(x.dtype) / (1.0 - p)
 
 
 def _gn_silu_conv(x: torch.Tensor, norm: GroupNorm32, conv: FusedConv3x3,
@@ -70,7 +81,8 @@ class ResBlock(nn.Module):
             self.skip_conv = Conv(in_ch, out_ch, 3 if use_conv_skip else 1,
                                   dtype=dtype, generator=generator)
 
-    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, emb: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h = _gn_silu_conv(x, self.in_norm, self.in_conv)
         emb_out = self.emb_proj(silu(emb)).to(h.dtype)
         cond = (dict(film=tuple(emb_out.chunk(2, dim=-1))) if self.use_scale_shift_norm
@@ -80,7 +92,7 @@ class ResBlock(nn.Module):
             norm = self.out_norm
             a, off = gn_affine(h, norm.weight, norm.bias, norm.groups, norm.eps, **cond)
             act = silu(h.float() * a[:, None, None, :] + off[:, None, None, :]).to(h.dtype)
-            h = self.out_conv.conv(F.dropout(act, self.dropout))
+            h = self.out_conv.conv(dropout(act, self.dropout, generator))
         else:
             h = _gn_silu_conv(h, self.out_norm, self.out_conv, **cond)
         skip = x if self.skip_conv is None else self.skip_conv(x)
@@ -230,23 +242,25 @@ class UNetModel(nn.Module):
             raise ValueError("must not pass y for an unconditional model")
         return emb
 
-    def _run(self, h: torch.Tensor, names, emb: torch.Tensor) -> torch.Tensor:
+    def _run(self, h: torch.Tensor, names, emb: torch.Tensor, generator) -> torch.Tensor:
         for name in names:
             block = getattr(self, name)
-            h = block(h, emb) if isinstance(block, ResBlock) else block(h)
+            h = block(h, emb, generator) if isinstance(block, ResBlock) else block(h)
         return h
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
-                y: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x: (B, H, W, C) -> (B, H, W, out_channels) in x's dtype."""
+                y: Optional[torch.Tensor] = None, *,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x: (B, H, W, C) -> (B, H, W, out_channels) in x's dtype.
+        ``generator`` draws the dropout masks (train mode, ``dropout > 0``)."""
         emb = self._embed(timesteps, y)
         in_dtype = x.dtype
         h = self.in_conv(x.to(self.dtype))
         hs = [h]
         for entry in self.encoder:
-            h = self._run(h, entry, emb)
+            h = self._run(h, entry, emb, generator)
             hs.append(h)
-        h = self._run(h, self.middle, emb)
+        h = self._run(h, self.middle, emb, generator)
         for entry in self.decoder:
-            h = self._run(torch.cat([h, hs.pop()], dim=-1), entry, emb)
+            h = self._run(torch.cat([h, hs.pop()], dim=-1), entry, emb, generator)
         return _gn_silu_conv(h.to(in_dtype), self.out_norm, self.out_conv)

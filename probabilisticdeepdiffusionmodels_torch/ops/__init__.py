@@ -7,6 +7,6 @@ its kernel for a CUDA tensor (or raises); each counts its launches in
 ``<wrapper>.launches``.
 """
 
-from .attention import qkv_attention, qkv_attention_plain
-from .gn_conv import gn_affine, gn_silu_conv3x3, gn_silu_conv3x3_plain
+from .attention import attention_design, qkv_attention, qkv_attention_plain
+from .gn_conv import conv_design, gn_affine, gn_silu_conv3x3, gn_silu_conv3x3_plain
 from .groupnorm import group_norm_silu, group_norm_silu_plain

@@ -1,8 +1,9 @@
 """Build the CUDA kernels under ``csrc/`` and bind them with ctypes.
 
-At first use one ``nvcc`` call compiles every ``csrc/*.cu`` for ``sm_90a``
-into one shared library with a plain C interface (no PyTorch headers, so the
-build takes seconds).  The library lands in ``build/kernels/`` at the root of
+At first use every ``csrc/*.cu`` is compiled for ``sm_90a`` by its own
+``nvcc`` process, all started together, and the objects are linked into one
+shared library with a plain C interface (no PyTorch headers, so the build
+takes seconds).  The library lands in ``build/kernels/`` at the root of
 the checkout, named by a hash of the sources, and is reused while the sources
 are unchanged.  A missing ``nvcc`` or a failed build raises with the
 compiler's output; nothing falls back.
@@ -25,7 +26,7 @@ _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -37,8 +38,8 @@ _SIGNATURES = {
     # x, gamma, beta, out, B, N, C, groups, eps, silu, is_bf16, stream
     "pddm_group_norm_silu": [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float,
                              _I, _I, _P],
-    # x, a, off, w, bias, out, B, H, W, Cin, Cout, is_bf16, stream
-    "pddm_gn_silu_conv3x3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, a, off, w, bias, out, B, H, W, Cin, Cout, is_bf16, design, stream
+    "pddm_gn_silu_conv3x3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # a, b, out, is_bf16, stream
     "pddm_probe_mma": [_P, _P, _P, _I, _P],
 }
@@ -77,15 +78,33 @@ def build() -> pathlib.Path:
     if out.exists():
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+    nvcc = _nvcc()
+    jobs = []
+    for src in (p for p in srcs if p.suffix == ".cu"):
+        obj = _BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    log = ""
+    failed = []
+    for cmd, _, proc in jobs:
+        text = proc.communicate()[0]
+        log += f"$ {' '.join(cmd)}\n{text}"
+        if proc.returncode != 0:
+            failed.append(proc.returncode)
+    objs = [str(obj) for _, obj, _ in jobs]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in srcs if p.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{log}"
-        )
+    if not failed:
+        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log += f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+        if proc.returncode != 0:
+            failed.append(proc.returncode)
+    for obj in objs:
+        pathlib.Path(obj).unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed (exit {failed[0]}):\n{log}")
     out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
     return out
@@ -102,14 +121,29 @@ def lib() -> ctypes.CDLL:
                 fn = getattr(handle, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+                _entry[name] = fn
             _lib, library_path = handle, path
         return _lib
+
+
+_entry = {}  # C entry point name -> bound function, filled by lib()
+# the current stream's handle without building a torch.cuda.Stream object
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream() -> int:
+    if _raw_stream is not None:
+        return _raw_stream(torch.cuda.current_device())
+    return torch.cuda.current_stream().cuda_stream
 
 
 def launch(name: str, *args) -> None:
     """Call C entry point ``name`` on the current stream; raise on a launch
     error (``cudaGetLastError()`` != 0)."""
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(lib(), name)(*args, stream)
+    fn = _entry.get(name)
+    if fn is None:
+        lib()
+        fn = _entry[name]
+    err = fn(*args, _stream())
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")

@@ -11,13 +11,16 @@ Kernel (``csrc/attention.cu``) — replaces ``qkv_attention_pallas`` /
 On the H100 it is bound by bytes: each site reads the (B, T, 3C) input once
 and writes (B, T, C), and at T <= 1024, ch <= 128 the two products are far
 below the bf16 ridge.  The design keeps everything between the read and the
-write on chip: one block per (batch, head, 64-query tile) reads q, k and v
-straight from the fused tensor by stride (no head transpose copy), streams
-64-key tiles of K and V through shared memory with an online softmax in
-float32, and writes its (64, ch) output slice once.  bf16 uses
-``mma.sync`` m16n8k16 tensor-core tiles with the score tile kept in
-registers (FlashAttention-2 layout); float32 uses the same tiling with
-scalar FMAs.
+write on chip.  bf16 (design ``mma_ring``, every head width that is a
+multiple of 16 up to 128): one block of up to 8 warps covers up to 128
+query rows of one (batch, head); q, k and v rows are copied straight from
+the fused tensor with 16-byte ``cp.async`` into padded rows, K and V pass
+through a ring of up to 4 stages of 64 keys (the whole head at T <= 256),
+q and k are scaled in shared memory as they land, fragments come from
+``ldmatrix`` (``.trans`` for V), both products are ``mma.sync`` m16n8k16
+with the score tile in registers and an online softmax in float32, and the
+output leaves in 16-byte stores.  float32 (design ``scalar_f32``): one
+block per (batch, head, 64-query tile) with scalar FMAs.
 
 Backward: the Pallas attention kernel has no custom VJP; JAX differentiates
 the op through ``qkv_attention_xla``.  So here too there is no backward
@@ -34,10 +37,10 @@ import torch
 from . import _build
 from .autograd import kernel_op
 
-__all__ = ["qkv_attention", "qkv_attention_plain"]
+__all__ = ["attention_design", "qkv_attention", "qkv_attention_plain"]
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-_BF16_HEAD_DIMS = (16, 32, 64, 128)
+_BF16_HEAD_DIMS = tuple(range(16, 129, 16))
 
 
 def _split_heads(qkv: torch.Tensor, num_heads: int):
@@ -85,8 +88,15 @@ def qkv_attention(qkv: torch.Tensor, num_heads: int = 1) -> torch.Tensor:
     if (bf16 and ch not in _BF16_HEAD_DIMS) or ch > 128:
         raise ValueError(f"qkv_attention kernel: head dim {ch} unsupported "
                          f"(bf16: {_BF16_HEAD_DIMS}; float32: <= 128)")
+    if bf16 and qkv.data_ptr() % 16:
+        raise ValueError("qkv_attention kernel: bf16 qkv must be 16-byte aligned")
     return kernel_op(lambda qkv: _launch(qkv, num_heads),
                                 lambda qkv: qkv_attention_plain(qkv, num_heads), qkv)
+
+
+def attention_design(qkv: torch.Tensor) -> str:
+    """The kernel design that a call on ``qkv`` runs."""
+    return "mma_ring" if qkv.dtype == torch.bfloat16 else "scalar_f32"
 
 
 def _launch(qkv, num_heads):

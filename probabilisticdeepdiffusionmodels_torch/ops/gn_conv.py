@@ -14,15 +14,27 @@ the tensor-core product.  ``convert.params_from_flax`` re-lays the JAX HWIO
 kernel out once; the port's own init creates it in this layout.
 
 Kernel (``csrc/gn_conv.cu``) — replaces ``gn_silu_conv3x3_pallas`` /
-``_kernel`` in ``gn_conv_pallas.py``.  On the H100 it is bound by
-tensor-core operations (2*9*Cin*Cout per output pixel against a few bytes
-per pixel).  It is an implicit GEMM: one block computes 64 output pixels x
-64 output channels; for each 32-channel slice of the input it stages the
-block's input tile plus a one-pixel halo in shared memory, applying
-``silu(x*a + off)`` once per element as it loads (the halo outside the
-image is zero *after* the activation, as the Pallas kernel pads after the
-SiLU), then runs the 9 taps as shifted reads of that tile.  bf16 uses
-``mma.sync`` m16n8k16 with float32 accumulation; float32 uses scalar FMAs.
+``_kernel`` in ``gn_conv_pallas.py``; one launch per call, and the
+activation is never written to device memory.  ``conv_design`` picks one of
+three designs (the source says more):
+
+- ``wgmma`` (bf16, Cin and Cout multiples of 8, 16-byte aligned x and w:
+  every bf16 site of the shipped configs).  Bound by tensor-core operations
+  on the H100.  An implicit GEMM with M = output pixels, N = Cout,
+  K = 9 taps x Cin, in a persistent, warp-specialised block: one thread
+  copies each (64-channel slice, tap) weight tile and each slice's raw
+  input halo by TMA, three warps activate the halo once in shared memory
+  (zero outside the image *after* the activation, as the Pallas kernel pads
+  after the SiLU), and one or two warpgroups run each tap as one ``wgmma``
+  product with A read by ``ldmatrix`` from the halo shifted by the tap.
+- ``narrow_f32`` (float32 with Cout <= 8, Cin % 4 == 0: the UNet's output
+  head).  Bound by bytes.  The raw input halo streams in with ``cp.async``
+  under the math, the whole weight stays in shared memory, each thread
+  computes 4 pixels x all of Cout in true float32.
+- ``general`` (every other shape, such as Cin % 8 != 0 or a wide float32
+  conv): 64 pixels x 64 channels a block on ``mma.sync`` (bf16) or scalar
+  FMAs (float32), the first design of this kernel.
+
 The bias is added in float32 and the output stored in the input dtype.
 
 Backward: no Pallas kernel has a backward kernel, so this op has none
@@ -35,6 +47,7 @@ kernel's product, instead of the plain version's float32 conv.
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Optional, Tuple
 
 import torch
@@ -43,9 +56,12 @@ import torch.nn.functional as F
 from . import _build
 from .autograd import kernel_op
 
-__all__ = ["gn_affine", "gn_silu_conv3x3", "gn_silu_conv3x3_plain"]
+__all__ = ["conv_design", "gn_affine", "gn_silu_conv3x3", "gn_silu_conv3x3_plain"]
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+# the C entry point's design argument
+DESIGNS = {"general": 0, "wgmma": 1, "narrow_f32": 2}
+_SMEM_BYTES = 227 * 1024  # shared memory a block may use on the H100
 
 
 def gn_affine(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -135,9 +151,55 @@ def gn_silu_conv3x3(x: torch.Tensor, a: torch.Tensor, off: torch.Tensor,
     # back to the float32 parameter it came from
     a = a.to(device=x.device, dtype=torch.float32).contiguous()
     off = off.to(device=x.device, dtype=torch.float32).contiguous()
-    w = w.to(device=x.device, dtype=x.dtype).contiguous()
+    w = _weight_in(w, x)
     bias = bias.to(device=x.device, dtype=torch.float32).contiguous()
     return kernel_op(_launch, _grad_reference, x, a, off, w, bias)
+
+
+def conv_design(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The kernel design that a call on ``x`` (B, H, W, Cin) and ``w``
+    (3, 3, Cout, Cin), both in the kernel's dtype, runs."""
+    _, h, wd, cin = x.shape
+    cout = w.shape[2]
+    if (x.dtype == torch.bfloat16 and cin % 8 == 0 and cout % 8 == 0 and min(h, wd) >= 4
+            and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0):
+        return "wgmma"
+    if x.dtype == torch.float32 and cout <= 8 and cin % 4 == 0 and x.data_ptr() % 16 == 0:
+        # two raw 8-channel halo buffers, the activated one, the whole weight
+        tw = (wd + 3) // 4 * 4 if wd <= 128 else 128
+        halo = (256 // (tw // 4) + 2) * (tw + 2)
+        if 4 * (16 * halo + 8 * (halo | 1) + 9 * cin * (4 if cout <= 4 else 8)) <= _SMEM_BYTES:
+            return "narrow_f32"
+    return "general"
+
+
+# (tensor address, shape, dtype, device, target device and dtype) ->
+# (source tensor, its in-place version, its cast); holding the source keeps
+# the address its own, and one entry per tensor bounds the memory kept
+_CASTS: "OrderedDict[tuple, tuple]" = OrderedDict()
+_CASTS_KEPT = 256
+
+
+def _weight_in(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``w`` on x's device in x's dtype, contiguous.  Where autograd does
+    not record the cast (sampling), the cast of a tensor is kept until the
+    tensor changes in place and reused, so a bf16 forward does not cast
+    each float32 weight again on every call."""
+    if w.device == x.device and w.dtype == x.dtype and w.is_contiguous():
+        return w
+    if torch.is_grad_enabled() and w.requires_grad:
+        return w.to(device=x.device, dtype=x.dtype).contiguous()
+    key = (w.data_ptr(), tuple(w.shape), w.dtype, w.device, x.device, x.dtype)
+    hit = _CASTS.get(key)
+    if hit is not None and hit[1] == w._version:
+        _CASTS.move_to_end(key)
+        return hit[2]
+    out = w.to(device=x.device, dtype=x.dtype).contiguous()
+    _CASTS[key] = (w, w._version, out)
+    _CASTS.move_to_end(key)
+    if len(_CASTS) > _CASTS_KEPT:
+        _CASTS.popitem(last=False)
+    return out
 
 
 def _launch(x, a, off, w, bias):
@@ -146,7 +208,8 @@ def _launch(x, a, off, w, bias):
     out = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
     _build.launch("pddm_gn_silu_conv3x3", x.data_ptr(), a.data_ptr(),
                   off.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                  b, h, wd, cin, cout, int(x.dtype == torch.bfloat16))
+                  b, h, wd, cin, cout, int(x.dtype == torch.bfloat16),
+                  DESIGNS[conv_design(x, w)])
     gn_silu_conv3x3.launches += 1
     return out
 

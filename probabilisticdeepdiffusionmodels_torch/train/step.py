@@ -7,10 +7,9 @@ generator (or takes them injected), noises x0, runs the model in train mode,
 takes the eps-MSE per sample, reduces it (the weighted loss is SUMMED, the
 unweighted one MEANED), backpropagates, records the detached per-sample
 losses in the loss history, and applies the optimizer and the EMA.  Nothing
-in it waits for the device: the metrics are device tensors.
-
-Dropout (a model with ``dropout > 0``) draws from torch's default generator
-of the model's device, not from the state's generator.
+in it waits for the device: the metrics are device tensors.  Dropout (a
+model with ``dropout > 0``) draws its masks from the state's generator too,
+after t and the noise, as JAX draws them from the step's key.
 """
 
 from __future__ import annotations
@@ -99,7 +98,8 @@ def make_train_step(
         model.train()
         for p in model.parameters():
             p.grad = None
-        per_sample = D.mean_flat(torch.square(noise - model(x_t, t, y)))
+        per_sample = D.mean_flat(torch.square(
+            noise - model(x_t, t, y, generator=state.generator)))
         loss = (weights * per_sample).sum() if weights is not None else per_sample.mean()
         loss.backward()
 

@@ -28,6 +28,7 @@ from probabilisticdeepdiffusionmodels_tpu.ops.groupnorm_pallas import (
     group_norm_silu_xla,
 )
 from probabilisticdeepdiffusionmodels_torch.ops import (
+    conv_design,
     gn_affine,
     gn_silu_conv3x3,
     gn_silu_conv3x3_plain,
@@ -45,11 +46,16 @@ def _t(a):
 # ------------------------------------------------------------- attention
 
 
-@pytest.mark.parametrize("num_heads", [1, 2, 4])
+# (heads, width): head width 64, then 96 (unet_celeba / unet_celebahq64's
+# 384 channels over 4 heads at 16x16)
+_ATTN_CASES = [(1, 64), (2, 64), (4, 64), (1, 96), (4, 384)]
+
+
+@pytest.mark.parametrize("num_heads,width", _ATTN_CASES)
 @pytest.mark.parametrize("tokens", [16, 64])
-def test_attention_matches_jax_f32(num_heads, tokens):
-    rng = np.random.RandomState(tokens + num_heads)
-    qkv = rng.randn(2, tokens, 3 * 64).astype(np.float32)
+def test_attention_matches_jax_f32(num_heads, width, tokens):
+    rng = np.random.RandomState(tokens + num_heads + width)
+    qkv = rng.randn(2, tokens, 3 * width).astype(np.float32)
     ref = np.asarray(qkv_attention_xla(jnp.asarray(qkv), num_heads))
     pallas = np.asarray(qkv_attention_pallas(jnp.asarray(qkv), num_heads, interpret=True))
     out = qkv_attention(_t(qkv), num_heads).numpy()
@@ -57,11 +63,11 @@ def test_attention_matches_jax_f32(num_heads, tokens):
     np.testing.assert_allclose(out, pallas, rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("num_heads", [1, 2, 4])
+@pytest.mark.parametrize("num_heads,width", _ATTN_CASES)
 @pytest.mark.parametrize("tokens", [16, 64])
-def test_attention_matches_jax_bf16(num_heads, tokens):
-    rng = np.random.RandomState(100 + tokens + num_heads)
-    qkv = rng.randn(2, tokens, 3 * 64).astype(np.float32)
+def test_attention_matches_jax_bf16(num_heads, width, tokens):
+    rng = np.random.RandomState(100 + tokens + num_heads + width)
+    qkv = rng.randn(2, tokens, 3 * width).astype(np.float32)
     qkv_j = jnp.asarray(qkv, jnp.bfloat16)
     ref = np.asarray(qkv_attention_xla(qkv_j, num_heads), np.float32)
     pallas = np.asarray(qkv_attention_pallas(qkv_j, num_heads, interpret=True), np.float32)
@@ -180,6 +186,40 @@ def test_gn_silu_conv_halo_is_zero_after_activation():
 # ------------------------------------------------------------- dispatch rules
 
 
+@pytest.mark.parametrize("shape,dtype,design", [
+    ((128, 32, 32, 128, 128), torch.bfloat16, "wgmma"),   # CIFAR 32x32 ResBlock
+    ((128, 4, 4, 512, 256), torch.bfloat16, "wgmma"),     # CIFAR middle, 4x4
+    ((2, 8, 256, 128, 128), torch.bfloat16, "wgmma"),     # CelebA-HQ 256-wide rows
+    ((8, 28, 28, 32, 64), torch.bfloat16, "wgmma"),       # MNIST
+    ((128, 32, 32, 128, 3), torch.float32, "narrow_f32"),  # the output head
+    ((8, 32, 32, 128, 6), torch.float32, "narrow_f32"),   # learned-sigma head
+    ((3, 28, 28, 36, 24), torch.bfloat16, "general"),     # Cin % 8 != 0
+    ((2, 8, 8, 64, 32), torch.float32, "general"),        # a wide float32 conv
+])
+def test_conv_design_by_shape(shape, dtype, design):
+    """The design each conv call runs: every bf16 shape of the shipped
+    configs takes wgmma, the float32 head the narrow path."""
+    b, h, w, cin, cout = shape
+    x = torch.empty(b, h, w, cin, dtype=dtype)
+    assert conv_design(x, torch.empty(3, 3, cout, cin, dtype=dtype)) == design
+
+
+def test_conv_weight_cast_is_reused_until_changed():
+    """Outside autograd the conv keeps each weight's cast and reuses it
+    until the weight changes in place; a recorded cast is never reused."""
+    from probabilisticdeepdiffusionmodels_torch.ops.gn_conv import _weight_in
+    x = torch.zeros(1, 4, 4, 8, dtype=torch.bfloat16)
+    w = torch.randn(3, 3, 8, 8)
+    with torch.no_grad():
+        first = _weight_in(w, x)
+        assert _weight_in(w, x) is first
+        w.mul_(2.0)
+        again = _weight_in(w, x)
+    assert again is not first and torch.equal(again, w.to(torch.bfloat16))
+    p = torch.nn.Parameter(torch.randn(3, 3, 8, 8))
+    assert _weight_in(p, x).grad_fn is not None
+
+
 def test_cpu_calls_leave_launch_counters_at_zero():
     for fn in (qkv_attention, group_norm_silu, gn_silu_conv3x3):
         fn.launches = 0
@@ -195,15 +235,21 @@ def test_cpu_calls_leave_launch_counters_at_zero():
 # ------------------------------------------------------------- on the card
 
 # (B, T, 3C) with 4 heads of 64: the CIFAR UNet's three attention sizes;
-# then 4 heads of 128 over T=1024, the widest head and longest sequence the
-# kernel serves (several K/V tiles, a ragged last query tile at T=1000)
-_ATTN_SHAPES = [(128, 256, 768), (128, 64, 768), (128, 16, 768), (2, 1024, 1536),
-                (2, 1000, 1536)]
-# (B, H, W, Cin, Cout): one site of each resolution and the output head; then
-# Cin % 8 != 0 (no 16-byte loads) at 28x28 and a width over 64 (row segments)
-_CONV_SHAPES = [(128, 32, 32, 128, 128), (128, 16, 16, 384, 256),
-                (128, 8, 8, 512, 256), (128, 4, 4, 256, 256), (128, 32, 32, 128, 3),
-                (3, 28, 28, 36, 24), (2, 70, 70, 16, 8)]
+# 4 heads of 96 and of 128 (CelebA's 16x16 and 8x8 attention); then 4 heads
+# of 128 over T=1024, the widest head and longest sequence the kernel serves
+# (a ring of K/V tiles, a ragged last query tile at T=1000)
+_ATTN_SHAPES = [(128, 256, 768), (128, 64, 768), (128, 16, 768), (128, 256, 1152),
+                (128, 64, 1536), (2, 1024, 1536), (2, 1000, 1536)]
+# (B, H, W, Cin, Cout): the 11 bf16 conv signatures of the CIFAR UNet's
+# forward and its output head; a 64x64 image (CelebA) and 256-wide rows
+# (CelebA-HQ, row segments); MNIST's 28x28; the learned-sigma head (Cout 6);
+# then Cin % 8 != 0 at 28x28 and a width over 64 with Cin 16, Cout 8
+_CONV_SHAPES = [(128, 32, 32, 128, 128), (128, 32, 32, 256, 128), (128, 32, 32, 384, 128),
+                (128, 16, 16, 128, 256), (128, 16, 16, 256, 256), (128, 16, 16, 384, 256),
+                (128, 16, 16, 512, 256), (128, 8, 8, 256, 256), (128, 8, 8, 512, 256),
+                (128, 4, 4, 256, 256), (128, 4, 4, 512, 256), (128, 32, 32, 128, 3),
+                (8, 64, 64, 128, 128), (2, 8, 256, 128, 128), (16, 28, 28, 32, 64),
+                (8, 32, 32, 128, 6), (3, 28, 28, 36, 24), (2, 70, 70, 16, 8)]
 _TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
 
 

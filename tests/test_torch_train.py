@@ -400,14 +400,16 @@ def test_dropout_zero_in_train_mode_equals_eval():
 
 def test_dropout_takes_the_unfused_path(monkeypatch):
     """In train mode with p > 0 each ResBlock's second conv leaves the fused
-    op and the dropout zeroes about p of its input; with the dropout made
-    the identity, the unfused path computes what the fused one does
-    (float32 sums in another order: 1e-5)."""
+    op and the dropout zeroes about p of its input, with the mask drawn from
+    the generator passed to the forward; with the dropout made the identity,
+    the unfused path computes what the fused one does (float32 sums in
+    another order: 1e-5)."""
     model = _small_model(0.3)
     x, t = torch.randn(2, 8, 8, 3), torch.tensor([3, 700])
     n_res = sum(isinstance(m, unet.ResBlock) for m in model.modules())
     fused_calls, dropped = [], []
-    real_fused, real_dropout = unet.gn_silu_conv3x3, torch.nn.functional.dropout
+    real_fused, real_dropout = unet.gn_silu_conv3x3, unet.dropout
+    gen = torch.Generator().manual_seed(11)
 
     def count_fused(*a):
         fused_calls.append(1)
@@ -418,18 +420,19 @@ def test_dropout_takes_the_unfused_path(monkeypatch):
         ref = model.eval()(x, t)
         assert len(fused_calls) == 2 * n_res + 1
         fused_calls.clear()
-        monkeypatch.setattr(torch.nn.functional, "dropout", lambda y, p: y)
-        same = model.train()(x, t)
+        monkeypatch.setattr(unet, "dropout", lambda y, p, g: y)
+        same = model.train()(x, t, generator=gen)
         assert len(fused_calls) == n_res + 1
         torch.testing.assert_close(same, ref, rtol=1e-5, atol=1e-5)
 
-        def record(y, p):
-            out = real_dropout(y, p)
+        def record(y, p, g):
+            assert g is gen
+            out = real_dropout(y, p, g)
             dropped.append((y, out))
             return out
 
-        monkeypatch.setattr(torch.nn.functional, "dropout", record)
-        noisy = model(x, t)
+        monkeypatch.setattr(unet, "dropout", record)
+        noisy = model(x, t, generator=gen)
     assert len(dropped) == n_res and not torch.equal(noisy, ref)
     zeros = sum(int((out == 0).sum()) for _, out in dropped)
     total = sum(out.numel() for _, out in dropped)
@@ -437,6 +440,31 @@ def test_dropout_takes_the_unfused_path(monkeypatch):
     y, out = dropped[0]
     kept = out != 0
     torch.testing.assert_close(out[kept], y[kept] / 0.7)
+    monkeypatch.setattr(unet, "dropout", real_dropout)
+    with pytest.raises(ValueError, match="generator"):
+        model(x, t)
+
+
+def test_dropout_masks_come_from_the_state_generator():
+    """Two train steps from states seeded alike give the same loss with
+    dropout > 0, a third seed another, and torch's default generator is
+    left untouched."""
+    T = 1000
+    tables = DiffusionTables.from_schedule(NoiseSchedule.create(T, "linear"), "cpu")
+    step = make_train_step(tables)
+    x0 = torch.randn(2, 8, 8, 3, generator=torch.Generator().manual_seed(0))
+
+    def loss(seed):
+        model = _small_model(0.3)
+        state = TrainState(model, AdamChain(model.parameters(), 2e-4), T,
+                           torch.Generator().manual_seed(seed))
+        return float(step(state, x0, t=torch.tensor([500, 500]),
+                          noise=torch.zeros_like(x0))["loss"])
+
+    before = torch.get_rng_state()
+    first, again, other = loss(1), loss(1), loss(2)
+    assert torch.equal(torch.get_rng_state(), before)
+    assert first == again and first != other
 
 
 # ------------------------------------------------------------- train step
