@@ -4,13 +4,19 @@
 
 1. device: the card's name and count, and nvidia-smi's name and power limit;
 2. build: compiles the CUDA kernels from ``probabilisticdeepdiffusionmodels_torch/csrc``;
-3. kernels: records every call of the three kernels in one batch-128 bf16
-   forward of the full-width CIFAR-10 UNet (``config/model/unet.yaml``, as
-   ``bench.py`` builds it), then for each distinct shape holds the kernel
-   against its plain PyTorch version on the recorded inputs and times the
-   kernel, the plain version and one PyTorch library call that computes
-   the same function, beside the least time the card needs for the work,
-   and names the kernel design that ran at that site;
+3. kernels: records every call of the forward's four kernels (the folded
+   GroupNorm affine ``gn_affine``, the fused conv, GroupNorm, attention) in
+   one batch-128 bf16 forward of the full-width CIFAR-10 UNet
+   (``config/model/unet.yaml``, as ``bench.py`` builds it), then for each
+   distinct shape holds the kernel against its plain PyTorch version on the
+   recorded inputs and times the kernel, the plain version and one PyTorch
+   library call that computes the same function (for ``gn_affine``
+   ``torch.var_mean`` over the spatial axis, the nearest single call), beside
+   the least time the card needs for the work, and names the kernel design
+   that ran at that site; ``gn_affine`` and GroupNorm are run twice and the
+   two results compared bit for bit, GroupNorm is timed in both of its
+   designs, and at each ``gn_affine`` site its backward kernels
+   (``gn_affine_grad``) are held against autograd through the plain version;
 4. main path: the 20-step ancestral sampler (linear T=1000 respaced to 20,
    clip=True) through ``get_model`` and ``p_sample_loop``: bf16 at batch 32
    with the launch counts asserted, float32 on the kernels against float32
@@ -19,16 +25,19 @@
    ``bench.py`` (bf16, batch 128) three times in a row, whose img/s is the
    sampler's headline metric;
 5. the probe: ``ops/probe_mma.py``'s entry point for float32 and bf16, its
-   kernel held against its plain version and timed beside ``torch.matmul``;
+   kernel held against its plain version and timed beside ``torch.matmul``,
+   and its device-only time from launches replayed out of one CUDA graph;
 6. training: float32 gradients of one eps-MSE loss with the kernels against
    the same loss on the plain versions (batch cut to 8); the train step of
    ``scripts/bench_train.py`` (bf16, batch 128, Adam 2e-4, EMA 0.9999,
    uniform t) timed over two passes of 10 steps with the launch counts
-   asserted, its forward / backward / update split and a device profile;
+   asserted (the backward's ``gn_affine_grad`` among them), its forward /
+   backward / update split and a device profile;
    and a few importance-sampled steps on a warmed-up history;
 7. a second model: one bf16 forward of ``unet_celebahq64`` at 64x64 (head
    widths 96 and 128, FiLM conditioning) at batch 8 on the kernels, with
-   the launch counts asserted, against the same model on the plain versions.
+   the launch counts asserted, against the same model on the plain versions,
+   and ``gn_affine`` held against its plain version at each of its FiLM sites.
 
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Any failure raises and
@@ -69,7 +78,15 @@ BENCH_STEPS = 250      # bench.py's headline chain
 BENCH_REPEATS = 3      # chains timed in a row, each reported, for the spread
 CHAIN_BATCH = 32
 FORWARD_BATCH = 128
-PER_FORWARD = {"gn_silu_conv3x3": 61, "qkv_attention": 15, "group_norm_silu": 15}
+PER_FORWARD = {"gn_affine": 61, "gn_silu_conv3x3": 61, "qkv_attention": 15,
+               "group_norm_silu": 15}
+PER_BACKWARD = {"gn_affine_grad": 61}  # the one op whose backward is a kernel too
+
+
+def expected_counts(steps, backward):
+    """Launch counts of ``steps`` forwards, with or without their backwards."""
+    return dict({n: steps * c for n, c in PER_FORWARD.items()},
+                **{n: steps * c * int(backward) for n, c in PER_BACKWARD.items()})
 F32_CHAIN_TOL = 1e-3   # kernels vs plain, float32, after 20 steps (sums in another order)
 GRAD_BATCH = 8         # float32 gradient check at full width, batch cut from 128
 # float32 gradients, kernels vs plain: the forward sums run in another order,
@@ -87,12 +104,20 @@ PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 REPLACES = {
+    # the fold that XLA fuses into one pass before the fused conv: the one
+    # entry that is no Pallas kernel in the JAX package
+    "gn_affine": "probabilisticdeepdiffusionmodels_tpu/ops/gn_conv_pallas.py:41",
+    # its gradient, which the JAX package takes by recomputing the fold in
+    # XLA inside the fused op's custom VJP
+    "gn_affine_grad": "probabilisticdeepdiffusionmodels_tpu/ops/gn_conv_pallas.py:238",
     "gn_silu_conv3x3": "probabilisticdeepdiffusionmodels_tpu/ops/gn_conv_pallas.py:180",
     "group_norm_silu": "probabilisticdeepdiffusionmodels_tpu/ops/groupnorm_pallas.py:112",
     "qkv_attention": "probabilisticdeepdiffusionmodels_tpu/ops/attention_pallas.py:67",
     "probe_mma": "scripts/probe_mosaic_bf16.py:21",
 }
 SOURCES = {
+    "gn_affine": f"{PKG}/csrc/groupnorm.cu",
+    "gn_affine_grad": f"{PKG}/csrc/groupnorm.cu",
     "gn_silu_conv3x3": f"{PKG}/csrc/gn_conv.cu",
     "group_norm_silu": f"{PKG}/csrc/groupnorm.cu",
     "qkv_attention": f"{PKG}/csrc/attention.cu",
@@ -123,7 +148,7 @@ def sync_time(torch, fn, min_ms=50.0, max_reps=200):
 
 
 class Ops:
-    """The three ops as the model modules see them, with a context manager
+    """The four ops as the model modules see them, with a context manager
     that swaps them for recorders or for the plain versions."""
 
     def __init__(self):
@@ -133,11 +158,12 @@ class Ops:
         self.layers = importlib.import_module(f"{PKG}.models.layers")
         self.ops = importlib.import_module(f"{PKG}.ops")
         # (module, attribute) -> kernel name
-        self.sites = {(self.unet, "gn_silu_conv3x3"): "gn_silu_conv3x3",
+        self.sites = {(self.unet, "gn_affine"): "gn_affine",
+                      (self.unet, "gn_silu_conv3x3"): "gn_silu_conv3x3",
                       (self.unet, "qkv_attention"): "qkv_attention",
                       (self.layers, "group_norm_silu"): "group_norm_silu"}
-        self.wrappers = {name: getattr(self.ops, name) for name in PER_FORWARD}
-        self.plain = {name: getattr(self.ops, name + "_plain") for name in PER_FORWARD}
+        self.wrappers = {name: getattr(self.ops, name) for name in (*PER_FORWARD, *PER_BACKWARD)}
+        self.plain = {name: getattr(self.ops, name + "_plain") for name in self.wrappers}
 
     def reset(self):
         for fn in self.wrappers.values():
@@ -163,13 +189,17 @@ class Ops:
     def recording(self, log):
         """Record the first call of each distinct signature (its arguments,
         cloned) and count the calls of each."""
+        def describe(a):
+            if hasattr(a, "shape"):
+                return (tuple(a.shape), str(a.dtype))
+            return tuple(map(describe, a)) if isinstance(a, tuple) else a
+
         def make(name):
             real = self.wrappers[name]
 
             def rec(*args, **kwargs):
-                key = (name,) + tuple(
-                    (tuple(a.shape), str(a.dtype)) if hasattr(a, "shape") else a
-                    for a in args) + tuple(sorted(kwargs.items()))
+                key = (name,) + tuple(map(describe, args)) + tuple(
+                    (k, describe(v)) for k, v in sorted(kwargs.items()))
                 entry = log.setdefault(key, {"name": name, "count": 0, "args": None,
                                              "kwargs": kwargs})
                 entry["count"] += 1
@@ -198,6 +228,15 @@ def work(name, args, kwargs):
         b, t, c3 = x.shape
         ch = c3 // (3 * heads)
         return x.numel() * s * 4 / 3, 4.0 * b * heads * t * t * ch, dtype
+    if name == "gn_affine":
+        # x in, (a, off) out, gamma/beta and the conditioning in; a sum, a
+        # square and an add per element.  The flops run outside the tensor
+        # cores, whatever x's dtype
+        conds = [t for t in (kwargs.get("emb"), *(kwargs.get("film") or ())) if t is not None]
+        b, c = x.shape[0], x.shape[-1]
+        nbytes = (x.numel() * s + 2 * b * c * 4 + 2 * c * 4
+                  + sum(t.numel() * t.element_size() for t in conds))
+        return nbytes, 3.0 * x.numel(), "float32"
     # group_norm_silu: x in, y out, affine; ~8 flops per element
     c = x.shape[-1]
     return 2 * x.numel() * s + 2 * c * 4, 8.0 * x.numel(), dtype
@@ -210,7 +249,11 @@ def design(ops, name, args):
         return ops.ops.conv_design(x, args[3].to(x.dtype).contiguous())
     if name == "qkv_attention":
         return ops.ops.attention_design(x)
-    return "block_per_group"
+    if name == "gn_affine":
+        b, n, c = ops.ops.groupnorm._shape(x)
+        plan = ops.ops.groupnorm.moments_plan(b, n, c, x.element_size(), x.data_ptr())
+        return f"moments_fold v{plan.v} cvb{plan.cvb} splits{plan.splits}"
+    return ops.ops.groupnorm_design(x, args[3])
 
 
 def library_call(torch, F, name, args, kwargs):
@@ -224,6 +267,10 @@ def library_call(torch, F, name, args, kwargs):
         qkv = x.view(b, t, heads, 3 * ch).permute(0, 2, 1, 3)
         q, k, v = qkv[..., :ch], qkv[..., ch:2 * ch], qkv[..., 2 * ch:]
         return lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0 / ch ** 0.5)
+    if name == "gn_affine":
+        # the nearest single call: the per-channel statistics alone
+        xc = x.reshape(x.shape[0], -1, x.shape[-1])
+        return lambda: torch.var_mean(xc, dim=1)
     if name == "group_norm_silu":
         gamma, beta, groups = args[1].to(x.dtype), args[2].to(x.dtype), args[3]
         xc = x.reshape(x.shape[0], -1, x.shape[-1]).permute(0, 2, 1)
@@ -234,6 +281,160 @@ def library_call(torch, F, name, args, kwargs):
     w_oihw = w.to(x.dtype).permute(2, 3, 0, 1).contiguous(memory_format=torch.channels_last)
     b = bias.to(x.dtype)
     return lambda: F.conv2d(y, w_oihw, b, padding=1)
+
+
+def check_sites(torch, F, ops, calls, per_site, summary=None, only=None):
+    """Hold each recorded call's kernel against its plain version on the
+    recorded inputs, time both and the library call, and emit one
+    ``kernel_site`` line; sums go into ``summary`` by kernel name."""
+    for entry in calls.values():
+        name, a, kw, n = entry["name"], entry["args"], entry["kwargs"], entry["count"]
+        if only is not None and name not in only:
+            continue
+        kernel = ops.wrappers[name]
+        as_tuple = lambda out: out if isinstance(out, tuple) else (out,)
+        nbytes, flops, dtype = work(name, a, kw)
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        with torch.no_grad():
+            outs = as_tuple(kernel(*a, **kw))
+            torch.cuda.synchronize()
+            refs = as_tuple(ops.plain[name](*a, **kw))
+            # bf16 outputs: 2e-2, float32 outputs: 1e-4, of max(1, max|ref|);
+            # the output furthest into its tolerance is reported
+            err, tol = 0.0, 1.0
+            for out, ref in zip(outs, refs):
+                e = float((out.float() - ref.float()).abs().max())
+                t = ((2e-2 if ref.dtype == torch.bfloat16 else 1e-4)
+                     * max(1.0, float(ref.float().abs().max())))
+                if not e <= t or e / t >= err / tol:
+                    err, tol = e, t
+            ms = sync_time(torch, lambda: kernel(*a, **kw))
+            plain_ms = sync_time(torch, lambda: ops.plain[name](*a, **kw))
+            lib_ms = sync_time(torch, library_call(torch, F, name, a, kw))
+        site = {"kernel": name, "shape": list(a[0].shape), "design": design(ops, name, a),
+                "dtype": str(a[0].dtype).replace("torch.", ""), "calls_per_forward": n,
+                "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+                "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        if name == "gn_affine":
+            site["mode"] = ("emb" if kw.get("emb") is not None
+                            else "film" if kw.get("film") is not None else "plain")
+        if name in ("gn_affine", "group_norm_silu"):
+            # no float atomics: a second run gives the same bits
+            with torch.no_grad():
+                again = as_tuple(kernel(*a, **kw))
+            site["same_bits_twice"] = all(torch.equal(p, q) for p, q in zip(outs, again))
+            # without the host's cost of a call, over copies of x that do
+            # not fit the L2 cache together
+            xs = cold_copies(a[0], nbytes)
+
+            def round_of(run):
+                def go():
+                    for x in xs:
+                        run(x)
+                return go
+
+            def device_ms(run):
+                with torch.no_grad():
+                    return graph_time(torch, round_of(run), max(1, 100 // len(xs)), 10) / len(xs)
+
+            site["device_ms"] = device_ms(lambda x: kernel(x, *a[1:], **kw))
+        if name == "group_norm_silu":
+            gn = ops.ops.groupnorm
+            gamma, beta = gn.check_inputs(name, *a[:4])
+            rest = (a[3], kw.get("eps", 1e-5), kw.get("silu", True))
+            site["design_ms"] = {}
+            for d in sorted({site["design"], "split"}):
+                with torch.no_grad():
+                    got = gn._launch(a[0], gamma, beta, *rest, design=d)
+                    d_err = float((got.float() - refs[0].float()).abs().max())
+                    run = lambda x=a[0]: gn._launch(x, gamma, beta, *rest, design=d)
+                    site["design_ms"][d] = {"ms": sync_time(torch, run),
+                                            "device_ms": device_ms(run)}
+                if not d_err <= tol:
+                    raise AssertionError(f"{name} {site['shape']} design {d}: max abs err "
+                                         f"{d_err} > {tol}")
+        if name == "gn_silu_conv3x3" and site["dtype"] == "bfloat16":
+            site["grad_recompute"] = recompute_check(torch, ops.ops.gn_conv, a)
+        if name == "gn_affine":
+            grad_site(torch, ops, a, kw, n, site, per_site, summary)
+        per_site.append(site)
+        emit(dict(phase="kernel_site", **site))
+        if not err <= tol:
+            raise AssertionError(f"{name} {site['shape']} {site['dtype']}: kernel vs plain "
+                                 f"max abs err {err} > {tol}")
+        if site.get("same_bits_twice") is False:
+            raise AssertionError(f"{name} {site['shape']}: two runs differ in their bits")
+        rc = site.get("grad_recompute")
+        if rc and not rc["max_rel_err"] <= RECOMPUTE_TOL:
+            raise AssertionError(f"{name} {site['shape']}: bf16 backward recompute vs "
+                                 f"float32 differs by {rc['max_rel_err']} of the gradient")
+        if summary is None:
+            continue
+        s = summary.setdefault(name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
+                                          library_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
+                                          bound_ms=0.0, calls=0))
+        s["max_abs_err"] = max(s["max_abs_err"], err)
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                         ("bytes_ms", t_bytes), ("ops_ms", t_ops),
+                         ("bound_ms", max(t_bytes, t_ops))):
+            s[key] += n * val
+        if "device_ms" in site:
+            s["device_ms"] = s.get("device_ms", 0.0) + n * site["device_ms"]
+        s["calls"] += n
+
+
+def grad_site(torch, ops, a, kw, n, affine_site, per_site, summary):
+    """``gn_affine``'s backward kernels at one recorded site, on seeded
+    gradients of (a, off), against autograd through the plain version: each
+    gradient within 2e-2 (bf16) or 1e-4 (float32: another formula and order
+    of sums) of its reference's largest element."""
+    gn_conv = ops.ops.gn_conv
+    x = a[0]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    ga, goff = torch.randn(2, x.shape[0], x.shape[-1], device="cuda", generator=gen)
+    with torch.no_grad():
+        ao = ops.ops.groupnorm.moments_fold(*a, **kw)
+        run = lambda: gn_conv.gn_affine_grad(*a, ga, goff, ao, **kw)
+        got = run()
+        torch.cuda.synchronize()
+    ref = gn_conv.gn_affine_grad_plain(*a, ga, goff, **kw)
+    err, tol = 0.0, 1.0
+    for p, q in zip(got, ref):
+        if p.dtype != q.dtype or p.shape != q.shape:
+            raise AssertionError(f"gn_affine_grad: {p.dtype} {tuple(p.shape)} against "
+                                 f"{q.dtype} {tuple(q.shape)}")
+        e = float((p.float() - q.float()).abs().max())
+        t = (2e-2 if q.dtype == torch.bfloat16 else 1e-4) * max(1e-30, float(q.float().abs().max()))
+        if not e <= t or e / t >= err / tol:
+            err, tol = e, t
+    with torch.no_grad():
+        ms = sync_time(torch, run)
+    plain_ms = sync_time(torch, lambda: gn_conv.gn_affine_grad_plain(*a, ga, goff, **kw))
+    # x read, dL/dx written, the (B, C)-sized rest; a multiply-add an element
+    nbytes = 2 * x.numel() * x.element_size() + 14 * ga.numel() * 4
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, 2.0 * x.numel() / PEAK_FLOPS["float32"] * 1e3
+    site = {"kernel": "gn_affine_grad", "shape": affine_site["shape"],
+            "dtype": affine_site["dtype"], "mode": affine_site["mode"], "design": "fold_bwd+apply",
+            "calls_per_forward": n, "max_abs_err": err, "tol": tol, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    per_site.append(site)
+    emit(dict(phase="kernel_site", **site))
+    if not err <= tol:
+        raise AssertionError(f"gn_affine_grad {site['shape']} {site['mode']}: kernel vs plain "
+                             f"max abs err {err} > {tol}")
+    if summary is None:
+        return
+    s = summary.setdefault("gn_affine_grad", dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
+                                                  library_ms=None, bytes_ms=0.0, ops_ms=0.0,
+                                                  bound_ms=0.0, calls=0))
+    s["max_abs_err"] = max(s["max_abs_err"], err)
+    for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bytes_ms", t_bytes),
+                     ("ops_ms", t_ops), ("bound_ms", max(t_bytes, t_ops))):
+        s[key] += n * val
+    s["calls"] += n
 
 
 def recompute_check(torch, gn_conv, args):
@@ -287,6 +488,7 @@ def profile_device(torch, fn, top=12):
     busy_ms = sum(k[0] for k in kernels)
     listed = [{"ms": ms, "calls": n, "name": name} for ms, n, name in kernels]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_ops": sum(k[1] for k in kernels),
             "idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
             "top": [dict(k, name=k["name"][:90]) for k in listed[:top]], "all": listed}
 
@@ -301,11 +503,64 @@ def fill_zero_params(torch, model, seed):
                 p.copy_(0.02 * torch.randn(p.shape, generator=gen))
 
 
+def cold_copies(x, nbytes, total=200e6, most=64):
+    """Clones of ``x``, enough that a round over them moves ``total`` bytes
+    (several times the 50 MB L2 cache), at most ``most``: a kernel timed over
+    the round finds little of its input in the cache."""
+    return [x.clone() for _ in range(int(max(1, min(most, -(-total // nbytes)))))]
+
+
+def graph_time(torch, fn, launches=100, replays=20):
+    """Device-only ms per call of ``fn``: ``launches`` calls captured into
+    one CUDA graph, replayed, by CUDA events over all of them (no host cost
+    between the kernels)."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (launches * replays)
+
+
+def wgmma_in_probe(library):
+    """How many warpgroup matrix instructions (HGMMA in the card's own
+    assembly) the built library holds in the probe's bf16 kernel, from
+    ``cuobjdump -sass``; raises where the toolkit has no cuobjdump."""
+    from probabilisticdeepdiffusionmodels_torch.ops import _build
+
+    tool = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        raise RuntimeError(f"{tool} not found: the probe's wgmma instructions cannot be counted")
+    sass = subprocess.run([str(tool), "-sass", str(library)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    count, inside = 0, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = "probe_bf16" in line
+        elif inside and "HGMMA" in line:
+            count += 1
+    return count
+
+
 def probe_phase(torch):
     """Drive ``ops/probe_mma.py``'s entry point for both dtypes with the
     count at 0, then hold each kernel against its plain version and time it
-    beside ``torch.matmul``; returns the kernel's summary (times summed over
-    the two dtypes, as the entry point runs both)."""
+    beside ``torch.matmul``, with the host's launch cost (``ms``) and without
+    it (``device_ms``, from a CUDA graph); returns the kernel's summary
+    (times summed over the two dtypes, as the entry point runs both)."""
     import importlib
 
     probe = importlib.import_module(f"{PKG}.ops.probe_mma")
@@ -317,8 +572,8 @@ def probe_phase(torch):
     launched = probe.probe_mma.launches
     if launched != len(dtypes):
         raise AssertionError(f"probe: {launched} launches for {len(dtypes)} dtypes")
-    s = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bytes_ms=0.0,
-             ops_ms=0.0, bound_ms=0.0, launches=launched)
+    s = dict(max_abs_err=0.0, ms=0.0, device_ms=0.0, library_device_ms=0.0, plain_ms=0.0,
+             library_ms=0.0, bytes_ms=0.0, ops_ms=0.0, bound_ms=0.0, launches=launched)
     rows = []
     for dt in dtypes:
         a, b = operands[dt]
@@ -330,6 +585,8 @@ def probe_phase(torch):
         t_ops = 2.0 * probe.SIZE ** 3 / PEAK_FLOPS[dtype] * 1e3
         row = {"dtype": dtype, "max_abs_err": err, "tol": tol,
                "ms": sync_time(torch, lambda: probe.probe_mma(a, b)),
+               "device_ms": graph_time(torch, lambda: probe.probe_mma(a, b)),
+               "library_device_ms": graph_time(torch, lambda: torch.matmul(a, b)),
                "plain_ms": sync_time(torch, lambda: probe.probe_mma_plain(a, b)),
                "library_ms": sync_time(torch, lambda: torch.matmul(a, b)),
                "bound_ms": max(t_bytes, t_ops),
@@ -338,11 +595,18 @@ def probe_phase(torch):
         if not err <= tol:
             raise AssertionError(f"probe {dtype}: kernel vs plain max abs err {err} > {tol}")
         s["max_abs_err"] = max(s["max_abs_err"], err)
-        for key, val in (("ms", row["ms"]), ("plain_ms", row["plain_ms"]),
+        for key, val in (("ms", row["ms"]), ("device_ms", row["device_ms"]),
+                         ("library_device_ms", row["library_device_ms"]),
+                         ("plain_ms", row["plain_ms"]),
                          ("library_ms", row["library_ms"]), ("bytes_ms", t_bytes),
                          ("ops_ms", t_ops), ("bound_ms", row["bound_ms"])):
             s[key] += val
-    emit({"phase": "probe_mma", "launches": launched, "dtypes": rows})
+    from probabilisticdeepdiffusionmodels_torch.ops import _build
+    hgmma = wgmma_in_probe(_build.library_path)
+    emit({"phase": "probe_mma", "launches": launched, "dtypes": rows,
+          "hgmma_instructions_in_probe_bf16": hgmma})
+    if not hgmma:
+        raise AssertionError("the probe's bf16 kernel holds no wgmma (HGMMA) instruction")
     return s
 
 
@@ -387,8 +651,8 @@ def train_phases(torch, ops, model, gen):
     out_k, loss_k, g_k = loss_and_grads()
     if out_k.grad_fn is None:
         raise AssertionError("model(x, t) on CUDA has no grad_fn")
-    if ops.counts() != PER_FORWARD:
-        raise AssertionError(f"float32 loss launches {ops.counts()} != {PER_FORWARD}")
+    if ops.counts() != expected_counts(1, True):
+        raise AssertionError(f"float32 loss launches {ops.counts()} != {expected_counts(1, True)}")
     with ops.plain_versions():
         _, loss_p, g_p = loss_and_grads()
     worst, worst_name = 0.0, None
@@ -416,7 +680,7 @@ def train_phases(torch, ops, model, gen):
         step(state, xb)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    passes, expected = [], {n: TRAIN_STEPS * c for n, c in PER_FORWARD.items()}
+    passes, expected = [], expected_counts(TRAIN_STEPS, True)
     for _ in range(TRAIN_PASSES):
         ops.reset()
         t_start = time.perf_counter()
@@ -455,9 +719,9 @@ def train_phases(torch, ops, model, gen):
     state.apply_gradients()
     events[4].record()
     torch.cuda.synchronize()
-    if fwd_counts != PER_FORWARD or bwd_counts != fwd_counts:
+    if fwd_counts != expected_counts(1, False) or bwd_counts != expected_counts(1, True):
         raise AssertionError(f"one step: forward launched {fwd_counts}, backward added "
-                             f"{ {n: bwd_counts[n] - fwd_counts[n] for n in PER_FORWARD} }")
+                             f"{ {n: bwd_counts[n] - fwd_counts[n] for n in fwd_counts} }")
     split = {name: events[i].elapsed_time(events[i + 1]) for i, name in
              enumerate(("forward_ms", "backward_ms", "history_ms", "optimizer_ema_ms"))}
     prof = profile_device(torch, lambda: step(state, xb), top=15)
@@ -487,7 +751,7 @@ def train_phases(torch, ops, model, gen):
     ops.reset()
     for _ in range(IMPORTANCE_STEPS):
         losses.append(float(imp_step(state, xb)["loss"]))
-    imp_expected = {n: IMPORTANCE_STEPS * c for n, c in PER_FORWARD.items()}
+    imp_expected = expected_counts(IMPORTANCE_STEPS, True)
     emit({"phase": "train_step_importance", "steps": IMPORTANCE_STEPS, "losses": losses,
           "weights_min": float(weights.min()), "weights_max": float(weights.max()),
           "launches": ops.counts()})
@@ -497,18 +761,20 @@ def train_phases(torch, ops, model, gen):
     return train_launches, all_kernels
 
 
-def celeba_phase(torch, ops):
+def celeba_phase(torch, F, ops, per_site):
     """One bf16 forward of unet_celebahq64 at 64x64 on the kernels, with one
-    launch per fused conv, attention and attention norm, against the same
-    model and inputs on the plain versions."""
+    launch per folded affine, fused conv, attention and attention norm,
+    against the same model and inputs on the plain versions; then
+    ``gn_affine`` at each of the forward's sites (FiLM mode but for the first
+    conv of each block) against its plain version."""
     from probabilisticdeepdiffusionmodels_torch.models import get_model, unet
 
     model = get_model(CELEBAHQ64_RES, CELEBAHQ64_CFG, device="cuda", seed=7)
     fill_zero_params(torch, model, seed=8)
     n_res = sum(isinstance(m, unet.ResBlock) for m in model.modules())
     n_attn = sum(isinstance(m, unet.AttentionBlock) for m in model.modules())
-    expected = {"gn_silu_conv3x3": 2 * n_res + 1, "qkv_attention": n_attn,
-                "group_norm_silu": n_attn}
+    expected = {"gn_affine": 2 * n_res + 1, "gn_silu_conv3x3": 2 * n_res + 1,
+                "qkv_attention": n_attn, "group_norm_silu": n_attn, "gn_affine_grad": 0}
     gen = torch.Generator(device="cuda").manual_seed(9)
     x = torch.randn(CELEBAHQ64_BATCH, CELEBAHQ64_RES, CELEBAHQ64_RES, 3, device="cuda",
                     generator=gen)
@@ -534,6 +800,11 @@ def celeba_phase(torch, ops):
         raise AssertionError("unet_celebahq64: output not finite or of the wrong shape")
     if not diff <= BF16_FORWARD_TOL * scale:
         raise AssertionError(f"unet_celebahq64: kernels vs plain differ by {diff}")
+    calls = {}
+    with torch.no_grad(), ops.recording(calls):
+        model(x, t)
+    torch.cuda.synchronize()
+    check_sites(torch, F, ops, calls, per_site, only=("gn_affine",))
 
 
 def main(argv=None) -> int:
@@ -602,47 +873,7 @@ def main(argv=None) -> int:
         model(x128, t128)
     torch.cuda.synchronize()
     per_site, summary = [], {}
-    for entry in calls.values():
-        name, a, kw, n = entry["name"], entry["args"], entry["kwargs"], entry["count"]
-        kernel = ops.wrappers[name]
-        with torch.no_grad():
-            out = kernel(*a, **kw)
-            torch.cuda.synchronize()
-            ref = ops.plain[name](*a, **kw)
-            err = float((out.float() - ref.float()).abs().max())
-            scale = max(1.0, float(ref.float().abs().max()))
-            tol = (2e-2 if a[0].dtype == torch.bfloat16 else 1e-4) * scale
-            ms = sync_time(torch, lambda: kernel(*a, **kw))
-            plain_ms = sync_time(torch, lambda: ops.plain[name](*a, **kw))
-            lib_ms = sync_time(torch, library_call(torch, F, name, a, kw))
-        nbytes, flops, dtype = work(name, a, kw)
-        t_bytes = nbytes / PEAK_BYTES * 1e3
-        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-        site = {"kernel": name, "shape": [list(t.shape) for t in a if hasattr(t, "shape")][0],
-                "design": design(ops, name, a), "dtype": dtype, "calls_per_forward": n, "max_abs_err": err, "tol": tol,
-                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-        if name == "gn_silu_conv3x3" and dtype == "bfloat16":
-            site["grad_recompute"] = recompute_check(torch, ops.ops.gn_conv, a)
-        per_site.append(site)
-        emit(dict(phase="kernel_site", **site))
-        if not err <= tol:
-            raise AssertionError(f"{name} {site['shape']} {dtype}: kernel vs plain "
-                                 f"max abs err {err} > {tol}")
-        rc = site.get("grad_recompute")
-        if rc and not rc["max_rel_err"] <= RECOMPUTE_TOL:
-            raise AssertionError(f"{name} {site['shape']}: bf16 backward recompute vs "
-                                 f"float32 differs by {rc['max_rel_err']} of the gradient")
-        s = summary.setdefault(name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
-                                          library_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
-                                          bound_ms=0.0, calls=0))
-        s["max_abs_err"] = max(s["max_abs_err"], err)
-        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
-                         ("bytes_ms", t_bytes), ("ops_ms", t_ops),
-                         ("bound_ms", max(t_bytes, t_ops))):
-            s[key] += n * val
-        s["calls"] += n
+    check_sites(torch, F, ops, calls, per_site, summary)
     for name, n in PER_FORWARD.items():
         if summary.get(name, {}).get("calls") != n:
             raise AssertionError(f"{name}: {summary.get(name, {}).get('calls')} calls per "
@@ -667,7 +898,7 @@ def main(argv=None) -> int:
     ops.reset()
     x0, chain_s = chain(model, generator=torch.Generator(device="cuda").manual_seed(3))
     launches = ops.counts()
-    expected = {name: STEPS * n for name, n in PER_FORWARD.items()}
+    expected = expected_counts(STEPS, False)
     if launches != expected:
         raise AssertionError(f"launches {launches} != {expected}")
     if x0.shape != x_T.shape or not bool(torch.isfinite(x0).all()):
@@ -700,7 +931,7 @@ def main(argv=None) -> int:
     # one timed bf16 forward at batch 128
     with torch.no_grad():
         fwd_ms = sync_time(torch, lambda: model(x128, t128), min_ms=200.0, max_reps=20)
-    kernel_ms = sum(s["ms"] for s in summary.values())
+    kernel_ms = sum(summary[name]["ms"] for name in PER_FORWARD)
     emit({"phase": "forward_bf16", "batch": FORWARD_BATCH, "ms": fwd_ms,
           "kernel_ms_sum": kernel_ms})
     def forward128():
@@ -741,18 +972,19 @@ def main(argv=None) -> int:
     train_launches, train_profile = train_phases(torch, ops, model, gen)
 
     # 7. unet_celebahq64, bf16, kernels against plain versions
-    celeba_phase(torch, ops)
+    celeba_phase(torch, F, ops, per_site)
 
     if args.out is not None:
         (args.out / "chip_smoke_sites.json").write_text(json.dumps(
             {"nvidia_smi": smi, "sites": per_site, "forward_bf16_profile": all_kernels,
              "train_step_bf16_profile": train_profile}, indent=1))
 
-    # each kernel's main path: the sampler for the UNet's three, the probe's
-    # entry point for the probe; the train step's launches beside them
-    main_launches = dict(launches, probe_mma=summary["probe_mma"].pop("launches"))
+    # each kernel's main path: the sampler for the forward's four, the train
+    # step for the backward kernel, the probe's entry point for the probe
+    main_launches = dict(launches, probe_mma=summary["probe_mma"].pop("launches"),
+                         **{name: train_launches[name] for name in PER_BACKWARD})
     by_path = {name: {"sampler_bf16": launches[name], "train_step_bf16": train_launches[name]}
-               for name in PER_FORWARD}
+               for name in (*PER_FORWARD, *PER_BACKWARD)}
     by_path["probe_mma"] = {"probe": main_launches["probe_mma"]}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
@@ -760,7 +992,9 @@ def main(argv=None) -> int:
          "max_abs_err": s["max_abs_err"], "ms": s["ms"],
          "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
          "bound_by": "bytes" if s["bytes_ms"] >= s["ops_ms"] else "operations",
-         "library_ms": s["library_ms"]}
+         "library_ms": s["library_ms"],
+         # without the host's launch cost, where it was measured (the probe)
+         "device_ms": s.get("device_ms"), "library_device_ms": s.get("library_device_ms")}
         for name, s in summary.items()]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})
     return 0

@@ -59,11 +59,10 @@
 // pixels x 64 channels a block of 4 warps, the activated halo and the
 // weight of a 32-channel slice staged with plain loads; bf16 on mma.sync
 // m16n8k16, float32 with scalar FMAs.
-#include <cuda.h>
-
 #include <mutex>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 using namespace pddm;
 
@@ -219,96 +218,6 @@ template <> struct Wgmma<256> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
   }
 };
-
-// Shared-memory descriptor of a K-major operand tile with the 128-byte
-// swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart (SBO), tile
-// base 1024-byte aligned.  A k-step of 16 elements advances the start
-// address by 32 bytes (+2 in the 16-byte units of the descriptor).
-__device__ __forceinline__ uint64_t smem_desc_sw128(const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keep the compiler from moving accesses of an accumulator across the wait
-// that retires the last product (only there: an access while a product is
-// in flight makes the compiler insert a wait of its own).
-__device__ __forceinline__ void fence_reg(float& r) { asm volatile("" : "+f"(r)::"memory"); }
-
-// Byte offset of 16-byte chunk c of row r in a 128-byte-swizzled tile.
-__device__ __forceinline__ int sw128(int r, int c) { return r * 128 + ((c ^ (r & 7)) << 4); }
-
-// mbarrier and TMA (cp.async.bulk.tensor) helpers, shared::cta addresses.
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-// Wait for the phase of the given parity to complete; the thread sleeps
-// (up to 10 ms a try) instead of spinning, leaving its issue slots to the
-// other warps of its scheduler.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred P1;\nLAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1, 10000000;\n"
-      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-// Arrive from lane 0 of the warp only, with the lane test inside the asm:
-// a branch around it would be a divergent path, across which the compiler
-// serialises the wgmma products in flight.
-__device__ __forceinline__ void mbar_arrive_lane0(uint64_t* bar, int lane, bool when = true) {
-  asm volatile(
-      "{\n.reg .pred p, q;\nsetp.ne.u32 q, %2, 0;\nsetp.eq.and.u32 p, %1, 0, q;\n"
-      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(smem_u32(bar)),
-      "r"(lane), "r"((int)when)
-      : "memory");
-}
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
 
 // Shared memory of the wgmma design, in order: the weight ring, two halo
 // buffers (each 1024-byte aligned: the TMA's 128-byte swizzle is laid on
@@ -631,6 +540,10 @@ cudaError_t encode_bf16_map_uncached(CUtensorMap* map, const void* ptr, int rank
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+}  // namespace
+
+namespace pddm {
+
 // The maps of recent (address, shape, box) triples, reused: the caching
 // allocator hands a forward's activations the same addresses call after
 // call, and a model's weights keep theirs, so most calls encode nothing.
@@ -669,6 +582,10 @@ cudaError_t encode_bf16_map(CUtensorMap* map, const void* ptr, int rank, const c
   if (used < kEntries) ++used;
   return cudaSuccess;
 }
+
+}  // namespace pddm
+
+namespace {
 
 // A persistent grid: as many blocks as fit on the card at once (for the N
 // tiles of Cout along y), each walking over pixel tiles blockIdx.x,

@@ -11,7 +11,8 @@ conv3x3 op (``ops.gn_conv``), as the JAX model does with
 ``use_pallas_conv=True``; every AttentionBlock norm runs the GroupNorm op
 (``ops.groupnorm``) and every attention the fused-qkv op
 (``ops.attention``).  On a CUDA tensor each of those is a hand-written
-kernel.  The other convs (input conv, 1x1 skip, down/upsample) are
+kernel, and so is the fold of the GroupNorm statistics that feeds the fused
+conv (``gn_affine``).  The other convs (input conv, 1x1 skip, down/upsample) are
 ``F.conv2d`` and the qkv/proj products ``F.linear``.  In train mode with
 ``dropout > 0`` a ResBlock's second conv leaves the fused op, as the JAX
 model's does, because the dropout sits between the SiLU and the conv; its
@@ -54,9 +55,10 @@ def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> 
 
 def _gn_silu_conv(x: torch.Tensor, norm: GroupNorm32, conv: FusedConv3x3,
                   emb: Optional[torch.Tensor] = None, film=None) -> torch.Tensor:
+    x = x.contiguous()  # the statistics and the conv kernel read one tensor
     a, off = gn_affine(x, norm.weight, norm.bias, norm.groups, norm.eps,
                        emb=emb, film=film)
-    return gn_silu_conv3x3(x.contiguous(), a, off, conv.weight, conv.bias)
+    return gn_silu_conv3x3(x, a, off, conv.weight, conv.bias)
 
 
 class ResBlock(nn.Module):
@@ -90,6 +92,7 @@ class ResBlock(nn.Module):
         if self.training and self.dropout > 0:
             # JAX models/unet.py:129-146: the unfused path, dropout after the SiLU
             norm = self.out_norm
+            h = h.contiguous()
             a, off = gn_affine(h, norm.weight, norm.bias, norm.groups, norm.eps, **cond)
             act = silu(h.float() * a[:, None, None, :] + off[:, None, None, :]).to(h.dtype)
             h = self.out_conv.conv(dropout(act, self.dropout, generator))

@@ -1,6 +1,7 @@
-"""The ops that hold hand-written CUDA kernels (``csrc/``): the three of the
-UNet forward, differentiable through their plain versions, exported here,
-and the matrix-unit probe, in its own module ``ops.probe_mma``.
+"""The ops that hold hand-written CUDA kernels (``csrc/``): the four of the
+UNet forward (the folded GroupNorm affine, the fused conv, GroupNorm and
+attention), differentiable through their plain versions, exported here, and
+the matrix-unit probe, in its own module ``ops.probe_mma``.
 
 Each wrapper runs its plain PyTorch version for a CPU tensor and launches
 its kernel for a CUDA tensor (or raises); each counts its launches in
@@ -8,5 +9,13 @@ its kernel for a CUDA tensor (or raises); each counts its launches in
 """
 
 from .attention import attention_design, qkv_attention, qkv_attention_plain
-from .gn_conv import conv_design, gn_affine, gn_silu_conv3x3, gn_silu_conv3x3_plain
-from .groupnorm import group_norm_silu, group_norm_silu_plain
+from .gn_conv import (
+    conv_design,
+    gn_affine,
+    gn_affine_grad,
+    gn_affine_grad_plain,
+    gn_affine_plain,
+    gn_silu_conv3x3,
+    gn_silu_conv3x3_plain,
+)
+from .groupnorm import group_norm_silu, group_norm_silu_plain, groupnorm_design

@@ -35,9 +35,19 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # qkv, out, B, T, heads, ch, scale, is_bf16, stream
     "pddm_qkv_attention": [_P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P],
-    # x, gamma, beta, out, B, N, C, groups, eps, silu, is_bf16, stream
+    # x, gamma, beta, out, B, N, C, groups, eps, silu, is_bf16, V, cvb, stream
     "pddm_group_norm_silu": [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float,
-                             _I, _I, _P],
+                             _I, _I, _I, _I, _P],
+    # x, gamma, beta, cond0, cond1, ao, ws, counters, B, N, C, groups, eps, mode,
+    # stride0, stride1, cond_is_bf16, is_bf16, V, cvb, splits, rows, stream
+    "pddm_gn_moments_fold": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # ao, gamma, beta, cond0, cond1, ga, goff, g, B, N, C, groups, eps, mode, stride0,
+    # stride1, cond_is_bf16, stream
+    "pddm_gn_fold_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float,
+                         _I, _I, _I, _I, _P],
+    # x, ao, out, B, N, C, silu, is_bf16, V, cvb, splits, rows, stream
+    "pddm_gn_apply": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, a, off, w, bias, out, B, H, W, Cin, Cout, is_bf16, design, stream
     "pddm_gn_silu_conv3x3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # a, b, out, is_bf16, stream

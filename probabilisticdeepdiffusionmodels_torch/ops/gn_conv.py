@@ -1,11 +1,19 @@
 """GroupNorm (+ emb add | FiLM) + SiLU + 3x3 conv: the folded affine, the
-plain torch version and the CUDA kernel.
+plain torch versions and the CUDA kernels.
 
 ``gn_affine`` folds the float32 GroupNorm statistics, the GN affine and the
 ResBlock's timestep-embedding add or FiLM scale/shift into one
 per-(sample, channel) scale ``a`` and offset ``off``, exactly as
 ``probabilisticdeepdiffusionmodels_tpu/ops/gn_conv_pallas.py:gn_affine``;
-the fused op is then ``conv3x3_SAME(silu(x*a + off)) + bias``.
+the fused op is then ``conv3x3_SAME(silu(x*a + off)) + bias``.  There the
+fold is plain jnp that XLA fuses into one pass over x.  Here a CPU tensor
+takes ``gn_affine_plain``, and a CUDA tensor one launch of the moments + fold
+kernel of ``csrc/groupnorm.cu`` (``groupnorm.moments_fold``: x read once in
+16-byte loads, no full-size temporary, bits that repeat from run to run).
+Its gradient is two kernels as well (``gn_affine_grad``): the fold's backward
+and one apply pass for dL/dx, from x itself and the (4, B, C) statistics the
+forward left, so autograd keeps no float32 copy of x; ``gn_affine_grad_plain``
+(autograd through ``gn_affine_plain``) is what it is held against.
 
 Weight layout: the kernel reads the 3x3 weight as (kh, kw, Cout, Cin)
 ("HWOI"), so for one tap and one output channel the input channels are
@@ -55,8 +63,10 @@ import torch.nn.functional as F
 
 from . import _build
 from .autograd import kernel_op
+from .groupnorm import apply_affine, check_inputs, fold_backward, moments_fold
 
-__all__ = ["conv_design", "gn_affine", "gn_silu_conv3x3", "gn_silu_conv3x3_plain"]
+__all__ = ["conv_design", "gn_affine", "gn_affine_plain", "gn_affine_grad",
+           "gn_affine_grad_plain", "gn_silu_conv3x3", "gn_silu_conv3x3_plain"]
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 # the C entry point's design argument
@@ -64,9 +74,9 @@ DESIGNS = {"general": 0, "wgmma": 1, "narrow_f32": 2}
 _SMEM_BYTES = 227 * 1024  # shared memory a block may use on the H100
 
 
-def gn_affine(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-              num_groups: int, eps: float, emb: Optional[torch.Tensor] = None,
-              film: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+def gn_affine_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                    num_groups: int, eps: float, emb: Optional[torch.Tensor] = None,
+                    film: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """Per-(B, C) float32 scale/offset with
 
       normalize(x + emb) * gamma + beta          == x * a + off   (emb mode)
@@ -98,6 +108,108 @@ def gn_affine(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         a = a * s
         off = off * s + shift.float()
     return a, off
+
+
+def _named(mode: int, conds) -> dict:
+    return dict(emb=conds[0] if mode == 1 else None, film=tuple(conds) if mode == 2 else None)
+
+
+def gn_affine_grad_plain(x, gamma, beta, num_groups, eps, ga, goff, emb=None, film=None):
+    """The gradients of ``gn_affine_plain``'s (a, off), weighted by (ga,
+    goff), in x, gamma, beta and emb or the FiLM pair, by autograd through
+    the plain version: a tuple in that order."""
+    conds = (emb,) if emb is not None else tuple(film or ())
+    leaves = [t.detach().requires_grad_(True) for t in (x, gamma, beta, *conds)]
+    with torch.enable_grad():
+        out = gn_affine_plain(*leaves[:3], num_groups, eps,
+                              **_named(1 if emb is not None else 2 if film else 0, leaves[3:]))
+    return torch.autograd.grad(out, leaves, (ga, goff))
+
+
+def gn_affine_grad(x, gamma, beta, num_groups, eps, ga, goff, ao, emb=None, film=None,
+                   needs=None):
+    """``gn_affine_grad_plain`` on the card: the fold's backward kernel, the
+    apply kernel for dL/dx = 2 x dL/dS2 + dL/dS1, and two sums over the batch
+    for gamma and beta.  ``ao`` is the forward's ``moments_fold`` output (not
+    read for a CPU tensor); ``needs`` masks the gradients wanted (None where
+    one is not).  A CPU tensor takes the plain version; inputs are as
+    ``gn_affine`` hands them to its kernel (checked there)."""
+    if x.device.type == "cpu":
+        return gn_affine_grad_plain(x, gamma, beta, num_groups, eps, ga, goff, emb, film)
+    conds = (emb,) if emb is not None else tuple(film or ())
+    if needs is None:
+        needs = (True,) * (3 + len(conds))
+    g = fold_backward(ao, gamma, beta, x.numel() // (ao.shape[1] * ao.shape[2]), num_groups,
+                      eps, ga, goff, emb=emb, film=film)
+    gn_affine_grad.launches += 1
+    grads = [apply_affine(x, g) if needs[0] else None,
+             g[2].sum(0) if needs[1] else None, g[3].sum(0) if needs[2] else None]
+    grads += [g[4 + i].to(t.dtype) if needs[3 + i] else None for i, t in enumerate(conds)]
+    return tuple(grads)
+
+
+gn_affine_grad.launches = 0
+
+
+class _GnAffine(torch.autograd.Function):
+    """``gn_affine`` on the card with its gradient from ``gn_affine_grad``:
+    both directions are kernels, and what autograd keeps for the backward is
+    x itself and the (4, B, C) statistics, no float32 copy of x."""
+
+    @staticmethod
+    def forward(ctx, num_groups, eps, mode, x, gamma, beta, *conds):
+        ao = moments_fold(x, gamma, beta, num_groups, eps, **_named(mode, conds))
+        gn_affine.launches += 1
+        ctx.args = (num_groups, eps, mode)
+        ctx.save_for_backward(ao, x, gamma, beta, *conds)
+        return ao[0], ao[1]
+
+    @staticmethod
+    def backward(ctx, ga, goff):
+        num_groups, eps, mode = ctx.args
+        ao, x, gamma, beta, *conds = ctx.saved_tensors
+        grads = gn_affine_grad(x, gamma, beta, num_groups, eps, ga, goff, ao,
+                               needs=ctx.needs_input_grad[3:], **_named(mode, conds))
+        return (None, None, None, *grads)
+
+
+def _cond_in(t: torch.Tensor, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A conditioning tensor as the kernel reads it: (B, C) on x's device in
+    ``dtype``, unit channel stride (the halves of a FiLM ``chunk`` keep their
+    row stride; nothing is copied for them)."""
+    if t.shape != (x.shape[0], x.shape[-1]):
+        raise ValueError(f"emb/FiLM must be ({x.shape[0]}, {x.shape[-1]}), got {tuple(t.shape)}")
+    if t.dtype != dtype or t.device != x.device:
+        t = t.to(device=x.device, dtype=dtype)
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
+def gn_affine(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+              num_groups: int, eps: float, emb: Optional[torch.Tensor] = None,
+              film: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """``gn_affine_plain``'s (a, off), each (B, C) float32, for x of shape
+    (B, *spatial, C).  A CPU tensor takes the plain version; a CUDA tensor
+    (contiguous, float32 or bfloat16) launches the moments + fold kernel or
+    raises.  Differentiable in x, gamma, beta and emb or the FiLM pair, by
+    the backward kernels of ``gn_affine_grad``."""
+    if x.device.type == "cpu":
+        return gn_affine_plain(x, gamma, beta, num_groups, eps, emb=emb, film=film)
+    if emb is not None and film is not None:
+        raise ValueError("gn_affine takes emb or film, not both")
+    gamma, beta = check_inputs("gn_affine", x, gamma, beta, num_groups)
+    conds = (emb,) if emb is not None else tuple(film or ())
+    mode = 1 if emb is not None else 2 if film is not None else 0
+    # bf16 conditioning is read as it is; anything else in float32
+    keep = all(t.dtype == torch.bfloat16 for t in conds)
+    conds = tuple(_cond_in(t, x, torch.bfloat16 if keep else torch.float32) for t in conds)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, gamma, beta, *conds)):
+        return _GnAffine.apply(num_groups, eps, mode, x, gamma, beta, *conds)
+    ao = moments_fold(x, gamma, beta, num_groups, eps, **_named(mode, conds))
+    gn_affine.launches += 1
+    return ao[0], ao[1]
+
+
+gn_affine.launches = 0
 
 
 def _affine_silu_conv(x, a, off, w, bias, conv_dtype):

@@ -4,10 +4,16 @@ Counterpart of ``scripts/probe_mosaic_bf16.py`` (``_kernel`` via
 ``try_dtype``), which asks whether the Pallas toolchain accepts bf16 matmul
 operands on the TPU's matrix unit.  Here the question is whether the port's
 toolchain builds and runs a hand-written ``sm_90a`` kernel on the H100's
-tensor cores: ``csrc/probe_mma.cu`` computes the product with ``mma.sync``
-m16n8k16 on bf16 operands and with scalar FMAs (no TF32) on float32 ones,
-and is held against the plain version ``a.float() @ b.float()``.  It bounds
-nothing on the card: the work is far below a launch's latency.
+own matrix instruction, the one the fused conv uses: ``csrc/probe_mma.cu``
+computes the bf16 product with ``wgmma.mma_async`` m64n64k16 (float32
+accumulation) on operands that TMA copies into swizzled shared memory (b is
+row major (K, N), so the instruction transposes it), one warpgroup per
+64 x 64 output tile, and the float32 product with scalar FMAs (no TF32) in
+4 x 4 register blocks over tiles staged in shared memory.  Each is held
+against the plain version ``a.float() @ b.float()``.  Its bound (0.16 us of
+bytes in bf16, 0.5 us of operations in float32) lies under the shortest
+kernel the card can run, so no design can come near it; what the port
+reports beside the wrapper-inclusive time is the kernel's device-only time.
 
     python -m probabilisticdeepdiffusionmodels_torch.ops.probe_mma
 
@@ -54,8 +60,8 @@ def probe_mma(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return probe_mma_plain(a, b)
     if a.device.type != "cuda" or b.device != a.device:
         raise ValueError(f"probe_mma: operands on {a.device} and {b.device}")
-    if not (a.is_contiguous() and b.is_contiguous()) or a.data_ptr() % 4 or b.data_ptr() % 4:
-        raise ValueError("probe_mma operands must be contiguous and 4-byte aligned")
+    if not (a.is_contiguous() and b.is_contiguous()) or a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError("probe_mma operands must be contiguous and 16-byte aligned")
     out = torch.empty((SIZE, SIZE), dtype=torch.float32, device=a.device)
     _build.launch("pddm_probe_mma", a.data_ptr(), b.data_ptr(), out.data_ptr(),
                   int(a.dtype == torch.bfloat16))

@@ -30,12 +30,21 @@ from probabilisticdeepdiffusionmodels_tpu.ops.groupnorm_pallas import (
 from probabilisticdeepdiffusionmodels_torch.ops import (
     conv_design,
     gn_affine,
+    gn_affine_grad,
+    gn_affine_grad_plain,
+    gn_affine_plain,
     gn_silu_conv3x3,
     gn_silu_conv3x3_plain,
     group_norm_silu,
     group_norm_silu_plain,
+    groupnorm_design,
     qkv_attention,
     qkv_attention_plain,
+)
+from probabilisticdeepdiffusionmodels_torch.ops.groupnorm import (
+    _launch as groupnorm_launch,
+    fused_plan,
+    moments_plan,
 )
 
 
@@ -143,6 +152,147 @@ def test_gn_affine_matches_jax(mode, cout):
     np.testing.assert_allclose(off.numpy(), np.asarray(off_j), rtol=2e-5, atol=2e-5)
 
 
+def _affine_case(mode, shape, seed, dtype=np.float32):
+    """x (B, *spatial, C), gamma, beta and the mode's conditioning; the FiLM
+    pair is the two halves of one (B, 2C) tensor, as the ResBlock chunks it."""
+    rng = np.random.RandomState(seed)
+    b, c = shape[0], shape[-1]
+    x = (rng.randn(*shape) + 0.3).astype(dtype)
+    gamma, beta = rng.randn(c).astype(np.float32), rng.randn(c).astype(np.float32)
+    emb = rng.randn(b, c).astype(dtype) if mode == "emb" else None
+    both = rng.randn(b, 2 * c).astype(dtype) if mode == "film" else None
+    return x, gamma, beta, emb, both
+
+
+def _affine_kwargs(emb, both, to):
+    """emb= / film= for the JAX function or the port's (``to`` converts)."""
+    if both is not None:
+        half = both.shape[1] // 2
+        both = to(both)
+        return dict(film=(both[:, :half], both[:, half:]))
+    return dict(emb=None if emb is None else to(emb))
+
+
+@pytest.mark.parametrize("mode", ["plain", "emb", "film"])
+def test_gn_affine_cpu_is_the_plain_version(mode):
+    """On a CPU tensor the wrapper is the plain version, bit for bit, and
+    counts no launch."""
+    x, gamma, beta, emb, both = _affine_case(mode, (2, 6, 6, 64), 4)
+    kw = _affine_kwargs(emb, both, _t)
+    gn_affine.launches = 0
+    got = gn_affine(_t(x), _t(gamma), _t(beta), 32, 1e-5, **kw)
+    want = gn_affine_plain(_t(x), _t(gamma), _t(beta), 32, 1e-5, **kw)
+    assert gn_affine.launches == 0
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_gn_affine_strided_film_matches_jax():
+    """The FiLM pair as the ResBlock hands it over: two strided views of one
+    ``chunk(2, dim=-1)``, not contiguous."""
+    x, gamma, beta, _, both = _affine_case("film", (2, 8, 8, 64), 5)
+    film = _t(both).chunk(2, dim=-1)
+    assert not film[0].is_contiguous() and not film[1].is_contiguous()
+    a_j, off_j = jax_gn_affine(jnp.asarray(x), jnp.asarray(gamma), jnp.asarray(beta), 32, 1e-5,
+                               **_affine_kwargs(None, both, jnp.asarray))
+    a, off = gn_affine(_t(x), _t(gamma), _t(beta), 32, 1e-5, film=film)
+    np.testing.assert_allclose(a.numpy(), np.asarray(a_j), rtol=2e-5, atol=2e-6)
+    np.testing.assert_allclose(off.numpy(), np.asarray(off_j), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("mode", ["plain", "emb", "film"])
+def test_gn_affine_three_channel_groups_matches_jax(mode):
+    """C = 96 in gcd(32, 96) = 32 groups of 3 channels: a group is no whole
+    number of 16-byte vectors."""
+    x, gamma, beta, emb, both = _affine_case(mode, (2, 4, 4, 96), 6)
+    a_j, off_j = jax_gn_affine(jnp.asarray(x), jnp.asarray(gamma), jnp.asarray(beta), 32, 1e-5,
+                               **_affine_kwargs(emb, both, jnp.asarray))
+    a, off = gn_affine(_t(x), _t(gamma), _t(beta), 32, 1e-5, **_affine_kwargs(emb, both, _t))
+    np.testing.assert_allclose(a.numpy(), np.asarray(a_j), rtol=2e-5, atol=2e-6)
+    np.testing.assert_allclose(off.numpy(), np.asarray(off_j), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("mode", ["plain", "emb", "film"])
+def test_gn_affine_grad_cpu_is_autograd_through_the_plain_version(mode):
+    """On CPU tensors ``gn_affine_grad`` is its plain version, which is what
+    ``backward`` through ``gn_affine`` gives; no launch is counted."""
+    x, gamma, beta, emb, both = _affine_case(mode, (2, 4, 4, 64), 9)
+    kw = _affine_kwargs(emb, both, _t)
+    rng = np.random.RandomState(10)
+    ga, goff = (_t(rng.randn(2, 64).astype(np.float32)) for _ in range(2))
+    gn_affine_grad.launches = 0
+    got = gn_affine_grad(_t(x), _t(gamma), _t(beta), 32, 1e-5, ga, goff, None, **kw)
+    want = gn_affine_grad_plain(_t(x), _t(gamma), _t(beta), 32, 1e-5, ga, goff, **kw)
+    assert gn_affine_grad.launches == 0 and len(got) == 3 + (mode == "emb") + 2 * (mode == "film")
+    leaves = [_t(x).requires_grad_(True), _t(gamma).requires_grad_(True),
+              _t(beta).requires_grad_(True)]
+    conds = ([kw["emb"]] if mode == "emb" else list(kw["film"]) if mode == "film" else [])
+    conds = [t.clone().requires_grad_(True) for t in conds]
+    kw_leaves = (dict(emb=conds[0]) if mode == "emb" else dict(film=tuple(conds))
+                 if mode == "film" else {})
+    a, off = gn_affine(*leaves, 32, 1e-5, **kw_leaves)
+    auto = torch.autograd.grad((a, off), leaves + conds, (ga, goff))
+    for p, q, r in zip(got, want, auto):
+        assert torch.equal(p, q)
+        torch.testing.assert_close(p, r, rtol=1e-6, atol=1e-7)
+
+
+# (B, N, C, itemsize, address): the CIFAR UNet's conv sites at batch 128,
+# its float32 head, a 64x64 and a 256x256 image, C = 96 and 36 (no multiple
+# of 8), a 2-byte aligned bf16 tensor, a batch of one
+_PLAN_SHAPES = [(128, 1024, 128, 2, 0), (128, 1024, 384, 2, 0), (128, 256, 512, 2, 0),
+                (128, 64, 256, 2, 0), (128, 16, 512, 2, 0), (128, 1024, 128, 4, 0),
+                (8, 4096, 128, 2, 0), (2, 65536, 128, 2, 0), (8, 256, 96, 2, 0),
+                (16, 784, 36, 2, 0), (4, 100, 64, 2, 2), (1, 50, 4100, 4, 16)]
+
+
+@pytest.mark.parametrize("b,n,c,itemsize,addr", _PLAN_SHAPES)
+def test_moments_plan_covers_every_element_once(b, n, c, itemsize, addr):
+    """The blocks of a plan, summed as the kernel sums them (a thread per
+    vector and row, rows in steps of the block's height, then the splits in
+    order), give the plain sums; vectors divide C and the address."""
+    plan = moments_plan(b, n, c, itemsize, addr)
+    assert c % plan.v == 0 and addr % (plan.v * itemsize) == 0 and 1 <= plan.cvb <= 256
+    assert plan.v == 16 // itemsize or c % (2 * plan.v) or addr % (2 * plan.v * itemsize)
+    assert plan.splits * plan.rows >= n > (plan.splits - 1) * plan.rows
+    rng = np.random.RandomState(n + c)
+    x = _t(rng.randn(n, c).astype(np.float32)).double()
+    total = torch.zeros(c, dtype=torch.float64)
+    height, chb = 256 // plan.cvb, plan.cvb * plan.v
+    for s in range(plan.splits):
+        rows = x[s * plan.rows:min(n, (s + 1) * plan.rows)]
+        for chunk in range(plan.chunks(c)):
+            part = rows[:, chunk * chb:(chunk + 1) * chb]
+            total[chunk * chb:(chunk + 1) * chb] += sum(part[ty::height].sum(0)
+                                                        for ty in range(height))
+    torch.testing.assert_close(total, x.sum(0), rtol=1e-12, atol=1e-9)
+
+
+def test_moments_plan_leaves_small_sites_whole():
+    """The 4x4 and 8x8 sites at batch 128 are one block a sample (no
+    workspace, no counter); the 32x32 ones are split to fill the card."""
+    for n, c in [(16, 256), (16, 512), (64, 256), (64, 512)]:
+        plan = moments_plan(128, n, c, 2, 0)
+        assert (plan.splits, plan.chunks(c)) == (1, 1)
+    plan = moments_plan(128, 1024, 128, 2, 0)
+    assert plan.splits > 1 and 128 * plan.splits >= 3 * 132  # three blocks an SM and more
+
+
+@pytest.mark.parametrize("n,c,groups,itemsize,fused", [
+    (256, 256, 32, 2, True), (64, 256, 32, 2, True), (16, 256, 32, 2, True),  # CIFAR norms
+    (256, 256, 32, 4, True), (256, 384, 32, 2, True), (256, 96, 32, 2, True),
+    (4096, 128, 32, 2, False), (65536, 128, 32, 2, False), (784, 36, 4, 2, False),
+])
+def test_fused_groupnorm_plan_owns_whole_groups(n, c, groups, itemsize, fused):
+    plan = fused_plan(n, c, groups, itemsize, 0)
+    assert (plan is not None) == fused
+    x = torch.empty(2, n, c, dtype=torch.bfloat16 if itemsize == 2 else torch.float32)
+    assert groupnorm_design(x, groups) == ("fused" if fused else "split")
+    if fused:
+        chunk = plan.cvb * plan.v
+        assert chunk % (c // groups) == 0 and c % plan.v == 0 and plan.cvb <= 256
+        assert (plan.splits, plan.rows) == (1, n) and n * chunk * itemsize <= 48 * 1024
+
+
 @pytest.mark.parametrize("mode,cout", _CONV_CASES)
 def test_gn_silu_conv_matches_jax(mode, cout):
     """Plain, emb and FiLM modes plus the Cout=3 output head, against the
@@ -221,7 +371,7 @@ def test_conv_weight_cast_is_reused_until_changed():
 
 
 def test_cpu_calls_leave_launch_counters_at_zero():
-    for fn in (qkv_attention, group_norm_silu, gn_silu_conv3x3):
+    for fn in (qkv_attention, group_norm_silu, gn_silu_conv3x3, gn_affine):
         fn.launches = 0
     x = torch.randn(1, 4, 4, 32)
     qkv_attention(torch.randn(1, 16, 96), 1)
@@ -229,7 +379,7 @@ def test_cpu_calls_leave_launch_counters_at_zero():
     a, off = gn_affine(x, torch.ones(32), torch.zeros(32), 32, 1e-5)
     gn_silu_conv3x3(x, a, off, torch.randn(3, 3, 8, 32), torch.zeros(8))
     assert (qkv_attention.launches, group_norm_silu.launches,
-            gn_silu_conv3x3.launches) == (0, 0, 0)
+            gn_silu_conv3x3.launches, gn_affine.launches) == (0, 0, 0, 0)
 
 
 # ------------------------------------------------------------- on the card
@@ -274,22 +424,40 @@ def test_card_attention_kernel_matches_plain(dtype):
                                    atol=_TOL[dtype])
 
 
+# (shape, groups): the CIFAR UNet's three attention norms; unet_celebahq64's
+# (384 and 512 channels at 16x16 and 8x8); 96 channels in groups of 3 and
+# MNIST's 28x28 with 36 channels in groups of 9; then the split design: a
+# 64x64 and a 256x256 image of 128 channels
+_GN_SHAPES = [((128, 256, 256), 32), ((128, 64, 256), 32), ((128, 16, 256), 32),
+              ((8, 256, 384), 32), ((8, 64, 512), 32), ((8, 16, 16, 96), 32),
+              ((16, 28, 28, 36), 4), ((2, 4096, 128), 32), ((2, 256, 256, 128), 32)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_card_groupnorm_kernel_matches_plain(dtype):
+    """Both designs where both apply, with two runs of each compared bit
+    for bit."""
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(1)
-    # the CIFAR UNet's three attention norms, then a 64x64 image of 128 channels
-    for shape in [(128, 256, 256), (128, 64, 256), (128, 16, 256), (2, 4096, 128)]:
+    for shape, groups in _GN_SHAPES:
         x = (torch.randn(shape, device="cuda", generator=gen) + 0.5).to(dtype)
         gamma = torch.randn(shape[-1], device="cuda", generator=gen)
         beta = torch.randn(shape[-1], device="cuda", generator=gen)
+        designs = {groupnorm_design(x, groups), "split"}
         for silu in (False, True):
-            out = group_norm_silu(x, gamma, beta, 32, silu=silu)
+            ref = group_norm_silu_plain(x, gamma, beta, groups, silu=silu)
+            out = group_norm_silu(x, gamma, beta, groups, silu=silu)
             torch.cuda.synchronize()
-            ref = group_norm_silu_plain(x, gamma, beta, 32, silu=silu)
             torch.testing.assert_close(out.float(), ref.float(), rtol=_TOL[dtype],
                                        atol=_TOL[dtype])
+            for design in designs:
+                runs = [groupnorm_launch(x, gamma, beta, groups, 1e-5, silu, design)
+                        for _ in range(2)]
+                torch.cuda.synchronize()
+                assert torch.equal(runs[0], runs[1]), (shape, design)
+                torch.testing.assert_close(runs[0].float(), ref.float(), rtol=_TOL[dtype],
+                                           atol=_TOL[dtype])
 
 
 @pytest.mark.gpu
@@ -308,6 +476,136 @@ def test_card_gn_conv_kernel_matches_plain(dtype):
         ref = gn_silu_conv3x3_plain(x, a, off, wt, bias)
         torch.testing.assert_close(out.float(), ref.float(), rtol=_TOL[dtype],
                                    atol=_TOL[dtype])
+
+
+# (shape, groups): every gn_affine site of the CIFAR UNet's forward at batch
+# 128; unet_celebahq64's 64x64 input and widest site; 96 channels in groups
+# of 3; MNIST's 28x28 (32 channels, and 36 in groups of 9); a 256x256 image
+# (a sample split over 256 blocks); a wide one whose channels take two chunks
+_AFFINE_SHAPES = [((128, 32, 32, 128), 32), ((128, 32, 32, 256), 32), ((128, 32, 32, 384), 32),
+                  ((128, 16, 16, 128), 32), ((128, 16, 16, 256), 32), ((128, 16, 16, 384), 32),
+                  ((128, 16, 16, 512), 32), ((128, 8, 8, 256), 32), ((128, 8, 8, 512), 32),
+                  ((128, 4, 4, 256), 32), ((128, 4, 4, 512), 32), ((8, 64, 64, 128), 32),
+                  ((8, 8, 8, 1024), 32), ((8, 16, 16, 96), 32), ((16, 28, 28, 32), 32),
+                  ((16, 28, 28, 36), 4), ((2, 256, 256, 128), 32), ((4, 8, 8, 4096), 32)]
+
+
+def _affine_tol(ref):
+    # float32 outputs, sums in another order than torch.mean's
+    return 1e-4 * max(1.0, float(ref.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_card_gn_affine_kernel_matches_plain(dtype):
+    """Moments + fold against the plain version at every site shape, in the
+    three modes (the FiLM pair as strided halves of one tensor), with two
+    runs compared bit for bit."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for shape, groups in _AFFINE_SHAPES:
+        b, c = shape[0], shape[-1]
+        x = (torch.randn(shape, device="cuda", generator=gen) + 0.5).to(dtype)
+        gamma = torch.randn(c, device="cuda", generator=gen)
+        beta = torch.randn(c, device="cuda", generator=gen)
+        emb = torch.randn(b, c, device="cuda", generator=gen).to(dtype)
+        film = torch.randn(b, 2 * c, device="cuda", generator=gen).to(dtype).chunk(2, dim=-1)
+        for kw in ({}, {"emb": emb}, {"film": film}):
+            before = gn_affine.launches
+            runs = [gn_affine(x, gamma, beta, groups, 1e-5, **kw) for _ in range(2)]
+            torch.cuda.synchronize()
+            assert gn_affine.launches == before + 2
+            ref = gn_affine_plain(x, gamma, beta, groups, 1e-5, **kw)
+            for got, again, want in zip(runs[0], runs[1], ref):
+                assert got.dtype == torch.float32 and got.shape == (b, c)
+                assert torch.equal(got, again), (shape, sorted(kw))
+                err = float((got - want).abs().max())
+                assert err <= _affine_tol(want), (shape, sorted(kw), err)
+
+
+@pytest.mark.gpu
+def test_card_gn_affine_narrow_vectors_and_rules():
+    """A bf16 tensor whose address is only 2-byte aligned takes scalar
+    loads, not the plain version; what the kernel does not take raises."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    flat = torch.randn(1 + 4 * 10 * 10 * 64, device="cuda", generator=gen).to(torch.bfloat16)
+    x = flat[1:].view(4, 10, 10, 64)
+    assert x.data_ptr() % 4 == 2 and x.is_contiguous()
+    gamma, beta = torch.ones(64, device="cuda"), torch.zeros(64, device="cuda")
+    before = gn_affine.launches
+    got = gn_affine(x, gamma, beta, 32, 1e-5)
+    torch.cuda.synchronize()
+    assert gn_affine.launches == before + 1
+    for p, q in zip(got, gn_affine_plain(x, gamma, beta, 32, 1e-5)):
+        assert float((p - q).abs().max()) <= _affine_tol(q)
+    out = group_norm_silu(x, gamma, beta, 32)
+    torch.testing.assert_close(out.float(), group_norm_silu_plain(x, gamma, beta, 32).float(),
+                               rtol=5e-2, atol=5e-2)
+    with pytest.raises(ValueError, match="contiguous"):
+        gn_affine(x.transpose(1, 2), gamma, beta, 32, 1e-5)
+    with pytest.raises(ValueError, match="float32/bfloat16"):
+        gn_affine(x.double(), gamma, beta, 32, 1e-5)
+    with pytest.raises(ValueError, match="not both"):
+        gn_affine(x, gamma, beta, 32, 1e-5, emb=torch.zeros(4, 64, device="cuda"),
+                  film=(torch.zeros(4, 64, device="cuda"),) * 2)
+
+
+# the backward kernels compute the gradient by its formula, autograd by the
+# chain of the plain version's ops: float32 sums in another order
+_AFFINE_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_card_gn_affine_gradients_match_plain(dtype):
+    """``backward`` through ``gn_affine`` on the card (the fold's backward
+    kernel and the apply kernel) against autograd through the plain version,
+    at a 32x32, a 16x16 and a 4x4 site and groups of 3 channels, in the three
+    modes; the backward counts one launch of ``gn_affine_grad`` and none of
+    ``gn_affine``."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for (b, h, c), mode in [((128, 32, 128), "emb"), ((128, 16, 384), "film"),
+                            ((128, 4, 512), "plain"), ((8, 16, 96), "emb"),
+                            ((8, 16, 96), "film")]:
+        x = (torch.randn(b, h, h, c, device="cuda", generator=gen) + 0.5).to(dtype)
+        conds = ([torch.randn(b, c, device="cuda", generator=gen).to(dtype)] if mode == "emb"
+                 else list(torch.randn(b, 2 * c, device="cuda", generator=gen).to(dtype)
+                           .chunk(2, dim=-1)) if mode == "film" else [])
+        leaves = [x, torch.randn(c, device="cuda", generator=gen),
+                  torch.randn(c, device="cuda", generator=gen), *conds]
+        leaves = [t.detach().requires_grad_(True) for t in leaves]
+        g = [torch.randn(b, c, device="cuda", generator=gen) for _ in range(2)]
+
+        def call(fn):
+            kw = (dict(emb=leaves[3]) if mode == "emb" else dict(film=tuple(leaves[3:]))
+                  if mode == "film" else {})
+            return fn(*leaves[:3], 32, 1e-5, **kw)
+
+        out = call(gn_affine)
+        launched = (gn_affine.launches, gn_affine_grad.launches)
+        got = torch.autograd.grad(out, leaves, g)
+        torch.cuda.synchronize()
+        assert (gn_affine.launches, gn_affine_grad.launches) == (launched[0], launched[1] + 1)
+        want = torch.autograd.grad(call(gn_affine_plain), leaves, g)
+        for i, (p, q) in enumerate(zip(got, want)):
+            assert p.dtype == q.dtype == leaves[i].dtype and p.shape == q.shape
+            scale = float(q.float().abs().max())
+            err = float((p.float() - q.float()).abs().max())
+            assert err <= _AFFINE_GRAD_TOL[dtype] * scale, (b, h, c, mode, i, err, scale)
+        # only the offset used, and x alone wanting a gradient
+        x_only = leaves[0].detach().requires_grad_(True)
+        kw = (dict(emb=leaves[3].detach()) if mode == "emb"
+              else dict(film=tuple(t.detach() for t in leaves[3:])) if mode == "film" else {})
+        off = gn_affine(x_only, leaves[1].detach(), leaves[2].detach(), 32, 1e-5, **kw)[1]
+        got = torch.autograd.grad(off, x_only, g[1])[0]
+        x_ref = leaves[0].detach().requires_grad_(True)
+        want = torch.autograd.grad(
+            gn_affine_plain(x_ref, leaves[1].detach(), leaves[2].detach(), 32, 1e-5, **kw)[1],
+            x_ref, g[1])[0]
+        scale = float(want.float().abs().max())
+        assert float((got.float() - want.float()).abs().max()) <= _AFFINE_GRAD_TOL[dtype] * scale
 
 
 # the main path's gradient sites: a 32x32 ResBlock conv, a 16x16 one, the
