@@ -37,7 +37,17 @@
 7. a second model: one bf16 forward of ``unet_celebahq64`` at 64x64 (head
    widths 96 and 128, FiLM conditioning) at batch 8 on the kernels, with
    the launch counts asserted, against the same model on the plain versions,
-   and ``gn_affine`` held against its plain version at each of its FiLM sites.
+   and ``gn_affine`` held against its plain version at each of its FiLM sites;
+8. the command-line entry points at the CIFAR-10 UNet's full width (bf16,
+   ``engine=cifar10``, ``data=synthetic`` with 1,280 images at batch 128):
+   ``cli.train`` (10 steps, 10 validation batches, a checkpoint, the final
+   NLL test at T=1000 on one batch), a ``cont_run`` resume (steps 10 to 20),
+   ``cli.eval`` on the first run (equal to its ``final_test.json``) and
+   ``cli.sample``'s 250-step grid of 4 (finite, in [-1, 1]), each with its
+   launch counts asserted; each kernel against its plain version on the
+   inputs the grid's first steps give it (batch 4, bf16, the run's weights);
+   then the float32 NLL at T=50 and the float32 grid path at batch 4 on the
+   kernels against the plain versions.
 
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Any failure raises and
@@ -98,6 +108,19 @@ RECOMPUTE_TOL = 1e-2
 TRAIN_BATCH = 128      # scripts/bench_train.py's first batch size
 TRAIN_WARMUP, TRAIN_STEPS, TRAIN_PASSES = 3, 10, 2
 IMPORTANCE_STEPS = 3
+# the cli phase: the port's CIFAR-10 config at full width in bf16, cut to one
+# epoch of 10 steps on synthetic data (no dataset can be downloaded)
+CLI_ARGS = ["model=unet", "model.compute_dtype=bfloat16", "engine=cifar10", "data=synthetic",
+            "data.n=1280", "data.batch_size=128", "engine.ema=0.9999", "trainer.max_epochs=1",
+            "trainer.check_val_every_n_epoch=1", "trainer.limit_test_batches=1",
+            "visualization=none"]
+NLL_T = 1000
+EVAL_REL_TOL = 1e-6    # cli.eval against the train CLI's final test: same weights, batch, seed
+GRID_STEPS, GRID_N = 250, 4
+GRID_CHECK_STEPS = 10  # the grid path at batch GRID_N against the plain versions
+NLL_CHECK_T, NLL_CHECK_BATCH = 50, 8
+NLL_CHECK_TOL = 1e-4   # float32 NLL terms, kernels vs plain, of max(1, |ref|)
+NLL_PROFILE_T = 10     # a profiled bf16 NLL batch: the per-t device work and idle share
 
 # H100 SXM published peaks (NVIDIA data sheet), dense
 PEAK_BYTES = 3.35e12
@@ -283,6 +306,47 @@ def library_call(torch, F, name, args, kwargs):
     return lambda: F.conv2d(y, w_oihw, b, padding=1)
 
 
+def as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def hold(torch, ops, name, a, kw):
+    """The kernel and its plain version on one recorded call's inputs:
+    (kernel outputs, plain outputs, max abs err, tolerance).  bf16 outputs:
+    2e-2, float32 outputs: 1e-4, of max(1, max|ref|); the output furthest
+    into its tolerance is reported."""
+    with torch.no_grad():
+        outs = as_tuple(ops.wrappers[name](*a, **kw))
+        torch.cuda.synchronize()
+        refs = as_tuple(ops.plain[name](*a, **kw))
+    err, tol = 0.0, 1.0
+    for out, ref in zip(outs, refs):
+        e = float((out.float() - ref.float()).abs().max())
+        t = ((2e-2 if ref.dtype == torch.bfloat16 else 1e-4)
+             * max(1.0, float(ref.float().abs().max())))
+        if not e <= t or e / t >= err / tol:
+            err, tol = e, t
+    return outs, refs, err, tol
+
+
+def hold_sites(torch, ops, calls):
+    """Each recorded call's kernel against its plain version, untimed; one
+    entry per distinct call, raising where one is over its tolerance."""
+    sites = []
+    for entry in calls.values():
+        name, a, kw = entry["name"], entry["args"], entry["kwargs"]
+        _, _, err, tol = hold(torch, ops, name, a, kw)
+        sites.append({"kernel": name, "shape": list(a[0].shape),
+                      "dtype": str(a[0].dtype).replace("torch.", ""),
+                      "design": design(ops, name, a), "calls": entry["count"],
+                      "max_abs_err": err, "tol": tol})
+    for site in sites:
+        if not site["max_abs_err"] <= site["tol"]:
+            raise AssertionError(f"{site['kernel']} {site['shape']} {site['dtype']}: kernel "
+                                 f"vs plain max abs err {site['max_abs_err']} > {site['tol']}")
+    return sites
+
+
 def check_sites(torch, F, ops, calls, per_site, summary=None, only=None):
     """Hold each recorded call's kernel against its plain version on the
     recorded inputs, time both and the library call, and emit one
@@ -292,23 +356,11 @@ def check_sites(torch, F, ops, calls, per_site, summary=None, only=None):
         if only is not None and name not in only:
             continue
         kernel = ops.wrappers[name]
-        as_tuple = lambda out: out if isinstance(out, tuple) else (out,)
         nbytes, flops, dtype = work(name, a, kw)
         t_bytes = nbytes / PEAK_BYTES * 1e3
         t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        outs, refs, err, tol = hold(torch, ops, name, a, kw)
         with torch.no_grad():
-            outs = as_tuple(kernel(*a, **kw))
-            torch.cuda.synchronize()
-            refs = as_tuple(ops.plain[name](*a, **kw))
-            # bf16 outputs: 2e-2, float32 outputs: 1e-4, of max(1, max|ref|);
-            # the output furthest into its tolerance is reported
-            err, tol = 0.0, 1.0
-            for out, ref in zip(outs, refs):
-                e = float((out.float() - ref.float()).abs().max())
-                t = ((2e-2 if ref.dtype == torch.bfloat16 else 1e-4)
-                     * max(1.0, float(ref.float().abs().max())))
-                if not e <= t or e / t >= err / tol:
-                    err, tol = e, t
             ms = sync_time(torch, lambda: kernel(*a, **kw))
             plain_ms = sync_time(torch, lambda: ops.plain[name](*a, **kw))
             lib_ms = sync_time(torch, library_call(torch, F, name, a, kw))
@@ -612,7 +664,7 @@ def probe_phase(torch):
 
 def train_phases(torch, ops, model, gen):
     """The training phases; returns the train step's kernel launches per
-    pass and its device profile by kernel name."""
+    pass, its device profile by kernel name and its timed passes."""
     from probabilisticdeepdiffusionmodels_torch.core import (
         DiffusionTables,
         NoiseSchedule,
@@ -758,7 +810,7 @@ def train_phases(torch, ops, model, gen):
     if uniform_w or not all(math.isfinite(v) for v in losses) or ops.counts() != imp_expected:
         raise AssertionError(f"importance steps: weights all 1/B {uniform_w}, losses "
                              f"{losses}, launches {ops.counts()}")
-    return train_launches, all_kernels
+    return train_launches, all_kernels, passes
 
 
 def celeba_phase(torch, F, ops, per_site):
@@ -805,6 +857,212 @@ def celeba_phase(torch, F, ops, per_site):
         model(x, t)
     torch.cuda.synchronize()
     check_sites(torch, F, ops, calls, per_site, only=("gn_affine",))
+
+
+@contextlib.contextmanager
+def timing_calls(owner, names, log):
+    """Time each call of ``owner``'s methods ``names`` by the host clock,
+    ending in a synchronise, into ``log[name]``."""
+    import torch
+
+    saved = {name: getattr(owner, name) for name in names}
+
+    def make(name, real):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+            out = real(*args, **kwargs)
+            torch.cuda.synchronize()
+            log.setdefault(name, []).append(time.perf_counter() - t_start)
+            return out
+        return run
+
+    try:
+        for name, real in saved.items():
+            setattr(owner, name, make(name, real))
+        yield log
+    finally:
+        for name, real in saved.items():
+            setattr(owner, name, real)
+
+
+def cli_phase(torch, ops, smi, bare_passes, out_dir=None):
+    """The command-line entry points on the card, each with the counts set
+    to 0 before it and its launches asserted; returns the launches by entry
+    point.  The runs go to ``runs/chip_smoke_cli`` beside this script and
+    are deleted at the end (their checkpoints hold about 0.8 GB each)."""
+    import importlib.util
+    import shutil
+
+    import numpy as np
+
+    from probabilisticdeepdiffusionmodels_torch.cli import eval as cli_eval
+    from probabilisticdeepdiffusionmodels_torch.cli import sample as cli_sample
+    from probabilisticdeepdiffusionmodels_torch.cli import train as cli_train
+    from probabilisticdeepdiffusionmodels_torch.config import load_config
+    from probabilisticdeepdiffusionmodels_torch.engine import DiffusionEngine
+
+    root = ROOT / "runs" / "chip_smoke_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = load_config("default", CLI_ARGS)
+    train_loader, val_loader = cli_train.build_loaders(cfg)
+    n_steps, n_val = len(train_loader), len(val_loader)
+    batch = int(cfg["data"]["batch_size"])
+    grad_per_step = PER_BACKWARD["gn_affine_grad"]
+    args = CLI_ARGS + [f"out_dir={root}"]
+    launches, timed, readings = {}, {}, {}
+    test_keys = ("test_nll", "test_L_0", "test_L_intermediate", "test_L_T", "test_mse")
+
+    def run(name, fn, expected):
+        ops.reset()
+        t_start = time.perf_counter()
+        with timing_calls(DiffusionEngine, ("test_step", "generate_images"), timed):
+            result = fn()
+        readings[f"{name}_seconds"] = time.perf_counter() - t_start
+        launches[name] = ops.counts()
+        if launches[name] != expected:
+            raise AssertionError(f"{name} launches {launches[name]} != {expected}")
+        return result
+
+    try:
+        # 1. train: n_steps steps, n_val validation batches on the EMA and
+        # the live weights, one checkpoint, the NLL test on one val batch
+        trained = run("cli_train", lambda: cli_train.main(args + ["run_name=smoke"]),
+                      dict(expected_counts(n_steps + 2 * n_val + NLL_T, False),
+                           gn_affine_grad=n_steps * grad_per_step))
+        run_dir = pathlib.Path(trained["run_dir"])
+        final = json.loads((run_dir / "final_test.json").read_text())
+        rows = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+        epoch_s = next(r["epoch_time_s"] for r in rows if "epoch_time_s" in r)
+        if trained["steps"] != n_steps or not all(math.isfinite(final[k]) for k in test_keys):
+            raise AssertionError(f"cli.train: {final}")
+        readings["nll_batch_seconds_train_cli"] = timed["test_step"][-1]
+
+        # 2. resume from the run's checkpoint, no final test
+        resumed = run("cli_resume", lambda: cli_train.main(
+            args + ["cont_run=smoke", "run_name=smoke_resumed", "trainer.limit_test_batches=0"]),
+            dict(expected_counts(n_steps + 2 * n_val, False),
+                 gn_affine_grad=n_steps * grad_per_step))
+        if resumed["steps"] != 2 * n_steps:
+            raise AssertionError(f"cont_run: {resumed['steps']} steps, expected {2 * n_steps}")
+
+        # 3. eval: the best checkpoint, the same val batch and seed
+        evaluated = run("cli_eval", lambda: cli_eval.main(
+            [f"run_dir={run_dir}", "use_train_data=false", "trainer.limit_test_batches=1"]),
+            expected_counts(NLL_T, False))
+        readings["nll_batch_seconds"] = timed["test_step"][-1]
+        eval_err = {k: abs(evaluated[k] - final[k]) / max(abs(final[k]), 1e-30)
+                    for k in test_keys}
+
+        # the device's share of an NLL batch: the same batch and width at a
+        # short T (each t runs the same work), profiled and unprofiled
+        cfg_p = load_config("default", CLI_ARGS + [f"engine.diffusion_steps={NLL_PROFILE_T}",
+                                                   "engine.ema=null"])
+        engine_p = cli_train.build_engine(cfg_p)
+        x_val = next(iter(val_loader))[0]
+        nll_prof = profile_device(torch, lambda: engine_p.test_step(x_val, use_ema=False))
+        nll_prof.pop("all")
+        unprofiled = []
+        with timing_calls(DiffusionEngine, ("test_step",), {"test_step": unprofiled}):
+            engine_p.test_step(x_val, use_ema=False)
+        nll_prof = {"T": NLL_PROFILE_T, "seconds_unprofiled": unprofiled[-1],
+                    "idle_share_unprofiled": 1.0 - nll_prof["device_busy_ms"] / 1e3
+                    / unprofiled[-1], **nll_prof}
+        del engine_p
+
+        # 4. sample: the respaced ancestral grid
+        sampled = run("cli_sample", lambda: cli_sample.main(
+            [f"run_dir={run_dir}", "regular_viz=false", f"num_sample_steps={GRID_STEPS}",
+             f"n_random={GRID_N}"]), expected_counts(GRID_STEPS, False))
+        readings["grid_seconds"] = timed["generate_images"][-1]
+        images = sampled["images"]
+        png = pathlib.Path(sampled["path"])
+        png_bytes = png.stat().st_size
+
+        # the grid's own shapes (batch GRID_N, bf16, the run's weights): each
+        # kernel against its plain version on the inputs that the first
+        # steps of the same grid give it
+        engine_s, _ = cli_sample.load_engine_from_run(run_dir)
+        calls = {}
+        with ops.recording(calls):
+            engine_s.generate_images(n=GRID_N, minibatch=GRID_N, seed=0,
+                                     num_sample_steps=GRID_CHECK_STEPS)
+        grid_sites = hold_sites(torch, ops, calls)
+        del engine_s, calls
+
+        # 5. float32 NLL, kernels against plain versions, same weights and seed
+        cfg32 = load_config("default", CLI_ARGS + [
+            "model.compute_dtype=float32", f"engine.diffusion_steps={NLL_CHECK_T}",
+            "engine.ema=null"])
+        engine32 = cli_train.build_engine(cfg32)
+        fill_zero_params(torch, engine32.state.model, seed=12)
+        x = next(iter(val_loader))[0][:NLL_CHECK_BATCH]
+        ops.reset()
+        got = engine32.calculate_likelihood(x, seed=13, use_ema=False)
+        torch.cuda.synchronize()
+        launches["nll_f32"] = ops.counts()
+        with ops.plain_versions():
+            ref = engine32.calculate_likelihood(x, seed=13, use_ema=False)
+        if launches["nll_f32"] != expected_counts(NLL_CHECK_T, False) or \
+                ops.counts() != launches["nll_f32"]:
+            raise AssertionError(f"float32 NLL launches {launches['nll_f32']}, then "
+                                 f"{ops.counts()} with the plain versions")
+        nll_err = {k: float(((got[k] - ref[k]).abs() / ref[k].abs().clamp(min=1.0)).max())
+                   for k in ref}
+        # the grid path at batch GRID_N in float32, kernels against plain
+        # versions, with the same weights and seed
+        grid_kw = dict(n=GRID_N, minibatch=GRID_N, seed=0, use_ema=False,
+                       num_sample_steps=GRID_CHECK_STEPS)
+        ops.reset()
+        grid32 = engine32.generate_images(**grid_kw)
+        torch.cuda.synchronize()
+        launches["grid_f32"] = ops.counts()
+        with ops.plain_versions():
+            grid32_ref = engine32.generate_images(**grid_kw)
+        if launches["grid_f32"] != expected_counts(GRID_CHECK_STEPS, False) or \
+                ops.counts() != launches["grid_f32"]:
+            raise AssertionError(f"float32 grid launches {launches['grid_f32']}, then "
+                                 f"{ops.counts()} with the plain versions")
+        grid32_diff = float(np.abs(grid32 - grid32_ref).max())
+        if out_dir is not None:
+            keep = out_dir / "cli"
+            keep.mkdir(exist_ok=True)
+            for path in (run_dir / "final_test.json", run_dir / "metrics.jsonl", png):
+                shutil.copy(path, keep / path.name)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    bare = [p["img_per_s"] for p in bare_passes]
+    emit({"phase": "cli", "nvidia_smi": smi, "steps": n_steps, "batch": batch,
+          "val_batches": n_val, "nll_T": NLL_T,
+          "train_cli_img_per_s": n_steps * batch / epoch_s, "train_cli_epoch_seconds": epoch_s,
+          "bare_train_step_img_per_s": bare, **readings,
+          "final_test": {k: final[k] for k in test_keys}, "eval_rel_err": eval_err,
+          "eval_rel_tol": EVAL_REL_TOL, "resumed_steps": resumed["steps"],
+          "grid": {"steps": GRID_STEPS, "n": GRID_N, "png_bytes": png_bytes,
+                   "abs_max": float(np.abs(images).max()),
+                   "finite": bool(np.isfinite(images).all()),
+                   "sites_vs_plain": grid_sites,
+                   "f32_vs_plain": {"steps": GRID_CHECK_STEPS, "max_abs_diff": grid32_diff,
+                                    "tol": F32_CHAIN_TOL}},
+          "nll_profile": nll_prof,
+          "python_has": {name: importlib.util.find_spec(name) is not None
+                         for name in ("yaml", "matplotlib")},
+          "nll_f32_vs_plain": {"T": NLL_CHECK_T, "batch": NLL_CHECK_BATCH, "rel_err": nll_err,
+                               "tol": NLL_CHECK_TOL},
+          "launches": launches})
+    if not max(eval_err.values()) <= EVAL_REL_TOL:
+        raise AssertionError(f"cli.eval differs from the train CLI's final test: {eval_err}")
+    if images.shape != (GRID_N, RESOLUTION, RESOLUTION, 3) or not np.isfinite(images).all() \
+            or not np.abs(images).max() <= 1.0 or not png_bytes:
+        raise AssertionError(f"cli.sample: images {images.shape}, abs max "
+                             f"{np.abs(images).max()}, png {png_bytes} bytes")
+    if not max(nll_err.values()) <= NLL_CHECK_TOL:
+        raise AssertionError(f"float32 NLL: kernels vs plain {nll_err}")
+    if not grid32_diff <= F32_CHAIN_TOL:
+        raise AssertionError(f"float32 grid: kernels vs plain differ by {grid32_diff}")
+    return {name: launches[name] for name in ("cli_train", "cli_resume", "cli_eval",
+                                              "cli_sample")}
 
 
 def main(argv=None) -> int:
@@ -969,10 +1227,13 @@ def main(argv=None) -> int:
     summary["probe_mma"] = probe_phase(torch)
 
     # 6. training
-    train_launches, train_profile = train_phases(torch, ops, model, gen)
+    train_launches, train_profile, train_passes = train_phases(torch, ops, model, gen)
 
     # 7. unet_celebahq64, bf16, kernels against plain versions
     celeba_phase(torch, F, ops, per_site)
+
+    # 8. the command-line entry points
+    cli_launches = cli_phase(torch, ops, smi, train_passes, args.out)
 
     if args.out is not None:
         (args.out / "chip_smoke_sites.json").write_text(json.dumps(
@@ -983,7 +1244,8 @@ def main(argv=None) -> int:
     # step for the backward kernel, the probe's entry point for the probe
     main_launches = dict(launches, probe_mma=summary["probe_mma"].pop("launches"),
                          **{name: train_launches[name] for name in PER_BACKWARD})
-    by_path = {name: {"sampler_bf16": launches[name], "train_step_bf16": train_launches[name]}
+    by_path = {name: {"sampler_bf16": launches[name], "train_step_bf16": train_launches[name],
+                      **{path: counts[name] for path, counts in cli_launches.items()}}
                for name in (*PER_FORWARD, *PER_BACKWARD)}
     by_path["probe_mma"] = {"probe": main_launches["probe_mma"]}
     emit({"kernels": [

@@ -34,7 +34,11 @@ __all__ = [
     "xstart_from_epsilon",
     "model_mean_from_epsilon",
     "p_step",
+    "learned_logvar",
     "mean_flat",
+    "normal_kl",
+    "approx_standard_normal_cdf",
+    "discretized_gaussian_log_likelihood",
     "timestep_embedding",
 ]
 
@@ -177,9 +181,59 @@ def p_step(tables: DiffusionTables, x_t: torch.Tensor, t: torch.Tensor,
     return mean - sigma * z * nonterminal
 
 
+def learned_logvar(tables: DiffusionTables, t: torch.Tensor, v: torch.Tensor,
+                   ndim: int) -> torch.Tensor:
+    """IDDPM learned log-variance: the model's v in [-1, 1] interpolates
+    between log beta_t and the clipped log beta-tilde_t."""
+    frac = (v + 1.0) / 2.0
+    log_beta = torch.log(expand_to(tables.betas, t, ndim))
+    log_beta_tilde = expand_to(tables.posterior_log_variance_clipped, t, ndim)
+    return frac * log_beta + (1.0 - frac) * log_beta_tilde
+
+
 def mean_flat(x: torch.Tensor) -> torch.Tensor:
     """Mean over all non-batch dims."""
     return x.mean(dim=tuple(range(1, x.ndim)))
+
+
+def _as_f32(value, like: torch.Tensor) -> torch.Tensor:
+    if isinstance(value, torch.Tensor):
+        return value
+    return torch.tensor(value, dtype=torch.float32, device=like.device)
+
+
+def normal_kl(mean1, logvar1, mean2, logvar2) -> torch.Tensor:
+    """Broadcasted KL between diagonal Gaussians; Python numbers are float32
+    scalars, as in JAX.  At least one argument is a tensor."""
+    like = next(v for v in (mean1, logvar1, mean2, logvar2) if isinstance(v, torch.Tensor))
+    mean1, logvar1, mean2, logvar2 = (_as_f32(v, like) for v in (mean1, logvar1, mean2, logvar2))
+    return 0.5 * (
+        -1.0
+        + logvar2
+        - logvar1
+        + torch.exp(logvar1 - logvar2)
+        + ((mean1 - mean2) ** 2) * torch.exp(-logvar2)
+    )
+
+
+def approx_standard_normal_cdf(x: torch.Tensor) -> torch.Tensor:
+    """Tanh approximation of the standard-normal CDF."""
+    return 0.5 * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi) * (x + 0.044715 * torch.pow(x, 3))))
+
+
+def discretized_gaussian_log_likelihood(x: torch.Tensor, means: torch.Tensor,
+                                        log_scales: torch.Tensor) -> torch.Tensor:
+    """Log-likelihood of images discretized to 256 bins under a Gaussian; x
+    in [-1, 1], the two edge bins open-ended."""
+    centered_x = x - means
+    inv_stdv = torch.exp(-log_scales)
+    cdf_plus = approx_standard_normal_cdf(inv_stdv * (centered_x + 1.0 / 255.0))
+    cdf_min = approx_standard_normal_cdf(inv_stdv * (centered_x - 1.0 / 255.0))
+    log_cdf_plus = torch.log(torch.clamp(cdf_plus, min=1e-12))
+    log_one_minus_cdf_min = torch.log(torch.clamp(1.0 - cdf_min, min=1e-12))
+    log_cdf_delta = torch.log(torch.clamp(cdf_plus - cdf_min, min=1e-12))
+    return torch.where(x < -0.999, log_cdf_plus,
+                       torch.where(x > 0.999, log_one_minus_cdf_min, log_cdf_delta))
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,

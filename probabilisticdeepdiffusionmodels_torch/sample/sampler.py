@@ -37,16 +37,6 @@ def _model_eps(model_fn: Callable, x: torch.Tensor, t: torch.Tensor,
     return out, None
 
 
-def _learned_sigma(tables: DiffusionTables, t: torch.Tensor, v: torch.Tensor,
-                   ndim: int) -> torch.Tensor:
-    """IDDPM learned-sigma interpolation between beta and beta-tilde."""
-    frac = (v + 1.0) / 2.0
-    log_beta = torch.log(D.expand_to(tables.betas, t, ndim))
-    log_beta_tilde = D.expand_to(tables.posterior_log_variance_clipped, t, ndim)
-    logvar = frac * log_beta + (1.0 - frac) * log_beta_tilde
-    return torch.exp(0.5 * logvar)
-
-
 @torch.no_grad()
 def p_sample_loop(
     model_fn: Callable,
@@ -105,7 +95,7 @@ def p_sample_loop(
 
         if v is not None and not mean_only:
             mean = D.model_mean_from_epsilon(tables, x, t, eps, clip=clip)
-            sigma = _learned_sigma(tables, t, v, x.ndim)
+            sigma = torch.exp(0.5 * D.learned_logvar(tables, t, v, x.ndim))
             nonterminal = D.expand_to_mask(t > 1, x.ndim).to(x.dtype)
             x = mean - sigma * z * nonterminal
         else:

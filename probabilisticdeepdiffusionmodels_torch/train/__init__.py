@@ -1,5 +1,8 @@
-"""Training: the train and eval steps, the train state, the timestep samplers."""
+"""Training: the train and eval steps, the train state, the timestep
+samplers, checkpoints and the training loop (``train.loop``, which imports
+the engine and is not loaded here)."""
 
+from .checkpoint import CheckpointManager
 from .samplers import (
     LossHistory,
     importance_probs,
