@@ -47,7 +47,22 @@
    launch counts asserted; each kernel against its plain version on the
    inputs the grid's first steps give it (batch 4, bf16, the run's weights);
    then the float32 NLL at T=50 and the float32 grid path at batch 4 on the
-   kernels against the plain versions.
+   kernels against the plain versions;
+9. the IDDPM configuration through the same entry points (``iddpm_cli``): the
+   CIFAR-10 UNet at full width (bf16) under ``engine=cifar10_iddpm`` (cosine,
+   learned sigma, hybrid loss) with its T cut from 1000 to 100, and the
+   default visualization: ``cli.train`` (10 steps, the four views at the end
+   of training, the NLL test), ``cli.sample`` (the four views and the
+   detailed panels) and ``cli.eval`` (equal to the run's final test), each
+   with its launches asserted and every PNG decoded; the hybrid step's img/s
+   beside the eps step's (eps, hybrid, hybrid, eps); every kernel site the
+   five visualization endpoints reach (batch 1, 4 and 10, bf16) and the
+   endpoints in float32 (T=10, injected noise) on the kernels against the
+   plain versions; the float32 gradients of one hybrid loss (the Cout = 6
+   head's forward and backward, ``gn_affine_grad``) on the kernels against
+   the plain versions; and one bf16 batch-128 train step each of v with
+   min-SNR on a zero-terminal-SNR schedule and of x0, with exact launches
+   and no device-to-host copy.
 
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Any failure raises and
@@ -121,6 +136,19 @@ GRID_CHECK_STEPS = 10  # the grid path at batch GRID_N against the plain version
 NLL_CHECK_T, NLL_CHECK_BATCH = 50, 8
 NLL_CHECK_TOL = 1e-4   # float32 NLL terms, kernels vs plain, of max(1, |ref|)
 NLL_PROFILE_T = 10     # a profiled bf16 NLL batch: the per-t device work and idle share
+# the iddpm_cli phase: engine=cifar10_iddpm at full width in bf16 with the
+# default visualization (more); the one cut is T, 1000 to 100, which keeps
+# its ~3,300 model calls (the views, the detailed panels, two NLL tests)
+# within the time limit
+IDDPM_T = 100
+IDDPM_ARGS = ["model=unet", "model.compute_dtype=bfloat16", "engine=cifar10_iddpm",
+              "data=synthetic", "data.n=1280", "data.batch_size=128",
+              f"engine.diffusion_steps={IDDPM_T}", "trainer.max_epochs=1",
+              "trainer.check_val_every_n_epoch=1", "trainer.limit_test_batches=1"]
+ENDPOINT_CHECK_T = 10  # the five endpoints in float32, kernels vs plain
+ENDPOINT_F32_TOL = 1e-3  # max abs difference after up to 10 steps (sums in another order)
+VIEWS = ("visualize_random_grid", "visualize_interpolation", "visualize_reconstructions_grid",
+         "visualize_single_reconstructions")
 
 # H100 SXM published peaks (NVIDIA data sheet), dense
 PEAK_BYTES = 3.35e12
@@ -886,6 +914,32 @@ def timing_calls(owner, names, log):
             setattr(owner, name, real)
 
 
+def read_png(path):
+    """The 8-bit pixels [H, W, C] of a PNG that ``viz.image.write_png``
+    wrote (one IDAT chunk, no row filter), checking each chunk's CRC."""
+    import zlib
+
+    import numpy as np
+
+    data = pathlib.Path(path).read_bytes()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path}: no PNG signature")
+    pos, chunks = 8, {}
+    while pos < len(data):
+        n = int.from_bytes(data[pos:pos + 4], "big")
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if int.from_bytes(data[pos + 8 + n:pos + 12 + n], "big") != zlib.crc32(kind + body):
+            raise AssertionError(f"{path}: bad CRC in {kind}")
+        chunks[kind] = body
+        pos += 12 + n
+    w, h = int.from_bytes(chunks[b"IHDR"][:4], "big"), int.from_bytes(chunks[b"IHDR"][4:8], "big")
+    c = {0: 1, 2: 3}[chunks[b"IHDR"][9]]
+    rows = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8).reshape(h, 1 + w * c)
+    if rows[:, 0].any():
+        raise AssertionError(f"{path}: a row filter other than none")
+    return rows[:, 1:].reshape(h, w, c)
+
+
 def cli_phase(torch, ops, smi, bare_passes, out_dir=None):
     """The command-line entry points on the card, each with the counts set
     to 0 before it and its launches asserted; returns the launches by entry
@@ -1065,6 +1119,323 @@ def cli_phase(torch, ops, smi, bare_passes, out_dir=None):
                                               "cli_sample")}
 
 
+def viz_model_calls(T, vis_cfg, val_batch):
+    """Model calls of one pass of the four views at T, with the timesteps
+    that ``cli.train`` and ``cli.sample`` give them."""
+    import numpy as np
+
+    ts = sorted(set(int(t) for t in np.linspace(1, T - 1, 5 if T <= 30 else 10)))
+    pairs = min(int(vis_cfg["n_interpolation_pairs"]), val_batch // 2)
+    # random grid (one chunk of n_random from T), interpolation (each pair
+    # from T // 2), reconstruction grid (each t), single reconstruction (T)
+    return T + pairs * (T // 2) + sum(t for t in ts if 1 < t <= T) + T
+
+
+def iddpm_phase(torch, ops, smi, out_dir=None):
+    """``engine=cifar10_iddpm`` through the entry points with the default
+    visualization, each with the counts set to 0 before it and its launches
+    asserted, then the new shapes and objectives held on the card; returns
+    the launches by entry point.  The runs go to ``runs/chip_smoke_iddpm``
+    beside this script and are deleted at the end."""
+    import copy
+    import shutil
+
+    import numpy as np
+
+    from probabilisticdeepdiffusionmodels_torch.cli import eval as cli_eval
+    from probabilisticdeepdiffusionmodels_torch.cli import sample as cli_sample
+    from probabilisticdeepdiffusionmodels_torch.cli import train as cli_train
+    from probabilisticdeepdiffusionmodels_torch.config import load_config
+    from probabilisticdeepdiffusionmodels_torch.core import (
+        DiffusionTables,
+        NoiseSchedule,
+        rescale_zero_terminal_snr,
+    )
+    from probabilisticdeepdiffusionmodels_torch.engine import AdamChain, DiffusionEngine
+    from probabilisticdeepdiffusionmodels_torch.models import get_model
+    from probabilisticdeepdiffusionmodels_torch.train import TrainState, make_train_step
+    from probabilisticdeepdiffusionmodels_torch.viz.hooks import VisualizationCallback
+
+    phase_start = time.perf_counter()
+    root = ROOT / "runs" / "chip_smoke_iddpm"
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = load_config("default", IDDPM_ARGS)
+    train_loader, val_loader = cli_train.build_loaders(cfg)
+    n_steps, n_val = len(train_loader), len(val_loader)
+    batch = int(cfg["data"]["batch_size"])
+    T = IDDPM_T
+    viz_calls = viz_model_calls(T, cfg["visualization"], batch)
+    detailed_calls = 4 * sum((T, int(0.9 * T), int(0.8 * T), int(0.5 * T)))
+    args = IDDPM_ARGS + [f"out_dir={root}"]
+    launches, timed, readings = {}, {}, {}
+    test_keys = ("test_nll", "test_L_0", "test_L_intermediate", "test_L_T", "test_mse")
+    keep = None
+    if out_dir is not None:
+        keep = out_dir / "iddpm"
+        keep.mkdir(exist_ok=True)
+
+    def run(name, fn, expected):
+        ops.reset()
+        t_start = time.perf_counter()
+        with timing_calls(DiffusionEngine, ("test_step",), timed), \
+                timing_calls(VisualizationCallback, VIEWS, timed), \
+                timing_calls(cli_sample, ("run_detailed_viz",), timed):
+            result = fn()
+        readings[f"{name}_seconds"] = time.perf_counter() - t_start
+        launches[name] = ops.counts()
+        if launches[name] != expected:
+            raise AssertionError(f"{name} launches {launches[name]} != {expected}")
+        return result
+
+    def decoded(paths):
+        shapes = {}
+        for path in paths:
+            pixels = read_png(path)
+            if pixels.shape[0] < RESOLUTION or pixels.shape[2] != 3:
+                raise AssertionError(f"{path}: pixels of shape {pixels.shape}")
+            shapes[pathlib.Path(path).name] = list(pixels.shape)
+        return shapes
+
+    try:
+        # 1. train with the default visualization: its train-end pass
+        trained = run("iddpm_train", lambda: cli_train.main(args + ["run_name=iddpm"]),
+                      dict(expected_counts(n_steps + 2 * n_val + viz_calls + T, False),
+                           gn_affine_grad=n_steps * PER_BACKWARD["gn_affine_grad"]))
+        run_dir = pathlib.Path(trained["run_dir"])
+        final = json.loads((run_dir / "final_test.json").read_text())
+        if trained["steps"] != n_steps or not all(math.isfinite(final[k]) for k in test_keys):
+            raise AssertionError(f"iddpm cli.train: {final}")
+        views = [run_dir / "media" / f"{name}_final.png" for name in
+                 ("random_grid", f"interpolation_t{T // 2}", "reconstructions",
+                  "single_recon_std")]
+        train_pngs = decoded(views)
+        rows = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+        epoch_s = next(r["epoch_time_s"] for r in rows if "epoch_time_s" in r)
+        readings["view_seconds_train"] = {name: timed[name][-1] for name in VIEWS}
+        readings["nll_batch_seconds_train_cli"] = timed["test_step"][-1]
+
+        # 2. sample: the four views (regular_viz defaults on) and the panels
+        sampled = run("iddpm_sample", lambda: cli_sample.main(
+            [f"run_dir={run_dir}", "detailed_viz=true"]),
+            expected_counts(viz_calls + detailed_calls, False))
+        if len(sampled["viz"]) != 8:
+            raise AssertionError(f"iddpm cli.sample wrote {sampled['viz']}")
+        sample_pngs = decoded(sampled["viz"])
+        readings["view_seconds_sample"] = {name: timed[name][-1] for name in VIEWS}
+        readings["detailed_viz_seconds"] = timed["run_detailed_viz"][-1]
+
+        # 3. eval: the best checkpoint, the same val batch and seed
+        evaluated = run("iddpm_eval", lambda: cli_eval.main(
+            [f"run_dir={run_dir}", "use_train_data=false", "trainer.limit_test_batches=1"]),
+            expected_counts(T, False))
+        readings["nll_batch_seconds"] = timed["test_step"][-1]
+        eval_err = {k: abs(evaluated[k] - final[k]) / max(abs(final[k]), 1e-30)
+                    for k in test_keys}
+
+        # every kernel site of the five endpoints (batch 1, 4 and 10, bf16,
+        # the run's weights), each endpoint called once, mean_only
+        engine_s, _ = cli_sample.load_engine_from_run(run_dir)
+        gen = torch.Generator(device="cuda").manual_seed(20)
+        x0 = torch.as_tensor(next(iter(val_loader))[0], device="cuda")
+        x10 = torch.randn((10,) + tuple(x0.shape[1:]), device="cuda", generator=gen)
+        calls = {}
+        with ops.recording(calls):
+            engine_s.generate_images_grid((2, 1), n=4, minibatch=4, mean_only=True)
+            engine_s.sample_from_step(x10, 3, mean_only=True)
+            engine_s.sample_and_return_steps(x0[:1], 3, (2, 1), mean_only=True,
+                                             return_stds=True)
+            engine_s.diffuse_and_reconstruct(x0[:4], 3, mean_only=True)
+            engine_s.diffuse_and_reconstruct_grid(x0[:1], 3, (2, 1), mean_only=True,
+                                                  return_stds=True)
+        viz_sites = hold_sites(torch, ops, calls)
+        if keep is not None:
+            (keep / "viz_sites.json").write_text(json.dumps(viz_sites, indent=1))
+        worst_site = max(viz_sites, key=lambda site: site["max_abs_err"] / site["tol"])
+        batches = sorted({site["shape"][0] for site in viz_sites})
+        if batches != [1, 4, 10]:
+            raise AssertionError(f"endpoint sites at batches {batches}, expected [1, 4, 10]")
+        del engine_s, calls
+
+        # the five endpoints in float32, kernels against plain versions,
+        # same weights and injected noise
+        cfg32 = load_config("default", IDDPM_ARGS + [
+            "model.compute_dtype=float32", f"engine.diffusion_steps={ENDPOINT_CHECK_T}",
+            "engine.ema=null"])
+        engine32 = cli_train.build_engine(cfg32)
+        fill_zero_params(torch, engine32.state.model, seed=22)
+        Tc = ENDPOINT_CHECK_T
+
+        def randn(*shape):
+            return torch.randn(shape, device="cuda", generator=gen)
+
+        x1, x4 = x0[:1], x0[:4]
+        z1, z4, z10 = randn(Tc, *x1.shape), randn(Tc, *x4.shape), randn(Tc, *x10.shape)
+        q1, q4, xT4 = randn(*x1.shape), randn(*x4.shape), randn(*x4.shape)
+
+        def endpoints():
+            return {
+                "generate_images_grid": engine32.generate_images_grid(
+                    (5, 1), n=4, minibatch=4, use_ema=False, x_T=xT4, noise=z4)[1],
+                "sample_from_step": engine32.sample_from_step(
+                    x10, Tc // 2, use_ema=False, noise=z10[:Tc // 2]),
+                "sample_and_return_steps": engine32.sample_and_return_steps(
+                    x1, Tc, (5, 1), use_ema=False, return_stds=True, noise=z1),
+                "diffuse_and_reconstruct": engine32.diffuse_and_reconstruct(
+                    x4, Tc, use_ema=False, q_noise=q4, noise=z4)[0],
+                "diffuse_and_reconstruct_grid": engine32.diffuse_and_reconstruct_grid(
+                    x1, Tc, (5, 1), use_ema=False, return_stds=True, q_noise=q1,
+                    noise=z1)[0],
+            }
+
+        def flat(v):
+            parts = v if isinstance(v, tuple) else (v,)
+            return np.concatenate([np.asarray(p.cpu() if hasattr(p, "cpu") else p,
+                                              np.float64).ravel() for p in parts])
+
+        ops.reset()
+        got = endpoints()
+        torch.cuda.synchronize()
+        launches["endpoints_f32"] = ops.counts()
+        with ops.plain_versions():
+            want = endpoints()
+        if launches["endpoints_f32"] != expected_counts(4 * Tc + Tc // 2, False) or \
+                ops.counts() != launches["endpoints_f32"]:
+            raise AssertionError(f"float32 endpoint launches {launches['endpoints_f32']}, then "
+                                 f"{ops.counts()} with the plain versions")
+        endpoint_err = {k: float(np.abs(flat(got[k]) - flat(want[k])).max()) for k in got}
+        finite = all(np.isfinite(flat(v)).all() for v in got.values())
+        del engine32, got, want
+    finally:
+        if keep is not None:
+            for path in root.glob("*/final_test.json"):
+                shutil.copy(path, keep / path.name)
+            for path in root.glob("*/media/*.png"):
+                shutil.copy(path, keep / path.name)
+        shutil.rmtree(root, ignore_errors=True)
+
+    # float32 gradients of one hybrid loss (the Cout = 6 head, forward and
+    # backward; gn_affine_grad), kernels against plain versions: one step
+    # each on two copies of one state, same x0, t (t = 1 among them) and noise
+    tables = DiffusionTables.from_schedule(NoiseSchedule.create(1000, "cosine"), "cuda")
+    model32 = get_model(RESOLUTION, dict(MODEL_CFG, compute_dtype="float32", learn_sigma=True),
+                        device="cuda", seed=0)
+    fill_zero_params(torch, model32, seed=23)
+    xg = torch.randint(0, 256, (GRAD_BATCH, RESOLUTION, RESOLUTION, 3), device="cuda",
+                       generator=gen).float() / 127.5 - 1.0
+    tg = torch.randint(1, 1001, (GRAD_BATCH,), device="cuda", generator=gen)
+    tg[0] = 1
+    ng = randn(*xg.shape)
+    hybrid = make_train_step(tables, loss_type="hybrid")
+    states = [TrainState(m, AdamChain(m.parameters(), 2e-4), 1000,
+                         torch.Generator(device="cuda").manual_seed(24))
+              for m in (model32, copy.deepcopy(model32))]
+    ops.reset()
+    metrics_k = hybrid(states[0], xg, t=tg, noise=ng)
+    torch.cuda.synchronize()
+    launches["hybrid_grads_f32"] = ops.counts()
+    with ops.plain_versions():
+        metrics_p = hybrid(states[1], xg, t=tg, noise=ng)
+    if launches["hybrid_grads_f32"] != expected_counts(1, True) or \
+            ops.counts() != launches["hybrid_grads_f32"]:
+        raise AssertionError(f"hybrid loss launches {launches['hybrid_grads_f32']}")
+    worst, worst_name = 0.0, None
+    named_p = dict(states[1].model.named_parameters())
+    for name, p in states[0].model.named_parameters():
+        gp = named_p[name].grad
+        rel = float((p.grad - gp).abs().max()) / max(1e-6, float(gp.abs().max()))
+        if rel >= worst:
+            worst, worst_name = rel, name
+    zero = [name for name, p in named_p.items() if not p.grad.any()]
+    hybrid_grads = {"batch": GRAD_BATCH, "loss_kernels": float(metrics_k["loss"]),
+                    "loss_plain": float(metrics_p["loss"]), "vlb_kernels": float(metrics_k["vlb"]),
+                    "vlb_plain": float(metrics_p["vlb"]), "max_rel_err": worst,
+                    "worst_param": worst_name, "tol": F32_GRAD_TOL, "all_zero_grads": zero}
+    del states, model32
+
+    # the train step's img/s: eps (bare) and hybrid in turns, bf16, batch 128
+    xb = randn(TRAIN_BATCH, RESOLUTION, RESOLUTION, 3)
+    steppers = {}
+    for kind, mode in (("simple", "linear"), ("hybrid", "cosine")):
+        model = get_model(RESOLUTION, dict(MODEL_CFG, learn_sigma=kind == "hybrid"),
+                          device="cuda", seed=0)
+        state = TrainState(model, AdamChain(model.parameters(), 2e-4), 1000,
+                           torch.Generator(device="cuda").manual_seed(5), ema_decay=0.9999)
+        step = make_train_step(DiffusionTables.from_schedule(
+            NoiseSchedule.create(1000, mode), "cuda"), loss_type=kind)
+        for _ in range(TRAIN_WARMUP):
+            step(state, xb)
+        steppers[kind] = (state, step)
+    step_passes, vlb = {"simple": [], "hybrid": []}, None
+    for kind in ("simple", "hybrid", "hybrid", "simple"):
+        state, step = steppers[kind]
+        torch.cuda.synchronize()
+        ops.reset()
+        t_start = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            metrics = step(state, xb)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t_start
+        if ops.counts() != expected_counts(TRAIN_STEPS, True):
+            raise AssertionError(f"{kind} step launches {ops.counts()}")
+        step_passes[kind].append(TRAIN_BATCH * TRAIN_STEPS / seconds)
+        if kind == "hybrid":
+            vlb = float(metrics["vlb"])
+    del steppers, state, step
+
+    # one bf16 batch-128 step of v + min-SNR on a zero-terminal-SNR schedule,
+    # and of x0: finite, exact launches, no device-to-host copy
+    objectives = {}
+    linear = NoiseSchedule.create(1000, "linear")
+    for name, kw, sched in (
+            ("v_min_snr_ztsnr", dict(prediction_type="v", loss_weighting="min_snr"),
+             NoiseSchedule.create(1000, betas=rescale_zero_terminal_snr(linear.betas))),
+            ("x0", dict(prediction_type="x0"), linear)):
+        model = get_model(RESOLUTION, MODEL_CFG, device="cuda", seed=0)
+        state = TrainState(model, AdamChain(model.parameters(), 2e-4), 1000,
+                           torch.Generator(device="cuda").manual_seed(25), ema_decay=0.9999)
+        step = make_train_step(DiffusionTables.from_schedule(sched, "cuda"), **kw)
+        step(state, xb)
+        ops.reset()
+        loss = float(step(state, xb)["loss"])
+        counts = ops.counts()
+        prof = profile_device(torch, lambda: step(state, xb))
+        syncs = [k["name"] for k in prof.pop("all") if "DtoH" in k["name"]]
+        objectives[name] = {"loss": loss, "launches": counts, "device_ops": prof["device_ops"],
+                            "device_busy_ms": prof["device_busy_ms"], "host_copies": syncs}
+        if not math.isfinite(loss) or counts != expected_counts(1, True) or syncs:
+            raise AssertionError(f"{name} step: loss {loss}, launches {counts}, copies {syncs}")
+        del model, state, step
+
+    line = {"phase": "iddpm_cli", "nvidia_smi": smi, "reduced": {"diffusion_steps": [1000, T]},
+            "steps": n_steps, "batch": batch, "val_batches": n_val,
+            "viz_model_calls": viz_calls, "detailed_viz_model_calls": detailed_calls,
+            "train_cli_img_per_s": n_steps * batch / epoch_s, "train_cli_epoch_seconds": epoch_s,
+            "hybrid_step_img_per_s": step_passes["hybrid"],
+            "eps_step_img_per_s": step_passes["simple"], "vlb": vlb, **readings,
+            "final_test": {k: final[k] for k in test_keys}, "eval_rel_err": eval_err,
+            "eval_rel_tol": EVAL_REL_TOL, "pngs": {"train": train_pngs, "sample": sample_pngs},
+            "viz_sites_vs_plain": {"sites": len(viz_sites), "batches": batches,
+                                   "worst": worst_site,
+                                   "worst_share": worst_site["max_abs_err"] / worst_site["tol"]},
+            "endpoints_f32_vs_plain": {"T": Tc, "max_abs_diff": endpoint_err,
+                                       "tol": ENDPOINT_F32_TOL, "finite": finite},
+            "hybrid_grads_f32_vs_plain": hybrid_grads, "objectives_bf16": objectives,
+            "phase_seconds": time.perf_counter() - phase_start, "launches": launches}
+    emit(line)
+    if keep is not None:
+        (keep / "iddpm_cli.json").write_text(json.dumps(line, indent=1))
+    if not max(eval_err.values()) <= EVAL_REL_TOL:
+        raise AssertionError(f"iddpm cli.eval differs from the run's final test: {eval_err}")
+    if not finite or not max(endpoint_err.values()) <= ENDPOINT_F32_TOL:
+        raise AssertionError(f"float32 endpoints: kernels vs plain {endpoint_err}")
+    if not worst <= F32_GRAD_TOL or zero:
+        raise AssertionError(f"float32 hybrid gradients: kernels vs plain {worst} at "
+                             f"{worst_name} (tol {F32_GRAD_TOL}); all-zero gradients: {zero}")
+    if vlb is None or not math.isfinite(vlb):
+        raise AssertionError(f"hybrid step: vlb {vlb}")
+    return {name: launches[name] for name in ("iddpm_train", "iddpm_sample", "iddpm_eval")}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", type=pathlib.Path, default=None,
@@ -1234,6 +1605,9 @@ def main(argv=None) -> int:
 
     # 8. the command-line entry points
     cli_launches = cli_phase(torch, ops, smi, train_passes, args.out)
+
+    # 9. the IDDPM configuration, its visualization and its objectives
+    cli_launches.update(iddpm_phase(torch, ops, smi, args.out))
 
     if args.out is not None:
         (args.out / "chip_smoke_sites.json").write_text(json.dumps(

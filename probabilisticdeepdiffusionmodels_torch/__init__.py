@@ -9,6 +9,8 @@ fourth Pallas kernel, the matrix-unit probe (``ops/probe_mma.py``).  Slices
 eps / linear-schedule path, the NLL bound (``evals/``), the engine facade
 (``engine.py``), the Trainer and checkpoints (``train/``), data, config and
 logging, and the ``cli.train`` / ``cli.sample`` / ``cli.eval`` entry points.
-The JAX package stays the reference the port is tested against; this
-package imports nothing of it.
+Slice 6: the visualization suite (``viz/``) and the engine endpoints it
+calls, and the hybrid (learned sigma), v, x0, min-SNR, zero-terminal-SNR,
+class-dropout and mixed-schedule options.  The JAX package stays the
+reference the port is tested against; this package imports nothing of it.
 """

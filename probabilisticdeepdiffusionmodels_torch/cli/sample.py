@@ -1,26 +1,29 @@
-"""Sampling entry point.
+"""Sampling and visualization entry point.
 
-PyTorch counterpart of ``probabilisticdeepdiffusionmodels_tpu/cli/sample.py``
-for its ancestral grid: load a trained run directory (its config snapshot
-and best checkpoint), override ``clip_while_generating``, and with
-``num_sample_steps`` set draw ``n_random`` images with the ancestral sampler
-respaced to that many steps into ``media/fast_ancestral_<steps>.png``:
+PyTorch counterpart of ``probabilisticdeepdiffusionmodels_tpu/cli/sample.py``:
+load a trained run directory (its config snapshot and best checkpoint),
+override ``clip_while_generating``, then into the run's ``media/``:
+
+  * ``regular_viz`` (on by default): the four views of the visualization
+    suite (``viz.hooks.VisualizationCallback``) at ``num_vis_steps``
+    timesteps (default 10, 5 when T <= 30);
+  * with ``num_sample_steps`` set, ``n_random`` images from the ancestral
+    sampler respaced to that many steps, ``fast_ancestral_<steps>.png``;
+  * ``detailed_viz``: for t0 in (T, 0.9T, 0.8T, 0.5T), the first val images
+    reconstructed from t0 by the mean chain and the sampled chain, without
+    and with x0 clipping, ``detailed_t0_<t0>.png``.
 
     python -m probabilisticdeepdiffusionmodels_torch.cli.sample \\
-        run_dir=runs/run-xyz regular_viz=false num_sample_steps=250
+        run_dir=runs/run-xyz detailed_viz=true
 
 ``device`` (null: cuda) places the engine.  Not ported yet, and raising:
-``regular_viz`` (true in ``sample.yaml``: pass ``regular_viz=false``) and
-``detailed_viz`` (ROADMAP.md Queue 1 item 15), ``inpaint``, the other
-samplers and guidance (item 10; ``sampler=edm|flow|consistency``: item 12),
-and ``devices`` (item 18).
+``inpaint``, the other samplers and guidance (ROADMAP.md Queue 1 item 10;
+``sampler=edm|flow|consistency``: item 12), and ``devices`` (item 18).
 """
 
 from __future__ import annotations
 
-import struct
 import sys
-import zlib
 from pathlib import Path
 
 import numpy as np
@@ -29,9 +32,11 @@ import yaml
 from ..config import load_config
 from ..data.transforms import unnormalize
 from ..train.checkpoint import CheckpointManager
-from .train import build_engine, check_devices
+from ..viz.hooks import VisualizationCallback, _to_img
+from ..viz.image import compose, write_png
+from .train import build_engine, build_loaders, check_devices
 
-__all__ = ["run_sampling", "main", "load_engine_from_run", "write_png"]
+__all__ = ["run_sampling", "run_detailed_viz", "main", "load_engine_from_run", "write_png"]
 
 
 def load_engine_from_run(run_path, clip_while_generating=None, use_best=True, devices=None,
@@ -53,32 +58,42 @@ def load_engine_from_run(run_path, clip_while_generating=None, use_best=True, de
     return engine, cfg
 
 
-def write_png(path, images: np.ndarray, pad: int = 2) -> None:
-    """Write [N, H, W, C] images in [0, 1] side by side, ``pad`` white
-    pixels apart, as one 8-bit grey (C = 1) or RGB PNG."""
-    n, h, w, c = images.shape
-    grid = np.ones((h, n * w + (n - 1) * pad, c), np.float32)
-    for i, img in enumerate(images):
-        grid[:, i * (w + pad):i * (w + pad) + w] = img
-    pixels = np.round(np.clip(grid, 0.0, 1.0) * 255.0).astype(np.uint8)
-    rows = b"".join(b"\x00" + row.tobytes() for row in pixels)
-
-    def chunk(kind: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + kind + data
-                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
-
-    header = struct.pack(">IIBBBBB", grid.shape[1], h, 8, 0 if c == 1 else 2, 0, 0, 0)
-    Path(path).write_bytes(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
-                           + chunk(b"IDAT", zlib.compress(rows, 9)) + chunk(b"IEND", b""))
+def run_detailed_viz(engine, cfg, media_dir: Path, normalize, n_images: int = 4) -> list:
+    """For t0 in (T, 0.9T, 0.8T, 0.5T), one view of the first ``n_images``
+    val images (column 0) and their reconstructions from t0 with the
+    generator seeded t0: the mean chain, then the sampled chain, without
+    x0 clipping (columns 1, 2) and with it (3, 4).  The engine's
+    ``clip_while_generating`` is restored afterwards; returns the paths."""
+    _, val_loader = build_loaders(cfg)
+    x0 = next(iter(val_loader))[0][:n_images]
+    T = engine.diffusion_steps
+    orig_clip = engine.clip_while_generating
+    paths = []
+    try:
+        for t0 in (T, int(0.9 * T), int(0.8 * T), int(0.5 * T)):
+            rows = [[(_to_img(x0[i], normalize), None)] for i in range(len(x0))]
+            for clip in (False, True):
+                engine.clip_while_generating = clip
+                for mean_only in (True, False):
+                    recon, _ = engine.diffuse_and_reconstruct(x0, t0, seed=t0,
+                                                              mean_only=mean_only)
+                    recon = recon.float().cpu().numpy()
+                    for i, row in enumerate(rows):
+                        row.append((_to_img(recon[i], normalize), None))
+            path = media_dir / f"detailed_t0_{t0}.png"
+            write_png(path, compose(rows)[None], pad=0)
+            print(f"[sample] wrote {path}")
+            paths.append(path)
+    finally:
+        engine.clip_while_generating = orig_clip
+    return paths
 
 
 def _refuse(cfg) -> None:
     """Raise for every option the port does not run yet."""
     later = "is not ported yet (ROADMAP.md Queue 1 item"
-    for key, item, hint in (("regular_viz", 15, ": pass regular_viz=false"),
-                            ("detailed_viz", 15, ""), ("inpaint", 10, "")):
-        if cfg.get(key, key == "regular_viz"):
-            raise NotImplementedError(f"{key}=true {later} {item}){hint}")
+    if cfg.get("inpaint"):
+        raise NotImplementedError(f"inpaint=true {later} 10)")
     sampler = cfg.get("sampler") or "ancestral"
     if sampler != "ancestral":
         item = 12 if sampler in ("edm", "flow", "consistency") else 10
@@ -89,8 +104,8 @@ def _refuse(cfg) -> None:
 
 
 def run_sampling(cfg) -> dict:
-    """Returns the path of the grid written and its images, [-1, 1] model
-    space ({} when ``num_sample_steps`` is null: nothing to draw)."""
+    """Returns ``viz``, the paths of the views written, and where the grid
+    was drawn its ``path`` and ``images`` ([-1, 1] model space)."""
     if not cfg.get("run_dir"):
         raise ValueError("pass run_dir=<path to a training run>")
     _refuse(cfg)
@@ -99,16 +114,38 @@ def run_sampling(cfg) -> dict:
     media_dir = Path(cfg["run_dir"]) / "media"
     media_dir.mkdir(exist_ok=True)
     normalize = (run_cfg["data"].get("transformation_kwargs") or {}).get("normalize")
+    result = {"viz": []}
+
+    if cfg.get("regular_viz", True):
+        T = engine.diffusion_steps
+        n_vis = cfg.get("num_vis_steps") or (5 if T <= 30 else 10)
+        ts = sorted(set(int(t) for t in np.linspace(1, T - 1, n_vis)))
+        _, val_loader = build_loaders(run_cfg)
+        vis = VisualizationCallback(
+            val_batch=next(iter(val_loader))[0], ts=ts, media_dir=media_dir,
+            normalize=normalize, n_images=cfg.get("n_images", 4),
+            n_random=cfg.get("n_random", 4),
+            n_interpolation_steps=cfg.get("n_interpolation_steps", 10),
+            n_interpolation_pairs=cfg.get("n_interpolation_pairs", 4),
+            use_ema=cfg.get("use_ema", True))
+        result["viz"] += vis(engine, -1)
+        print(f"[sample] regular viz written to {media_dir}")
+
     steps = cfg.get("num_sample_steps")
-    if not steps:
-        return {}
-    n = int(cfg.get("n_random", 4))
-    images = engine.generate_images(n=n, minibatch=n, seed=0,
-                                    use_ema=cfg.get("use_ema", True), num_sample_steps=steps)
-    path = media_dir / f"fast_ancestral_{steps}.png"
-    write_png(path, unnormalize(images, normalize=normalize, clip=True))
-    print(f"[sample] wrote {path}")
-    return {"path": str(path), "images": images}
+    if steps:
+        n = int(cfg.get("n_random", 4))
+        images = engine.generate_images(n=n, minibatch=n, seed=0,
+                                        use_ema=cfg.get("use_ema", True),
+                                        num_sample_steps=steps)
+        path = media_dir / f"fast_ancestral_{steps}.png"
+        write_png(path, unnormalize(images, normalize=normalize, clip=True))
+        print(f"[sample] wrote {path}")
+        result.update(path=str(path), images=images)
+
+    if cfg.get("detailed_viz", False):
+        result["viz"] += run_detailed_viz(engine, run_cfg, media_dir, normalize,
+                                          n_images=cfg.get("n_images", 4))
+    return result
 
 
 def main(argv=None):

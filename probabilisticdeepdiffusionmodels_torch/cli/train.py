@@ -4,17 +4,19 @@ PyTorch counterpart of ``probabilisticdeepdiffusionmodels_tpu/cli/train.py``,
 with the same config surface (hydra-style overrides):
 
     python -m probabilisticdeepdiffusionmodels_torch.cli.train \\
-        model=unet data=synthetic visualization=none trainer.max_epochs=10
+        model=unet data=synthetic trainer.max_epochs=10
 
 Flow: compose config -> run dir + logger -> data loaders -> engine (fresh,
 or resumed from a run directory by ``cont_run=<run-name>``; with
-``auto_resume=true`` from this run's own latest checkpoint) -> Trainer.fit
-(which ends on the best checkpoint) -> NLL test in bits/dim over
-``trainer.limit_test_batches`` val batches, written to ``final_test.json``.
-``device`` (null: cuda) places the run; ``device=cpu`` runs on the CPU.  Not
-ported yet, and raising: a mesh (``trainer.devices`` other than null/1,
-ROADMAP.md Queue 1 item 18), the visualization suites (item 15: pass
-``visualization=none``) and the device-resident loader (item 17).
+``auto_resume=true`` from this run's own latest checkpoint) -> the
+visualization callback on the first validation batch (``visualization``:
+``more`` by default, ``none`` turns it off) -> Trainer.fit (which runs the
+callback every ``run_every`` epochs and at the end, and ends on the best
+checkpoint) -> NLL test in bits/dim over ``trainer.limit_test_batches`` val
+batches, written to ``final_test.json``.  ``device`` (null: cuda) places the
+run; ``device=cpu`` runs on the CPU.  Not ported yet, and raising: a mesh
+(``trainer.devices`` other than null/1, ROADMAP.md Queue 1 item 18) and the
+device-resident loader (item 17).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from ..logging.sink import MetricLogger, RunDir, auto_tags
 from ..models import resolve_device
 from ..train.checkpoint import CheckpointManager
 from ..train.loop import Trainer
+from ..viz.hooks import VisualizationCallback
 
 __all__ = ["build_loaders", "build_engine", "run_training", "main"]
 
@@ -89,11 +92,6 @@ def run_training(cfg) -> dict:
     # refuse what cannot run before the run directory is made
     resolve_device(cfg.get("device"))
     check_devices((cfg.get("trainer") or {}).get("devices"))
-    vis_cfg = dict(cfg.get("visualization") or {})
-    if int(vis_cfg.get("run_every", 5) or 0) > 0:
-        raise NotImplementedError(
-            "the visualization suites are not ported yet (ROADMAP.md Queue 1 item 15): "
-            "pass visualization=none")
     run_dir = RunDir(cfg.get("out_dir", "./runs"), cfg.get("run_name"))
     run_dir.save_config(cfg)
     logger = MetricLogger(run_dir, use_wandb=bool(cfg.get("use_wandb")))
@@ -111,6 +109,17 @@ def run_training(cfg) -> dict:
         CheckpointManager(prev.checkpoint_dir()).restore(engine.state)
         print(f"[train] resumed from {prev.path} at step {engine.state.step}")
 
+    # visualization timesteps: 10 points of linspace(1, T - 1), 5 if T <= 30
+    T = engine.diffusion_steps
+    ts = sorted(set(int(t) for t in np.linspace(1, T - 1, 5 if T <= 30 else 10)))
+    vis_cfg = dict(cfg.get("visualization") or {})
+    vis = None
+    if int(vis_cfg.get("run_every", 5) or 0) > 0:
+        vis = VisualizationCallback(
+            val_batch=next(iter(val_loader))[0], ts=ts, media_dir=run_dir.path / "media",
+            normalize=(cfg["data"].get("transformation_kwargs") or {}).get("normalize"),
+            logger=logger, **vis_cfg)
+
     trainer_cfg = dict(cfg.get("trainer") or {})
     trainer = Trainer(
         engine,
@@ -119,6 +128,8 @@ def run_training(cfg) -> dict:
         max_epochs=int(trainer_cfg.get("max_epochs", 100)),
         check_val_every_n_epoch=int(trainer_cfg.get("check_val_every_n_epoch", 2)),
         patience=int(cfg.get("patience", 20)),
+        visualization_callback=vis,
+        vis_run_every=max(1, int(vis_cfg.get("run_every", 5) or 1)),
         save_every_steps=trainer_cfg.get("save_every_steps"),
         watch_every_steps=trainer_cfg.get("watch_every_steps"),
         prefetch=int(trainer_cfg.get("prefetch", 2)),

@@ -33,6 +33,10 @@ __all__ = [
     "q_posterior",
     "xstart_from_epsilon",
     "model_mean_from_epsilon",
+    "v_target",
+    "eps_from_v",
+    "eps_from_xstart",
+    "min_snr_weight",
     "p_step",
     "learned_logvar",
     "mean_flat",
@@ -163,6 +167,50 @@ def model_mean_from_epsilon(tables: DiffusionTables, x_t: torch.Tensor,
     denois = expand_to(tables.denoising_coef, t, x_t.ndim)
     a_sqrt = expand_to(tables.alphas_sqrt, t, x_t.ndim)
     return (x_t - epsilon * denois) / a_sqrt
+
+
+def v_target(tables: DiffusionTables, x0: torch.Tensor, noise: torch.Tensor,
+             t: torch.Tensor) -> torch.Tensor:
+    """v-parameterization target (arXiv:2202.00512):
+    v = sqrt(ab_t) * eps - sqrt(1 - ab_t) * x0."""
+    a = expand_to(tables.alphas_hat_sqrt, t, x0.ndim)
+    s = expand_to(tables.one_min_alphas_hat_sqrt, t, x0.ndim)
+    return a * noise - s * x0
+
+
+def eps_from_v(tables: DiffusionTables, x_t: torch.Tensor, t: torch.Tensor,
+               v: torch.Tensor) -> torch.Tensor:
+    """eps = sqrt(ab_t) * v + sqrt(1 - ab_t) * x_t."""
+    a = expand_to(tables.alphas_hat_sqrt, t, x_t.ndim)
+    s = expand_to(tables.one_min_alphas_hat_sqrt, t, x_t.ndim)
+    return a * v + s * x_t
+
+
+def eps_from_xstart(tables: DiffusionTables, x_t: torch.Tensor, t: torch.Tensor,
+                    x0: torch.Tensor) -> torch.Tensor:
+    """eps = (x_t - sqrt(ab_t) * x0) / sqrt(1 - ab_t), the inverse of
+    ``xstart_from_epsilon``."""
+    a = expand_to(tables.alphas_hat_sqrt, t, x_t.ndim)
+    s = expand_to(tables.one_min_alphas_hat_sqrt, t, x_t.ndim)
+    return (x_t - a * x0) / s
+
+
+def min_snr_weight(tables: DiffusionTables, t: torch.Tensor, gamma: float,
+                   prediction_type: str = "epsilon") -> torch.Tensor:
+    """Min-SNR-gamma per-sample loss weight [B] (arXiv:2303.09556) on the
+    loss of ``prediction_type``'s target, SNR = ab / (1 - ab):
+    min(SNR, gamma) / SNR for eps, min(SNR, gamma) / (SNR + 1) for v,
+    min(SNR, gamma) for x0."""
+    ab = gather(tables.alphas_hat, t)
+    snr = ab / (1.0 - ab)
+    clamped = torch.clamp(snr, max=gamma)
+    if prediction_type == "epsilon":
+        return clamped / snr
+    if prediction_type == "v":
+        return clamped / (snr + 1.0)
+    if prediction_type == "x0":
+        return clamped
+    raise ValueError(f'Unknown prediction_type: "{prediction_type}"')
 
 
 def p_step(tables: DiffusionTables, x_t: torch.Tensor, t: torch.Tensor,

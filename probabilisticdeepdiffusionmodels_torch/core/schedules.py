@@ -7,8 +7,9 @@ float32 emulation as the JAX package (``_sqrt_f32`` goes through
 both packages produce bit-equal buffers.  ``core.diffusion.DiffusionTables``
 moves them onto a device.
 
-Supported beta modes: "linear", "cosine" and "custom".  The "mixed" mode and
-zero-terminal-SNR rescaling are not ported yet.
+Beta modes: "linear", "cosine", "mixed" (half the linear alpha-bar table,
+half the cosine one) and "custom"; ``rescale_zero_terminal_snr`` rescales a
+beta table to a (numerically) zero terminal SNR.
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ __all__ = [
     "linear_betas",
     "cosine_alpha_bar",
     "betas_for_alpha_bar",
+    "mixed_alpha_bar",
+    "rescale_zero_terminal_snr",
 ]
 
 
@@ -94,6 +97,25 @@ def _cumprod_f32(x: np.ndarray) -> np.ndarray:
     return np.cumprod(x.astype(np.float64)).astype(np.float32)
 
 
+def _linear_alpha_bar_table(diffusion_steps: int) -> np.ndarray:
+    """cumprod(1 - linear betas) in float32."""
+    betas = linear_betas(diffusion_steps)
+    return _cumprod_f32((np.float32(1.0) - betas).astype(np.float32))
+
+
+def mixed_alpha_bar(diffusion_steps: int) -> np.ndarray:
+    """0.5 * linear + 0.5 * cosine alpha-bar table of length T + 1, in
+    float32 arithmetic; the linear table is extrapolated one step past T."""
+    lin = _linear_alpha_bar_table(diffusion_steps)
+    last = np.float32(2.0) * lin[-1] - lin[-2]
+    lin = np.concatenate([lin, np.asarray([last], dtype=np.float32)])
+    cos = np.asarray(
+        [cosine_alpha_bar(t / diffusion_steps) for t in range(diffusion_steps + 1)],
+        dtype=np.float32,
+    )
+    return (np.float32(0.5) * lin + np.float32(0.5) * cos).astype(np.float32)
+
+
 def get_betas(
     beta_start: Optional[float] = None,
     beta_end: Optional[float] = None,
@@ -107,13 +129,44 @@ def get_betas(
         return linear_betas(diffusion_steps, beta_start, beta_end)
     if mode == "cosine":
         return betas_for_alpha_bar(cosine_alpha_bar, diffusion_steps, max_beta)
+    if mode == "mixed":
+        table = mixed_alpha_bar(diffusion_steps)
+        return betas_for_alpha_bar(
+            lambda t: table[int(t * diffusion_steps)], diffusion_steps, max_beta
+        )
     if mode == "custom":
         if custom_alpha_bar is None:
             raise ValueError("custom mode requires custom_alpha_bar")
         return betas_for_alpha_bar(custom_alpha_bar, diffusion_steps, max_beta)
-    if mode == "mixed":
-        raise NotImplementedError("the mixed schedule is not ported yet")
     raise ValueError(f"Wrong beta mode: {mode}")
+
+
+def rescale_zero_terminal_snr(betas: np.ndarray, alpha_floor: float = 1e-4) -> np.ndarray:
+    """A beta table rescaled so the terminal SNR is (numerically) zero.
+
+    Lin et al., arXiv:2305.08891, Algorithm 1, in float64: sqrt(alpha-bar)
+    is shifted and scaled so its first entry stays and its last becomes 0.
+    An exact zero alpha-bar_T would make the inverse tables (sqrt(1/ab),
+    sqrt(1/ab - 1)) infinite at t = T, so the terminal entry is floored at
+    ``alpha_floor`` times its predecessor.  Needs a v- or x0-parameterized
+    model (the eps target at t = T is pure input noise); the engine checks.
+    """
+    b = np.asarray(betas, np.float64)
+    if b.ndim != 1 or b.shape[0] < 2:
+        raise ValueError("rescale_zero_terminal_snr needs a 1-D beta table "
+                         "with at least 2 steps")
+    abar = np.cumprod(1.0 - b)
+    s = np.sqrt(abar)
+    s0, sT = s[0], s[-1]
+    s = (s - sT) * (s0 / (s0 - sT))
+    abar = s * s
+    abar[-1] = abar[-2] * float(alpha_floor)
+    alphas = abar / np.concatenate([[1.0], abar[:-1]])
+    out = (1.0 - alphas).astype(np.float32)
+    if not (np.all(out > 0.0) and np.all(out < 1.0)):
+        raise ValueError("rescale_zero_terminal_snr produced betas outside (0, 1): the input "
+                         "table is too short or too aggressive for Algorithm 1")
+    return out
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,15 +2,22 @@
 endpoints, with its optimizer chain and learning-rate schedules.
 
 PyTorch counterpart of ``probabilisticdeepdiffusionmodels_tpu/engine.py`` on
-the eps-prediction, ``loss_type="simple"`` path: ``DiffusionEngine`` with
-``training_step``, ``validation_step`` (EMA and live weights on the same t
-and noise), ``get_noised_representation``, ``generate_images`` (the
-ancestral sampler, full or respaced), ``calculate_likelihood`` and
-``test_step``; ``make_lr_schedule``; and ``AdamChain``, the optimizer chain
+the eps / v / x0 parameterizations, with the ``simple`` or IDDPM ``hybrid``
+loss (a learned-sigma head), min-SNR weighting, zero-terminal-SNR schedules
+and class dropout: ``DiffusionEngine`` with ``training_step``,
+``validation_step`` (EMA and live weights on the same t and noise),
+``get_noised_representation``, ``generate_images`` (the ancestral sampler,
+full or respaced), the visualization endpoints (``sample_from_step``,
+``sample_and_return_steps``, ``generate_images_grid``,
+``diffuse_and_reconstruct``, ``diffuse_and_reconstruct_grid``),
+``calculate_likelihood`` and ``test_step``; ``make_lr_schedule``; and
+``AdamChain``, the optimizer chain
 the JAX engine builds from optax (``adam`` with an optional
 ``clip_by_global_norm`` before it and an optional ``MultiSteps`` around
 both).  The model and the state live on one device, ``cuda`` unless the
 caller asks for another; random draws come from ``torch.Generator``s on it.
+Training runs the raw model; sampling, the NLL and every endpoint run its
+eps view (``sample.make_{v,x0}_to_eps_apply_fn`` for a v or x0 model).
 Every option the port does not run yet raises ``NotImplementedError`` naming
 its ROADMAP.md Queue 1 item.
 """
@@ -18,7 +25,7 @@ its ROADMAP.md Queue 1 item.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Iterable, List, Optional, Union
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -28,7 +35,14 @@ from .core.diffusion import DiffusionTables
 from .core.schedules import NoiseSchedule
 from .evals.nll import calculate_likelihood
 from .models import get_model, resolve_device
-from .sample.sampler import p_sample_loop, respaced_schedule, space_timesteps
+from .core.schedules import rescale_zero_terminal_snr
+from .sample.sampler import (
+    make_v_to_eps_apply_fn,
+    make_x0_to_eps_apply_fn,
+    p_sample_loop,
+    respaced_schedule,
+    space_timesteps,
+)
 from .train.samplers import sample_uniform
 from .train.state import TrainState
 from .train.step import global_norm, make_eval_step, make_train_step
@@ -245,12 +259,7 @@ class DiffusionEngine:
         unported = (
             ("mesh", mesh, (None,), 18),
             ("param_sharding", param_sharding, ("replicated",), 18),
-            ("prediction_type", prediction_type, ("epsilon", "edm", "flow", "consistency"), 11),
-            ("prediction_type", prediction_type, ("epsilon",), 12),
-            ("loss_type", loss_type, ("simple",), 11),
-            ("zero_terminal_snr", zero_terminal_snr, (False,), 11),
-            ("loss_weighting", loss_weighting, ("none",), 11),
-            ("class_dropout_prob", class_dropout_prob, (None, 0), 11),
+            ("prediction_type", prediction_type, ("epsilon", "v", "x0"), 12),
             ("edm_config", edm_config, (None,), 12),
             ("flow_config", flow_config, (None,), 12),
             ("consistency_config", consistency_config, (None,), 12),
@@ -271,14 +280,39 @@ class DiffusionEngine:
         self.sigma_mode = sigma_mode
         self.clip_while_generating = clip_while_generating
         self.prediction_type = prediction_type
-        self.model = get_model(resolution, dict(model_config), device=self.device, seed=seed)
+        model_config = dict(model_config)
+        if loss_type == "hybrid":
+            model_config.setdefault("learn_sigma", True)
+        self.model = get_model(resolution, model_config, device=self.device, seed=seed)
         self.in_channels = in_channels or int(model_config.get("in_channels", 3))
         self.cond_kind = "class" if self.model.num_classes else "none"
 
         self.schedule = NoiseSchedule.create(diffusion_steps=diffusion_steps, mode=mode,
                                              beta_start=beta_start, beta_end=beta_end,
                                              max_beta=max_beta, betas=betas)
+        # arXiv:2305.08891: the eps target at t = T is pure input noise once
+        # the terminal SNR is zero, so only v or x0 models may take it
+        self.zero_terminal_snr = bool(zero_terminal_snr)
+        if self.zero_terminal_snr:
+            if prediction_type not in ("v", "x0"):
+                raise ValueError("zero_terminal_snr requires prediction_type 'v' or 'x0' (got "
+                                 f"{prediction_type!r}): the eps target at t=T is pure input "
+                                 "noise")
+            self.schedule = NoiseSchedule.create(
+                diffusion_steps=diffusion_steps, mode=mode,
+                betas=rescale_zero_terminal_snr(self.schedule.betas))
         self.tables = DiffusionTables.from_schedule(self.schedule, self.device)
+        self._to_eps = {"v": make_v_to_eps_apply_fn,
+                        "x0": make_x0_to_eps_apply_fn}.get(prediction_type)
+
+        self.class_dropout_prob = float(class_dropout_prob or 0.0)
+        if self.class_dropout_prob and not (self.cond_kind == "class"
+                                            and self.model.cfg_null_class):
+            raise ValueError("class_dropout_prob requires a class-conditional model with "
+                             "model_config cfg_null_class=True (the reserved null embedding "
+                             "row)")
+        self.loss_weighting = loss_weighting
+        self.snr_gamma = float(snr_gamma)
 
         # YAML 1.1 reads "2e-4" (no dot) as a string: float() as in JAX
         lr = make_lr_schedule(scheduler_name, scheduler_kwargs,
@@ -290,9 +324,15 @@ class DiffusionEngine:
         generator = torch.Generator(self.device).manual_seed(seed + 1)
         self.state = TrainState(self.model, optimizer, diffusion_steps, generator,
                                 ema_decay=ema)
-        self._train_step = make_train_step(self.tables, sampling=sampling, loss_type=loss_type,
-                                           watch=watch)
-        self._eval_step = make_eval_step(self.tables)
+        self._train_step = make_train_step(
+            self.tables, sampling=sampling, loss_type=loss_type, watch=watch,
+            class_dropout_prob=self.class_dropout_prob,
+            null_class=self.model.num_classes if self.class_dropout_prob else None,
+            prediction_type=prediction_type, loss_weighting=loss_weighting,
+            snr_gamma=self.snr_gamma)
+        self._eval_step = make_eval_step(self.tables, prediction_type=prediction_type,
+                                         loss_weighting=loss_weighting,
+                                         snr_gamma=self.snr_gamma)
         self._val_counter = -1
 
     # ------------ weights and inputs
@@ -305,11 +345,17 @@ class DiffusionEngine:
             return self.state.ema_model
         return self.state.model
 
-    def _inference(self, use_ema: bool) -> torch.nn.Module:
-        return self.params(use_ema).eval()
+    def _inference(self, use_ema: bool) -> Callable:
+        """The weights' module in eval mode, as an eps model: wrapped in the
+        eps view for a v or x0 model (full-schedule tables)."""
+        model = self.params(use_ema).eval()
+        return model if self._to_eps is None else self._to_eps(model, self.tables)
 
     def _batch(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+
+    def _generator(self, seed: Optional[int]) -> torch.Generator:
+        return torch.Generator(self.device).manual_seed(int(seed or 0))
 
     def _cond(self, y) -> Optional[torch.Tensor]:
         """Dataset labels for the model's conditioning slot: dropped for an
@@ -347,16 +393,17 @@ class DiffusionEngine:
     # ------------ forward process
 
     def get_noised_representation(self, x0, t: Optional[int] = None, seed: Optional[int] = None,
-                                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """x0 noised to step t (default T) with noise from ``generator``
-        (default: seeded with ``seed`` or 0)."""
+                                  generator: Optional[torch.Generator] = None,
+                                  noise=None) -> torch.Tensor:
+        """x0 noised to step t (default T) with ``noise`` (x0's shape), or
+        noise drawn from ``generator`` (default: seeded with ``seed`` or 0)."""
         t = t if t is not None else self.diffusion_steps
-        if generator is None:
-            generator = torch.Generator(self.device).manual_seed(seed or 0)
         x0 = self._batch(x0)
-        noise = torch.randn(x0.shape, generator=generator, device=self.device, dtype=x0.dtype)
+        if noise is None:
+            generator = generator if generator is not None else self._generator(seed)
+            noise = torch.randn(x0.shape, generator=generator, device=self.device, dtype=x0.dtype)
         tb = torch.full((x0.shape[0],), int(t), dtype=torch.long, device=self.device)
-        return D.q_sample(self.tables, x0, noise, tb)
+        return D.q_sample(self.tables, x0, self._batch(noise), tb)
 
     # ------------ sampling
 
@@ -394,7 +441,7 @@ class DiffusionEngine:
                 raise NotImplementedError(f"{name}={value!r} {_later(item)}")
         tables, tmap, _ = self._sample_tables(num_sample_steps)
         model = self._inference(use_ema)
-        generator = torch.Generator(self.device).manual_seed(seed if seed is not None else 0)
+        generator = self._generator(seed)
         y = self._cond(y)
         if y is not None and y.shape[0] < n:
             raise ValueError("need conditioning for every image")
@@ -416,13 +463,103 @@ class DiffusionEngine:
             images.append(x.float().cpu().numpy())
         return np.concatenate(images, axis=0)[:n]
 
+    # ------------ the visualization endpoints (full schedule, eps view)
+
+    def _chain(self, x_t: torch.Tensor, t_start: int, generator: torch.Generator,
+               use_ema: bool, noise=None, **kw):
+        """The ancestral chain of the eps view from ``t_start`` down to 1,
+        x0 clipped as ``clip_while_generating`` says; z from ``noise``
+        ([t_start, *x_t.shape], z for t_start first) or ``generator``."""
+        return p_sample_loop(self._inference(use_ema), self.tables, x_t, generator,
+                             t_start=int(t_start), sigma_mode=self.sigma_mode,
+                             clip=self.clip_while_generating,
+                             noise=None if noise is None else self._batch(noise), **kw)
+
+    def sample_from_step(self, x_t, t_start: int, mean_only: bool = False,
+                         seed: Optional[int] = None, use_ema: bool = True,
+                         noise=None) -> torch.Tensor:
+        """x_0 from ``x_t`` at step ``t_start``; z from a generator seeded
+        with ``seed`` (default 0), or the injected ``noise`` stack."""
+        return self._chain(self._batch(x_t), t_start, self._generator(seed), use_ema,
+                           noise=noise, mean_only=mean_only)
+
+    def sample_and_return_steps(self, x_t, t_start: Optional[int] = None,
+                                steps_to_return: Sequence[int] = (1,),
+                                mean_only: bool = False, seed: Optional[int] = None,
+                                return_stds: bool = False, use_ema: bool = True, noise=None):
+        """The chain from ``x_t`` at ``t_start`` (default T): the x_{t-1}
+        recorded after each t of ``steps_to_return``, [B, STEPS, H, W, C]
+        in descending t, and with ``return_stds`` (steps, stds), the std of
+        x before the loop and after every step [t_start + 1]."""
+        return self._steps(self._batch(x_t), t_start, steps_to_return, mean_only,
+                           self._generator(seed), return_stds, use_ema, noise)
+
+    def _steps(self, x_t, t_start, steps_to_return, mean_only, generator, return_stds,
+               use_ema, noise):
+        t_start = t_start if t_start is not None else self.diffusion_steps
+        out = self._chain(x_t, t_start, generator, use_ema, noise=noise, mean_only=mean_only,
+                          steps_to_return=tuple(steps_to_return), return_stds=return_stds)
+        return out[1:] if return_stds else out[1]
+
+    def generate_images_grid(self, steps_to_return: Sequence[int], n: int = 1,
+                             minibatch: int = 4, mean_only: bool = False,
+                             seed: Optional[int] = None, use_ema: bool = True, x_T=None,
+                             noise=None):
+        """(starting noise [n, H, W, C], steps [n, STEPS, H, W, C]) as numpy,
+        from T, in ``minibatch`` chunks.  One generator seeded with ``seed``
+        (default 0) draws each chunk's x_T and then its steps' z.  ``x_T``
+        ([n, ...]) and ``noise`` ([T, n, ...]) may be injected; both wrap
+        around to pad the last chunk."""
+        generator = self._generator(seed)
+        minibatch = min(int(minibatch), int(n))
+        shape = (minibatch, self.resolution, self.resolution, self.in_channels)
+        starts, images = [], []
+        for i in range(-(-int(n) // minibatch)):
+            idx = torch.arange(i * minibatch, (i + 1) * minibatch) % int(n)
+            if x_T is not None:
+                x_t = self._batch(x_T)[idx.to(self.device)]
+            else:
+                x_t = torch.randn(shape, generator=generator, device=self.device)
+            chunk_noise = None if noise is None else self._batch(noise)[:, idx.to(self.device)]
+            steps = self._steps(x_t, self.diffusion_steps, steps_to_return, mean_only,
+                                generator, False, use_ema, chunk_noise)
+            starts.append(x_t.cpu().numpy())
+            images.append(steps.float().cpu().numpy())
+        return np.concatenate(starts)[:n], np.concatenate(images)[:n]
+
+    def diffuse_and_reconstruct(self, x0, t: Optional[int] = None, seed: Optional[int] = None,
+                                use_ema: bool = True, mean_only: bool = False, q_noise=None,
+                                noise=None):
+        """x0 noised to t (default T) and reconstructed by the chain from t:
+        (reconstruction, x_t).  One generator seeded with ``seed`` (default
+        0) draws the forward noise and then the chain's z; ``q_noise``
+        (x0's shape) and ``noise`` ([t, *x0.shape]) may be injected."""
+        t = t if t is not None else self.diffusion_steps
+        generator = self._generator(seed)
+        x_t = self.get_noised_representation(x0, t, generator=generator, noise=q_noise)
+        return self._chain(x_t, t, generator, use_ema, noise=noise, mean_only=mean_only), x_t
+
+    def diffuse_and_reconstruct_grid(self, x0, t_start: Optional[int] = None,
+                                     steps_to_return: Sequence[int] = (1,),
+                                     seed: Optional[int] = None, mean_only: bool = False,
+                                     return_stds: bool = False, use_ema: bool = True,
+                                     q_noise=None, noise=None):
+        """``diffuse_and_reconstruct`` recording steps as
+        ``sample_and_return_steps`` does: (steps, x_t), or with
+        ``return_stds`` ((steps, stds), x_t)."""
+        t_start = t_start if t_start is not None else self.diffusion_steps
+        generator = self._generator(seed)
+        x_t = self.get_noised_representation(x0, t_start, generator=generator, noise=q_noise)
+        return self._steps(x_t, t_start, steps_to_return, mean_only, generator, return_stds,
+                           use_ema, noise), x_t
+
     # ------------ evaluation
 
     def calculate_likelihood(self, x, seed: int = 0, use_ema: bool = True, y=None,
                              noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """``evals.nll.calculate_likelihood`` of batch ``x`` with a generator
         on the device seeded with ``seed`` (or the given ``noise`` stack)."""
-        generator = torch.Generator(self.device).manual_seed(int(seed))
+        generator = self._generator(seed)
         return calculate_likelihood(self._inference(use_ema), self.tables, self._batch(x),
                                     generator, sigma_mode=self.sigma_mode, y=self._cond(y),
                                     noise=noise)

@@ -85,6 +85,12 @@ class MetricLogger:
         if self._wandb is not None:
             self._wandb.log(clean, step=step)
 
+    def log_image(self, name: str, path: Path) -> None:
+        """Mirror an image file to W&B under ``name``; no-op without the
+        wandb mirror (the file stays in the run's ``media/``)."""
+        if self._wandb is not None:
+            self._wandb.log({name: self._wandb.Image(str(path))})
+
     def log_artifact(self, path, name: str, type: str = "checkpoint") -> None:
         """Mirror a file or directory as a W&B artifact; no-op without the
         wandb mirror."""

@@ -170,6 +170,7 @@ class UNetModel(nn.Module):
         mc = model_channels
         emb_dim = 4 * mc
         self.model_channels, self.num_classes, self.dtype = mc, num_classes, dtype
+        self.cfg_null_class = bool(cfg_null_class)
         gen = generator
 
         self.time_embed_1 = Linear(mc, emb_dim, dtype=dtype, generator=gen)

@@ -9,6 +9,9 @@ z the float32 trajectory equals the JAX one bit for bit.
 
 ``model_fn(x, t, y)`` is the model, e.g. a ``UNetModel``; it is fed the
 original timestep ``timestep_map[t-1]`` when a respaced schedule is used.
+``make_v_to_eps_apply_fn`` and ``make_x0_to_eps_apply_fn`` give the eps
+view of a v- or x0-parameterized model, which every table-driven consumer
+(this loop, the NLL) takes unchanged.
 """
 
 from __future__ import annotations
@@ -22,7 +25,38 @@ from ..core import diffusion as D
 from ..core.diffusion import DiffusionTables
 from ..core.schedules import NoiseSchedule
 
-__all__ = ["p_sample_loop", "space_timesteps", "respaced_schedule"]
+__all__ = ["p_sample_loop", "space_timesteps", "respaced_schedule", "make_v_to_eps_apply_fn",
+           "make_x0_to_eps_apply_fn"]
+
+
+def _make_to_eps_apply_fn(model_fn: Callable, tables: DiffusionTables,
+                          convert: Callable) -> Callable:
+    """``model_fn`` seen as an eps model: ``convert(tables, x, t, head)``
+    maps its native head to eps on each call.  ``tables`` are the FULL
+    schedule's, since the loops apply ``timestep_map`` before the model
+    call.  Of a learned-sigma head (2C channels) only the first half is
+    converted; the variance interpolation passes through."""
+
+    def eps_apply(x: torch.Tensor, t: torch.Tensor, y: Optional[torch.Tensor] = None,
+                  **kwargs) -> torch.Tensor:
+        out = model_fn(x, t, y, **kwargs)
+        if out.shape[-1] == 2 * x.shape[-1]:
+            head, var_head = out.chunk(2, dim=-1)
+            return torch.cat([convert(tables, x.to(head.dtype), t, head), var_head], dim=-1)
+        return convert(tables, x.to(out.dtype), t, out)
+
+    return eps_apply
+
+
+def make_v_to_eps_apply_fn(model_fn: Callable, tables: DiffusionTables) -> Callable:
+    """The eps view of a v-parameterized model (arXiv:2202.00512)."""
+    return _make_to_eps_apply_fn(model_fn, tables, D.eps_from_v)
+
+
+def make_x0_to_eps_apply_fn(model_fn: Callable, tables: DiffusionTables) -> Callable:
+    """The eps view of an x0-parameterized model (improved-diffusion's
+    ``predict_xstart``)."""
+    return _make_to_eps_apply_fn(model_fn, tables, D.eps_from_xstart)
 
 
 def _model_eps(model_fn: Callable, x: torch.Tensor, t: torch.Tensor,

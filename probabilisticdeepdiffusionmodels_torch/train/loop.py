@@ -8,17 +8,20 @@ PyTorch counterpart of ``probabilisticdeepdiffusionmodels_tpu/train/loop.py``:
   * the EMA updated after every optimizer step (inside the train step);
   * per-epoch quartile losses loss_q1..4 and the per-t curve from the loss
     history on the device;
-  * the grad norm of each logged step.
+  * the grad norm of each logged step;
+  * validation over at most ``limit_val_batches`` batches;
+  * the visualization callback every ``vis_run_every`` epochs and once at
+    the end of training.
 Metrics are read to the host only at the log cadence.  Not ported yet: the
-fused K-step path (ROADMAP.md Queue 1 item 17) and the visualization
-callback (item 15).
+fused K-step path (ROADMAP.md Queue 1 item 17).
 """
 
 from __future__ import annotations
 
 import collections
+import itertools
 import time
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -64,6 +67,9 @@ class Trainer:
         max_epochs: int = 100,
         check_val_every_n_epoch: int = 2,
         patience: int = 20,
+        limit_val_batches: Optional[int] = None,
+        visualization_callback: Optional[Callable] = None,
+        vis_run_every: int = 5,
         log_every_steps: int = 50,
         save_every_steps: Optional[int] = None,
         watch_every_steps: Optional[int] = None,
@@ -79,6 +85,9 @@ class Trainer:
         self.max_epochs = max_epochs
         self.check_val_every_n_epoch = check_val_every_n_epoch
         self.patience = patience
+        self.limit_val_batches = limit_val_batches
+        self.vis = visualization_callback
+        self.vis_run_every = vis_run_every
         self.log_every_steps = log_every_steps
         # host -> device overlap (prefetch_to_device); 0 or 1 disables it
         self.prefetch = int(prefetch or 0)
@@ -121,6 +130,11 @@ class Trainer:
                         print(f"[train] early stop at epoch {epoch}")
                         break
 
+            if self.vis is not None and (epoch + 1) % self.vis_run_every == 0:
+                self.vis(self.engine, epoch)
+
+        if self.vis is not None:
+            self.vis(self.engine, -1)  # the train-end pass
         # the best checkpoint goes into the engine before the final test
         best = self.ckpt.best_step()
         if best is not None:
@@ -137,10 +151,12 @@ class Trainer:
         self.logger.log(row, step=step)
 
     def _validate(self, val_loader, step) -> Dict[str, float]:
-        """Mean val_loss (and val_loss_no_ema) over the val batches; batch i
-        draws its t and noise from a generator seeded with ``step + i``."""
+        """Mean val_loss (and val_loss_no_ema) over the val batches, at most
+        ``limit_val_batches`` of them; batch i draws its t and noise from a
+        generator seeded with ``step + i``."""
         losses, losses_no_ema = [], []
-        for i, (x, y) in enumerate(val_loader):
+        batches = itertools.islice(val_loader, self.limit_val_batches)
+        for i, (x, y) in enumerate(batches):
             generator = torch.Generator(self.engine.device).manual_seed(step + i)
             out = self.engine.validation_step(x, generator, y)
             losses.append(float(out["val_loss"]))

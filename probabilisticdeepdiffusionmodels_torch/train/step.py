@@ -1,19 +1,24 @@
-"""The training and validation steps on the eps / ``simple`` path.
+"""The training and validation steps.
 
 PyTorch counterpart of ``make_train_step`` and ``make_eval_step`` in
 ``probabilisticdeepdiffusionmodels_tpu/train/step.py``.  One call of the train
 step draws t (uniform or importance) and then the noise from the state's
 generator (or takes them injected), noises x0, runs the model in train mode,
-takes the eps-MSE per sample, reduces it (the weighted loss is SUMMED, the
-unweighted one MEANED), backpropagates, records the detached per-sample
-losses in the loss history, and applies the optimizer and the EMA.  Nothing
-in it waits for the device: the metrics are device tensors.  Dropout (a
-model with ``dropout > 0``) draws its masks from the state's generator too,
-after t and the noise, as JAX draws them from the step's key.
+takes the MSE against the target of ``prediction_type`` (eps, v or x0) per
+sample, weights it by min-SNR where asked, reduces it (the weighted loss is
+SUMMED, the unweighted one MEANED), adds the IDDPM variational bound of a
+learned-sigma head under ``loss_type="hybrid"``, backpropagates, records the
+detached per-sample losses in the loss history, and applies the optimizer
+and the EMA.  Nothing in it waits for the device: the metrics are device
+tensors.  With ``class_dropout_prob`` the class-dropout draw follows t and
+the noise; dropout (a model with ``dropout > 0``) draws its masks from the
+state's generator after that, inside the forward.  A run with neither keeps
+the stream of t and noise alone.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, Iterable, Optional
 
 import torch
@@ -24,8 +29,6 @@ from .samplers import importance_weights, sample_importance, sample_uniform
 from .state import TrainState
 
 __all__ = ["make_train_step", "make_eval_step", "global_norm"]
-
-_LATER = "is not ported yet (ROADMAP.md Queue 1 item 11)"
 
 
 def global_norm(tensors: Iterable[Optional[torch.Tensor]]) -> torch.Tensor:
@@ -41,10 +44,42 @@ def _check(prediction_type: str, loss_weighting: str) -> None:
         raise ValueError(f'Unknown prediction_type: "{prediction_type}"')
     if loss_weighting not in ("none", "min_snr"):
         raise ValueError(f'Unknown loss_weighting: "{loss_weighting}"')
-    if prediction_type != "epsilon":
-        raise NotImplementedError(f"prediction_type={prediction_type!r} {_LATER}")
-    if loss_weighting != "none":
-        raise NotImplementedError(f"loss_weighting={loss_weighting!r} {_LATER}")
+
+
+def _vlb_term(tables: DiffusionTables, x0: torch.Tensor, x_t: torch.Tensor, t: torch.Tensor,
+              eps_pred: torch.Tensor, v_pred: torch.Tensor) -> torch.Tensor:
+    """IDDPM L_vlb [B] in bits/dim for a learned-sigma head: the KL of the
+    true posterior against the model's, and at t == 1 the discretized
+    decoder NLL.  The mean is built from the DETACHED eps, so the bound
+    trains only the variance head ``v_pred``."""
+    model_logvar = D.learned_logvar(tables, t, v_pred, x0.ndim)
+    model_mean = D.model_mean_from_epsilon(tables, x_t, t, eps_pred.detach())
+    true_mean, true_var = D.q_posterior(tables, t, x0, x_t)
+    kl = D.mean_flat(D.normal_kl(true_mean, torch.log(true_var), model_mean, model_logvar))
+    decoder_nll = -D.mean_flat(D.discretized_gaussian_log_likelihood(
+        x0, model_mean, 0.5 * model_logvar))
+    ln2 = math.log(2.0)
+    return torch.where(t == 1, decoder_nll / ln2, kl / ln2)
+
+
+def _pred_target(tables: DiffusionTables, prediction_type: str, x0: torch.Tensor,
+                 noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """The regression target of ``prediction_type``: eps, v or x0."""
+    if prediction_type == "epsilon":
+        return noise
+    if prediction_type == "v":
+        return D.v_target(tables, x0, noise, t)
+    return x0
+
+
+def _pred_to_eps(tables: DiffusionTables, prediction_type: str, x_t: torch.Tensor,
+                 t: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+    """A native prediction head as eps (for the bound)."""
+    if prediction_type == "epsilon":
+        return pred
+    if prediction_type == "v":
+        return D.eps_from_v(tables, x_t, t, pred)
+    return D.eps_from_xstart(tables, x_t, t, pred)
 
 
 def make_train_step(
@@ -53,10 +88,13 @@ def make_train_step(
     sampling: str = "uniform",
     min_counts: int = 10,
     loss_type: str = "simple",
+    vlb_weight: float = 1e-3,
     watch: bool = False,
     class_dropout_prob: float = 0.0,
+    null_class: Optional[int] = None,
     prediction_type: str = "epsilon",
     loss_weighting: str = "none",
+    snr_gamma: float = 5.0,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """Build ``step(state, x0, y=None, *, t=None, noise=None) -> metrics``.
 
@@ -64,17 +102,26 @@ def make_train_step(
     [B]) and ``noise`` (x0's shape) may be injected; an injected t under
     importance sampling is weighted from the state's own history
     (``1/(p[t-1]*B)`` once warmed up, ``1/B`` before).  Metrics: ``loss``,
-    ``grad_norm`` (float32 global norm of the gradients before any clipping)
-    and, with ``watch``, ``grad_norm_per_module`` for each top-level module.
+    ``grad_norm`` (float32 global norm of the gradients before any
+    clipping), ``vlb`` under ``loss_type="hybrid"`` (the batch mean of the
+    bound, added to the loss times ``vlb_weight``) and, with ``watch``,
+    ``grad_norm_per_module`` for each top-level module.
+
+    ``loss_type="hybrid"`` needs a 2C-channel head: its first half is the
+    prediction, its second the variance interpolation.  ``loss_weighting=
+    "min_snr"`` multiplies each sample's MSE by ``min_snr_weight`` before
+    the reduction and the loss history.  ``class_dropout_prob`` p > 0
+    replaces each label by ``null_class`` with probability p.
     """
     T = tables.diffusion_steps
     if sampling not in ("uniform", "importance"):
         raise ValueError(f'Unknown sampling option: "{sampling}"')
     _check(prediction_type, loss_weighting)
-    if loss_type != "simple":
-        raise NotImplementedError(f"loss_type={loss_type!r} {_LATER}")
-    if class_dropout_prob:
-        raise NotImplementedError(f"class_dropout_prob > 0 {_LATER}")
+    if loss_type not in ("simple", "hybrid"):
+        raise ValueError(f'Unknown loss_type: "{loss_type}"')
+    if class_dropout_prob and null_class is None:
+        raise ValueError("class_dropout_prob needs null_class (the index of the model's "
+                         "cfg_null_class embedding row)")
 
     def step(state: TrainState, x0: torch.Tensor, y: Optional[torch.Tensor] = None, *,
              t: Optional[torch.Tensor] = None,
@@ -93,14 +140,27 @@ def make_train_step(
         if noise is None:
             noise = torch.randn(x0.shape, generator=state.generator, device=x0.device,
                                 dtype=x0.dtype)
+        if class_dropout_prob:
+            if y is None:
+                raise ValueError("class_dropout_prob needs labels every step")
+            drop = torch.rand(b, generator=state.generator, device=x0.device) < class_dropout_prob
+            y = torch.where(drop, torch.full_like(y, null_class), y)
         x_t = D.q_sample(tables, x0, noise, t)
+        target = _pred_target(tables, prediction_type, x0, noise, t)
 
         model.train()
         for p in model.parameters():
             p.grad = None
-        per_sample = D.mean_flat(torch.square(
-            noise - model(x_t, t, y, generator=state.generator)))
+        out = model(x_t, t, y, generator=state.generator)
+        pred, v_pred = out.chunk(2, dim=-1) if loss_type == "hybrid" else (out, None)
+        per_sample = D.mean_flat(torch.square(target - pred))
+        if loss_weighting == "min_snr":
+            per_sample = per_sample * D.min_snr_weight(tables, t, snr_gamma, prediction_type)
         loss = (weights * per_sample).sum() if weights is not None else per_sample.mean()
+        if loss_type == "hybrid":
+            vlb = _vlb_term(tables, x0, x_t, t,
+                            _pred_to_eps(tables, prediction_type, x_t, t, pred), v_pred).mean()
+            loss = loss + vlb_weight * vlb
         loss.backward()
 
         named = list(model.named_parameters())
@@ -110,6 +170,8 @@ def make_train_step(
             for name, p in named:
                 modules.setdefault(name.split(".")[0], []).append(p.grad)
             metrics["grad_norm_per_module"] = {k: global_norm(v) for k, v in modules.items()}
+        if loss_type == "hybrid":
+            metrics["vlb"] = vlb.detach()
         state.loss_history.update(t, per_sample.detach())
         state.apply_gradients()
         return metrics
@@ -118,10 +180,13 @@ def make_train_step(
 
 
 def make_eval_step(tables: DiffusionTables, prediction_type: str = "epsilon",
-                   loss_weighting: str = "none") -> Callable[..., torch.Tensor]:
+                   loss_weighting: str = "none",
+                   snr_gamma: float = 5.0) -> Callable[..., torch.Tensor]:
     """Build ``step(model, generator, x0, y=None, *, t=None, noise=None)``:
     the validation loss (uniform t, no weights, no dropout: the model is put
-    in eval mode) of ``model``; pass ``state.model`` or ``state.ema_model``."""
+    in eval mode) of ``model``, against the target of ``prediction_type``
+    and weighted as the train step weights it; pass ``state.model`` or
+    ``state.ema_model``.  A 2C-channel head is scored on its first half."""
     T = tables.diffusion_steps
     _check(prediction_type, loss_weighting)
 
@@ -136,8 +201,12 @@ def make_eval_step(tables: DiffusionTables, prediction_type: str = "epsilon",
                                 dtype=x0.dtype)
         t = t.to(x0.device)
         model.eval()
+        target = _pred_target(tables, prediction_type, x0, noise, t)
         out = model(D.q_sample(tables, x0, noise, t), t, y)
         pred = out.chunk(2, dim=-1)[0] if out.shape[-1] == 2 * x0.shape[-1] else out
-        return D.mean_flat(torch.square(noise - pred)).mean()
+        per_sample = D.mean_flat(torch.square(target - pred))
+        if loss_weighting == "min_snr":
+            per_sample = per_sample * D.min_snr_weight(tables, t, snr_gamma, prediction_type)
+        return per_sample.mean()
 
     return step

@@ -1,8 +1,9 @@
 """The port's command-line entry points on the CPU: ``cli.train`` ->
 ``cont_run`` -> ``cli.sample`` -> ``cli.eval`` on ``test_cli.py``'s tiny
 config, the artifacts and keys the JAX CLIs give, the engine's endpoints,
-the options the port refuses, and the port's imports (no JAX, nothing of the
-JAX package, no matplotlib, which the card's Python lacks)."""
+the Trainer's validation limit and visualization cadence, the options the
+port refuses, and the port's imports (no JAX, nothing of the JAX package, no
+matplotlib, which the card's Python lacks), ``viz/`` among them."""
 
 import ast
 import json
@@ -297,6 +298,51 @@ def test_prefetch_and_weight_histograms(tmp_path):
     assert any(f"weights/{next(iter(top))}/std" in r for r in rows)
 
 
+def test_limit_val_batches_stops_validation(tmp_path):
+    """``Trainer(limit_val_batches=1)`` consumes one batch of a 3-batch
+    validation loader, and ``val_loss`` is that batch's loss with t and
+    noise from a generator seeded with the step, as JAX's ``_validate``."""
+    from probabilisticdeepdiffusionmodels_torch.logging import MetricLogger, RunDir
+
+    rng = np.random.default_rng(4)
+    val = [(rng.uniform(-1, 1, size=(2, 8, 8, 3)).astype(np.float32), None) for _ in range(3)]
+    consumed = []
+
+    def loader():
+        for batch in val:
+            consumed.append(batch)
+            yield batch
+
+    engine = _engine()
+    run_dir = RunDir(str(tmp_path), "limit_val")
+    trainer = Trainer(engine, run_dir, logger=MetricLogger(run_dir), max_epochs=1,
+                      check_val_every_n_epoch=1, limit_val_batches=1)
+    out = trainer._validate(loader(), step=7)
+    assert len(consumed) == 1
+    want = engine.validation_step(val[0][0], torch.Generator().manual_seed(7))
+    assert out["val_loss"] == float(want["val_loss"])
+    assert out["val_loss_no_ema"] == float(want["val_loss_no_ema"])
+    consumed.clear()
+    Trainer(engine, run_dir, logger=MetricLogger(run_dir))._validate(loader(), step=7)
+    assert len(consumed) == 3
+
+
+def test_trainer_runs_the_callback_every_n_epochs(tmp_path):
+    """The callback runs after every ``vis_run_every``-th epoch and once more
+    at the end of training (epoch -1), as JAX's ``Trainer.fit``."""
+    from probabilisticdeepdiffusionmodels_torch.logging import MetricLogger, RunDir
+
+    x = np.random.default_rng(5).uniform(-1, 1, size=(2, 8, 8, 3)).astype(np.float32)
+    seen = []
+    run_dir = RunDir(str(tmp_path), "vis_cadence")
+    trainer = Trainer(_engine(), run_dir, logger=MetricLogger(run_dir), max_epochs=4,
+                      check_val_every_n_epoch=4,
+                      visualization_callback=lambda engine, epoch: seen.append(epoch),
+                      vis_run_every=2)
+    trainer.fit([(x, None)], [(x, None)])
+    assert seen == [1, 3, -1]
+
+
 # ------------------------------------------------------------- refusals
 
 
@@ -316,15 +362,15 @@ def test_entry_points_need_a_card_unless_asked(tmp_path, monkeypatch, trained_ru
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["visualization=more"], "item 15"),
+    (["engine.prediction_type=edm"], "item 12"),
     (["trainer.devices=2"], "item 18"),
     (["trainer.fused_steps=2"], "item 17"),
     (["data.device_resident=true"], "item 17"),
     (["data.superres_factor=2"], "item 16"),
-    (["engine.prediction_type=v"], "item 11"),
+    (["engine.prediction_type=consistency"], "item 12"),
     (["engine.prediction_type=flow"], "item 12"),
     (["engine.encoder_reuse=2"], "item 10"),
-], ids=["visualization", "devices", "fused_steps", "device_resident", "superres", "v", "flow",
+], ids=["edm", "devices", "fused_steps", "device_resident", "superres", "consistency", "flow",
         "encoder_reuse"])
 def test_train_cli_refuses_what_is_not_ported(argv, match, tmp_path):
     with pytest.raises(NotImplementedError, match=match):
@@ -332,13 +378,13 @@ def test_train_cli_refuses_what_is_not_ported(argv, match, tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    ([], "regular_viz=false"),
-    (["regular_viz=false", "detailed_viz=true"], "item 15"),
+    (["sampler=heun"], "item 10"),
+    (["devices=2"], "item 18"),
     (["regular_viz=false", "inpaint=true"], "item 10"),
     (["regular_viz=false", "sampler=ddim"], "item 10"),
     (["regular_viz=false", "sampler=edm"], "item 12"),
     (["regular_viz=false", "guidance_scale=2.0"], "item 10"),
-], ids=["regular_viz", "detailed_viz", "inpaint", "ddim", "edm", "guidance"])
+], ids=["heun", "devices", "inpaint", "ddim", "edm", "guidance"])
 def test_sample_cli_refuses_what_is_not_ported(argv, match, trained_run):
     _, result = trained_run
     with pytest.raises(NotImplementedError, match=match):
@@ -383,9 +429,12 @@ def test_port_imports_no_jax(source):
 
 def test_every_module_imports_with_jax_blocked():
     """Each module of the package imports in a process where the banned
-    packages cannot be imported."""
+    packages cannot be imported; the visualization suite among them."""
     modules = sorted(".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
                      for p in PKG.rglob("*.py"))
+    viz = {f"probabilisticdeepdiffusionmodels_torch.viz{m}" for m in ("", ".hooks", ".image")}
+    assert viz <= set(modules)
+    assert {f"{PKG.name}/viz/{m}.py" for m in ("__init__", "hooks", "image")} <= set(SOURCES)
     code = (f"import sys\nfor name in {sorted(BANNED)!r}:\n    sys.modules[name] = None\n"
             f"import importlib\nfor m in {modules!r}:\n    importlib.import_module(m)\n"
             "print(len(sys.modules))\n")

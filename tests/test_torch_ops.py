@@ -7,6 +7,8 @@ numpy inputs, at the tolerances of tests/test_pallas_ops.py.  Tests marked
 main-path shapes and skip without a card.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -403,17 +405,46 @@ _CONV_SHAPES = [(128, 32, 32, 128, 128), (128, 32, 32, 256, 128), (128, 32, 32, 
 _TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
 
 
-def _need_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
+@contextlib.contextmanager
+def true_float32():
+    """TF32 off for cuDNN convs and cuBLAS matmuls (the plain versions run
+    true float32, as JAX pins it), both flags restored on the way out."""
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.fixture
+def card():
+    """A test on the card: skipped without one, run in true float32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    with true_float32():
+        yield
+
+
+def test_true_float32_restores_the_tf32_flags():
+    flags = (torch.backends.cudnn, torch.backends.cuda.matmul)
+    saved = tuple(f.allow_tf32 for f in flags)
+    try:
+        for f in flags:
+            f.allow_tf32 = True
+        with pytest.raises(KeyError), true_float32():
+            assert not any(f.allow_tf32 for f in flags)
+            raise KeyError
+        assert all(f.allow_tf32 for f in flags)
+    finally:
+        for f, v in zip(flags, saved):
+            f.allow_tf32 = v
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_card_attention_kernel_matches_plain(dtype):
-    _need_card()
+def test_card_attention_kernel_matches_plain(dtype, card):
     gen = torch.Generator(device="cuda").manual_seed(0)
     for shape in _ATTN_SHAPES:
         qkv = torch.randn(shape, device="cuda", generator=gen).to(dtype)
@@ -435,10 +466,9 @@ _GN_SHAPES = [((128, 256, 256), 32), ((128, 64, 256), 32), ((128, 16, 256), 32),
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_card_groupnorm_kernel_matches_plain(dtype):
+def test_card_groupnorm_kernel_matches_plain(dtype, card):
     """Both designs where both apply, with two runs of each compared bit
     for bit."""
-    _need_card()
     gen = torch.Generator(device="cuda").manual_seed(1)
     for shape, groups in _GN_SHAPES:
         x = (torch.randn(shape, device="cuda", generator=gen) + 0.5).to(dtype)
@@ -462,8 +492,7 @@ def test_card_groupnorm_kernel_matches_plain(dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_card_gn_conv_kernel_matches_plain(dtype):
-    _need_card()
+def test_card_gn_conv_kernel_matches_plain(dtype, card):
     gen = torch.Generator(device="cuda").manual_seed(2)
     for b, h, w, cin, cout in _CONV_SHAPES:
         x = torch.randn(b, h, w, cin, device="cuda", generator=gen).to(dtype)
@@ -497,11 +526,10 @@ def _affine_tol(ref):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_card_gn_affine_kernel_matches_plain(dtype):
+def test_card_gn_affine_kernel_matches_plain(dtype, card):
     """Moments + fold against the plain version at every site shape, in the
     three modes (the FiLM pair as strided halves of one tensor), with two
     runs compared bit for bit."""
-    _need_card()
     gen = torch.Generator(device="cuda").manual_seed(4)
     for shape, groups in _AFFINE_SHAPES:
         b, c = shape[0], shape[-1]
@@ -524,10 +552,9 @@ def test_card_gn_affine_kernel_matches_plain(dtype):
 
 
 @pytest.mark.gpu
-def test_card_gn_affine_narrow_vectors_and_rules():
+def test_card_gn_affine_narrow_vectors_and_rules(card):
     """A bf16 tensor whose address is only 2-byte aligned takes scalar
     loads, not the plain version; what the kernel does not take raises."""
-    _need_card()
     gen = torch.Generator(device="cuda").manual_seed(5)
     flat = torch.randn(1 + 4 * 10 * 10 * 64, device="cuda", generator=gen).to(torch.bfloat16)
     x = flat[1:].view(4, 10, 10, 64)
@@ -558,13 +585,12 @@ _AFFINE_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_card_gn_affine_gradients_match_plain(dtype):
+def test_card_gn_affine_gradients_match_plain(dtype, card):
     """``backward`` through ``gn_affine`` on the card (the fold's backward
     kernel and the apply kernel) against autograd through the plain version,
     at a 32x32, a 16x16 and a 4x4 site and groups of 3 channels, in the three
     modes; the backward counts one launch of ``gn_affine_grad`` and none of
     ``gn_affine``."""
-    _need_card()
     gen = torch.Generator(device="cuda").manual_seed(6)
     for (b, h, c), mode in [((128, 32, 128), "emb"), ((128, 16, 384), "film"),
                             ((128, 4, 512), "plain"), ((8, 16, 96), "emb"),
@@ -635,11 +661,10 @@ def _grads_match(fn, plain, leaves, g, dtype, counter):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_card_kernel_gradients_match_plain(dtype):
+def test_card_kernel_gradients_match_plain(dtype, card):
     """Each op's gradient with the kernel's forward against autograd through
     the plain version, on the same leaves (float32 scale, offset, weight,
     bias and affine, as the model's parameters are)."""
-    _need_card()
     gen = torch.Generator(device="cuda").manual_seed(3)
 
     def randn(*shape, scale=1.0):
@@ -661,3 +686,62 @@ def test_card_kernel_gradients_match_plain(dtype):
     qkv = randn(128, 256, 768).to(dtype).requires_grad_(True)
     _grads_match(lambda q: qkv_attention(q, 4), lambda q: qkv_attention_plain(q, 4), [qkv],
                  randn(128, 256, 256).to(dtype), dtype, qkv_attention)
+
+
+# the visualization endpoints' batches: one image (the single
+# reconstruction), ten (an interpolation's lerps); each of the CIFAR UNet's
+# distinct conv and attention signatures at that batch, and the float32
+# learned-sigma head (Cout 6)
+_VIZ_CONV = [(32, 32, 128, 128), (32, 32, 384, 128), (16, 16, 256, 256), (16, 16, 512, 256),
+             (8, 8, 512, 256), (4, 4, 256, 256), (4, 4, 512, 256)]
+_VIZ_ATTN = [(256, 768), (64, 768), (16, 768)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 10])
+def test_card_viz_batches_match_plain(batch, card):
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    shapes = [(batch, *s, torch.bfloat16) for s in _VIZ_CONV]
+    shapes.append((batch, 32, 32, 128, 6, torch.float32))
+    for b, h, w, cin, cout, dtype in shapes:
+        x = torch.randn(b, h, w, cin, device="cuda", generator=gen).to(dtype)
+        a = 1.0 + 0.1 * torch.randn(b, cin, device="cuda", generator=gen)
+        off = 0.5 * torch.randn(b, cin, device="cuda", generator=gen)
+        wt = torch.randn(3, 3, cout, cin, device="cuda", generator=gen) / (3 * cin ** 0.5)
+        bias = torch.randn(cout, device="cuda", generator=gen)
+        before = gn_silu_conv3x3.launches
+        out = gn_silu_conv3x3(x, a, off, wt, bias)
+        torch.cuda.synchronize()
+        assert gn_silu_conv3x3.launches == before + 1
+        ref = gn_silu_conv3x3_plain(x, a, off, wt, bias)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=_TOL[dtype], atol=_TOL[dtype])
+    for t, c3 in _VIZ_ATTN:
+        qkv = torch.randn(batch, t, c3, device="cuda", generator=gen).to(torch.bfloat16)
+        out = qkv_attention(qkv, 4)
+        torch.cuda.synchronize()
+        ref = qkv_attention_plain(qkv, 4)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=_TOL[torch.bfloat16],
+                                   atol=_TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+def test_card_learned_sigma_head_at_batch_128(card):
+    """The hybrid train step's float32 output head (Cout 6, the narrow
+    design) at batch 128, forward and gradients, against the plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(*shape, device="cuda", generator=gen)
+
+    leaves = [randn(128, 32, 32, 128), 1.0 + randn(128, 128, scale=0.1),
+              randn(128, 128, scale=0.5), randn(3, 3, 6, 128, scale=1 / (3 * 128 ** 0.5)),
+              randn(6)]
+    assert conv_design(leaves[0], leaves[3]) == "narrow_f32"
+    with torch.no_grad():
+        out = gn_silu_conv3x3(*leaves)
+        torch.cuda.synchronize()
+        ref = gn_silu_conv3x3_plain(*leaves)
+    torch.testing.assert_close(out, ref, rtol=_TOL[torch.float32], atol=_TOL[torch.float32])
+    leaves = [t.requires_grad_(True) for t in leaves]
+    _grads_match(gn_silu_conv3x3, gn_silu_conv3x3_plain, leaves, randn(128, 32, 32, 6),
+                 torch.float32, gn_silu_conv3x3)

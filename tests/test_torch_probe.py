@@ -72,12 +72,23 @@ def test_probe_main_needs_the_card():
         P.try_dtype(torch.float32)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", sorted(_DTYPES))
-def test_card_probe_kernel_matches_plain(dtype):
+@pytest.fixture
+def card():
+    """A test on the card: skipped without one; the plain version's matmul
+    in true float32 (TF32 off), the flag restored after."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    saved = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(_DTYPES))
+def test_card_probe_kernel_matches_plain(dtype, card):
     tdt, _ = _DTYPES[dtype]
     a, b = P.random_operands(tdt, "cuda", seed=5)
     before = P.probe_mma.launches

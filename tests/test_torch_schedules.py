@@ -1,5 +1,6 @@
 """The port's schedule tables and respacing against the JAX package:
-bit-equal tables, kept steps and timestep maps."""
+bit-equal tables (linear, cosine and mixed modes, zero-terminal-SNR
+rescaling), kept steps and timestep maps."""
 
 import dataclasses
 
@@ -10,11 +11,20 @@ import torch
 import jax  # noqa: F401  (both frameworks in one process, as the other port tests)
 
 from probabilisticdeepdiffusionmodels_tpu.core import NoiseSchedule as JaxSchedule
+from probabilisticdeepdiffusionmodels_tpu.core.schedules import (
+    mixed_alpha_bar as jax_mixed_alpha_bar,
+    rescale_zero_terminal_snr as jax_rescale_zero_terminal_snr,
+)
 from probabilisticdeepdiffusionmodels_tpu.sample import (
     respaced_schedule as jax_respaced_schedule,
     space_timesteps as jax_space_timesteps,
 )
-from probabilisticdeepdiffusionmodels_torch.core import DiffusionTables, NoiseSchedule
+from probabilisticdeepdiffusionmodels_torch.core import (
+    DiffusionTables,
+    NoiseSchedule,
+    mixed_alpha_bar,
+    rescale_zero_terminal_snr,
+)
 from probabilisticdeepdiffusionmodels_torch.sample import (
     respaced_schedule,
     space_timesteps,
@@ -34,7 +44,7 @@ def _assert_same_schedule(ours, ref):
 
 
 @pytest.mark.parametrize("mode", ["linear", "cosine"])
-@pytest.mark.parametrize("steps", [50, 1000])
+@pytest.mark.parametrize("steps", [50, 1000, 4000])
 def test_tables_bit_equal(mode, steps):
     _assert_same_schedule(NoiseSchedule.create(steps, mode),
                           JaxSchedule.create(steps, mode))
@@ -46,9 +56,33 @@ def test_custom_betas_bit_equal():
                           JaxSchedule.create(30, betas=betas))
 
 
-def test_mixed_mode_not_ported():
-    with pytest.raises(NotImplementedError):
-        NoiseSchedule.create(50, "mixed")
+@pytest.mark.parametrize("steps", [50, 1000, 4000])
+def test_mixed_tables_bit_equal(steps):
+    """Half the linear alpha-bar table (extrapolated one step past T), half
+    the cosine one, in float32: the table and every buffer bit for bit."""
+    table = mixed_alpha_bar(steps)
+    assert table.dtype == np.float32 and table.shape == (steps + 1,)
+    np.testing.assert_array_equal(table, jax_mixed_alpha_bar(steps))
+    _assert_same_schedule(NoiseSchedule.create(steps, "mixed"),
+                          JaxSchedule.create(steps, "mixed"))
+
+
+@pytest.mark.parametrize("mode", ["linear", "cosine"])
+def test_zero_terminal_snr_bit_equal(mode):
+    """Algorithm 1 of arXiv:2305.08891 in float64 with the terminal floor:
+    the rescaled betas and the schedule built on them bit for bit; the
+    first alpha-bar kept, the terminal SNR near zero."""
+    betas = NoiseSchedule.create(1000, mode).betas
+    ours = rescale_zero_terminal_snr(betas)
+    ref = jax_rescale_zero_terminal_snr(betas)
+    assert ours.dtype == np.float32
+    np.testing.assert_array_equal(ours, ref)
+    sched = NoiseSchedule.create(1000, mode, betas=ours)
+    _assert_same_schedule(sched, JaxSchedule.create(1000, mode, betas=ref))
+    np.testing.assert_allclose(sched.alphas_hat[0], 1.0 - betas[0], rtol=1e-6)
+    assert sched.alphas_hat[-1] / (1.0 - sched.alphas_hat[-1]) < 1e-9
+    with pytest.raises(ValueError, match="at least 2 steps"):
+        rescale_zero_terminal_snr(betas[:1])
 
 
 @pytest.mark.parametrize("spacing", [250, 10, "ddim50", "trailing10", "karras10",

@@ -576,7 +576,7 @@ def test_train_step_importance_matches_jax():
     assert warm == 2, "the history did not warm up"
 
 
-def test_eval_step_and_unported_options():
+def test_eval_step_and_option_checks():
     cfg = dict(SMALL)
     tables = DiffusionTables.from_schedule(NoiseSchedule.create(1000, "linear"), "cpu")
     model = get_model(8, cfg, device="cpu").train()
@@ -587,10 +587,18 @@ def test_eval_step_and_unported_options():
     with torch.no_grad():
         want = mean_flat((noise - model(q_sample(tables, x0, noise, t), t)) ** 2).mean()
     assert torch.equal(loss, want)
+    # the item-11 objectives build (test_torch_objectives.py holds each
+    # against JAX); what no objective means is refused
     for kw in (dict(loss_type="hybrid"), dict(prediction_type="v"),
                dict(prediction_type="x0"), dict(loss_weighting="min_snr"),
-               dict(class_dropout_prob=0.1)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+               dict(class_dropout_prob=0.1, null_class=10)):
+        assert callable(make_train_step(tables, **kw))
+    for kw, match in ((dict(sampling="stratified"), "sampling"),
+                      (dict(loss_type="kl"), "loss_type"),
+                      (dict(prediction_type="edm"), "prediction_type"),
+                      (dict(loss_weighting="p2"), "loss_weighting"),
+                      (dict(class_dropout_prob=0.1), "null_class")):
+        with pytest.raises(ValueError, match=match):
             make_train_step(tables, **kw)
-    with pytest.raises(ValueError, match="sampling"):
-        make_train_step(tables, sampling="stratified")
+    with pytest.raises(ValueError, match="prediction_type"):
+        make_eval_step(tables, prediction_type="edm")
