@@ -62,13 +62,34 @@
    head's forward and backward, ``gn_affine_grad``) on the kernels against
    the plain versions; and one bf16 batch-128 train step each of v with
    min-SNR on a zero-terminal-SNR schedule and of x0, with exact launches
-   and no device-to-host copy.
+   and no device-to-host copy;
+10. the fast samplers at the CIFAR-10 UNet's full width (bf16, batch 128,
+   linear T=1000, clip): DDIM-50, DPM-Solver++(2M) at 10 and 20 steps,
+   Heun at ``karras18``, the ancestral 250-step and DDIM-50 chains with
+   ``encoder_reuse=3``, DDIM-50 under guidance 3 on a class-conditional
+   variant (its forward at batch 256), RePaint (``right_half``, 50 steps)
+   and DDIM inversion at 50 steps and back (``fast_samplers``): each chain
+   timed twice with its launches asserted (a cached call launches the
+   decoder's share), the launches and device operations of a full, a
+   cached and a guided model call, one chain profiled with no copy to the
+   host, the guided and cached calls' kernel sites against the plain
+   versions, and every chain in float32 at batch 4 on the kernels against
+   the plain versions with the same generator state;
+11. the EDM, flow-matching and consistency families (``model_families``):
+   each bf16 train step at batch 128 beside the eps step in turns (10 steps
+   after 3, launches asserted, device operations a step, no copy to the
+   host), each one's float32 gradients on the kernels against the plain
+   versions, the kernel sites of the EDM and flow inputs, the native
+   samplers (EDM Heun at 18, flow Euler and Heun at 50, consistency at 1
+   and 2 steps) timed and in float32 at batch 4 against the plain
+   versions, and ``cli.train engine.prediction_type=consistency`` then
+   ``cli.sample sampler=consistency`` with their launches asserted.
 
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Any failure raises and
 exits non-zero without that line; so does a machine without a CUDA device.
-With ``--out DIR`` the per-shape measurements and the compiler's log are
-also written to DIR.
+With ``--out DIR`` the per-shape measurements, the compiler's log and every
+line printed (``lines.jsonl``) are also written to DIR.
 """
 
 from __future__ import annotations
@@ -150,6 +171,31 @@ ENDPOINT_F32_TOL = 1e-3  # max abs difference after up to 10 steps (sums in anot
 VIEWS = ("visualize_random_grid", "visualize_interpolation", "visualize_reconstructions_grid",
          "visualize_single_reconstructions")
 
+# the fast_samplers phase: the CIFAR-10 UNet at full width (bf16, batch 128)
+# on linear T=1000 with clip, each sampler timed over FS_RUNS chains in a row;
+# the float32 checks at batch 4 over chains cut to about 10 steps
+FS_BATCH, FS_RUNS, FS_CHECK_BATCH = 128, 2, 4
+FS_TIMED = {"ddim_50": ("ddim", 50), "dpmpp2_10": ("dpmpp", 10), "dpmpp2_20": ("dpmpp", 20),
+            "heun_karras18": ("heun", "karras18"), "ancestral_250_reuse3": ("reuse_p", 250),
+            "ddim_50_reuse3": ("reuse_ddim", 50), "cfg3_ddim_50": ("cfg_ddim", 50),
+            "inpaint_right_half_50": ("inpaint", 50), "ddim_invert_50_and_back": ("invert", 50)}
+FS_CHECK = {"ddim": 10, "dpmpp": 10, "heun": "karras6", "reuse_p": 10, "reuse_ddim": 10,
+            "cfg_ddim": 10, "inpaint": 10, "invert_part": 10}
+CFG_SCALE, NUM_CLASSES = 3.0, 10
+# the model_families phase: each family's bf16 step at batch 128 beside the
+# eps step, in turns; the native samplers at batch 128; float32 checks
+FAMILIES = ("edm", "flow", "consistency")
+FAMILY_TURNS = ("eps", "edm", "flow", "consistency", "consistency", "flow", "edm", "eps")
+NATIVE_TIMED = {"edm_heun_18": ("edm", dict(n_steps=18)),
+                "flow_euler_50": ("flow", dict(n_steps=50)),
+                "flow_heun_50": ("flow", dict(n_steps=50, heun=True)),
+                "consistency_1": ("consistency", dict(n_steps=1)),
+                "consistency_2": ("consistency", dict(n_steps=2))}
+NATIVE_CHECK = {"edm_churn_6": ("edm", dict(n_steps=6, s_churn=2.0)),
+                "flow_euler_8": ("flow", dict(n_steps=8)),
+                "flow_heun_4": ("flow", dict(n_steps=4, heun=True)),
+                "consistency_2": ("consistency", dict(n_steps=2))}
+
 # H100 SXM published peaks (NVIDIA data sheet), dense
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -176,8 +222,12 @@ SOURCES = {
 }
 
 
+LINES = []  # every line printed, for --out DIR/lines.jsonl
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    LINES.append(json.dumps(obj))
+    print(LINES[-1], flush=True)
 
 
 def sync_time(torch, fn, min_ms=50.0, max_reps=200):
@@ -1436,6 +1486,480 @@ def iddpm_phase(torch, ops, smi, out_dir=None):
     return {name: launches[name] for name in ("iddpm_train", "iddpm_sample", "iddpm_eval")}
 
 
+def sampler_chain(kind, spec, sched, m, cm, x_T, y, x0, mask, seed):
+    """One chain of the fast_samplers phase: (output, full model calls,
+    cached model calls).  ``m`` is the model (eps), ``cm`` the class-
+    conditional one for guidance; every chain clips x0 but the inversion's
+    way back."""
+    from probabilisticdeepdiffusionmodels_torch.core import DiffusionTables
+    from probabilisticdeepdiffusionmodels_torch.sample import (
+        ddim_invert_loop,
+        ddim_sample_loop,
+        dpmpp_sample_loop,
+        heun_sample_loop,
+        inpaint_sample_loop,
+        make_cfg_apply_fn,
+        p_sample_loop,
+        respaced_schedule,
+        space_timesteps,
+    )
+    import torch
+
+    new, tmap = respaced_schedule(sched, space_timesteps(1000, spec,
+                                                         alphas_hat=sched.alphas_hat))
+    tables, n = DiffusionTables.from_schedule(new, "cuda"), new.diffusion_steps
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kw = dict(timestep_map=tmap)
+    if kind == "ddim":
+        return ddim_sample_loop(m, tables, x_T, clip=True, **kw), n, 0
+    if kind == "dpmpp":
+        return dpmpp_sample_loop(m, tables, x_T, clip=True, order=2, **kw), n, 0
+    if kind == "heun":
+        return heun_sample_loop(m, tables, x_T, clip=True, **kw), 2 * n - 1, 0
+    if kind in ("reuse_p", "reuse_ddim"):
+        segments = n // 3
+        if kind == "reuse_p":
+            out = p_sample_loop(m, tables, x_T, gen, clip=True, encoder_reuse=3, **kw)
+        else:
+            out = ddim_sample_loop(m, tables, x_T, clip=True, encoder_reuse=3, **kw)
+        return out, n - 2 * segments, 2 * segments
+    if kind == "cfg_ddim":
+        guided = make_cfg_apply_fn(cm, CFG_SCALE, NUM_CLASSES)
+        return ddim_sample_loop(guided, tables, x_T, clip=True, y=y, **kw), n, 0
+    if kind == "inpaint":
+        return inpaint_sample_loop(m, tables, x_T, gen, x0_known=x0, mask=mask, clip=True,
+                                   **kw), n, 0
+    # "invert": the whole chain and back; "invert_part": to 7/10 of it and
+    # back (decoding from ab_T ~ 4e-5 magnifies float32 rounding by 158)
+    t_end = n if kind == "invert" else 7 * n // 10
+    latent = ddim_invert_loop(m, tables, x0, t_end=t_end, **kw)
+    return ddim_sample_loop(m, tables, latent, t_start=t_end, **kw), 2 * t_end, 0
+
+
+def fast_samplers_phase(torch, ops, model, gen, smi, out_dir=None):
+    """DDIM, DPM-Solver++, Heun, encoder reuse, guidance, inpainting and DDIM
+    inversion at the CIFAR-10 UNet's full width: each chain timed with its
+    launches asserted (a cached call launches the decoder's share), the
+    device operations of each kind of model call, one chain profiled, the
+    new kernel sites (guidance's doubled batch, the cached calls) and every
+    chain in float32 at batch 4 on the kernels against the plain versions
+    (the same generator state); returns the launches by chain."""
+    import numpy as np
+
+    from probabilisticdeepdiffusionmodels_torch.core import DiffusionTables, NoiseSchedule
+    from probabilisticdeepdiffusionmodels_torch.models import get_model
+    from probabilisticdeepdiffusionmodels_torch.sample import (
+        dpmpp_sample_loop,
+        make_cfg_apply_fn,
+        respaced_schedule,
+        space_timesteps,
+    )
+
+    phase_start = time.perf_counter()
+    sched = NoiseSchedule.create(1000, "linear")
+    cm = get_model(RESOLUTION, dict(MODEL_CFG, num_classes=NUM_CLASSES, cfg_null_class=True),
+                   device="cuda", seed=0)
+    fill_zero_params(torch, cm, seed=30)
+
+    def inputs(batch):
+        x_T = torch.randn(batch, RESOLUTION, RESOLUTION, 3, device="cuda", generator=gen)
+        x0 = torch.rand(x_T.shape, device="cuda", generator=gen) * 2.0 - 1.0
+        mask = torch.zeros(RESOLUTION, RESOLUTION, 1, device="cuda")
+        mask[:, : RESOLUTION // 2] = 1.0  # right_half: keep the left half
+        y = torch.arange(batch, device="cuda") % NUM_CLASSES
+        return x_T, y, x0, mask
+
+    x_T, y, x0, mask = inputs(FS_BATCH)
+    t128 = torch.full((FS_BATCH,), 500, device="cuda")
+
+    # one model call of each kind: launches, device operations; the sites
+    # a guided (batch 256) and a cached call (decoder, and after the middle)
+    # give the kernels, held against the plain versions
+    calls, per_call = {}, {}
+    with torch.no_grad():
+        _, cache = model(x_T, t128, return_cache=True)
+        _, cache_mid = model(x_T, t128, return_cache=True, cache_middle=True)
+        kinds = {
+            "full": lambda: model(x_T, t128),
+            "cached": lambda: model(x_T, t128 - 1, cache=cache),
+            "cached_middle": lambda: model(x_T, t128 - 1, cache=cache_mid, cache_middle=True),
+            "guided_batch_256": lambda: make_cfg_apply_fn(cm, CFG_SCALE, NUM_CLASSES)(
+                x_T, t128, y),
+        }
+        for name, fn in kinds.items():
+            ops.reset()
+            with ops.recording(calls):
+                fn()
+            torch.cuda.synchronize()
+            per_call[name] = {"launches": ops.counts()}
+            prof = profile_device(torch, fn)
+            per_call[name].update(device_ops=prof["device_ops"],
+                                  device_busy_ms=prof["device_busy_ms"])
+    sites = hold_sites(torch, ops, calls)
+    if per_call["full"]["launches"] != expected_counts(1, False) or \
+            per_call["guided_batch_256"]["launches"] != expected_counts(1, False):
+        raise AssertionError(f"model call launches {per_call}")
+    cached_counts = per_call["cached"]["launches"]
+    if not 0 < cached_counts["gn_silu_conv3x3"] < PER_FORWARD["gn_silu_conv3x3"]:
+        raise AssertionError(f"a cached call launched {cached_counts}")
+    if 2 * FS_BATCH not in {site["shape"][0] for site in sites}:
+        raise AssertionError(f"no kernel site at guidance's batch {2 * FS_BATCH}")
+    del cache, cache_mid, calls
+
+    # the timed chains, bf16, batch 128
+    chains, launches = {}, {}
+    for name, (kind, spec) in FS_TIMED.items():
+        seconds = []
+        for run in range(FS_RUNS):
+            ops.reset()
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+            out, n_full, n_cached = sampler_chain(kind, spec, sched, model, cm, x_T, y, x0,
+                                                  mask, seed=40 + run)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t_start)
+            if run == 0:
+                launches[f"fs_{name}"] = ops.counts()
+                want = {k: n_full * PER_FORWARD[k] + n_cached * cached_counts[k]
+                        for k in PER_FORWARD}
+                want.update(gn_affine_grad=0)
+                if ops.counts() != want:
+                    raise AssertionError(f"{name} launches {ops.counts()} != {want}")
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{name}: output not finite")
+        chains[name] = {"model_calls": n_full + n_cached, "full_calls": n_full,
+                        "cached_calls": n_cached, "seconds": seconds,
+                        "img_per_s": [FS_BATCH / s for s in seconds],
+                        "device_ops_per_model_call": {
+                            k: per_call[k]["device_ops"] for k in
+                            (("guided_batch_256",) if kind == "cfg_ddim" else
+                             ("full", "cached") if n_cached else ("full",))}}
+        if kind == "inpaint" and not bool((out[:, :, : RESOLUTION // 2]
+                                           == x0[:, :, : RESOLUTION // 2]).all()):
+            raise AssertionError("inpaint changed the known half")
+
+    # one chain profiled: its device operations, and no copy to the host
+    tables10, tmap10 = respaced_schedule(sched, space_timesteps(1000, 10))
+    tables10 = DiffusionTables.from_schedule(tables10, "cuda")
+    prof = profile_device(torch, lambda: dpmpp_sample_loop(model, tables10, x_T, clip=True,
+                                                           timestep_map=tmap10))
+    copies = [k["name"] for k in prof.pop("all") if "DtoH" in k["name"]]
+    if copies:
+        raise AssertionError(f"the DPM-Solver++ chain copies to the host: {copies}")
+    chain_profile = dict(chain="dpmpp2_10", **{k: prof[k] for k in
+                                               ("wall_ms", "device_busy_ms", "device_ops",
+                                                "idle_share")})
+
+    # float32 chains at batch 4: kernels against plain versions
+    model32 = get_model(RESOLUTION, dict(MODEL_CFG, compute_dtype="float32"), device="cuda",
+                        seed=0)
+    model32.load_state_dict(model.state_dict())
+    cm32 = get_model(RESOLUTION, dict(MODEL_CFG, compute_dtype="float32",
+                                      num_classes=NUM_CLASSES, cfg_null_class=True),
+                     device="cuda", seed=0)
+    cm32.load_state_dict(cm.state_dict())
+    xs = inputs(FS_CHECK_BATCH)
+    f32 = {}
+    for kind, spec in FS_CHECK.items():
+        ops.reset()
+        got, _, _ = sampler_chain(kind, spec, sched, model32, cm32, *xs, seed=50)
+        torch.cuda.synchronize()
+        counts = ops.counts()
+        with ops.plain_versions():
+            want, _, _ = sampler_chain(kind, spec, sched, model32, cm32, *xs, seed=50)
+        if not counts["gn_silu_conv3x3"] or ops.counts() != counts:
+            raise AssertionError(f"float32 {kind}: launches {counts}, then {ops.counts()}")
+        f32[kind] = {"max_abs_diff": float((got - want).abs().max()),
+                     "finite": bool(torch.isfinite(got).all())}
+    # the inversion's round trip, float32 on the kernels, 50 steps
+    back, _, _ = sampler_chain("invert", 50, sched, model32, cm32, *xs, seed=51)
+    round_trip = float((back - xs[2]).abs().max())
+    del model32, cm32
+
+    line = {"phase": "fast_samplers", "nvidia_smi": smi, "batch": FS_BATCH, "runs": FS_RUNS,
+            "chains": chains, "model_call_kinds": per_call, "chain_profile": chain_profile,
+            "new_sites_vs_plain": {"sites": len(sites),
+                                   "batches": sorted({site["shape"][0] for site in sites}),
+                                   "worst": max(sites, key=lambda st: st["max_abs_err"] /
+                                                st["tol"])},
+            "f32_chains_vs_plain": {"batch": FS_CHECK_BATCH, "tol": F32_CHAIN_TOL, **f32},
+            "ddim_round_trip_f32_max_abs_err": round_trip,
+            "phase_seconds": time.perf_counter() - phase_start}
+    emit(line)
+    if out_dir is not None:
+        (out_dir / "fast_samplers.json").write_text(json.dumps(dict(line, sites=sites), indent=1))
+    bad = {k: v for k, v in f32.items() if not (v["finite"] and v["max_abs_diff"] <= F32_CHAIN_TOL)}
+    if bad:
+        raise AssertionError(f"float32 chains, kernels vs plain: {bad}")
+    return launches
+
+
+def family_step(kind, tables):
+    """The train step of a family (``eps``: the eps step)."""
+    from probabilisticdeepdiffusionmodels_torch.core import (
+        ConsistencyConfig,
+        EDMConfig,
+        FlowConfig,
+    )
+    from probabilisticdeepdiffusionmodels_torch.train.consistency import make_ct_train_step
+    from probabilisticdeepdiffusionmodels_torch.train.step import (
+        make_edm_train_step,
+        make_flow_train_step,
+        make_train_step,
+    )
+
+    if kind == "edm":
+        return make_edm_train_step(tables, EDMConfig())
+    if kind == "flow":
+        return make_flow_train_step(tables, FlowConfig())
+    if kind == "consistency":
+        return make_ct_train_step(tables, ConsistencyConfig())
+    return make_train_step(tables)
+
+
+def native_chain(kind, kw, m, x_T, seed):
+    """One native chain of the model_families phase and its model calls."""
+    import torch
+
+    from probabilisticdeepdiffusionmodels_torch.sample import (
+        consistency_sample_loop,
+        edm_sample_loop,
+        flow_sample_loop,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n = kw["n_steps"]
+    if kind == "edm":
+        return edm_sample_loop(m, None, x_T, gen, **kw), 2 * n - 1
+    if kind == "flow":
+        return flow_sample_loop(m, None, x_T, gen, **kw), (2 * n - 1 if kw.get("heun") else n)
+    return consistency_sample_loop(m, None, x_T, gen, **kw), n
+
+
+def model_families_phase(torch, ops, gen, smi, out_dir=None):
+    """The EDM, flow and consistency families at the CIFAR-10 UNet's full
+    width: each bf16 train step at batch 128 beside the eps step in turns
+    (launches asserted; a consistency step is two forwards, one without
+    gradients, and one backward), each step's device operations and no copy
+    to the host, the float32 gradients of each on the kernels against the
+    plain versions, the native samplers timed, their float32 chains at
+    batch 4 against the plain versions, the kernel sites of the EDM and flow
+    inputs, and one CLI chain: ``cli.train engine.prediction_type=
+    consistency`` then ``cli.sample sampler=consistency``; returns the
+    launches by path."""
+    import copy
+    import shutil
+
+    from probabilisticdeepdiffusionmodels_torch.cli import sample as cli_sample
+    from probabilisticdeepdiffusionmodels_torch.cli import train as cli_train
+    from probabilisticdeepdiffusionmodels_torch.config import load_config
+    from probabilisticdeepdiffusionmodels_torch.core import (
+        DiffusionTables,
+        NoiseSchedule,
+        TIME_SCALE,
+        edm_denoise,
+    )
+    from probabilisticdeepdiffusionmodels_torch.engine import AdamChain
+    from probabilisticdeepdiffusionmodels_torch.models import get_model
+    from probabilisticdeepdiffusionmodels_torch.train import TrainState
+
+    phase_start = time.perf_counter()
+    tables = DiffusionTables.from_schedule(NoiseSchedule.create(1000, "linear"), "cuda")
+    launches = {}
+    per_step = {"eps": expected_counts(1, True), "edm": expected_counts(1, True),
+                "flow": expected_counts(1, True),
+                "consistency": dict(expected_counts(2, False),
+                                    gn_affine_grad=PER_BACKWARD["gn_affine_grad"])}
+
+    def scaled(counts, n):
+        return {k: n * v for k, v in counts.items()}
+
+    # the train steps, bf16, batch 128, in turns
+    xb = torch.rand(TRAIN_BATCH, RESOLUTION, RESOLUTION, 3, device="cuda",
+                    generator=gen) * 2.0 - 1.0
+    steppers = {}
+    for kind in ("eps",) + FAMILIES:
+        m = get_model(RESOLUTION, MODEL_CFG, device="cuda", seed=0)
+        state = TrainState(m, AdamChain(m.parameters(), 2e-4), 1000,
+                           torch.Generator(device="cuda").manual_seed(60), ema_decay=0.9999)
+        step = family_step(kind, tables)
+        for _ in range(TRAIN_WARMUP):
+            step(state, xb)
+        steppers[kind] = (state, step)
+    img_per_s = {kind: [] for kind in steppers}
+    for kind in FAMILY_TURNS:
+        state, step = steppers[kind]
+        torch.cuda.synchronize()
+        ops.reset()
+        t_start = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            metrics = step(state, xb)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t_start
+        want = scaled(per_step[kind], TRAIN_STEPS)
+        if ops.counts() != want:
+            raise AssertionError(f"{kind} step launches {ops.counts()} != {want}")
+        launches[f"train_step_{kind}"] = ops.counts()
+        img_per_s[kind].append(TRAIN_BATCH * TRAIN_STEPS / seconds)
+        if not math.isfinite(float(metrics["loss"])):
+            raise AssertionError(f"{kind} step: loss {float(metrics['loss'])}")
+    step_profiles = {}
+    for kind, (state, step) in steppers.items():
+        prof = profile_device(torch, lambda: step(state, xb))
+        copies = [k["name"] for k in prof.pop("all") if "DtoH" in k["name"]]
+        step_profiles[kind] = {"device_ops": prof["device_ops"],
+                               "device_busy_ms": prof["device_busy_ms"], "host_copies": copies}
+        if copies:
+            raise AssertionError(f"the {kind} step copies to the host: {copies}")
+    del steppers, state, step
+
+    # float32 gradients at a small batch: kernels against plain versions,
+    # the same draws (the same generator state) on both copies
+    model32 = get_model(RESOLUTION, dict(MODEL_CFG, compute_dtype="float32"), device="cuda",
+                        seed=0)
+    fill_zero_params(torch, model32, seed=61)
+    xg = torch.rand(GRAD_BATCH, RESOLUTION, RESOLUTION, 3, device="cuda",
+                    generator=gen) * 2.0 - 1.0
+    grads = {}
+    for kind in FAMILIES:
+        states = [TrainState(mm, AdamChain(mm.parameters(), 2e-4), 1000,
+                             torch.Generator(device="cuda").manual_seed(62))
+                  for mm in (copy.deepcopy(model32), copy.deepcopy(model32))]
+        step = family_step(kind, tables)
+        ops.reset()
+        loss_k = float(step(states[0], xg)["loss"])
+        counts = ops.counts()
+        with ops.plain_versions():
+            loss_p = float(step(states[1], xg)["loss"])
+        if counts != per_step[kind] or ops.counts() != counts:
+            raise AssertionError(f"float32 {kind} step launches {counts}, then {ops.counts()}")
+        worst, worst_name = 0.0, None
+        named_p = dict(states[1].model.named_parameters())
+        for name, p in states[0].model.named_parameters():
+            gp = named_p[name].grad
+            rel = float((p.grad - gp).abs().max()) / max(1e-6, float(gp.abs().max()))
+            if rel >= worst:
+                worst, worst_name = rel, name
+        zero = [name for name, p in named_p.items() if not p.grad.any()]
+        grads[kind] = {"loss_kernels": loss_k, "loss_plain": loss_p, "max_rel_err": worst,
+                       "worst_param": worst_name, "all_zero_grads": zero}
+        del states
+    del model32
+
+    # the kernel sites of the EDM and flow inputs (c_in x at c_noise; x_t at
+    # t * 1000), bf16, batch 128, on a sampler model
+    model = get_model(RESOLUTION, MODEL_CFG, device="cuda", seed=0)
+    fill_zero_params(torch, model, seed=63)
+    x_T = torch.randn(TRAIN_BATCH, RESOLUTION, RESOLUTION, 3, device="cuda", generator=gen)
+    calls = {}
+    with torch.no_grad(), ops.recording(calls):
+        edm_denoise(model, 80.0 * x_T, 80.0, 0.5)
+        model(x_T, torch.full((TRAIN_BATCH,), 0.37 * TIME_SCALE, device="cuda"))
+    sites = hold_sites(torch, ops, calls)
+    del calls
+
+    # the native samplers, bf16, batch 128
+    native = {}
+    for name, (kind, kw) in NATIVE_TIMED.items():
+        ops.reset()
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        out, n_calls = native_chain(kind, kw, model, x_T, seed=64)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t_start
+        launches[f"native_{name}"] = ops.counts()
+        if ops.counts() != expected_counts(n_calls, False):
+            raise AssertionError(f"{name} launches {ops.counts()} for {n_calls} model calls")
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{name}: output not finite")
+        native[name] = {"model_calls": n_calls, "seconds": seconds,
+                        "img_per_s": TRAIN_BATCH / seconds}
+    model32 = get_model(RESOLUTION, dict(MODEL_CFG, compute_dtype="float32"), device="cuda",
+                        seed=0)
+    model32.load_state_dict(model.state_dict())
+    x4 = x_T[:FS_CHECK_BATCH].clone()
+    native_f32 = {}
+    for name, (kind, kw) in NATIVE_CHECK.items():
+        ops.reset()
+        got, _ = native_chain(kind, kw, model32, x4, seed=65)
+        torch.cuda.synchronize()
+        counts = ops.counts()
+        with ops.plain_versions():
+            want, _ = native_chain(kind, kw, model32, x4, seed=65)
+        if not counts["gn_silu_conv3x3"] or ops.counts() != counts:
+            raise AssertionError(f"float32 {name}: launches {counts}, then {ops.counts()}")
+        native_f32[name] = {"max_abs_diff": float((got - want).abs().max()),
+                            "finite": bool(torch.isfinite(got).all())}
+    del model, model32
+
+    # one CLI chain: consistency training at the cli phase's cuts, then its
+    # one-step grid (the views, the detailed panels and the NLL skipped)
+    root = ROOT / "runs" / "chip_smoke_families"
+    shutil.rmtree(root, ignore_errors=True)
+    args = CLI_ARGS + ["engine.prediction_type=consistency", f"out_dir={root}",
+                       "run_name=consistency"]
+    cfg = load_config("default", args)
+    train_loader, val_loader = cli_train.build_loaders(cfg)
+    n_steps, n_val = len(train_loader), len(val_loader)
+    try:
+        ops.reset()
+        t_start = time.perf_counter()
+        trained = cli_train.main(args)
+        torch.cuda.synchronize()
+        cli_train_s = time.perf_counter() - t_start
+        launches["consistency_train"] = ops.counts()
+        # a step: 2 forwards and a backward; validation and the test batch:
+        # 2 forwards for each of the live and the EMA weights
+        want = dict(expected_counts(2 * n_steps + 4 * (n_val + 1), False),
+                    gn_affine_grad=n_steps * PER_BACKWARD["gn_affine_grad"])
+        if ops.counts() != want:
+            raise AssertionError(f"consistency cli.train launches {ops.counts()} != {want}")
+        if trained["steps"] != n_steps or not math.isfinite(trained["test_ct_loss"]):
+            raise AssertionError(f"consistency cli.train: {trained}")
+        ops.reset()
+        t_start = time.perf_counter()
+        sampled = cli_sample.main([f"run_dir={trained['run_dir']}", "sampler=consistency"])
+        torch.cuda.synchronize()
+        cli_sample_s = time.perf_counter() - t_start
+        launches["consistency_sample"] = ops.counts()
+        if ops.counts() != expected_counts(1, False) or sampled["viz"]:
+            raise AssertionError(f"consistency cli.sample: launches {ops.counts()}, views "
+                                 f"{sampled['viz']}")
+        png = read_png(sampled["path"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    line = {"phase": "model_families", "nvidia_smi": smi, "batch": TRAIN_BATCH,
+            "steps_per_turn": TRAIN_STEPS, "warmup_steps": TRAIN_WARMUP,
+            "turns": list(FAMILY_TURNS), "step_img_per_s": img_per_s,
+            "step_profiles": step_profiles, "launches_per_step": per_step,
+            "grads_f32_vs_plain": {"batch": GRAD_BATCH, "tol": F32_GRAD_TOL, **grads},
+            "input_sites_vs_plain": {"sites": len(sites),
+                                     "worst": max(sites, key=lambda st: st["max_abs_err"] /
+                                                  st["tol"])},
+            "native_samplers": native,
+            "native_f32_vs_plain": {"batch": FS_CHECK_BATCH, "tol": F32_CHAIN_TOL,
+                                    **native_f32},
+            "consistency_cli": {"train_seconds": cli_train_s, "sample_seconds": cli_sample_s,
+                                "steps": n_steps, "val_batches": n_val,
+                                "test_ct_loss": trained["test_ct_loss"],
+                                "png_shape": list(png.shape)},
+            "phase_seconds": time.perf_counter() - phase_start}
+    emit(line)
+    if out_dir is not None:
+        (out_dir / "model_families.json").write_text(json.dumps(dict(line, sites=sites),
+                                                                indent=1))
+    bad = {k: v for k, v in grads.items() if not v["max_rel_err"] <= F32_GRAD_TOL
+           or v["all_zero_grads"]}
+    if bad:
+        raise AssertionError(f"float32 family gradients, kernels vs plain: {bad}")
+    bad = {k: v for k, v in native_f32.items()
+           if not (v["finite"] and v["max_abs_diff"] <= F32_CHAIN_TOL)}
+    if bad:
+        raise AssertionError(f"float32 native chains, kernels vs plain: {bad}")
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", type=pathlib.Path, default=None,
@@ -1513,7 +2037,6 @@ def main(argv=None) -> int:
     sched, tmap = respaced_schedule(NoiseSchedule.create(1000, "linear"),
                                     space_timesteps(1000, STEPS))
     tables = DiffusionTables.from_schedule(sched, "cuda")
-    tmap = torch.as_tensor(tmap, device="cuda").long()
     x_T = torch.randn(CHAIN_BATCH, RESOLUTION, RESOLUTION, 3, device="cuda", generator=gen)
     noise = torch.randn((STEPS,) + tuple(x_T.shape), device="cuda", generator=gen)
 
@@ -1578,7 +2101,6 @@ def main(argv=None) -> int:
     sched250, tmap250 = respaced_schedule(NoiseSchedule.create(1000, "linear"),
                                           space_timesteps(1000, BENCH_STEPS))
     tables250 = DiffusionTables.from_schedule(sched250, "cuda")
-    tmap250 = torch.as_tensor(tmap250, device="cuda").long()
     bench_s = []
     for rep in range(BENCH_REPEATS):
         torch.cuda.synchronize()
@@ -1609,6 +2131,12 @@ def main(argv=None) -> int:
     # 9. the IDDPM configuration, its visualization and its objectives
     cli_launches.update(iddpm_phase(torch, ops, smi, args.out))
 
+    # 10. the fast samplers, encoder reuse, guidance, inpainting, inversion
+    cli_launches.update(fast_samplers_phase(torch, ops, model, gen, smi, args.out))
+
+    # 11. the EDM, flow and consistency families
+    cli_launches.update(model_families_phase(torch, ops, gen, smi, args.out))
+
     if args.out is not None:
         (args.out / "chip_smoke_sites.json").write_text(json.dumps(
             {"nvidia_smi": smi, "sites": per_site, "forward_bf16_profile": all_kernels,
@@ -1632,6 +2160,8 @@ def main(argv=None) -> int:
          # without the host's launch cost, where it was measured (the probe)
          "device_ms": s.get("device_ms"), "library_device_ms": s.get("library_device_ms")}
         for name, s in summary.items()]})
+    if args.out is not None:
+        (args.out / "lines.jsonl").write_text("\n".join(LINES) + "\n")
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})
     return 0
 

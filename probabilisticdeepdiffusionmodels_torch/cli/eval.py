@@ -9,7 +9,7 @@ val loader over ``trainer.limit_test_batches`` batches, batch i with seed
         run_dir=runs/run-xyz use_train_data=false trainer.limit_test_batches=10
 
 ``device`` (null: cuda) places the engine.  ``ode_nll=true`` raises: the
-ODE likelihood is not ported yet (ROADMAP.md Queue 1 items 12 and 14).
+ODE likelihood is not ported yet (ROADMAP.md Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ def run_eval(cfg) -> dict:
         raise ValueError("pass run_dir=<path to a training run>")
     if cfg.get("ode_nll", False):
         raise NotImplementedError("ode_nll=true is not ported yet (ROADMAP.md Queue 1 "
-                                  "items 12 and 14)")
+                                  "item 14)")
     engine, run_cfg = load_engine_from_run(cfg["run_dir"], device=cfg.get("device"))
     train_loader, val_loader = build_loaders(run_cfg)
     loader = train_loader if bool(cfg.get("use_train_data", True)) else val_loader

@@ -7,18 +7,30 @@ override ``clip_while_generating``, then into the run's ``media/``:
   * ``regular_viz`` (on by default): the four views of the visualization
     suite (``viz.hooks.VisualizationCallback``) at ``num_vis_steps``
     timesteps (default 10, 5 when T <= 30);
-  * with ``num_sample_steps`` set, ``n_random`` images from the ancestral
-    sampler respaced to that many steps, ``fast_ancestral_<steps>.png``;
+  * with ``num_sample_steps``, a ``sampler`` other than ancestral, or
+    ``guidance_scale`` set: ``n_random`` images from the engine's
+    ``generate_images``, ``fast_<sampler>_<steps>[_cfg<scale>].png``.
+    ``sampler`` is ancestral | ddim | dpmpp (``dpm_order``) | heun
+    (``heun_churn``) | edm (``edm_churn``) | flow (``flow_shift``,
+    ``flow_heun``) | consistency, the last three for runs trained with the
+    matching ``engine.prediction_type``.  Under guidance each image is one
+    class, cycling (``guidance_interval`` "lo,hi", ``guidance_rescale``);
+  * ``inpaint``: the first val images, masked (``inpaint_mask``:
+    right_half | bottom_half | center_box) and filled by RePaint
+    (``resample_steps``), ``inpaint_<mask>.png``: original, masked and
+    inpainted rows;
   * ``detailed_viz``: for t0 in (T, 0.9T, 0.8T, 0.5T), the first val images
     reconstructed from t0 by the mean chain and the sampled chain, without
     and with x0 clipping, ``detailed_t0_<t0>.png``.
 
-    python -m probabilisticdeepdiffusionmodels_torch.cli.sample \\
-        run_dir=runs/run-xyz detailed_viz=true
+A consistency run has no eps view: its views, inpainting and detailed
+panels are skipped with a notice.
 
-``device`` (null: cuda) places the engine.  Not ported yet, and raising:
-``inpaint``, the other samplers and guidance (ROADMAP.md Queue 1 item 10;
-``sampler=edm|flow|consistency``: item 12), and ``devices`` (item 18).
+    python -m probabilisticdeepdiffusionmodels_torch.cli.sample \\
+        run_dir=runs/run-xyz sampler=dpmpp num_sample_steps=20
+
+``device`` (null: cuda) places the engine; ``devices`` (a mesh) is not
+ported yet and raises (ROADMAP.md Queue 1 item 18).
 """
 
 from __future__ import annotations
@@ -36,7 +48,8 @@ from ..viz.hooks import VisualizationCallback, _to_img
 from ..viz.image import compose, write_png
 from .train import build_engine, build_loaders, check_devices
 
-__all__ = ["run_sampling", "run_detailed_viz", "main", "load_engine_from_run", "write_png"]
+__all__ = ["run_sampling", "run_detailed_viz", "run_inpaint_panel", "main",
+           "load_engine_from_run", "write_png"]
 
 
 def load_engine_from_run(run_path, clip_while_generating=None, use_best=True, devices=None,
@@ -89,34 +102,84 @@ def run_detailed_viz(engine, cfg, media_dir: Path, normalize, n_images: int = 4)
     return paths
 
 
-def _refuse(cfg) -> None:
-    """Raise for every option the port does not run yet."""
-    later = "is not ported yet (ROADMAP.md Queue 1 item"
-    if cfg.get("inpaint"):
-        raise NotImplementedError(f"inpaint=true {later} 10)")
-    sampler = cfg.get("sampler") or "ancestral"
-    if sampler != "ancestral":
-        item = 12 if sampler in ("edm", "flow", "consistency") else 10
-        raise NotImplementedError(f"sampler={sampler} {later} {item})")
-    for key in ("guidance_scale", "guidance_interval", "guidance_rescale"):
-        if cfg.get(key) is not None:
-            raise NotImplementedError(f"{key} {later} 10)")
+def _interval(spec):
+    """A guidance interval from "lo,hi" (a dotted override) or a pair."""
+    if spec is None:
+        return None
+    lo, hi = (int(v) for v in spec.split(",")) if isinstance(spec, str) else spec
+    return int(lo), int(hi)
+
+
+def inpaint_mask(spec: str, res: int) -> np.ndarray:
+    """[res, res, 1], 1 = keep: the left half (``right_half`` fills the
+    right), the top half (``bottom_half``), or all but the central square of
+    half the side (``center_box``)."""
+    mask = np.zeros((res, res, 1), np.float32)
+    if spec == "right_half":
+        mask[:, : res // 2] = 1.0
+    elif spec == "bottom_half":
+        mask[: res // 2] = 1.0
+    elif spec == "center_box":
+        q = res // 4
+        mask[:] = 1.0
+        mask[q: res - q, q: res - q] = 0.0
+    else:
+        raise ValueError(f"unknown inpaint_mask: {spec!r} (right_half | bottom_half | "
+                         "center_box)")
+    return mask
+
+
+def run_inpaint_panel(engine, cfg, run_cfg, media_dir: Path, normalize) -> Path:
+    """RePaint on the first ``n_images`` val images (guided by their labels
+    under ``guidance_scale``): original, masked and inpainted rows."""
+    _, val_loader = build_loaders(run_cfg)
+    batch = next(iter(val_loader))
+    x0 = np.asarray(batch[0][: int(cfg.get("n_images", 4))])
+    kwargs = {}
+    gs = cfg.get("guidance_scale")
+    if gs is not None:
+        if not engine.model.num_classes:
+            raise ValueError("guidance_scale needs a class-conditional model")
+        if len(batch) < 2 or batch[1] is None:
+            raise ValueError("guidance_scale inpainting needs labeled val data")
+        kwargs = dict(guidance_scale=float(gs), y=np.asarray(batch[1][: len(x0)]),
+                      guidance_interval=_interval(cfg.get("guidance_interval")))
+    spec = cfg.get("inpaint_mask", "right_half")
+    mask = inpaint_mask(spec, x0.shape[1])
+    out = engine.inpaint(x0, mask, seed=int(cfg.get("seed", 0) or 0),
+                         use_ema=cfg.get("use_ema", True),
+                         num_sample_steps=cfg.get("num_sample_steps"),
+                         resample_steps=int(cfg.get("resample_steps", 1)), **kwargs)
+    masked = x0 * mask + (-1.0) * (1 - mask)
+    rows = [[(_to_img(img, normalize), None) for img in imgs]
+            for imgs in (x0, masked, out.float().cpu().numpy())]
+    path = media_dir / f"inpaint_{spec}.png"
+    write_png(path, compose(rows)[None], pad=0)
+    print(f"[sample] wrote {path}")
+    return path
 
 
 def run_sampling(cfg) -> dict:
-    """Returns ``viz``, the paths of the views written, and where the grid
-    was drawn its ``path`` and ``images`` ([-1, 1] model space)."""
+    """Returns ``viz``, the paths of the views and panels written, and where
+    the grid was drawn its ``path`` and ``images`` ([-1, 1] model space)."""
     if not cfg.get("run_dir"):
         raise ValueError("pass run_dir=<path to a training run>")
-    _refuse(cfg)
+    if cfg.get("guidance_rescale") is not None and cfg.get("guidance_scale") is None:
+        raise ValueError("guidance_rescale needs guidance_scale")
     engine, run_cfg = load_engine_from_run(cfg["run_dir"], cfg.get("clip_while_generating"),
                                            devices=cfg.get("devices"), device=cfg.get("device"))
     media_dir = Path(cfg["run_dir"]) / "media"
     media_dir.mkdir(exist_ok=True)
     normalize = (run_cfg["data"].get("transformation_kwargs") or {}).get("normalize")
     result = {"viz": []}
+    # the views, inpainting and detailed panels run table-driven chains
+    # through the eps view, which a consistency model has not
+    no_eps_view = engine.prediction_type == "consistency"
 
-    if cfg.get("regular_viz", True):
+    if cfg.get("regular_viz", True) and no_eps_view:
+        print('[sample] regular viz needs the eps-view; skipped for prediction_type='
+              '"consistency" (use sampler=consistency)')
+    elif cfg.get("regular_viz", True):
         T = engine.diffusion_steps
         n_vis = cfg.get("num_vis_steps") or (5 if T <= 30 else 10)
         ts = sorted(set(int(t) for t in np.linspace(1, T - 1, n_vis)))
@@ -131,20 +194,45 @@ def run_sampling(cfg) -> dict:
         result["viz"] += vis(engine, -1)
         print(f"[sample] regular viz written to {media_dir}")
 
+    sampler = cfg.get("sampler") or "ancestral"
     steps = cfg.get("num_sample_steps")
-    if steps:
+    gs = cfg.get("guidance_scale")
+    if steps or sampler != "ancestral" or gs is not None:
         n = int(cfg.get("n_random", 4))
-        images = engine.generate_images(n=n, minibatch=n, seed=0,
-                                        use_ema=cfg.get("use_ema", True),
-                                        num_sample_steps=steps)
-        path = media_dir / f"fast_ancestral_{steps}.png"
+        kwargs = {}
+        if gs is not None:
+            # one image a class, cycling
+            nc = int(engine.model.num_classes or 0)
+            if not nc:
+                raise ValueError("guidance_scale needs a class-conditional model")
+            kwargs = dict(guidance_scale=float(gs), y=np.arange(n) % nc,
+                          guidance_interval=_interval(cfg.get("guidance_interval")))
+            if cfg.get("guidance_rescale") is not None:
+                kwargs["guidance_rescale"] = float(cfg["guidance_rescale"])
+        images = engine.generate_images(
+            n=n, minibatch=n, seed=0, use_ema=cfg.get("use_ema", True), num_sample_steps=steps,
+            ddim=sampler == "ddim", dpm_solver=sampler == "dpmpp",
+            dpm_order=int(cfg.get("dpm_order", 2)), heun=sampler == "heun",
+            heun_churn=float(cfg.get("heun_churn", 0.0)), edm=sampler == "edm",
+            edm_churn=float(cfg.get("edm_churn", 0.0)), flow=sampler == "flow",
+            flow_shift=cfg.get("flow_shift"), flow_heun=bool(cfg.get("flow_heun", False)),
+            consistency=sampler == "consistency", **kwargs)
+        name = f"fast_{sampler}_{steps or 'full'}" + (f"_cfg{float(gs):g}" if gs is not None
+                                                      else "")
+        path = media_dir / f"{name}.png"
         write_png(path, unnormalize(images, normalize=normalize, clip=True))
         print(f"[sample] wrote {path}")
         result.update(path=str(path), images=images)
 
-    if cfg.get("detailed_viz", False):
-        result["viz"] += run_detailed_viz(engine, run_cfg, media_dir, normalize,
-                                          n_images=cfg.get("n_images", 4))
+    if (cfg.get("inpaint", False) or cfg.get("detailed_viz", False)) and no_eps_view:
+        print('[sample] inpaint/detailed_viz need the eps-view; skipped for prediction_type='
+              '"consistency"')
+    else:
+        if cfg.get("inpaint", False):
+            result["viz"].append(run_inpaint_panel(engine, cfg, run_cfg, media_dir, normalize))
+        if cfg.get("detailed_viz", False):
+            result["viz"] += run_detailed_viz(engine, run_cfg, media_dir, normalize,
+                                              n_images=cfg.get("n_images", 4))
     return result
 
 

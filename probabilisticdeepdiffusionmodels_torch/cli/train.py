@@ -13,7 +13,9 @@ visualization callback on the first validation batch (``visualization``:
 ``more`` by default, ``none`` turns it off) -> Trainer.fit (which runs the
 callback every ``run_every`` epochs and at the end, and ends on the best
 checkpoint) -> NLL test in bits/dim over ``trainer.limit_test_batches`` val
-batches, written to ``final_test.json``.  ``device`` (null: cuda) places the
+batches (a consistency model, which has no eps view, runs no views and
+records its CT loss, ``test_ct_loss``, instead), written to
+``final_test.json``.  ``device`` (null: cuda) places the
 run; ``device=cpu`` runs on the CPU.  Not ported yet, and raising: a mesh
 (``trainer.devices`` other than null/1, ROADMAP.md Queue 1 item 18) and the
 device-resident loader (item 17).
@@ -25,6 +27,7 @@ import json
 import sys
 
 import numpy as np
+import torch
 
 from ..config import load_config
 from ..data.datasets import DataLoader, get_dataset
@@ -114,7 +117,12 @@ def run_training(cfg) -> dict:
     ts = sorted(set(int(t) for t in np.linspace(1, T - 1, 5 if T <= 30 else 10)))
     vis_cfg = dict(cfg.get("visualization") or {})
     vis = None
-    if int(vis_cfg.get("run_every", 5) or 0) > 0:
+    if engine.prediction_type == "consistency":
+        # the views render ancestral chains through the eps view, which a
+        # consistency model has not; cli.sample sampler=consistency draws it
+        print('[train] visualization suites need the eps-view; disabled for '
+              'prediction_type="consistency"')
+    elif int(vis_cfg.get("run_every", 5) or 0) > 0:
         vis = VisualizationCallback(
             val_batch=next(iter(val_loader))[0], ts=ts, media_dir=run_dir.path / "media",
             normalize=(cfg["data"].get("transformation_kwargs") or {}).get("normalize"),
@@ -143,6 +151,12 @@ def run_training(cfg) -> dict:
     for i, (x, y) in enumerate(val_loader):
         if limit is not None and i >= int(limit):
             break
+        if engine.prediction_type == "consistency":
+            # no eps view, so no discrete bound: the CT loss instead
+            gen = torch.Generator(engine.device).manual_seed(i)
+            test_metrics.setdefault("test_ct_loss", []).append(
+                float(engine.validation_step(x, gen, y=y)["val_loss"]))
+            continue
         for k, v in engine.test_step(x, seed=i, y=y).items():
             test_metrics.setdefault(k, []).append(v)
     test_metrics = {k: float(np.mean(v)) for k, v in test_metrics.items()}

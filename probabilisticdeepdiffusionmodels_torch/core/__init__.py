@@ -1,3 +1,7 @@
+"""The diffusion math: schedules, the table-driven forward and reverse
+process, and the continuous-time families (``edm``, ``flow``,
+``consistency``: their preconditioning, time draws and grids)."""
+
 from .schedules import (
     NoiseSchedule,
     get_betas,
@@ -29,3 +33,6 @@ from .diffusion import (
     discretized_gaussian_log_likelihood,
     timestep_embedding,
 )
+from .edm import EDMConfig, edm_denoise, karras_sigma_grid, loss_weight, precond
+from .flow import TIME_SCALE, FlowConfig, flow_time_grid, interpolate, sample_t, vp_t_to_flow_t
+from .consistency import ConsistencyConfig, cm_apply, cm_metric, cm_precond, pair_weight

@@ -1,25 +1,30 @@
 """DiffusionEngine: the facade over the model, the train state and the
 endpoints, with its optimizer chain and learning-rate schedules.
 
-PyTorch counterpart of ``probabilisticdeepdiffusionmodels_tpu/engine.py`` on
-the eps / v / x0 parameterizations, with the ``simple`` or IDDPM ``hybrid``
+PyTorch counterpart of ``probabilisticdeepdiffusionmodels_tpu/engine.py`` for
+every prediction type: eps / v / x0 with the ``simple`` or IDDPM ``hybrid``
 loss (a learned-sigma head), min-SNR weighting, zero-terminal-SNR schedules
-and class dropout: ``DiffusionEngine`` with ``training_step``,
-``validation_step`` (EMA and live weights on the same t and noise),
-``get_noised_representation``, ``generate_images`` (the ancestral sampler,
-full or respaced), the visualization endpoints (``sample_from_step``,
+and class dropout, and the continuous-time ``edm``, ``flow`` and
+``consistency`` (consistency training) models.  ``DiffusionEngine`` has
+``training_step``, ``validation_step`` (EMA and live weights on the same
+draws), ``get_noised_representation``, ``generate_images`` (ancestral,
+DDIM, DPM-Solver++ or Heun over the full or respaced schedule, encoder
+reuse, classifier-free guidance with its interval and rescale, and the
+native EDM, flow and consistency samplers), ``inpaint``, ``ddim_invert``,
+``get_feature_vectors``, the visualization endpoints (``sample_from_step``,
 ``sample_and_return_steps``, ``generate_images_grid``,
 ``diffuse_and_reconstruct``, ``diffuse_and_reconstruct_grid``),
 ``calculate_likelihood`` and ``test_step``; ``make_lr_schedule``; and
-``AdamChain``, the optimizer chain
-the JAX engine builds from optax (``adam`` with an optional
-``clip_by_global_norm`` before it and an optional ``MultiSteps`` around
-both).  The model and the state live on one device, ``cuda`` unless the
-caller asks for another; random draws come from ``torch.Generator``s on it.
-Training runs the raw model; sampling, the NLL and every endpoint run its
-eps view (``sample.make_{v,x0}_to_eps_apply_fn`` for a v or x0 model).
-Every option the port does not run yet raises ``NotImplementedError`` naming
-its ROADMAP.md Queue 1 item.
+``AdamChain``, the optimizer chain the JAX engine builds from optax
+(``adam`` with an optional ``clip_by_global_norm`` before it and an optional
+``MultiSteps`` around both).  The model and the state live on one device,
+``cuda`` unless the caller asks for another; random draws come from
+``torch.Generator``s on it.  Training runs the raw model; the table-driven
+samplers, the NLL and the endpoints run its eps view
+(``sample.make_{v,x0,edm,flow}_to_eps_apply_fn``; a consistency model has
+none), the native samplers the raw model.  The device mesh (``mesh``,
+``param_sharding``, ``shard_mode``) and ``calculate_ode_likelihood`` raise
+``NotImplementedError`` naming their ROADMAP.md Queue 1 items.
 """
 
 from __future__ import annotations
@@ -31,21 +36,42 @@ import numpy as np
 import torch
 
 from .core import diffusion as D
+from .core.consistency import ConsistencyConfig
 from .core.diffusion import DiffusionTables
-from .core.schedules import NoiseSchedule
+from .core.edm import EDMConfig
+from .core.flow import FlowConfig
+from .core.schedules import NoiseSchedule, rescale_zero_terminal_snr
 from .evals.nll import calculate_likelihood
 from .models import get_model, resolve_device
-from .core.schedules import rescale_zero_terminal_snr
 from .sample.sampler import (
+    consistency_sample_loop,
+    ddim_invert_loop,
+    ddim_sample_loop,
+    dpmpp_sample_loop,
+    edm_sample_loop,
+    flow_sample_loop,
+    heun_sample_loop,
+    inpaint_sample_loop,
+    make_cfg_apply_fn,
+    make_edm_to_eps_apply_fn,
+    make_flow_to_eps_apply_fn,
     make_v_to_eps_apply_fn,
     make_x0_to_eps_apply_fn,
     p_sample_loop,
     respaced_schedule,
     space_timesteps,
 )
-from .train.samplers import sample_uniform
+from .train.consistency import make_ct_eval_step, make_ct_train_step
 from .train.state import TrainState
-from .train.step import global_norm, make_eval_step, make_train_step
+from .train.step import (
+    global_norm,
+    make_edm_eval_step,
+    make_edm_train_step,
+    make_eval_step,
+    make_flow_eval_step,
+    make_flow_train_step,
+    make_train_step,
+)
 
 __all__ = ["DiffusionEngine", "make_lr_schedule", "AdamChain", "clip_by_global_norm"]
 
@@ -186,20 +212,10 @@ def _later(item: int) -> str:
     return f"is not ported yet (ROADMAP.md Queue 1 item {item})"
 
 
-# generate_images arguments of the JAX engine that the port does not run yet:
-# the values that leave each one off, and the Queue 1 item that ports it
-_SAMPLING_LATER = {
-    "ddim": ((False,), 10), "ddim_eta": ((0.0,), 10), "dpm_solver": ((False,), 10),
-    "dpm_order": ((2,), 10), "heun": ((False,), 10), "heun_churn": ((0.0,), 10),
-    "guidance_scale": ((None,), 10), "guidance_interval": ((None,), 10),
-    "guidance_rescale": ((None,), 10), "encoder_reuse": ((None, 1), 10),
-    "reuse_exact_head": ((None, 0), 10), "reuse_exact_tail": ((None, 0), 10),
-    "reuse_sigma_boost": ((None, 0.0), 10), "reuse_prior_noise": ((None, 0.0), 10),
-    "reuse_cache_middle": ((None, False), 10),
-    "edm": ((False,), 12), "edm_churn": ((0.0,), 12), "flow": ((False,), 12),
-    "flow_shift": ((None,), 12), "flow_heun": ((False,), 12), "consistency": ((False,), 12),
-    "shard_mode": (("batch",), 18),
-}
+def _no_eps_view(*args, **kwargs):
+    raise ValueError("a consistency model predicts the PF-ODE endpoint, not the score: the eps "
+                     "view (ancestral/DDIM/DPM++ sampling, NLL, inpainting, inversion) is "
+                     "undefined. Sample with generate_images(consistency=True).")
 
 
 class DiffusionEngine:
@@ -207,8 +223,13 @@ class DiffusionEngine:
     what runs.  ``device`` (None: ``cuda``, which raises without a card)
     holds the model, the EMA copy, the optimizer and the loss history.  The
     weights are drawn from ``seed`` on the host, as ``get_model`` draws them;
-    the state's generator (t, noise and dropout of the train step) is a
+    the state's generator (the train step's draws and dropout) is a
     ``torch.Generator`` on the device seeded with ``seed + 1``.
+
+    ``encoder_reuse`` and the ``reuse_*`` knobs are the defaults of
+    ``generate_images``; ``edm_config``, ``flow_config`` and
+    ``consistency_config`` override the fields of ``EDMConfig``,
+    ``FlowConfig`` and ``ConsistencyConfig`` for those prediction types.
     """
 
     def __init__(
@@ -256,23 +277,29 @@ class DiffusionEngine:
     ):
         if prediction_type not in ("epsilon", "v", "x0", "edm", "flow", "consistency"):
             raise ValueError(f'Unknown prediction_type: "{prediction_type}"')
-        unported = (
-            ("mesh", mesh, (None,), 18),
-            ("param_sharding", param_sharding, ("replicated",), 18),
-            ("prediction_type", prediction_type, ("epsilon", "v", "x0"), 12),
-            ("edm_config", edm_config, (None,), 12),
-            ("flow_config", flow_config, (None,), 12),
-            ("consistency_config", consistency_config, (None,), 12),
-            ("encoder_reuse", encoder_reuse, (None, 1), 10),
-            ("reuse_exact_head", reuse_exact_head, (None, 0), 10),
-            ("reuse_exact_tail", reuse_exact_tail, (None, 0), 10),
-            ("reuse_sigma_boost", reuse_sigma_boost, (None, 0), 10),
-            ("reuse_prior_noise", reuse_prior_noise, (None, 0), 10),
-            ("reuse_cache_middle", reuse_cache_middle, (None, False), 10),
-        )
-        for name, value, off, item in unported:
+        for name, value, off in (("mesh", mesh, (None,)),
+                                 ("param_sharding", param_sharding, ("replicated",))):
             if value not in off:
-                raise NotImplementedError(f"{name}={value!r} {_later(item)}")
+                raise NotImplementedError(f"{name}={value!r} {_later(18)}")
+        if prediction_type in ("edm", "flow", "consistency"):
+            # the continuous-time objectives carry their own time density
+            # and weighting, and have no learned-sigma head
+            if loss_type == "hybrid":
+                raise ValueError(f'prediction_type="{prediction_type}" has no learned-sigma '
+                                 'head; use loss_type="simple"')
+            if sampling == "importance":
+                raise ValueError(f'prediction_type="{prediction_type}" draws its time/noise '
+                                 "level continuously (that density is its importance "
+                                 'choice); use sampling="uniform"')
+            if loss_weighting != "none":
+                raise ValueError(f'prediction_type="{prediction_type}" carries its own '
+                                 'objective weighting; use loss_weighting="none"')
+        self.encoder_reuse = int(encoder_reuse or 1)
+        self.reuse_exact_head = int(reuse_exact_head or 0)
+        self.reuse_exact_tail = int(reuse_exact_tail or 0)
+        self.reuse_sigma_boost = float(reuse_sigma_boost or 0.0)
+        self.reuse_prior_noise = float(reuse_prior_noise or 0.0)
+        self.reuse_cache_middle = bool(reuse_cache_middle)
 
         self.device = resolve_device(device)
         self.diffusion_steps = diffusion_steps
@@ -302,8 +329,10 @@ class DiffusionEngine:
                 diffusion_steps=diffusion_steps, mode=mode,
                 betas=rescale_zero_terminal_snr(self.schedule.betas))
         self.tables = DiffusionTables.from_schedule(self.schedule, self.device)
-        self._to_eps = {"v": make_v_to_eps_apply_fn,
-                        "x0": make_x0_to_eps_apply_fn}.get(prediction_type)
+        self.edm = EDMConfig(**(edm_config or {})) if prediction_type == "edm" else None
+        self.flow = FlowConfig(**(flow_config or {})) if prediction_type == "flow" else None
+        self.cm = (ConsistencyConfig(**(consistency_config or {})).validate()
+                   if prediction_type == "consistency" else None)
 
         self.class_dropout_prob = float(class_dropout_prob or 0.0)
         if self.class_dropout_prob and not (self.cond_kind == "class"
@@ -324,16 +353,40 @@ class DiffusionEngine:
         generator = torch.Generator(self.device).manual_seed(seed + 1)
         self.state = TrainState(self.model, optimizer, diffusion_steps, generator,
                                 ema_decay=ema)
-        self._train_step = make_train_step(
-            self.tables, sampling=sampling, loss_type=loss_type, watch=watch,
-            class_dropout_prob=self.class_dropout_prob,
-            null_class=self.model.num_classes if self.class_dropout_prob else None,
-            prediction_type=prediction_type, loss_weighting=loss_weighting,
-            snr_gamma=self.snr_gamma)
-        self._eval_step = make_eval_step(self.tables, prediction_type=prediction_type,
-                                         loss_weighting=loss_weighting,
-                                         snr_gamma=self.snr_gamma)
+        common = dict(watch=watch, class_dropout_prob=self.class_dropout_prob,
+                      null_class=self.model.num_classes if self.class_dropout_prob else None)
+        if prediction_type == "edm":
+            self._train_step = make_edm_train_step(self.tables, self.edm, **common)
+            self._eval_step = make_edm_eval_step(self.edm)
+        elif prediction_type == "flow":
+            self._train_step = make_flow_train_step(self.tables, self.flow, **common)
+            self._eval_step = make_flow_eval_step(self.flow)
+        elif prediction_type == "consistency":
+            self._train_step = make_ct_train_step(self.tables, self.cm, **common)
+            self._eval_step = make_ct_eval_step(self.tables, self.cm)
+        else:
+            self._train_step = make_train_step(
+                self.tables, sampling=sampling, loss_type=loss_type,
+                prediction_type=prediction_type, loss_weighting=loss_weighting,
+                snr_gamma=self.snr_gamma, **common)
+            self._eval_step = make_eval_step(self.tables, prediction_type=prediction_type,
+                                             loss_weighting=loss_weighting,
+                                             snr_gamma=self.snr_gamma)
         self._val_counter = -1
+
+    def _view(self, model: Callable) -> Callable:
+        """The eps view of a raw model (full-schedule tables)."""
+        if self.prediction_type == "v":
+            return make_v_to_eps_apply_fn(model, self.tables)
+        if self.prediction_type == "x0":
+            return make_x0_to_eps_apply_fn(model, self.tables)
+        if self.prediction_type == "edm":
+            return make_edm_to_eps_apply_fn(model, self.tables, self.edm.sigma_data)
+        if self.prediction_type == "flow":
+            return make_flow_to_eps_apply_fn(model, self.tables)
+        if self.prediction_type == "consistency":
+            return _no_eps_view
+        return model
 
     # ------------ weights and inputs
 
@@ -347,9 +400,8 @@ class DiffusionEngine:
 
     def _inference(self, use_ema: bool) -> Callable:
         """The weights' module in eval mode, as an eps model: wrapped in the
-        eps view for a v or x0 model (full-schedule tables)."""
-        model = self.params(use_ema).eval()
-        return model if self._to_eps is None else self._to_eps(model, self.tables)
+        eps view of its prediction type (full-schedule tables)."""
+        return self._view(self.params(use_ema).eval())
 
     def _batch(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
@@ -373,19 +425,16 @@ class DiffusionEngine:
     def validation_step(self, x, generator: Optional[torch.Generator] = None,
                         y=None) -> Dict[str, torch.Tensor]:
         """``val_loss`` (the EMA weights' where there is an EMA) and
-        ``val_loss_no_ema``, both on the same t and noise from ``generator``
-        (default: one seeded from a host-side call counter)."""
+        ``val_loss_no_ema``, both on the same draws (t or sigma, noise) from
+        ``generator`` (default: one seeded from a host-side call counter)."""
         if generator is None:
             self._val_counter += 1
             generator = torch.Generator(self.device).manual_seed(self._val_counter)
         x, y = self._batch(x), self._cond(y)
-        t, _ = sample_uniform(generator, x.shape[0], self.diffusion_steps)
-        noise = torch.randn(x.shape, generator=generator, device=self.device, dtype=x.dtype)
-        out = {"val_loss_no_ema": self._eval_step(self.state.model, generator, x, y, t=t,
-                                                  noise=noise)}
+        draws = self._eval_step.draw(generator, x)
+        out = {"val_loss_no_ema": self._eval_step(self.state.model, generator, x, y, **draws)}
         if self.state.ema_model is not None:
-            out["val_loss"] = self._eval_step(self.state.ema_model, generator, x, y, t=t,
-                                              noise=noise)
+            out["val_loss"] = self._eval_step(self.state.ema_model, generator, x, y, **draws)
         else:
             out["val_loss"] = out.pop("val_loss_no_ema")
         return out
@@ -408,7 +457,7 @@ class DiffusionEngine:
     # ------------ sampling
 
     def _sample_tables(self, num_sample_steps=None):
-        """(tables, timestep map or None, steps) for full or respaced
+        """(tables, host timestep map or None, steps) for full or respaced
         sampling: an int N, "ddimN", "karrasN", "trailingN", or an IDDPM
         section list ("15,15,20" / [15, 15, 20]); see ``space_timesteps``."""
         if num_sample_steps is None or (isinstance(num_sample_steps, int)
@@ -417,30 +466,159 @@ class DiffusionEngine:
         kept = space_timesteps(self.diffusion_steps, num_sample_steps,
                                alphas_hat=self.schedule.alphas_hat)
         sched, tmap = respaced_schedule(self.schedule, kept)
-        return (DiffusionTables.from_schedule(sched, self.device),
-                torch.as_tensor(tmap, device=self.device).long(), len(kept))
+        return DiffusionTables.from_schedule(sched, self.device), tmap, len(kept)
+
+    def _validate_cfg(self, guidance_scale, guidance_interval, y):
+        """Guidance needs a class-conditional model with its null row and
+        labels; returns the interval as two ints (or None)."""
+        if guidance_scale is not None:
+            if self.cond_kind != "class" or not self.model.cfg_null_class:
+                raise ValueError("guidance_scale requires a class-conditional model with "
+                                 "cfg_null_class=True (train it with class_dropout_prob)")
+            if y is None:
+                raise ValueError("guidance_scale requires class labels y")
+        if guidance_interval is not None:
+            if guidance_scale is None:
+                raise ValueError("guidance_interval needs guidance_scale")
+            lo, hi = guidance_interval
+            guidance_interval = (int(lo), int(hi))
+        return guidance_interval
+
+    def _guided(self, model_fn: Callable, guidance_scale, interval=None,
+                rescale=None) -> Callable:
+        """``model_fn`` under classifier-free guidance where a scale is set."""
+        if guidance_scale is None:
+            return model_fn
+        return make_cfg_apply_fn(model_fn, float(guidance_scale), self.model.num_classes,
+                                 interval=interval, guidance_rescale=float(rescale or 0.0),
+                                 tables=self.tables)
 
     def generate_images(self, n: int = 1, minibatch: int = 4, mean_only: bool = False,
                         seed: Optional[int] = None, use_ema: bool = True,
-                        num_sample_steps=None, y=None, x_T=None, **unported) -> np.ndarray:
-        """``n`` images from the ancestral sampler in ``minibatch`` chunks,
-        as a float32 numpy array [n, H, W, C]; x0 is clipped to [-1, 1] inside
-        each step when the engine's ``clip_while_generating`` is set.
+                        num_sample_steps=None, ddim: bool = False, ddim_eta: float = 0.0,
+                        dpm_solver: bool = False, dpm_order: int = 2, heun: bool = False,
+                        heun_churn: float = 0.0, edm: bool = False, edm_churn: float = 0.0,
+                        flow: bool = False, flow_shift: Optional[float] = None,
+                        flow_heun: bool = False, consistency: bool = False,
+                        shard_mode: str = "batch", y=None, guidance_scale=None,
+                        guidance_interval=None, guidance_rescale=None, encoder_reuse=None,
+                        x_T=None, reuse_exact_head=None, reuse_exact_tail=None,
+                        reuse_sigma_boost=None, reuse_prior_noise=None,
+                        reuse_cache_middle=None, noise=None) -> np.ndarray:
+        """``n`` images in ``minibatch`` chunks, as a float32 numpy array
+        [n, H, W, C]; x0 is clipped to [-1, 1] inside each step when the
+        engine's ``clip_while_generating`` is set.
+
+        The sampler: ancestral (default), ``ddim`` (``ddim_eta``),
+        ``dpm_solver`` (``dpm_order`` 1 or 2) or ``heun`` (``heun_churn``),
+        over the full schedule or ``num_sample_steps`` respaced; or the
+        native loop of an ``edm`` (``edm_churn``), ``flow`` (``flow_shift``,
+        ``flow_heun``) or ``consistency`` engine, whose ``num_sample_steps``
+        is an int, the continuous grid's size (default 18, 25 and 1).
+        ``encoder_reuse`` and the ``reuse_*`` knobs override the engine's
+        (ancestral; DDIM takes ``encoder_reuse`` alone).
+        ``guidance_scale`` (with ``guidance_interval`` and
+        ``guidance_rescale``) guides a class-conditional model with labels
+        ``y``; the interval does not compose with encoder reuse, the rescale
+        applies to the table-driven samplers only.
 
         One generator seeded with ``seed`` (default 0) draws each chunk's
         x_T and then its steps' noise.  ``x_T`` ([>= n, ...]) replaces the
-        drawn starting noise; ``y`` ([>= n]) are class labels.  Both wrap
-        around to pad the last chunk.  The JAX engine's other sampler
-        arguments raise ``NotImplementedError`` unless left off.
+        drawn starting noise, ``noise`` ([draws, >= n, ...]: the loop's
+        injected draws, chunked on axis 1) the steps' draws; ``y`` ([>= n])
+        are class labels.  All three wrap around to pad the last chunk.
         """
-        for name, value in unported.items():
-            if name not in _SAMPLING_LATER:
-                raise TypeError(f"generate_images() got an unexpected argument {name!r}")
-            off, item = _SAMPLING_LATER[name]
-            if value not in off:
-                raise NotImplementedError(f"{name}={value!r} {_later(item)}")
-        tables, tmap, _ = self._sample_tables(num_sample_steps)
-        model = self._inference(use_ema)
+        if shard_mode != "batch":
+            raise NotImplementedError(f"shard_mode={shard_mode!r} {_later(18)}")
+        native = bool(edm or flow or consistency)
+        if sum((bool(ddim), bool(dpm_solver), bool(heun), bool(edm), bool(flow),
+                bool(consistency))) > 1:
+            raise ValueError("pass at most one of ddim / dpm_solver / heun / edm / flow / "
+                             "consistency")
+        if native:
+            which = "edm" if edm else ("flow" if flow else "consistency")
+            if self.prediction_type != which:
+                raise ValueError(f'{which}=True needs an engine with prediction_type="{which}" '
+                                 "(table-trained models should use heun=True, the "
+                                 "VP-retrofitted solver)")
+            if num_sample_steps is not None and not isinstance(num_sample_steps, int):
+                raise ValueError(f"native {which} sampling takes an int num_sample_steps (the "
+                                 'continuous-grid size); respacing specs like "karrasN" only '
+                                 "apply to table-driven samplers")
+            tables, tmap = self.tables, None
+        else:
+            tables, tmap, _ = self._sample_tables(num_sample_steps)
+        guidance_interval = self._validate_cfg(guidance_scale, guidance_interval, y)
+        if guidance_rescale is not None:
+            if guidance_scale is None:
+                raise ValueError("guidance_rescale needs guidance_scale")
+            if native:
+                raise ValueError("guidance_rescale is defined on the table eps-view and does "
+                                 "not apply to the native EDM/flow/consistency samplers")
+        reuse = int(encoder_reuse if encoder_reuse is not None else self.encoder_reuse)
+        if guidance_interval is not None and reuse > 1:
+            raise ValueError("guidance_interval does not compose with encoder_reuse (the "
+                             "guided/plain branches carry different cache batch sizes)")
+
+        def pick(call, own):
+            return call if call is not None else own
+
+        knobs = dict(reuse_exact_head=pick(reuse_exact_head, self.reuse_exact_head),
+                     reuse_exact_tail=pick(reuse_exact_tail, self.reuse_exact_tail),
+                     reuse_sigma_boost=pick(reuse_sigma_boost, self.reuse_sigma_boost),
+                     reuse_prior_noise=pick(reuse_prior_noise, self.reuse_prior_noise))
+        cache_middle = bool(pick(reuse_cache_middle, self.reuse_cache_middle))
+        if native or dpm_solver or heun:
+            which = ("EDM" if edm else "flow" if flow else "consistency" if consistency
+                     else "DPM-Solver++" if dpm_solver else "Heun")
+            if reuse > 1 or any(knobs.values()):
+                raise ValueError("encoder_reuse / reuse calibration knobs are not supported on "
+                                 f"the {which} path; clear them or use the ancestral/DDIM "
+                                 "samplers")
+            if native and guidance_interval is not None:
+                raise ValueError("guidance_interval is defined in discrete timestep units and "
+                                 f"does not apply to the native {which} sampler; use plain "
+                                 "guidance_scale")
+        elif ddim:
+            active = sorted(k for k, v in dict(knobs, reuse_cache_middle=cache_middle).items()
+                            if v)
+            if active:
+                raise ValueError(f"reuse calibration knobs {active} are not supported on the "
+                                 "DDIM path; use the ancestral sampler or clear them")
+
+        raw = self.params(use_ema).eval()
+        model_fn = self._guided(raw if native else self._view(raw), guidance_scale,
+                                guidance_interval, guidance_rescale)
+        clip = self.clip_while_generating
+        if consistency:
+            c = self.cm
+            loop, kw = consistency_sample_loop, dict(
+                n_steps=int(num_sample_steps or 1), sigma_data=c.sigma_data,
+                sigma_min=c.sigma_min, sigma_max=c.sigma_max, rho=c.rho, clip=clip)
+        elif flow:
+            loop, kw = flow_sample_loop, dict(
+                n_steps=int(num_sample_steps or 25), heun=bool(flow_heun), clip=clip,
+                shift=float(flow_shift if flow_shift is not None else self.flow.shift))
+        elif edm:
+            e = self.edm
+            loop, kw = edm_sample_loop, dict(
+                n_steps=int(num_sample_steps or 18), sigma_data=e.sigma_data,
+                sigma_min=e.sigma_min, sigma_max=e.sigma_max, rho=e.rho, clip=clip,
+                s_churn=float(edm_churn))
+        elif dpm_solver:
+            loop, kw = dpmpp_sample_loop, dict(clip=clip, order=int(dpm_order))
+        elif heun:
+            loop, kw = heun_sample_loop, dict(clip=clip, s_churn=float(heun_churn))
+        elif ddim:
+            loop, kw = ddim_sample_loop, dict(eta=float(ddim_eta), clip=clip,
+                                              encoder_reuse=reuse)
+        else:
+            loop, kw = p_sample_loop, dict(sigma_mode=self.sigma_mode, clip=clip,
+                                           mean_only=mean_only, encoder_reuse=reuse)
+            if reuse > 1:
+                kw.update(knobs, reuse_cache_middle=cache_middle)
+        takes_noise = loop not in (dpmpp_sample_loop, flow_sample_loop)
+
         generator = self._generator(seed)
         y = self._cond(y)
         if y is not None and y.shape[0] < n:
@@ -449,6 +627,10 @@ class DiffusionEngine:
             x_T = self._batch(x_T)
             if x_T.shape[0] < n:
                 raise ValueError("need starting noise for every image")
+        if noise is not None:
+            if not takes_noise:
+                raise ValueError(f"{loop.__name__} is deterministic: it takes no noise")
+            noise = self._batch(noise)
         shape = (minibatch, self.resolution, self.resolution, self.in_channels)
         images = []
         for i in range(-(-n // minibatch)):
@@ -457,11 +639,68 @@ class DiffusionEngine:
                 x_t = x_T[idx % x_T.shape[0]]
             else:
                 x_t = torch.randn(shape, generator=generator, device=self.device)
-            x = p_sample_loop(model, tables, x_t, generator, sigma_mode=self.sigma_mode,
-                              clip=self.clip_while_generating, mean_only=mean_only,
-                              y=None if y is None else y[idx % y.shape[0]], timestep_map=tmap)
+            if takes_noise:
+                kw["noise"] = None if noise is None else noise[:, idx % noise.shape[1]]
+            x = loop(model_fn, tables, x_t, generator, timestep_map=tmap,
+                     y=None if y is None else y[idx % y.shape[0]], **kw)
             images.append(x.float().cpu().numpy())
         return np.concatenate(images, axis=0)[:n]
+
+    def ddim_invert(self, x0, use_ema: bool = True, y=None, num_sample_steps=None,
+                    t_end: Optional[int] = None) -> torch.Tensor:
+        """The deterministic DDIM encoding x0 -> x_{t_end} (default: the
+        whole chain; respaced units under ``num_sample_steps``), which the
+        eta = 0 DDIM chain decodes back up to the ODE's discretization
+        error."""
+        tables, tmap, n_steps = self._sample_tables(num_sample_steps)
+        if t_end is not None and not 1 <= int(t_end) <= n_steps:
+            raise ValueError(f"t_end={t_end} outside the chain (1..{n_steps}"
+                             + (" respaced units)" if tmap is not None else ")"))
+        return ddim_invert_loop(self._inference(use_ema), tables, self._batch(x0),
+                                t_end=None if t_end is None else int(t_end),
+                                y=self._cond(y), timestep_map=tmap)
+
+    def inpaint(self, x0, mask, seed: Optional[int] = None, use_ema: bool = True, y=None,
+                num_sample_steps=None, resample_steps: int = 1, guidance_scale=None,
+                guidance_interval=None, x_T=None, noise=None) -> torch.Tensor:
+        """RePaint inpainting (``sample.inpaint_sample_loop``): the ``mask``
+        == 0 region of ``x0`` filled, conditioned on the rest (``mask``
+        broadcasts to x0, 1 = keep), over the full or respaced chain, each
+        step harmonized ``resample_steps`` times, under guidance where
+        asked (labels ``y``).  One generator seeded with ``seed`` (default 0)
+        draws x_T and then the chain's draws; ``x_T`` (x0's shape) and
+        ``noise`` (the loop's layout) may be injected."""
+        x0, mask = self._batch(x0), self._batch(mask)
+        generator = self._generator(seed)
+        tables, tmap, _ = self._sample_tables(num_sample_steps)
+        x_t = (self._batch(x_T) if x_T is not None
+               else torch.randn(x0.shape, generator=generator, device=self.device))
+        interval = self._validate_cfg(guidance_scale, guidance_interval, y)
+        model_fn = self._guided(self._inference(use_ema), guidance_scale, interval)
+        return inpaint_sample_loop(
+            model_fn, tables, x_t, generator, x0_known=x0, mask=mask,
+            sigma_mode=self.sigma_mode, clip=self.clip_while_generating, y=self._cond(y),
+            timestep_map=tmap, resample_steps=int(resample_steps),
+            noise=None if noise is None else self._batch(noise))
+
+    def get_feature_vectors(self, x, t, y=None, use_ema: bool = False) -> Dict[str, Any]:
+        """The model's activations, ``{"down": [...], "middle": ..., "up":
+        [...]}``, at timestep ``t`` (an int, or one per sample), through the
+        eps view's input transform."""
+        x = self._batch(x)
+        if isinstance(t, torch.Tensor):
+            t = t.cpu().numpy()
+        t_host = np.full(x.shape[0], t) if np.isscalar(t) else np.asarray(t)
+        if self.prediction_type in ("edm", "flow") and (
+                t_host.min() < 1 or t_host.max() > self.diffusion_steps):
+            # the EDM and flow views gather the schedule's tables at t - 1
+            raise ValueError(f"t must be in [1, {self.diffusion_steps}] for an "
+                             f"{self.prediction_type} engine's feature extraction, got "
+                             f"[{t_host.min()}, {t_host.max()}]")
+        tb = torch.as_tensor(t_host, device=self.device).long()
+        with torch.no_grad():
+            return self._view(self.params(use_ema).eval())(x, tb, self._cond(y),
+                                                            return_features=True)
 
     # ------------ the visualization endpoints (full schedule, eps view)
 
@@ -563,6 +802,11 @@ class DiffusionEngine:
         return calculate_likelihood(self._inference(use_ema), self.tables, self._batch(x),
                                     generator, sigma_mode=self.sigma_mode, y=self._cond(y),
                                     noise=noise)
+
+    def calculate_ode_likelihood(self, x, seed: int = 0, use_ema: bool = True, y=None,
+                                 n_steps: int = 100, n_probes: int = 1):
+        """The JAX engine's exact probability-flow ODE likelihood."""
+        raise NotImplementedError(f"calculate_ode_likelihood {_later(14)}")
 
     def test_step(self, x, seed: int = 0, use_ema: bool = True, y=None) -> Dict[str, float]:
         nll = self.calculate_likelihood(x, seed=seed, use_ema=use_ema, y=y)

@@ -22,7 +22,7 @@ as JAX threads the step's dropout key), never from torch's default one.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -254,17 +254,52 @@ class UNetModel(nn.Module):
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
                 y: Optional[torch.Tensor] = None, *,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                return_features: bool = False,
+                cache: Optional[Tuple[torch.Tensor, Sequence[torch.Tensor]]] = None,
+                return_cache: bool = False, cache_middle: bool = False):
         """x: (B, H, W, C) -> (B, H, W, out_channels) in x's dtype.
-        ``generator`` draws the dropout masks (train mode, ``dropout > 0``)."""
+        ``generator`` draws the dropout masks (train mode, ``dropout > 0``).
+        ``timesteps`` may be fractional (the EDM and flow conditioning).
+
+        ``return_features``: instead of the output, a dict of the
+        activations in x's dtype: ``down`` (the input conv's and each
+        encoder entry's), ``middle`` and ``up`` (each decoder entry's).
+        Encoder reuse: ``return_cache`` also returns ``(h, skips)``, the
+        encoder's output and its skip activations, as ``(out, cache)``;
+        ``cache=`` skips the encoder and runs the middle block and the
+        decoder on those features.  ``cache_middle`` (on both calls) caches
+        the middle block's output instead, so a cached call runs the
+        decoder alone.
+        """
+        if return_features and cache is not None:
+            raise ValueError("return_features needs the encoder to run: with cache= the "
+                             "'down' activations would be empty")
         emb = self._embed(timesteps, y)
         in_dtype = x.dtype
-        h = self.in_conv(x.to(self.dtype))
-        hs = [h]
-        for entry in self.encoder:
-            h = self._run(h, entry, emb, generator)
-            hs.append(h)
-        h = self._run(h, self.middle, emb, generator)
+        down = []
+        if cache is not None:
+            h, skips = cache
+            h = h.to(self.dtype)
+            hs = [s.to(self.dtype) for s in skips]
+        else:
+            h = self.in_conv(x.to(self.dtype))
+            hs = [h]
+            for entry in self.encoder:
+                h = self._run(h, entry, emb, generator)
+                hs.append(h)
+            down = [s.to(in_dtype) for s in hs]
+        new_cache = (h, tuple(hs)) if return_cache and not cache_middle else None
+        if not (cache is not None and cache_middle):
+            h = self._run(h, self.middle, emb, generator)
+        middle = h.to(in_dtype)
+        if return_cache and cache_middle:
+            new_cache = (h, tuple(hs))
+        up = []
         for entry in self.decoder:
             h = self._run(torch.cat([h, hs.pop()], dim=-1), entry, emb, generator)
-        return _gn_silu_conv(h.to(in_dtype), self.out_norm, self.out_conv)
+            up.append(h.to(in_dtype))
+        if return_features:
+            return {"down": down, "middle": middle, "up": up}
+        out = _gn_silu_conv(h.to(in_dtype), self.out_norm, self.out_conv)
+        return (out, new_cache) if return_cache else out

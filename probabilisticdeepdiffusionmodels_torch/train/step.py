@@ -14,6 +14,16 @@ tensors.  With ``class_dropout_prob`` the class-dropout draw follows t and
 the noise; dropout (a model with ``dropout > 0``) draws its masks from the
 state's generator after that, inside the forward.  A run with neither keeps
 the stream of t and noise alone.
+
+The EDM and flow-matching steps (``make_edm_train_step``,
+``make_flow_train_step``) share that plumbing: the optimizer, the EMA, class
+dropout and the loss history, into which each sample's loss goes at the VP
+timestep its noise level or flow time falls on.  EDM draws sigma
+log-normally and regresses the preconditioned denoiser on x0 (weighted by
+lambda(sigma)); flow matching draws a continuous t and regresses the
+straight line's velocity.  Consistency training is in ``train/consistency``.
+Each eval step's ``draw(generator, x0)`` gives the draws it takes, so the
+engine scores the live and the EMA weights on the same ones.
 """
 
 from __future__ import annotations
@@ -25,10 +35,13 @@ import torch
 
 from ..core import diffusion as D
 from ..core.diffusion import DiffusionTables
+from ..core.edm import EDMConfig, loss_weight, precond
+from ..core.flow import TIME_SCALE, FlowConfig, interpolate, sample_t, vp_t_to_flow_t
 from .samplers import importance_weights, sample_importance, sample_uniform
 from .state import TrainState
 
-__all__ = ["make_train_step", "make_eval_step", "global_norm"]
+__all__ = ["make_train_step", "make_eval_step", "make_edm_train_step", "make_edm_eval_step",
+           "make_flow_train_step", "make_flow_eval_step", "global_norm"]
 
 
 def global_norm(tensors: Iterable[Optional[torch.Tensor]]) -> torch.Tensor:
@@ -44,6 +57,48 @@ def _check(prediction_type: str, loss_weighting: str) -> None:
         raise ValueError(f'Unknown prediction_type: "{prediction_type}"')
     if loss_weighting not in ("none", "min_snr"):
         raise ValueError(f'Unknown loss_weighting: "{loss_weighting}"')
+
+
+def _check_dropout(class_dropout_prob: float, null_class: Optional[int]) -> None:
+    if class_dropout_prob and null_class is None:
+        raise ValueError("class_dropout_prob needs null_class (the index of the model's "
+                         "cfg_null_class embedding row)")
+
+
+def _drop_labels(state: TrainState, y: Optional[torch.Tensor], b: int, p: float,
+                 null_class: Optional[int]) -> Optional[torch.Tensor]:
+    """Class dropout: each label becomes ``null_class`` with probability p,
+    from the state's generator (no draw at p = 0)."""
+    if not p:
+        return y
+    if y is None:
+        raise ValueError("class_dropout_prob needs labels every step")
+    drop = torch.rand(b, generator=state.generator, device=y.device) < p
+    return torch.where(drop, torch.full_like(y, null_class), y)
+
+
+def _backward_and_apply(state: TrainState, loss: torch.Tensor, t_hist: torch.Tensor,
+                        per_sample: torch.Tensor, watch: bool) -> Dict[str, torch.Tensor]:
+    """Backpropagate ``loss``, take the metrics (the gradients' global norm,
+    per top-level module with ``watch``), record the detached per-sample
+    losses at the timesteps ``t_hist`` and apply the optimizer and EMA."""
+    loss.backward()
+    named = list(state.model.named_parameters())
+    metrics = {"loss": loss.detach(), "grad_norm": global_norm(p.grad for _, p in named)}
+    if watch:
+        modules = {}
+        for name, p in named:
+            modules.setdefault(name.split(".")[0], []).append(p.grad)
+        metrics["grad_norm_per_module"] = {k: global_norm(v) for k, v in modules.items()}
+    state.loss_history.update(t_hist, per_sample.detach())
+    state.apply_gradients()
+    return metrics
+
+
+def _bucket(table: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """The 1-indexed timestep of each value on an ascending per-timestep
+    table (the ceiling), for the loss history."""
+    return torch.clamp(torch.searchsorted(table, values.contiguous()) + 1, 1, table.shape[0])
 
 
 def _vlb_term(tables: DiffusionTables, x0: torch.Tensor, x_t: torch.Tensor, t: torch.Tensor,
@@ -119,9 +174,7 @@ def make_train_step(
     _check(prediction_type, loss_weighting)
     if loss_type not in ("simple", "hybrid"):
         raise ValueError(f'Unknown loss_type: "{loss_type}"')
-    if class_dropout_prob and null_class is None:
-        raise ValueError("class_dropout_prob needs null_class (the index of the model's "
-                         "cfg_null_class embedding row)")
+    _check_dropout(class_dropout_prob, null_class)
 
     def step(state: TrainState, x0: torch.Tensor, y: Optional[torch.Tensor] = None, *,
              t: Optional[torch.Tensor] = None,
@@ -140,17 +193,11 @@ def make_train_step(
         if noise is None:
             noise = torch.randn(x0.shape, generator=state.generator, device=x0.device,
                                 dtype=x0.dtype)
-        if class_dropout_prob:
-            if y is None:
-                raise ValueError("class_dropout_prob needs labels every step")
-            drop = torch.rand(b, generator=state.generator, device=x0.device) < class_dropout_prob
-            y = torch.where(drop, torch.full_like(y, null_class), y)
+        y = _drop_labels(state, y, b, class_dropout_prob, null_class)
         x_t = D.q_sample(tables, x0, noise, t)
         target = _pred_target(tables, prediction_type, x0, noise, t)
 
-        model.train()
-        for p in model.parameters():
-            p.grad = None
+        model.train().zero_grad(set_to_none=True)
         out = model(x_t, t, y, generator=state.generator)
         pred, v_pred = out.chunk(2, dim=-1) if loss_type == "hybrid" else (out, None)
         per_sample = D.mean_flat(torch.square(target - pred))
@@ -161,19 +208,9 @@ def make_train_step(
             vlb = _vlb_term(tables, x0, x_t, t,
                             _pred_to_eps(tables, prediction_type, x_t, t, pred), v_pred).mean()
             loss = loss + vlb_weight * vlb
-        loss.backward()
-
-        named = list(model.named_parameters())
-        metrics = {"loss": loss.detach(), "grad_norm": global_norm(p.grad for _, p in named)}
-        if watch:
-            modules = {}
-            for name, p in named:
-                modules.setdefault(name.split(".")[0], []).append(p.grad)
-            metrics["grad_norm_per_module"] = {k: global_norm(v) for k, v in modules.items()}
+        metrics = _backward_and_apply(state, loss, t, per_sample, watch)
         if loss_type == "hybrid":
             metrics["vlb"] = vlb.detach()
-        state.loss_history.update(t, per_sample.detach())
-        state.apply_gradients()
         return metrics
 
     return step
@@ -209,4 +246,148 @@ def make_eval_step(tables: DiffusionTables, prediction_type: str = "epsilon",
             per_sample = per_sample * D.min_snr_weight(tables, t, snr_gamma, prediction_type)
         return per_sample.mean()
 
+    def draw(generator: torch.Generator, x0: torch.Tensor) -> Dict[str, torch.Tensor]:
+        t, _ = sample_uniform(generator, x0.shape[0], T)
+        return {"t": t, "noise": torch.randn(x0.shape, generator=generator, device=x0.device,
+                                             dtype=x0.dtype)}
+
+    step.draw = draw
+    return step
+
+
+# ------------------------------------------------------------- EDM
+
+
+def _edm_sigma(generator: Optional[torch.Generator], b: int, edm: EDMConfig,
+               device) -> torch.Tensor:
+    """sigma of each sample: ln sigma ~ N(P_mean, P_std^2) (eq. 8)."""
+    return torch.exp(edm.P_mean + edm.P_std * torch.randn(b, generator=generator, device=device))
+
+
+def _edm_per_sample_loss(model: Callable, edm: EDMConfig, x0: torch.Tensor, sigma: torch.Tensor,
+                         noise: torch.Tensor, y: Optional[torch.Tensor],
+                         **kwargs) -> torch.Tensor:
+    """lambda(sigma) times the pixel mean of (D(x0 + sigma n; sigma) - x0)^2."""
+    sig_img = sigma.reshape((-1,) + (1,) * (x0.ndim - 1))
+    x_sigma = x0 + sig_img * noise
+    c_skip, c_out, c_in, c_noise = precond(sig_img, edm.sigma_data)
+    out = model(c_in * x_sigma, c_noise.reshape(-1), y, **kwargs)
+    denoised = c_skip * x_sigma + c_out * out
+    return loss_weight(sigma, edm.sigma_data) * D.mean_flat(torch.square(denoised - x0))
+
+
+def make_edm_train_step(tables: DiffusionTables, edm: EDMConfig, *, watch: bool = False,
+                        class_dropout_prob: float = 0.0,
+                        null_class: Optional[int] = None) -> Callable[..., Dict]:
+    """Build ``step(state, x0, y=None, *, sigma=None, noise=None)``: the EDM
+    train step (arXiv:2206.00364 section 5).  sigma [B] and then the noise
+    are drawn from the state's generator unless injected.  ``tables``
+    serve only the loss history, bucketed by the schedule's sigma table."""
+    _check_dropout(class_dropout_prob, null_class)
+    sig_vp = torch.sqrt((1.0 - tables.alphas_hat) / tables.alphas_hat)
+
+    def step(state: TrainState, x0: torch.Tensor, y: Optional[torch.Tensor] = None, *,
+             sigma: Optional[torch.Tensor] = None,
+             noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        model, b = state.model, x0.shape[0]
+        if sigma is None:
+            sigma = _edm_sigma(state.generator, b, edm, x0.device)
+        if noise is None:
+            noise = torch.randn(x0.shape, generator=state.generator, device=x0.device,
+                                dtype=x0.dtype)
+        y = _drop_labels(state, y, b, class_dropout_prob, null_class)
+        model.train().zero_grad(set_to_none=True)
+        per_sample = _edm_per_sample_loss(model, edm, x0, sigma, noise, y,
+                                          generator=state.generator)
+        return _backward_and_apply(state, per_sample.mean(), _bucket(sig_vp, sigma),
+                                   per_sample, watch)
+
+    return step
+
+
+def make_edm_eval_step(edm: EDMConfig) -> Callable[..., torch.Tensor]:
+    """``step(model, generator, x0, y=None, *, sigma=None, noise=None)``: the
+    EDM loss of ``model`` in eval mode under the train step's draws."""
+
+    @torch.no_grad()
+    def step(model: torch.nn.Module, generator: torch.Generator, x0: torch.Tensor,
+             y: Optional[torch.Tensor] = None, *, sigma: Optional[torch.Tensor] = None,
+             noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if sigma is None:
+            d = draw(generator, x0)
+            sigma, noise = d["sigma"], d["noise"] if noise is None else noise
+        model.eval()
+        return _edm_per_sample_loss(model, edm, x0, sigma.to(x0.device), noise, y).mean()
+
+    def draw(generator: torch.Generator, x0: torch.Tensor) -> Dict[str, torch.Tensor]:
+        sigma = _edm_sigma(generator, x0.shape[0], edm, x0.device)
+        return {"sigma": sigma, "noise": torch.randn(x0.shape, generator=generator,
+                                                     device=x0.device, dtype=x0.dtype)}
+
+    step.draw = draw
+    return step
+
+
+# ------------------------------------------------------------- flow matching
+
+
+def _flow_per_sample_loss(model: Callable, x0: torch.Tensor, t: torch.Tensor,
+                          noise: torch.Tensor, y: Optional[torch.Tensor],
+                          **kwargs) -> torch.Tensor:
+    """The pixel mean of (F(x_t, t * 1000) - (e - x0))^2."""
+    x_t, u = interpolate(x0, noise, t)
+    out = model(x_t, t * TIME_SCALE, y, **kwargs)
+    return D.mean_flat(torch.square(out - u))
+
+
+def make_flow_train_step(tables: DiffusionTables, flow: FlowConfig, *, watch: bool = False,
+                         class_dropout_prob: float = 0.0,
+                         null_class: Optional[int] = None) -> Callable[..., Dict]:
+    """Build ``step(state, x0, y=None, *, t=None, noise=None)``: the
+    flow-matching train step (arXiv:2210.02747).  The flow times t [B] and
+    then the noise are drawn from the state's generator unless injected.
+    ``tables`` serve only the loss history, bucketed by each VP step's flow
+    time."""
+    _check_dropout(class_dropout_prob, null_class)
+    t_flow_of_vp = vp_t_to_flow_t(tables.alphas_hat)
+
+    def step(state: TrainState, x0: torch.Tensor, y: Optional[torch.Tensor] = None, *,
+             t: Optional[torch.Tensor] = None,
+             noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        model, b = state.model, x0.shape[0]
+        if t is None:
+            t = sample_t(state.generator, b, flow, x0.device)
+        if noise is None:
+            noise = torch.randn(x0.shape, generator=state.generator, device=x0.device,
+                                dtype=x0.dtype)
+        y = _drop_labels(state, y, b, class_dropout_prob, null_class)
+        model.train().zero_grad(set_to_none=True)
+        per_sample = _flow_per_sample_loss(model, x0, t, noise, y, generator=state.generator)
+        return _backward_and_apply(state, per_sample.mean(), _bucket(t_flow_of_vp, t),
+                                   per_sample, watch)
+
+    return step
+
+
+def make_flow_eval_step(flow: FlowConfig) -> Callable[..., torch.Tensor]:
+    """``step(model, generator, x0, y=None, *, t=None, noise=None)``: the
+    flow-matching loss of ``model`` in eval mode under the train step's
+    draws."""
+
+    @torch.no_grad()
+    def step(model: torch.nn.Module, generator: torch.Generator, x0: torch.Tensor,
+             y: Optional[torch.Tensor] = None, *, t: Optional[torch.Tensor] = None,
+             noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if t is None:
+            d = draw(generator, x0)
+            t, noise = d["t"], d["noise"] if noise is None else noise
+        model.eval()
+        return _flow_per_sample_loss(model, x0, t.to(x0.device), noise, y).mean()
+
+    def draw(generator: torch.Generator, x0: torch.Tensor) -> Dict[str, torch.Tensor]:
+        t = sample_t(generator, x0.shape[0], flow, x0.device)
+        return {"t": t, "noise": torch.randn(x0.shape, generator=generator, device=x0.device,
+                                             dtype=x0.dtype)}
+
+    step.draw = draw
     return step

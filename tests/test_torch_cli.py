@@ -216,10 +216,13 @@ def test_generate_images_takes_x_T_and_refuses_unported():
     b = engine.generate_images(n=2, minibatch=2, x_T=x_T[:2], num_sample_steps=3,
                                use_ema=False)
     np.testing.assert_array_equal(a[:2], b)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        engine.generate_images(n=1, ddim=True)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # DDIM runs; the native EDM sampler needs an EDM engine; a mesh is item 18
+    ddim = engine.generate_images(n=1, minibatch=1, num_sample_steps=3, ddim=True)
+    assert ddim.shape == (1, 8, 8, 3) and np.isfinite(ddim).all()
+    with pytest.raises(ValueError, match='prediction_type="edm"'):
         engine.generate_images(n=1, edm=True)
+    with pytest.raises(NotImplementedError, match="item 18"):
+        engine.generate_images(n=1, shard_mode="spatial")
     with pytest.raises(TypeError, match="unexpected"):
         engine.generate_images(n=1, bogus=1)
     # the values that leave an option off pass
@@ -362,33 +365,66 @@ def test_entry_points_need_a_card_unless_asked(tmp_path, monkeypatch, trained_ru
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["engine.prediction_type=edm"], "item 12"),
+    (["engine.prediction_type=edm"], None),
     (["trainer.devices=2"], "item 18"),
     (["trainer.fused_steps=2"], "item 17"),
     (["data.device_resident=true"], "item 17"),
     (["data.superres_factor=2"], "item 16"),
-    (["engine.prediction_type=consistency"], "item 12"),
-    (["engine.prediction_type=flow"], "item 12"),
-    (["engine.encoder_reuse=2"], "item 10"),
+    (["engine.prediction_type=consistency"], None),
+    (["engine.prediction_type=flow"], None),
+    (["engine.encoder_reuse=2"], None),
 ], ids=["edm", "devices", "fused_steps", "device_resident", "superres", "consistency", "flow",
         "encoder_reuse"])
 def test_train_cli_refuses_what_is_not_ported(argv, match, tmp_path):
-    with pytest.raises(NotImplementedError, match=match):
-        cli_train.main(TINY + CPU + [f"out_dir={tmp_path}"] + argv)
+    """Items 16-18 raise; the EDM, consistency and flow objectives and the
+    engine's encoder reuse run at the tiny size (match None): a consistency
+    run records its CT loss where the others record the NLL test."""
+    args = TINY + CPU + [f"out_dir={tmp_path}", "trainer.max_epochs=1"] + argv
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            cli_train.main(args)
+        return
+    result = cli_train.main(args)
+    assert result["steps"] == 2 and np.isfinite(result["best_val_loss"])
+    keys = {"test_ct_loss"} if "consistency" in argv[0] else TEST_KEYS
+    assert keys <= set(result) and all(np.isfinite(result[k]) for k in keys)
+
+
+@pytest.fixture(scope="module")
+def edm_run(tmp_path_factory):
+    out_dir = tmp_path_factory.mktemp("edm_runs")
+    return cli_train.main(TINY + CPU + [f"out_dir={out_dir}", "trainer.max_epochs=1",
+                                        "engine.prediction_type=edm", "run_name=edm"])
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["sampler=heun"], "item 10"),
+    (["regular_viz=false", "sampler=heun", "num_sample_steps=4"], None),
     (["devices=2"], "item 18"),
-    (["regular_viz=false", "inpaint=true"], "item 10"),
-    (["regular_viz=false", "sampler=ddim"], "item 10"),
-    (["regular_viz=false", "sampler=edm"], "item 12"),
-    (["regular_viz=false", "guidance_scale=2.0"], "item 10"),
+    (["regular_viz=false", "inpaint=true", "n_images=2"], None),
+    (["regular_viz=false", "sampler=ddim", "num_sample_steps=4"], None),
+    (["regular_viz=false", "sampler=edm", "num_sample_steps=3"], None),
+    (["regular_viz=false", "guidance_scale=2.0"], "class-conditional"),
 ], ids=["heun", "devices", "inpaint", "ddim", "edm", "guidance"])
-def test_sample_cli_refuses_what_is_not_ported(argv, match, trained_run):
-    _, result = trained_run
-    with pytest.raises(NotImplementedError, match=match):
-        cli_sample.main([f"run_dir={result['run_dir']}"] + argv + CPU)
+def test_sample_cli_refuses_what_is_not_ported(argv, match, trained_run, request):
+    """``devices`` (item 18) raises; the Heun and DDIM grids, the inpainting
+    panel and the native EDM grid (on an EDM run) run and write their PNG;
+    guidance on the unconditional run raises JAX's error."""
+    run_dir = (request.getfixturevalue("edm_run") if "sampler=edm" in argv
+               else trained_run[1])["run_dir"]
+    args = [f"run_dir={run_dir}"] + argv + CPU
+    if match == "item 18":
+        with pytest.raises(NotImplementedError, match=match):
+            cli_sample.main(args)
+        return
+    if match is not None:
+        with pytest.raises(ValueError, match=match):
+            cli_sample.main(args)
+        return
+    out = cli_sample.main(args)
+    paths = out["viz"] + ([out["path"]] if "path" in out else [])
+    assert len(paths) == 1 and pathlib.Path(paths[0]).read_bytes()[:4] == b"\x89PNG"
+    if "images" in out:
+        assert out["images"].shape == (4, 8, 8, 1) and np.isfinite(out["images"]).all()
 
 
 def test_eval_and_fused_trainer_refuse(trained_run):

@@ -130,8 +130,16 @@ def test_generator_draws_on_the_tensor_device():
     assert torch.equal(a, b) and not torch.equal(a, c)
     with pytest.raises(ValueError, match="Generator"):
         p_sample_loop(_torch_eps, _tables(), x0)
-    with pytest.raises(NotImplementedError):
-        p_sample_loop(_torch_eps, _tables(), x0, torch.Generator(), encoder_reuse=2)
+
+    # encoder reuse draws its z from the generator in the same order
+    def cached(x, t, y=None, cache=None, return_cache=False):
+        eps = _torch_eps(x if cache is None else cache, t)
+        return (eps, x) if return_cache else eps
+
+    r = p_sample_loop(cached, _tables(), x0, torch.Generator().manual_seed(3), encoder_reuse=2)
+    assert torch.equal(r, p_sample_loop(cached, _tables(), x0, torch.Generator().manual_seed(3),
+                                        encoder_reuse=2))
+    assert not torch.equal(r, a)  # the cached steps see the segment's first state
 
 
 def test_unet_respaced_chain_matches_jax():
