@@ -48,7 +48,29 @@
    inputs the grid's first steps give it (batch 4, bf16, the run's weights);
    then the float32 NLL at T=50 and the float32 grid path at batch 4 on the
    kernels against the plain versions;
-9. the IDDPM configuration through the same entry points (``iddpm_cli``): the
+9. the FID family and the ODE likelihood (``evals``): InceptionV3 with random
+   weights in float32 at batch 256 on the card against the same module on
+   the CPU (TF32 off, and on for comparison; the card's resize against the
+   CPU's), with its img/s; ``cli.fid_score`` on the cli run (the CIFAR-10
+   UNet at full width, bf16) at 1,024 samples of the 250-step chain (cut
+   from 10,000; synthetic reals) with P&R, KID and IS, its scores, stamp,
+   seconds and sampled img/s and the sampler's launches asserted;
+   ``cli.fid_debug`` on 1,024 synthetic images a split; the ODE likelihood
+   of a flow and an EDM model at full width in float32 (batch 4, 4 Heun
+   steps) on the kernels against the plain versions, then ``cli.eval
+   ode_nll=true ode_steps=20`` (cut from 100) on one bf16 batch of 128 of a
+   flow and an EDM run (T cut to 100), launches asserted, with one
+   integration profiled (device operations a probe evaluation, no copy to
+   the host);
+10. consistency distillation (``consistency_distill``): CD rounds (bf16,
+   batch 128, 10 steps after 3) from the cli run's eps teacher and from an
+   EDM teacher, in turns beside the eps step, launches asserted (4 forwards
+   and one backward a step), each step's device operations and no copy to
+   the host; the float32 gradients of one CD step of each teacher on the
+   kernels against the plain versions; ``cli.consistency`` on the cli run
+   then ``cli.sample sampler=consistency`` on its output.  The cli run is
+   deleted after this phase;
+11. the IDDPM configuration through the same entry points (``iddpm_cli``): the
    CIFAR-10 UNet at full width (bf16) under ``engine=cifar10_iddpm`` (cosine,
    learned sigma, hybrid loss) with its T cut from 1000 to 100, and the
    default visualization: ``cli.train`` (10 steps, the four views at the end
@@ -63,7 +85,7 @@
    the plain versions; and one bf16 batch-128 train step each of v with
    min-SNR on a zero-terminal-SNR schedule and of x0, with exact launches
    and no device-to-host copy;
-10. the fast samplers at the CIFAR-10 UNet's full width (bf16, batch 128,
+12. the fast samplers at the CIFAR-10 UNet's full width (bf16, batch 128,
    linear T=1000, clip): DDIM-50, DPM-Solver++(2M) at 10 and 20 steps,
    Heun at ``karras18``, the ancestral 250-step and DDIM-50 chains with
    ``encoder_reuse=3``, DDIM-50 under guidance 3 on a class-conditional
@@ -75,7 +97,7 @@
    host, the guided and cached calls' kernel sites against the plain
    versions, and every chain in float32 at batch 4 on the kernels against
    the plain versions with the same generator state;
-11. the EDM, flow-matching and consistency families (``model_families``):
+13. the EDM, flow-matching and consistency families (``model_families``):
    each bf16 train step at batch 128 beside the eps step in turns (10 steps
    after 3, launches asserted, device operations a step, no copy to the
    host), each one's float32 gradients on the kernels against the plain
@@ -96,9 +118,11 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import math
 import pathlib
+import shutil
 import subprocess
 import sys
 import time
@@ -157,6 +181,31 @@ GRID_CHECK_STEPS = 10  # the grid path at batch GRID_N against the plain version
 NLL_CHECK_T, NLL_CHECK_BATCH = 50, 8
 NLL_CHECK_TOL = 1e-4   # float32 NLL terms, kernels vs plain, of max(1, |ref|)
 NLL_PROFILE_T = 10     # a profiled bf16 NLL batch: the per-t device work and idle share
+CLI_ROOT = ROOT / "runs" / "chip_smoke_cli"
+# the evals phase: InceptionV3 in float32 at batch 256 against the CPU;
+# cli.fid_score on the cli run at 1,024 samples (cut from 10,000; synthetic
+# reals, random Inception weights) of the 250-step chain with P&R, KID and
+# IS; cli.fid_debug on 1,024 synthetic images a split; the ODE likelihood in
+# float32 (batch 4, 4 Heun steps) on the kernels against the plain versions,
+# then cli.eval ode_nll=true ode_steps=20 (cut from 100) on one bf16 batch
+# of 128 of a flow and an EDM run (their T cut to 100, the bound's share)
+INCEPTION_BATCH = 256
+INCEPTION_REL_TOL = 1e-4   # float32 features, the card against the CPU (TF32 off)
+RESIZE_TOL = 1e-5          # the card's bilinear resize against the CPU's
+FID_ARGV = ["true", "1024", "250", "", "true", "true", "true"]  # clip n steps devices pr kid is
+FID_SAMPLES, FID_STEPS, FID_MINIBATCH = 1024, 250, 256
+FID_DEBUG_N = 1024
+FID_DEBUG_ARGS = ["model=unet", "engine=cifar10", "data=synthetic", f"data.n={FID_DEBUG_N}",
+                  "data.batch_size=128"]
+ODE_CHECK_BATCH, ODE_CHECK_STEPS = 4, 4
+ODE_CHECK_TOL = 1e-3       # float32 nll and delta_logp, kernels vs plain, of their largest
+ODE_EVAL_STEPS, ODE_EVAL_T = 20, 100
+# the consistency_distill phase: CD rounds at batch 128 (bf16, 10 steps
+# after 3) from the cli run's eps teacher and an EDM teacher, beside the
+# eps step in turns; a CD step is 2 teacher forwards, the student's forward
+# and backward and the target's forward
+CD_TURNS = ("eps", "cd_eps", "cd_edm", "cd_edm", "cd_eps", "eps")
+CD_FORWARDS = 4
 # the iddpm_cli phase: engine=cifar10_iddpm at full width in bf16 with the
 # default visualization (more); the one cut is T, 1000 to 100, which keeps
 # its ~3,300 model calls (the views, the detailed panels, two NLL tests)
@@ -993,8 +1042,10 @@ def read_png(path):
 def cli_phase(torch, ops, smi, bare_passes, out_dir=None):
     """The command-line entry points on the card, each with the counts set
     to 0 before it and its launches asserted; returns the launches by entry
-    point.  The runs go to ``runs/chip_smoke_cli`` beside this script and
-    are deleted at the end (their checkpoints hold about 0.8 GB each)."""
+    point and the first run's directory.  The runs go to ``CLI_ROOT``
+    beside this script; the caller deletes them after the ``evals`` and
+    ``consistency_distill`` phases, which read the first (on a failure here
+    they are deleted at once; their checkpoints hold about 0.8 GB each)."""
     import importlib.util
     import shutil
 
@@ -1006,7 +1057,7 @@ def cli_phase(torch, ops, smi, bare_passes, out_dir=None):
     from probabilisticdeepdiffusionmodels_torch.config import load_config
     from probabilisticdeepdiffusionmodels_torch.engine import DiffusionEngine
 
-    root = ROOT / "runs" / "chip_smoke_cli"
+    root = CLI_ROOT
     shutil.rmtree(root, ignore_errors=True)
     cfg = load_config("default", CLI_ARGS)
     train_loader, val_loader = cli_train.build_loaders(cfg)
@@ -1133,8 +1184,9 @@ def cli_phase(torch, ops, smi, bare_passes, out_dir=None):
             keep.mkdir(exist_ok=True)
             for path in (run_dir / "final_test.json", run_dir / "metrics.jsonl", png):
                 shutil.copy(path, keep / path.name)
-    finally:
+    except BaseException:
         shutil.rmtree(root, ignore_errors=True)
+        raise
 
     bare = [p["img_per_s"] for p in bare_passes]
     emit({"phase": "cli", "nvidia_smi": smi, "steps": n_steps, "batch": batch,
@@ -1166,7 +1218,7 @@ def cli_phase(torch, ops, smi, bare_passes, out_dir=None):
     if not grid32_diff <= F32_CHAIN_TOL:
         raise AssertionError(f"float32 grid: kernels vs plain differ by {grid32_diff}")
     return {name: launches[name] for name in ("cli_train", "cli_resume", "cli_eval",
-                                              "cli_sample")}
+                                              "cli_sample")}, run_dir
 
 
 def viz_model_calls(T, vis_cfg, val_batch):
@@ -1283,7 +1335,8 @@ def iddpm_phase(torch, ops, smi, out_dir=None):
                     for k in test_keys}
 
         # every kernel site of the five endpoints (batch 1, 4 and 10, bf16,
-        # the run's weights), each endpoint called once, mean_only
+        # the run's weights), each endpoint called once, mean_only where it
+        # takes it
         engine_s, _ = cli_sample.load_engine_from_run(run_dir)
         gen = torch.Generator(device="cuda").manual_seed(20)
         x0 = torch.as_tensor(next(iter(val_loader))[0], device="cuda")
@@ -1294,7 +1347,7 @@ def iddpm_phase(torch, ops, smi, out_dir=None):
             engine_s.sample_from_step(x10, 3, mean_only=True)
             engine_s.sample_and_return_steps(x0[:1], 3, (2, 1), mean_only=True,
                                              return_stds=True)
-            engine_s.diffuse_and_reconstruct(x0[:4], 3, mean_only=True)
+            engine_s.diffuse_and_reconstruct(x0[:4], 3)
             engine_s.diffuse_and_reconstruct_grid(x0[:1], 3, (2, 1), mean_only=True,
                                                   return_stds=True)
         viz_sites = hold_sites(torch, ops, calls)
@@ -1960,6 +2013,396 @@ def model_families_phase(torch, ops, gen, smi, out_dir=None):
     return launches
 
 
+def _captured(fn):
+    """(result, printed text) of ``fn()``, its standard output captured."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn()
+    return result, buf.getvalue()
+
+
+def _line(text, start):
+    return next(line for line in text.splitlines() if line.startswith(start))
+
+
+def _rel(got, want):
+    """max |got - want| / max |want|."""
+    return float((got - want).abs().max()) / max(1e-30, float(want.abs().max()))
+
+
+def inception_check(torch):
+    """InceptionV3 (random weights from a seeded generator) in float32 at
+    batch 256 on the card against the same module on the CPU, on the CPU's
+    resize of 32x32 images; the card's resize against the CPU's; the
+    forward's ms and img/s with TF32 off (the port's setting) and with it on
+    (what cuDNN would do by default), each against the CPU."""
+    from probabilisticdeepdiffusionmodels_torch.evals import inception as inc
+
+    gen = torch.Generator().manual_seed(30)
+    x01 = torch.rand(INCEPTION_BATCH, RESOLUTION, RESOLUTION, 3, generator=gen)
+    cpu = inc.random_params(device="cpu")
+    card = inc.random_params(device="cuda")
+    x_cpu = inc.preprocess(x01)
+    t_start = time.perf_counter()
+    x_card = inc.preprocess(x01.cuda())
+    torch.cuda.synchronize()
+    resize_s = time.perf_counter() - t_start
+    resize_err = float((x_card.cpu() - x_cpu).abs().max())
+    t_start = time.perf_counter()
+    want = inc.inception_pool_features(cpu, x_cpu)
+    cpu_s = time.perf_counter() - t_start
+    x = x_cpu.cuda()
+    out = {"batch": INCEPTION_BATCH, "resize_max_abs_diff": resize_err,
+           "resize_tol": RESIZE_TOL, "resize_seconds": resize_s, "cpu_forward_seconds": cpu_s,
+           "feature_abs_max": float(want.abs().max())}
+    with inc.true_float32():
+        got = inc.inception_pool_features(card, x).cpu()
+        ms = sync_time(torch, lambda: inc.inception_pool_features(card, x), min_ms=500.0,
+                       max_reps=10)
+    out["tf32_off"] = {"max_rel_err": _rel(got, want), "ms": ms,
+                       "img_per_s": INCEPTION_BATCH / ms * 1e3}
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            got_tf32 = card(x).cpu()
+            ms = sync_time(torch, lambda: card(x), min_ms=500.0, max_reps=10)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    out["tf32_on"] = {"max_rel_err": _rel(got_tf32, want), "ms": ms,
+                      "img_per_s": INCEPTION_BATCH / ms * 1e3}
+    if not (resize_err <= RESIZE_TOL and out["tf32_off"]["max_rel_err"] <= INCEPTION_REL_TOL
+            and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"Inception on the card against the CPU: {out}")
+    return out
+
+
+def _ode_run(torch, family, root):
+    """A run directory (config and checkpoint) of a fresh ``family`` engine
+    at the CIFAR-10 UNet's full width, bf16, T cut to ODE_EVAL_T, as
+    ``cli.train`` writes one."""
+    from probabilisticdeepdiffusionmodels_torch.cli import train as cli_train
+    from probabilisticdeepdiffusionmodels_torch.config import load_config
+    from probabilisticdeepdiffusionmodels_torch.logging.sink import RunDir
+    from probabilisticdeepdiffusionmodels_torch.train.checkpoint import CheckpointManager
+
+    cfg = load_config("default", CLI_ARGS + [
+        f"engine.prediction_type={family}", f"engine.diffusion_steps={ODE_EVAL_T}",
+        "engine.ema=null", f"out_dir={root}", f"run_name=ode_{family}"])
+    engine = cli_train.build_engine(cfg)
+    fill_zero_params(torch, engine.state.model, seed=31)
+    run = RunDir(str(root), cfg["run_name"])
+    run.save_config(cfg)
+    CheckpointManager(run.checkpoint_dir()).save(engine.state, 0, metrics={"val_loss": 0.0})
+    return run.path
+
+
+def ode_checks(torch, ops, root, launches):
+    """The ODE likelihood of the flow and EDM families: float32 at batch 4
+    on the kernels against the plain versions, then ``cli.eval ode_nll=true``
+    on one bf16 batch of 128 with its launches asserted, and one profiled
+    integration (device operations a probe evaluation, no copy to the
+    host)."""
+    from probabilisticdeepdiffusionmodels_torch.cli import eval as cli_eval
+    from probabilisticdeepdiffusionmodels_torch.cli.sample import load_engine_from_run
+    from probabilisticdeepdiffusionmodels_torch.cli.train import build_loaders
+    from probabilisticdeepdiffusionmodels_torch.engine import DiffusionEngine
+
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    x4 = torch.rand(ODE_CHECK_BATCH, RESOLUTION, RESOLUTION, 3, device="cuda",
+                    generator=gen) * 2.0 - 1.0
+    # a Heun step evaluates both ends: 2 forwards and their VJPs a step
+    evals = 2 * ODE_CHECK_STEPS
+    f32, cli = {}, {}
+    for family in ("flow", "edm"):
+        engine = DiffusionEngine(dict(MODEL_CFG, compute_dtype="float32"), {"lr": 2e-4},
+                                 prediction_type=family, device="cuda")
+        fill_zero_params(torch, engine.state.model, seed=33)
+        ops.reset()
+        got = engine.calculate_ode_likelihood(x4, seed=34, use_ema=False,
+                                              n_steps=ODE_CHECK_STEPS)
+        torch.cuda.synchronize()
+        counts = ops.counts()
+        with ops.plain_versions():
+            want = engine.calculate_ode_likelihood(x4, seed=34, use_ema=False,
+                                                   n_steps=ODE_CHECK_STEPS)
+        if counts != expected_counts(evals, True) or ops.counts() != counts:
+            raise AssertionError(f"float32 {family} ODE likelihood launches {counts}, then "
+                                 f"{ops.counts()}")
+        launches[f"ode_f32_{family}"] = counts
+        f32[family] = {"rel_err": {k: _rel(got[k], want[k])
+                                   for k in ("nll_bits_per_dim", "delta_logp")},
+                       "nll_bits_per_dim": got["nll_bits_per_dim"].tolist(),
+                       "finite": all(bool(torch.isfinite(v).all()) for v in got.values())}
+        del engine
+
+        run_dir = _ode_run(torch, family, root)
+        argv = [f"run_dir={run_dir}", "ode_nll=true", f"ode_steps={ODE_EVAL_STEPS}",
+                "use_train_data=false", "trainer.limit_test_batches=1"]
+        timed = {}
+        ops.reset()
+        with timing_calls(DiffusionEngine, ("calculate_ode_likelihood", "test_step"), timed):
+            result, _ = _captured(lambda: cli_eval.main(argv))
+        counts = ops.counts()
+        ode_calls = 2 * ODE_EVAL_STEPS
+        want = dict(expected_counts(ODE_EVAL_T + ode_calls, False),
+                    gn_affine_grad=ode_calls * PER_BACKWARD["gn_affine_grad"])
+        if counts != want or not math.isfinite(result["test_ode_nll"]):
+            raise AssertionError(f"cli.eval ode_nll {family}: launches {counts} != {want}, "
+                                 f"{result}")
+        launches[f"cli_eval_ode_{family}"] = counts
+        engine, cfg = load_engine_from_run(run_dir)
+        x = torch.as_tensor(next(iter(build_loaders(cfg)[1]))[0], device="cuda")
+        prof = profile_device(torch, lambda: engine.calculate_ode_likelihood(x, n_steps=1))
+        copies = [k["name"] for k in prof.pop("all") if "DtoH" in k["name"]]
+        if copies:
+            raise AssertionError(f"the {family} ODE likelihood copies to the host: {copies}")
+        cli[family] = {"test_ode_nll": result["test_ode_nll"], "test_nll": result["test_nll"],
+                       "ode_seconds": timed["calculate_ode_likelihood"][-1],
+                       "vlb_seconds": timed["test_step"][-1],
+                       "device_ops_per_probe_eval": prof["device_ops"] / 2,
+                       "device_busy_ms_per_probe_eval": prof["device_busy_ms"] / 2,
+                       "profiled_idle_share": prof["idle_share"], "host_copies": copies}
+        del engine
+    bad = {k: v for k, v in f32.items()
+           if not (v["finite"] and max(v["rel_err"].values()) <= ODE_CHECK_TOL)}
+    return {"f32_vs_plain": {"batch": ODE_CHECK_BATCH, "n_steps": ODE_CHECK_STEPS,
+                             "tol": ODE_CHECK_TOL, **f32},
+            "cli_eval": {"batch": TRAIN_BATCH, "ode_steps": ODE_EVAL_STEPS, "T": ODE_EVAL_T,
+                         **cli}}, bad
+
+
+def evals_phase(torch, ops, smi, run_dir, out_dir=None):
+    """The FID family and the ODE likelihood on the card: Inception against
+    the CPU, ``cli.fid_score`` on the cli run (the sampler's launches
+    exact), ``cli.fid_debug``, and ``ode_checks``; returns the launches by
+    path."""
+    from probabilisticdeepdiffusionmodels_torch.cli import fid_debug as cli_fid_debug
+    from probabilisticdeepdiffusionmodels_torch.cli import fid_score as cli_fid_score
+    from probabilisticdeepdiffusionmodels_torch.engine import DiffusionEngine
+
+    phase_start = time.perf_counter()
+    line = {"phase": "evals", "nvidia_smi": smi, "inception": inception_check(torch)}
+    launches = {}
+
+    # cli.fid_score: 4 chains of 250 steps at batch 256, then the scores;
+    # the CLI prints them rounded, so the dict it printed is recorded too
+    timed, scores = {}, []
+    real = cli_fid_score.compute_fid_from_engine
+
+    def recording(*args, **kwargs):
+        scores.append(real(*args, **kwargs))
+        return scores[-1]
+
+    ops.reset()
+    cli_fid_score.compute_fid_from_engine = recording
+    t_start = time.perf_counter()
+    try:
+        with timing_calls(DiffusionEngine, ("generate_images",), timed):
+            rc, text = _captured(lambda: cli_fid_score.main([str(run_dir)] + FID_ARGV))
+    finally:
+        cli_fid_score.compute_fid_from_engine = real
+    fid_s = time.perf_counter() - t_start
+    launches["cli_fid_score"] = ops.counts()
+    want = expected_counts(FID_SAMPLES // FID_MINIBATCH * FID_STEPS, False)
+    if rc != 0 or launches["cli_fid_score"] != want:
+        raise AssertionError(f"cli.fid_score: rc {rc}, launches {launches['cli_fid_score']} "
+                             f"!= {want}")
+    fid = dict(scores[0], printed_stamp=_line(text, "inception_weights:").split()[1],
+               printed_fid=float(_line(text, "FID:").split()[1]),
+               pipeline_line=_line(text, "FID pipeline:"), seconds=fid_s,
+               sampled_img_per_s=FID_SAMPLES / fid_s,
+               sampling_seconds=sum(timed["generate_images"]),
+               chains=len(timed["generate_images"]), n=FID_SAMPLES, steps=FID_STEPS,
+               minibatch=FID_MINIBATCH)
+    line["fid_score"] = fid
+    if not (math.isfinite(fid["fid"]) and fid["printed_fid"] == fid["fid"]
+            and 0.0 <= fid["precision"] <= 1.0 and 0.0 <= fid["recall"] <= 1.0
+            and math.isfinite(fid["kid_mean"]) and fid["is_mean"] >= 1.0 - 1e-6
+            and fid["inception_weights"] == fid["printed_stamp"] == "random"):
+        raise AssertionError(f"cli.fid_score: {fid}")
+
+    # cli.fid_debug: the synthetic splits against each other
+    t_start = time.perf_counter()
+    rc, text = _captured(lambda: cli_fid_debug.main(FID_DEBUG_ARGS))
+    floor = float(_line(text, "FID floor").split()[-1])
+    line["fid_debug"] = {"fid_floor": floor, "seconds": time.perf_counter() - t_start,
+                         "images_a_split": FID_DEBUG_N}
+    if rc != 0 or not math.isfinite(floor):
+        raise AssertionError(f"cli.fid_debug: rc {rc}, {text[-400:]}")
+
+    root = CLI_ROOT / "ode"
+    ode, bad = ode_checks(torch, ops, root, launches)
+    line["ode_nll"] = ode
+    line["launches"] = launches
+    line["phase_seconds"] = time.perf_counter() - phase_start
+    emit(line)
+    if out_dir is not None:
+        (out_dir / "evals.json").write_text(json.dumps(line, indent=1))
+    if bad:
+        raise AssertionError(f"float32 ODE likelihood, kernels vs plain: {bad}")
+    return {k: v for k, v in launches.items() if not k.startswith("ode_f32")}
+
+
+def consistency_distill_phase(torch, ops, gen, smi, run_dir, out_dir=None):
+    """Consistency distillation at the CIFAR-10 UNet's full width: CD rounds
+    (bf16, batch 128, 10 steps after 3) from the cli run's eps teacher and
+    from an EDM teacher in turns beside the eps step, their launches
+    asserted; each step's device operations and no copy to the host; the
+    float32 gradients of one CD step of each teacher on the kernels against
+    the plain versions; then ``cli.consistency`` on the cli run and
+    ``cli.sample sampler=consistency`` on its output; returns the launches
+    by path."""
+    import copy
+
+    from probabilisticdeepdiffusionmodels_torch.cli import consistency as cli_consistency
+    from probabilisticdeepdiffusionmodels_torch.cli import sample as cli_sample
+    from probabilisticdeepdiffusionmodels_torch.core import DiffusionTables, NoiseSchedule
+    from probabilisticdeepdiffusionmodels_torch.engine import AdamChain, DiffusionEngine
+    from probabilisticdeepdiffusionmodels_torch.models import get_model
+    from probabilisticdeepdiffusionmodels_torch.train import TrainState
+    from probabilisticdeepdiffusionmodels_torch.train.consistency import (
+        consistency_distill_round,
+        consistency_student,
+        make_cd_step,
+        make_teacher_denoiser,
+    )
+
+    phase_start = time.perf_counter()
+    launches = {}
+    per_step = dict(expected_counts(CD_FORWARDS, False),
+                    gn_affine_grad=PER_BACKWARD["gn_affine_grad"])
+    teachers = {"cd_eps": cli_sample.load_engine_from_run(run_dir)[0],
+                "cd_edm": DiffusionEngine(dict(MODEL_CFG), {"lr": 2e-4}, prediction_type="edm",
+                                          device="cuda")}
+    fill_zero_params(torch, teachers["cd_edm"].state.model, seed=40)
+    xb = torch.rand(TRAIN_BATCH, RESOLUTION, RESOLUTION, 3, device="cuda",
+                    generator=gen) * 2.0 - 1.0
+    students = {kind: consistency_student(t) for kind, t in teachers.items()}
+    tables = DiffusionTables.from_schedule(NoiseSchedule.create(1000, "linear"), "cuda")
+    m = get_model(RESOLUTION, MODEL_CFG, device="cuda", seed=0)
+    eps_state = TrainState(m, AdamChain(m.parameters(), 2e-4), 1000,
+                           torch.Generator(device="cuda").manual_seed(41), ema_decay=0.9999)
+    eps_step = family_step("eps", tables)
+
+    def run(kind, n):
+        if kind == "eps":
+            for _ in range(n):
+                eps_step(eps_state, xb)
+            return
+        consistency_distill_round(students[kind], teachers[kind], [xb] * n, log_every=0)
+
+    for kind in ("eps", "cd_eps", "cd_edm"):
+        run(kind, TRAIN_WARMUP)
+    img_per_s = {kind: [] for kind in ("eps", "cd_eps", "cd_edm")}
+    for kind in CD_TURNS:
+        torch.cuda.synchronize()
+        ops.reset()
+        t_start = time.perf_counter()
+        run(kind, TRAIN_STEPS)
+        torch.cuda.synchronize()
+        img_per_s[kind].append(TRAIN_BATCH * TRAIN_STEPS / (time.perf_counter() - t_start))
+        want = {k: TRAIN_STEPS * v for k, v in
+                (expected_counts(1, True) if kind == "eps" else per_step).items()}
+        if ops.counts() != want:
+            raise AssertionError(f"{kind} launches {ops.counts()} != {want}")
+        launches[f"round_{kind}" if kind != "eps" else "train_step_eps_cd_turns"] = ops.counts()
+    profiles = {}
+    for kind, teacher in teachers.items():
+        student = students[kind]
+        step = make_cd_step(make_teacher_denoiser(teacher), student.cm, student.tables)
+        model = teacher.params(use_ema=True).eval()
+        prof = profile_device(torch, lambda: step(student.state, model, xb))
+        copies = [k["name"] for k in prof.pop("all") if "DtoH" in k["name"]]
+        profiles[kind] = {"device_ops": prof["device_ops"],
+                          "device_busy_ms": prof["device_busy_ms"], "host_copies": copies}
+        if copies:
+            raise AssertionError(f"the {kind} step copies to the host: {copies}")
+    prof = profile_device(torch, lambda: eps_step(eps_state, xb))
+    prof.pop("all")
+    profiles["eps"] = {"device_ops": prof["device_ops"], "device_busy_ms": prof["device_busy_ms"]}
+    del students, eps_state, m
+
+    # float32 gradients of one CD step of each teacher at a small batch,
+    # kernels against plain versions, the same draws
+    xg = xb[:GRAD_BATCH].clone()
+    grads = {}
+    for kind, pt in (("cd_eps", "epsilon"), ("cd_edm", "edm")):
+        teacher = DiffusionEngine(dict(MODEL_CFG, compute_dtype="float32"), {"lr": 2e-4},
+                                  prediction_type=pt, device="cuda")
+        fill_zero_params(torch, teacher.state.model, seed=42)
+        student = consistency_student(teacher, use_ema_teacher=False)
+        states = [TrainState(mm, AdamChain(mm.parameters(), 2e-4), 1000,
+                             torch.Generator(device="cuda").manual_seed(43))
+                  for mm in (copy.deepcopy(student.state.model),
+                             copy.deepcopy(student.state.model))]
+        step = make_cd_step(make_teacher_denoiser(teacher), student.cm, student.tables)
+        ops.reset()
+        loss_k = float(step(states[0], teacher.state.model, xg)["loss"])
+        counts = ops.counts()
+        with ops.plain_versions():
+            loss_p = float(step(states[1], teacher.state.model, xg)["loss"])
+        if counts != per_step or ops.counts() != counts:
+            raise AssertionError(f"float32 {kind} step launches {counts}, then {ops.counts()}")
+        named_p = dict(states[1].model.named_parameters())
+        worst, worst_name = 0.0, None
+        for name, p in states[0].model.named_parameters():
+            rel = _rel(p.grad, named_p[name].grad) if named_p[name].grad.any() else 0.0
+            if rel >= worst:
+                worst, worst_name = rel, name
+        zero = [name for name, p in named_p.items() if not p.grad.any()]
+        grads[kind] = {"loss_kernels": loss_k, "loss_plain": loss_p, "max_rel_err": worst,
+                       "worst_param": worst_name, "all_zero_grads": zero}
+        del teacher, student, states
+
+    # cli.consistency on the cli run (its 10 steps a pass over the synthetic
+    # data, one validation batch), then its one-step grid
+    root = CLI_ROOT / "cd"
+    ops.reset()
+    t_start = time.perf_counter()
+    distilled, _ = _captured(lambda: cli_consistency.main(
+        [f"run_dir={run_dir}", "epochs=1", f"out_dir={root}", "limit_test_batches=1"]))
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t_start
+    launches["cli_consistency"] = ops.counts()
+    n_steps = TRAIN_STEPS  # 1,280 synthetic images at batch 128
+    # a CD step; one validation batch: 2 forwards for each of the live and
+    # the EMA weights
+    want = dict(expected_counts(CD_FORWARDS * n_steps + 4, False),
+                gn_affine_grad=n_steps * PER_BACKWARD["gn_affine_grad"])
+    if ops.counts() != want or not math.isfinite(distilled["test_ct_loss"]):
+        raise AssertionError(f"cli.consistency launches {ops.counts()} != {want}, {distilled}")
+    ops.reset()
+    t_start = time.perf_counter()
+    sampled, _ = _captured(lambda: cli_sample.main([f"run_dir={distilled['run_dir']}",
+                                                     "sampler=consistency"]))
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t_start
+    launches["cli_sample_consistency_distilled"] = ops.counts()
+    if ops.counts() != expected_counts(1, False) or sampled["viz"]:
+        raise AssertionError(f"cli.sample of the distilled run: launches {ops.counts()}")
+    png = read_png(sampled["path"])
+
+    line = {"phase": "consistency_distill", "nvidia_smi": smi, "batch": TRAIN_BATCH,
+            "steps_per_turn": TRAIN_STEPS, "warmup_steps": TRAIN_WARMUP,
+            "turns": list(CD_TURNS), "img_per_s": img_per_s, "step_profiles": profiles,
+            "launches_per_cd_step": per_step,
+            "grads_f32_vs_plain": {"batch": GRAD_BATCH, "tol": F32_GRAD_TOL, **grads},
+            "cli_consistency": {"seconds": cli_s, "sample_seconds": sample_s,
+                                "loss": distilled["loss"],
+                                "test_ct_loss": distilled["test_ct_loss"],
+                                "png_shape": list(png.shape)},
+            "launches": launches, "phase_seconds": time.perf_counter() - phase_start}
+    emit(line)
+    if out_dir is not None:
+        (out_dir / "consistency_distill.json").write_text(json.dumps(line, indent=1))
+    bad = {k: v for k, v in grads.items() if not v["max_rel_err"] <= F32_GRAD_TOL
+           or v["all_zero_grads"]}
+    if bad:
+        raise AssertionError(f"float32 CD gradients, kernels vs plain: {bad}")
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", type=pathlib.Path, default=None,
@@ -2125,16 +2568,23 @@ def main(argv=None) -> int:
     # 7. unet_celebahq64, bf16, kernels against plain versions
     celeba_phase(torch, F, ops, per_site)
 
-    # 8. the command-line entry points
-    cli_launches = cli_phase(torch, ops, smi, train_passes, args.out)
+    # 8. the command-line entry points; 9-10 read the first run they write
+    cli_launches, cli_run = cli_phase(torch, ops, smi, train_passes, args.out)
+    try:
+        # 9. the FID family and the ODE likelihood
+        cli_launches.update(evals_phase(torch, ops, smi, cli_run, args.out))
+        # 10. consistency distillation
+        cli_launches.update(consistency_distill_phase(torch, ops, gen, smi, cli_run, args.out))
+    finally:
+        shutil.rmtree(CLI_ROOT, ignore_errors=True)
 
-    # 9. the IDDPM configuration, its visualization and its objectives
+    # 11. the IDDPM configuration, its visualization and its objectives
     cli_launches.update(iddpm_phase(torch, ops, smi, args.out))
 
-    # 10. the fast samplers, encoder reuse, guidance, inpainting, inversion
+    # 12. the fast samplers, encoder reuse, guidance, inpainting, inversion
     cli_launches.update(fast_samplers_phase(torch, ops, model, gen, smi, args.out))
 
-    # 11. the EDM, flow and consistency families
+    # 13. the EDM, flow and consistency families
     cli_launches.update(model_families_phase(torch, ops, gen, smi, args.out))
 
     if args.out is not None:

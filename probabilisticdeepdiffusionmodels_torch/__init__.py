@@ -11,6 +11,12 @@ eps / linear-schedule path, the NLL bound (``evals/``), the engine facade
 logging, and the ``cli.train`` / ``cli.sample`` / ``cli.eval`` entry points.
 Slice 6: the visualization suite (``viz/``) and the engine endpoints it
 calls, and the hybrid (learned sigma), v, x0, min-SNR, zero-terminal-SNR,
-class-dropout and mixed-schedule options.  The JAX package stays the
-reference the port is tested against; this package imports nothing of it.
+class-dropout and mixed-schedule options.  Slice 7: the fast samplers,
+guidance, encoder reuse, inpainting, inversion and the EDM, flow and
+consistency-training families.  Slice 8: the FID family of evals
+(``evals/``: InceptionV3, FID, KID, IS, precision and recall), the exact
+ODE likelihood of the flow and EDM families, consistency distillation
+(``train/consistency.py``) and the ``cli.fid_score``, ``cli.fid_debug`` and
+``cli.consistency`` entry points.  The JAX package stays the reference the
+port is tested against; this package imports nothing of it.
 """

@@ -20,8 +20,8 @@ override ``clip_while_generating``, then into the run's ``media/``:
     (``resample_steps``), ``inpaint_<mask>.png``: original, masked and
     inpainted rows;
   * ``detailed_viz``: for t0 in (T, 0.9T, 0.8T, 0.5T), the first val images
-    reconstructed from t0 by the mean chain and the sampled chain, without
-    and with x0 clipping, ``detailed_t0_<t0>.png``.
+    reconstructed from t0 by the sampled chain, twice without and twice with
+    x0 clipping (JAX's panels), ``detailed_t0_<t0>.png``.
 
 A consistency run has no eps view: its views, inpainting and detailed
 panels are skipped with a notice.
@@ -74,8 +74,10 @@ def load_engine_from_run(run_path, clip_while_generating=None, use_best=True, de
 def run_detailed_viz(engine, cfg, media_dir: Path, normalize, n_images: int = 4) -> list:
     """For t0 in (T, 0.9T, 0.8T, 0.5T), one view of the first ``n_images``
     val images (column 0) and their reconstructions from t0 with the
-    generator seeded t0: the mean chain, then the sampled chain, without
-    x0 clipping (columns 1, 2) and with it (3, 4).  The engine's
+    generator seeded t0: the sampled chain twice without x0 clipping
+    (columns 1, 2) and twice with it (3, 4).  The JAX panels label columns
+    1 and 3 "mean" but never pass ``mean_only``, so they draw the sampled
+    chain there too; the port draws what JAX draws.  The engine's
     ``clip_while_generating`` is restored afterwards; returns the paths."""
     _, val_loader = build_loaders(cfg)
     x0 = next(iter(val_loader))[0][:n_images]
@@ -87,9 +89,8 @@ def run_detailed_viz(engine, cfg, media_dir: Path, normalize, n_images: int = 4)
             rows = [[(_to_img(x0[i], normalize), None)] for i in range(len(x0))]
             for clip in (False, True):
                 engine.clip_while_generating = clip
-                for mean_only in (True, False):
-                    recon, _ = engine.diffuse_and_reconstruct(x0, t0, seed=t0,
-                                                              mean_only=mean_only)
+                for _ in range(2):
+                    recon, _ = engine.diffuse_and_reconstruct(x0, t0, seed=t0)
                     recon = recon.float().cpu().numpy()
                     for i, row in enumerate(rows):
                         row.append((_to_img(recon[i], normalize), None))

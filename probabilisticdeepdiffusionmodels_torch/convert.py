@@ -15,6 +15,12 @@ numpy arrays and returns a flat ``state_dict`` of float32 tensors:
 Any Flax leaf it cannot map raises.  ``load_flax_params(model, params)``
 also names every port key the tree leaves unset or sets but the model
 lacks, and every shape that differs, before loading.
+
+``inception_from_jax(params)`` builds the port's FID InceptionV3
+(``evals.inception.FIDInceptionV3``) from the JAX package's Inception param
+tree (nested dicts of arrays): each conv's HWIO ``w`` becomes OIHW, its
+folded ``scale`` and ``shift`` and the ``fc`` head ([in, out]) stay as they
+are.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["params_from_flax", "load_flax_params"]
+__all__ = ["params_from_flax", "load_flax_params", "inception_from_jax"]
 
 _FUSED_CONVS = ("in_conv", "out_conv")
 
@@ -98,3 +104,19 @@ def load_flax_params(model: torch.nn.Module, params: Mapping) -> torch.nn.Module
         )
     model.load_state_dict(state, strict=True)
     return model
+
+
+def inception_from_jax(params: Mapping, device="cpu"):
+    """The JAX Inception param tree -> the port's ``FIDInceptionV3`` on
+    ``device``; a missing, left-over or misshapen leaf raises (strict
+    ``load_state_dict``)."""
+    from .evals.inception import FIDInceptionV3
+
+    state = {}
+    for path, value in _flatten(params):
+        if path[-1] == "w" and value.ndim == 4:
+            value = value.transpose(3, 2, 0, 1)
+        state[".".join(path)] = torch.from_numpy(np.ascontiguousarray(value))
+    model = FIDInceptionV3(fc="fc" in params)
+    model.load_state_dict(state, strict=True)
+    return model.to(device)

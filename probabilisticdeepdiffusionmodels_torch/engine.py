@@ -14,7 +14,8 @@ native EDM, flow and consistency samplers), ``inpaint``, ``ddim_invert``,
 ``get_feature_vectors``, the visualization endpoints (``sample_from_step``,
 ``sample_and_return_steps``, ``generate_images_grid``,
 ``diffuse_and_reconstruct``, ``diffuse_and_reconstruct_grid``),
-``calculate_likelihood`` and ``test_step``; ``make_lr_schedule``; and
+``calculate_likelihood``, ``calculate_ode_likelihood`` (the flow and EDM
+families' exact ODE likelihood) and ``test_step``; ``make_lr_schedule``; and
 ``AdamChain``, the optimizer chain the JAX engine builds from optax
 (``adam`` with an optional ``clip_by_global_norm`` before it and an optional
 ``MultiSteps`` around both).  The model and the state live on one device,
@@ -22,9 +23,9 @@ native EDM, flow and consistency samplers), ``inpaint``, ``ddim_invert``,
 ``torch.Generator``s on it.  Training runs the raw model; the table-driven
 samplers, the NLL and the endpoints run its eps view
 (``sample.make_{v,x0,edm,flow}_to_eps_apply_fn``; a consistency model has
-none), the native samplers the raw model.  The device mesh (``mesh``,
-``param_sharding``, ``shard_mode``) and ``calculate_ode_likelihood`` raise
-``NotImplementedError`` naming their ROADMAP.md Queue 1 items.
+none), the native samplers and the ODE likelihood the raw model.  The
+device mesh (``mesh``, ``param_sharding``, ``shard_mode``) raises
+``NotImplementedError`` naming ROADMAP.md Queue 1 item 18.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from .core.edm import EDMConfig
 from .core.flow import FlowConfig
 from .core.schedules import NoiseSchedule, rescale_zero_terminal_snr
 from .evals.nll import calculate_likelihood
+from .evals.ode_nll import edm_ode_nll, flow_ode_nll
 from .models import get_model, resolve_device
 from .sample.sampler import (
     consistency_sample_loop,
@@ -277,6 +279,29 @@ class DiffusionEngine:
     ):
         if prediction_type not in ("epsilon", "v", "x0", "edm", "flow", "consistency"):
             raise ValueError(f'Unknown prediction_type: "{prediction_type}"')
+        # the constructor's own arguments, as JAX keeps them: a run config
+        # rebuilt from them (cli.distill's student_run_config) rebuilds the
+        # same engine, explicit betas included
+        self.hparams = dict(
+            model_config=dict(model_config), optimizer_config=dict(optimizer_config),
+            diffusion_steps=diffusion_steps, beta_start=beta_start, beta_end=beta_end,
+            mode=mode, max_beta=max_beta,
+            betas=None if betas is None else [float(b) for b in betas],
+            sigma_mode=sigma_mode, resolution=resolution,
+            clip_while_generating=clip_while_generating, sampling=sampling, ema=ema,
+            scheduler_name=scheduler_name, scheduler_kwargs=dict(scheduler_kwargs or {}),
+            seed=seed, loss_type=loss_type, grad_clip=grad_clip,
+            accumulate_grad_batches=accumulate_grad_batches,
+            class_dropout_prob=class_dropout_prob, prediction_type=prediction_type,
+            zero_terminal_snr=bool(zero_terminal_snr), loss_weighting=loss_weighting,
+            snr_gamma=snr_gamma,
+            edm_config=None if edm_config is None else dict(edm_config),
+            flow_config=None if flow_config is None else dict(flow_config),
+            consistency_config=None if consistency_config is None else dict(consistency_config),
+            encoder_reuse=encoder_reuse, reuse_exact_head=reuse_exact_head,
+            reuse_exact_tail=reuse_exact_tail, reuse_sigma_boost=reuse_sigma_boost,
+            reuse_prior_noise=reuse_prior_noise, reuse_cache_middle=reuse_cache_middle,
+            param_sharding=param_sharding)
         for name, value, off in (("mesh", mesh, (None,)),
                                  ("param_sharding", param_sharding, ("replicated",))):
             if value not in off:
@@ -767,16 +792,16 @@ class DiffusionEngine:
         return np.concatenate(starts)[:n], np.concatenate(images)[:n]
 
     def diffuse_and_reconstruct(self, x0, t: Optional[int] = None, seed: Optional[int] = None,
-                                use_ema: bool = True, mean_only: bool = False, q_noise=None,
-                                noise=None):
-        """x0 noised to t (default T) and reconstructed by the chain from t:
-        (reconstruction, x_t).  One generator seeded with ``seed`` (default
-        0) draws the forward noise and then the chain's z; ``q_noise``
-        (x0's shape) and ``noise`` ([t, *x0.shape]) may be injected."""
+                                use_ema: bool = True, q_noise=None, noise=None):
+        """x0 noised to t (default T) and reconstructed by the sampled chain
+        from t: (reconstruction, x_t).  One generator seeded with ``seed``
+        (default 0) draws the forward noise and then the chain's z;
+        ``q_noise`` (x0's shape) and ``noise`` ([t, *x0.shape]) may be
+        injected.  As in JAX, there is no mean-only variant."""
         t = t if t is not None else self.diffusion_steps
         generator = self._generator(seed)
         x_t = self.get_noised_representation(x0, t, generator=generator, noise=q_noise)
-        return self._chain(x_t, t, generator, use_ema, noise=noise, mean_only=mean_only), x_t
+        return self._chain(x_t, t, generator, use_ema, noise=noise), x_t
 
     def diffuse_and_reconstruct_grid(self, x0, t_start: Optional[int] = None,
                                      steps_to_return: Sequence[int] = (1,),
@@ -804,9 +829,38 @@ class DiffusionEngine:
                                     noise=noise)
 
     def calculate_ode_likelihood(self, x, seed: int = 0, use_ema: bool = True, y=None,
-                                 n_steps: int = 100, n_probes: int = 1):
-        """The JAX engine's exact probability-flow ODE likelihood."""
-        raise NotImplementedError(f"calculate_ode_likelihood {_later(14)}")
+                                 n_steps: int = 100, n_probes: int = 1,
+                                 probes: Optional[torch.Tensor] = None
+                                 ) -> Dict[str, torch.Tensor]:
+        """The exact continuous-time likelihood of batch ``x`` through the
+        model's probability-flow ODE (``evals.ode_nll``): for
+        ``prediction_type="flow"`` the velocity ODE over t in [0, 1], for
+        ``"edm"`` the sigma-space ODE over the Karras grid (the
+        sigma_min-smoothed density); Heun over ``n_steps``, ``n_probes``
+        Rademacher probes drawn from a generator seeded with ``seed`` (or the
+        given ``probes``).  Table-trained engines report the discrete bound,
+        ``calculate_likelihood``.  Returns per-sample ``log_likelihood``,
+        ``nll_bits_per_dim``, ``prior_logp`` and ``delta_logp``, on the
+        device.  The weights are held out of autograd for the call: the
+        trace needs the gradient in x alone."""
+        if self.prediction_type not in ("flow", "edm"):
+            raise ValueError('calculate_ode_likelihood integrates a continuous probability-flow '
+                             'ODE and needs prediction_type="flow" or "edm"; use '
+                             "calculate_likelihood (discrete VLB) instead")
+        model = self.params(use_ema).eval()
+        kw = dict(n_steps=int(n_steps), n_probes=int(n_probes), y=self._cond(y), probes=probes)
+        if self.prediction_type == "edm":
+            e = self.edm
+            kw.update(sigma_data=e.sigma_data, sigma_min=e.sigma_min, sigma_max=e.sigma_max,
+                      rho=e.rho)
+        nll = edm_ode_nll if self.prediction_type == "edm" else flow_ode_nll
+        wanted = [p.requires_grad for p in model.parameters()]
+        model.requires_grad_(False)
+        try:
+            return nll(model, self._batch(x), self._generator(seed), **kw)
+        finally:
+            for p, w in zip(model.parameters(), wanted):
+                p.requires_grad_(w)
 
     def test_step(self, x, seed: int = 0, use_ema: bool = True, y=None) -> Dict[str, float]:
         nll = self.calculate_likelihood(x, seed=seed, use_ema=use_ema, y=y)

@@ -8,13 +8,36 @@ in ``ops/groupnorm_pallas.py``), and its attention through
 ``qkv_attention_xla``.  ``KernelFunction`` is the counterpart of those VJPs:
 the forward runs a kernel, the backward recomputes a plain PyTorch version
 from the saved inputs and returns that version's gradient.
+
+Gradients through the kernels exist in reverse mode only.  A kernel reads
+its inputs' memory and would drop a forward-mode tangent without a word, so
+``forbid_forward_mode`` raises where one would reach a kernel: an input
+that carries a ``torch.autograd.forward_ad`` tangent, or any active
+``torch.func`` transform (``jvp``, ``vmap``, ``grad``).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd import forward_ad
 
-__all__ = ["KernelFunction", "kernel_op"]
+__all__ = ["KernelFunction", "kernel_op", "forbid_forward_mode"]
+
+
+def forbid_forward_mode(name: str, *tensors) -> None:
+    """Raise if a forward-mode tangent or a ``torch.func`` transform would
+    reach the kernel of op ``name``.  Outside both (every call of the
+    sampler and the train step) this reads two interpreter globals and
+    unpacks no tensor."""
+    if torch._C._functorch.peek_interpreter_stack() is not None:
+        raise RuntimeError(f"{name}: a torch.func transform (jvp, vmap, grad) cannot pass "
+                           "through a hand-written kernel; differentiate in reverse mode "
+                           "(torch.autograd.grad)")
+    if forward_ad._current_level >= 0 and any(
+            t is not None and forward_ad.unpack_dual(t).tangent is not None for t in tensors):
+        raise RuntimeError(f"{name}: an input carries a forward-mode tangent "
+                           "(torch.autograd.forward_ad), which a hand-written kernel would drop; "
+                           "the kernels' gradients are reverse mode only (torch.autograd.grad)")
 
 
 class KernelFunction(torch.autograd.Function):
@@ -49,7 +72,10 @@ class KernelFunction(torch.autograd.Function):
 def kernel_op(forward, reference, *tensors):
     """``KernelFunction.apply`` where autograd records the op; ``forward``
     alone where it does not (under ``torch.no_grad()``, or when no input
-    needs a gradient), so the sampler pays nothing for the Function."""
+    needs a gradient), so the sampler pays nothing for the Function.  Raises
+    where a forward-mode tangent would reach the kernel
+    (``forbid_forward_mode``)."""
+    forbid_forward_mode("kernel op", *tensors)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         return KernelFunction.apply(forward, reference, *tensors)
     return forward(*tensors)

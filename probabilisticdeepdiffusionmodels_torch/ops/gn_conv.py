@@ -62,7 +62,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .autograd import kernel_op
+from .autograd import forbid_forward_mode, kernel_op
 from .groupnorm import apply_affine, check_inputs, fold_backward, moments_fold
 
 __all__ = ["conv_design", "gn_affine", "gn_affine_plain", "gn_affine_grad",
@@ -191,13 +191,15 @@ def gn_affine(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     (B, *spatial, C).  A CPU tensor takes the plain version; a CUDA tensor
     (contiguous, float32 or bfloat16) launches the moments + fold kernel or
     raises.  Differentiable in x, gamma, beta and emb or the FiLM pair, by
-    the backward kernels of ``gn_affine_grad``."""
+    the backward kernels of ``gn_affine_grad``, in reverse mode only: a
+    forward-mode tangent raises (``autograd.forbid_forward_mode``)."""
     if x.device.type == "cpu":
         return gn_affine_plain(x, gamma, beta, num_groups, eps, emb=emb, film=film)
     if emb is not None and film is not None:
         raise ValueError("gn_affine takes emb or film, not both")
-    gamma, beta = check_inputs("gn_affine", x, gamma, beta, num_groups)
     conds = (emb,) if emb is not None else tuple(film or ())
+    forbid_forward_mode("gn_affine", x, gamma, beta, *conds)
+    gamma, beta = check_inputs("gn_affine", x, gamma, beta, num_groups)
     mode = 1 if emb is not None else 2 if film is not None else 0
     # bf16 conditioning is read as it is; anything else in float32
     keep = all(t.dtype == torch.bfloat16 for t in conds)

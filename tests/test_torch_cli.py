@@ -20,6 +20,8 @@ from probabilisticdeepdiffusionmodels_torch.cli import sample as cli_sample
 from probabilisticdeepdiffusionmodels_torch.cli import train as cli_train
 from probabilisticdeepdiffusionmodels_torch.config import load_config
 from probabilisticdeepdiffusionmodels_torch.engine import DiffusionEngine
+from probabilisticdeepdiffusionmodels_torch.logging.sink import RunDir
+from probabilisticdeepdiffusionmodels_torch.train.checkpoint import CheckpointManager
 from probabilisticdeepdiffusionmodels_torch.train.loop import Trainer
 from test_cli import TINY
 
@@ -27,6 +29,20 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = REPO / "probabilisticdeepdiffusionmodels_torch"
 CPU = ["device=cpu"]
 TEST_KEYS = {"test_L_0", "test_L_intermediate", "test_L_T", "test_nll", "test_mse"}
+
+
+def write_run(out_dir, overrides=(), name="run") -> str:
+    """A run directory as ``cli.train`` leaves one (the config snapshot and
+    a checkpoint with its ``val_loss``) for a fresh engine of ``TINY`` and
+    ``overrides`` on the CPU, untrained: what the sample, eval, FID and
+    consistency CLIs read, without the cost of training."""
+    cfg = load_config("default", TINY + CPU + [f"out_dir={out_dir}", f"run_name={name}",
+                                               *overrides])
+    engine = cli_train.build_engine(cfg)
+    run = RunDir(str(out_dir), name)
+    run.save_config(cfg)
+    CheckpointManager(run.checkpoint_dir()).save(engine.state, 0, metrics={"val_loss": 1.0})
+    return str(run.path)
 
 
 @pytest.fixture(scope="module")
@@ -428,8 +444,11 @@ def test_sample_cli_refuses_what_is_not_ported(argv, match, trained_run, request
 
 
 def test_eval_and_fused_trainer_refuse(trained_run):
+    """``ode_nll=true`` on an eps run raises JAX's error (the ODE likelihood
+    is the flow and EDM families', tests/test_torch_ode_nll.py); fused steps
+    are not ported (item 17)."""
     _, result = trained_run
-    with pytest.raises(NotImplementedError, match="item"):
+    with pytest.raises(ValueError, match='prediction_type="flow" or "edm"'):
         cli_eval.main([f"run_dir={result['run_dir']}", "ode_nll=true"] + CPU)
     with pytest.raises(NotImplementedError, match="item 17"):
         Trainer(None, None, logger=object(), fused_steps=4)

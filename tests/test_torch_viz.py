@@ -186,8 +186,8 @@ class StubEngine:
     def sample_from_step(self, x_t, t_start, mean_only=False, seed=None, use_ema=True):
         return np.tanh(np.asarray(x_t) * 0.9 + 0.01 * (seed or 0)) * 1.2
 
-    def diffuse_and_reconstruct(self, x0, t=None, seed=None, use_ema=True, mean_only=False):
-        return np.tanh(x0 + 0.05 * t + 0.01 * (seed or 0) + 0.3 * mean_only) * 1.1, None
+    def diffuse_and_reconstruct(self, x0, t=None, seed=None, use_ema=True):
+        return np.tanh(x0 + 0.05 * t + 0.01 * (seed or 0)) * 1.1, None
 
     def diffuse_and_reconstruct_grid(self, x0, t_start=None, steps_to_return=(1,), seed=None,
                                      mean_only=False, return_stds=False, use_ema=True):
@@ -307,14 +307,15 @@ def test_compose_and_curve():
 
 
 def test_detailed_viz_panels(tmp_path, monkeypatch):
-    """Four panels, t0 in (T, 0.9T, 0.8T, 0.5T); columns x0, then mean and
-    sampled chains without and with x0 clipping, each seeded t0; the
-    engine's clipping restored."""
+    """Four panels, t0 in (T, 0.9T, 0.8T, 0.5T); columns x0, then the
+    sampled chain twice without and twice with x0 clipping (as JAX's
+    panels, which never pass ``mean_only``), each seeded t0; the engine's
+    clipping restored."""
     engine = StubEngine(3)
     seen = []
 
-    def recon(x0, t=None, seed=None, use_ema=True, mean_only=False):
-        seen.append((t, seed, mean_only, engine.clip_while_generating))
+    def recon(x0, t=None, seed=None, use_ema=True):
+        seen.append((t, seed, engine.clip_while_generating))
         return torch.as_tensor(np.full(x0.shape, 0.2 * len(seen) - 1.0, np.float32)), None
 
     engine.clip_while_generating = "unchanged"
@@ -326,8 +327,7 @@ def test_detailed_viz_panels(tmp_path, monkeypatch):
                         lambda path, v, pad=2: written.setdefault(path.name, v))
     paths = cli_sample.run_detailed_viz(engine, {}, tmp_path, "oneone", n_images=2)
     assert [p.name for p in paths] == [f"detailed_t0_{t}.png" for t in (12, 10, 9, 6)]
-    assert seen[:4] == [(12, 12, True, False), (12, 12, False, False), (12, 12, True, True),
-                        (12, 12, False, True)]
+    assert seen[:4] == [(12, 12, False), (12, 12, False), (12, 12, True), (12, 12, True)]
     assert engine.clip_while_generating == "unchanged"
     view = written["detailed_t0_12.png"][0]
     for col, k in enumerate(range(1, 5), start=1):
@@ -336,6 +336,69 @@ def test_detailed_viz_panels(tmp_path, monkeypatch):
     y, x = tile_origin(0, 0, RES, RES)
     np.testing.assert_allclose(view[y:y + RES, x:x + RES],
                                np.clip(0.5 * val[0] + 0.5, 0, 1), rtol=1e-6)
+
+
+def test_detailed_viz_panels_equal_jax(engines, tmp_path, monkeypatch):
+    """The port's detailed panel at t0 = T against JAX's ``run_detailed_viz``
+    on the same weights and val images, JAX's draws for the seed t0
+    injected: every tile of its five columns.  Columns 1 and 2 hold the
+    same unclipped chain, 3 and 4 the same clipped one.  The other panels
+    differ only in t0 (``test_detailed_viz_panels``); both engines return
+    zeros there, which keeps JAX to two compiled chains."""
+    import matplotlib.figure
+
+    from probabilisticdeepdiffusionmodels_tpu.cli import sample as jax_cli_sample
+
+    jengine, engine = engines
+    val = _images(2, 36)
+    tiles = {}
+
+    def record(ax, img, border_color=None):
+        spec = ax.get_subplotspec()
+        tiles.setdefault(len(saved), {})[(spec.rowspan.start, spec.colspan.start)] = \
+            np.array(img)
+
+    saved = []
+    monkeypatch.setattr(jax_cli_sample, "_grid", record)
+    monkeypatch.setattr(jax_cli_sample, "build_loaders", lambda cfg: (None, [(val, None)]))
+    monkeypatch.setattr(matplotlib.figure.Figure, "savefig",
+                        lambda fig, path, **kw: saved.append(path.name))
+    jax_original = jengine.diffuse_and_reconstruct
+
+    def jax_panel(x0, t=None, seed=None, use_ema=True):
+        if t != T:
+            return np.zeros(np.shape(x0), np.float32), None
+        return jax_original(x0, t, seed=seed, use_ema=use_ema)
+
+    monkeypatch.setattr(jengine, "diffuse_and_reconstruct", jax_panel)
+    jax_cli_sample.run_detailed_viz(jengine, {}, tmp_path, "oneone", n_images=2)
+
+    original = engine.diffuse_and_reconstruct
+
+    def with_jax_draws(x0, t=None, seed=None, use_ema=True):
+        if t != T:
+            return torch.zeros(np.shape(x0)), None
+        knoise, kloop = jax.random.split(jax.random.PRNGKey(seed))
+        q = np.asarray(jax.random.normal(knoise, np.shape(x0)))
+        return original(x0, t, use_ema=use_ema, q_noise=q,
+                        noise=_chain_noise(kloop, t, np.shape(x0)))
+
+    monkeypatch.setattr(engine, "diffuse_and_reconstruct", with_jax_draws)
+    monkeypatch.setattr(cli_sample, "build_loaders", lambda cfg: (None, [(val, None)]))
+    written = {}
+    monkeypatch.setattr(cli_sample, "write_png",
+                        lambda path, v, pad=2: written.setdefault(path.name, v))
+    paths = cli_sample.run_detailed_viz(engine, {}, tmp_path, "oneone", n_images=2)
+    assert [p.name for p in paths] == saved == [f"detailed_t0_{t}.png" for t in (6, 5, 4, 3)]
+    view = written[saved[0]][0]
+    assert len(tiles[0]) == 2 * 5
+    for (row, col), tile in tiles[0].items():
+        y, x = tile_origin(row, col, RES, RES)
+        _close(view[y:y + RES, x:x + RES], np.broadcast_to(tile, (RES, RES, 3)))
+    for a, b in ((1, 2), (3, 4)):
+        (ya, xa), (yb, xb) = tile_origin(0, a, RES, RES), tile_origin(0, b, RES, RES)
+        np.testing.assert_array_equal(view[ya:ya + RES, xa:xa + RES],
+                                      view[yb:yb + RES, xb:xb + RES])
 
 
 def test_write_png_is_importable_from_the_sample_cli():
