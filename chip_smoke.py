@@ -68,9 +68,29 @@
    and one backward a step), each step's device operations and no copy to
    the host; the float32 gradients of one CD step of each teacher on the
    kernels against the plain versions; ``cli.consistency`` on the cli run
-   then ``cli.sample sampler=consistency`` on its output.  The cli run is
-   deleted after this phase;
-11. the IDDPM configuration through the same entry points (``iddpm_cli``): the
+   then ``cli.sample sampler=consistency`` on its output;
+11. K = 4 fused train steps (``fused_train``): bench_train.py's step (bf16,
+   batch 128) as one captured CUDA graph (``engine.training_steps``): from
+   one copy of the state a replay beside 4 eager steps and beside the
+   graph's steps run eagerly, and in float32 on the kernels beside eager
+   steps on the plain versions (counts and the generator equal, floats
+   within their stated tolerances), and a replay with one table row zeroed
+   failing that gate; the capture stream's GroupNorm
+   counters zero; one replay's device operations from a profile, each of
+   this repository's kernels 4x an eager step's, no copy to the host; img/s
+   in turns (eager, fused, fused, eager) with peak memory, each mode's
+   device busy ms and idle share from its profile; ``cli.train trainer.fused_steps=4
+   data.device_resident=true`` beside the plain CLI over 2 epochs with one
+   capture asserted, and 2 + 2 steps resumed from its checkpoint against 4;
+12. progressive distillation and reflow (``distill_reflow``): the distil
+   step (from the cli run's eps teacher, T 1000 -> 500) and the reflow
+   step (on 256 couplings of the evals phase's flow run) beside the eps
+   step in turns, launches asserted, device operations a step and no copy
+   to the host; the float32 gradients of one distil and one reflow step on
+   the kernels against the plain versions; ``cli.distill`` and
+   ``cli.reflow`` with their launches, each student read by ``cli.sample``.
+   The cli run is deleted after this phase;
+13. the IDDPM configuration through the same entry points (``iddpm_cli``): the
    CIFAR-10 UNet at full width (bf16) under ``engine=cifar10_iddpm`` (cosine,
    learned sigma, hybrid loss) with its T cut from 1000 to 100, and the
    default visualization: ``cli.train`` (10 steps, the four views at the end
@@ -85,7 +105,7 @@
    the plain versions; and one bf16 batch-128 train step each of v with
    min-SNR on a zero-terminal-SNR schedule and of x0, with exact launches
    and no device-to-host copy;
-12. the fast samplers at the CIFAR-10 UNet's full width (bf16, batch 128,
+14. the fast samplers at the CIFAR-10 UNet's full width (bf16, batch 128,
    linear T=1000, clip): DDIM-50, DPM-Solver++(2M) at 10 and 20 steps,
    Heun at ``karras18``, the ancestral 250-step and DDIM-50 chains with
    ``encoder_reuse=3``, DDIM-50 under guidance 3 on a class-conditional
@@ -97,7 +117,7 @@
    host, the guided and cached calls' kernel sites against the plain
    versions, and every chain in float32 at batch 4 on the kernels against
    the plain versions with the same generator state;
-13. the EDM, flow-matching and consistency families (``model_families``):
+15. the EDM, flow-matching and consistency families (``model_families``):
    each bf16 train step at batch 128 beside the eps step in turns (10 steps
    after 3, launches asserted, device operations a step, no copy to the
    host), each one's float32 gradients on the kernels against the plain
@@ -182,6 +202,7 @@ NLL_CHECK_T, NLL_CHECK_BATCH = 50, 8
 NLL_CHECK_TOL = 1e-4   # float32 NLL terms, kernels vs plain, of max(1, |ref|)
 NLL_PROFILE_T = 10     # a profiled bf16 NLL batch: the per-t device work and idle share
 CLI_ROOT = ROOT / "runs" / "chip_smoke_cli"
+FLOW_RUN = CLI_ROOT / "ode" / "ode_flow"  # the evals phase's flow run (T = 100)
 # the evals phase: InceptionV3 in float32 at batch 256 against the CPU;
 # cli.fid_score on the cli run at 1,024 samples (cut from 10,000; synthetic
 # reals, random Inception weights) of the 250-step chain with P&R, KID and
@@ -206,6 +227,31 @@ ODE_EVAL_STEPS, ODE_EVAL_T = 20, 100
 # and backward and the target's forward
 CD_TURNS = ("eps", "cd_eps", "cd_edm", "cd_edm", "cd_eps", "eps")
 CD_FORWARDS = 4
+# the fused_train phase: K train steps (bench_train.py's step: bf16, batch
+# 128, Adam 2e-4, EMA 0.9999, uniform t) as one captured CUDA graph beside K
+# eager steps from one copy of the state.  The graph's Adam update rounds
+# its parameter step once more than torch.optim.Adam, a round-off that the
+# later steps carry: parameters and EMA within FUSED_PARAM_TOL (a tenth of
+# one update), the moments within FUSED_MOMENT_TOL of the model's largest,
+# the loss rows within FUSED_LOSS_TOL relative.  Against the graph's steps
+# run eagerly (the same arithmetic) and a resume, every float within
+# FUSED_SAME_TOL.  A replay whose table has one row zeroed (that update's
+# parameter step skipped) must fail the gate.
+FUSED_K, FUSED_LR, FUSED_CHUNKS = 4, 2e-4, 6
+FUSED_TURNS = ("eager", "fused", "fused", "eager")
+FUSED_PARAM_TOL = FUSED_LR / 10
+FUSED_MOMENT_TOL = 1e-3
+FUSED_LOSS_TOL = 1e-4
+FUSED_SAME_TOL = 1e-6
+FUSED_CLI_ARGS = ["trainer.max_epochs=2", "trainer.limit_test_batches=0"]
+# the distill_reflow phase: progressive distillation (cli.distill, one round
+# T 1000 -> 500, one epoch of 10 steps, the NLL on one batch) from the cli
+# run, reflow (cli.reflow, 256 couplings of the 50-step flow ODE at batch
+# 128, one epoch) from the evals phase's flow run (T = 100); the distil and
+# reflow steps beside the eps step in turns
+DR_TURNS = ("eps", "distill", "reflow", "reflow", "distill", "eps")
+DISTILL_FORWARDS = 3   # two teacher forwards and the student's, one backward
+REFLOW_COUPLINGS, REFLOW_GEN_STEPS = 256, 50
 # the iddpm_cli phase: engine=cifar10_iddpm at full width in bf16 with the
 # default visualization (more); the one cut is T, 1000 to 100, which keeps
 # its ~3,300 model calls (the views, the detailed panels, two NLL tests)
@@ -2403,6 +2449,556 @@ def consistency_distill_phase(torch, ops, gen, smi, run_dir, out_dir=None):
     return launches
 
 
+# this repository's kernels as the profiler names them
+OWN_KERNELS = ("attn_bf16_kernel", "attn_f32_kernel", "conv_wgmma_kernel",
+               "conv_narrow_f32_kernel", "conv_kernel<", "gn_moments_kernel", "gn_apply_kernel",
+               "gn_fold_bwd_kernel")
+
+
+def own_kernel_counts(kernels):
+    """A profile's launches of this repository's kernels, by kernel name."""
+    out = {}
+    for k in kernels:
+        if any("::" + n in k["name"] or k["name"].startswith(n) for n in OWN_KERNELS):
+            out[k["name"]] = out.get(k["name"], 0) + k["calls"]
+    return out
+
+
+def copy_state(src, dst):
+    """``dst`` (a TrainState) made a copy of ``src`` in place: every tensor
+    keeps its address, so a graph captured on ``dst`` stays valid."""
+    dst.step = src.step
+    dst.model.load_state_dict(src.model.state_dict())
+    if src.ema_model is not None:
+        dst.ema_model.load_state_dict(src.ema_model.state_dict())
+    so, do = src.optimizer, dst.optimizer
+    so.init_state()
+    do.init_state()
+    for ps, pd in zip(so.params, do.params):
+        for name in ("step", "exp_avg", "exp_avg_sq"):
+            do.adam.state[pd][name].copy_(so.adam.state[ps][name])
+    for a, b in zip(so.acc or [], do.acc or []):
+        b.copy_(a)
+    do.updates, do.mini_step = so.updates, so.mini_step
+    for name in ("ring", "ring_pos", "count", "epoch_sum", "epoch_count"):
+        getattr(dst.loss_history, name).copy_(getattr(src.loss_history, name))
+    dst.generator.set_state(src.generator.get_state())
+
+
+def compare_states(torch, got, want):
+    """How far train state ``got`` is from ``want``: the largest absolute
+    difference of the parameters and the EMA, each Adam moment's largest
+    difference over the model's largest moment, the loss history's ring; and
+    whether the counts (Adam's, the history's, the host's) and the
+    generator are equal."""
+    def worst(pairs):
+        return max(float((a.detach().float() - b.detach().float()).abs().max()) for a, b in pairs)
+
+    out = {"params": worst(zip(got.model.parameters(), want.model.parameters())),
+           "ema": worst(zip(got.ema_model.parameters(), want.ema_model.parameters()))}
+    sg = [got.optimizer.adam.state[p] for p in got.optimizer.params]
+    sw = [want.optimizer.adam.state[p] for p in want.optimizer.params]
+    for kind in ("exp_avg", "exp_avg_sq"):
+        largest = max(float(s[kind].abs().max()) for s in sw)
+        out[f"{kind}_rel"] = worst((g[kind], w[kind]) for g, w in zip(sg, sw)) / largest
+    out["history_ring_max_abs"] = float((got.loss_history.ring - want.loss_history.ring)
+                                        .abs().max())
+    out["adam_counts_equal"] = all(torch.equal(g["step"], w["step"]) for g, w in zip(sg, sw))
+    out["history_counts_equal"] = all(
+        torch.equal(getattr(got.loss_history, n), getattr(want.loss_history, n))
+        for n in ("count", "ring_pos", "epoch_count"))
+    out["generator_equal"] = torch.equal(got.generator.get_state(), want.generator.get_state())
+    out["host_counts"] = [[s.step, s.optimizer.updates, s.optimizer.mini_step]
+                          for s in (got, want)]
+    out["bits_equal"] = (out["params"] == out["ema"] == out["exp_avg_rel"]
+                         == out["exp_avg_sq_rel"] == out["history_ring_max_abs"] == 0.0)
+    return out
+
+
+def fused_state_ok(d, same=False):
+    """The fused_train gates on a ``compare_states`` result (with its loss
+    rows' ``loss_rows_rel`` where it has them): the counts and the
+    generator equal, the floats within the tolerances against eager steps,
+    or within FUSED_SAME_TOL where ``same`` (the same arithmetic)."""
+    p, m, rows = ((FUSED_SAME_TOL,) * 3 if same
+                  else (FUSED_PARAM_TOL, FUSED_MOMENT_TOL, FUSED_LOSS_TOL))
+    return (d["adam_counts_equal"] and d["history_counts_equal"] and d["generator_equal"]
+            and d["host_counts"][0] == d["host_counts"][1] and d["params"] <= p
+            and d["ema"] <= p and d["exp_avg_rel"] <= m and d["exp_avg_sq_rel"] <= m
+            and d.get("loss_rows_rel", 0.0) <= rows
+            and (not same or d["history_ring_max_abs"] <= FUSED_SAME_TOL))
+
+
+def _rows_rel(a, b):
+    """max |a - b| / |b| over two stacks of loss rows."""
+    return float(((a.float() - b.float()).abs() / b.float().abs().clamp_min(1e-30)).max())
+
+
+def fused_train_phase(torch, ops, gen, smi, out_dir=None):
+    """K = 4 train steps of bench_train.py's step as one captured CUDA graph
+    (``engine.training_steps``) at the CIFAR-10 UNet's full width, bf16,
+    batch 128: (a) from one copy of the state, one replayed chunk beside
+    four eager steps and beside the graph's steps run eagerly, the same
+    replay with a zeroed table row failing the gate, and in float32 on the
+    kernels against eager steps on the plain versions;
+    the GroupNorm counters of the capture stream zero after the capture and
+    a replay; (b) the device operations of one replay against four eager
+    steps' from profiles, this repository's kernels exactly K times one
+    step's, no copy to the host, each mode's device busy ms and idle share;
+    (c) img/s in turns, each mode's peak memory, and the capture's seconds; (d)
+    ``cli.train trainer.fused_steps=4 data.device_resident=true`` beside the
+    plain CLI (2 epochs of 10 steps: two chunks and a short chunk of two
+    single steps each), one capture in the run, and 2 + 2 steps resumed
+    from its checkpoint against 4 (eager: a checkpoint written after graph
+    steps holds the host counts the eager path reads).  Returns the
+    launches by path."""
+    import contextlib
+
+    from probabilisticdeepdiffusionmodels_torch.cli import train as cli_train
+    from probabilisticdeepdiffusionmodels_torch.config import load_config
+    from probabilisticdeepdiffusionmodels_torch.engine import DiffusionEngine
+    from probabilisticdeepdiffusionmodels_torch.ops import groupnorm
+    from probabilisticdeepdiffusionmodels_torch.train.checkpoint import CheckpointManager
+    from probabilisticdeepdiffusionmodels_torch.train.step import CapturedSteps
+
+    phase_start = time.perf_counter()
+    k, launches, line = FUSED_K, {}, {"phase": "fused_train", "nvidia_smi": smi, "k": FUSED_K,
+                                      "batch": TRAIN_BATCH}
+
+    def engine(cfg=MODEL_CFG):
+        e = DiffusionEngine(dict(cfg), {"lr": FUSED_LR}, ema=0.9999, device="cuda")
+        fill_zero_params(torch, e.state.model, seed=50)
+        e.state.ema_model.load_state_dict(e.state.model.state_dict())
+        return e
+
+    def chunks(n, batch):
+        return [torch.rand((k, batch, RESOLUTION, RESOLUTION, 3), device="cuda",
+                           generator=gen) * 2.0 - 1.0 for _ in range(n)]
+
+    def counters_zero(chunk):
+        buf = groupnorm._counters.get((torch.cuda.current_device(), chunk.stream.cuda_stream))
+        torch.cuda.synchronize()
+        return None if buf is None else not bool(buf.any())
+
+    # (a) the warm-up and capture, then one replay beside eager steps, with
+    # cuDNN's deterministic algorithms: its default weight gradients (the
+    # plain versions' recompute) may sum in any order, and two runs of the
+    # same steps are held to FUSED_SAME_TOL
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    graph_e, eager_e, body_e, start_e = engine(), engine(), engine(), engine()
+    xs = chunks(2, TRAIN_BATCH)
+    ops.reset()
+    t_start = time.perf_counter()
+    graph_e.training_steps(xs[0])
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t_start
+    launches["fused_train_first_chunk"] = ops.counts()
+    chunk = next(iter(graph_e._fused_step.graphs.values()))
+    zero_after_capture = counters_zero(chunk)
+    bad = []
+    if ops.counts() != expected_counts(2 * k, True):
+        bad.append(f"warm-up and capture launched {ops.counts()}, expected "
+                   f"{expected_counts(2 * k, True)} (K steps run, K captured)")
+    for e in (eager_e, body_e, start_e):
+        copy_state(graph_e.state, e.state)
+    ops.reset()
+    rows_g = graph_e.training_steps(xs[1])
+    replay_counts = ops.counts()
+    rows_e = torch.stack([eager_e.training_step(x)["loss"] for x in xs[1]])
+    rows_b = CapturedSteps(body_e._train_step, body_e.state, xs[1], capture=False)(xs[1])
+    zero_after_replay = counters_zero(chunk)
+    vs_eager = compare_states(torch, graph_e.state, eager_e.state)
+    vs_body = compare_states(torch, graph_e.state, body_e.state)
+    vs_eager["loss_rows_rel"] = _rows_rel(rows_g["loss"], rows_e)
+    vs_body["loss_rows_rel"] = _rows_rel(rows_g["loss"], rows_b["loss"])
+    line["bf16_replay_vs_eager"] = vs_eager
+    line["bf16_replay_vs_graph_steps_eagerly"] = vs_body
+    line["gn_counters_zero"] = {"after_capture": zero_after_capture,
+                                "after_replay": zero_after_replay}
+    del body_e
+    if any(replay_counts.values()):
+        bad.append(f"a replay ticked the launch counters {replay_counts}: it ran eagerly")
+    if not fused_state_ok(vs_eager):
+        bad.append(f"bf16 replay vs eager steps: {vs_eager}")
+    if not fused_state_ok(vs_body, same=True):
+        bad.append(f"bf16 replay vs the graph's steps run eagerly: {vs_body}")
+    if False in (zero_after_capture, zero_after_replay):
+        bad.append(f"GroupNorm counters of the capture stream: {line['gn_counters_zero']}")
+
+    # a planted fault: the same replay from the same state, with the table
+    # row of the second update zeroed (its parameter step skipped), must
+    # fail the gate against the eager steps
+    copy_state(start_e.state, graph_e.state)
+    del start_e
+    opt = graph_e.state.optimizer
+    real_scalars = opt.update_scalars
+
+    def zeroed_row(n_steps):
+        rows = real_scalars(n_steps)
+        rows[1] = 0.0
+        return rows
+
+    opt.update_scalars = zeroed_row
+    ops.reset()
+    rows_f = graph_e.training_steps(xs[1])
+    del opt.update_scalars
+    fault = compare_states(torch, graph_e.state, eager_e.state)
+    fault["loss_rows_rel"] = _rows_rel(rows_f["loss"], rows_e)
+    fault["caught"] = not fused_state_ok(fault)
+    line["planted_fault_zeroed_table_row"] = fault
+    if any(ops.counts().values()) or chunk.captures != 1 or not fault["caught"]:
+        bad.append(f"a replay with a zeroed table row passed the gate, or did not replay: "
+                   f"{fault}, launches {ops.counts()}, captures {chunk.captures}")
+
+    # float32 on the kernels (a replay) against eager steps on the plain versions
+    cfg32 = dict(MODEL_CFG, compute_dtype="float32")
+    g32, p32 = engine(cfg32), engine(cfg32)
+    xs32 = chunks(2, GRAD_BATCH)
+    g32.training_steps(xs32[0])
+    copy_state(g32.state, p32.state)
+    rows_g32 = g32.training_steps(xs32[1])["loss"]
+    with ops.plain_versions():
+        rows_p32 = torch.stack([p32.training_step(x)["loss"] for x in xs32[1]])
+    vs_plain = compare_states(torch, g32.state, p32.state)
+    vs_plain["loss_rows_rel"] = _rows_rel(rows_g32, rows_p32)
+    line["f32_replay_kernels_vs_eager_plain"] = dict(vs_plain, batch=GRAD_BATCH)
+    if not fused_state_ok(vs_plain):
+        bad.append(f"float32 replay on the kernels vs eager plain steps: {vs_plain}")
+    del g32, p32
+    torch.backends.cudnn.deterministic = deterministic
+
+    # (b) one replay's device operations against K eager steps'
+    prof_e = profile_device(torch, lambda: [eager_e.training_step(x) for x in xs[1]])
+    prof_g = profile_device(torch, lambda: graph_e.training_steps(xs[1]))
+    own_e, own_g = own_kernel_counts(prof_e["all"]), own_kernel_counts(prof_g["all"])
+    copies = [x["name"] for x in prof_g["all"] if "DtoH" in x["name"]]
+    line["profile"] = {
+        "eager_k_steps": {key: prof_e[key] for key in ("device_ops", "device_busy_ms",
+                                                        "wall_ms", "idle_share")},
+        "replay": {key: prof_g[key] for key in ("device_ops", "device_busy_ms", "wall_ms",
+                                                "idle_share")},
+        "own_kernels_eager_k_steps": own_e, "own_kernels_replay": own_g,
+        "replay_host_copies": copies, "replay_top": prof_g["top"]}
+    if own_g != own_e or not own_g:
+        bad.append(f"a replay's kernels {own_g} != K eager steps' {own_e}")
+    if copies:
+        bad.append(f"a replay copies to the host: {copies}")
+
+    # (c) img/s in turns, each turn FUSED_CHUNKS chunks
+    turns = {"eager": [], "fused": []}
+    peak, reserved = {}, {}
+    for mode in FUSED_TURNS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset()
+        t_start = time.perf_counter()
+        for c in range(FUSED_CHUNKS):
+            if mode == "fused":
+                graph_e.training_steps(xs[c % 2])
+            else:
+                for x in xs[c % 2]:
+                    eager_e.training_step(x)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t_start
+        want = expected_counts(k * FUSED_CHUNKS, True) if mode == "eager" else {
+            n: 0 for n in ops.counts()}
+        if ops.counts() != want:
+            bad.append(f"{mode} turn launches {ops.counts()} != {want}")
+        turns[mode].append({"img_per_s": TRAIN_BATCH * k * FUSED_CHUNKS / seconds,
+                            "seconds": seconds})
+        peak[mode] = max(peak.get(mode, 0), torch.cuda.max_memory_allocated())
+        reserved[mode] = max(reserved.get(mode, 0), torch.cuda.max_memory_reserved())
+    line["turns"] = {"order": list(FUSED_TURNS), "chunks_per_turn": FUSED_CHUNKS, **turns}
+    # both engines resident; the graph's intermediates sit in its private
+    # pool, reserved (not allocated) between replays
+    line["max_memory_allocated_bytes"] = peak
+    line["max_memory_reserved_bytes"] = reserved
+    line["first_chunk_seconds"] = first_s
+    line["capture_seconds"] = chunk.capture_seconds
+    del eager_e, graph_e, chunk
+
+    # (d) the CLI with fused steps and the device-resident loader
+    root = CLI_ROOT / "fused"
+    base = CLI_ARGS + FUSED_CLI_ARGS + [f"out_dir={root}"]
+    fused_args = [f"trainer.fused_steps={k}", "data.device_resident=true"]
+    cli, run_dirs = {}, {}
+    for name, extra in (("plain", []), ("fused", fused_args)):
+        captures = {}
+        ops.reset()
+        ctx = (timing_calls(CapturedSteps, ("_warm_up_and_capture",), captures)
+               if extra else contextlib.nullcontext())
+        with ctx:
+            result, _ = _captured(lambda: cli_train.main(base + extra + [f"run_name={name}"]))
+        run_dir = run_dirs[name] = pathlib.Path(result["run_dir"])
+        rows = [json.loads(r) for r in (run_dir / "metrics.jsonl").read_text().splitlines()]
+        epoch_s = [r["epoch_time_s"] for r in rows if "epoch_time_s" in r]
+        cli[name] = {"steps": result["steps"], "epoch_seconds": epoch_s,
+                     "epoch_img_per_s": [1280 / s for s in epoch_s],
+                     "best_val_loss": result["best_val_loss"],
+                     "captures": len(captures.get("_warm_up_and_capture", []))}
+        launches[f"cli_train_{name}_2_epochs"] = ops.counts()
+    # two epochs of 10 batches: a fused epoch runs 2 chunks and 2 single
+    # steps; the wrappers count the first chunk's warm-up and capture and the
+    # single steps; 10 validation batches an epoch on the EMA and live weights
+    counted = 2 * k + 2 * 2
+    want = dict(expected_counts(counted + 2 * 2 * 10, False),
+                gn_affine_grad=counted * PER_BACKWARD["gn_affine_grad"])
+    if (cli["fused"]["captures"] != 1 or cli["fused"]["steps"] != 20
+            or launches["cli_train_fused_2_epochs"] != want
+            or not math.isfinite(cli["fused"]["best_val_loss"])):
+        bad.append(f"cli.train fused: {cli['fused']}, launches "
+                   f"{launches['cli_train_fused_2_epochs']} != {want}")
+
+    # from the fused run's checkpoint (written after graph steps), 2 + 2
+    # eager steps through a second checkpoint against 4
+    cfg = load_config("default", base + fused_args + ["run_name=resume"])
+    ckpt = CheckpointManager(run_dirs["fused"] / "checkpoints")
+    xs4 = chunks(1, TRAIN_BATCH)[0]
+
+    def restored(manager):
+        e = cli_train.build_engine(cfg)
+        manager.restore(e.state)
+        return e
+
+    torch.backends.cudnn.deterministic = True
+    straight = restored(ckpt)
+    for x in xs4:
+        straight.training_step(x)
+    first = restored(ckpt)
+    for x in xs4[:2]:
+        first.training_step(x)
+    mid = CheckpointManager(root / "resume_mid")
+    mid.save(first.state, first.state.step)
+    del first
+    resumed = restored(mid)
+    for x in xs4[2:]:
+        resumed.training_step(x)
+    resume = compare_states(torch, resumed.state, straight.state)
+    torch.backends.cudnn.deterministic = deterministic
+    line["resume_2_plus_2_vs_4"] = resume
+    if not fused_state_ok(resume, same=True):
+        bad.append(f"2 + 2 fused steps resumed vs 4: {resume}")
+    del straight, resumed
+    line["cli"] = cli
+    line["launches"] = launches
+    line["phase_seconds"] = time.perf_counter() - phase_start
+    emit(line)
+    if out_dir is not None:
+        (out_dir / "fused_train.json").write_text(json.dumps(line, indent=1))
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return launches
+
+
+def distill_reflow_phase(torch, ops, gen, smi, run_dir, flow_run, out_dir=None):
+    """Progressive distillation and reflow at the CIFAR-10 UNet's full width,
+    bf16, batch 128: the distil step (from the cli run's eps teacher, T
+    1000 -> 500) and the reflow step (on couplings of the evals phase's flow
+    run, T = 100) beside the eps step in turns, launches asserted, each
+    step's device operations and no copy to the host, the couplings'
+    seconds; the float32 gradients of one distil and one reflow step on the
+    kernels against the plain versions; ``cli.distill`` (one round, one
+    epoch, the NLL on one batch) and ``cli.reflow`` (256 couplings) with
+    their launches, each student's run read by ``cli.sample``.  Returns the
+    launches by path."""
+    import copy
+
+    from probabilisticdeepdiffusionmodels_torch.cli import distill as cli_distill
+    from probabilisticdeepdiffusionmodels_torch.cli import reflow as cli_reflow
+    from probabilisticdeepdiffusionmodels_torch.cli import sample as cli_sample
+    from probabilisticdeepdiffusionmodels_torch.core import DiffusionTables, NoiseSchedule
+    from probabilisticdeepdiffusionmodels_torch.engine import AdamChain, DiffusionEngine
+    from probabilisticdeepdiffusionmodels_torch.models import get_model
+    from probabilisticdeepdiffusionmodels_torch.train import TrainState
+    from probabilisticdeepdiffusionmodels_torch.train.distill import (
+        halved_student,
+        make_distill_step,
+        teacher_eps_fn,
+    )
+    from probabilisticdeepdiffusionmodels_torch.train.reflow import (
+        generate_couplings,
+        make_reflow_step,
+        reflow_student,
+    )
+
+    phase_start = time.perf_counter()
+    launches, bad = {}, []
+    grad = PER_BACKWARD["gn_affine_grad"]
+    teacher = cli_sample.load_engine_from_run(run_dir)[0]
+    flow_teacher = cli_sample.load_engine_from_run(flow_run)[0]
+    student, rstudent = halved_student(teacher), reflow_student(flow_teacher)
+    dstep = make_distill_step(teacher_eps_fn(teacher), student.tables, teacher.tables)
+    rstep = make_reflow_step(rstudent.tables, rstudent.flow)
+    xb = torch.rand(TRAIN_BATCH, RESOLUTION, RESOLUTION, 3, device="cuda",
+                    generator=gen) * 2.0 - 1.0
+
+    # the couplings: 2 chains of the 50-step flow ODE at batch 128
+    ops.reset()
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    z, x = generate_couplings(flow_teacher, REFLOW_COUPLINGS,
+                              torch.Generator(device="cuda").manual_seed(52),
+                              minibatch=TRAIN_BATCH)
+    torch.cuda.synchronize()
+    coupling_s = time.perf_counter() - t_start
+    launches["reflow_couplings"] = ops.counts()
+    want = expected_counts(REFLOW_COUPLINGS // TRAIN_BATCH * REFLOW_GEN_STEPS, False)
+    if ops.counts() != want or not bool(torch.isfinite(x).all()):
+        bad.append(f"couplings: launches {ops.counts()} != {want}")
+
+    tables = DiffusionTables.from_schedule(NoiseSchedule.create(1000, "linear"), "cuda")
+    m = get_model(RESOLUTION, MODEL_CFG, device="cuda", seed=0)
+    eps_state = TrainState(m, AdamChain(m.parameters(), 2e-4), 1000,
+                           torch.Generator(device="cuda").manual_seed(53), ema_decay=0.9999)
+    eps_step = family_step("eps", tables)
+    per_step = {"eps": expected_counts(1, True), "reflow": expected_counts(1, True),
+                "distill": dict(expected_counts(DISTILL_FORWARDS, False), gn_affine_grad=grad)}
+
+    def one(kind, i=0):
+        if kind == "eps":
+            return eps_step(eps_state, xb)
+        if kind == "distill":
+            return dstep(student.state, xb)
+        lo = (i % 2) * TRAIN_BATCH
+        return rstep(rstudent.state, x[lo:lo + TRAIN_BATCH], z[lo:lo + TRAIN_BATCH])
+
+    for kind in ("eps", "distill", "reflow"):
+        for i in range(TRAIN_WARMUP):
+            one(kind, i)
+    img_per_s = {kind: [] for kind in ("eps", "distill", "reflow")}
+    for kind in DR_TURNS:
+        torch.cuda.synchronize()
+        ops.reset()
+        t_start = time.perf_counter()
+        for i in range(TRAIN_STEPS):
+            one(kind, i)
+        torch.cuda.synchronize()
+        img_per_s[kind].append(TRAIN_BATCH * TRAIN_STEPS / (time.perf_counter() - t_start))
+        want = {n: TRAIN_STEPS * v for n, v in per_step[kind].items()}
+        if ops.counts() != want:
+            bad.append(f"{kind} launches {ops.counts()} != {want}")
+        launches[f"round_{kind}" if kind != "eps" else "train_step_eps_dr_turns"] = ops.counts()
+    profiles = {}
+    for kind in ("eps", "distill", "reflow"):
+        prof = profile_device(torch, lambda: one(kind))
+        copies = [c["name"] for c in prof.pop("all") if "DtoH" in c["name"]]
+        profiles[kind] = {"device_ops": prof["device_ops"],
+                          "device_busy_ms": prof["device_busy_ms"],
+                          "wall_ms": prof["wall_ms"], "host_copies": copies}
+        if copies:
+            bad.append(f"the {kind} step copies to the host: {copies}")
+    del student, rstudent, eps_state, m
+
+    # float32 gradients of one distil and one reflow step, kernels vs plain
+    xg, zg = xb[:GRAD_BATCH].clone(), z[:GRAD_BATCH].clone()
+    t_s = torch.randint(1, 501, (GRAD_BATCH,), device="cuda", generator=gen)
+    t_f = torch.rand(GRAD_BATCH, device="cuda", generator=gen)
+    noise = torch.randn(xg.shape, device="cuda", generator=gen)
+    grads = {}
+    for kind, pt in (("distill", "epsilon"), ("reflow", "flow")):
+        t32 = DiffusionEngine(dict(MODEL_CFG, compute_dtype="float32"), {"lr": 2e-4},
+                              prediction_type=pt, device="cuda",
+                              **({"diffusion_steps": 100} if pt == "flow" else {}))
+        fill_zero_params(torch, t32.state.model, seed=54)
+        s32 = (halved_student if kind == "distill" else reflow_student)(t32,
+                                                                         use_ema_teacher=False)
+        states = [TrainState(mm, AdamChain(mm.parameters(), 2e-4), s32.diffusion_steps,
+                             torch.Generator(device="cuda").manual_seed(55))
+                  for mm in (copy.deepcopy(s32.state.model), copy.deepcopy(s32.state.model))]
+        if kind == "distill":
+            st = make_distill_step(teacher_eps_fn(t32, use_ema_teacher=False), s32.tables,
+                                   t32.tables)
+
+            def run(state):
+                return st(state, xg, t=t_s, noise=noise)
+        else:
+            st = make_reflow_step(s32.tables, s32.flow)
+
+            def run(state):
+                return st(state, xg, zg, t=t_f)
+        ops.reset()
+        loss_k = float(run(states[0])["loss"])
+        counts = ops.counts()
+        with ops.plain_versions():
+            loss_p = float(run(states[1])["loss"])
+        want = per_step[kind]
+        if counts != want or ops.counts() != counts:
+            bad.append(f"float32 {kind} step launches {counts}, then {ops.counts()}")
+        named_p = dict(states[1].model.named_parameters())
+        worst, worst_name = 0.0, None
+        for name, p in states[0].model.named_parameters():
+            rel = _rel(p.grad, named_p[name].grad) if named_p[name].grad.any() else 0.0
+            if rel >= worst:
+                worst, worst_name = rel, name
+        zero = [name for name, p in named_p.items() if not p.grad.any()]
+        grads[kind] = {"loss_kernels": loss_k, "loss_plain": loss_p, "max_rel_err": worst,
+                       "worst_param": worst_name, "all_zero_grads": zero}
+        if not worst <= F32_GRAD_TOL or zero:
+            bad.append(f"float32 {kind} gradients, kernels vs plain: {grads[kind]}")
+        del t32, s32, states
+
+    # cli.distill: one round, one epoch of 10 steps, the NLL at T = 500 on
+    # one batch; cli.reflow: 256 couplings, one epoch of 2 steps, the NLL at
+    # T = 100 on one batch; each student read by cli.sample
+    root = CLI_ROOT / "distill_reflow"
+    cli = {}
+    n_chains = REFLOW_COUPLINGS // TRAIN_BATCH  # the couplings' chains and the steps an epoch
+    half = teacher.diffusion_steps // 2  # the student's T and its NLL's forwards
+    runs = {
+        "cli_distill": (lambda: cli_distill.main(
+            [f"run_dir={run_dir}", "epochs=1", f"out_dir={root}", "limit_test_batches=1"]),
+            dict(expected_counts(DISTILL_FORWARDS * TRAIN_STEPS + half, False),
+                 gn_affine_grad=TRAIN_STEPS * grad)),
+        "cli_reflow": (lambda: cli_reflow.main(
+            [f"run_dir={flow_run}", f"n_couplings={REFLOW_COUPLINGS}",
+             f"batch_size={TRAIN_BATCH}", f"minibatch_gen={TRAIN_BATCH}", "epochs=1",
+             f"out_dir={root}", "limit_test_batches=1"]),
+            dict(expected_counts(n_chains * REFLOW_GEN_STEPS + n_chains + ODE_EVAL_T, False),
+                 gn_affine_grad=n_chains * grad)),
+    }
+    samplers = {"cli_distill": (["sampler=ddim", "num_sample_steps=50"], 50),
+                "cli_reflow": (["sampler=flow", "num_sample_steps=4"], 4)}
+    for name, (fn, want) in runs.items():
+        ops.reset()
+        t_start = time.perf_counter()
+        result, _ = _captured(fn)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t_start
+        launches[name] = ops.counts()
+        if name == "cli_distill":
+            result = result[half]
+        if ops.counts() != want or not all(math.isfinite(v) for k_, v in result.items()
+                                           if k_ != "run_dir"):
+            bad.append(f"{name}: launches {ops.counts()} != {want}, {result}")
+        argv, n_forwards = samplers[name]
+        ops.reset()
+        sampled, _ = _captured(lambda: cli_sample.main(
+            [f"run_dir={result['run_dir']}", "regular_viz=false"] + argv))
+        launches[f"cli_sample_{name[4:]}_student"] = ops.counts()
+        png = read_png(sampled["path"])
+        if ops.counts() != expected_counts(n_forwards, False):
+            bad.append(f"cli.sample of the {name} student: launches {ops.counts()}")
+        cli[name] = {"seconds": seconds, "loss": result["loss"], "test_nll": result["test_nll"],
+                     "run": pathlib.Path(result["run_dir"]).name,
+                     "sample_png_shape": list(png.shape)}
+
+    line = {"phase": "distill_reflow", "nvidia_smi": smi, "batch": TRAIN_BATCH,
+            "steps_per_turn": TRAIN_STEPS, "warmup_steps": TRAIN_WARMUP,
+            "turns": list(DR_TURNS), "img_per_s": img_per_s, "step_profiles": profiles,
+            "couplings": {"n": REFLOW_COUPLINGS, "flow_steps": REFLOW_GEN_STEPS,
+                          "seconds": coupling_s, "img_per_s": REFLOW_COUPLINGS / coupling_s},
+            "grads_f32_vs_plain": {"batch": GRAD_BATCH, "tol": F32_GRAD_TOL, **grads},
+            "cli": cli, "launches": launches,
+            "phase_seconds": time.perf_counter() - phase_start}
+    emit(line)
+    if out_dir is not None:
+        (out_dir / "distill_reflow.json").write_text(json.dumps(line, indent=1))
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", type=pathlib.Path, default=None,
@@ -2568,23 +3164,28 @@ def main(argv=None) -> int:
     # 7. unet_celebahq64, bf16, kernels against plain versions
     celeba_phase(torch, F, ops, per_site)
 
-    # 8. the command-line entry points; 9-10 read the first run they write
+    # 8. the command-line entry points; 9, 10 and 12 read the first run they write
     cli_launches, cli_run = cli_phase(torch, ops, smi, train_passes, args.out)
     try:
         # 9. the FID family and the ODE likelihood
         cli_launches.update(evals_phase(torch, ops, smi, cli_run, args.out))
         # 10. consistency distillation
         cli_launches.update(consistency_distill_phase(torch, ops, gen, smi, cli_run, args.out))
+        # 11. K train steps as one CUDA graph, the device-resident loader
+        cli_launches.update(fused_train_phase(torch, ops, gen, smi, args.out))
+        # 12. progressive distillation and reflow
+        cli_launches.update(distill_reflow_phase(torch, ops, gen, smi, cli_run, FLOW_RUN,
+                                                 args.out))
     finally:
         shutil.rmtree(CLI_ROOT, ignore_errors=True)
 
-    # 11. the IDDPM configuration, its visualization and its objectives
+    # 13. the IDDPM configuration, its visualization and its objectives
     cli_launches.update(iddpm_phase(torch, ops, smi, args.out))
 
-    # 12. the fast samplers, encoder reuse, guidance, inpainting, inversion
+    # 14. the fast samplers, encoder reuse, guidance, inpainting, inversion
     cli_launches.update(fast_samplers_phase(torch, ops, model, gen, smi, args.out))
 
-    # 13. the EDM, flow and consistency families
+    # 15. the EDM, flow and consistency families
     cli_launches.update(model_families_phase(torch, ops, gen, smi, args.out))
 
     if args.out is not None:

@@ -17,6 +17,11 @@ consistency-training families.  Slice 8: the FID family of evals
 (``evals/``: InceptionV3, FID, KID, IS, precision and recall), the exact
 ODE likelihood of the flow and EDM families, consistency distillation
 (``train/consistency.py``) and the ``cli.fid_score``, ``cli.fid_debug`` and
-``cli.consistency`` entry points.  The JAX package stays the reference the
-port is tested against; this package imports nothing of it.
+``cli.consistency`` entry points.  Slice 9: progressive distillation and
+reflow (``train/distill.py``, ``train/reflow.py``, ``cli.distill``,
+``cli.reflow``), K train steps as one captured CUDA graph
+(``engine.training_steps``, ``train/step.py::make_fused_train_step``, the
+Trainer's ``fused_steps``) and the device-resident loader
+(``data/device_loader.py``).  The JAX package stays the reference the port
+is tested against; this package imports nothing of it.
 """

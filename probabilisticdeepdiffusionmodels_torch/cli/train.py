@@ -16,9 +16,12 @@ checkpoint) -> NLL test in bits/dim over ``trainer.limit_test_batches`` val
 batches (a consistency model, which has no eps view, runs no views and
 records its CT loss, ``test_ct_loss``, instead), written to
 ``final_test.json``.  ``device`` (null: cuda) places the
-run; ``device=cpu`` runs on the CPU.  Not ported yet, and raising: a mesh
-(``trainer.devices`` other than null/1, ROADMAP.md Queue 1 item 18) and the
-device-resident loader (item 17).
+run; ``device=cpu`` runs on the CPU.  ``data.device_resident=true`` holds
+the dataset on the run's device (``data.DeviceDataLoader``);
+``trainer.fused_steps=K`` runs K train steps a dispatch, one CUDA graph on
+a card (``engine.training_steps``).  Not ported yet, and raising: a mesh
+(``trainer.devices`` other than null/1, ROADMAP.md Queue 1 item 18) and
+super-resolution (item 16).
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import torch
 
 from ..config import load_config
 from ..data.datasets import DataLoader, get_dataset
+from ..data.device_loader import DeviceDataLoader
 from ..engine import DiffusionEngine
 from ..logging.sink import MetricLogger, RunDir, auto_tags
 from ..models import resolve_device
@@ -43,13 +47,14 @@ __all__ = ["build_loaders", "build_engine", "run_training", "main"]
 
 def build_loaders(cfg):
     """(train, val) loaders of the config's data group; the val loader's
-    seed is the run seed + 1."""
+    seed is the run seed + 1.  With ``data.device_resident`` both hold
+    their dataset on the config's ``device`` (``DeviceDataLoader``)."""
     data_cfg = dict(cfg["data"])
     name = data_cfg.pop("name")
     data_cfg.pop("num_workers", None)
+    loader_cls, kw = DataLoader, {}
     if data_cfg.pop("device_resident", False):
-        raise NotImplementedError(
-            "data.device_resident is not ported yet (ROADMAP.md Queue 1 item 17)")
+        loader_cls, kw = DeviceDataLoader, {"device": cfg.get("device")}
     if data_cfg.pop("superres_factor", None):
         raise NotImplementedError(
             "data.superres_factor (super-resolution) is not ported yet (ROADMAP.md Queue 1 "
@@ -60,8 +65,8 @@ def build_loaders(cfg):
     train_ds = get_dataset(name, train=True, resolution=resolution, **extra)
     val_ds = get_dataset(name, train=False, resolution=resolution, **extra)
     seed = int(cfg.get("seed", 0) or 0)
-    train_loader = DataLoader(train_ds, train=True, seed=seed, **data_cfg)
-    val_loader = DataLoader(val_ds, train=False, seed=seed + 1, **data_cfg)
+    train_loader = loader_cls(train_ds, train=True, seed=seed, **data_cfg, **kw)
+    val_loader = loader_cls(val_ds, train=False, seed=seed + 1, **data_cfg, **kw)
     return train_loader, val_loader
 
 

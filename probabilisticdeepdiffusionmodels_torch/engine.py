@@ -6,7 +6,8 @@ every prediction type: eps / v / x0 with the ``simple`` or IDDPM ``hybrid``
 loss (a learned-sigma head), min-SNR weighting, zero-terminal-SNR schedules
 and class dropout, and the continuous-time ``edm``, ``flow`` and
 ``consistency`` (consistency training) models.  ``DiffusionEngine`` has
-``training_step``, ``validation_step`` (EMA and live weights on the same
+``training_step``, ``training_steps`` (K steps as one CUDA graph),
+``validation_step`` (EMA and live weights on the same
 draws), ``get_noised_representation``, ``generate_images`` (ancestral,
 DDIM, DPM-Solver++ or Heun over the full or respaced schedule, encoder
 reuse, classifier-free guidance with its interval and rescale, and the
@@ -30,6 +31,7 @@ device mesh (``mesh``, ``param_sharding``, ``shard_mode``) raises
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Union
 
@@ -72,6 +74,7 @@ from .train.step import (
     make_eval_step,
     make_flow_eval_step,
     make_flow_train_step,
+    make_fused_train_step,
     make_train_step,
 )
 
@@ -157,6 +160,16 @@ class AdamChain:
     whose update is optax's: bias-corrected moments, eps outside the sqrt.
     The learning rate of the n-th update (0-based) is ``lr(n)``, as optax
     evaluates a schedule at its own update count.
+
+    Inside a captured CUDA graph (``train.step.make_fused_train_step``) the
+    update is ``table_update``: the same moments, written by foreach ops
+    whose per-update scalars (``-lr(n) / (1 - b1^(n+1))`` and
+    ``sqrt(1 - b2^(n+1))``) are read from a device table that the host
+    fills from its own count before each replay (``update_scalars``), so
+    the count and the lr move inside the K steps with no sync.  The host
+    count stays the eager path's: ``advance`` moves it after a replay.
+    ``generation`` counts the loads that replace the state's tensors, which
+    a captured graph must not outlive.
     """
 
     def __init__(self, params: Iterable[torch.nn.Parameter], lr: Schedule, *,
@@ -166,31 +179,112 @@ class AdamChain:
         self.lr = lr if callable(lr) else (lambda step: lr)
         self.grad_clip = grad_clip
         self.k = int(accumulate_grad_batches)
+        self.b1, self.b2, self.eps = float(b1), float(b2), float(eps)
         self.adam = torch.optim.Adam(self.params, lr=float(self.lr(0)), betas=(b1, b2),
                                      eps=eps)
         self.updates = 0
         self.mini_step = 0
         self.acc = [torch.zeros_like(p) for p in self.params] if self.k > 1 else None
+        self.generation = 0
+        self._table = None  # (device table [K, 2], next row) while graph updates are on
 
     @torch.no_grad()
     def step(self) -> None:
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
         if self.acc is not None:
+            # the buffer is zeroed in place as a cycle starts, so a captured
+            # graph and the eager path share one buffer at one address
+            if self.mini_step == 0:
+                torch._foreach_zero_(self.acc)
             for acc, g in zip(self.acc, grads):
                 acc.add_((g - acc) / (self.mini_step + 1))
             self.mini_step += 1
             if self.mini_step < self.k:
                 return
             grads, self.mini_step = self.acc, 0
-            self.acc = [torch.zeros_like(p) for p in self.params]
         if self.grad_clip:
             grads = clip_by_global_norm(grads, self.grad_clip)
-        for p, g in zip(self.params, grads):
-            p.grad = g
-        for group in self.adam.param_groups:
-            group["lr"] = float(self.lr(self.updates))
-        self.adam.step()
+        if self._table is not None:
+            self.table_update(grads)
+        else:
+            for p, g in zip(self.params, grads):
+                p.grad = g
+            for group in self.adam.param_groups:
+                group["lr"] = float(self.lr(self.updates))
+            self.adam.step()
         self.updates += 1
+
+    # ------------ the graph path
+
+    def init_state(self) -> None:
+        """Adam's moments and host counts, made as its first step makes
+        them, where they do not exist yet (a graph captures their
+        addresses)."""
+        from torch.optim.optimizer import _get_scalar_dtype
+
+        for p in self.params:
+            s = self.adam.state[p]
+            if not s:
+                s["step"] = torch.tensor(0.0, dtype=_get_scalar_dtype())
+                s["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                s["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+
+    def update_scalars(self, n_steps: int) -> torch.Tensor:
+        """[n_steps, 2] float32 (host): for each update the next ``n_steps``
+        steps make, from the host's update count, -lr(n) / (1 - b1^(n+1)) and
+        sqrt(1 - b2^(n+1)), in float64 as ``torch.optim.Adam`` forms them and
+        rounded once; the rows past the last update are zero."""
+        rows = torch.zeros((n_steps, 2), dtype=torch.float64)
+        for u in range((self.mini_step + n_steps) // self.k):
+            n = self.updates + u
+            count = float(n + 1)
+            rows[u, 0] = -(float(self.lr(n)) / (1.0 - self.b1 ** count))
+            rows[u, 1] = (1.0 - self.b2 ** count) ** 0.5
+        return rows.float()
+
+    @contextlib.contextmanager
+    def table_updates(self, table: torch.Tensor):
+        """Within: every update is ``table_update`` on the next row of
+        ``table`` (the first update of the block reads row 0)."""
+        self._table = [table, 0]
+        try:
+            yield
+        finally:
+            self._table = None
+
+    def table_update(self, grads: List[torch.Tensor]) -> None:
+        """Adam's update of the moments and the parameters by foreach ops,
+        its per-update scalars read from the table's next row (0-dim device
+        tensors): no host value of the count or the lr enters it.  The
+        moments take torch's eager ops and bits; the parameter step is
+        rounded once more than torch's fused ``addcdiv``."""
+        table, row = self._table
+        self._table[1] += 1
+        state = [self.adam.state[p] for p in self.params]
+        m = [s["exp_avg"] for s in state]
+        v = [s["exp_avg_sq"] for s in state]
+        torch._foreach_lerp_(m, grads, 1 - self.b1)
+        torch._foreach_mul_(v, self.b2)
+        torch._foreach_addcmul_(v, grads, grads, 1 - self.b2)
+        denom = torch._foreach_sqrt(v)
+        torch._foreach_div_(denom, table[row, 1])
+        torch._foreach_add_(denom, self.eps)
+        step = torch._foreach_div(m, denom)
+        torch._foreach_mul_(step, table[row, 0])
+        torch._foreach_add_(self.params, step)
+
+    def advance(self, n_steps: int) -> None:
+        """The host counts after ``n_steps`` steps whose updates ran as
+        ``table_update``s: the update count, the accumulation position and
+        Adam's own per-parameter counts."""
+        n_updates = (self.mini_step + n_steps) // self.k
+        self.mini_step = (self.mini_step + n_steps) % self.k
+        self.updates += n_updates
+        if n_updates:
+            torch._foreach_add_([self.adam.state[p]["step"] for p in self.params],
+                                float(n_updates))
+
+    # ------------ checkpoints
 
     def state_dict(self) -> dict:
         """Adam's moments and counts, the update count that places the lr
@@ -208,6 +302,7 @@ class AdamChain:
         self.updates, self.mini_step = int(state["updates"]), int(state["mini_step"])
         if state["acc"] is not None:
             self.acc = [a.to(p.device) for a, p in zip(state["acc"], self.params)]
+        self.generation += 1
 
 
 def _later(item: int) -> str:
@@ -398,6 +493,7 @@ class DiffusionEngine:
                                              loss_weighting=loss_weighting,
                                              snr_gamma=self.snr_gamma)
         self._val_counter = -1
+        self._fused_step = None
 
     def _view(self, model: Callable) -> Callable:
         """The eps view of a raw model (full-schedule tables)."""
@@ -446,6 +542,18 @@ class DiffusionEngine:
     def training_step(self, x, y=None) -> Dict[str, torch.Tensor]:
         """One optimizer step on batch ``x``; the metrics stay on the device."""
         return self._train_step(self.state, self._batch(x), self._cond(y))
+
+    def training_steps(self, xs, ys=None) -> Dict[str, torch.Tensor]:
+        """K train steps on the stacked batches ``xs`` [K, B, ...] (and labels
+        ``ys`` [K, B]), host arrays or tensors already on the device
+        (``data.DeviceDataLoader``): on a CUDA device one captured CUDA graph
+        of the K steps, cached by (K, shapes, label presence, accumulation
+        phase), on the CPU K eager steps, the same as K ``training_step``
+        calls (``train.step.make_fused_train_step``).  The metrics come back
+        stacked, [K] each, on the device."""
+        if self._fused_step is None:
+            self._fused_step = make_fused_train_step(self._train_step)
+        return self._fused_step(self.state, self._batch(xs), self._cond(ys))
 
     def validation_step(self, x, generator: Optional[torch.Generator] = None,
                         y=None) -> Dict[str, torch.Tensor]:

@@ -130,7 +130,7 @@ def compute_statistics(
 def _real_batches(dataloader, normalize, limit):
     count = 0
     for x, _ in dataloader:
-        x01 = unnormalize(np.asarray(x), normalize=normalize, clip=True)
+        x01 = unnormalize(_host(x), normalize=normalize, clip=True)
         if limit is not None and count + len(x01) > limit:
             x01 = x01[: limit - count]
         count += len(x01)

@@ -301,7 +301,9 @@ def _weight_in(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     each float32 weight again on every call."""
     if w.device == x.device and w.dtype == x.dtype and w.is_contiguous():
         return w
-    if torch.is_grad_enabled() and w.requires_grad:
+    if ((torch.is_grad_enabled() and w.requires_grad)
+            or (x.is_cuda and torch.cuda.is_current_stream_capturing())):
+        # a graph keeps the cast it captured, which no version check guards
         return w.to(device=x.device, dtype=x.dtype).contiguous()
     key = (w.data_ptr(), tuple(w.shape), w.dtype, w.device, x.device, x.dtype)
     hit = _CASTS.get(key)

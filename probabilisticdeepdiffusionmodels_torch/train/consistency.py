@@ -247,6 +247,14 @@ def make_ct_train_step(tables: DiffusionTables, cfg: ConsistencyConfig, *,
             metrics["grid_n"] = parts[4]
         return metrics
 
+    if cfg.grid_init:
+        # the level each step reads from the host's step count: a captured
+        # graph of K steps holds the levels it was captured at
+        def host_key(state: TrainState, k: int) -> tuple:
+            n_levels = tabs[0].shape[0]
+            return tuple(min(s // tabs[3], n_levels - 1) for s in range(state.step, state.step + k))
+
+        step.host_key = host_key
     return step
 
 

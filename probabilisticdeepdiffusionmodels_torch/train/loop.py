@@ -12,8 +12,13 @@ PyTorch counterpart of ``probabilisticdeepdiffusionmodels_tpu/train/loop.py``:
   * validation over at most ``limit_val_batches`` batches;
   * the visualization callback every ``vis_run_every`` epochs and once at
     the end of training.
-Metrics are read to the host only at the log cadence.  Not ported yet: the
-fused K-step path (ROADMAP.md Queue 1 item 17).
+Metrics are read to the host only at the log cadence.  With
+``fused_steps`` K >= 2 each run of K same-shaped batches goes to
+``engine.training_steps`` (one CUDA graph on a card); the log, histogram
+and checkpoint cadences fire where a chunk crosses them and read its last
+row; batches that make no whole chunk (a ragged batch, a short last chunk)
+take the per-step path, so an epoch captures one graph.  Prefetch works in
+both modes.
 """
 
 from __future__ import annotations
@@ -45,6 +50,8 @@ def prefetch_to_device(loader, device, size: int = 2):
         if v is None:
             return None
         t = torch.as_tensor(v)
+        if t.device.type == device.type:
+            return t  # already there (data.DeviceDataLoader), or no copy to make
         if pin:
             t = t.pin_memory()
         return t.to(device, non_blocking=pin)
@@ -56,6 +63,16 @@ def prefetch_to_device(loader, device, size: int = 2):
             yield buf.popleft()
     while buf:
         yield buf.popleft()
+
+
+def _stack_batches(values):
+    """Batches (or labels) stacked on a new axis 0: tensors where they are,
+    host arrays on the host; None where any is None."""
+    if any(v is None for v in values):
+        return None
+    if all(isinstance(v, torch.Tensor) for v in values):
+        return torch.stack(values)
+    return np.stack([np.asarray(v) for v in values])
 
 
 class Trainer:
@@ -76,9 +93,6 @@ class Trainer:
         prefetch: int = 2,
         fused_steps: int = 0,
     ):
-        if int(fused_steps or 0) >= 2:
-            raise NotImplementedError(
-                f"fused_steps={fused_steps} is not ported yet (ROADMAP.md Queue 1 item 17)")
         self.engine = engine
         self.run_dir = run_dir
         self.logger = logger or MetricLogger(run_dir)
@@ -91,6 +105,8 @@ class Trainer:
         self.log_every_steps = log_every_steps
         # host -> device overlap (prefetch_to_device); 0 or 1 disables it
         self.prefetch = int(prefetch or 0)
+        # K >= 2: K train steps a dispatch (engine.training_steps)
+        self.fused_steps = int(fused_steps or 0)
         self.save_every_steps = save_every_steps
         self.watch_every_steps = watch_every_steps
         self.ckpt = CheckpointManager(run_dir.checkpoint_dir())
@@ -104,15 +120,11 @@ class Trainer:
             t0 = time.time()
             batches = (prefetch_to_device(train_loader, self.engine.device, self.prefetch)
                        if self.prefetch >= 2 else train_loader)
-            for x, y in batches:
-                metrics = self.engine.training_step(x, y)
-                step += 1
-                if step % self.log_every_steps == 0:
-                    self._log_train_row(metrics, step, epoch)
-                if self.watch_every_steps and step % self.watch_every_steps == 0:
-                    self._dump_weight_histograms(step)
-                if self.save_every_steps and step % self.save_every_steps == 0:
-                    self.ckpt.save(self.engine.state, step)
+            if self.fused_steps >= 2:
+                step = self._run_fused_epoch(batches, epoch, step)
+            else:
+                for x, y in batches:
+                    step = self._single_step(x, y, step, epoch)
 
             self._log_epoch_loss_stats(epoch, step)
             self.logger.log({"epoch_time_s": time.time() - t0, "epoch": epoch}, step=step)
@@ -143,12 +155,58 @@ class Trainer:
                                  f"{self.run_dir.name}-checkpoints")
         return {"best_val_loss": best_val, "steps": step}
 
-    def _log_train_row(self, metrics, step, epoch):
-        row = {"loss": float(metrics["loss"]),
-               "total_grad_norm_L2": float(metrics["grad_norm"]), "epoch": epoch}
+    def _log_train_row(self, metrics, step, epoch, last_of_chunk=False):
+        """One metrics row; a fused chunk's stacked metrics give their last
+        row."""
+        def scalar(v):
+            return float(v[-1] if last_of_chunk else v)
+
+        row = {"loss": scalar(metrics["loss"]),
+               "total_grad_norm_L2": scalar(metrics["grad_norm"]), "epoch": epoch}
         for k, v in metrics.get("grad_norm_per_module", {}).items():
-            row[f"grad_norm/{k}"] = float(v)
+            row[f"grad_norm/{k}"] = scalar(v)
         self.logger.log(row, step=step)
+
+    def _step_cadence(self, prev, step, metrics, epoch, fused):
+        """The log, histogram and checkpoint actions whose cadence the step
+        count crossed going from ``prev`` to ``step`` (a chunk crosses them
+        inside, so each is a crossing of a multiple, not a modulo)."""
+        if step // self.log_every_steps != prev // self.log_every_steps:
+            self._log_train_row(metrics, step, epoch, last_of_chunk=fused)
+        if self.watch_every_steps and (step // self.watch_every_steps
+                                       != prev // self.watch_every_steps):
+            self._dump_weight_histograms(step)
+        if self.save_every_steps and (step // self.save_every_steps
+                                      != prev // self.save_every_steps):
+            self.ckpt.save(self.engine.state, step)
+
+    def _run_fused_epoch(self, batches, epoch, step):
+        """One epoch in chunks of K same-shaped batches through
+        ``engine.training_steps``; the batches that make no whole chunk (a
+        partial chunk cut by a batch of another shape, the epoch's short
+        last chunk) run one step each, so no chunk of another K is captured.
+        Returns the step count."""
+        k, buf, shape = self.fused_steps, [], None
+        for x, y in batches:
+            if buf and tuple(x.shape) != shape:
+                for bx, by in buf:
+                    step = self._single_step(bx, by, step, epoch)
+                buf.clear()
+            shape = tuple(x.shape)
+            buf.append((x, y))
+            if len(buf) == k:
+                metrics = self.engine.training_steps(_stack_batches([b[0] for b in buf]),
+                                                     _stack_batches([b[1] for b in buf]))
+                buf.clear()
+                self._step_cadence(step, step + k, metrics, epoch, True)
+                step += k
+        for bx, by in buf:
+            step = self._single_step(bx, by, step, epoch)
+        return step
+
+    def _single_step(self, x, y, step, epoch):
+        self._step_cadence(step, step + 1, self.engine.training_step(x, y), epoch, False)
+        return step + 1
 
     def _validate(self, val_loader, step) -> Dict[str, float]:
         """Mean val_loss (and val_loss_no_ema) over the val batches, at most

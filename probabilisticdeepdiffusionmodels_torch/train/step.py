@@ -29,6 +29,7 @@ engine scores the live and the EMA weights on the same ones.
 from __future__ import annotations
 
 import math
+import time
 from typing import Callable, Dict, Iterable, Optional
 
 import torch
@@ -41,7 +42,8 @@ from .samplers import importance_weights, sample_importance, sample_uniform
 from .state import TrainState
 
 __all__ = ["make_train_step", "make_eval_step", "make_edm_train_step", "make_edm_eval_step",
-           "make_flow_train_step", "make_flow_eval_step", "global_norm"]
+           "make_flow_train_step", "make_flow_eval_step", "make_fused_train_step",
+           "CapturedSteps", "global_norm"]
 
 
 def global_norm(tensors: Iterable[Optional[torch.Tensor]]) -> torch.Tensor:
@@ -391,3 +393,187 @@ def make_flow_eval_step(flow: FlowConfig) -> Callable[..., torch.Tensor]:
 
     step.draw = draw
     return step
+
+
+# ------------------------------------------------------------- K fused steps
+
+
+def _stack(rows: list) -> Dict:
+    """The rows' metrics stacked along a new axis 0, nested dicts too (a
+    host number, such as the CT grid size, stacks on the host)."""
+    out = {}
+    for key, first in rows[0].items():
+        values = [row[key] for row in rows]
+        if isinstance(first, dict):
+            out[key] = _stack(values)
+        elif all(isinstance(v, torch.Tensor) for v in values):
+            out[key] = torch.stack(values)
+        else:
+            out[key] = torch.tensor(values)
+    return out
+
+
+def _clone(metrics: Dict) -> Dict:
+    return {k: _clone(v) if isinstance(v, dict) else v.clone() for k, v in metrics.items()}
+
+
+class CapturedSteps:
+    """K train steps of ``step`` on one train state as one CUDA graph.
+
+    The graph reads its batches from static buffers ``xs`` [K, B, ...] and
+    ``ys`` [K, B] (or none), and the optimizer's per-update scalars from a
+    device table (``AdamChain.table_update``); everything else it touches
+    (parameters, EMA, Adam's moments, the accumulation buffer, the loss
+    history, the state's generator, registered with the graph) keeps its
+    address, and its intermediates live in the graph's private pool, so
+    every kernel, the conv's TMA maps among them, finds its operands where
+    the capture saw them.
+
+    The first call is the warm-up that capture needs: the K steps run as
+    they will in the graph, eagerly, on the capture stream (their work is
+    the call's work), then the same steps are captured from the same host
+    counts (capture records and runs nothing).  Every later call copies its
+    chunk into the buffers, writes the table from the host's update count
+    (pinned, asynchronous: no sync), replays, and moves the host counts
+    (``state.step``, ``AdamChain.advance``) and the parameters' version
+    counters, which a replay changes without the host seeing it.  A capture
+    that fails raises.  ``capture=False`` runs the graph's steps eagerly on
+    every call, on any device: the graph's arithmetic and bookkeeping
+    without the graph, for tests on the CPU.
+    """
+
+    def __init__(self, step: Callable, state: TrainState, xs: torch.Tensor,
+                 ys: Optional[torch.Tensor] = None, capture: bool = True):
+        self.step, self.state, self.k = step, state, xs.shape[0]
+        self.xs = torch.empty_like(xs, memory_format=torch.contiguous_format)
+        self.ys = None if ys is None else torch.empty_like(ys,
+                                                           memory_format=torch.contiguous_format)
+        self.table = torch.zeros((self.k, 2), dtype=torch.float32, device=xs.device)
+        state.optimizer.init_state()
+        self.capture = capture
+        self.graph = None
+        self.stream = torch.cuda.Stream(xs.device) if capture else None
+        self.static_metrics = None
+        self.captures = 0
+        self.capture_seconds = None
+
+    def _body(self) -> Dict:
+        with self.state.optimizer.table_updates(self.table):
+            rows = [self.step(self.state, self.xs[i], None if self.ys is None else self.ys[i])
+                    for i in range(self.k)]
+        return _stack(rows)
+
+    def _host(self):
+        return self.state.step, self.state.optimizer.updates, self.state.optimizer.mini_step
+
+    def _set_host(self, counts) -> None:
+        self.state.step, self.state.optimizer.updates, self.state.optimizer.mini_step = counts
+
+    def _advance(self, counts) -> None:
+        """Host counts ``counts`` moved by the K steps just run."""
+        self._set_host(counts)
+        self.state.step += self.k
+        self.state.optimizer.advance(self.k)
+
+    def __call__(self, xs: torch.Tensor, ys: Optional[torch.Tensor] = None) -> Dict:
+        self.xs.copy_(xs)
+        if self.ys is not None:
+            self.ys.copy_(ys)
+        rows = self.state.optimizer.update_scalars(self.k)
+        pin = self.table.device.type == "cuda"
+        self.table.copy_(rows.pin_memory() if pin else rows, non_blocking=pin)
+        counts = self._host()
+        if not self.capture:
+            metrics = self._body()
+            self._advance(counts)
+            return metrics
+        if self.graph is None:
+            return self._warm_up_and_capture(counts)
+        self.graph.replay()
+        self._advance(counts)
+        self._bump_versions()
+        return _clone(self.static_metrics)
+
+    def _warm_up_and_capture(self, counts) -> Dict:
+        current = torch.cuda.current_stream(self.xs.device)
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            metrics = self._body()
+        current.wait_stream(self.stream)
+        self._advance(counts)
+        after = self._host()
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.state.generator)
+        t_start = time.perf_counter()
+        try:
+            # the capture sees the host counts the warm-up started from
+            # (the accumulation phase, the step a CT grid level reads)
+            self._set_host(counts)
+            with torch.cuda.graph(graph, stream=self.stream):
+                self.static_metrics = self._body()
+        finally:
+            self._set_host(after)
+        self.capture_seconds = time.perf_counter() - t_start
+        self.graph = graph
+        self.captures += 1
+        return metrics
+
+    def _bump_versions(self) -> None:
+        """The replay changed the live and EMA parameters in place where
+        autograd's version counters cannot see it; code that caches by
+        version (``ops.gn_conv._weight_in``) must see a change."""
+        from torch.autograd.graph import increment_version
+
+        models = [self.state.model] + ([self.state.ema_model]
+                                       if self.state.ema_model is not None else [])
+        for model in models:
+            for p in model.parameters():
+                increment_version(p)
+
+
+def make_fused_train_step(step: Callable) -> Callable[..., Dict]:
+    """Fuse K train steps into one dispatch: ``fused(state, xs, ys=None)``
+    over stacked ``[K, B, ...]`` batches (labels ``[K, B]``), metrics
+    stacked ``[K]`` each, one row a step.
+
+    On a CUDA device the K steps are one captured CUDA graph
+    (``CapturedSteps``), one per (K, batch shape and dtype, label presence,
+    accumulation phase, and what ``step.host_key(state, K)`` names where the
+    step bakes host values, such as a CT grid level); a state whose
+    optimizer loaded new tensors (``AdamChain.generation``) drops its
+    graphs.  A host key is a tuple whose first value never falls as the
+    state's step grows, so a graph whose first value is below the current
+    chunk's cannot be replayed again and is dropped with its memory pool.
+    On the CPU there is no graph: the K steps run eagerly, the same as K
+    calls of ``step``.  ``fused.graphs`` holds the captured chunks and
+    ``fused.graph_for(state, xs, ys)`` finds (or makes) the one a call
+    replays."""
+    graphs: Dict[tuple, CapturedSteps] = {}
+    owner = [None]
+    host_key = getattr(step, "host_key", None)
+
+    def graph_for(state: TrainState, xs: torch.Tensor,
+                  ys: Optional[torch.Tensor] = None) -> CapturedSteps:
+        opt = state.optimizer
+        if owner[0] != (id(state), opt.generation):
+            graphs.clear()
+            owner[0] = (id(state), opt.generation)
+        host = None if host_key is None else host_key(state, xs.shape[0])
+        if host is not None:
+            for old in [key for key in graphs if key[-1][0] < host[0]]:
+                del graphs[old]
+        key = (tuple(xs.shape), xs.dtype,
+               None if ys is None else (tuple(ys.shape), ys.dtype), opt.mini_step, host)
+        chunk = graphs.get(key)
+        if chunk is None:
+            chunk = graphs[key] = CapturedSteps(step, state, xs, ys)
+        return chunk
+
+    def fused(state: TrainState, xs: torch.Tensor, ys: Optional[torch.Tensor] = None) -> Dict:
+        if xs.device.type != "cuda":
+            return _stack([step(state, xs[i], None if ys is None else ys[i])
+                           for i in range(xs.shape[0])])
+        return graph_for(state, xs, ys)(xs, ys)
+
+    fused.graphs, fused.graph_for = graphs, graph_for
+    return fused

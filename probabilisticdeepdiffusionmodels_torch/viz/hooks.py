@@ -57,7 +57,7 @@ class VisualizationCallback:
         logger=None,
         labels: Optional[np.ndarray] = None,
     ):
-        self.val_batch = np.asarray(val_batch)
+        self.val_batch = _numpy(val_batch)
         self.ts = sorted(set(int(t) for t in ts))
         self.media_dir = Path(media_dir)
         self.normalize = normalize

@@ -383,8 +383,8 @@ def test_entry_points_need_a_card_unless_asked(tmp_path, monkeypatch, trained_ru
 @pytest.mark.parametrize("argv,match", [
     (["engine.prediction_type=edm"], None),
     (["trainer.devices=2"], "item 18"),
-    (["trainer.fused_steps=2"], "item 17"),
-    (["data.device_resident=true"], "item 17"),
+    (["trainer.fused_steps=2"], None),
+    (["data.device_resident=true"], None),
     (["data.superres_factor=2"], "item 16"),
     (["engine.prediction_type=consistency"], None),
     (["engine.prediction_type=flow"], None),
@@ -392,9 +392,10 @@ def test_entry_points_need_a_card_unless_asked(tmp_path, monkeypatch, trained_ru
 ], ids=["edm", "devices", "fused_steps", "device_resident", "superres", "consistency", "flow",
         "encoder_reuse"])
 def test_train_cli_refuses_what_is_not_ported(argv, match, tmp_path):
-    """Items 16-18 raise; the EDM, consistency and flow objectives and the
-    engine's encoder reuse run at the tiny size (match None): a consistency
-    run records its CT loss where the others record the NLL test."""
+    """Items 16 and 18 raise; the EDM, consistency and flow objectives, the
+    engine's encoder reuse, fused steps and the device-resident loader run
+    at the tiny size (match None): a consistency run records its CT loss
+    where the others record the NLL test."""
     args = TINY + CPU + [f"out_dir={tmp_path}", "trainer.max_epochs=1"] + argv
     if match is not None:
         with pytest.raises(NotImplementedError, match=match):
@@ -443,15 +444,16 @@ def test_sample_cli_refuses_what_is_not_ported(argv, match, trained_run, request
         assert out["images"].shape == (4, 8, 8, 1) and np.isfinite(out["images"]).all()
 
 
-def test_eval_and_fused_trainer_refuse(trained_run):
+def test_eval_and_fused_trainer_refuse(trained_run, tmp_path):
     """``ode_nll=true`` on an eps run raises JAX's error (the ODE likelihood
-    is the flow and EDM families', tests/test_torch_ode_nll.py); fused steps
-    are not ported (item 17)."""
+    is the flow and EDM families', tests/test_torch_ode_nll.py); a Trainer
+    with fused steps no longer refuses (item 17 is ported:
+    tests/test_torch_fused.py)."""
     _, result = trained_run
     with pytest.raises(ValueError, match='prediction_type="flow" or "edm"'):
         cli_eval.main([f"run_dir={result['run_dir']}", "ode_nll=true"] + CPU)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        Trainer(None, None, logger=object(), fused_steps=4)
+    trainer = Trainer(None, RunDir(str(tmp_path), "fused"), logger=object(), fused_steps=4)
+    assert trainer.fused_steps == 4
 
 
 # ------------------------------------------------------------- imports
