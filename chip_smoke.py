@@ -92,7 +92,7 @@
    The cli run is deleted after this phase;
 13. the IDDPM configuration through the same entry points (``iddpm_cli``): the
    CIFAR-10 UNet at full width (bf16) under ``engine=cifar10_iddpm`` (cosine,
-   learned sigma, hybrid loss) with its T cut from 1000 to 100, and the
+   learned sigma, hybrid loss) with its T cut from 1000 to 50, and the
    default visualization: ``cli.train`` (10 steps, the four views at the end
    of training, the NLL test), ``cli.sample`` (the four views and the
    detailed panels) and ``cli.eval`` (equal to the run's final test), each
@@ -125,7 +125,33 @@
    samplers (EDM Heun at 18, flow Euler and Heun at 50, consistency at 1
    and 2 steps) timed and in float32 at batch 4 against the plain
    versions, and ``cli.train engine.prediction_type=consistency`` then
-   ``cli.sample sampler=consistency`` with their launches asserted.
+   ``cli.sample sampler=consistency`` with their launches asserted;
+16. the model extras (``model_extras``): super-resolution on the CIFAR-10
+   UNet at full width (``model.name=superres``, the low-res input 16x16,
+   bf16): the batch-128 forward with its launches and every kernel site of
+   it against the plain versions, the float32 forward and eps-MSE gradients
+   at batch 4 on the kernels against the plain versions, the train step
+   beside the eps step in turns (eps, superres, superres, eps), the
+   250-step chain at batch 128 conditioned on the low-res batch through
+   ``engine.generate_images``, ``cli.train model.name=superres
+   data.superres_factor=2`` (10 steps on 1,280 synthetic images; its one cut
+   T 1000 -> 100, the final NLL's forwards) with its launches, then
+   ``cli.profile`` on that run (5 steps, a 50-step chain) whose
+   ``timings.json`` is printed and whose traces name the conv, attention and
+   GroupNorm kernels; ``use_checkpoint`` at the same width: the bf16 batch-128
+   step with and without it in turns (img/s, peak memory, the recompute's
+   launches), float32 gradients with dropout 0.1 with against without it
+   (1e-6, cuDNN deterministic), one K = 4 fused replay of the checkpointed
+   model with dropout against 4 eager steps (the fused_train gates) and
+   against the plain model's graph steps run eagerly (1e-6); the 1-D UNet
+   (length 1,024, 64 channels, mult 1-2-2-2, attention at 256 and 128 tokens,
+   batch 16) and the 3-D UNet (16^3, 64 channels, mult 1-2-2, attention at
+   512 and 64 tokens, batch 8), each in float32 (forward and gradients) on
+   the kernels against the plain versions, every GroupNorm and attention
+   site of its bf16 forward against the plain versions, and one bf16
+   forward timed with its launches; the dense model
+   (``config/model/dense.yaml``) on the card against the same weights on
+   the CPU.
 
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Any failure raises and
@@ -253,10 +279,10 @@ DR_TURNS = ("eps", "distill", "reflow", "reflow", "distill", "eps")
 DISTILL_FORWARDS = 3   # two teacher forwards and the student's, one backward
 REFLOW_COUPLINGS, REFLOW_GEN_STEPS = 256, 50
 # the iddpm_cli phase: engine=cifar10_iddpm at full width in bf16 with the
-# default visualization (more); the one cut is T, 1000 to 100, which keeps
-# its ~3,300 model calls (the views, the detailed panels, two NLL tests)
-# within the time limit
-IDDPM_T = 100
+# default visualization (more); the one cut is T, 1000 to 50 (100 before
+# the model_extras phase came), which keeps its ~1,700 model calls (the
+# views, the detailed panels, two NLL tests) within the time limit
+IDDPM_T = 50
 IDDPM_ARGS = ["model=unet", "model.compute_dtype=bfloat16", "engine=cifar10_iddpm",
               "data=synthetic", "data.n=1280", "data.batch_size=128",
               f"engine.diffusion_steps={IDDPM_T}", "trainer.max_epochs=1",
@@ -290,6 +316,40 @@ NATIVE_CHECK = {"edm_churn_6": ("edm", dict(n_steps=6, s_churn=2.0)),
                 "flow_euler_8": ("flow", dict(n_steps=8)),
                 "flow_heun_4": ("flow", dict(n_steps=4, heun=True)),
                 "consistency_2": ("consistency", dict(n_steps=2))}
+
+# the model_extras phase: super-resolution on the CIFAR-10 UNet at full width
+# (model.name=superres: the wrapped UNet sees 6 channels; the low-res input is
+# 16x16), bf16, batch 128; use_checkpoint at the same width; the 1-D and 3-D
+# UNets at this phase's own sizes (no config has them); config/model/dense.yaml
+SR_CFG = dict(MODEL_CFG, name="superres")
+SR_FACTOR = 2
+SR_TURNS = ("eps", "superres", "superres", "eps")
+SR_GRAD_BATCH = 4
+SR_CHAIN_STEPS = 250
+SR_CLI_T = 100  # cli.train's one cut: T 1000 -> 100, the final NLL's forwards on its batch
+SR_CLI_ARGS = CLI_ARGS + ["model.name=superres", "data.superres_factor=2",
+                          f"engine.diffusion_steps={SR_CLI_T}"]
+SR_PROFILE_STEPS, SR_PROFILE_SAMPLE_STEPS = 5, 50
+SR_PROFILE_ARGS = [f"steps={SR_PROFILE_STEPS}", f"sample_steps={SR_PROFILE_SAMPLE_STEPS}"]
+# what cli.profile's traces must name: the conv, attention, the GroupNorm
+# statistics (GroupNorm and gn_affine) and, in training, gn_affine's backward
+PROFILE_SAMPLE_KERNELS = ("conv_wgmma_kernel", "attn_bf16_kernel", "gn_moments_kernel")
+PROFILE_TRAIN_KERNELS = PROFILE_SAMPLE_KERNELS + ("gn_fold_bwd_kernel",)
+CKPT_TURNS = ("plain", "checkpoint", "checkpoint", "plain")
+CKPT_GRAD_BATCH, CKPT_DROPOUT = 8, 0.1
+CKPT_SAME_TOL = 1e-6  # float32 gradients with against without checkpoints (cuDNN deterministic)
+# dims -> (config, length, batch): 1-D length 1,024 with attention at 256 and
+# 128 tokens; 3-D 16^3 with attention at 8^3 = 512 and 4^3 = 64 tokens
+ND_CFGS = {
+    1: (dict(name="unet", in_channels=1, model_channels=64, num_res_blocks=2,
+             attention_resolutions=[256, 128], channel_mult=[1, 2, 2, 2], num_heads=4,
+             dims=1, compute_dtype="bfloat16"), 1024, 16),
+    3: (dict(name="unet", in_channels=1, model_channels=64, num_res_blocks=2,
+             attention_resolutions=[8, 4], channel_mult=[1, 2, 2], num_heads=4, dims=3,
+             compute_dtype="bfloat16"), 16, 8),
+}
+DENSE_BATCH = 64
+DENSE_TOL = 1e-4  # float32 (TF32 off), the card against the CPU, of max(1, |ref|)
 
 # H100 SXM published peaks (NVIDIA data sheet), dense
 PEAK_BYTES = 3.35e12
@@ -2059,6 +2119,435 @@ def model_families_phase(torch, ops, gen, smi, out_dir=None):
     return launches
 
 
+def _block_counts(model):
+    """(ResBlocks, AttentionBlocks) of a UNet: what a checkpointed backward
+    runs again."""
+    from probabilisticdeepdiffusionmodels_torch.models.unet import AttentionBlock, ResBlock
+
+    mods = list(model.modules())
+    return (sum(isinstance(m, ResBlock) for m in mods),
+            sum(isinstance(m, AttentionBlock) for m in mods))
+
+
+def nd_counts(model):
+    """Launches of one forward of a 1-D or 3-D UNet: GroupNorm (+SiLU) twice
+    a ResBlock, once an attention norm and once the head; the attention
+    kernel once an attention block; no fused conv."""
+    n_res, n_attn = _block_counts(model)
+    return {"gn_affine": 0, "gn_silu_conv3x3": 0, "qkv_attention": n_attn,
+            "group_norm_silu": 2 * n_res + n_attn + 1, "gn_affine_grad": 0}
+
+
+def f32_vs_plain(torch, ops, model, x, t, *cond, target=None):
+    """A float32 model's forward and the gradients of the MSE of its output
+    against ``target`` (default: a seeded normal tensor), on the kernels
+    against the plain versions (one copy of the model each):
+    (forward max abs err over max(1, |ref|), worst gradient's max abs err
+    over its reference's largest, its name, parameters with all-zero
+    gradients, the kernels' launches)."""
+    import copy
+
+    if target is None:
+        target = torch.randn(x.shape, device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(77))
+    runs = []
+    for plain in (False, True):
+        m = copy.deepcopy(model)
+        ctx = ops.plain_versions() if plain else contextlib.nullcontext()
+        ops.reset()
+        with ctx:
+            out = m(x, t, *cond)
+            (out.float() - target).square().mean().backward()
+        torch.cuda.synchronize()
+        runs.append((out.detach(), dict(m.named_parameters()), ops.counts()))
+    (out_k, par_k, counts), (out_p, par_p, counts_p) = runs
+    fwd = float((out_k - out_p).abs().max()) / max(1.0, float(out_p.abs().max()))
+    worst, worst_name = 0.0, None
+    for name, p in par_k.items():
+        gp = par_p[name].grad
+        rel = float((p.grad - gp).abs().max()) / max(1e-6, float(gp.abs().max()))
+        if rel >= worst:
+            worst, worst_name = rel, name
+    zero = [name for name, p in par_p.items() if not p.grad.any()]
+    if any(counts_p.values()):
+        raise AssertionError(f"the plain versions launched kernels: {counts_p}")
+    return {"fwd_rel_err": fwd, "grad_max_rel_err": worst, "worst_param": worst_name,
+            "all_zero_grads": zero, "launches": counts}
+
+
+def trace_kernels(path):
+    """This repository's kernels in a Chrome trace written by
+    ``utils.profiling.trace``: kernel name -> launches."""
+    events = json.loads(pathlib.Path(path).read_text())["traceEvents"]
+    out = {}
+    for ev in events:
+        name = str(ev.get("name", ""))
+        if ev.get("cat") == "kernel" and any(n in name for n in OWN_KERNELS):
+            key = next(n for n in OWN_KERNELS if n in name)
+            out[key] = out.get(key, 0) + 1
+    return out
+
+
+def model_extras_phase(torch, F, ops, gen, smi, per_site, out_dir=None):
+    """The model extras (``model_extras``).  (1) Super-resolution on the
+    CIFAR-10 UNet at full width (``model.name=superres``: the wrapped UNet
+    sees 6 channels), bf16: the batch-128 forward with its launches, each
+    kernel against its plain version at every site of it (``check_sites``),
+    the float32 forward and eps-MSE gradients at batch 4 on the kernels
+    against the plain versions, the train step beside the eps step in turns,
+    the 250-step chain conditioned on the low-res batch through
+    ``engine.generate_images``, ``cli.train model.name=superres
+    data.superres_factor=2`` (T cut to 100) and ``cli.profile`` on its run,
+    whose traces name the kernels.  (2) ``use_checkpoint`` at the same
+    width: the bf16 batch-128 train step with and without it in turns (img/s,
+    peak memory), float32 gradients with dropout 0.1 with against without it
+    (cuDNN deterministic), and one K = 4 fused replay of the checkpointed
+    model with dropout against 4 eager steps and against the plain model's
+    graph steps run eagerly.  (3) The 1-D and 3-D UNets: float32 forward and
+    gradients on the kernels against the plain versions, every GroupNorm
+    and attention site of the bf16 forward held against its plain version,
+    one bf16 forward timed with its launches.  (4) The dense model on the
+    card against the same weights on the CPU.  Returns the launches by
+    path."""
+    import shutil
+
+    import numpy as np
+    import yaml
+
+    from probabilisticdeepdiffusionmodels_torch.cli import profile as cli_profile
+    from probabilisticdeepdiffusionmodels_torch.cli import train as cli_train
+    from probabilisticdeepdiffusionmodels_torch.config import load_config
+    from probabilisticdeepdiffusionmodels_torch.core import DiffusionTables, NoiseSchedule
+    from probabilisticdeepdiffusionmodels_torch.core.diffusion import q_sample
+    from probabilisticdeepdiffusionmodels_torch.engine import AdamChain, DiffusionEngine
+    from probabilisticdeepdiffusionmodels_torch.models import get_model
+    from probabilisticdeepdiffusionmodels_torch.train import TrainState
+    from probabilisticdeepdiffusionmodels_torch.train.step import CapturedSteps
+
+    phase_start = time.perf_counter()
+    launches, bad = {}, []
+    line = {"phase": "model_extras", "nvidia_smi": smi}
+    tables = DiffusionTables.from_schedule(NoiseSchedule.create(1000, "linear"), "cuda")
+    low_res = RESOLUTION // SR_FACTOR
+
+    def low_of(x):
+        b, h, w, c = x.shape
+        return x.reshape(b, h // SR_FACTOR, SR_FACTOR, w // SR_FACTOR, SR_FACTOR, c).mean((2, 4))
+
+    # (1) super-resolution: the bf16 forward at batch 128 and its sites
+    sr = get_model(RESOLUTION, SR_CFG, device="cuda", seed=0)
+    fill_zero_params(torch, sr, seed=80)
+    x = torch.rand(TRAIN_BATCH, RESOLUTION, RESOLUTION, 3, device="cuda",
+                   generator=gen) * 2.0 - 1.0
+    low = low_of(x)
+    t = torch.randint(1, 1001, (TRAIN_BATCH,), device="cuda", generator=gen)
+    calls = {}
+    ops.reset()
+    with torch.no_grad(), ops.recording(calls):
+        out = sr(x, t, low)
+    torch.cuda.synchronize()
+    launches["superres_forward_bf16"] = ops.counts()
+    if ops.counts() != expected_counts(1, False) or not bool(torch.isfinite(out).all()):
+        bad.append(f"superres forward: launches {ops.counts()}, finite "
+                   f"{bool(torch.isfinite(out).all())}")
+    sr_sites = []
+    check_sites(torch, F, ops, calls, sr_sites)
+    per_site.extend(sr_sites)
+    del calls
+    with torch.no_grad():
+        fwd_ms = sync_time(torch, lambda: sr(x, t, low), min_ms=200.0, max_reps=20)
+    line["superres"] = {"config": SR_CFG, "batch": TRAIN_BATCH, "low_res": low_res,
+                        "forward_ms": fwd_ms, "sites": len(sr_sites),
+                        "worst_site": max(sr_sites, key=lambda s: s["max_abs_err"] / s["tol"])}
+
+    # float32 forward and gradients at a small batch, kernels against plain
+    sr32 = get_model(RESOLUTION, dict(SR_CFG, compute_dtype="float32"), device="cuda", seed=0)
+    sr32.load_state_dict(sr.state_dict())
+    b4 = slice(0, SR_GRAD_BATCH)
+    noise = torch.randn(x[b4].shape, device="cuda", generator=gen)
+    x_t = q_sample(tables, x[b4], noise, t[b4])  # the eps-MSE of the train step
+    f32 = f32_vs_plain(torch, ops, sr32.train(), x_t, t[b4], low[b4], target=noise)
+    line["superres"]["f32_vs_plain"] = dict(f32, batch=SR_GRAD_BATCH, tol=F32_GRAD_TOL)
+    if not (f32["launches"] == expected_counts(1, True) and f32["fwd_rel_err"] <= F32_GRAD_TOL
+            and f32["grad_max_rel_err"] <= F32_GRAD_TOL and not f32["all_zero_grads"]):
+        bad.append(f"superres float32 on the kernels vs plain: {f32}")
+    del sr32
+
+    # the train step beside the eps step, in turns
+    step = family_step("eps", tables)
+    steppers = {}
+    for kind, cfg in (("eps", MODEL_CFG), ("superres", SR_CFG)):
+        m = get_model(RESOLUTION, cfg, device="cuda", seed=0)
+        state = TrainState(m, AdamChain(m.parameters(), 2e-4), 1000,
+                           torch.Generator(device="cuda").manual_seed(81), ema_decay=0.9999)
+        y = low if kind == "superres" else None
+        for _ in range(TRAIN_WARMUP):
+            step(state, x, y)
+        steppers[kind] = (state, y)
+    turns = {kind: [] for kind in steppers}
+    for kind in SR_TURNS:
+        state, y = steppers[kind]
+        torch.cuda.synchronize()
+        ops.reset()
+        t_start = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            metrics = step(state, x, y)
+        torch.cuda.synchronize()
+        turns[kind].append(TRAIN_BATCH * TRAIN_STEPS / (time.perf_counter() - t_start))
+        launches[f"extras_train_step_{kind}"] = ops.counts()
+        if ops.counts() != expected_counts(TRAIN_STEPS, True) or not math.isfinite(
+                float(metrics["loss"])):
+            bad.append(f"{kind} steps: launches {ops.counts()}, loss {float(metrics['loss'])}")
+    line["superres"]["step_img_per_s"] = {"turns": list(SR_TURNS), **turns}
+    del steppers, state
+
+    # the 250-step chain conditioned on the low-res batch, through the engine
+    engine = DiffusionEngine(dict(SR_CFG), {"lr": 2e-4}, clip_while_generating=True,
+                             device="cuda")
+    engine.state.model.load_state_dict(sr.state_dict())
+    chain = []
+    for rep in range(2):
+        ops.reset()
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        imgs = engine.generate_images(n=TRAIN_BATCH, minibatch=TRAIN_BATCH, seed=rep,
+                                      use_ema=False, num_sample_steps=SR_CHAIN_STEPS, y=low)
+        chain.append(time.perf_counter() - t_start)
+        launches["superres_chain_250"] = ops.counts()
+        if (ops.counts() != expected_counts(SR_CHAIN_STEPS, False)
+                or imgs.shape != (TRAIN_BATCH, RESOLUTION, RESOLUTION, 3)
+                or not np.isfinite(imgs).all() or not np.abs(imgs).max() <= 1.0):
+            bad.append(f"superres chain: launches {ops.counts()}, images {imgs.shape}")
+    line["superres"]["chain_250"] = {"seconds": chain,
+                                     "img_per_s": [TRAIN_BATCH / s for s in chain]}
+    del engine, sr
+
+    # the CLI: train (T cut to 100), then profile its run
+    root = ROOT / "runs" / "chip_smoke_extras"
+    shutil.rmtree(root, ignore_errors=True)
+    args = SR_CLI_ARGS + [f"out_dir={root}", "run_name=superres"]
+    train_loader, val_loader = cli_train.build_loaders(load_config("default", args))
+    n_steps, n_val = len(train_loader), len(val_loader)
+    if next(iter(train_loader))[1].shape != (TRAIN_BATCH, low_res, low_res, 3):
+        bad.append("the superres loader's low-res batch has the wrong shape")
+    try:
+        ops.reset()
+        t_start = time.perf_counter()
+        trained, _ = _captured(lambda: cli_train.main(args))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t_start
+        launches["superres_cli_train"] = ops.counts()
+        want = dict(expected_counts(n_steps + 2 * n_val + SR_CLI_T, False),
+                    gn_affine_grad=n_steps * PER_BACKWARD["gn_affine_grad"])
+        if ops.counts() != want or trained["steps"] != n_steps or not all(
+                math.isfinite(trained[k]) for k in ("best_val_loss", "test_nll")):
+            bad.append(f"superres cli.train: launches {ops.counts()} != {want}, {trained}")
+        run_dir = pathlib.Path(trained["run_dir"])
+        rows = [json.loads(r) for r in (run_dir / "metrics.jsonl").read_text().splitlines()]
+        epoch_s = next(r["epoch_time_s"] for r in rows if "epoch_time_s" in r)
+        ops.reset()
+        timings, printed = _captured(lambda: cli_profile.main(
+            [f"run_dir={run_dir}"] + SR_PROFILE_ARGS))
+        launches["superres_cli_profile"] = ops.counts()
+        # a warm-up step and the traced steps; a warm-up chain and the traced one
+        n_train = 1 + SR_PROFILE_STEPS
+        want = dict(expected_counts(n_train + 2 * SR_PROFILE_SAMPLE_STEPS, False),
+                    gn_affine_grad=n_train * PER_BACKWARD["gn_affine_grad"])
+        saved = json.loads((run_dir / "profile" / "timings.json").read_text())
+        traced = {name: trace_kernels(run_dir / "profile" / name / "trace.json")
+                  for name in ("train_trace", "sample_trace")}
+        if ops.counts() != want or saved != timings:
+            bad.append(f"cli.profile: launches {ops.counts()} != {want}, timings {timings}")
+        for name, must in (("train_trace", PROFILE_TRAIN_KERNELS),
+                           ("sample_trace", PROFILE_SAMPLE_KERNELS)):
+            if not all(traced[name].get(k) for k in must):
+                bad.append(f"cli.profile's {name} names {traced[name]}, not all of {must}")
+        print(printed.strip().splitlines()[0], flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    line["superres_cli"] = {"args": SR_CLI_ARGS, "steps": n_steps, "val_batches": n_val,
+                            "train_seconds": train_s, "epoch_seconds": epoch_s,
+                            "train_cli_img_per_s": n_steps * TRAIN_BATCH / epoch_s,
+                            "test_nll": trained["test_nll"], "profile_timings": timings,
+                            "profile_trace_kernels": traced}
+
+    # (2) use_checkpoint at full width: bf16 steps in turns with peak memory
+    steppers = {}
+    for kind in ("plain", "checkpoint"):
+        m = get_model(RESOLUTION, dict(MODEL_CFG, use_checkpoint=kind == "checkpoint"),
+                      device="cuda", seed=0)
+        state = TrainState(m, AdamChain(m.parameters(), 2e-4), 1000,
+                           torch.Generator(device="cuda").manual_seed(82), ema_decay=0.9999)
+        for _ in range(TRAIN_WARMUP):
+            step(state, x)
+        steppers[kind] = state
+    n_res, n_attn = _block_counts(steppers["plain"].model)
+    per_step = {"plain": expected_counts(1, True),
+                "checkpoint": dict(expected_counts(1, True),
+                                   gn_affine=PER_FORWARD["gn_affine"] + 2 * n_res,
+                                   gn_silu_conv3x3=PER_FORWARD["gn_silu_conv3x3"] + 2 * n_res,
+                                   qkv_attention=PER_FORWARD["qkv_attention"] + n_attn,
+                                   group_norm_silu=PER_FORWARD["group_norm_silu"] + n_attn)}
+    ckpt_turns = {kind: [] for kind in steppers}
+    peak = {kind: 0 for kind in steppers}
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()  # both states, the batch, the phase's tensors
+    for kind in CKPT_TURNS:
+        state = steppers[kind]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset()
+        t_start = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            metrics = step(state, x)
+        torch.cuda.synchronize()
+        ckpt_turns[kind].append(TRAIN_BATCH * TRAIN_STEPS / (time.perf_counter() - t_start))
+        peak[kind] = max(peak[kind], torch.cuda.max_memory_allocated())
+        want = {k: TRAIN_STEPS * v for k, v in per_step[kind].items()}
+        launches[f"extras_train_step_{kind}"] = ops.counts()
+        if ops.counts() != want or not math.isfinite(float(metrics["loss"])):
+            bad.append(f"{kind} steps: launches {ops.counts()} != {want}")
+    line["use_checkpoint"] = {"step_img_per_s": {"turns": list(CKPT_TURNS), **ckpt_turns},
+                              "max_memory_allocated_bytes": peak,
+                              "allocated_before_turns_bytes": resident,
+                              "launches_per_step": per_step}
+    del steppers, state
+
+    # float32 gradients with dropout, with against without checkpoints
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    cfg32 = dict(MODEL_CFG, compute_dtype="float32", dropout=CKPT_DROPOUT)
+    plain32 = get_model(RESOLUTION, cfg32, device="cuda", seed=0)
+    fill_zero_params(torch, plain32, seed=83)
+    ckpt32 = get_model(RESOLUTION, dict(cfg32, use_checkpoint=True), device="cuda", seed=0)
+    ckpt32.load_state_dict(plain32.state_dict())
+    xg = x[:CKPT_GRAD_BATCH]
+    grads, gens = [], []
+    for m in (plain32.train(), ckpt32.train()):
+        g = torch.Generator(device="cuda").manual_seed(84)
+        (m(xg, t[:CKPT_GRAD_BATCH], generator=g).square().mean()).backward()
+        grads.append({k: p.grad for k, p in m.named_parameters()})
+        gens.append(g.get_state())
+    worst = max(float((grads[1][k] - v).abs().max()) / max(1e-30, float(v.abs().max()))
+                for k, v in grads[0].items())
+    line["use_checkpoint"]["f32_dropout_grads"] = {
+        "batch": CKPT_GRAD_BATCH, "dropout": CKPT_DROPOUT, "max_rel_err": worst,
+        "tol": CKPT_SAME_TOL, "bits_equal": all(torch.equal(grads[1][k], v)
+                                                for k, v in grads[0].items()),
+        "generator_equal": torch.equal(gens[0], gens[1])}
+    if not (worst <= CKPT_SAME_TOL and torch.equal(gens[0], gens[1])):
+        bad.append(f"checkpointed float32 gradients: {line['use_checkpoint']}")
+    del plain32, ckpt32, grads
+
+    # one K = 4 replay of the checkpointed model with dropout, from one copy
+    # of the state, against 4 eager steps and the plain model's graph steps
+    def engine_of(cfg):
+        e = DiffusionEngine(dict(cfg), {"lr": FUSED_LR}, ema=0.9999, device="cuda")
+        fill_zero_params(torch, e.state.model, seed=85)
+        e.state.ema_model.load_state_dict(e.state.model.state_dict())
+        return e
+
+    cfg_d = dict(MODEL_CFG, dropout=CKPT_DROPOUT)
+    graph_e, eager_e = (engine_of(dict(cfg_d, use_checkpoint=True)) for _ in range(2))
+    body_e = engine_of(cfg_d)
+    xs = [torch.rand((FUSED_K, TRAIN_BATCH, RESOLUTION, RESOLUTION, 3), device="cuda",
+                     generator=gen) * 2.0 - 1.0 for _ in range(2)]
+    graph_e.training_steps(xs[0])
+    copy_state(graph_e.state, eager_e.state)
+    copy_state(graph_e.state, body_e.state)
+    ops.reset()
+    rows_g = graph_e.training_steps(xs[1])
+    replay_counts = ops.counts()
+    rows_e = torch.stack([eager_e.training_step(xi)["loss"] for xi in xs[1]])
+    rows_b = CapturedSteps(body_e._train_step, body_e.state, xs[1], capture=False)(xs[1])
+    vs_eager = compare_states(torch, graph_e.state, eager_e.state)
+    vs_plain = compare_states(torch, graph_e.state, body_e.state)
+    vs_eager["loss_rows_rel"] = _rows_rel(rows_g["loss"], rows_e)
+    vs_plain["loss_rows_rel"] = _rows_rel(rows_g["loss"], rows_b["loss"])
+    torch.backends.cudnn.deterministic = deterministic
+    line["use_checkpoint"]["fused_replay"] = {
+        "k": FUSED_K, "dropout": CKPT_DROPOUT, "vs_eager_checkpointed": vs_eager,
+        "vs_plain_graph_steps_eagerly": vs_plain,
+        "captures": sum(c.captures for c in graph_e._fused_step.graphs.values())}
+    if line["use_checkpoint"]["fused_replay"]["captures"] != 1:
+        bad.append(f"checkpointed fused steps: {line['use_checkpoint']['fused_replay']}")
+    if any(replay_counts.values()):
+        bad.append(f"the checkpointed replay ticked the launch counters {replay_counts}")
+    if not fused_state_ok(vs_eager):
+        bad.append(f"checkpointed replay vs eager steps: {vs_eager}")
+    if not fused_state_ok(vs_plain, same=True):
+        bad.append(f"checkpointed replay vs the plain model's graph steps: {vs_plain}")
+    del graph_e, eager_e, body_e, xs
+
+    # (3) the 1-D and 3-D UNets
+    nd = {}
+    for dims, (cfg, res, batch) in ND_CFGS.items():
+        spatial = (res,) * dims
+        m = get_model(res, cfg, device="cuda", seed=0)
+        fill_zero_params(torch, m, seed=86 + dims)
+        xn = torch.randn(batch, *spatial, cfg["in_channels"], device="cuda", generator=gen)
+        tn = torch.randint(1, 1001, (batch,), device="cuda", generator=gen)
+        m32 = get_model(res, dict(cfg, compute_dtype="float32"), device="cuda", seed=0)
+        m32.load_state_dict(m.state_dict())
+        f32 = f32_vs_plain(torch, ops, m32, xn, tn)
+        del m32
+        calls = {}
+        ops.reset()
+        with torch.no_grad(), ops.recording(calls):
+            out = m(xn, tn)
+        torch.cuda.synchronize()
+        counts = ops.counts()
+        sites = []
+        check_sites(torch, F, ops, calls, sites)
+        per_site.extend(sites)
+        with torch.no_grad():
+            ms = sync_time(torch, lambda: m(xn, tn), min_ms=200.0, max_reps=20)
+        launches[f"extras_unet_{dims}d_forward_bf16"] = counts
+        nd[f"{dims}d"] = {"config": cfg, "spatial": list(spatial), "batch": batch,
+                          "forward_bf16_ms": ms, "launches": counts,
+                          "f32_vs_plain": dict(f32, tol=F32_GRAD_TOL),
+                          "sites": [{k: s[k] for k in ("kernel", "shape", "dtype", "design",
+                                                       "max_abs_err", "tol", "ms",
+                                                       "plain_ms")} for s in sites]}
+        if counts != nd_counts(m) or not bool(torch.isfinite(out).all()):
+            bad.append(f"{dims}-D forward: launches {counts} != {nd_counts(m)}")
+        if f32["launches"] != nd_counts(m):
+            bad.append(f"{dims}-D float32 forward and backward launches {f32['launches']}")
+        if not (f32["fwd_rel_err"] <= F32_GRAD_TOL and f32["grad_max_rel_err"] <= F32_GRAD_TOL
+                and not f32["all_zero_grads"]):
+            bad.append(f"{dims}-D float32 on the kernels vs plain: {f32}")
+        del m, calls
+    line["unet_nd"] = nd
+
+    # (4) the dense model on the card against the same weights on the CPU
+    cfg = yaml.safe_load((ROOT / PKG / "config" / "model" / "dense.yaml").read_text())
+    dense = get_model(RESOLUTION, cfg, device="cuda", seed=0)
+    dense_cpu = get_model(RESOLUTION, cfg, device="cpu", seed=0)
+    dense_cpu.load_state_dict(dense.state_dict())
+    side = cfg["resolution"]
+    xd = torch.randn(DENSE_BATCH, side, side, cfg["in_channels"], generator=torch.Generator()
+                     .manual_seed(87))
+    td = torch.randint(1, 1001, (DENSE_BATCH,), generator=torch.Generator().manual_seed(88))
+    with torch.no_grad():
+        got = dense(xd.cuda(), td.cuda()).cpu()
+        want = dense_cpu(xd, td)
+    dense_err = float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+    line["dense"] = {"config": cfg, "batch": DENSE_BATCH, "max_rel_err": dense_err,
+                     "tol": DENSE_TOL, "device": str(next(dense.parameters()).device)}
+    if not dense_err <= DENSE_TOL or got.shape != xd.shape:
+        bad.append(f"dense on the card vs the CPU: {line['dense']}")
+
+    line["launches"] = launches
+    line["phase_seconds"] = time.perf_counter() - phase_start
+    emit(line)
+    if out_dir is not None:
+        (out_dir / "model_extras.json").write_text(json.dumps(dict(line, sites=sr_sites),
+                                                              indent=1, default=str))
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return launches
+
+
 def _captured(fn):
     """(result, printed text) of ``fn()``, its standard output captured."""
     buf = io.StringIO()
@@ -2304,6 +2793,7 @@ def consistency_distill_phase(torch, ops, gen, smi, run_dir, out_dir=None):
     from probabilisticdeepdiffusionmodels_torch.cli import consistency as cli_consistency
     from probabilisticdeepdiffusionmodels_torch.cli import sample as cli_sample
     from probabilisticdeepdiffusionmodels_torch.core import DiffusionTables, NoiseSchedule
+    from probabilisticdeepdiffusionmodels_torch.core.diffusion import q_sample
     from probabilisticdeepdiffusionmodels_torch.engine import AdamChain, DiffusionEngine
     from probabilisticdeepdiffusionmodels_torch.models import get_model
     from probabilisticdeepdiffusionmodels_torch.train import TrainState
@@ -2668,10 +3158,37 @@ def fused_train_phase(torch, ops, gen, smi, out_dir=None):
     del g32, p32
     torch.backends.cudnn.deterministic = deterministic
 
-    # (b) one replay's device operations against K eager steps'
-    prof_e = profile_device(torch, lambda: [eager_e.training_step(x) for x in xs[1]])
-    prof_g = profile_device(torch, lambda: graph_e.training_steps(xs[1]))
-    own_e, own_g = own_kernel_counts(prof_e["all"]), own_kernel_counts(prof_g["all"])
+    # (b) one replay's device operations against K eager steps'.  A profile
+    # can miss kernel records (seen once in a full command: a replay 12 own
+    # kernels short while its results matched the graph's steps run eagerly
+    # bit for bit), so where a pair of profiles differs, up to two more pairs
+    # are taken; the gate needs a pair that agrees.  Every profile's counts
+    # are kept, and one that differs from its side's agreeing profile must
+    # count no kernel more and be short of it in device operations by at
+    # least its shortfall of own kernels: a dropped record lowers both
+    run_e = lambda: [eager_e.training_step(x) for x in xs[1]]  # noqa: E731
+    run_g = lambda: graph_e.training_steps(xs[1])  # noqa: E731
+    sides = {"eager_k_steps": [], "replay": []}
+    for _ in range(3):
+        for side, run in (("eager_k_steps", run_e), ("replay", run_g)):
+            prof = profile_device(torch, run)
+            sides[side].append({"own": own_kernel_counts(prof["all"]),
+                                "device_ops": prof["device_ops"], "prof": prof})
+        if sides["eager_k_steps"][-1]["own"] == sides["replay"][-1]["own"]:
+            break
+    prof_e, prof_g = sides["eager_k_steps"][0]["prof"], sides["replay"][0]["prof"]
+    own_e, own_g = sides["eager_k_steps"][-1]["own"], sides["replay"][-1]["own"]
+    if own_g != own_e or not own_g:
+        bad.append(f"a replay's kernels {own_g} != K eager steps' {own_e}")
+    for side, profs in sides.items():
+        ref = profs[-1]
+        for i, pr in enumerate(profs[:-1]):
+            more = {n: c for n, c in pr["own"].items() if c > ref["own"].get(n, 0)}
+            short = sum(ref["own"].values()) - sum(pr["own"].values())
+            if more or ref["device_ops"] - pr["device_ops"] < short:
+                bad.append(f"{side} profile {i}: kernels {more} above the agreeing profile's, "
+                           f"or {short} own kernels short with device ops "
+                           f"{pr['device_ops']} against {ref['device_ops']}")
     copies = [x["name"] for x in prof_g["all"] if "DtoH" in x["name"]]
     line["profile"] = {
         "eager_k_steps": {key: prof_e[key] for key in ("device_ops", "device_busy_ms",
@@ -2679,9 +3196,9 @@ def fused_train_phase(torch, ops, gen, smi, out_dir=None):
         "replay": {key: prof_g[key] for key in ("device_ops", "device_busy_ms", "wall_ms",
                                                 "idle_share")},
         "own_kernels_eager_k_steps": own_e, "own_kernels_replay": own_g,
+        "each_profile": {side: [{"own": pr["own"], "device_ops": pr["device_ops"]}
+                                for pr in profs] for side, profs in sides.items()},
         "replay_host_copies": copies, "replay_top": prof_g["top"]}
-    if own_g != own_e or not own_g:
-        bad.append(f"a replay's kernels {own_g} != K eager steps' {own_e}")
     if copies:
         bad.append(f"a replay copies to the host: {copies}")
 
@@ -2808,6 +3325,7 @@ def distill_reflow_phase(torch, ops, gen, smi, run_dir, flow_run, out_dir=None):
     from probabilisticdeepdiffusionmodels_torch.cli import reflow as cli_reflow
     from probabilisticdeepdiffusionmodels_torch.cli import sample as cli_sample
     from probabilisticdeepdiffusionmodels_torch.core import DiffusionTables, NoiseSchedule
+    from probabilisticdeepdiffusionmodels_torch.core.diffusion import q_sample
     from probabilisticdeepdiffusionmodels_torch.engine import AdamChain, DiffusionEngine
     from probabilisticdeepdiffusionmodels_torch.models import get_model
     from probabilisticdeepdiffusionmodels_torch.train import TrainState
@@ -3187,6 +3705,9 @@ def main(argv=None) -> int:
 
     # 15. the EDM, flow and consistency families
     cli_launches.update(model_families_phase(torch, ops, gen, smi, args.out))
+
+    # 16. super-resolution, use_checkpoint, the 1-D and 3-D UNets, the dense model
+    cli_launches.update(model_extras_phase(torch, F, ops, gen, smi, per_site, args.out))
 
     if args.out is not None:
         (args.out / "chip_smoke_sites.json").write_text(json.dumps(

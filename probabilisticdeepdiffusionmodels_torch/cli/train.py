@@ -19,9 +19,12 @@ records its CT loss, ``test_ct_loss``, instead), written to
 run; ``device=cpu`` runs on the CPU.  ``data.device_resident=true`` holds
 the dataset on the run's device (``data.DeviceDataLoader``);
 ``trainer.fused_steps=K`` runs K train steps a dispatch, one CUDA graph on
-a card (``engine.training_steps``).  Not ported yet, and raising: a mesh
-(``trainer.devices`` other than null/1, ROADMAP.md Queue 1 item 18) and
-super-resolution (item 16).
+a card (``engine.training_steps``).  ``model.name=superres
+data.superres_factor=f`` trains the super-resolution model on the loaders'
+(x, f-times-smaller x) pairs; its run draws no views (they sample without
+the low-res input; the JAX CLI would stop on them).  Not ported yet, and
+raising: a mesh (``trainer.devices`` other than null/1, ROADMAP.md Queue 1
+item 18).
 """
 
 from __future__ import annotations
@@ -55,13 +58,10 @@ def build_loaders(cfg):
     loader_cls, kw = DataLoader, {}
     if data_cfg.pop("device_resident", False):
         loader_cls, kw = DeviceDataLoader, {"device": cfg.get("device")}
-    if data_cfg.pop("superres_factor", None):
-        raise NotImplementedError(
-            "data.superres_factor (super-resolution) is not ported yet (ROADMAP.md Queue 1 "
-            "item 16)")
     resolution = cfg["engine"].get("resolution")
     extra = {k: data_cfg.pop(k) for k in list(data_cfg)
-             if k not in ("batch_size", "transformation_kwargs", "num_samples_per_epoch")}
+             if k not in ("batch_size", "transformation_kwargs", "num_samples_per_epoch",
+                          "superres_factor")}
     train_ds = get_dataset(name, train=True, resolution=resolution, **extra)
     val_ds = get_dataset(name, train=False, resolution=resolution, **extra)
     seed = int(cfg.get("seed", 0) or 0)
@@ -127,6 +127,10 @@ def run_training(cfg) -> dict:
         # consistency model has not; cli.sample sampler=consistency draws it
         print('[train] visualization suites need the eps-view; disabled for '
               'prediction_type="consistency"')
+    elif engine.cond_kind == "superres":
+        # the views sample without conditioning, which the model needs
+        print("[train] visualization suites sample without a low-res input; disabled for "
+              "the superres model")
     elif int(vis_cfg.get("run_every", 5) or 0) > 0:
         vis = VisualizationCallback(
             val_batch=next(iter(val_loader))[0], ts=ts, media_dir=run_dir.path / "media",

@@ -5,12 +5,19 @@ numpy arrays and returns a flat ``state_dict`` of float32 tensors:
 
   * ``X/norm/{scale,bias}``      -> ``X.{weight,bias}``
   * ``X/conv/kernel`` (HWIO)     -> ``X.weight``: (3, 3, Cout, Cin) for the
-    convs the fused GN+SiLU+conv3x3 kernel computes (a ResBlock's
-    ``in_conv``/``out_conv`` and the top-level ``out_conv``), OIHW otherwise
-  * ``X/conv/kernel`` (1, C, 3C) -> ``X.weight`` (3C, C) (attention qkv/proj)
-  * ``X/dense/kernel`` (in, out) -> ``X.weight`` (out, in)
+    2-D convs the fused GN+SiLU+conv3x3 kernel computes (a ResBlock's
+    ``in_conv``/``out_conv`` and the UNet's own ``out_conv``), OIHW otherwise
+  * ``X/conv/kernel`` (k..., Cin, Cout) of a 1-D or 3-D conv (every conv of
+    those UNets, their ResBlocks' included) -> ``X.weight`` (Cout, Cin, k...)
+  * ``X/conv/kernel`` (1, C, 3C) of an attention ``qkv``/``proj`` ->
+    ``X.weight`` (3C, C)
+  * ``X/dense/kernel`` (in, out) -> ``X.weight`` (out, in) (the UNet's and
+    the dense model's ``Linear``s)
   * ``X/{conv,dense}/bias``      -> ``X.bias``
   * ``label_emb/embedding``      -> ``label_emb.weight``
+
+A SuperResModel's tree is the UNet's under ``unet/``, and maps onto the
+port's ``unet.`` submodule the same way.
 
 Any Flax leaf it cannot map raises.  ``load_flax_params(model, params)``
 also names every port key the tree leaves unset or sets but the model
@@ -45,11 +52,20 @@ def _flatten(tree: Mapping, prefix=()):
 
 
 def _is_fused(module_path) -> bool:
-    """A ResBlock's in_conv/out_conv, or the model's own out_conv."""
+    """A ResBlock's in_conv/out_conv, or the UNet's own out_conv (a
+    SuperResModel's UNet is ``unet``)."""
+    if module_path[0] == "unet":
+        module_path = module_path[1:]
     name = module_path[-1]
     if len(module_path) == 1:
         return name == "out_conv"
     return name in _FUSED_CONVS and module_path[-2].endswith("_res")
+
+
+def _is_token_linear(module_path) -> bool:
+    """An AttentionBlock's qkv or proj: a 1-wide conv in Flax, a Linear here."""
+    return (len(module_path) >= 2 and module_path[-1] in ("qkv", "proj")
+            and module_path[-2].endswith("_attn"))
 
 
 def _convert_leaf(path, value: np.ndarray):
@@ -61,15 +77,17 @@ def _convert_leaf(path, value: np.ndarray):
     if layer in ("norm", "conv", "dense") and leaf == "bias":
         return f"{key}.bias", value
     if layer == "conv" and leaf == "kernel":
-        if value.ndim == 3:  # 1-D 1x1 conv (1, in, out)
+        if _is_token_linear(module):  # (1, in, out)
             return f"{key}.weight", value[0].T
-        if value.ndim == 4:
-            axes = (0, 1, 3, 2) if _is_fused(module) else (3, 2, 0, 1)
-            return f"{key}.weight", value.transpose(axes)
+        if value.ndim == 4 and _is_fused(module):
+            return f"{key}.weight", value.transpose(0, 1, 3, 2)
+        if value.ndim in (3, 4, 5):  # (k..., in, out) -> (out, in, k...)
+            nd = value.ndim
+            return f"{key}.weight", value.transpose(nd - 1, nd - 2, *range(nd - 2))
     if layer == "dense" and leaf == "kernel":
         return f"{key}.weight", value.T
-    if path == ("label_emb", "embedding"):
-        return "label_emb.weight", value
+    if path[-2:] == ("label_emb", "embedding") and len(path) <= 3:
+        return f"{key + '.' if key else ''}label_emb.weight", value
     raise KeyError(f"no port counterpart for Flax parameter {'/'.join(path)} "
                    f"{tuple(value.shape)}")
 

@@ -15,6 +15,8 @@ Loader semantics kept from the reference:
   * fixed-size epochs via with-replacement sampling when
     ``num_samples_per_epoch`` is set
   * shuffle defaults to the train flag
+  * ``superres_factor=f`` yields (x, low) pairs, ``low`` the f x f area
+    mean of the transformed x, for the SuperResModel's ``low_res``
 
 Batches are numpy; the train loop moves them to the device
 (``train/loop.py::prefetch_to_device``).
@@ -263,7 +265,8 @@ def get_dataset(name: str, train: bool = True, root: Optional[Path] = None,
 
 class DataLoader:
     """Batched iterator: shuffle defaults to train; optional fixed-size
-    with-replacement epochs via num_samples_per_epoch."""
+    with-replacement epochs via num_samples_per_epoch; (image, label)
+    batches, or (image, low-res image) with ``superres_factor``."""
 
     def __init__(
         self,
@@ -275,6 +278,7 @@ class DataLoader:
         shuffle: Optional[bool] = None,
         seed: int = 0,
         drop_last: bool = True,
+        superres_factor: Optional[int] = None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -284,6 +288,7 @@ class DataLoader:
         self.shuffle = train if shuffle is None else shuffle
         self.rng = np.random.default_rng(seed)
         self.drop_last = drop_last
+        self.superres_factor = int(superres_factor) if superres_factor else None
 
     def __len__(self):
         n = self.num_samples_per_epoch or len(self.dataset)
@@ -308,7 +313,16 @@ class DataLoader:
             else:
                 raw = self.dataset.images[idx]
                 labels = self.dataset.labels[idx]
-            yield self.transform(raw, self.rng), labels
+            x = self.transform(raw, self.rng)
+            if self.superres_factor:
+                f = self.superres_factor
+                b, h, w, c = x.shape
+                if h % f or w % f:
+                    raise ValueError(f"superres_factor {f} does not divide {h}x{w}")
+                low = x.reshape(b, h // f, f, w // f, f, c).mean(axis=(2, 4))
+                yield x, low.astype(x.dtype)
+            else:
+                yield x, labels
 
     def __iter__(self):
         return self.epoch()

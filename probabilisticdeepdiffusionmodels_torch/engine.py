@@ -21,8 +21,11 @@ families' exact ODE likelihood) and ``test_step``; ``make_lr_schedule``; and
 (``adam`` with an optional ``clip_by_global_norm`` before it and an optional
 ``MultiSteps`` around both).  The model and the state live on one device,
 ``cuda`` unless the caller asks for another; random draws come from
-``torch.Generator``s on it.  Training runs the raw model; the table-driven
-samplers, the NLL and the endpoints run its eps view
+``torch.Generator``s on it.  The model is any of ``get_model``'s: the UNet
+(``dims`` 1, 2 or 3; unconditional or class-conditional), the
+SuperResModel, whose conditioning ``y`` is the low-res image every
+endpoint hands its ``low_res``, or the dense model.  Training runs the raw
+model; the table-driven samplers, the NLL and the endpoints run its eps view
 (``sample.make_{v,x0,edm,flow}_to_eps_apply_fn``; a consistency model has
 none), the native samplers and the ODE likelihood the raw model.  The
 device mesh (``mesh``, ``param_sharding``, ``shard_mode``) raises
@@ -46,7 +49,7 @@ from .core.flow import FlowConfig
 from .core.schedules import NoiseSchedule, rescale_zero_terminal_snr
 from .evals.nll import calculate_likelihood
 from .evals.ode_nll import edm_ode_nll, flow_ode_nll
-from .models import get_model, resolve_device
+from .models import SuperResModel, get_model, resolve_device
 from .sample.sampler import (
     consistency_sample_loop,
     ddim_invert_loop,
@@ -432,7 +435,14 @@ class DiffusionEngine:
             model_config.setdefault("learn_sigma", True)
         self.model = get_model(resolution, model_config, device=self.device, seed=seed)
         self.in_channels = in_channels or int(model_config.get("in_channels", 3))
-        self.cond_kind = "class" if self.model.num_classes else "none"
+        # what the generic ``y`` slot means: a low-res conditioning image
+        # (SuperResModel's ``low_res``, its third positional argument, where
+        # every caller hands ``y``), class labels, or nothing
+        if isinstance(self.model, SuperResModel):
+            self.cond_kind = "superres"
+        else:
+            self.cond_kind = "class" if self.model.num_classes else "none"
+        self.dims = int(model_config.get("dims", 2))
 
         self.schedule = NoiseSchedule.create(diffusion_steps=diffusion_steps, mode=mode,
                                              beta_start=beta_start, beta_end=beta_end,
@@ -532,9 +542,12 @@ class DiffusionEngine:
 
     def _cond(self, y) -> Optional[torch.Tensor]:
         """Dataset labels for the model's conditioning slot: dropped for an
-        unconditional model, class labels for a class-conditional one."""
+        unconditional model, class labels for a class-conditional one, the
+        float32 low-res images for a super-resolution one."""
         if y is None or self.cond_kind == "none":
             return None
+        if self.cond_kind == "superres":
+            return torch.as_tensor(y, dtype=torch.float32, device=self.device)
         return torch.as_tensor(y, device=self.device).long()
 
     # ------------ training
@@ -764,7 +777,7 @@ class DiffusionEngine:
             if not takes_noise:
                 raise ValueError(f"{loop.__name__} is deterministic: it takes no noise")
             noise = self._batch(noise)
-        shape = (minibatch, self.resolution, self.resolution, self.in_channels)
+        shape = (minibatch, *(self.resolution,) * self.dims, self.in_channels)
         images = []
         for i in range(-(-n // minibatch)):
             idx = torch.arange(i * minibatch, (i + 1) * minibatch, device=self.device)
@@ -884,7 +897,7 @@ class DiffusionEngine:
         around to pad the last chunk."""
         generator = self._generator(seed)
         minibatch = min(int(minibatch), int(n))
-        shape = (minibatch, self.resolution, self.resolution, self.in_channels)
+        shape = (minibatch, *(self.resolution,) * self.dims, self.in_channels)
         starts, images = [], []
         for i in range(-(-int(n) // minibatch)):
             idx = torch.arange(i * minibatch, (i + 1) * minibatch) % int(n)

@@ -1,9 +1,13 @@
 """Model factory, the counterpart of ``probabilisticdeepdiffusionmodels_tpu.models``.
 
-``get_model(resolution, cfg)`` takes a config dict with a ``name`` key
-(``"unet"`` is ported); ``attention_resolutions`` are image-side lengths,
-converted to downsample rates (``resolution // res``).  ``learn_sigma``
-doubles the output channels; ``cfg_null_class`` adds the null-class row.
+``get_model(resolution, cfg)`` takes a config dict with a ``name`` key:
+``"unet"`` (``dims`` 1, 2 or 3), ``"superres"`` (the 2-D UNet conditioned
+on a low-res image, ``low_res``) or ``"dense"`` (the MLP baseline, float32;
+``compute_dtype`` is dropped as JAX drops it).  ``attention_resolutions``
+are image-side lengths, converted to downsample rates
+(``resolution // res``).  ``learn_sigma`` doubles the output channels;
+``cfg_null_class`` adds the null-class row; ``use_checkpoint`` recomputes
+each block in the backward (``torch.utils.checkpoint``, JAX's remat).
 
 The model is built on ``device``, which defaults to ``"cuda"``; with no CUDA
 device that raises, so running on the CPU is an explicit request
@@ -22,9 +26,11 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from .unet import UNetModel
+from .dense import DenseModel
+from .unet import SuperResModel, UNetModel
 
-__all__ = ["get_model", "get_unet", "resolve_device", "UNetModel"]
+__all__ = ["get_model", "get_unet", "resolve_device", "UNetModel", "SuperResModel",
+           "DenseModel"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -44,8 +50,14 @@ def get_model(resolution: int, cfg: Dict[str, Any], *, device=None, seed: int = 
     name = cfg.pop("name")
     if name == "unet":
         return get_unet(resolution, device=device, seed=seed, **cfg)
-    if name in ("superres", "dense"):
-        raise NotImplementedError(f"model {name!r} is not ported yet")
+    if name == "superres":
+        return get_unet(resolution, device=device, seed=seed, _cls=SuperResModel, **cfg)
+    if name == "dense":
+        device = resolve_device(device)
+        cfg.setdefault("resolution", resolution)
+        cfg.pop("compute_dtype", None)
+        model = DenseModel(**cfg, generator=torch.Generator().manual_seed(seed))
+        return model.to(device).eval()
     raise ValueError(f"Unknown model name: {name!r}")
 
 
@@ -74,18 +86,21 @@ def get_unet(
     *,
     device=None,
     seed: int = 0,
-) -> UNetModel:
-    """The UNet with weights drawn from ``seed``, in eval mode on ``device``."""
+    _cls=UNetModel,
+):
+    """The UNet (``_cls``: or the SuperResModel around one) with weights
+    drawn from ``seed``, in eval mode on ``device``; JAX's refusals."""
     device = resolve_device(device)
-    if dims != 2:
-        raise NotImplementedError(f"only the 2-D UNet is ported, got dims={dims}")
-    if use_checkpoint:
-        raise NotImplementedError("use_checkpoint is not ported yet")
+    if dims not in (1, 2, 3):
+        raise ValueError(f"dims must be 1, 2 or 3, got {dims}")
     if cfg_null_class and not num_classes:
         raise ValueError("cfg_null_class requires num_classes (the null "
                          "token is the extra row of the label embedding)")
+    if dims != 2 and _cls is SuperResModel:
+        raise NotImplementedError("SuperResModel is 2-D (bilinear low_res)")
     attention_ds = tuple(resolution // int(res) for res in attention_resolutions)
-    model = UNetModel(
+    kwargs = {} if _cls is SuperResModel else {"dims": dims}
+    model = _cls(
         in_channels=in_channels,
         model_channels=model_channels,
         out_channels=in_channels * (2 if learn_sigma else 1),
@@ -101,5 +116,7 @@ def get_unet(
         dropout=dropout,
         dtype=_DTYPES[compute_dtype],
         generator=torch.Generator().manual_seed(seed),
+        use_checkpoint=use_checkpoint,
+        **kwargs,
     )
     return model.to(device).eval()

@@ -1,11 +1,11 @@
-"""NN primitives for the UNet, channels last (NHWC).
+"""NN primitives for the UNet, channels last ((B, *spatial, C)).
 
 PyTorch counterparts of ``probabilisticdeepdiffusionmodels_tpu/models/layers.py``:
 
   * parameters are float32 and are cast to the compute dtype where they are
     used (Flax's ``param_dtype=float32`` with ``dtype=bfloat16``);
-  * convolutions pad like JAX ``SAME`` (for a stride-2 3x3 conv on an even
-    size that is (0, 1), not torch's (1, 1));
+  * convolutions (1-, 2- or 3-D) pad like JAX ``SAME`` on each axis (for a
+    stride-2 3-wide conv on an even size that is (0, 1), not torch's (1, 1));
   * GroupNorm uses gcd(32, C) groups, computes in float32 and casts back;
   * init is torch's Conv/Linear default, U(-1/sqrt(fan_in), 1/sqrt(fan_in))
     for weight and bias, with zero init where the JAX model zero-inits.
@@ -30,6 +30,7 @@ __all__ = [
     "silu",
     "avg_pool_nd",
     "nearest_upsample_nd",
+    "bilinear_resize",
 ]
 
 
@@ -46,37 +47,40 @@ def _same_pads(size: int, k: int, stride: int):
     return total // 2, total - total // 2
 
 
+_CONVS = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+
 class Conv(nn.Module):
-    """k x k 2-D convolution on NHWC input with JAX ``SAME`` padding (k > 1)
-    or ``VALID`` (k = 1).  ``weight`` is OIHW."""
+    """k-wide convolution over the ``dims`` spatial axes of channels-last
+    input, with JAX ``SAME`` padding (k > 1) or ``VALID`` (k = 1).
+    ``weight`` is (Cout, Cin, k, ...), torch's layout."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
                  stride: int = 1, zero_init: bool = False,
                  dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dims: int = 2):
         super().__init__()
-        self.kernel_size, self.stride, self.dtype = kernel_size, stride, dtype
+        self.kernel_size, self.stride, self.dtype, self.dims = kernel_size, stride, dtype, dims
         k = kernel_size
-        self.weight = nn.Parameter(torch.zeros(out_ch, in_ch, k, k))
+        self.weight = nn.Parameter(torch.zeros(out_ch, in_ch, *(k,) * dims))
         self.bias = nn.Parameter(torch.zeros(out_ch))
         if not zero_init:
-            _uniform_(self.weight, in_ch * k * k, generator)
-            _uniform_(self.bias, in_ch * k * k, generator)
+            _uniform_(self.weight, in_ch * k ** dims, generator)
+            _uniform_(self.bias, in_ch * k ** dims, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
-        k, s = self.kernel_size, self.stride
+        k, s, d = self.kernel_size, self.stride, self.dims
         padding = 0
         if k > 1:
-            ph = _same_pads(x.shape[1], k, s)
-            pw = _same_pads(x.shape[2], k, s)
-            if ph[0] == ph[1] and pw[0] == pw[1]:
-                padding = (ph[0], pw[0])
-            else:  # asymmetric SAME padding, applied in NHWC
-                x = F.pad(x, (0, 0, pw[0], pw[1], ph[0], ph[1]))
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(self.dtype),
-                     self.bias.to(self.dtype), stride=s, padding=padding)
-        return y.permute(0, 2, 3, 1).contiguous()
+            pads = [_same_pads(n, k, s) for n in x.shape[1:-1]]
+            if all(lo == hi for lo, hi in pads):
+                padding = tuple(lo for lo, _ in pads)
+            else:  # asymmetric SAME padding, applied channels last
+                x = F.pad(x, [0, 0] + [p for pair in reversed(pads) for p in pair])
+        y = _CONVS[d](x.movedim(-1, 1), self.weight.to(self.dtype), self.bias.to(self.dtype),
+                      stride=s, padding=padding)
+        return y.movedim(1, -1).contiguous()
 
 
 class FusedConv3x3(nn.Module):
@@ -122,8 +126,9 @@ class Linear(nn.Module):
 class GroupNorm32(nn.Module):
     """GroupNorm with gcd(32, C) groups over channels-last input, float32
     statistics, output in the input dtype.  ``forward`` runs
-    ``ops.groupnorm.group_norm_silu`` (the CUDA kernel on the card);
-    ResBlocks instead fold ``weight``/``bias`` into the fused conv."""
+    ``ops.groupnorm.group_norm_silu`` (the CUDA kernel on the card), with
+    the SiLU where ``silu``; 2-D ResBlocks instead fold ``weight``/``bias``
+    into the fused conv."""
 
     def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5):
         super().__init__()
@@ -132,9 +137,9 @@ class GroupNorm32(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, silu: bool = False) -> torch.Tensor:
         return group_norm_silu(x.contiguous(), self.weight, self.bias,
-                               self.groups, self.eps, silu=False)
+                               self.groups, self.eps, silu=silu)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -142,15 +147,33 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 
 
+_POOLS = {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}
+
+
 def avg_pool_nd(x: torch.Tensor, window: int = 2) -> torch.Tensor:
-    """Stride-``window`` average pool of NHWC input."""
-    y = F.avg_pool2d(x.permute(0, 3, 1, 2), window, window)
-    return y.permute(0, 2, 3, 1).contiguous()
+    """Stride-``window`` average pool over every spatial axis of
+    channels-last (B, *spatial, C) input."""
+    y = _POOLS[x.dim() - 2](x.movedim(-1, 1), window, window)
+    return y.movedim(1, -1).contiguous()
 
 
 def nearest_upsample_nd(x: torch.Tensor) -> torch.Tensor:
-    """Nearest-neighbour 2x upsample of NHWC input (2-D only)."""
-    if x.dim() != 4:
-        raise NotImplementedError("only 2-D nearest upsampling is ported")
-    b, h, w, c = x.shape
-    return x[:, :, None, :, None, :].expand(b, h, 2, w, 2, c).reshape(b, 2 * h, 2 * w, c)
+    """Nearest-neighbour 2x upsample over every spatial axis of
+    channels-last (B, *spatial, C) input."""
+    b, *spatial, c = x.shape
+    for i in range(len(spatial)):  # a size-1 axis after each spatial axis
+        x = x.unsqueeze(2 + 2 * i)
+    pairs = [n for s in spatial for n in (s, 2)]
+    return x.expand(b, *pairs, c).reshape(b, *(2 * s for s in spatial), c)
+
+
+def bilinear_resize(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """NHWC ``x`` resized to (height, width) in float32, as
+    ``jax.image.resize(..., "bilinear")``: half-pixel centres, the kernel
+    renormalised where it leaves the image (``F.interpolate`` without
+    ``align_corners`` clamps there, which gives the same weights when
+    growing), and an antialiasing kernel on an axis that shrinks."""
+    h, w = x.shape[1], x.shape[2]
+    y = F.interpolate(x.float().permute(0, 3, 1, 2), size=(height, width), mode="bilinear",
+                      align_corners=False, antialias=height < h or width < w)
+    return y.permute(0, 2, 3, 1).contiguous()

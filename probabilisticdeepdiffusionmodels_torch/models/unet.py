@@ -1,13 +1,13 @@
-"""The UNet with timestep embedding and spatial self-attention, NHWC.
+"""The UNet with timestep embedding and spatial self-attention, channels last.
 
 PyTorch counterpart of ``probabilisticdeepdiffusionmodels_tpu/models/unet.py``
-(2-D ``UNetModel`` and its blocks).  Block plan, naming, zero-init points,
-attention head split and dtype handling follow the JAX model; the module
-names are the JAX names, so ``convert.params_from_flax`` maps one tree onto
-the other key by key.
+(``UNetModel`` at 1, 2 or 3 spatial dims, its blocks, and ``SuperResModel``).
+Block plan, naming, zero-init points, attention head split and dtype
+handling follow the JAX model; the module names are the JAX names, so
+``convert.params_from_flax`` maps one tree onto the other key by key.
 
-Every ResBlock conv and the output head run the fused GN(+emb|FiLM)+SiLU+
-conv3x3 op (``ops.gn_conv``), as the JAX model does with
+At 2-D every ResBlock conv and the output head run the fused GN(+emb|FiLM)+
+SiLU+conv3x3 op (``ops.gn_conv``), as the JAX model does with
 ``use_pallas_conv=True``; every AttentionBlock norm runs the GroupNorm op
 (``ops.groupnorm``) and every attention the fused-qkv op
 (``ops.attention``).  On a CUDA tensor each of those is a hand-written
@@ -18,6 +18,19 @@ conv (``gn_affine``).  The other convs (input conv, 1x1 skip, down/upsample) are
 model's does, because the dropout sits between the SiLU and the conv; its
 masks come from the ``generator`` passed to the forward (the train state's,
 as JAX threads the step's dropout key), never from torch's default one.
+
+At 1-D and 3-D the JAX model fuses no conv: a ResBlock is GroupNorm + SiLU
+(the GroupNorm op, kernel on the card) then a plain ``F.conv1d`` /
+``F.conv3d``, the head likewise, and attention runs over the flattened
+tokens on the same attention op.
+
+A ResBlock's dropout mask is drawn from the generator by the model before
+the block runs and handed to it.  ``use_checkpoint`` recomputes each
+ResBlock and AttentionBlock in the backward (``torch.utils.checkpoint``,
+non-reentrant), as JAX's ``nn.remat`` does; the recompute reads the mask
+handed to the block without touching the generator, so the gradients are
+those of the model without checkpoints, and a captured CUDA graph needs no
+generator state saved or restored.
 """
 
 from __future__ import annotations
@@ -26,6 +39,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.diffusion import timestep_embedding
 from ..ops.attention import qkv_attention
@@ -36,20 +50,26 @@ from .layers import (
     GroupNorm32,
     Linear,
     avg_pool_nd,
+    bilinear_resize,
     nearest_upsample_nd,
     silu,
 )
 
-__all__ = ["ResBlock", "AttentionBlock", "Downsample", "Upsample", "UNetModel"]
+__all__ = ["ResBlock", "AttentionBlock", "Downsample", "Upsample", "UNetModel",
+           "SuperResModel"]
 
 
-def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Inverted dropout: zero each element with probability ``p`` and scale
-    the rest by 1/(1-p), the mask drawn from ``generator``."""
+def dropout_mask(shape, p: float, generator: Optional[torch.Generator],
+                 device) -> torch.Tensor:
+    """The keep mask of inverted dropout at rate ``p``, drawn from ``generator``."""
     if generator is None:
         raise ValueError("dropout > 0 in train mode needs a generator: pass "
                          "model(..., generator=...) (the train step passes its state's)")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.rand(shape, generator=generator, device=device) >= p
+
+
+def masked(x: torch.Tensor, keep: torch.Tensor, p: float) -> torch.Tensor:
+    """Inverted dropout at rate ``p`` with the keep mask ``keep``."""
     return x * keep.to(x.dtype) / (1.0 - p)
 
 
@@ -63,48 +83,80 @@ def _gn_silu_conv(x: torch.Tensor, norm: GroupNorm32, conv: FusedConv3x3,
 
 class ResBlock(nn.Module):
     """GN-SiLU-conv, timestep-embedding add or FiLM, GN-SiLU-(dropout)-zero-
-    init conv, plus the identity or a 1x1 (``use_conv_skip``: 3x3) conv skip."""
+    init conv, plus the identity or a 1x1 (``use_conv_skip``: 3x3) conv skip.
+    At ``dims`` 2 both GN-SiLU-convs are the fused op (``FusedConv3x3``
+    weights), at 1 and 3 GroupNorm + SiLU and a plain ``Conv``."""
 
     def __init__(self, in_ch: int, out_ch: int, emb_dim: int,
                  use_conv_skip: bool = False, use_scale_shift_norm: bool = False,
                  dropout: float = 0.0, dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dims: int = 2):
         super().__init__()
         self.use_scale_shift_norm = use_scale_shift_norm
         self.dropout = dropout
+        self.out_ch, self.dims = out_ch, dims
         self.in_norm = GroupNorm32(in_ch)
-        self.in_conv = FusedConv3x3(in_ch, out_ch, generator=generator)
+        if dims == 2:
+            self.in_conv = FusedConv3x3(in_ch, out_ch, generator=generator)
+        else:
+            self.in_conv = Conv(in_ch, out_ch, 3, dtype=dtype, generator=generator, dims=dims)
         self.emb_proj = Linear(emb_dim, 2 * out_ch if use_scale_shift_norm else out_ch,
                                dtype=dtype, generator=generator)
         self.out_norm = GroupNorm32(out_ch)
-        self.out_conv = FusedConv3x3(out_ch, out_ch, zero_init=True)
+        if dims == 2:
+            self.out_conv = FusedConv3x3(out_ch, out_ch, zero_init=True)
+        else:
+            self.out_conv = Conv(out_ch, out_ch, 3, zero_init=True, dtype=dtype, dims=dims)
         self.skip_conv = None
         if out_ch != in_ch:
             self.skip_conv = Conv(in_ch, out_ch, 3 if use_conv_skip else 1,
-                                  dtype=dtype, generator=generator)
+                                  dtype=dtype, generator=generator, dims=dims)
+
+    def drops(self) -> bool:
+        return self.training and self.dropout > 0
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``keep``: the dropout keep mask of the output's shape (``dropout_mask``),
+        needed where dropout acts (``drops()``)."""
+        if self.dims != 2:
+            return self._unfused(x, emb, keep)
         h = _gn_silu_conv(x, self.in_norm, self.in_conv)
         emb_out = self.emb_proj(silu(emb)).to(h.dtype)
         cond = (dict(film=tuple(emb_out.chunk(2, dim=-1))) if self.use_scale_shift_norm
                 else dict(emb=emb_out))
-        if self.training and self.dropout > 0:
+        if self.drops():
             # JAX models/unet.py:129-146: the unfused path, dropout after the SiLU
             norm = self.out_norm
             h = h.contiguous()
             a, off = gn_affine(h, norm.weight, norm.bias, norm.groups, norm.eps, **cond)
             act = silu(h.float() * a[:, None, None, :] + off[:, None, None, :]).to(h.dtype)
-            h = self.out_conv.conv(dropout(act, self.dropout, generator))
+            h = self.out_conv.conv(masked(act, keep, self.dropout))
         else:
             h = _gn_silu_conv(h, self.out_norm, self.out_conv, **cond)
+        skip = x if self.skip_conv is None else self.skip_conv(x)
+        return skip + h
+
+    def _unfused(self, x, emb, keep):
+        """JAX models/unet.py:99-153 off 2-D: GroupNorm (+SiLU) and plain convs."""
+        h = self.in_conv(self.in_norm(x, silu=True))
+        emb_out = self.emb_proj(silu(emb)).to(h.dtype)
+        emb_out = emb_out.reshape(emb_out.shape[0], *(1,) * self.dims, -1)
+        if self.use_scale_shift_norm:
+            scale, shift = emb_out.chunk(2, dim=-1)
+            h = silu(self.out_norm(h) * (1 + scale) + shift)
+        else:
+            h = self.out_norm(h + emb_out, silu=True)
+        if self.drops():
+            h = masked(h, keep, self.dropout)
+        h = self.out_conv(h)
         skip = x if self.skip_conv is None else self.skip_conv(x)
         return skip + h
 
 
 class AttentionBlock(nn.Module):
     """GroupNorm -> 1x1 qkv -> per-head attention -> zero-init 1x1 proj,
-    residual, over the flattened H*W tokens."""
+    residual, over the flattened spatial tokens."""
 
     def __init__(self, channels: int, num_heads: int = 1,
                  dtype: torch.dtype = torch.float32,
@@ -124,28 +176,28 @@ class AttentionBlock(nn.Module):
 
 
 class Downsample(nn.Module):
-    """Stride-2 3x3 conv (JAX SAME padding) or 2x2 average pool."""
+    """Stride-2 3-wide conv (JAX SAME padding) or 2-wide average pool."""
 
     def __init__(self, channels: int, use_conv: bool = True,
                  dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dims: int = 2):
         super().__init__()
         self.op = Conv(channels, channels, 3, stride=2, dtype=dtype,
-                       generator=generator) if use_conv else None
+                       generator=generator, dims=dims) if use_conv else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return avg_pool_nd(x, 2) if self.op is None else self.op(x)
 
 
 class Upsample(nn.Module):
-    """Nearest 2x upsample, then an optional 3x3 conv."""
+    """Nearest 2x upsample, then an optional 3-wide conv."""
 
     def __init__(self, channels: int, use_conv: bool = True,
                  dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dims: int = 2):
         super().__init__()
         self.conv = Conv(channels, channels, 3, dtype=dtype,
-                         generator=generator) if use_conv else None
+                         generator=generator, dims=dims) if use_conv else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = nearest_upsample_nd(x)
@@ -153,10 +205,13 @@ class Upsample(nn.Module):
 
 
 class UNetModel(nn.Module):
-    """The 2-D UNet.  ``attention_resolutions`` are downsample rates (the
-    factory converts image-side lengths).  Input and output are NHWC; the
-    output head runs in the input's dtype (float32 for a float32 input even
-    when ``dtype`` is bfloat16)."""
+    """The UNet over ``dims`` (1, 2 or 3) spatial axes.
+    ``attention_resolutions`` are downsample rates (the factory converts
+    image-side lengths).  Input and output are channels last; the output
+    head runs in the input's dtype at 2-D (float32 for a float32 input even
+    when ``dtype`` is bfloat16) and in float32 at 1-D and 3-D, as JAX's
+    plain head conv does.  ``use_checkpoint`` recomputes every ResBlock and
+    AttentionBlock in the backward."""
 
     def __init__(self, in_channels: int, model_channels: int, out_channels: int,
                  num_res_blocks: int, attention_resolutions: Sequence[int],
@@ -165,12 +220,16 @@ class UNetModel(nn.Module):
                  cfg_null_class: bool = False, num_heads: int = 1,
                  num_heads_upsample: int = -1, use_scale_shift_norm: bool = False,
                  dropout: float = 0.0, dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dims: int = 2,
+                 use_checkpoint: bool = False):
         super().__init__()
+        if dims not in (1, 2, 3):
+            raise ValueError(f"dims must be 1, 2 or 3, got {dims}")
         mc = model_channels
         emb_dim = 4 * mc
         self.model_channels, self.num_classes, self.dtype = mc, num_classes, dtype
         self.cfg_null_class = bool(cfg_null_class)
+        self.dims, self.use_checkpoint = dims, bool(use_checkpoint)
         gen = generator
 
         self.time_embed_1 = Linear(mc, emb_dim, dtype=dtype, generator=gen)
@@ -179,14 +238,15 @@ class UNetModel(nn.Module):
             self.label_emb = nn.Embedding(num_classes + int(cfg_null_class), emb_dim)
             with torch.no_grad():
                 self.label_emb.weight.normal_(0.0, 1.0, generator=gen)
-        self.in_conv = Conv(in_channels, mc, 3, dtype=dtype, generator=gen)
+        self.in_conv = Conv(in_channels, mc, 3, dtype=dtype, generator=gen, dims=dims)
 
         heads_up = num_heads if num_heads_upsample == -1 else num_heads_upsample
 
         def res(name, cin, cout):
             self.add_module(name, ResBlock(cin, cout, emb_dim,
                                            use_scale_shift_norm=use_scale_shift_norm,
-                                           dropout=dropout, dtype=dtype, generator=gen))
+                                           dropout=dropout, dtype=dtype, generator=gen,
+                                           dims=dims))
             return name
 
         def attn(name, ch, heads):
@@ -209,7 +269,8 @@ class UNetModel(nn.Module):
             if level != len(channel_mult) - 1:
                 idx = len(self.encoder)
                 self.add_module(f"down{idx}_0_down",
-                                Downsample(ch, conv_resample, dtype=dtype, generator=gen))
+                                Downsample(ch, conv_resample, dtype=dtype, generator=gen,
+                                           dims=dims))
                 self.encoder.append([f"down{idx}_0_down"])
                 input_chans.append(ch)
                 ds *= 2
@@ -227,13 +288,16 @@ class UNetModel(nn.Module):
                 if level and i == num_res_blocks:
                     name = f"up{idx}_{len(entry)}_up"
                     self.add_module(name, Upsample(ch, conv_resample, dtype=dtype,
-                                                   generator=gen))
+                                                   generator=gen, dims=dims))
                     entry.append(name)
                     ds //= 2
                 self.decoder.append(entry)
 
         self.out_norm = GroupNorm32(ch)
-        self.out_conv = FusedConv3x3(ch, out_channels, zero_init=True)
+        if dims == 2:
+            self.out_conv = FusedConv3x3(ch, out_channels, zero_init=True)
+        else:
+            self.out_conv = Conv(ch, out_channels, 3, zero_init=True, dims=dims)
 
     def _embed(self, timesteps: torch.Tensor, y: Optional[torch.Tensor]) -> torch.Tensor:
         emb = timestep_embedding(timesteps, self.model_channels)
@@ -247,9 +311,19 @@ class UNetModel(nn.Module):
         return emb
 
     def _run(self, h: torch.Tensor, names, emb: torch.Tensor, generator) -> torch.Tensor:
+        remat = self.use_checkpoint and torch.is_grad_enabled()
         for name in names:
             block = getattr(self, name)
-            h = block(h, emb, generator) if isinstance(block, ResBlock) else block(h)
+            if isinstance(block, ResBlock):
+                # drawn here, so a recompute reads the same mask
+                keep = (dropout_mask((*h.shape[:-1], block.out_ch), block.dropout, generator,
+                                     h.device) if block.drops() else None)
+                h = (checkpoint(block, h, emb, keep, use_reentrant=False,
+                                preserve_rng_state=False) if remat else block(h, emb, keep))
+            elif remat and isinstance(block, AttentionBlock):
+                h = checkpoint(block, h, use_reentrant=False, preserve_rng_state=False)
+            else:
+                h = block(h)
         return h
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
@@ -258,7 +332,7 @@ class UNetModel(nn.Module):
                 return_features: bool = False,
                 cache: Optional[Tuple[torch.Tensor, Sequence[torch.Tensor]]] = None,
                 return_cache: bool = False, cache_middle: bool = False):
-        """x: (B, H, W, C) -> (B, H, W, out_channels) in x's dtype.
+        """x: (B, *spatial, C) -> (B, *spatial, out_channels), in x's dtype at 2-D.
         ``generator`` draws the dropout masks (train mode, ``dropout > 0``).
         ``timesteps`` may be fractional (the EDM and flow conditioning).
 
@@ -301,5 +375,33 @@ class UNetModel(nn.Module):
             up.append(h.to(in_dtype))
         if return_features:
             return {"down": down, "middle": middle, "up": up}
-        out = _gn_silu_conv(h.to(in_dtype), self.out_norm, self.out_conv)
+        if self.dims == 2:
+            out = _gn_silu_conv(h.to(in_dtype), self.out_norm, self.out_conv)
+        else:
+            out = self.out_conv(self.out_norm(h.to(in_dtype), silu=True))
         return (out, new_cache) if return_cache else out
+
+
+class SuperResModel(nn.Module):
+    """The UNet conditioned on a low-resolution image: ``low_res`` is
+    resized bilinearly to x's size (in float32, then x's dtype) and
+    concatenated on the channel axis.  Built with the *base*
+    ``in_channels``; the wrapped UNet, the submodule ``unet`` (the Flax
+    tree's ``unet/...``), sees twice as many.  ``low_res`` is the third
+    positional argument, as in the JAX model, so every caller that passes
+    its conditioning as ``model(x, t, y)`` hands the low-res image over;
+    class labels, where the model has classes, go by ``y=``."""
+
+    def __init__(self, in_channels: int, **unet_kwargs):
+        super().__init__()
+        self.unet = UNetModel(in_channels=2 * in_channels, **unet_kwargs)
+        self.num_classes = self.unet.num_classes
+        self.cfg_null_class = self.unet.cfg_null_class
+
+    def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
+                low_res: Optional[torch.Tensor] = None, y: Optional[torch.Tensor] = None,
+                **kwargs):
+        if low_res is None:
+            raise ValueError("SuperResModel requires low_res")
+        up = bilinear_resize(low_res, x.shape[1], x.shape[2]).to(x.dtype)
+        return self.unet(torch.cat([x, up], dim=-1), timesteps, y, **kwargs)

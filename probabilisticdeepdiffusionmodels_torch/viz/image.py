@@ -66,14 +66,19 @@ def compose(rows: Sequence[Sequence[Cell]]) -> np.ndarray:
     return view
 
 
-def curve_tile(values: np.ndarray, h: int, w: int) -> np.ndarray:
+def curve_tile(values: np.ndarray, h: int, w: int, color=CURVE, tile=None,
+               span=None) -> np.ndarray:
     """``values`` as a line on an h x w white tile: index along x, value
-    along y (the largest at the top), over grey axes on the left and bottom."""
-    tile = np.ones((h, w, 3), np.float32)
-    tile[:, 0] = AXES
-    tile[-1, :] = AXES
+    along y (the largest at the top), over grey axes on the left and bottom.
+    ``tile`` draws onto a tile already made (more curves on one panel),
+    ``span`` (lo, hi) fixes the y range (default: the values' own), and
+    ``color`` is the line's RGB."""
+    if tile is None:
+        tile = np.ones((h, w, 3), np.float32)
+        tile[:, 0] = AXES
+        tile[-1, :] = AXES
     v = np.asarray(values, np.float64)
-    lo, hi = float(v.min()), float(v.max())
+    lo, hi = (float(v.min()), float(v.max())) if span is None else map(float, span)
     xs = np.linspace(1, w - 1, len(v))
     ys = (h - 2) * (1.0 - (v - lo) / (hi - lo)) if hi > lo else np.full(len(v), (h - 2) / 2)
     # each segment sampled densely enough to leave no gap between pixels
@@ -82,7 +87,7 @@ def curve_tile(values: np.ndarray, h: int, w: int) -> np.ndarray:
         f = np.linspace(0.0, 1.0, k)
         cols = np.round(xs[a] + f * (xs[a + 1] - xs[a])).astype(int)
         rws = np.round(ys[a] + f * (ys[a + 1] - ys[a])).astype(int)
-        tile[np.clip(rws, 0, h - 2), np.clip(cols, 1, w - 1)] = CURVE
+        tile[np.clip(rws, 0, h - 2), np.clip(cols, 1, w - 1)] = color
     if len(v) == 1:
-        tile[int(round(ys[0])), int(round(xs[0]))] = CURVE
+        tile[int(round(ys[0])), int(round(xs[0]))] = color
     return tile

@@ -24,6 +24,7 @@ from probabilisticdeepdiffusionmodels_torch.logging.sink import RunDir
 from probabilisticdeepdiffusionmodels_torch.train.checkpoint import CheckpointManager
 from probabilisticdeepdiffusionmodels_torch.train.loop import Trainer
 from test_cli import TINY
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = REPO / "probabilisticdeepdiffusionmodels_torch"
@@ -385,17 +386,18 @@ def test_entry_points_need_a_card_unless_asked(tmp_path, monkeypatch, trained_ru
     (["trainer.devices=2"], "item 18"),
     (["trainer.fused_steps=2"], None),
     (["data.device_resident=true"], None),
-    (["data.superres_factor=2"], "item 16"),
+    (["model.name=superres", "data.superres_factor=2"], None),
     (["engine.prediction_type=consistency"], None),
     (["engine.prediction_type=flow"], None),
     (["engine.encoder_reuse=2"], None),
 ], ids=["edm", "devices", "fused_steps", "device_resident", "superres", "consistency", "flow",
         "encoder_reuse"])
 def test_train_cli_refuses_what_is_not_ported(argv, match, tmp_path):
-    """Items 16 and 18 raise; the EDM, consistency and flow objectives, the
-    engine's encoder reuse, fused steps and the device-resident loader run
-    at the tiny size (match None): a consistency run records its CT loss
-    where the others record the NLL test."""
+    """Item 18 raises; the EDM, consistency and flow objectives, the
+    engine's encoder reuse, fused steps, the device-resident loader and
+    super-resolution (item 16, ported) run at the tiny size (match None): a
+    consistency run records its CT loss where the others record the NLL
+    test."""
     args = TINY + CPU + [f"out_dir={tmp_path}", "trainer.max_epochs=1"] + argv
     if match is not None:
         with pytest.raises(NotImplementedError, match=match):

@@ -17,6 +17,7 @@ from probabilisticdeepdiffusionmodels_torch.cli import sample as cli_sample
 from probabilisticdeepdiffusionmodels_torch.cli import train as cli_train
 from probabilisticdeepdiffusionmodels_torch.config import load_config
 from test_cli import TINY
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 CPU = ["device=cpu"]
 # TINY with the composed default visualization (more) and one epoch

@@ -22,6 +22,7 @@ from probabilisticdeepdiffusionmodels_torch.config import CONFIG_DIR, load_confi
 from probabilisticdeepdiffusionmodels_torch.data import DataLoader, get_dataset, unnormalize
 from probabilisticdeepdiffusionmodels_torch.engine import AdamChain, DiffusionEngine
 from probabilisticdeepdiffusionmodels_torch.train import CheckpointManager, TrainState
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 JAX_CONFIG_DIR = REPO / "probabilisticdeepdiffusionmodels_tpu" / "config"

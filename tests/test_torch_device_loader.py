@@ -22,6 +22,7 @@ from probabilisticdeepdiffusionmodels_torch.data import (
     get_dataset,
 )
 from test_cli import TINY
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 TRANSFORMS = [
     dict(normalize="cifar"),

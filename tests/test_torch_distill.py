@@ -42,6 +42,7 @@ from probabilisticdeepdiffusionmodels_torch.train.consistency import (
     make_teacher_denoiser,
 )
 from test_torch_cli import write_run
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 # test_torch_families.py's train-step UNet and schedule: 64 channels, one
 # level, no attention; cosine T = 100
@@ -50,17 +51,6 @@ TRAIN_CFG = dict(name="unet", in_channels=3, model_channels=64, num_res_blocks=1
                  attention_resolutions=[], channel_mult=[1], num_heads=2)
 ENGINE_KW = dict(diffusion_steps=T, mode="cosine", resolution=RES, device="cpu")
 CPU = ["device=cpu"]
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Each test on one intra-op thread, restored after: the suite runs
-    several workers on few cores, where torch's small CPU ops wait longer
-    for their thread pool than they compute (about 10x under that load)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

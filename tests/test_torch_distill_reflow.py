@@ -49,6 +49,7 @@ from probabilisticdeepdiffusionmodels_torch.train.reflow import (
     reflow_student,
 )
 from test_torch_cli import write_run
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 # a 2-level UNet at 8x8 with FiLM conditioning (GroupNorm's groups of one
 # channel would normalise an added embedding away); cosine T = 20
@@ -62,16 +63,6 @@ ENGINE_KW = dict(diffusion_steps=T, mode="cosine", resolution=RES, device="cpu")
 LR = 2e-4
 TOL = 1e-5
 CPU = ["device=cpu"]
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One intra-op thread per test, restored after (the suite runs several
-    workers on few cores)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

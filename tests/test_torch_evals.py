@@ -38,19 +38,9 @@ from probabilisticdeepdiffusionmodels_torch.evals import kid as P_kid
 from probabilisticdeepdiffusionmodels_torch.evals import prd as P_prd
 from test_cli import TINY
 from test_torch_cli import write_run
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 CPU = ["device=cpu"]
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Each test on one intra-op thread, restored after: the suite runs
-    several workers on few cores, where torch's small CPU ops wait longer
-    for their thread pool than they compute (about 10x under that load)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -91,6 +91,7 @@ from probabilisticdeepdiffusionmodels_torch.train.step import (  # noqa: E402
 )
 from test_torch_train import _adam_first_grads  # noqa: E402
 from test_torch_unet import SMALL, _random_flax_params  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 RES = 8
 ONE_LEVEL = dict(SMALL, channel_mult=[1], attention_resolutions=[8])

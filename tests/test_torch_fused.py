@@ -35,6 +35,7 @@ from probabilisticdeepdiffusionmodels_torch.train.checkpoint import CheckpointMa
 from probabilisticdeepdiffusionmodels_torch.train.loop import Trainer
 from probabilisticdeepdiffusionmodels_torch.train.step import CapturedSteps
 from test_cli import TINY
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 RES, B, LR = 8, 4, 1e-3
 CFG = dict(name="unet", in_channels=3, model_channels=16, num_res_blocks=1,
@@ -47,14 +48,6 @@ OPTIONS = {
     "accumulate_2": dict(accumulate_grad_batches=2, grad_clip=0.5),
     "cosine_lr": dict(scheduler_name="CosineAnnealing", scheduler_kwargs=dict(T_max=4)),
 }
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _engine(device="cpu", **kw):

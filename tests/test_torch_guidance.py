@@ -54,6 +54,7 @@ from probabilisticdeepdiffusionmodels_torch.sample import (  # noqa: E402
     space_timesteps,
 )
 from test_torch_unet import SMALL, _random_flax_params  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 RES = 8
 TOL = 1e-4

@@ -36,6 +36,7 @@ from probabilisticdeepdiffusionmodels_torch.engine import DiffusionEngine  # noq
 from probabilisticdeepdiffusionmodels_torch.evals import calculate_likelihood  # noqa: E402
 from probabilisticdeepdiffusionmodels_torch.models import get_model  # noqa: E402
 from test_torch_unet import SMALL, _random_flax_params  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 T_SMALL = 12
 # one level of SMALL, attention at full resolution: the JAX scan compiles fast

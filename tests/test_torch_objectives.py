@@ -73,6 +73,7 @@ from probabilisticdeepdiffusionmodels_torch.train import (  # noqa: E402
 from probabilisticdeepdiffusionmodels_torch.train.step import _vlb_term  # noqa: E402
 from test_torch_train import _adam_first_grads, _jax_draws  # noqa: E402
 from test_torch_unet import SMALL, _random_flax_params  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 T_HELPERS = 50
 # one level, attention at full resolution: the JAX step compiles fast

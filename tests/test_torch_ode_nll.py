@@ -34,6 +34,7 @@ from probabilisticdeepdiffusionmodels_torch.models import get_model
 from probabilisticdeepdiffusionmodels_torch.ops import gn_affine
 from probabilisticdeepdiffusionmodels_torch.ops.autograd import kernel_op
 from test_torch_cli import write_run
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 RES = 8
 GREY = yaml.safe_load((CONFIG_DIR / "model" / "unet_small_grey.yaml").read_text())
@@ -42,17 +43,6 @@ GREY = yaml.safe_load((CONFIG_DIR / "model" / "unet_small_grey.yaml").read_text(
 PROBES = {"flow": 2, "edm": 1}
 FIELDS = ("log_likelihood", "nll_bits_per_dim", "prior_logp", "delta_logp")
 CPU = ["device=cpu"]
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Each test on one intra-op thread, restored after: the suite runs
-    several workers on few cores, where torch's small CPU ops wait longer
-    for their thread pool than they compute (about 10x under that load)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -48,6 +48,7 @@ from probabilisticdeepdiffusionmodels_torch.ops.groupnorm import (
     fused_plan,
     moments_plan,
 )
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 def _t(a):

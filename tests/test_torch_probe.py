@@ -18,6 +18,7 @@ import jax.numpy as jnp
 from jax.experimental import pallas as pl
 
 from probabilisticdeepdiffusionmodels_torch.ops import probe_mma as P
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 _DTYPES = {"float32": (torch.float32, jnp.float32), "bfloat16": (torch.bfloat16, jnp.bfloat16)}

@@ -35,6 +35,7 @@ from probabilisticdeepdiffusionmodels_torch.sample import (
     space_timesteps,
 )
 from test_torch_unet import SMALL, _random_flax_params
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 T = 40
 B, H, W, C = 2, 6, 6, 1

@@ -29,6 +29,7 @@ from probabilisticdeepdiffusionmodels_torch.sample import (
     respaced_schedule,
     space_timesteps,
 )
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 def _assert_same_schedule(ours, ref):

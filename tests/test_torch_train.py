@@ -77,6 +77,7 @@ from probabilisticdeepdiffusionmodels_torch.train import (  # noqa: E402
     sample_importance,
 )
 from test_torch_unet import SMALL, _random_flax_params  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 def _t(a):
@@ -408,7 +409,7 @@ def test_dropout_takes_the_unfused_path(monkeypatch):
     x, t = torch.randn(2, 8, 8, 3), torch.tensor([3, 700])
     n_res = sum(isinstance(m, unet.ResBlock) for m in model.modules())
     fused_calls, dropped = [], []
-    real_fused, real_dropout = unet.gn_silu_conv3x3, unet.dropout
+    real_fused, real_mask, real_masked = unet.gn_silu_conv3x3, unet.dropout_mask, unet.masked
     gen = torch.Generator().manual_seed(11)
 
     def count_fused(*a):
@@ -420,18 +421,22 @@ def test_dropout_takes_the_unfused_path(monkeypatch):
         ref = model.eval()(x, t)
         assert len(fused_calls) == 2 * n_res + 1
         fused_calls.clear()
-        monkeypatch.setattr(unet, "dropout", lambda y, p, g: y)
+        monkeypatch.setattr(unet, "masked", lambda y, keep, p: y)
         same = model.train()(x, t, generator=gen)
         assert len(fused_calls) == n_res + 1
         torch.testing.assert_close(same, ref, rtol=1e-5, atol=1e-5)
 
-        def record(y, p, g):
+        def draw(shape, p, g, device):
             assert g is gen
-            out = real_dropout(y, p, g)
+            return real_mask(shape, p, g, device)
+
+        def record(y, keep, p):
+            out = real_masked(y, keep, p)
             dropped.append((y, out))
             return out
 
-        monkeypatch.setattr(unet, "dropout", record)
+        monkeypatch.setattr(unet, "dropout_mask", draw)
+        monkeypatch.setattr(unet, "masked", record)
         noisy = model(x, t, generator=gen)
     assert len(dropped) == n_res and not torch.equal(noisy, ref)
     zeros = sum(int((out == 0).sum()) for _, out in dropped)
@@ -440,7 +445,7 @@ def test_dropout_takes_the_unfused_path(monkeypatch):
     y, out = dropped[0]
     kept = out != 0
     torch.testing.assert_close(out[kept], y[kept] / 0.7)
-    monkeypatch.setattr(unet, "dropout", real_dropout)
+    monkeypatch.setattr(unet, "dropout_mask", real_mask)
     with pytest.raises(ValueError, match="generator"):
         model(x, t)
 

@@ -24,6 +24,7 @@ from probabilisticdeepdiffusionmodels_torch.convert import (
 )
 from probabilisticdeepdiffusionmodels_torch.models import get_model
 from probabilisticdeepdiffusionmodels_torch.models.layers import Conv
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 CONFIG_DIR = REPO / "probabilisticdeepdiffusionmodels_tpu" / "config" / "model"

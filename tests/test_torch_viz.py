@@ -33,6 +33,7 @@ from probabilisticdeepdiffusionmodels_torch.viz import (  # noqa: E402
 )
 from probabilisticdeepdiffusionmodels_torch.viz import image as viz_image  # noqa: E402
 from test_torch_unet import SMALL, _random_flax_params  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 T = 6
 RES = 8
