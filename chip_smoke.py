@@ -52,10 +52,10 @@
    weights in float32 at batch 256 on the card against the same module on
    the CPU (TF32 off, and on for comparison; the card's resize against the
    CPU's), with its img/s; ``cli.fid_score`` on the cli run (the CIFAR-10
-   UNet at full width, bf16) at 1,024 samples of the 250-step chain (cut
+   UNet at full width, bf16) at 512 samples of the 250-step chain (cut
    from 10,000; synthetic reals) with P&R, KID and IS, its scores, stamp,
    seconds and sampled img/s and the sampler's launches asserted;
-   ``cli.fid_debug`` on 1,024 synthetic images a split; the ODE likelihood
+   ``cli.fid_debug`` on 512 synthetic images a split; the ODE likelihood
    of a flow and an EDM model at full width in float32 (batch 4, 4 Heun
    steps) on the kernels against the plain versions, then ``cli.eval
    ode_nll=true ode_steps=20`` (cut from 100) on one bf16 batch of 128 of a
@@ -92,7 +92,7 @@
    The cli run is deleted after this phase;
 13. the IDDPM configuration through the same entry points (``iddpm_cli``): the
    CIFAR-10 UNet at full width (bf16) under ``engine=cifar10_iddpm`` (cosine,
-   learned sigma, hybrid loss) with its T cut from 1000 to 50, and the
+   learned sigma, hybrid loss) with its T cut from 1000 to 25, and the
    default visualization: ``cli.train`` (10 steps, the four views at the end
    of training, the NLL test), ``cli.sample`` (the four views and the
    detailed panels) and ``cli.eval`` (equal to the run's final test), each
@@ -151,7 +151,21 @@
    site of its bf16 forward against the plain versions, and one bf16
    forward timed with its launches; the dense model
    (``config/model/dense.yaml``) on the card against the same weights on
-   the CPU.
+   the CPU;
+17. data parallelism (``parallel``): A. on a one-rank NCCL group, the
+   plain, data-parallel (``make_mesh(1)``) and FSDP engines at full width
+   (bf16, batch 128, bench_train.py's step) in turns (plain, dp, fsdp,
+   fsdp, dp, plain; 10 steps after 3), img/s, launches a step equal to the
+   plain step's, the all-reduce of the gradient bucket timed by CUDA events,
+   a profiled DP step with no copy to the host, and float32 at batch 8:
+   parameters after 2 steps within 1e-6 of plain; B. two ranks sharing
+   cuda:0 over gloo (``parallel.spawn``), float32, global batch 8: the DP
+   and FSDP steps against one process (1e-5 of the largest parameter), a
+   20-step batch-sharded chain (1e-5), the FID moments of 67 images on the
+   random Inception network (1e-6 relative), each rank's seconds; C.
+   ``cli.train trainer.devices=2`` refused on a one-card machine; D. the
+   native transform (``data/native``) on a CIFAR batch of 128 against numpy,
+   ms and bit for bit (the ``cli`` line names the executor its loaders ran).
 
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Any failure raises and
@@ -230,18 +244,19 @@ NLL_PROFILE_T = 10     # a profiled bf16 NLL batch: the per-t device work and id
 CLI_ROOT = ROOT / "runs" / "chip_smoke_cli"
 FLOW_RUN = CLI_ROOT / "ode" / "ode_flow"  # the evals phase's flow run (T = 100)
 # the evals phase: InceptionV3 in float32 at batch 256 against the CPU;
-# cli.fid_score on the cli run at 1,024 samples (cut from 10,000; synthetic
+# cli.fid_score on the cli run at 512 samples (cut from 10,000; synthetic
 # reals, random Inception weights) of the 250-step chain with P&R, KID and
-# IS; cli.fid_debug on 1,024 synthetic images a split; the ODE likelihood in
+# IS; cli.fid_debug on 512 synthetic images a split; the ODE likelihood in
 # float32 (batch 4, 4 Heun steps) on the kernels against the plain versions,
 # then cli.eval ode_nll=true ode_steps=20 (cut from 100) on one bf16 batch
 # of 128 of a flow and an EDM run (their T cut to 100, the bound's share)
 INCEPTION_BATCH = 256
 INCEPTION_REL_TOL = 1e-4   # float32 features, the card against the CPU (TF32 off)
 RESIZE_TOL = 1e-5          # the card's bilinear resize against the CPU's
-FID_ARGV = ["true", "1024", "250", "", "true", "true", "true"]  # clip n steps devices pr kid is
-FID_SAMPLES, FID_STEPS, FID_MINIBATCH = 1024, 250, 256
-FID_DEBUG_N = 1024
+FID_SAMPLES, FID_STEPS, FID_MINIBATCH = 512, 250, 256
+FID_ARGV = ["true", str(FID_SAMPLES), str(FID_STEPS), "", "true", "true", "true"]  # clip n
+# steps devices pr kid is; 512 a side since PR 11 (1,024 before), for the time limit
+FID_DEBUG_N = 512
 FID_DEBUG_ARGS = ["model=unet", "engine=cifar10", "data=synthetic", f"data.n={FID_DEBUG_N}",
                   "data.batch_size=128"]
 ODE_CHECK_BATCH, ODE_CHECK_STEPS = 4, 4
@@ -279,10 +294,11 @@ DR_TURNS = ("eps", "distill", "reflow", "reflow", "distill", "eps")
 DISTILL_FORWARDS = 3   # two teacher forwards and the student's, one backward
 REFLOW_COUPLINGS, REFLOW_GEN_STEPS = 256, 50
 # the iddpm_cli phase: engine=cifar10_iddpm at full width in bf16 with the
-# default visualization (more); the one cut is T, 1000 to 50 (100 before
-# the model_extras phase came), which keeps its ~1,700 model calls (the
-# views, the detailed panels, two NLL tests) within the time limit
-IDDPM_T = 50
+# default visualization (more); the one cut is T, 1000 to 25 (100 before
+# the model_extras phase came, 50 before the parallel phase), which keeps
+# its ~900 model calls (the views, the detailed panels, two NLL tests)
+# within the time limit
+IDDPM_T = 25
 IDDPM_ARGS = ["model=unet", "model.compute_dtype=bfloat16", "engine=cifar10_iddpm",
               "data=synthetic", "data.n=1280", "data.batch_size=128",
               f"engine.diffusion_steps={IDDPM_T}", "trainer.max_epochs=1",
@@ -1168,6 +1184,8 @@ def cli_phase(torch, ops, smi, bare_passes, out_dir=None):
     cfg = load_config("default", CLI_ARGS)
     train_loader, val_loader = cli_train.build_loaders(cfg)
     n_steps, n_val = len(train_loader), len(val_loader)
+    next(iter(train_loader))
+    executor = train_loader.transform.executor  # the loaders' transform: native or numpy
     batch = int(cfg["data"]["batch_size"])
     grad_per_step = PER_BACKWARD["gn_affine_grad"]
     args = CLI_ARGS + [f"out_dir={root}"]
@@ -1296,6 +1314,7 @@ def cli_phase(torch, ops, smi, bare_passes, out_dir=None):
 
     bare = [p["img_per_s"] for p in bare_passes]
     emit({"phase": "cli", "nvidia_smi": smi, "steps": n_steps, "batch": batch,
+          "transform_executor": executor,
           "val_batches": n_val, "nll_T": NLL_T,
           "train_cli_img_per_s": n_steps * batch / epoch_s, "train_cli_epoch_seconds": epoch_s,
           "bare_train_step_img_per_s": bare, **readings,
@@ -3517,6 +3536,234 @@ def distill_reflow_phase(torch, ops, gen, smi, run_dir, flow_run, out_dir=None):
     return launches
 
 
+# the parallel phase: the data-parallel and FSDP engines at full width
+PAR_TURNS = ("plain", "dp", "fsdp", "fsdp", "dp", "plain")
+PAR_F32_BATCH, PAR_F32_STEPS, PAR_F32_TOL = 8, 2, 1e-6  # one-rank NCCL vs plain, float32
+PAR_GLOO_BATCH = 8          # two gloo ranks on cuda:0: the global batch, float32
+PAR_GLOO_TOL = 1e-5         # of the largest parameter: 2 ranks vs one process
+PAR_CHAIN_STEPS, PAR_CHAIN_TOL = 20, 1e-5
+PAR_FID_IMAGES, PAR_FID_REL_TOL = 64, 1e-6
+NATIVE_BATCH = 128          # the CIFAR batch the native transform is timed on
+
+
+def _engine(mesh=None, mode="replicated", cfg=None):
+    """bench_train.py's engine: linear T=1000, Adam 2e-4, EMA 0.9999."""
+    from probabilisticdeepdiffusionmodels_torch.engine import DiffusionEngine
+
+    return DiffusionEngine(dict(cfg or MODEL_CFG), {"lr": 2e-4}, diffusion_steps=1000,
+                           resolution=RESOLUTION, ema=0.9999, seed=0, device="cuda",
+                           mesh=mesh, param_sharding=mode)
+
+
+def _params(engine):
+    return {k: v.detach().clone() for k, v in engine.params().state_dict().items()}
+
+
+def _max_diff(a, b):
+    return max(float((a[k].float() - b[k].float()).abs().max()) for k in b)
+
+
+def _gloo_ranks(rank, device):
+    """Two ranks sharing one card over gloo: the DP and FSDP steps, the
+    batch-sharded chain and the FID statistics of the full-width model in
+    float32, each held against one process on the card (rank 0 computes
+    that too); each rank's seconds."""
+    import torch
+
+    from probabilisticdeepdiffusionmodels_torch.evals.fid import (_make_feature_fn,
+                                                                  compute_statistics)
+    from probabilisticdeepdiffusionmodels_torch.evals.inception import random_params
+    from probabilisticdeepdiffusionmodels_torch.parallel import make_mesh
+
+    t_start = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(device="cuda")
+    cfg = dict(MODEL_CFG, compute_dtype="float32")
+    gen = torch.Generator().manual_seed(11)
+    xs = [torch.randn(PAR_GLOO_BATCH, RESOLUTION, RESOLUTION, 3, generator=gen)
+          for _ in range(2)]
+    out = {"rank": rank}
+
+    def two_steps(engine):
+        for x in xs:
+            engine.training_step(x)
+        return _params(engine)
+
+    ref = two_steps(_engine(cfg=cfg)) if rank == 0 else None
+    for mode in ("replicated", "fsdp"):
+        got = two_steps(_engine(mesh, mode, cfg))
+        if rank == 0:
+            scale = max(float(v.abs().max()) for v in ref.values())
+            out[f"{mode}_max_abs_diff"] = _max_diff(got, ref)
+            out[f"{mode}_tol"] = PAR_GLOO_TOL * scale
+    del ref
+    chain = _engine(mesh, cfg=cfg).generate_images(n=PAR_GLOO_BATCH, minibatch=PAR_GLOO_BATCH,
+                                                   num_sample_steps=PAR_CHAIN_STEPS, seed=3)
+    if rank == 0:
+        one = _engine(cfg=cfg).generate_images(n=PAR_GLOO_BATCH, minibatch=PAR_GLOO_BATCH,
+                                               num_sample_steps=PAR_CHAIN_STEPS, seed=3)
+        out["chain_max_abs_diff"] = float(abs(chain - one).max())
+        out["chain_finite"] = bool(torch.isfinite(torch.as_tensor(chain)).all())
+    feat = _make_feature_fn(random_params(torch.Generator().manual_seed(0), device="cuda"))
+    images = [torch.rand(PAR_FID_IMAGES // 2 + 3 * i, RESOLUTION, RESOLUTION, 3,
+                         generator=gen).numpy() for i in range(2)]
+    mu, cov = compute_statistics(images, feature_fn=feat, mesh=mesh)
+    if rank == 0:
+        mu1, cov1 = compute_statistics(images, feature_fn=feat)
+        out["fid_images"] = sum(len(b) for b in images)
+        out["fid_mu_rel"] = float(abs(mu - mu1).max() / abs(mu1).max())
+        out["fid_cov_rel"] = float(abs(cov - cov1).max() / abs(cov1).max())
+    seconds = [None, None]
+    import torch.distributed as dist
+
+    dist.all_gather_object(seconds, time.perf_counter() - t_start)
+    out["rank_seconds"] = seconds
+    return out
+
+
+def parallel_phase(torch, ops, smi, out_dir=None):
+    """Data parallelism on the card (``parallel``): A. the plain, DP and
+    FSDP engines on a one-rank NCCL group at full width (bf16, batch 128)
+    in turns, img/s, launches a step, the all-reduce's CUDA-event ms, a
+    profiled DP step with no copy to the host, and float32 at batch 8 against
+    plain; B. two ranks sharing cuda:0 over gloo against one process; C.
+    ``cli.train trainer.devices=2`` refused on a one-card machine; D. the
+    native transform against numpy.  Returns the steps' launches by path."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from probabilisticdeepdiffusionmodels_torch.cli import train as cli_train
+    from probabilisticdeepdiffusionmodels_torch.data.transforms import Transform
+    from probabilisticdeepdiffusionmodels_torch.parallel import make_mesh, spawn
+    from probabilisticdeepdiffusionmodels_torch.parallel.runtime import free_port
+
+    t_phase = time.perf_counter()
+    line = {"phase": "parallel", "nvidia_smi": smi}
+    launches = {}
+
+    # A. one-rank NCCL, full width
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0, device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_mesh(1, device="cuda")
+        engines = {"plain": _engine(), "dp": _engine(mesh), "fsdp": _engine(mesh, "fsdp")}
+        gen = torch.Generator(device="cuda").manual_seed(12)
+        xb = torch.randn(TRAIN_BATCH, RESOLUTION, RESOLUTION, 3, device="cuda", generator=gen)
+        expected = expected_counts(TRAIN_STEPS, True)
+        img_s = {name: [] for name in engines}
+        for name in PAR_TURNS:
+            engine = engines[name]
+            for _ in range(TRAIN_WARMUP):
+                engine.training_step(xb)
+            torch.cuda.synchronize()
+            ops.reset()
+            t_start = time.perf_counter()
+            for _ in range(TRAIN_STEPS):
+                metrics = engine.training_step(xb)
+            torch.cuda.synchronize()
+            img_s[name].append(TRAIN_BATCH * TRAIN_STEPS / (time.perf_counter() - t_start))
+            if ops.counts() != expected:
+                raise AssertionError(f"{name} step launches {ops.counts()} != {expected}")
+            launches[f"{name}_step_bf16"] = ops.counts()
+            if not math.isfinite(float(metrics["loss"])):
+                raise AssertionError(f"{name} step loss {float(metrics['loss'])}")
+        line["img_per_s"] = img_s
+        line["launches_per_pass"] = launches["dp_step_bf16"]
+        # the bucket one step all-reduces: every gradient and the loss
+        n_params = sum(p.numel() for p in engines["dp"].state.model.parameters())
+        bucket = torch.zeros(n_params + 1, device="cuda")
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        for _ in range(3):
+            dist.all_reduce(bucket)
+        events[0].record()
+        for _ in range(10):
+            dist.all_reduce(bucket)
+        events[1].record()
+        torch.cuda.synchronize()
+        line["all_reduce"] = {"bytes": bucket.numel() * 4, "ms": events[0].elapsed_time(events[1])
+                              / 10}
+        prof = profile_device(torch, lambda: engines["dp"].training_step(xb), top=15)
+        kernels = prof.pop("all")
+        to_host = [k for k in kernels if "DtoH" in k["name"]]
+        line["dp_step_profile"] = dict(prof, collective=[k for k in kernels
+                                                         if "nccl" in k["name"].lower()])
+        if to_host:
+            raise AssertionError(f"the DP step copies to the host: {to_host}")
+        del engines, bucket
+        torch.cuda.empty_cache()
+
+        # float32 at batch 8: parameters after 2 steps against plain
+        torch.backends.cudnn.deterministic = True
+        try:
+            cfg32 = dict(MODEL_CFG, compute_dtype="float32")
+            x8 = [torch.randn(PAR_F32_BATCH, RESOLUTION, RESOLUTION, 3, device="cuda",
+                              generator=gen) for _ in range(PAR_F32_STEPS)]
+            after = {}
+            for name, engine in (("plain", _engine(cfg=cfg32)), ("dp", _engine(mesh, cfg=cfg32)),
+                                 ("fsdp", _engine(mesh, "fsdp", cfg32))):
+                for x in x8:
+                    engine.training_step(x)
+                after[name] = _params(engine)
+                del engine
+            line["f32_max_abs_diff"] = {name: _max_diff(after[name], after["plain"])
+                                        for name in ("dp", "fsdp")}
+            line["f32_tol"] = PAR_F32_TOL
+            if not max(line["f32_max_abs_diff"].values()) <= PAR_F32_TOL:
+                raise AssertionError(f"one-rank float32: {line['f32_max_abs_diff']}")
+            del after
+        finally:
+            torch.backends.cudnn.deterministic = False
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # B. two ranks on cuda:0 over gloo
+    t_start = time.perf_counter()
+    gloo = spawn(_gloo_ranks, 2, (), device="cuda:0", backend="gloo", join_timeout=400)
+    gloo["seconds"] = time.perf_counter() - t_start
+    line["gloo_2_ranks"] = gloo
+    for mode in ("replicated", "fsdp"):
+        if not gloo[f"{mode}_max_abs_diff"] <= gloo[f"{mode}_tol"]:
+            raise AssertionError(f"2 gloo ranks, {mode}: {gloo}")
+    if not (gloo["chain_max_abs_diff"] <= PAR_CHAIN_TOL and gloo["chain_finite"]
+            and max(gloo["fid_mu_rel"], gloo["fid_cov_rel"]) <= PAR_FID_REL_TOL):
+        raise AssertionError(f"2 gloo ranks: {gloo}")
+
+    # C. more ranks than cards
+    try:
+        cli_train.main(CLI_ARGS + ["trainer.devices=2", f"out_dir={CLI_ROOT}_dp"])
+        raise AssertionError("cli.train trainer.devices=2 ran on a one-card machine")
+    except RuntimeError as e:
+        line["cli_devices_2"] = str(e).splitlines()[0]
+    if torch.cuda.device_count() != 1 or "CUDA devices" not in line["cli_devices_2"]:
+        raise AssertionError(f"cli.train trainer.devices=2: {line['cli_devices_2']}")
+
+    # D. the native transform against numpy on a CIFAR batch
+    raw = np.random.default_rng(0).integers(0, 256, (NATIVE_BATCH, RESOLUTION, RESOLUTION, 3),
+                                            dtype=np.uint8)
+    tf = Transform(flip=True, crop=True, crop_size=32, crop_padding=4, normalize="cifar")
+    timing = {}
+    for executor, native in (("native", True), ("numpy", False), ("native", True)):
+        t_start = time.perf_counter()
+        for i in range(20):
+            out = tf(raw, np.random.default_rng(i), use_native=native)
+        timing.setdefault(executor, []).append((time.perf_counter() - t_start) / 20 * 1e3)
+        if tf.executor != executor:
+            raise AssertionError(f"asked for {executor}, ran {tf.executor}")
+    same = np.array_equal(tf(raw, np.random.default_rng(0)).view(np.uint32),
+                          tf(raw, np.random.default_rng(0), use_native=False).view(np.uint32))
+    line["native_transform"] = {"batch": NATIVE_BATCH, "ms": timing, "bit_for_bit": same}
+    if not same:
+        raise AssertionError("the native transform differs from numpy")
+    line["seconds"] = time.perf_counter() - t_phase
+    emit(line)
+    if out_dir is not None:
+        (out_dir / "parallel.json").write_text(json.dumps(line, indent=1))
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", type=pathlib.Path, default=None,
@@ -3708,6 +3955,10 @@ def main(argv=None) -> int:
 
     # 16. super-resolution, use_checkpoint, the 1-D and 3-D UNets, the dense model
     cli_launches.update(model_extras_phase(torch, F, ops, gen, smi, per_site, args.out))
+
+    # 17. data parallelism: DP and FSDP on a one-rank NCCL group, two gloo
+    # ranks on one card, the CLI's devices, the native transform
+    cli_launches.update(parallel_phase(torch, ops, smi, args.out))
 
     if args.out is not None:
         (args.out / "chip_smoke_sites.json").write_text(json.dumps(

@@ -5,9 +5,9 @@ PyTorch counterpart of ``probabilisticdeepdiffusionmodels_tpu/cli/fid_debug.py``
 
     python -m probabilisticdeepdiffusionmodels_torch.cli.fid_debug data=cifar10
 
-``device`` (null: cuda) places the Inception forward; a mesh
-(``trainer.devices`` other than null or 1) raises, ROADMAP.md Queue 1
-item 18.
+``device`` (null: cuda) places the Inception forward; ``trainer.devices=N``
+computes the statistics sharded over N ranks (``cli.train.run_on_devices``),
+rank 0 printing.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import sys
 
 from ..config import load_config
 from ..evals.fid import compute_fid_for_loaders
-from .train import build_loaders, check_devices
+from .train import build_loaders, mesh_runtime, run_on_devices
 
 __all__ = ["main"]
 
@@ -24,12 +24,19 @@ __all__ = ["main"]
 def main(argv=None):
     argv = argv if argv is not None else sys.argv[1:]
     cfg = load_config("default", argv)
-    check_devices((cfg.get("trainer") or {}).get("devices"))
+    return run_on_devices(_floor, (cfg.get("trainer") or {}).get("devices"), cfg.get("device"),
+                          cfg)
+
+
+def _floor(device, cfg) -> int:
+    """One rank's floor (the only one off a mesh)."""
+    mesh, runtime = mesh_runtime(device)
     train_loader, val_loader = build_loaders(cfg)
     normalize = (cfg["data"].get("transformation_kwargs") or {}).get("normalize")
-    fid = compute_fid_for_loaders(train_loader, val_loader, normalize=normalize,
-                                  device=cfg.get("device"))
-    print(f"FID floor (train vs val): {fid}")
+    fid = compute_fid_for_loaders(train_loader, val_loader, normalize=normalize, device=device,
+                                  mesh=mesh)
+    if runtime.is_main:
+        print(f"FID floor (train vs val): {fid}")
     return 0
 
 

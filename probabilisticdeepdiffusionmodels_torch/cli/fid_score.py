@@ -12,8 +12,9 @@ default.  ``num_sample_steps`` is an int (respacing) or a spec
 ("karras50", "10,20,20").  ``pr`` (default true) adds improved precision
 and recall, ``kid`` (default false) the Kernel Inception Distance, ``is``
 (default false) the Inception Score, each on the first 4096 feature rows
-of a side.  ``devices`` other than empty or 1 (a mesh) raises: ROADMAP.md
-Queue 1 item 18.  An argument ``device=cpu`` anywhere runs on the CPU (the
+of a side.  ``devices`` (an int or ``all``) samples and computes the
+statistics sharded over that many ranks (``cli.train.run_on_devices``), rank
+0 printing.  An argument ``device=cpu`` anywhere runs on the CPU (the
 default is cuda).
 
 The weights' stamp is printed on every path: ``ported:<md5>`` means
@@ -30,7 +31,7 @@ import time
 from ..evals.fid import compute_fid_from_engine
 from ..evals.inception import load_params
 from .sample import load_engine_from_run
-from .train import build_loaders
+from .train import build_loaders, mesh_runtime, run_on_devices
 
 __all__ = ["main"]
 
@@ -55,8 +56,15 @@ def main(argv=None):
     with_kid = (argv[6].lower() == "true") if len(argv) > 6 else False
     with_is = (argv[7].lower() == "true") if len(argv) > 7 else False
 
-    engine, run_cfg = load_engine_from_run(run_dir, clip_while_generating=clip,
-                                           devices=devices, device=device)
+    return run_on_devices(_score, devices, device, run_dir, clip, n_samples, num_steps, with_pr,
+                          with_kid, with_is)
+
+
+def _score(device, run_dir, clip, n_samples, num_steps, with_pr, with_kid, with_is) -> int:
+    """One rank's scoring run (the only one off a mesh)."""
+    mesh, runtime = mesh_runtime(device)
+    engine, run_cfg = load_engine_from_run(run_dir, clip_while_generating=clip, device=device,
+                                           mesh=mesh)
     _, val_loader = build_loaders(run_cfg)
     normalize = (run_cfg["data"].get("transformation_kwargs") or {}).get("normalize")
 
@@ -71,6 +79,8 @@ def main(argv=None):
         inception_params=inception_params, inception_provenance=provenance,
     )
     wall = time.perf_counter() - t0
+    if not runtime.is_main:
+        return 0
     extras = with_pr or with_kid or with_is
     fid = m["fid"] if extras else m
     print(f"FID: {fid} (run={run_dir} clip={clip} n={n_samples})")

@@ -29,8 +29,11 @@ panels are skipped with a notice.
     python -m probabilisticdeepdiffusionmodels_torch.cli.sample \\
         run_dir=runs/run-xyz sampler=dpmpp num_sample_steps=20
 
-``device`` (null: cuda) places the engine; ``devices`` (a mesh) is not
-ported yet and raises (ROADMAP.md Queue 1 item 18).
+``device`` (null: cuda) places the engine; ``devices=N`` (or ``all``)
+samples batch-sharded on N ranks (``cli.train.run_on_devices``: spawned
+ranks on ``cuda:r``, or a launch declared in the environment), rank 0
+writing the images; the run's own ``trainer.devices`` is ignored, so a
+checkpoint of N ranks samples on one device.
 """
 
 from __future__ import annotations
@@ -46,29 +49,35 @@ from ..data.transforms import unnormalize
 from ..train.checkpoint import CheckpointManager
 from ..viz.hooks import VisualizationCallback, _to_img
 from ..viz.image import compose, write_png
-from .train import build_engine, build_loaders, check_devices
+from .train import build_engine, build_loaders, mesh_runtime, run_on_devices
 
 __all__ = ["run_sampling", "run_detailed_viz", "run_inpaint_panel", "main",
            "load_engine_from_run", "write_png"]
 
 
-def load_engine_from_run(run_path, clip_while_generating=None, use_best=True, devices=None,
-                         device=None):
+def load_engine_from_run(run_path, clip_while_generating=None, use_best=True, device=None,
+                         mesh=None):
     """The engine of a run directory, rebuilt from its config snapshot on
-    ``device`` (the caller's choice, not the training run's), with its best
-    checkpoint (``use_best``) or its latest loaded; returns (engine, config)."""
+    ``device`` (the caller's choice, not the training run's) and ``mesh``
+    (the caller's), with its best checkpoint (``use_best``) or its latest
+    loaded; returns (engine, config)."""
     run_path = Path(run_path)
     with open(run_path / "experiment_config.yaml") as f:
         cfg = yaml.safe_load(f)
     if clip_while_generating is not None:
         cfg["engine"]["clip_while_generating"] = bool(clip_while_generating)
-    check_devices(devices)
     cfg.setdefault("trainer", {})["devices"] = 1
     cfg["device"] = device
-    engine = build_engine(cfg)
+    engine = build_engine(cfg, mesh=mesh)
     ckpt = CheckpointManager(run_path / "checkpoints")
     ckpt.restore(engine.state, ckpt.best_step() if use_best else None)
     return engine, cfg
+
+
+def _writes(engine) -> bool:
+    """Whether this rank writes the images: the mesh's main rank (an engine
+    that does not say is the only one)."""
+    return getattr(engine, "is_main", True)
 
 
 def run_detailed_viz(engine, cfg, media_dir: Path, normalize, n_images: int = 4) -> list:
@@ -95,8 +104,9 @@ def run_detailed_viz(engine, cfg, media_dir: Path, normalize, n_images: int = 4)
                     for i, row in enumerate(rows):
                         row.append((_to_img(recon[i], normalize), None))
             path = media_dir / f"detailed_t0_{t0}.png"
-            write_png(path, compose(rows)[None], pad=0)
-            print(f"[sample] wrote {path}")
+            if _writes(engine):
+                write_png(path, compose(rows)[None], pad=0)
+                print(f"[sample] wrote {path}")
             paths.append(path)
     finally:
         engine.clip_while_generating = orig_clip
@@ -155,8 +165,9 @@ def run_inpaint_panel(engine, cfg, run_cfg, media_dir: Path, normalize) -> Path:
     rows = [[(_to_img(img, normalize), None) for img in imgs]
             for imgs in (x0, masked, out.float().cpu().numpy())]
     path = media_dir / f"inpaint_{spec}.png"
-    write_png(path, compose(rows)[None], pad=0)
-    print(f"[sample] wrote {path}")
+    if _writes(engine):
+        write_png(path, compose(rows)[None], pad=0)
+        print(f"[sample] wrote {path}")
     return path
 
 
@@ -167,8 +178,14 @@ def run_sampling(cfg) -> dict:
         raise ValueError("pass run_dir=<path to a training run>")
     if cfg.get("guidance_rescale") is not None and cfg.get("guidance_scale") is None:
         raise ValueError("guidance_rescale needs guidance_scale")
+    return run_on_devices(_sample, cfg.get("devices"), cfg.get("device"), cfg)
+
+
+def _sample(device, cfg) -> dict:
+    """One rank's sampling run (the only one off a mesh)."""
+    mesh, _ = mesh_runtime(device)
     engine, run_cfg = load_engine_from_run(cfg["run_dir"], cfg.get("clip_while_generating"),
-                                           devices=cfg.get("devices"), device=cfg.get("device"))
+                                           device=device, mesh=mesh)
     media_dir = Path(cfg["run_dir"]) / "media"
     media_dir.mkdir(exist_ok=True)
     normalize = (run_cfg["data"].get("transformation_kwargs") or {}).get("normalize")
@@ -221,8 +238,9 @@ def run_sampling(cfg) -> dict:
         name = f"fast_{sampler}_{steps or 'full'}" + (f"_cfg{float(gs):g}" if gs is not None
                                                       else "")
         path = media_dir / f"{name}.png"
-        write_png(path, unnormalize(images, normalize=normalize, clip=True))
-        print(f"[sample] wrote {path}")
+        if _writes(engine):
+            write_png(path, unnormalize(images, normalize=normalize, clip=True))
+            print(f"[sample] wrote {path}")
         result.update(path=str(path), images=images)
 
     if (cfg.get("inpaint", False) or cfg.get("detailed_viz", False)) and no_eps_view:

@@ -22,18 +22,33 @@ the dataset on the run's device (``data.DeviceDataLoader``);
 a card (``engine.training_steps``).  ``model.name=superres
 data.superres_factor=f`` trains the super-resolution model on the loaders'
 (x, f-times-smaller x) pairs; its run draws no views (they sample without
-the low-res input; the JAX CLI would stop on them).  Not ported yet, and
-raising: a mesh (``trainer.devices`` other than null/1, ROADMAP.md Queue 1
-item 18).
+the low-res input; the JAX CLI would stop on them).
+
+``trainer.devices=N`` (or ``all``, every card) trains data-parallel on N
+ranks, as Lightning's DDP spawn does for the reference's
+``pl.Trainer(gpus=N)``: N processes (``parallel.spawn``), rank r on
+``cuda:r`` (or all on the CPU with ``device=cpu``), one mesh over them
+(``engine.param_sharding`` replicated or fsdp); the global batch stays
+``data.batch_size``, every rank loads it and runs its 1/N.  Rank 0 writes
+the run's metrics, media, config snapshot and checkpoints; the call returns
+its result.  A launch declared in the environment (``PDDM_*`` or
+``torchrun``'s ``WORLD_SIZE``/``RANK``/``MASTER_*``) keeps JAX's
+multi-host meaning: every process joins one mesh and loads its own disjoint
+shard of the data.  More cards than the machine has raise;
+``trainer.devices=DxM`` and ``trainer.fused_steps`` on a mesh raise
+(ROADMAP.md Queue 1 item 21).
 """
 
 from __future__ import annotations
 
 import json
+import os
 import sys
+import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import load_config
 from ..data.datasets import DataLoader, get_dataset
@@ -41,17 +56,22 @@ from ..data.device_loader import DeviceDataLoader
 from ..engine import DiffusionEngine
 from ..logging.sink import MetricLogger, RunDir, auto_tags
 from ..models import resolve_device
+from ..parallel import (RuntimeInfo, initialize_runtime, make_mesh, runtime_from_env,
+                        spawn)
 from ..train.checkpoint import CheckpointManager
 from ..train.loop import Trainer
 from ..viz.hooks import VisualizationCallback
 
-__all__ = ["build_loaders", "build_engine", "run_training", "main"]
+__all__ = ["build_loaders", "build_engine", "run_training", "main", "device_count",
+           "run_on_devices"]
 
 
-def build_loaders(cfg):
+def build_loaders(cfg, shard_id: int = 0, num_shards: int = 1):
     """(train, val) loaders of the config's data group; the val loader's
     seed is the run seed + 1.  With ``data.device_resident`` both hold
-    their dataset on the config's ``device`` (``DeviceDataLoader``)."""
+    their dataset on the config's ``device`` (``DeviceDataLoader``).
+    ``shard_id`` / ``num_shards``: this process's disjoint shard of every
+    epoch (a multi-process launch declared in the environment)."""
     data_cfg = dict(cfg["data"])
     name = data_cfg.pop("name")
     data_cfg.pop("num_workers", None)
@@ -65,22 +85,72 @@ def build_loaders(cfg):
     train_ds = get_dataset(name, train=True, resolution=resolution, **extra)
     val_ds = get_dataset(name, train=False, resolution=resolution, **extra)
     seed = int(cfg.get("seed", 0) or 0)
+    kw.update(shard_id=shard_id, num_shards=num_shards)
     train_loader = loader_cls(train_ds, train=True, seed=seed, **data_cfg, **kw)
     val_loader = loader_cls(val_ds, train=False, seed=seed + 1, **data_cfg, **kw)
     return train_loader, val_loader
 
 
-def check_devices(devices) -> None:
-    """One device only: ``trainer.devices`` null or 1."""
-    if devices not in (None, 1, "1"):
-        raise NotImplementedError(f"trainer.devices={devices!r}: a device mesh is not ported "
-                                  "yet (ROADMAP.md Queue 1 item 18)")
+def device_count(devices, device=None) -> int:
+    """The ranks ``devices`` asks for: null or 1 one, an int N, ``all``
+    every card (one on the CPU).  ``DxM`` (a data x model mesh) raises."""
+    if devices in (None, "", 1, "1"):
+        return 1
+    if "x" in str(devices):
+        raise NotImplementedError(f"devices={devices!r}: a data x model mesh (tensor "
+                                  "parallelism) is not ported yet (ROADMAP.md Queue 1 item 21)")
+    if str(devices) == "all":
+        return torch.cuda.device_count() if resolve_device(device).type == "cuda" else 1
+    return int(devices)
 
 
-def build_engine(cfg, steps_per_epoch=None) -> DiffusionEngine:
-    """The engine of a composed config, on the config's ``device``."""
+def _rank_device(device, rank: int) -> torch.device:
+    """This process's device in a launch declared in the environment:
+    ``cuda:LOCAL_RANK`` (torchrun's; else the rank modulo the cards)."""
+    dev = resolve_device(device)
+    if dev.type != "cuda" or dev.index is not None:
+        return dev
+    local = int(os.environ.get("LOCAL_RANK", rank % torch.cuda.device_count()))
+    torch.cuda.set_device(local)
+    return torch.device("cuda", local)
+
+
+def _spawned(rank: int, device: torch.device, fn, args):
+    return fn(device, *args)
+
+
+def run_on_devices(fn, devices, device, *args):
+    """``fn(device, *args)`` on the ranks ``devices`` asks for: in this
+    process alone (one rank), in the process group of a launch declared in
+    the environment (joined here), or in ``devices`` spawned ranks; rank
+    0's result.  Inside ``fn`` a process group exists exactly when there is
+    more than one rank (``make_mesh()`` spans it)."""
+    n = device_count(devices, device)
+    runtime = runtime_from_env()
+    if runtime.is_distributed:
+        if n not in (1, runtime.process_count) and str(devices) != "all":
+            raise ValueError(f"devices={devices!r} but the launch has "
+                             f"{runtime.process_count} processes")
+        dev = _rank_device(device, runtime.process_index)  # before NCCL's rendezvous
+        initialize_runtime(device=dev)
+        return fn(dev, *args)
+    if n == 1:
+        return fn(resolve_device(device), *args)
+    return spawn(_spawned, n, (fn, args), device=device)
+
+
+def mesh_runtime(device) -> tuple:
+    """(mesh or None, RuntimeInfo) of this rank inside ``run_on_devices``."""
+    if not dist.is_initialized():
+        return None, RuntimeInfo()
+    return make_mesh(device=device), RuntimeInfo(dist.get_rank(), dist.get_world_size(),
+                                                  "process group")
+
+
+def build_engine(cfg, steps_per_epoch=None, mesh=None) -> DiffusionEngine:
+    """The engine of a composed config, on the config's ``device`` (and
+    ``mesh``)."""
     trainer = cfg.get("trainer") or {}
-    check_devices(trainer.get("devices"))
     scheduler = dict(cfg.get("scheduler") or {})
     return DiffusionEngine(
         model_config=dict(cfg["model"]),
@@ -92,6 +162,7 @@ def build_engine(cfg, steps_per_epoch=None) -> DiffusionEngine:
         steps_per_epoch=steps_per_epoch,
         watch=bool(trainer.get("watch")),
         device=cfg.get("device"),
+        mesh=mesh,
         **dict(cfg["engine"]),
     )
 
@@ -99,14 +170,38 @@ def build_engine(cfg, steps_per_epoch=None) -> DiffusionEngine:
 def run_training(cfg) -> dict:
     # refuse what cannot run before the run directory is made
     resolve_device(cfg.get("device"))
-    check_devices((cfg.get("trainer") or {}).get("devices"))
-    run_dir = RunDir(cfg.get("out_dir", "./runs"), cfg.get("run_name"))
-    run_dir.save_config(cfg)
-    logger = MetricLogger(run_dir, use_wandb=bool(cfg.get("use_wandb")))
-    print(f"[train] run dir: {run_dir.path}  tags: {auto_tags(cfg)}")
+    trainer = cfg.get("trainer") or {}
+    n = device_count(trainer.get("devices"), cfg.get("device"))
+    if n > 1 or runtime_from_env().is_distributed:
+        if int(trainer.get("fused_steps", 0) or 0) >= 2:
+            raise NotImplementedError("trainer.fused_steps on a mesh is not ported yet "
+                                      "(ROADMAP.md Queue 1 item 21)")
+    return run_on_devices(_train, trainer.get("devices"), cfg.get("device"), cfg)
 
-    train_loader, val_loader = build_loaders(cfg)
-    engine = build_engine(cfg, steps_per_epoch=len(train_loader))
+
+def _train(device: torch.device, cfg) -> dict:
+    """One rank's run (the only one off a mesh)."""
+    cfg = dict(cfg, device=str(device))
+    mesh, runtime = mesh_runtime(device)
+    if mesh is not None:
+        # one run directory for every rank: rank 0's name
+        name = [cfg.get("run_name") or f"run-{time.strftime('%Y%m%d-%H%M%S')}"]
+        dist.broadcast_object_list(name, src=0)
+        cfg["run_name"] = name[0]
+    run_dir = RunDir(cfg.get("out_dir", "./runs"), cfg.get("run_name"))
+    if runtime.is_main:
+        run_dir.save_config(cfg)
+    logger = MetricLogger(run_dir, use_wandb=bool(cfg.get("use_wandb")) and runtime.is_main,
+                          enabled=runtime.is_main)
+    print(f"[train] run dir: {run_dir.path}  tags: {auto_tags(cfg)}"
+          + (f"  rank {runtime.process_index}/{runtime.process_count}"
+             if runtime.is_distributed else ""))
+
+    # a launch declared in the env: each process loads its own shard (JAX's
+    # multi-host meaning); spawned ranks load the same global batches
+    shards = runtime_from_env()
+    train_loader, val_loader = build_loaders(cfg, shards.process_index, shards.process_count)
+    engine = build_engine(cfg, steps_per_epoch=len(train_loader), mesh=mesh)
 
     resume_from = cfg.get("cont_run")
     if cfg.get("auto_resume") and not resume_from:
@@ -171,8 +266,9 @@ def run_training(cfg) -> dict:
     test_metrics = {k: float(np.mean(v)) for k, v in test_metrics.items()}
     logger.log(test_metrics, step=result["steps"])
     print(f"[train] done: {result} test: {test_metrics}")
-    (run_dir.path / "final_test.json").write_text(
-        json.dumps({**result, **test_metrics}, default=float))
+    if runtime.is_main:
+        (run_dir.path / "final_test.json").write_text(
+            json.dumps({**result, **test_metrics}, default=float))
     logger.close()
     return {**result, **test_metrics, "run_dir": str(run_dir.path)}
 

@@ -28,6 +28,10 @@ lacks, and every shape that differs, before loading.
 tree (nested dicts of arrays): each conv's HWIO ``w`` becomes OIHW, its
 folded ``scale`` and ``shift`` and the ``fc`` head ([in, out]) stay as they
 are.
+
+``flax_layout(model)`` gives each port parameter's Flax shape and where
+each Flax axis lives in the port's tensor, for the placement rules that
+pick an axis by shape (``parallel.mesh``).
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["params_from_flax", "load_flax_params", "inception_from_jax"]
+__all__ = ["params_from_flax", "load_flax_params", "inception_from_jax", "flax_layout"]
 
 _FUSED_CONVS = ("in_conv", "out_conv")
 
@@ -124,11 +128,14 @@ def load_flax_params(model: torch.nn.Module, params: Mapping) -> torch.nn.Module
     return model
 
 
-def inception_from_jax(params: Mapping, device="cpu"):
+def inception_from_jax(params: Mapping, device=None):
     """The JAX Inception param tree -> the port's ``FIDInceptionV3`` on
-    ``device``; a missing, left-over or misshapen leaf raises (strict
-    ``load_state_dict``)."""
+    ``device`` (None: cuda, which raises without a card); a missing,
+    left-over or misshapen leaf raises (strict ``load_state_dict``)."""
     from .evals.inception import FIDInceptionV3
+    from .models import resolve_device
+
+    device = resolve_device(device)
 
     state = {}
     for path, value in _flatten(params):
@@ -138,3 +145,40 @@ def inception_from_jax(params: Mapping, device="cpu"):
     model = FIDInceptionV3(fc="fc" in params)
     model.load_state_dict(state, strict=True)
     return model.to(device)
+
+
+def flax_layout(model: torch.nn.Module) -> Dict[str, tuple]:
+    """For each parameter of ``model``: (its Flax shape, and for each Flax
+    axis the port's axis holding it, None for an axis the port drops).
+
+    The inverse of ``params_from_flax``'s layout changes, read from the
+    module that owns the parameter: a fused conv's (3, 3, Cout, Cin) is
+    Flax's (3, 3, Cin, Cout), a plain conv's (Cout, Cin, k...) is (k...,
+    Cin, Cout), an attention ``qkv``/``proj`` Linear (out, in) is the 1-wide
+    conv (1, in, out), any other Linear (out, in) is the dense (in, out);
+    every other parameter keeps its shape.  A rule that picks an axis by
+    shape (``parallel.fsdp_sharding``, ``tp_sharding``) must read the Flax
+    shape: on the port's, a square conv would split Cin where JAX splits
+    Cout."""
+    from .models.layers import Conv, FusedConv3x3, Linear
+
+    out = {}
+    for mod_name, mod in model.named_modules():
+        path = tuple(mod_name.split(".")) if mod_name else ()
+        for leaf, p in mod.named_parameters(recurse=False):
+            key = f"{mod_name}.{leaf}" if mod_name else leaf
+            shape = tuple(p.shape)
+            axes = tuple(range(len(shape)))
+            if leaf == "weight" and isinstance(mod, FusedConv3x3):
+                shape, axes = (shape[0], shape[1], shape[3], shape[2]), (0, 1, 3, 2)
+            elif leaf == "weight" and isinstance(mod, Conv):
+                nd = len(shape)
+                shape = (*shape[2:], shape[1], shape[0])
+                axes = (*range(2, nd), 1, 0)
+            elif leaf == "weight" and isinstance(mod, Linear):
+                if _is_token_linear(path):
+                    shape, axes = (1, shape[1], shape[0]), (None, 1, 0)
+                else:
+                    shape, axes = (shape[1], shape[0]), (1, 0)
+            out[key] = (shape, axes)
+    return out

@@ -17,6 +17,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..parallel import mesh as P
+
 __all__ = ["FlowConfig", "TIME_SCALE", "sample_t", "interpolate", "flow_time_grid",
            "vp_t_to_flow_t"]
 
@@ -38,10 +40,10 @@ def sample_t(generator: Optional[torch.Generator], batch: int, cfg: FlowConfig,
              device=None) -> torch.Tensor:
     """Per-sample training times in (0, 1), [B] float32, from ``generator``."""
     if cfg.t_dist == "lognorm":
-        z = torch.randn(batch, generator=generator, device=device)
+        z = P.randn((batch,), generator=generator, device=device)
         return torch.sigmoid(cfg.logit_mean + cfg.logit_std * z)
     if cfg.t_dist == "uniform":
-        u = torch.rand(batch, generator=generator, device=device)
+        u = P.rand((batch,), generator=generator, device=device)
         return torch.clamp(u, 1e-5, 1.0 - 1e-5)
     raise ValueError(f"unknown t_dist {cfg.t_dist!r} (lognorm | uniform)")
 

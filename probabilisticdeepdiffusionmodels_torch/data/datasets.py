@@ -17,6 +17,8 @@ Loader semantics kept from the reference:
   * shuffle defaults to the train flag
   * ``superres_factor=f`` yields (x, low) pairs, ``low`` the f x f area
     mean of the transformed x, for the SuperResModel's ``low_res``
+  * ``shard_id`` / ``num_shards``: each process of a multi-process launch
+    loads its own disjoint shard of every epoch
 
 Batches are numpy; the train loop moves them to the device
 (``train/loop.py::prefetch_to_device``).
@@ -266,7 +268,9 @@ def get_dataset(name: str, train: bool = True, root: Optional[Path] = None,
 class DataLoader:
     """Batched iterator: shuffle defaults to train; optional fixed-size
     with-replacement epochs via num_samples_per_epoch; (image, label)
-    batches, or (image, low-res image) with ``superres_factor``."""
+    batches, or (image, low-res image) with ``superres_factor``.
+    ``shard_id`` / ``num_shards``: every shard draws the same epoch order
+    (seeded identically) and takes ``order[shard_id::num_shards]``."""
 
     def __init__(
         self,
@@ -278,8 +282,12 @@ class DataLoader:
         shuffle: Optional[bool] = None,
         seed: int = 0,
         drop_last: bool = True,
+        shard_id: int = 0,
+        num_shards: int = 1,
         superres_factor: Optional[int] = None,
     ):
+        if not 0 <= shard_id < num_shards:
+            raise ValueError(f"shard_id {shard_id} outside [0, num_shards={num_shards})")
         self.dataset = dataset
         self.batch_size = batch_size
         self.train = train
@@ -288,10 +296,13 @@ class DataLoader:
         self.shuffle = train if shuffle is None else shuffle
         self.rng = np.random.default_rng(seed)
         self.drop_last = drop_last
+        self.shard_id = shard_id
+        self.num_shards = num_shards
         self.superres_factor = int(superres_factor) if superres_factor else None
 
     def __len__(self):
         n = self.num_samples_per_epoch or len(self.dataset)
+        n = (n - self.shard_id + self.num_shards - 1) // self.num_shards
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def epoch(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
@@ -302,6 +313,8 @@ class DataLoader:
             order = self.rng.permutation(n)
         else:
             order = np.arange(n)
+        if self.num_shards > 1:
+            order = order[self.shard_id::self.num_shards]
 
         bs = self.batch_size
         stop = len(order) - (len(order) % bs if self.drop_last else 0)

@@ -35,8 +35,8 @@ class DeviceDataLoader:
     Raises for what needs host work per sample: a file-backed dataset (one
     with ``.load``), super-resolution pairs, non-uint8 images, and unknown
     ``transformation_kwargs`` keys (as the host ``Transform`` would).
-    ``shard_id`` / ``num_shards`` raise until the host loader has them
-    (ROADMAP.md Queue 1 item 18)."""
+    ``shard_id`` / ``num_shards`` take the host loader's shard of every
+    epoch, ``order[shard_id::num_shards]``."""
 
     def __init__(self, dataset, batch_size: int, train: bool = True,
                  transformation_kwargs: Optional[dict] = None,
@@ -49,9 +49,8 @@ class DeviceDataLoader:
         if hasattr(dataset, "load"):
             raise ValueError("DeviceDataLoader needs an in-memory ArrayDataset (file-backed "
                              "datasets stream through the host DataLoader)")
-        if shard_id or num_shards != 1:
-            raise NotImplementedError("DeviceDataLoader shard_id/num_shards (a data-parallel "
-                                      "mesh) is not ported yet (ROADMAP.md Queue 1 item 18)")
+        if not 0 <= shard_id < num_shards:
+            raise ValueError(f"shard_id {shard_id} outside [0, num_shards={num_shards})")
         tk = dict(transformation_kwargs or {})
         unknown = set(tk) - _TRANSFORM_KEYS
         if unknown:
@@ -67,6 +66,8 @@ class DeviceDataLoader:
         self.shuffle = train if shuffle is None else shuffle
         self.rng = np.random.default_rng(seed)
         self.drop_last = drop_last
+        self.shard_id = shard_id
+        self.num_shards = num_shards
         # Transform's flag resolution
         self.flip = bool(tk.get("flip", False)) and train
         self.crop = bool(tk.get("crop", False)) and (train or bool(tk.get("eval_random_crop",
@@ -82,6 +83,7 @@ class DeviceDataLoader:
 
     def __len__(self):
         n = self.num_samples_per_epoch or self._n
+        n = (n - self.shard_id + self.num_shards - 1) // self.num_shards
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _batch(self, idx: torch.Tensor, flips: Optional[np.ndarray], rows: Optional[np.ndarray],
@@ -117,6 +119,8 @@ class DeviceDataLoader:
             order = self.rng.permutation(self._n)
         else:
             order = np.arange(self._n)
+        if self.num_shards > 1:
+            order = order[self.shard_id::self.num_shards]
         bs = self.batch_size
         stop = len(order) - (len(order) % bs if self.drop_last else 0)
         h = self._data.shape[1] + 2 * self.crop_padding

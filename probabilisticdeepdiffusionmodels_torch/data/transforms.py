@@ -1,9 +1,11 @@
 """Image transforms with the reference's semantics, NHWC numpy.
 
 PyTorch-port copy of ``probabilisticdeepdiffusionmodels_tpu/data/transforms.py``
-on its numpy executor (the ctypes C++ executor of ``data/native/`` is not
-ported yet), with the same random draws in the same order, so a seeded
-loader yields the same batches in both packages:
+with both of its executors: the one-pass C++ one of ``data/native/`` (the
+default for uint8 images) and numpy (``use_native=False``, or float
+images), which give the same bits.  The random draws are made here, before
+either runs, in JAX's order, so a seeded loader yields the same batches in
+both packages:
   * RandomHorizontalFlip (p=0.5) when flip and train;
   * RandomCrop(crop_size, padding) when crop; the reference applies a
     *random* crop at eval time too, kept behind ``eval_random_crop=True``
@@ -60,10 +62,15 @@ class Transform:
         self.crop_size = crop_size
         self.crop_padding = crop_padding
         self.norm = resolve_normalization(normalize)
+        self.executor = None
 
-    def __call__(self, images: np.ndarray, rng: np.random.Generator) -> np.ndarray:
+    def __call__(self, images: np.ndarray, rng: np.random.Generator,
+                 use_native: bool = True) -> np.ndarray:
         """images: [B, H, W, C] uint8 (or float in [0,255]).  The flip flags
-        are drawn first, then the crop rows, then the crop columns."""
+        are drawn first, then the crop rows, then the crop columns.  uint8
+        images go through the native executor unless ``use_native`` is
+        False (a failed build raises); ``executor`` names the one that ran
+        last."""
         assert images.ndim == 4, images.shape
         b = images.shape[0]
 
@@ -76,6 +83,17 @@ class Transform:
             cs = self.crop_size
             ys = rng.integers(0, h - cs + 1, size=b).astype(np.int32)
             xs = rng.integers(0, w - cs + 1, size=b).astype(np.int32)
+
+        if use_native and images.dtype == np.uint8:
+            from .native import transform_batch_native
+
+            mean, std = self.norm if self.norm is not None else (
+                np.zeros(1, np.float32), np.ones(1, np.float32))
+            self.executor = "native"
+            return transform_batch_native(
+                images, None if flip_flags is None else flip_flags.astype(np.int32),
+                self.crop, self.crop_padding, self.crop_size, ys, xs, mean, std)
+        self.executor = "numpy"
         return self._apply_numpy(images, flip_flags, ys, xs)
 
     def _apply_numpy(self, images, flip_flags, ys, xs) -> np.ndarray:

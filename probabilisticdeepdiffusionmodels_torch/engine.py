@@ -27,9 +27,20 @@ SuperResModel, whose conditioning ``y`` is the low-res image every
 endpoint hands its ``low_res``, or the dense model.  Training runs the raw
 model; the table-driven samplers, the NLL and the endpoints run its eps view
 (``sample.make_{v,x0,edm,flow}_to_eps_apply_fn``; a consistency model has
-none), the native samplers and the ODE likelihood the raw model.  The
-device mesh (``mesh``, ``param_sharding``, ``shard_mode``) raises
-``NotImplementedError`` naming ROADMAP.md Queue 1 item 18.
+none), the native samplers and the ODE likelihood the raw model.
+
+On a data mesh (``mesh=parallel.make_mesh(N)``, one engine per rank, every
+rank making the same calls) the state is replicated
+(``param_sharding="replicated"``) or fully sharded (``"fsdp"``, leaves of
+``fsdp_min_size`` elements or more split 1/N: ``parallel.sync``), and
+``training_step``, ``validation_step``, ``generate_images``, ``inpaint``,
+``ddim_invert`` and ``test_step`` take the GLOBAL batch: each rank runs its
+contiguous 1/N of it, every draw made at the global shape
+(``parallel.mesh.batch_shard``), and returns what one device returns (the
+images all-gathered, the losses summed).  The other endpoints run the whole
+batch on every rank.  ``param_sharding="tp"``, ``shard_mode="spatial"``, a
+mesh with a ``model`` axis and ``training_steps`` on a mesh raise
+``NotImplementedError`` naming ROADMAP.md Queue 1 item 21.
 """
 
 from __future__ import annotations
@@ -50,6 +61,8 @@ from .core.schedules import NoiseSchedule, rescale_zero_terminal_snr
 from .evals.nll import calculate_likelihood
 from .evals.ode_nll import edm_ode_nll, flow_ode_nll
 from .models import SuperResModel, get_model, resolve_device
+from .parallel import mesh as P
+from .parallel.sync import MeshSync
 from .sample.sampler import (
     consistency_sample_loop,
     ddim_invert_loop,
@@ -143,11 +156,13 @@ def make_lr_schedule(scheduler_name: Optional[str], scheduler_kwargs: Optional[d
     raise ValueError(f"Unknown scheduler: {scheduler_name}")
 
 
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
-    """optax's form: unchanged when the global norm is below ``max_norm``,
-    else ``(g / norm) * max_norm``; no ``+1e-6`` as in
-    ``torch.nn.utils.clip_grad_norm_``.  Decided on the device (no sync)."""
-    norm = global_norm(grads)
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        norm: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+    """optax's form: unchanged when the global norm (``norm``, default that
+    of ``grads``) is below ``max_norm``, else ``(g / norm) * max_norm``; no
+    ``+1e-6`` as in ``torch.nn.utils.clip_grad_norm_``.  Decided on the
+    device (no sync)."""
+    norm = global_norm(grads) if norm is None else norm
     keep = norm < max_norm
     return [torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm) for g in grads]
 
@@ -190,6 +205,9 @@ class AdamChain:
         self.acc = [torch.zeros_like(p) for p in self.params] if self.k > 1 else None
         self.generation = 0
         self._table = None  # (device table [K, 2], next row) while graph updates are on
+        # the global norm of the gradients it is given, where they are
+        # shards of a mesh's (parallel.sync.MeshSync.grad_norms)
+        self.norm_fn = None
 
     @torch.no_grad()
     def step(self) -> None:
@@ -206,7 +224,8 @@ class AdamChain:
                 return
             grads, self.mini_step = self.acc, 0
         if self.grad_clip:
-            grads = clip_by_global_norm(grads, self.grad_clip)
+            norm = None if self.norm_fn is None else self.norm_fn(grads)
+            grads = clip_by_global_norm(grads, self.grad_clip, norm)
         if self._table is not None:
             self.table_update(grads)
         else:
@@ -400,10 +419,18 @@ class DiffusionEngine:
             reuse_exact_tail=reuse_exact_tail, reuse_sigma_boost=reuse_sigma_boost,
             reuse_prior_noise=reuse_prior_noise, reuse_cache_middle=reuse_cache_middle,
             param_sharding=param_sharding)
-        for name, value, off in (("mesh", mesh, (None,)),
-                                 ("param_sharding", param_sharding, ("replicated",))):
-            if value not in off:
-                raise NotImplementedError(f"{name}={value!r} {_later(18)}")
+        if param_sharding not in ("replicated", "fsdp", "tp"):
+            raise ValueError(f'param_sharding must be "replicated", "fsdp" or "tp", got '
+                             f"{param_sharding!r}")
+        if param_sharding == "tp":
+            raise NotImplementedError(f'param_sharding="tp" {_later(21)}')
+        if param_sharding == "fsdp" and mesh is None:
+            raise ValueError('param_sharding="fsdp" requires a mesh')
+        if mesh is not None and P.MODEL_AXIS in (mesh.mesh_dim_names or ()):
+            raise NotImplementedError(f"a mesh with a {P.MODEL_AXIS!r} axis {_later(21)}")
+        self.mesh = mesh
+        self.param_sharding = param_sharding
+        self.fsdp_min_size = int(fsdp_min_size)
         if prediction_type in ("edm", "flow", "consistency"):
             # the continuous-time objectives carry their own time density
             # and weighting, and have no learned-sigma head
@@ -478,11 +505,19 @@ class DiffusionEngine:
                               float(optimizer_config.get("lr", 1e-4)),
                               steps_per_epoch=steps_per_epoch)
         opt_kwargs = {k: v for k, v in optimizer_config.items() if k != "lr"}
-        optimizer = AdamChain(self.model.parameters(), lr, grad_clip=grad_clip,
-                              accumulate_grad_batches=accumulate_grad_batches, **opt_kwargs)
+        # every rank seeds its generator the same: the draws are global
         generator = torch.Generator(self.device).manual_seed(seed + 1)
-        self.state = TrainState(self.model, optimizer, diffusion_steps, generator,
-                                ema_decay=ema)
+        self.state = TrainState(self.model, None, diffusion_steps, generator, ema_decay=ema)
+        params = self.model.parameters()
+        if mesh is not None:
+            sync = self.state.sync = MeshSync(mesh, self.model, self.state.ema_model,
+                                              mode=param_sharding, min_size=self.fsdp_min_size)
+            params = sync.optimizer_params(self.model)
+        self.state.optimizer = AdamChain(params, lr, grad_clip=grad_clip,
+                                         accumulate_grad_batches=accumulate_grad_batches,
+                                         **opt_kwargs)
+        if mesh is not None and self.state.sync.sharded:
+            self.state.optimizer.norm_fn = self.state.sync.grad_norms
         common = dict(watch=watch, class_dropout_prob=self.class_dropout_prob,
                       null_class=self.model.num_classes if self.class_dropout_prob else None)
         if prediction_type == "edm":
@@ -525,9 +560,11 @@ class DiffusionEngine:
         """The module holding the EMA weights (``use_ema``, where the engine
         keeps an EMA) or the live ones; the port's parameters live in their
         module where JAX returns a parameter tree."""
-        if use_ema and self.state.ema_model is not None:
-            return self.state.ema_model
-        return self.state.model
+        which = "ema" if use_ema and self.state.ema_model is not None else "model"
+        if self.state.sync is not None:
+            # the FSDP working copy, gathered (every rank calls this)
+            self.state.sync.materialize(which)
+        return self.state.ema_model if which == "ema" else self.state.model
 
     def _inference(self, use_ema: bool) -> Callable:
         """The weights' module in eval mode, as an eps model: wrapped in the
@@ -550,11 +587,49 @@ class DiffusionEngine:
             return torch.as_tensor(y, dtype=torch.float32, device=self.device)
         return torch.as_tensor(y, device=self.device).long()
 
+    # ------------ the data mesh
+
+    @property
+    def is_main(self) -> bool:
+        """Whether this is the rank that writes: rank 0 of the mesh, or the
+        only one."""
+        return self.mesh is None or self.state.sync.index == 0
+
+    def _check_mesh_batch(self, batch_size: int, hint: str) -> None:
+        """Raise, before any work, where the mesh's data axis does not divide
+        the batch."""
+        if self.mesh is not None and batch_size % self.state.sync.size:
+            raise ValueError(f"batch size {batch_size} must be divisible by the mesh's "
+                             f"{self.state.sync.size} data-axis devices ({hint})")
+
+    def _local(self, *arrays, hint: str = "pad or chunk the batch"):
+        """This rank's contiguous rows of each global-batch array (None
+        stays None); everything as it is off a mesh."""
+        if self.mesh is None:
+            return arrays
+        for a in arrays:
+            if a is not None:
+                self._check_mesh_batch(a.shape[0], hint)
+        return tuple(P.shard_batch(self.mesh, a) for a in arrays)
+
+    def _whole(self, x: torch.Tensor) -> torch.Tensor:
+        """The ranks' rows of a result gathered into the global batch."""
+        return x if self.mesh is None else self.state.sync.all_gather_rows(x)
+
     # ------------ training
 
-    def training_step(self, x, y=None) -> Dict[str, torch.Tensor]:
-        """One optimizer step on batch ``x``; the metrics stay on the device."""
-        return self._train_step(self.state, self._batch(x), self._cond(y))
+    def training_step(self, x, y=None, **draws) -> Dict[str, torch.Tensor]:
+        """One optimizer step on batch ``x``; the metrics stay on the device.
+        ``draws`` (the step's ``t``, ``noise``, ``sigma``, ``index``, ``z``)
+        may be injected, each [B, ...] of the global batch."""
+        x, y = self._batch(x), self._cond(y)
+        if self.mesh is None:
+            return self._train_step(self.state, x, y, **draws)
+        x, y, *values = self._local(x, y, *(torch.as_tensor(v, device=self.device)
+                                           for v in draws.values()),
+                                    hint="adjust data.batch_size")
+        with P.batch_shard(self.mesh):
+            return self._train_step(self.state, x, y, **dict(zip(draws, values)))
 
     def training_steps(self, xs, ys=None) -> Dict[str, torch.Tensor]:
         """K train steps on the stacked batches ``xs`` [K, B, ...] (and labels
@@ -564,6 +639,8 @@ class DiffusionEngine:
         phase), on the CPU K eager steps, the same as K ``training_step``
         calls (``train.step.make_fused_train_step``).  The metrics come back
         stacked, [K] each, on the device."""
+        if self.mesh is not None:
+            raise NotImplementedError(f"training_steps (fused steps) on a mesh {_later(21)}")
         if self._fused_step is None:
             self._fused_step = make_fused_train_step(self._train_step)
         return self._fused_step(self.state, self._batch(xs), self._cond(ys))
@@ -576,13 +653,19 @@ class DiffusionEngine:
         if generator is None:
             self._val_counter += 1
             generator = torch.Generator(self.device).manual_seed(self._val_counter)
-        x, y = self._batch(x), self._cond(y)
-        draws = self._eval_step.draw(generator, x)
-        out = {"val_loss_no_ema": self._eval_step(self.state.model, generator, x, y, **draws)}
-        if self.state.ema_model is not None:
-            out["val_loss"] = self._eval_step(self.state.ema_model, generator, x, y, **draws)
-        else:
-            out["val_loss"] = out.pop("val_loss_no_ema")
+        x, y = self._local(self._batch(x), self._cond(y))
+        with P.batch_shard(self.mesh):
+            draws = self._eval_step.draw(generator, x)
+            out = {"val_loss_no_ema": self._eval_step(self.state.model, generator, x, y,
+                                                      **draws)}
+            if self.state.ema_model is not None:
+                out["val_loss"] = self._eval_step(self.state.ema_model, generator, x, y,
+                                                  **draws)
+            else:
+                out["val_loss"] = out.pop("val_loss_no_ema")
+        if self.mesh is not None:
+            # each rank's value is its share of the global batch's mean
+            out = dict(zip(out, self.state.sync.all_sum(torch.stack(list(out.values())))))
         return out
 
     # ------------ forward process
@@ -674,8 +757,11 @@ class DiffusionEngine:
         injected draws, chunked on axis 1) the steps' draws; ``y`` ([>= n])
         are class labels.  All three wrap around to pad the last chunk.
         """
+        if shard_mode == "spatial":
+            raise NotImplementedError(f'shard_mode="spatial" {_later(21)}')
         if shard_mode != "batch":
-            raise NotImplementedError(f"shard_mode={shard_mode!r} {_later(18)}")
+            raise ValueError(f'shard_mode must be "batch" or "spatial", got {shard_mode!r}')
+        self._check_mesh_batch(minibatch, "minibatch")
         native = bool(edm or flow or consistency)
         if sum((bool(ddim), bool(dpm_solver), bool(heun), bool(edm), bool(flow),
                 bool(consistency))) > 1:
@@ -777,19 +863,26 @@ class DiffusionEngine:
             if not takes_noise:
                 raise ValueError(f"{loop.__name__} is deterministic: it takes no noise")
             noise = self._batch(noise)
-        shape = (minibatch, *(self.resolution,) * self.dims, self.in_channels)
+        # on a mesh each rank runs its contiguous rows of every chunk, its
+        # draws cut from the chunk's (batch_shard)
+        rank, ranks = (0, 1) if self.mesh is None else (self.state.sync.index,
+                                                         self.state.sync.size)
+        rows = minibatch // ranks
+        shape = (rows, *(self.resolution,) * self.dims, self.in_channels)
         images = []
         for i in range(-(-n // minibatch)):
-            idx = torch.arange(i * minibatch, (i + 1) * minibatch, device=self.device)
-            if x_T is not None:
-                x_t = x_T[idx % x_T.shape[0]]
-            else:
-                x_t = torch.randn(shape, generator=generator, device=self.device)
-            if takes_noise:
-                kw["noise"] = None if noise is None else noise[:, idx % noise.shape[1]]
-            x = loop(model_fn, tables, x_t, generator, timestep_map=tmap,
-                     y=None if y is None else y[idx % y.shape[0]], **kw)
-            images.append(x.float().cpu().numpy())
+            lo = i * minibatch + rank * rows
+            idx = torch.arange(lo, lo + rows, device=self.device)
+            with P.batch_shard(self.mesh):
+                if x_T is not None:
+                    x_t = x_T[idx % x_T.shape[0]]
+                else:
+                    x_t = P.randn(shape, generator=generator, device=self.device)
+                if takes_noise:
+                    kw["noise"] = None if noise is None else noise[:, idx % noise.shape[1]]
+                x = loop(model_fn, tables, x_t, generator, timestep_map=tmap,
+                         y=None if y is None else y[idx % y.shape[0]], **kw)
+            images.append(self._whole(x).float().cpu().numpy())
         return np.concatenate(images, axis=0)[:n]
 
     def ddim_invert(self, x0, use_ema: bool = True, y=None, num_sample_steps=None,
@@ -802,9 +895,10 @@ class DiffusionEngine:
         if t_end is not None and not 1 <= int(t_end) <= n_steps:
             raise ValueError(f"t_end={t_end} outside the chain (1..{n_steps}"
                              + (" respaced units)" if tmap is not None else ")"))
-        return ddim_invert_loop(self._inference(use_ema), tables, self._batch(x0),
-                                t_end=None if t_end is None else int(t_end),
-                                y=self._cond(y), timestep_map=tmap)
+        x0, y = self._local(self._batch(x0), self._cond(y))
+        return self._whole(ddim_invert_loop(self._inference(use_ema), tables, x0,
+                                            t_end=None if t_end is None else int(t_end),
+                                            y=y, timestep_map=tmap))
 
     def inpaint(self, x0, mask, seed: Optional[int] = None, use_ema: bool = True, y=None,
                 num_sample_steps=None, resample_steps: int = 1, guidance_scale=None,
@@ -819,15 +913,30 @@ class DiffusionEngine:
         x0, mask = self._batch(x0), self._batch(mask)
         generator = self._generator(seed)
         tables, tmap, _ = self._sample_tables(num_sample_steps)
-        x_t = (self._batch(x_T) if x_T is not None
-               else torch.randn(x0.shape, generator=generator, device=self.device))
         interval = self._validate_cfg(guidance_scale, guidance_interval, y)
         model_fn = self._guided(self._inference(use_ema), guidance_scale, interval)
-        return inpaint_sample_loop(
-            model_fn, tables, x_t, generator, x0_known=x0, mask=mask,
-            sigma_mode=self.sigma_mode, clip=self.clip_while_generating, y=self._cond(y),
-            timestep_map=tmap, resample_steps=int(resample_steps),
-            noise=None if noise is None else self._batch(noise))
+        if self.mesh is not None:
+            # a mask with the batch axis is cut with it; a batchless one
+            # broadcasts on every rank
+            batched = mask.ndim == x0.ndim and mask.shape[0] == x0.shape[0] > 1
+            if noise is not None:
+                # [T, R, 3, B, ...]: the batch is axis 3
+                noise = self._batch(noise).movedim(3, 0)
+            x0, y, x_T, noise, m = self._local(x0, self._cond(y), x_T, noise,
+                                               mask if batched else None)
+            mask = m if batched else mask
+            noise = None if noise is None else noise.movedim(0, 3)
+        else:
+            y = self._cond(y)
+        with P.batch_shard(self.mesh):
+            x_t = (self._batch(x_T) if x_T is not None
+                   else P.randn(x0.shape, generator=generator, device=self.device))
+            out = inpaint_sample_loop(
+                model_fn, tables, x_t, generator, x0_known=x0, mask=mask,
+                sigma_mode=self.sigma_mode, clip=self.clip_while_generating, y=y,
+                timestep_map=tmap, resample_steps=int(resample_steps),
+                noise=None if noise is None else self._batch(noise))
+        return self._whole(out)
 
     def get_feature_vectors(self, x, t, y=None, use_ema: bool = False) -> Dict[str, Any]:
         """The model's activations, ``{"down": [...], "middle": ..., "up":
@@ -984,9 +1093,16 @@ class DiffusionEngine:
                 p.requires_grad_(w)
 
     def test_step(self, x, seed: int = 0, use_ema: bool = True, y=None) -> Dict[str, float]:
-        nll = self.calculate_likelihood(x, seed=seed, use_ema=use_ema, y=y)
+        """The batch means of the discrete bound's terms and the MSE; on a
+        mesh each rank scores its rows on its share of the draws and the
+        means are averaged over the ranks."""
+        x, y = self._local(self._batch(x), self._cond(y))
+        with P.batch_shard(self.mesh):
+            nll = self.calculate_likelihood(x, seed=seed, use_ema=use_ema, y=y)
         names = {"test_L_0": "L_0", "test_L_intermediate": "L_intermediate",
                  "test_L_T": "L_T", "test_nll": "nll", "test_mse": "MSE"}
+        means = torch.stack([nll[k].mean() for k in names.values()])
+        if self.mesh is not None:
+            means = self.state.sync.all_sum(means) / self.state.sync.size
         # one read of the device for the five means
-        values = torch.stack([nll[k].mean() for k in names.values()]).tolist()
-        return dict(zip(names, values))
+        return dict(zip(names, means.tolist()))

@@ -14,8 +14,12 @@ copy of JAX's).
     each side;
   * ``compute_fid_for_loaders``: the FID of two real splits (the floor).
 
-The sharded statistics of a device mesh (JAX's ``MeshActivationStats``)
-raise: ROADMAP.md Queue 1 item 18.
+On a data mesh (``MeshActivationStats``, ``compute_statistics(mesh=)``,
+and ``compute_fid_from_engine`` with an engine on one) every rank gets the
+same batches, computes the features of its contiguous rows (the last batch
+padded to the ranks, the padding weighted 0), accumulates the moments on
+its device in float64, and the ranks' moments are summed once, at the end,
+by one float64 all-reduce.
 """
 
 from __future__ import annotations
@@ -36,9 +40,6 @@ __all__ = [
     "compute_fid_from_engine",
     "compute_fid_for_loaders",
 ]
-
-_MESH = "is not ported yet (ROADMAP.md Queue 1 item 18)"
-
 
 class ActivationStats:
     """Running first and second moments of pool features, float64 on the
@@ -66,10 +67,52 @@ class ActivationStats:
 
 
 class MeshActivationStats:
-    """JAX's statistics sharded over a device mesh."""
+    """The moments of ``feature_fn``'s features sharded over ``mesh``'s data
+    axis; see the module docstring.  ``finalize`` is collective."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"MeshActivationStats {_MESH}")
+    def __init__(self, feature_fn: Callable, mesh):
+        from ..parallel.mesh import mesh_axis
+
+        self.index, self.size, self.group = mesh_axis(mesh)
+        self._feature_fn = feature_fn
+        self._state = None  # (s [d], ss [d, d], n []) float64 on the features' device
+
+    def update(self, x01) -> None:
+        x01 = np.asarray(x01, np.float32)
+        b = x01.shape[0]
+        pad = (-b) % self.size
+        w = np.ones(b + pad, np.float64)
+        if pad:
+            x01 = np.concatenate([x01, np.zeros((pad,) + x01.shape[1:], x01.dtype)])
+            w[b:] = 0.0
+        rows = (b + pad) // self.size
+        lo = self.index * rows
+        f = self._feature_fn(torch.from_numpy(np.ascontiguousarray(x01[lo:lo + rows])))
+        f = torch.as_tensor(f).to(torch.float64)
+        wt = torch.as_tensor(w[lo:lo + rows], device=f.device)
+        fw = f * wt[:, None]
+        if self._state is None:
+            d = f.shape[-1]
+            self._state = [torch.zeros(d, dtype=torch.float64, device=f.device),
+                           torch.zeros((d, d), dtype=torch.float64, device=f.device),
+                           torch.zeros((), dtype=torch.float64, device=f.device)]
+        s, ss, n = self._state
+        s += fw.sum(dim=0)
+        ss += fw.T @ fw
+        n += wt.sum()
+
+    def finalize(self) -> Tuple[np.ndarray, np.ndarray]:
+        import torch.distributed as dist
+
+        s, ss, n = self._state
+        d = s.shape[0]
+        pack = torch.cat([s, ss.reshape(-1), n.reshape(1)])
+        dist.all_reduce(pack, group=self.group)
+        pack = pack.cpu().numpy()
+        s, ss, n = pack[:d], pack[d:d + d * d].reshape(d, d), pack[-1]
+        mu = s / n
+        cov = (ss - n * np.outer(mu, mu)) / (n - 1)
+        return mu, cov
 
 
 def frechet_distance(mu1, cov1, mu2, cov2, eps: float = 1e-6) -> float:
@@ -113,14 +156,18 @@ def compute_statistics(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """(mu, cov) of the features of ``batches``, NHWC float images in [0, 1]
     (``feature_fn`` default: the Inception pool features, the weights from
-    ``load_params`` where none are given)."""
-    if mesh is not None:
-        raise NotImplementedError(f"mesh statistics {_MESH}")
+    ``load_params`` where none are given); with ``mesh`` sharded over its
+    data axis (``MeshActivationStats``; every rank passes the same batches)."""
     if feature_fn is None:
         inception_params = (
             inception_params if inception_params is not None else load_params()
         )
         feature_fn = _make_feature_fn(inception_params)
+    if mesh is not None:
+        mstats = MeshActivationStats(feature_fn, mesh)
+        for b in batches:
+            mstats.update(b)
+        return mstats.finalize()
     stats = ActivationStats()
     for b in batches:
         stats.update(_host(feature_fn(torch.from_numpy(np.ascontiguousarray(b, np.float32)))))
@@ -210,8 +257,11 @@ def compute_fid_from_engine(
         if need_real:
             real_gen = tee(real_gen, "real")
 
-    mu_f, cov_f = compute_statistics(fake_gen, feature_fn=feat)
-    mu_r, cov_r = compute_statistics(real_gen, feature_fn=feat)
+    # on the engine's mesh the sampling (generate_images) and the
+    # statistics are both sharded
+    mesh = getattr(engine, "mesh", None)
+    mu_f, cov_f = compute_statistics(fake_gen, feature_fn=feat, mesh=mesh)
+    mu_r, cov_r = compute_statistics(real_gen, feature_fn=feat, mesh=mesh)
     fid = frechet_distance(mu_f, cov_f, mu_r, cov_r)
     if not extras:
         return fid
@@ -237,14 +287,17 @@ def compute_fid_from_engine(
 
 
 def compute_fid_for_loaders(loader1, loader2, normalize=None, limit: int = 16384,
-                            inception_params=None, device=None) -> float:
+                            inception_params=None, device=None, mesh=None) -> float:
     """The FID of two real loaders' first ``limit`` images (the floor a
     model's FID is read against); the weights from ``load_params`` on
-    ``device`` (None: cuda) where none are given."""
+    ``device`` (None: cuda) where none are given; the statistics sharded
+    over ``mesh`` where one is given."""
     inception_params = (
         inception_params if inception_params is not None else load_params(device=device)
     )
     feat = _make_feature_fn(inception_params)
-    mu1, cov1 = compute_statistics(_real_batches(loader1, normalize, limit), feature_fn=feat)
-    mu2, cov2 = compute_statistics(_real_batches(loader2, normalize, limit), feature_fn=feat)
+    mu1, cov1 = compute_statistics(_real_batches(loader1, normalize, limit), feature_fn=feat,
+                                   mesh=mesh)
+    mu2, cov2 = compute_statistics(_real_batches(loader2, normalize, limit), feature_fn=feat,
+                                   mesh=mesh)
     return frechet_distance(mu1, cov1, mu2, cov2)

@@ -285,8 +285,9 @@ def _convs(module: torch.nn.Module):
     return [(name, m) for name, m in module.named_modules() if isinstance(m, _Conv)]
 
 
-def params_from_torch_state_dict(sd, device="cpu") -> FIDInceptionV3:
-    """The module of a pytorch-fid InceptionV3 ``state_dict``: BatchNorm
+def params_from_torch_state_dict(sd, device=None) -> FIDInceptionV3:
+    """The module of a pytorch-fid InceptionV3 ``state_dict``, on ``device``
+    (None: cuda, which raises without a card): BatchNorm
     folded in numpy float32 as JAX folds it, scale = gamma / sqrt(var +
     eps), shift = beta - mean * scale; conv weights stay OIHW; the torch
     Linear ``fc`` ([out, in]) stored [in, out]."""
@@ -304,7 +305,7 @@ def params_from_torch_state_dict(sd, device="cpu") -> FIDInceptionV3:
     if model.fc is not None:
         model.fc.w.copy_(sd["fc.weight"].T)
         model.fc.b.copy_(sd["fc.bias"])
-    return model.to(device)
+    return model.to(resolve_device(device))
 
 
 def random_params(generator: Optional[torch.Generator] = None, device=None) -> FIDInceptionV3:

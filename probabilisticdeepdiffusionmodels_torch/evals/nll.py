@@ -24,6 +24,7 @@ import torch
 
 from ..core import diffusion as D
 from ..core.diffusion import DiffusionTables
+from ..parallel import mesh as P
 
 __all__ = ["calculate_likelihood"]
 
@@ -61,7 +62,7 @@ def calculate_likelihood(
     def draw(i: int) -> torch.Tensor:
         if noise is not None:
             return noise[i]
-        return torch.randn(x0.shape, generator=generator, device=x0.device, dtype=x0.dtype)
+        return P.randn(x0.shape, generator=generator, device=x0.device, dtype=x0.dtype)
 
     def t_full(value: int) -> torch.Tensor:
         return torch.full((b,), value, dtype=torch.long, device=x0.device)

@@ -56,11 +56,14 @@ class MetricLogger:
     """Console + JSONL metric logging; optional wandb mirroring."""
 
     def __init__(self, run_dir: RunDir, use_wandb: bool = False,
-                 wandb_kwargs: Optional[dict] = None):
+                 wandb_kwargs: Optional[dict] = None, enabled: bool = True):
+        """``enabled=False`` makes every call a no-op: the non-main ranks of
+        a data-parallel run use it, so the run writes one metrics stream."""
         self.run_dir = run_dir
-        self._f = open(run_dir.path / "metrics.jsonl", "a")
+        self.enabled = enabled
+        self._f = open(run_dir.path / "metrics.jsonl", "a") if enabled else None
         self._wandb = None
-        if use_wandb:
+        if use_wandb and enabled:
             try:
                 import wandb
 
@@ -70,6 +73,8 @@ class MetricLogger:
                 print(f"[log] wandb unavailable ({e}); using local sink only")
 
     def log(self, metrics: Dict[str, Any], step: Optional[int] = None) -> None:
+        if not self.enabled:
+            return
         clean = {}
         for k, v in metrics.items():
             if hasattr(v, "item"):
@@ -105,7 +110,8 @@ class MetricLogger:
         self._wandb.log_artifact(art)
 
     def close(self):
-        self._f.close()
+        if self._f is not None:
+            self._f.close()
         if self._wandb is not None:
             self._wandb.finish()
 

@@ -43,6 +43,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.diffusion import timestep_embedding
 from ..ops.attention import qkv_attention
+from ..parallel import mesh as P
 from ..ops.gn_conv import gn_affine, gn_silu_conv3x3
 from .layers import (
     Conv,
@@ -61,11 +62,12 @@ __all__ = ["ResBlock", "AttentionBlock", "Downsample", "Upsample", "UNetModel",
 
 def dropout_mask(shape, p: float, generator: Optional[torch.Generator],
                  device) -> torch.Tensor:
-    """The keep mask of inverted dropout at rate ``p``, drawn from ``generator``."""
+    """The keep mask of inverted dropout at rate ``p``, drawn from ``generator``
+    (at the global batch under a mesh's batch split)."""
     if generator is None:
         raise ValueError("dropout > 0 in train mode needs a generator: pass "
                          "model(..., generator=...) (the train step passes its state's)")
-    return torch.rand(shape, generator=generator, device=device) >= p
+    return P.rand(shape, generator=generator, device=device) >= p
 
 
 def masked(x: torch.Tensor, keep: torch.Tensor, p: float) -> torch.Tensor:

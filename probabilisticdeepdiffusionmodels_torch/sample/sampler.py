@@ -38,6 +38,7 @@ from ..core.diffusion import DiffusionTables
 from ..core.edm import edm_denoise, karras_sigma_grid, precond
 from ..core.flow import TIME_SCALE, flow_time_grid
 from ..core.schedules import NoiseSchedule
+from ..parallel import mesh as P
 
 __all__ = [
     "p_sample_loop", "ddim_sample_loop", "ddim_invert_loop", "dpmpp_sample_loop",
@@ -260,7 +261,7 @@ def _draw(noise: Optional[torch.Tensor], index, generator: Optional[torch.Genera
     """``noise[index]`` where draws are injected, else one from ``generator``."""
     if noise is not None:
         return noise[index]
-    return torch.randn(like.shape, generator=generator, device=like.device, dtype=like.dtype)
+    return P.randn(like.shape, generator=generator, device=like.device, dtype=like.dtype)
 
 
 def _ancestral(tables: DiffusionTables, x: torch.Tensor, t: torch.Tensor, eps: torch.Tensor,

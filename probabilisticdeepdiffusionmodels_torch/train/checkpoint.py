@@ -12,6 +12,11 @@ optimizer chain, loss history, the state generator's state) beside
 ``metrics.json``; a step's directory is written under a temporary name and
 renamed when complete.  The experiment config lives in the run directory, so
 a run can be rebuilt from it alone.
+
+On a data mesh (``state.sync``) every rank calls ``save`` and ``restore``:
+an FSDP state is gathered whole first (a collective), rank 0 writes, and
+the others wait at a barrier, so a checkpoint of N ranks is the one-device
+checkpoint and loads on one device; a restore cuts it to the rank's shards.
 """
 
 from __future__ import annotations
@@ -51,18 +56,23 @@ class CheckpointManager:
         if latest is not None and latest >= step:
             return False
         metrics = {k: float(v) for k, v in metrics.items()} if metrics else None
-        tmp = self.directory / f"{step}.tmp"
-        shutil.rmtree(tmp, ignore_errors=True)
-        tmp.mkdir()
-        torch.save(_to_saveable(state), tmp / "state.pt")
-        (tmp / "metrics.json").write_text(json.dumps(metrics))
-        tmp.rename(self.directory / str(step))
+        payload = _to_saveable(state)
+        writes = state.sync is None or state.sync.index == 0
+        if writes:
+            tmp = self.directory / f"{step}.tmp"
+            shutil.rmtree(tmp, ignore_errors=True)
+            tmp.mkdir()
+            torch.save(payload, tmp / "state.pt")
+            (tmp / "metrics.json").write_text(json.dumps(metrics))
+            tmp.rename(self.directory / str(step))
         self._saved.append((step, metrics))
         keep = self._kept()
         for s, _ in self._saved:
-            if s not in keep:
+            if s not in keep and writes:
                 shutil.rmtree(self.directory / str(s))
         self._saved = [entry for entry in self._saved if entry[0] in keep]
+        if state.sync is not None:
+            state.sync.barrier()
         return True
 
     def _by_metric(self) -> List[int]:
@@ -95,9 +105,16 @@ class CheckpointManager:
         saved = torch.load(self.directory / str(step) / "state.pt", map_location=device,
                            weights_only=True)
         state.step = int(saved["step"])
-        state.model.load_state_dict(saved["model"])
-        if state.ema_model is not None:
-            state.ema_model.load_state_dict(saved["ema_model"])
+        sync = state.sync
+        if sync is None:
+            state.model.load_state_dict(saved["model"])
+            if state.ema_model is not None:
+                state.ema_model.load_state_dict(saved["ema_model"])
+        else:
+            sync.load_full("model", saved["model"])
+            if state.ema_model is not None:
+                sync.load_full("ema", saved["ema_model"])
+            saved["optimizer"] = _map_moments(saved["optimizer"], sync.shard_moments)
         state.optimizer.load_state_dict(saved["optimizer"])
         for name in _HISTORY:
             getattr(state.loss_history, name).copy_(saved["loss_history"][name])
@@ -106,12 +123,33 @@ class CheckpointManager:
         return state
 
 
+def _map_moments(opt: dict, fn) -> dict:
+    """An ``AdamChain.state_dict`` with ``fn`` applied to its per-parameter
+    lists (Adam's two moments, the accumulation buffer); the optimizer's
+    own tensors are not touched.  Adam holds a state for every parameter or
+    for none (``AdamChain`` steps them all)."""
+    adam = dict(opt["adam"], state={k: dict(v) for k, v in opt["adam"]["state"].items()})
+    keys = sorted(adam["state"])
+    for name in ("exp_avg", "exp_avg_sq") if keys else ():
+        for k, v in zip(keys, fn([adam["state"][k][name] for k in keys])):
+            adam["state"][k][name] = v
+    return dict(opt, adam=adam, acc=None if opt["acc"] is None else fn(opt["acc"]))
+
+
 def _to_saveable(state: TrainState) -> dict:
+    sync = state.sync
+    if sync is not None:
+        sync.materialize("model")
+        if state.ema_model is not None:
+            sync.materialize("ema")
+    optimizer = state.optimizer.state_dict()
+    if sync is not None and sync.sharded:
+        optimizer = _map_moments(optimizer, sync.gather_moments)
     return {
         "step": state.step,
         "model": state.model.state_dict(),
         "ema_model": None if state.ema_model is None else state.ema_model.state_dict(),
-        "optimizer": state.optimizer.state_dict(),
+        "optimizer": optimizer,
         "loss_history": {name: getattr(state.loss_history, name) for name in _HISTORY},
         "generator": state.generator.get_state(),
     }

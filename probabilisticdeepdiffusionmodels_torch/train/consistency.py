@@ -33,6 +33,7 @@ from ..core.consistency import ConsistencyConfig, cm_apply, cm_metric, pair_weig
 from ..core.diffusion import DiffusionTables
 from ..core.edm import edm_denoise, karras_sigma_grid
 from ..core.flow import TIME_SCALE
+from ..parallel import mesh as P
 from .state import TrainState
 from .step import _backward_and_apply, _bucket, _check_dropout, _drop_labels
 
@@ -73,10 +74,10 @@ def _ct_parts(tabs, generator: Optional[torch.Generator], x0: torch.Tensor, step
     b = x0.shape[0]
     level = min(step // steps_per, hi.shape[0] - 1)
     if index is None:
-        index = torch.randint(0, n_pairs[level], (b,), generator=generator, device=x0.device)
+        index = P.randint(0, n_pairs[level], (b,), generator=generator, device=x0.device)
     sig_hi, sig_lo = hi[level, index], lo[level, index]
     if z is None:
-        z = torch.randn(x0.shape, generator=generator, device=x0.device)
+        z = P.randn(x0.shape, generator=generator, device=x0.device)
     bshape = (-1,) + (1,) * (x0.ndim - 1)
     return (x0 + sig_hi.reshape(bshape) * z, sig_hi, x0 + sig_lo.reshape(bshape) * z,
             sig_lo, n_pairs[level] + 1)
@@ -241,8 +242,8 @@ def make_ct_train_step(tables: DiffusionTables, cfg: ConsistencyConfig, *,
         model.train().zero_grad(set_to_none=True)
         per_sample = _ct_per_sample_loss(model, parts, y, cfg, target,
                                          generator=state.generator)
-        metrics = _backward_and_apply(state, per_sample.mean(), _vp_bucket(tables, parts[1]),
-                                      per_sample, watch)
+        metrics = _backward_and_apply(state, P.batch_mean(per_sample),
+                                      _vp_bucket(tables, parts[1]), per_sample, watch)
         if cfg.grid_init:
             metrics["grid_n"] = parts[4]
         return metrics
@@ -270,13 +271,12 @@ def make_ct_eval_step(tables: DiffusionTables, cfg: ConsistencyConfig) -> Callab
              z: Optional[torch.Tensor] = None) -> torch.Tensor:
         model.eval()
         parts = _ct_parts(tabs, generator, x0, index=index, z=z)
-        return _ct_per_sample_loss(model, parts, y, cfg).mean()
+        return P.batch_mean(_ct_per_sample_loss(model, parts, y, cfg))
 
     def draw(generator: torch.Generator, x0: torch.Tensor) -> Dict[str, torch.Tensor]:
-        index = torch.randint(0, cfg.grid_size - 1, (x0.shape[0],), generator=generator,
-                              device=x0.device)
-        return {"index": index, "z": torch.randn(x0.shape, generator=generator,
-                                                 device=x0.device)}
+        index = P.randint(0, cfg.grid_size - 1, (x0.shape[0],), generator=generator,
+                          device=x0.device)
+        return {"index": index, "z": P.randn(x0.shape, generator=generator, device=x0.device)}
 
     step.draw = draw
     return step

@@ -12,7 +12,9 @@ PyTorch counterpart of ``probabilisticdeepdiffusionmodels_tpu/train/loop.py``:
   * validation over at most ``limit_val_batches`` batches;
   * the visualization callback every ``vis_run_every`` epochs and once at
     the end of training.
-Metrics are read to the host only at the log cadence.  With
+Metrics are read to the host only at the log cadence.  On a data mesh every
+rank runs ``fit`` (the engine's steps, validation and checkpoint saves are
+collective); only the engine's main rank writes media.  With
 ``fused_steps`` K >= 2 each run of K same-shaped batches goes to
 ``engine.training_steps`` (one CUDA graph on a card); the log, histogram
 and checkpoint cadences fire where a chunk crosses them and read its last
@@ -230,8 +232,10 @@ class Trainer:
         run's media directory, plus each module's std and largest |weight|
         in the metric log."""
         modules = collections.defaultdict(list)
-        for name, p in self.engine.state.model.named_parameters():
+        for name, p in self.engine.params().named_parameters():
             modules[name.split(".")[0]].append(p.detach().float().flatten())
+        if not self.engine.is_main:
+            return
         arrays, summary = {}, {}
         for name, leaves in modules.items():
             flat = torch.cat(leaves).cpu().numpy()
@@ -258,5 +262,6 @@ class Trainer:
             w = cnt[sl].sum()
             qs[f"loss_q{i + 1}"] = float((avg[sl] * cnt[sl]).sum() / w) if w > 0 else float("nan")
         self.logger.log({**qs, "epoch": epoch}, step=step)
-        np.save(self.run_dir.media_path(f"loss_per_step_epoch{epoch}.npy"), avg)
+        if self.engine.is_main:
+            np.save(self.run_dir.media_path(f"loss_per_step_epoch{epoch}.npy"), avg)
         hist.reset_epoch()

@@ -5,7 +5,8 @@ The per-timestep loss history is a set of fixed-shape tensors on the model's
 device; updates, the warmed-up predicate and the importance draw are tensor
 ops with no host sync (``torch.where`` on the predicate, never a Python
 ``if`` on a device value).  Random draws come from an explicit
-``torch.Generator`` on that device.
+``torch.Generator`` on that device (at the global batch under a mesh's
+batch split, ``parallel.mesh.batch_shard``).
 
 Semantics kept:
   * t is 1-indexed, drawn from [1, T];
@@ -23,6 +24,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from ..parallel import mesh as P
 
 __all__ = ["LossHistory", "sample_uniform", "sample_importance", "importance_probs",
            "importance_weights"]
@@ -96,8 +99,8 @@ class LossHistory:
 def sample_uniform(generator: torch.Generator, batch_size: int,
                    diffusion_steps: int) -> Tuple[torch.Tensor, None]:
     """t ~ U{1..T} on the generator's device, no weights."""
-    t = torch.randint(1, diffusion_steps + 1, (batch_size,), generator=generator,
-                      device=generator.device)
+    t = P.randint(1, diffusion_steps + 1, (batch_size,), generator=generator,
+                  device=generator.device)
     return t, None
 
 
@@ -110,8 +113,8 @@ def importance_probs(history: LossHistory) -> torch.Tensor:
 def importance_weights(history: LossHistory, t: torch.Tensor, min_counts: int,
                        p: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Loss weights of given timesteps: 1 / (p[t-1] * B) once the history is
-    warmed up, 1/B before."""
-    b = t.shape[0]
+    warmed up, 1/B before; B is the global batch under a mesh's batch split."""
+    b = P.global_batch(t.shape[0])
     p = importance_probs(history) if p is None else p
     w_imp = 1.0 / (p[t.long() - 1] * b)
     return torch.where(history.is_warmed_up(min_counts), w_imp,
@@ -125,7 +128,7 @@ def sample_importance(generator: torch.Generator, batch_size: int,
     history is warmed up.  Both draws are always made (no host branch): the
     importance draw by inverse CDF on p, then the uniform one."""
     p = importance_probs(history)
-    u = torch.rand(batch_size, generator=generator, device=generator.device)
+    u = P.rand((batch_size,), generator=generator, device=generator.device)
     cdf = torch.cumsum(p, dim=0)
     idx = torch.clamp(torch.searchsorted(cdf, u * cdf[-1], right=True), max=p.shape[0] - 1)
     t_uni, _ = sample_uniform(generator, batch_size, p.shape[0])

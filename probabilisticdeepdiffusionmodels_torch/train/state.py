@@ -6,7 +6,10 @@ The EMA is a copy of the model whose float32 parameters follow
     ema <- decay * ema + (1 - decay) * params
 
 after every optimizer step, over parameters only (the UNet has no buffers).
-The state is mutated in place where JAX returns a new pytree.
+The state is mutated in place where JAX returns a new pytree.  On a data
+mesh ``sync`` (``parallel.sync.MeshSync``) holds the collectives: the
+update and the EMA then run on what it names (the FSDP masters), and the
+modules' working copies are released after each update.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ class TrainState:
     is an ``engine.AdamChain`` over ``model``'s parameters; ``ema_model`` is a
     copy of the model holding the EMA parameters (None without ``ema_decay``);
     ``loss_history`` lives on the model's device and ``generator`` draws t and
-    noise there.
+    noise there; ``sync`` is None off a mesh.
     """
 
     def __init__(self, model: torch.nn.Module, optimizer, diffusion_steps: int,
@@ -54,12 +57,16 @@ class TrainState:
             self.ema_model = copy.deepcopy(model).eval().requires_grad_(False)
         self.loss_history = LossHistory(diffusion_steps, history, device=device)
         self.generator = generator
+        self.sync = None
 
     def apply_gradients(self) -> None:
         """Optimizer step on the gradients in ``param.grad``, then the EMA,
         then ``step += 1``."""
         self.optimizer.step()
         if self.ema_model is not None:
-            ema_update(self.ema_model.parameters(), self.model.parameters(),
-                       self.ema_decay)
+            ema, live = ((self.ema_model.parameters(), self.model.parameters())
+                         if self.sync is None else self.sync.ema_pairs())
+            ema_update(ema, live, self.ema_decay)
+        if self.sync is not None:
+            self.sync.release()
         self.step += 1

@@ -38,6 +38,7 @@ from ..core import diffusion as D
 from ..core.diffusion import DiffusionTables
 from ..core.edm import EDMConfig, loss_weight, precond
 from ..core.flow import TIME_SCALE, FlowConfig, interpolate, sample_t, vp_t_to_flow_t
+from ..parallel import mesh as P
 from .samplers import importance_weights, sample_importance, sample_uniform
 from .state import TrainState
 
@@ -75,23 +76,45 @@ def _drop_labels(state: TrainState, y: Optional[torch.Tensor], b: int, p: float,
         return y
     if y is None:
         raise ValueError("class_dropout_prob needs labels every step")
-    drop = torch.rand(b, generator=state.generator, device=y.device) < p
+    drop = P.rand((b,), generator=state.generator, device=y.device) < p
     return torch.where(drop, torch.full_like(y, null_class), y)
 
 
 def _backward_and_apply(state: TrainState, loss: torch.Tensor, t_hist: torch.Tensor,
-                        per_sample: torch.Tensor, watch: bool) -> Dict[str, torch.Tensor]:
-    """Backpropagate ``loss``, take the metrics (the gradients' global norm,
-    per top-level module with ``watch``), record the detached per-sample
-    losses at the timesteps ``t_hist`` and apply the optimizer and EMA."""
+                        per_sample: torch.Tensor, watch: bool,
+                        **scalars: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Backpropagate ``loss``, take the metrics (``loss``, the ``scalars``
+    given, the gradients' global norm and, with ``watch``, per top-level
+    module), record the detached per-sample losses at the timesteps
+    ``t_hist`` and apply the optimizer and EMA.
+
+    On a data mesh (``state.sync``) ``loss`` and ``scalars`` are this rank's
+    shares of the global batch's: the gradients and the shares are summed
+    over the ranks first, the norms are the global gradient's, and the loss
+    history records the whole batch's (t, loss) rows."""
     loss.backward()
     named = list(state.model.named_parameters())
-    metrics = {"loss": loss.detach(), "grad_norm": global_norm(p.grad for _, p in named)}
+    sync = state.sync
+    values = [loss.detach(), *(v.detach() for v in scalars.values())]
+    if sync is not None:
+        values = sync.reduce_gradients(state.model, values)
+        t_hist, per_sample = sync.gather_history(t_hist, per_sample)
+        grads = [p.grad for p in sync.optimizer_params(state.model)]
+        norm = sync.grad_norms if sync.sharded else None
+    else:
+        grads = [p.grad for _, p in named]
+        norm = None
+    metrics = dict(zip(["loss", *scalars], values))
+    metrics["grad_norm"] = global_norm(grads) if norm is None else norm(grads)[0]
     if watch:
-        modules = {}
-        for name, p in named:
-            modules.setdefault(name.split(".")[0], []).append(p.grad)
-        metrics["grad_norm_per_module"] = {k: global_norm(v) for k, v in modules.items()}
+        modules = list(dict.fromkeys(name.split(".")[0] for name, _ in named))
+        group = [modules.index(name.split(".")[0]) for name, _ in named]
+        if norm is None:
+            per = [global_norm(g for g, k in zip(grads, group) if k == i)
+                   for i in range(len(modules))]
+        else:
+            per = list(norm(grads, group).unbind(0))
+        metrics["grad_norm_per_module"] = dict(zip(modules, per))
     state.loss_history.update(t_hist, per_sample.detach())
     state.apply_gradients()
     return metrics
@@ -193,8 +216,7 @@ def make_train_step(
             weights = (importance_weights(state.loss_history, t, min_counts)
                        if sampling == "importance" else None)
         if noise is None:
-            noise = torch.randn(x0.shape, generator=state.generator, device=x0.device,
-                                dtype=x0.dtype)
+            noise = P.randn(x0.shape, generator=state.generator, device=x0.device, dtype=x0.dtype)
         y = _drop_labels(state, y, b, class_dropout_prob, null_class)
         x_t = D.q_sample(tables, x0, noise, t)
         target = _pred_target(tables, prediction_type, x0, noise, t)
@@ -205,15 +227,14 @@ def make_train_step(
         per_sample = D.mean_flat(torch.square(target - pred))
         if loss_weighting == "min_snr":
             per_sample = per_sample * D.min_snr_weight(tables, t, snr_gamma, prediction_type)
-        loss = (weights * per_sample).sum() if weights is not None else per_sample.mean()
+        loss = (weights * per_sample).sum() if weights is not None else P.batch_mean(per_sample)
         if loss_type == "hybrid":
-            vlb = _vlb_term(tables, x0, x_t, t,
-                            _pred_to_eps(tables, prediction_type, x_t, t, pred), v_pred).mean()
+            vlb = P.batch_mean(_vlb_term(tables, x0, x_t, t,
+                                         _pred_to_eps(tables, prediction_type, x_t, t, pred),
+                                         v_pred))
             loss = loss + vlb_weight * vlb
-        metrics = _backward_and_apply(state, loss, t, per_sample, watch)
-        if loss_type == "hybrid":
-            metrics["vlb"] = vlb.detach()
-        return metrics
+            return _backward_and_apply(state, loss, t, per_sample, watch, vlb=vlb)
+        return _backward_and_apply(state, loss, t, per_sample, watch)
 
     return step
 
@@ -236,8 +257,7 @@ def make_eval_step(tables: DiffusionTables, prediction_type: str = "epsilon",
         if t is None:
             t, _ = sample_uniform(generator, x0.shape[0], T)
         if noise is None:
-            noise = torch.randn(x0.shape, generator=generator, device=x0.device,
-                                dtype=x0.dtype)
+            noise = P.randn(x0.shape, generator=generator, device=x0.device, dtype=x0.dtype)
         t = t.to(x0.device)
         model.eval()
         target = _pred_target(tables, prediction_type, x0, noise, t)
@@ -246,12 +266,12 @@ def make_eval_step(tables: DiffusionTables, prediction_type: str = "epsilon",
         per_sample = D.mean_flat(torch.square(target - pred))
         if loss_weighting == "min_snr":
             per_sample = per_sample * D.min_snr_weight(tables, t, snr_gamma, prediction_type)
-        return per_sample.mean()
+        return P.batch_mean(per_sample)
 
     def draw(generator: torch.Generator, x0: torch.Tensor) -> Dict[str, torch.Tensor]:
         t, _ = sample_uniform(generator, x0.shape[0], T)
-        return {"t": t, "noise": torch.randn(x0.shape, generator=generator, device=x0.device,
-                                             dtype=x0.dtype)}
+        return {"t": t, "noise": P.randn(x0.shape, generator=generator, device=x0.device,
+                                         dtype=x0.dtype)}
 
     step.draw = draw
     return step
@@ -263,7 +283,7 @@ def make_eval_step(tables: DiffusionTables, prediction_type: str = "epsilon",
 def _edm_sigma(generator: Optional[torch.Generator], b: int, edm: EDMConfig,
                device) -> torch.Tensor:
     """sigma of each sample: ln sigma ~ N(P_mean, P_std^2) (eq. 8)."""
-    return torch.exp(edm.P_mean + edm.P_std * torch.randn(b, generator=generator, device=device))
+    return torch.exp(edm.P_mean + edm.P_std * P.randn((b,), generator=generator, device=device))
 
 
 def _edm_per_sample_loss(model: Callable, edm: EDMConfig, x0: torch.Tensor, sigma: torch.Tensor,
@@ -295,13 +315,12 @@ def make_edm_train_step(tables: DiffusionTables, edm: EDMConfig, *, watch: bool 
         if sigma is None:
             sigma = _edm_sigma(state.generator, b, edm, x0.device)
         if noise is None:
-            noise = torch.randn(x0.shape, generator=state.generator, device=x0.device,
-                                dtype=x0.dtype)
+            noise = P.randn(x0.shape, generator=state.generator, device=x0.device, dtype=x0.dtype)
         y = _drop_labels(state, y, b, class_dropout_prob, null_class)
         model.train().zero_grad(set_to_none=True)
         per_sample = _edm_per_sample_loss(model, edm, x0, sigma, noise, y,
                                           generator=state.generator)
-        return _backward_and_apply(state, per_sample.mean(), _bucket(sig_vp, sigma),
+        return _backward_and_apply(state, P.batch_mean(per_sample), _bucket(sig_vp, sigma),
                                    per_sample, watch)
 
     return step
@@ -319,12 +338,12 @@ def make_edm_eval_step(edm: EDMConfig) -> Callable[..., torch.Tensor]:
             d = draw(generator, x0)
             sigma, noise = d["sigma"], d["noise"] if noise is None else noise
         model.eval()
-        return _edm_per_sample_loss(model, edm, x0, sigma.to(x0.device), noise, y).mean()
+        return P.batch_mean(_edm_per_sample_loss(model, edm, x0, sigma.to(x0.device), noise, y))
 
     def draw(generator: torch.Generator, x0: torch.Tensor) -> Dict[str, torch.Tensor]:
         sigma = _edm_sigma(generator, x0.shape[0], edm, x0.device)
-        return {"sigma": sigma, "noise": torch.randn(x0.shape, generator=generator,
-                                                     device=x0.device, dtype=x0.dtype)}
+        return {"sigma": sigma, "noise": P.randn(x0.shape, generator=generator,
+                                                 device=x0.device, dtype=x0.dtype)}
 
     step.draw = draw
     return step
@@ -360,12 +379,11 @@ def make_flow_train_step(tables: DiffusionTables, flow: FlowConfig, *, watch: bo
         if t is None:
             t = sample_t(state.generator, b, flow, x0.device)
         if noise is None:
-            noise = torch.randn(x0.shape, generator=state.generator, device=x0.device,
-                                dtype=x0.dtype)
+            noise = P.randn(x0.shape, generator=state.generator, device=x0.device, dtype=x0.dtype)
         y = _drop_labels(state, y, b, class_dropout_prob, null_class)
         model.train().zero_grad(set_to_none=True)
         per_sample = _flow_per_sample_loss(model, x0, t, noise, y, generator=state.generator)
-        return _backward_and_apply(state, per_sample.mean(), _bucket(t_flow_of_vp, t),
+        return _backward_and_apply(state, P.batch_mean(per_sample), _bucket(t_flow_of_vp, t),
                                    per_sample, watch)
 
     return step
@@ -384,12 +402,12 @@ def make_flow_eval_step(flow: FlowConfig) -> Callable[..., torch.Tensor]:
             d = draw(generator, x0)
             t, noise = d["t"], d["noise"] if noise is None else noise
         model.eval()
-        return _flow_per_sample_loss(model, x0, t.to(x0.device), noise, y).mean()
+        return P.batch_mean(_flow_per_sample_loss(model, x0, t.to(x0.device), noise, y))
 
     def draw(generator: torch.Generator, x0: torch.Tensor) -> Dict[str, torch.Tensor]:
         t = sample_t(generator, x0.shape[0], flow, x0.device)
-        return {"t": t, "noise": torch.randn(x0.shape, generator=generator, device=x0.device,
-                                             dtype=x0.dtype)}
+        return {"t": t, "noise": P.randn(x0.shape, generator=generator, device=x0.device,
+                                         dtype=x0.dtype)}
 
     step.draw = draw
     return step

@@ -69,11 +69,15 @@ class VisualizationCallback:
         self.use_ema = use_ema
         self.logger = logger
         self.labels = labels
+        self._writes = True
 
     def __call__(self, engine, epoch: int) -> list:
         """The four views, tagged ``epoch<N>`` (``final`` for -1); returns
         the paths written."""
         tag = f"epoch{epoch}" if epoch >= 0 else "final"
+        # on a data mesh every rank draws the views (the engine's calls are
+        # collective there) and the main rank writes them
+        self._writes = getattr(engine, "is_main", True)
         paths = [self.visualize_random_grid(engine, tag),
                  self.visualize_interpolation(engine, tag),
                  self.visualize_reconstructions_grid(engine, tag),
@@ -85,6 +89,8 @@ class VisualizationCallback:
 
     def _save(self, view: np.ndarray, name: str) -> Path:
         path = self.media_dir / f"{name}.png"
+        if not self._writes:
+            return path
         write_png(path, view[None], pad=0)
         if self.logger is not None:
             self.logger.log_image(name.rsplit("_", 1)[0], path)

@@ -233,12 +233,13 @@ def test_generate_images_takes_x_T_and_refuses_unported():
     b = engine.generate_images(n=2, minibatch=2, x_T=x_T[:2], num_sample_steps=3,
                                use_ema=False)
     np.testing.assert_array_equal(a[:2], b)
-    # DDIM runs; the native EDM sampler needs an EDM engine; a mesh is item 18
+    # DDIM runs; the native EDM sampler needs an EDM engine; spatial
+    # sharding is item 21
     ddim = engine.generate_images(n=1, minibatch=1, num_sample_steps=3, ddim=True)
     assert ddim.shape == (1, 8, 8, 3) and np.isfinite(ddim).all()
     with pytest.raises(ValueError, match='prediction_type="edm"'):
         engine.generate_images(n=1, edm=True)
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(NotImplementedError, match="item 21"):
         engine.generate_images(n=1, shard_mode="spatial")
     with pytest.raises(TypeError, match="unexpected"):
         engine.generate_images(n=1, bogus=1)
@@ -383,7 +384,7 @@ def test_entry_points_need_a_card_unless_asked(tmp_path, monkeypatch, trained_ru
 
 @pytest.mark.parametrize("argv,match", [
     (["engine.prediction_type=edm"], None),
-    (["trainer.devices=2"], "item 18"),
+    (["trainer.devices=2x1"], "item 21"),
     (["trainer.fused_steps=2"], None),
     (["data.device_resident=true"], None),
     (["model.name=superres", "data.superres_factor=2"], None),
@@ -393,7 +394,8 @@ def test_entry_points_need_a_card_unless_asked(tmp_path, monkeypatch, trained_ru
 ], ids=["edm", "devices", "fused_steps", "device_resident", "superres", "consistency", "flow",
         "encoder_reuse"])
 def test_train_cli_refuses_what_is_not_ported(argv, match, tmp_path):
-    """Item 18 raises; the EDM, consistency and flow objectives, the
+    """A data x model mesh (item 21) raises; the EDM, consistency and flow
+    objectives, the
     engine's encoder reuse, fused steps, the device-resident loader and
     super-resolution (item 16, ported) run at the tiny size (match None): a
     consistency run records its CT loss where the others record the NLL
@@ -418,20 +420,20 @@ def edm_run(tmp_path_factory):
 
 @pytest.mark.parametrize("argv,match", [
     (["regular_viz=false", "sampler=heun", "num_sample_steps=4"], None),
-    (["devices=2"], "item 18"),
+    (["devices=2x1"], "item 21"),
     (["regular_viz=false", "inpaint=true", "n_images=2"], None),
     (["regular_viz=false", "sampler=ddim", "num_sample_steps=4"], None),
     (["regular_viz=false", "sampler=edm", "num_sample_steps=3"], None),
     (["regular_viz=false", "guidance_scale=2.0"], "class-conditional"),
 ], ids=["heun", "devices", "inpaint", "ddim", "edm", "guidance"])
 def test_sample_cli_refuses_what_is_not_ported(argv, match, trained_run, request):
-    """``devices`` (item 18) raises; the Heun and DDIM grids, the inpainting
+    """``devices=DxM`` (item 21) raises; the Heun and DDIM grids, the inpainting
     panel and the native EDM grid (on an EDM run) run and write their PNG;
     guidance on the unconditional run raises JAX's error."""
     run_dir = (request.getfixturevalue("edm_run") if "sampler=edm" in argv
                else trained_run[1])["run_dir"]
     args = [f"run_dir={run_dir}"] + argv + CPU
-    if match == "item 18":
+    if match == "item 21":
         with pytest.raises(NotImplementedError, match=match):
             cli_sample.main(args)
         return

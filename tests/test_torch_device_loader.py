@@ -95,8 +95,8 @@ def test_rejections():
     with pytest.raises(TypeError, match="normalise"):
         DeviceDataLoader(ds, batch_size=4, transformation_kwargs={"normalise": "mnist"},
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="item 18"):
-        DeviceDataLoader(ds, batch_size=4, shard_id=1, num_shards=2, device="cpu")
+    with pytest.raises(ValueError, match="shard_id"):
+        DeviceDataLoader(ds, batch_size=4, shard_id=2, num_shards=2, device="cpu")
 
 
 def test_cli_builds_device_loaders():

@@ -79,7 +79,7 @@ def jax_inception(state_dict):
 
 def test_inception_features_and_logits_match_jax(jax_inception):
     params, x, feats, logits = jax_inception
-    model = inception_from_jax(params)
+    model = inception_from_jax(params, device="cpu")
     got = P_inc.inception_pool_features(model, torch.from_numpy(x)).numpy()
     got_logits = P_inc.inception_logits(model, torch.from_numpy(x)).numpy()
     for g, w in ((got, feats), (got_logits, logits)):
@@ -93,7 +93,7 @@ def test_params_from_torch_state_dict_matches_jax(state_dict, jax_inception):
     """The BatchNorm fold and the layouts, bit for bit: OIHW against JAX's
     HWIO, the fc head [in, out] as JAX stores it."""
     params = jax_inception[0]
-    got = P_inc.params_from_torch_state_dict(state_dict).state_dict()
+    got = P_inc.params_from_torch_state_dict(state_dict, device="cpu").state_dict()
     flat = {}
 
     def walk(tree, prefix):
@@ -137,7 +137,7 @@ def test_load_params_provenance(state_dict, tmp_path, monkeypatch):
     model, stamp = P_inc.load_params(with_provenance=True, device="cpu")
     _, jstamp = J_inc.load_params(with_provenance=True)
     assert stamp == jstamp == f"ported:{md5}"
-    ref = P_inc.params_from_torch_state_dict(state_dict).state_dict()
+    ref = P_inc.params_from_torch_state_dict(state_dict, device="cpu").state_dict()
     assert all(torch.equal(v, ref[k]) for k, v in model.state_dict().items())
     monkeypatch.delenv("PDDM_INCEPTION_WEIGHTS")
     model, stamp = P_inc.load_params(with_provenance=True, device="cpu")
@@ -208,7 +208,7 @@ def test_inception_score_equals_jax(state_dict, jax_inception):
     assert P_is.inception_score_from_logits(logits, splits=4) == \
         J_is.inception_score_from_logits(logits, splits=4)
     feats = np.abs(rng.randn(24, 2048)).astype(np.float32)
-    model = P_inc.params_from_torch_state_dict(state_dict)
+    model = P_inc.params_from_torch_state_dict(state_dict, device="cpu")
     assert P_is.inception_score_from_features(feats, model) == \
         J_is.inception_score_from_features(feats, jax_inception[0])
     with pytest.raises(ValueError, match="fc"):
@@ -343,10 +343,23 @@ def test_fid_for_loaders_matches_jax(monkeypatch):
     got = P_fid.compute_fid_for_loaders(a, b, normalize="mnist", limit=20, inception_params={})
     want = J_fid.compute_fid_for_loaders(a, b, normalize="mnist", limit=20, inception_params={})
     _close(got, want)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        P_fid.compute_statistics([], feature_fn=_torch_feat, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 18"):
-        P_fid.MeshActivationStats(_torch_feat, None)
+    # the mesh statistics on a one-rank group: the one-process moments
+    import torch.distributed as dist
+
+    from probabilisticdeepdiffusionmodels_torch.parallel import make_mesh
+    from probabilisticdeepdiffusionmodels_torch.parallel.runtime import free_port
+
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        batches = [b for b, _ in _reals(3)]
+        mu, cov = P_fid.compute_statistics(batches, feature_fn=_torch_feat,
+                                           mesh=make_mesh(1, device="cpu"))
+    finally:
+        dist.destroy_process_group()
+    mu1, cov1 = P_fid.compute_statistics(batches, feature_fn=_torch_feat)
+    np.testing.assert_allclose(mu, mu1, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(cov, cov1, rtol=1e-10, atol=1e-12)
 
 
 def test_inception_features_of_images_are_finite():
@@ -398,8 +411,8 @@ def test_fid_score_cli(tiny_run, extras, monkeypatch, capsys):
 
 def test_fid_score_cli_refuses(tiny_run, capsys):
     assert cli_fid_score.main([]) == 1
-    with pytest.raises(NotImplementedError, match="item 18"):
-        cli_fid_score.main([tiny_run, "true", "8", "4", "2"] + CPU)
+    with pytest.raises(NotImplementedError, match="item 21"):
+        cli_fid_score.main([tiny_run, "true", "8", "4", "2x1"] + CPU)
 
 
 def test_fid_debug_cli(monkeypatch, capsys):
@@ -408,8 +421,8 @@ def test_fid_debug_cli(monkeypatch, capsys):
     line = capsys.readouterr().out.splitlines()[-1]
     assert line.startswith("FID floor (train vs val):")
     assert np.isfinite(float(line.split()[-1]))
-    with pytest.raises(NotImplementedError, match="item 18"):
-        cli_fid_debug.main(TINY + CPU + ["trainer.devices=2"])
+    with pytest.raises(NotImplementedError, match="item 21"):
+        cli_fid_debug.main(TINY + CPU + ["trainer.devices=2x1"])
 
 
 # ------------------------------------------------------------- on the card
@@ -427,7 +440,7 @@ def test_card_inception_matches_cpu(card, state_dict):
     weights on the CPU, at batch 8, within 1e-4 relative; the card's resize
     against the CPU's."""
     x01 = np.random.RandomState(10).rand(8, 32, 32, 3).astype(np.float32)
-    cpu = P_inc.params_from_torch_state_dict(state_dict)
+    cpu = P_inc.params_from_torch_state_dict(state_dict, device="cpu")
     cuda = P_inc.params_from_torch_state_dict(state_dict, device="cuda")
     x = P_inc.preprocess(torch.from_numpy(x01))
     xc = P_inc.preprocess(torch.from_numpy(x01).cuda())
