@@ -29,8 +29,8 @@ panels are skipped with a notice.
     python -m probabilisticdeepdiffusionmodels_torch.cli.sample \\
         run_dir=runs/run-xyz sampler=dpmpp num_sample_steps=20
 
-``device`` (null: cuda) places the engine; ``devices=N`` (or ``all``)
-samples batch-sharded on N ranks (``cli.train.run_on_devices``: spawned
+``device`` (null: cuda) places the engine; ``devices=N`` (or ``all``, or
+``DxM``, a data x model mesh) samples batch-sharded on N ranks (``cli.train.run_on_devices``: spawned
 ranks on ``cuda:r``, or a launch declared in the environment), rank 0
 writing the images; the run's own ``trainer.devices`` is ignored, so a
 checkpoint of N ranks samples on one device.
@@ -60,7 +60,9 @@ def load_engine_from_run(run_path, clip_while_generating=None, use_best=True, de
     """The engine of a run directory, rebuilt from its config snapshot on
     ``device`` (the caller's choice, not the training run's) and ``mesh``
     (the caller's), with its best checkpoint (``use_best``) or its latest
-    loaded; returns (engine, config)."""
+    loaded; returns (engine, config).  Without a mesh the state is whole,
+    whatever layout the run trained in (its checkpoints are one-device
+    files)."""
     run_path = Path(run_path)
     with open(run_path / "experiment_config.yaml") as f:
         cfg = yaml.safe_load(f)
@@ -68,6 +70,8 @@ def load_engine_from_run(run_path, clip_while_generating=None, use_best=True, de
         cfg["engine"]["clip_while_generating"] = bool(clip_while_generating)
     cfg.setdefault("trainer", {})["devices"] = 1
     cfg["device"] = device
+    if mesh is None:
+        cfg["engine"]["param_sharding"] = "replicated"
     engine = build_engine(cfg, mesh=mesh)
     ckpt = CheckpointManager(run_path / "checkpoints")
     ckpt.restore(engine.state, ckpt.best_step() if use_best else None)
@@ -183,7 +187,7 @@ def run_sampling(cfg) -> dict:
 
 def _sample(device, cfg) -> dict:
     """One rank's sampling run (the only one off a mesh)."""
-    mesh, _ = mesh_runtime(device)
+    mesh, _ = mesh_runtime(device, cfg.get("devices"))
     engine, run_cfg = load_engine_from_run(cfg["run_dir"], cfg.get("clip_while_generating"),
                                            device=device, mesh=mesh)
     media_dir = Path(cfg["run_dir"]) / "media"

@@ -34,9 +34,12 @@ the run's metrics, media, config snapshot and checkpoints; the call returns
 its result.  A launch declared in the environment (``PDDM_*`` or
 ``torchrun``'s ``WORLD_SIZE``/``RANK``/``MASTER_*``) keeps JAX's
 multi-host meaning: every process joins one mesh and loads its own disjoint
-shard of the data.  More cards than the machine has raise;
-``trainer.devices=DxM`` and ``trainer.fused_steps`` on a mesh raise
-(ROADMAP.md Queue 1 item 21).
+shard of the data.  More cards than the machine has raise.
+``trainer.devices=DxM`` (e.g. ``1x2``) spawns D x M ranks on a data x model
+mesh (``parallel.make_mesh_2d``), for ``engine.param_sharding=tp``: the
+model ranks of one data index see the same batch rows.
+``trainer.fused_steps`` runs on a mesh too: one CUDA graph over NCCL, K
+eager steps on the CPU.
 """
 
 from __future__ import annotations
@@ -56,14 +59,14 @@ from ..data.device_loader import DeviceDataLoader
 from ..engine import DiffusionEngine
 from ..logging.sink import MetricLogger, RunDir, auto_tags
 from ..models import resolve_device
-from ..parallel import (RuntimeInfo, initialize_runtime, make_mesh, runtime_from_env,
-                        spawn)
+from ..parallel import (RuntimeInfo, initialize_runtime, make_mesh, make_mesh_2d,
+                        runtime_from_env, spawn)
 from ..train.checkpoint import CheckpointManager
 from ..train.loop import Trainer
 from ..viz.hooks import VisualizationCallback
 
 __all__ = ["build_loaders", "build_engine", "run_training", "main", "device_count",
-           "run_on_devices"]
+           "mesh_shape", "run_on_devices"]
 
 
 def build_loaders(cfg, shard_id: int = 0, num_shards: int = 1):
@@ -91,14 +94,27 @@ def build_loaders(cfg, shard_id: int = 0, num_shards: int = 1):
     return train_loader, val_loader
 
 
+def mesh_shape(devices):
+    """(D, M) of a ``DxM`` devices value, else None."""
+    if "x" not in str(devices):
+        return None
+    try:
+        n_data, n_model = (int(v) for v in str(devices).split("x"))
+    except ValueError:
+        raise ValueError(f"devices={devices!r}: a data x model mesh is DxM, e.g. 2x2") from None
+    if n_data < 1 or n_model < 1:
+        raise ValueError(f"devices={devices!r}: both axes need at least one rank")
+    return n_data, n_model
+
+
 def device_count(devices, device=None) -> int:
-    """The ranks ``devices`` asks for: null or 1 one, an int N, ``all``
-    every card (one on the CPU).  ``DxM`` (a data x model mesh) raises."""
+    """The ranks ``devices`` asks for: null or 1 one, an int N, ``DxM``
+    D times M (a data x model mesh), ``all`` every card (one on the CPU)."""
     if devices in (None, "", 1, "1"):
         return 1
-    if "x" in str(devices):
-        raise NotImplementedError(f"devices={devices!r}: a data x model mesh (tensor "
-                                  "parallelism) is not ported yet (ROADMAP.md Queue 1 item 21)")
+    shape = mesh_shape(devices)
+    if shape is not None:
+        return shape[0] * shape[1]
     if str(devices) == "all":
         return torch.cuda.device_count() if resolve_device(device).type == "cuda" else 1
     return int(devices)
@@ -139,12 +155,15 @@ def run_on_devices(fn, devices, device, *args):
     return spawn(_spawned, n, (fn, args), device=device)
 
 
-def mesh_runtime(device) -> tuple:
-    """(mesh or None, RuntimeInfo) of this rank inside ``run_on_devices``."""
+def mesh_runtime(device, devices=None) -> tuple:
+    """(mesh or None, RuntimeInfo) of this rank inside ``run_on_devices``:
+    a data x model mesh where ``devices`` is ``DxM``, else a data mesh over
+    every rank."""
     if not dist.is_initialized():
         return None, RuntimeInfo()
-    return make_mesh(device=device), RuntimeInfo(dist.get_rank(), dist.get_world_size(),
-                                                  "process group")
+    shape = mesh_shape(devices)
+    mesh = make_mesh(device=device) if shape is None else make_mesh_2d(*shape, device=device)
+    return mesh, RuntimeInfo(dist.get_rank(), dist.get_world_size(), "process group")
 
 
 def build_engine(cfg, steps_per_epoch=None, mesh=None) -> DiffusionEngine:
@@ -171,18 +190,14 @@ def run_training(cfg) -> dict:
     # refuse what cannot run before the run directory is made
     resolve_device(cfg.get("device"))
     trainer = cfg.get("trainer") or {}
-    n = device_count(trainer.get("devices"), cfg.get("device"))
-    if n > 1 or runtime_from_env().is_distributed:
-        if int(trainer.get("fused_steps", 0) or 0) >= 2:
-            raise NotImplementedError("trainer.fused_steps on a mesh is not ported yet "
-                                      "(ROADMAP.md Queue 1 item 21)")
+    device_count(trainer.get("devices"), cfg.get("device"))
     return run_on_devices(_train, trainer.get("devices"), cfg.get("device"), cfg)
 
 
 def _train(device: torch.device, cfg) -> dict:
     """One rank's run (the only one off a mesh)."""
     cfg = dict(cfg, device=str(device))
-    mesh, runtime = mesh_runtime(device)
+    mesh, runtime = mesh_runtime(device, (cfg.get("trainer") or {}).get("devices"))
     if mesh is not None:
         # one run directory for every rank: rank 0's name
         name = [cfg.get("run_name") or f"run-{time.strftime('%Y%m%d-%H%M%S')}"]
@@ -199,8 +214,11 @@ def _train(device: torch.device, cfg) -> dict:
 
     # a launch declared in the env: each process loads its own shard (JAX's
     # multi-host meaning); spawned ranks load the same global batches
+    # (by data index: the model ranks of one data index load one shard)
     shards = runtime_from_env()
-    train_loader, val_loader = build_loaders(cfg, shards.process_index, shards.process_count)
+    n_model = (mesh_shape((cfg.get("trainer") or {}).get("devices")) or (1, 1))[1]
+    train_loader, val_loader = build_loaders(cfg, shards.process_index // n_model,
+                                             max(1, shards.process_count // n_model))
     engine = build_engine(cfg, steps_per_epoch=len(train_loader), mesh=mesh)
 
     resume_from = cfg.get("cont_run")

@@ -21,7 +21,9 @@ port's ``unet.`` submodule the same way.
 
 Any Flax leaf it cannot map raises.  ``load_flax_params(model, params)``
 also names every port key the tree leaves unset or sets but the model
-lacks, and every shape that differs, before loading.
+lacks, and every shape that differs, before loading.  A model cut to its
+tensor-parallel slices (``parallel.tp.shard_model``) takes this rank's
+slice of each sharded weight (``tp_local``).
 
 ``inception_from_jax(params)`` builds the port's FID InceptionV3
 (``evals.inception.FIDInceptionV3``) from the JAX package's Inception param
@@ -41,7 +43,10 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["params_from_flax", "load_flax_params", "inception_from_jax", "flax_layout"]
+from .parallel.tp import tp_slice
+
+__all__ = ["params_from_flax", "load_flax_params", "inception_from_jax", "flax_layout",
+           "tp_local"]
 
 _FUSED_CONVS = ("in_conv", "out_conv")
 
@@ -108,7 +113,7 @@ def params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
 def load_flax_params(model: torch.nn.Module, params: Mapping) -> torch.nn.Module:
     """Convert ``params`` and load them into ``model``; raise naming every
     missing or unused key and every shape mismatch."""
-    state = params_from_flax(params)
+    state = tp_local(model, params_from_flax(params))
     expected = model.state_dict()
     missing = sorted(set(expected) - set(state))
     unused = sorted(set(state) - set(expected))
@@ -126,6 +131,20 @@ def load_flax_params(model: torch.nn.Module, params: Mapping) -> torch.nn.Module
         )
     model.load_state_dict(state, strict=True)
     return model
+
+
+def tp_local(model: torch.nn.Module, state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A whole (one-device) ``state_dict`` cut to what ``model`` holds: the
+    weight of each layer marked tensor-parallel (``module.tp``) narrowed to
+    this rank's slice of its output features; everything else as it is."""
+    out = dict(state)
+    for name, module in model.named_modules():
+        shard = getattr(module, "tp", None)
+        key = f"{name}.weight" if name else "weight"
+        if shard is None or key not in out:
+            continue
+        out[key] = tp_slice(out[key], shard.index, shard.size, shard.dim).contiguous()
+    return out
 
 
 def inception_from_jax(params: Mapping, device=None):

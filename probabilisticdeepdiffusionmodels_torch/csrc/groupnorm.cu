@@ -40,6 +40,11 @@
 // A sample that one block covers (the 4x4 and 8x8 sites) is folded by that
 // block with no workspace and no counter.  gn_affine is this one launch.
 //
+// The fold also runs alone (gn_fold_kernel, one block a sample): from the
+// (2, B, C) moments E[x], E[x^2] to the same (4, B, C) output.  A spatially
+// sharded forward averages each rank's moments over the ranks first, so the
+// fold sees whole-image statistics; B x C work, bound by the launch.
+//
 // GroupNorm has two designs (ops/groupnorm.py::groupnorm_design):
 //   fused  one launch: a block owns whole groups (a chunk of channels that
 //          is a multiple of C/G and of V) over all N rows of a sample, folds
@@ -441,6 +446,28 @@ gn_fold_bwd_kernel(const float* __restrict__ ao, const float* __restrict__ gamma
   }
 }
 
+// The fold alone for sample b: mom is (2, B, C) float32 (E[x], E[x^2]), ao
+// (4, B, C) as gn_moments_kernel writes it.  The moments go to shared memory
+// and the shared fold reads them as sums over one row.
+__global__ void __launch_bounds__(NT)
+gn_fold_kernel(const float* __restrict__ mom, const float* __restrict__ gamma,
+               const float* __restrict__ beta, Cond cd, float* __restrict__ ao, int B, int C,
+               int G, float eps) {
+  extern __shared__ float smem[];
+  float* csum = smem;
+  float* csq = smem + C;
+  const int b = blockIdx.x;
+  const long bc = (long)B * C, row = (long)b * C;
+  for (int c = threadIdx.x; c < C; c += NT) {
+    csum[c] = mom[row + c];
+    csq[c] = mom[bc + row + c];
+  }
+  __syncthreads();
+  const Plan p{B, 1, C, G, 1, 1, 1};
+  fold(p, cd, gamma, beta, eps, b, 0, C, csum, csq, ao + row, ao + bc + row, ao + 2 * bc + row,
+       ao + 3 * bc + row);
+}
+
 bool plan_ok(const Plan& p, int V, size_t elem, const void* x, const void* y) {
   return p.B >= 1 && p.B <= 65535 && p.N >= 1 && p.C >= 1 && p.G >= 1 && p.C % p.G == 0 &&
          V >= 1 && p.C % V == 0 && p.cvb >= 1 && p.cvb <= NT && p.splits >= 1 && p.rows >= 1 &&
@@ -553,6 +580,26 @@ extern "C" int pddm_gn_fold_bwd(const void* ao, const void* gamma, const void* b
       static_cast<const float*>(ao), static_cast<const float*>(gamma),
       static_cast<const float*>(beta), cd, static_cast<const float*>(ga),
       static_cast<const float*>(goff), static_cast<float*>(g), B, N, C, G, eps);
+  return cudaGetLastError();
+}
+
+// The fold alone (gn_fold_kernel): ao (4, B, C) float32 from the moments
+// mom (2, B, C) float32, E[x] and E[x^2] per (sample, channel).
+extern "C" int pddm_gn_fold(const void* mom, const void* gamma, const void* beta,
+                            const void* cond0, const void* cond1, void* ao, int B, int C, int G,
+                            float eps, int mode, int stride0, int stride1, int cond_is_bf16,
+                            void* stream_ptr) {
+  if (mode < 0 || mode > 2 || (mode >= 1 && cond0 == nullptr) || (mode == 2 && cond1 == nullptr) ||
+      B < 1 || B > 65535 || G < 1 || C < 1 || C % G != 0)
+    return cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * 2 * (size_t)C;
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem(gn_fold_kernel, smem + 256);
+  if (err != cudaSuccess) return err;
+  const Cond cd{cond0, cond1, stride0, stride1, mode, cond_is_bf16};
+  gn_fold_kernel<<<B, NT, smem, static_cast<cudaStream_t>(stream_ptr)>>>(
+      static_cast<const float*>(mom), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), cd, static_cast<float*>(ao), B, C, G, eps);
   return cudaGetLastError();
 }
 

@@ -29,18 +29,21 @@ model; the table-driven samplers, the NLL and the endpoints run its eps view
 (``sample.make_{v,x0,edm,flow}_to_eps_apply_fn``; a consistency model has
 none), the native samplers and the ODE likelihood the raw model.
 
-On a data mesh (``mesh=parallel.make_mesh(N)``, one engine per rank, every
-rank making the same calls) the state is replicated
-(``param_sharding="replicated"``) or fully sharded (``"fsdp"``, leaves of
-``fsdp_min_size`` elements or more split 1/N: ``parallel.sync``), and
-``training_step``, ``validation_step``, ``generate_images``, ``inpaint``,
-``ddim_invert`` and ``test_step`` take the GLOBAL batch: each rank runs its
-contiguous 1/N of it, every draw made at the global shape
+On a mesh (``mesh=parallel.make_mesh(N)`` or ``make_mesh_2d(D, M)``, one
+engine per rank, every rank making the same calls) the state is replicated
+(``param_sharding="replicated"``), fully sharded over the data axis
+(``"fsdp"``, leaves of ``fsdp_min_size`` elements or more split 1/N:
+``parallel.sync``) or tensor-parallel over the model axis (``"tp"``, which
+needs a ``model`` axis: ``parallel.tp``, each sharded layer computing its
+slice of the output channels and gathering them), and ``training_step``,
+``training_steps``, ``validation_step``, ``generate_images``, ``inpaint``,
+``ddim_invert`` and ``test_step`` take the GLOBAL batch: each data-axis rank
+runs its contiguous 1/N of it, every draw made at the global shape
 (``parallel.mesh.batch_shard``), and returns what one device returns (the
-images all-gathered, the losses summed).  The other endpoints run the whole
-batch on every rank.  ``param_sharding="tp"``, ``shard_mode="spatial"``, a
-mesh with a ``model`` axis and ``training_steps`` on a mesh raise
-``NotImplementedError`` naming ROADMAP.md Queue 1 item 21.
+images all-gathered, the losses summed).  ``generate_images(shard_mode=
+"spatial")`` instead runs the whole batch on every rank with each data-axis
+rank holding 1/N of every activation's height (``parallel.spatial``).  The
+other endpoints run the whole batch on every rank.
 """
 
 from __future__ import annotations
@@ -60,9 +63,12 @@ from .core.flow import FlowConfig
 from .core.schedules import NoiseSchedule, rescale_zero_terminal_snr
 from .evals.nll import calculate_likelihood
 from .evals.ode_nll import edm_ode_nll, flow_ode_nll
-from .models import SuperResModel, get_model, resolve_device
+from .models import SuperResModel, UNetModel, get_model, resolve_device
+from .models.unet import Downsample
 from .parallel import mesh as P
+from .parallel import spatial
 from .parallel.sync import MeshSync
+from .parallel.tp import shard_model
 from .sample.sampler import (
     consistency_sample_loop,
     ddim_invert_loop,
@@ -327,10 +333,6 @@ class AdamChain:
         self.generation += 1
 
 
-def _later(item: int) -> str:
-    return f"is not ported yet (ROADMAP.md Queue 1 item {item})"
-
-
 def _no_eps_view(*args, **kwargs):
     raise ValueError("a consistency model predicts the PF-ODE endpoint, not the score: the eps "
                      "view (ancestral/DDIM/DPM++ sampling, NLL, inpainting, inversion) is "
@@ -422,12 +424,11 @@ class DiffusionEngine:
         if param_sharding not in ("replicated", "fsdp", "tp"):
             raise ValueError(f'param_sharding must be "replicated", "fsdp" or "tp", got '
                              f"{param_sharding!r}")
-        if param_sharding == "tp":
-            raise NotImplementedError(f'param_sharding="tp" {_later(21)}')
-        if param_sharding == "fsdp" and mesh is None:
-            raise ValueError('param_sharding="fsdp" requires a mesh')
-        if mesh is not None and P.MODEL_AXIS in (mesh.mesh_dim_names or ()):
-            raise NotImplementedError(f"a mesh with a {P.MODEL_AXIS!r} axis {_later(21)}")
+        if param_sharding in ("fsdp", "tp") and mesh is None:
+            raise ValueError(f'param_sharding="{param_sharding}" requires a mesh')
+        if param_sharding == "tp" and P.MODEL_AXIS not in (mesh.mesh_dim_names or ()):
+            raise ValueError('param_sharding="tp" requires a mesh with a "model" axis '
+                             f"(make_mesh_2d); got axes {mesh.mesh_dim_names}")
         self.mesh = mesh
         self.param_sharding = param_sharding
         self.fsdp_min_size = int(fsdp_min_size)
@@ -507,16 +508,19 @@ class DiffusionEngine:
         opt_kwargs = {k: v for k, v in optimizer_config.items() if k != "lr"}
         # every rank seeds its generator the same: the draws are global
         generator = torch.Generator(self.device).manual_seed(seed + 1)
+        # tp: the live model (and so its EMA copy) cut to this rank's slices
+        tp_dims = shard_model(self.model, mesh) if param_sharding == "tp" else None
         self.state = TrainState(self.model, None, diffusion_steps, generator, ema_decay=ema)
         params = self.model.parameters()
         if mesh is not None:
             sync = self.state.sync = MeshSync(mesh, self.model, self.state.ema_model,
-                                              mode=param_sharding, min_size=self.fsdp_min_size)
+                                              mode=param_sharding, min_size=self.fsdp_min_size,
+                                              tp_dims=tp_dims)
             params = sync.optimizer_params(self.model)
         self.state.optimizer = AdamChain(params, lr, grad_clip=grad_clip,
                                          accumulate_grad_batches=accumulate_grad_batches,
                                          **opt_kwargs)
-        if mesh is not None and self.state.sync.sharded:
+        if mesh is not None and self.state.sync.splits:
             self.state.optimizer.norm_fn = self.state.sync.grad_norms
         common = dict(watch=watch, class_dropout_prob=self.class_dropout_prob,
                       null_class=self.model.num_classes if self.class_dropout_prob else None)
@@ -591,9 +595,9 @@ class DiffusionEngine:
 
     @property
     def is_main(self) -> bool:
-        """Whether this is the rank that writes: rank 0 of the mesh, or the
-        only one."""
-        return self.mesh is None or self.state.sync.index == 0
+        """Whether this is the rank that writes: rank (0, 0) of the mesh, or
+        the only one."""
+        return self.mesh is None or self.state.sync.is_main
 
     def _check_mesh_batch(self, batch_size: int, hint: str) -> None:
         """Raise, before any work, where the mesh's data axis does not divide
@@ -631,19 +635,37 @@ class DiffusionEngine:
         with P.batch_shard(self.mesh):
             return self._train_step(self.state, x, y, **dict(zip(draws, values)))
 
-    def training_steps(self, xs, ys=None) -> Dict[str, torch.Tensor]:
+    def training_steps(self, xs, ys=None, **draws) -> Dict[str, torch.Tensor]:
         """K train steps on the stacked batches ``xs`` [K, B, ...] (and labels
-        ``ys`` [K, B]), host arrays or tensors already on the device
+        ``ys`` [K, B]; the steps' ``draws`` as ``training_step`` takes them,
+        stacked [K, B, ...]), host arrays or tensors already on the device
         (``data.DeviceDataLoader``): on a CUDA device one captured CUDA graph
         of the K steps, cached by (K, shapes, label presence, accumulation
         phase), on the CPU K eager steps, the same as K ``training_step``
         calls (``train.step.make_fused_train_step``).  The metrics come back
-        stacked, [K] each, on the device."""
-        if self.mesh is not None:
-            raise NotImplementedError(f"training_steps (fused steps) on a mesh {_later(21)}")
+        stacked, [K] each, on the device.
+
+        On a mesh the stacks hold the GLOBAL batch (axis 1), cut to this
+        rank's rows as ``training_step`` cuts them; the graph then records
+        the mesh's collectives too, which NCCL can be captured with and gloo
+        cannot: a CUDA mesh over gloo raises.  On the CPU: K eager steps."""
+        xs, ys = self._batch(xs), self._cond(ys)
+        draws = {k: torch.as_tensor(v, device=self.device) for k, v in draws.items()}
         if self._fused_step is None:
             self._fused_step = make_fused_train_step(self._train_step)
-        return self._fused_step(self.state, self._batch(xs), self._cond(ys))
+        if self.mesh is None:
+            return self._fused_step(self.state, xs, ys, **draws)
+        backend = torch.distributed.get_backend(self.state.sync.group)
+        if xs.device.type == "cuda" and backend != "nccl":
+            raise RuntimeError(f"training_steps on a CUDA mesh captures its collectives into "
+                               f"the CUDA graph, which needs the NCCL backend; this mesh runs "
+                               f"{backend}")
+        self._check_mesh_batch(xs.shape[1], "adjust data.batch_size")
+        xs, ys, *values = (None if v is None else
+                           P.shard_batch(self.mesh, v.movedim(1, 0)).movedim(0, 1)
+                           for v in (xs, ys, *draws.values()))
+        with P.batch_shard(self.mesh):
+            return self._fused_step(self.state, xs, ys, **dict(zip(draws, values)))
 
     def validation_step(self, x, generator: Optional[torch.Generator] = None,
                         y=None) -> Dict[str, torch.Tensor]:
@@ -756,12 +778,25 @@ class DiffusionEngine:
         drawn starting noise, ``noise`` ([draws, >= n, ...]: the loop's
         injected draws, chunked on axis 1) the steps' draws; ``y`` ([>= n])
         are class labels.  All three wrap around to pad the last chunk.
+
+        On a mesh, ``shard_mode="batch"`` splits each chunk's rows over the
+        data axis; ``"spatial"`` runs every chunk whole on each rank and
+        splits the UNet's activations by height over the data axis
+        (``parallel.spatial``: halo rows for the convs, whole-image
+        statistics for the norms, the token rows gathered for attention),
+        each rank returning the whole images.  The height must split over
+        the data axis at every level of the UNet.
         """
-        if shard_mode == "spatial":
-            raise NotImplementedError(f'shard_mode="spatial" {_later(21)}')
-        if shard_mode != "batch":
+        if shard_mode not in ("batch", "spatial"):
             raise ValueError(f'shard_mode must be "batch" or "spatial", got {shard_mode!r}')
-        self._check_mesh_batch(minibatch, "minibatch")
+        spatial_mesh = self.mesh if shard_mode == "spatial" else None
+        if spatial_mesh is not None:
+            downs = [m for m in self.model.modules() if isinstance(m, Downsample)]
+            if self.dims != 2 or not isinstance(self.model, (UNetModel, SuperResModel)):
+                raise ValueError('shard_mode="spatial" splits the height of a 2-D UNet')
+            spatial.check_height(self.resolution, len(downs), self.state.sync.size)
+        else:
+            self._check_mesh_batch(minibatch, "minibatch")
         native = bool(edm or flow or consistency)
         if sum((bool(ddim), bool(dpm_solver), bool(heun), bool(edm), bool(flow),
                 bool(consistency))) > 1:
@@ -819,6 +854,8 @@ class DiffusionEngine:
                                  "DDIM path; use the ancestral sampler or clear them")
 
         raw = self.params(use_ema).eval()
+        if spatial_mesh is not None:
+            raw = spatial.sharded_forward(raw, spatial_mesh)
         model_fn = self._guided(raw if native else self._view(raw), guidance_scale,
                                 guidance_interval, guidance_rescale)
         clip = self.clip_while_generating
@@ -864,16 +901,17 @@ class DiffusionEngine:
                 raise ValueError(f"{loop.__name__} is deterministic: it takes no noise")
             noise = self._batch(noise)
         # on a mesh each rank runs its contiguous rows of every chunk, its
-        # draws cut from the chunk's (batch_shard)
-        rank, ranks = (0, 1) if self.mesh is None else (self.state.sync.index,
-                                                         self.state.sync.size)
-        rows = minibatch // ranks
-        shape = (rows, *(self.resolution,) * self.dims, self.in_channels)
+        # draws cut from the chunk's (batch_shard); spatially, all of them
+        batch_mesh = None if spatial_mesh is not None else self.mesh
+        rank, ranks = (0, 1) if batch_mesh is None else (self.state.sync.index,
+                                                          self.state.sync.size)
+        per_rank = minibatch // ranks
+        shape = (per_rank, *(self.resolution,) * self.dims, self.in_channels)
         images = []
         for i in range(-(-n // minibatch)):
-            lo = i * minibatch + rank * rows
-            idx = torch.arange(lo, lo + rows, device=self.device)
-            with P.batch_shard(self.mesh):
+            lo = i * minibatch + rank * per_rank
+            idx = torch.arange(lo, lo + per_rank, device=self.device)
+            with P.batch_shard(batch_mesh):
                 if x_T is not None:
                     x_t = x_T[idx % x_T.shape[0]]
                 else:
@@ -882,7 +920,8 @@ class DiffusionEngine:
                     kw["noise"] = None if noise is None else noise[:, idx % noise.shape[1]]
                 x = loop(model_fn, tables, x_t, generator, timestep_map=tmap,
                          y=None if y is None else y[idx % y.shape[0]], **kw)
-            images.append(self._whole(x).float().cpu().numpy())
+            whole = x if batch_mesh is None else self._whole(x)
+            images.append(whole.float().cpu().numpy())
         return np.concatenate(images, axis=0)[:n]
 
     def ddim_invert(self, x0, use_ema: bool = True, y=None, num_sample_steps=None,

@@ -9,6 +9,13 @@ PyTorch counterparts of ``probabilisticdeepdiffusionmodels_tpu/models/layers.py`
   * GroupNorm uses gcd(32, C) groups, computes in float32 and casts back;
   * init is torch's Conv/Linear default, U(-1/sqrt(fan_in), 1/sqrt(fan_in))
     for weight and bias, with zero init where the JAX model zero-inits.
+
+Under tensor parallelism (``parallel.tp``) a ``Conv``, ``FusedConv3x3``,
+``Linear`` or ``Embedding`` whose weight holds this rank's slice of the
+output features (``self.tp`` set) computes that slice, all-gathers the
+channels over the model axis and adds its whole bias.  Under a spatial row
+split (``parallel.spatial``) a 3-wide ``Conv`` runs on its rows and its
+neighbours' halo rows, and ``GroupNorm32`` folds whole-image statistics.
 """
 
 from __future__ import annotations
@@ -20,12 +27,15 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.groupnorm import group_norm_silu
+from ..ops.groupnorm import group_norm_silu, group_norm_silu_slab
+from ..parallel import spatial
+from ..parallel.tp import gather_channels, to_model
 
 __all__ = [
     "Conv",
     "FusedConv3x3",
     "Linear",
+    "Embedding",
     "GroupNorm32",
     "silu",
     "avg_pool_nd",
@@ -55,6 +65,8 @@ class Conv(nn.Module):
     input, with JAX ``SAME`` padding (k > 1) or ``VALID`` (k = 1).
     ``weight`` is (Cout, Cin, k, ...), torch's layout."""
 
+    tp = None  # parallel.tp.TPShard where the weight is this rank's slice
+
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
                  stride: int = 1, zero_init: bool = False,
                  dtype: torch.dtype = torch.float32,
@@ -70,16 +82,31 @@ class Conv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
+        w, bias = self.weight.to(self.dtype), self.bias.to(self.dtype)
+        if self.tp is None:
+            return self._conv(x, w, bias)
+        (x,) = to_model(self.tp, x)
+        return gather_channels(self.tp, self._conv(x, w, None)) + bias
+
+    def _conv(self, x, w, bias):
         k, s, d = self.kernel_size, self.stride, self.dims
         padding = 0
-        if k > 1:
+        rows = spatial.active() if k > 1 else None
+        if rows is not None:
+            if d != 2:
+                raise ValueError("a spatial row split runs 2-D convs only")
+            # the global SAME pads along the height: the neighbours' rows
+            # where there are any, zeros at the image's edges
+            lo, hi = _same_pads(x.shape[1] * rows.count, k, s)
+            x, top, bottom = spatial.halo(x, lo, hi, rows)
+            x = F.pad(x, [0, 0, *_same_pads(x.shape[2], k, s), lo - top, hi - bottom])
+        elif k > 1:
             pads = [_same_pads(n, k, s) for n in x.shape[1:-1]]
             if all(lo == hi for lo, hi in pads):
                 padding = tuple(lo for lo, _ in pads)
             else:  # asymmetric SAME padding, applied channels last
                 x = F.pad(x, [0, 0] + [p for pair in reversed(pads) for p in pair])
-        y = _CONVS[d](x.movedim(-1, 1), self.weight.to(self.dtype), self.bias.to(self.dtype),
-                      stride=s, padding=padding)
+        y = _CONVS[d](x.movedim(-1, 1), w, bias, stride=s, padding=padding)
         return y.movedim(1, -1).contiguous()
 
 
@@ -87,6 +114,8 @@ class FusedConv3x3(nn.Module):
     """Weight and bias of a 3x3 conv that ``ops.gn_conv.gn_silu_conv3x3``
     computes; ``weight`` is (3, 3, Cout, Cin), the kernel's layout.
     ``conv`` is the same conv alone, for the ResBlock's dropout path."""
+
+    tp = None  # parallel.tp.TPShard where the weight is this rank's Cout slice
 
     def __init__(self, in_ch: int, out_ch: int, zero_init: bool = False,
                  generator: Optional[torch.Generator] = None):
@@ -99,13 +128,19 @@ class FusedConv3x3(nn.Module):
 
     def conv(self, y: torch.Tensor) -> torch.Tensor:
         """3x3 SAME conv of NHWC ``y`` in its dtype."""
-        out = F.conv2d(y.permute(0, 3, 1, 2), self.weight.to(y.dtype).permute(2, 3, 0, 1),
-                       self.bias.to(y.dtype), padding=1)
-        return out.permute(0, 2, 3, 1).contiguous()
+        w, bias = self.weight.to(y.dtype).permute(2, 3, 0, 1), self.bias.to(y.dtype)
+        if self.tp is None:
+            out = F.conv2d(y.permute(0, 3, 1, 2), w, bias, padding=1)
+            return out.permute(0, 2, 3, 1).contiguous()
+        (y,) = to_model(self.tp, y)
+        out = F.conv2d(y.permute(0, 3, 1, 2), w, padding=1).permute(0, 2, 3, 1)
+        return gather_channels(self.tp, out) + bias
 
 
 class Linear(nn.Module):
     """Dense layer in ``dtype`` with torch-default init; ``weight`` is (out, in)."""
+
+    tp = None  # parallel.tp.TPShard where the weight is this rank's slice of the rows
 
     def __init__(self, in_features: int, out_features: int,
                  zero_init: bool = False, dtype: torch.dtype = torch.float32,
@@ -119,8 +154,22 @@ class Linear(nn.Module):
             _uniform_(self.bias, in_features, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
-                        self.bias.to(self.dtype))
+        x, w, bias = x.to(self.dtype), self.weight.to(self.dtype), self.bias.to(self.dtype)
+        if self.tp is None:
+            return F.linear(x, w, bias)
+        (x,) = to_model(self.tp, x)
+        return gather_channels(self.tp, F.linear(x, w)) + bias
+
+
+class Embedding(nn.Embedding):
+    """``nn.Embedding`` (the class-label table), whose rows may be cut to
+    this rank's slice of the features under tensor parallelism."""
+
+    tp = None
+
+    def forward(self, y: torch.Tensor) -> torch.Tensor:
+        out = super().forward(y)
+        return out if self.tp is None else gather_channels(self.tp, out)
 
 
 class GroupNorm32(nn.Module):
@@ -138,6 +187,10 @@ class GroupNorm32(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor, silu: bool = False) -> torch.Tensor:
+        rows = spatial.active()
+        if rows is not None:
+            return group_norm_silu_slab(x.contiguous(), self.weight, self.bias, self.groups,
+                                        self.eps, silu, lambda m: spatial.average(m, rows))
         return group_norm_silu(x.contiguous(), self.weight, self.bias,
                                self.groups, self.eps, silu=silu)
 

@@ -19,6 +19,12 @@ model's does, because the dropout sits between the SiLU and the conv; its
 masks come from the ``generator`` passed to the forward (the train state's,
 as JAX threads the step's dropout key), never from torch's default one.
 
+Under tensor parallelism (``parallel.tp``) a sharded fused conv runs the
+kernel on this rank's slice of Cout and gathers the channels; under a
+spatial row split (``parallel.spatial``) it runs on a halo slab with
+whole-image statistics (``gn_affine_slab``), and attention gathers the
+token rows of ``qkv`` and keeps this rank's queries.
+
 At 1-D and 3-D the JAX model fuses no conv: a ResBlock is GroupNorm + SiLU
 (the GroupNorm op, kernel on the card) then a plain ``F.conv1d`` /
 ``F.conv3d``, the head likewise, and attention runs over the flattened
@@ -43,10 +49,13 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.diffusion import timestep_embedding
 from ..ops.attention import qkv_attention
+from ..ops.gn_conv import gn_affine, gn_affine_slab, gn_silu_conv3x3
 from ..parallel import mesh as P
-from ..ops.gn_conv import gn_affine, gn_silu_conv3x3
+from ..parallel import spatial
+from ..parallel.tp import gather_channels, to_model
 from .layers import (
     Conv,
+    Embedding,
     FusedConv3x3,
     GroupNorm32,
     Linear,
@@ -78,9 +87,27 @@ def masked(x: torch.Tensor, keep: torch.Tensor, p: float) -> torch.Tensor:
 def _gn_silu_conv(x: torch.Tensor, norm: GroupNorm32, conv: FusedConv3x3,
                   emb: Optional[torch.Tensor] = None, film=None) -> torch.Tensor:
     x = x.contiguous()  # the statistics and the conv kernel read one tensor
-    a, off = gn_affine(x, norm.weight, norm.bias, norm.groups, norm.eps,
-                       emb=emb, film=film)
-    return gn_silu_conv3x3(x, a, off, conv.weight, conv.bias)
+    rows = spatial.active()
+    if rows is None:
+        a, off = gn_affine(x, norm.weight, norm.bias, norm.groups, norm.eps,
+                           emb=emb, film=film)
+        top, h = 0, x.shape[1]
+    else:
+        # whole-image statistics; the kernel activates the halo rows and
+        # pads zeros at the slab's edges, whose rows are dropped
+        a, off = gn_affine_slab(x, norm.weight, norm.bias, norm.groups, norm.eps,
+                                lambda m: spatial.average(m, rows), emb=emb, film=film)
+        h = x.shape[1]
+        x, top, _ = spatial.halo(x, 1, 1, rows)
+    if conv.tp is None:
+        y = gn_silu_conv3x3(x, a, off, conv.weight, conv.bias)
+        return y if rows is None else y[:, top:top + h].contiguous()
+    # this rank's Cout slice; the whole bias after the gather
+    x, a, off = to_model(conv.tp, x, a, off)
+    y = gn_silu_conv3x3(x, a, off, conv.weight, conv.bias.new_zeros(conv.weight.shape[2]))
+    if rows is not None:
+        y = y[:, top:top + h]
+    return gather_channels(conv.tp, y) + conv.bias.to(y.dtype)
 
 
 class ResBlock(nn.Module):
@@ -172,9 +199,16 @@ class AttentionBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c = x.shape[0], x.shape[-1]
         tokens = x.reshape(b, -1, c)
-        qkv = self.qkv(self.norm(tokens))
-        out = self.proj(qkv_attention(qkv.contiguous(), self.num_heads))
-        return (tokens + out).reshape(x.shape)
+        qkv = self.qkv(self.norm(tokens)).contiguous()
+        rows = spatial.active()
+        if rows is None:
+            out = qkv_attention(qkv, self.num_heads)
+        else:
+            # every token's keys and values, this rank's queries
+            n = qkv.shape[1]
+            out = qkv_attention(spatial.gather_rows(qkv, rows), self.num_heads)
+            out = out[:, rows.index * n:(rows.index + 1) * n]
+        return (tokens + self.proj(out)).reshape(x.shape)
 
 
 class Downsample(nn.Module):
@@ -237,7 +271,7 @@ class UNetModel(nn.Module):
         self.time_embed_1 = Linear(mc, emb_dim, dtype=dtype, generator=gen)
         self.time_embed_2 = Linear(emb_dim, emb_dim, dtype=dtype, generator=gen)
         if num_classes is not None:
-            self.label_emb = nn.Embedding(num_classes + int(cfg_null_class), emb_dim)
+            self.label_emb = Embedding(num_classes + int(cfg_null_class), emb_dim)
             with torch.no_grad():
                 self.label_emb.weight.normal_(0.0, 1.0, generator=gen)
         self.in_conv = Conv(in_channels, mc, 3, dtype=dtype, generator=gen, dims=dims)
@@ -405,5 +439,11 @@ class SuperResModel(nn.Module):
                 **kwargs):
         if low_res is None:
             raise ValueError("SuperResModel requires low_res")
-        up = bilinear_resize(low_res, x.shape[1], x.shape[2]).to(x.dtype)
+        rows = spatial.active()
+        if rows is None:
+            up = bilinear_resize(low_res, x.shape[1], x.shape[2]).to(x.dtype)
+        else:  # the whole image's resize, this rank's rows
+            h = x.shape[1]
+            up = bilinear_resize(low_res, h * rows.count, x.shape[2])
+            up = up[:, rows.index * h:(rows.index + 1) * h].to(x.dtype)
         return self.unet(torch.cat([x, up], dim=-1), timesteps, y, **kwargs)

@@ -46,6 +46,9 @@ _SIGNATURES = {
     # stride1, cond_is_bf16, stream
     "pddm_gn_fold_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float,
                          _I, _I, _I, _I, _P],
+    # moments, gamma, beta, cond0, cond1, ao, B, C, groups, eps, mode, stride0, stride1,
+    # cond_is_bf16, stream
+    "pddm_gn_fold": [_P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _I, _I, _I, _P],
     # x, ao, out, B, N, C, silu, is_bf16, V, cvb, splits, rows, stream
     "pddm_gn_apply": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, a, off, w, bias, out, B, H, W, Cin, Cout, is_bf16, design, stream

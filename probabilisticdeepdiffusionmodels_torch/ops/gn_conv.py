@@ -63,10 +63,12 @@ import torch.nn.functional as F
 
 from . import _build
 from .autograd import forbid_forward_mode, kernel_op
-from .groupnorm import apply_affine, check_inputs, fold_backward, moments_fold
+from .groupnorm import (apply_affine, check_inputs, fold_backward, gn_fold, gn_fold_plain,
+                        moments_fold, moments_plain)
 
 __all__ = ["conv_design", "gn_affine", "gn_affine_plain", "gn_affine_grad",
-           "gn_affine_grad_plain", "gn_silu_conv3x3", "gn_silu_conv3x3_plain"]
+           "gn_affine_grad_plain", "gn_affine_slab", "gn_affine_slab_plain",
+           "gn_silu_conv3x3", "gn_silu_conv3x3_plain"]
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 # the C entry point's design argument
@@ -212,6 +214,40 @@ def gn_affine(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
 
 gn_affine.launches = 0
+
+
+def gn_affine_slab_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                         num_groups: int, eps: float, average,
+                         emb: Optional[torch.Tensor] = None,
+                         film: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """``gn_affine_slab`` in plain torch (the moments and the fold)."""
+    ao = gn_fold_plain(average(moments_plain(x)), gamma, beta, num_groups, eps,
+                       emb=emb, film=film)
+    return ao[0], ao[1]
+
+
+def gn_affine_slab(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                   num_groups: int, eps: float, average, emb: Optional[torch.Tensor] = None,
+                   film: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """``gn_affine``'s (a, off) for a whole image of which ``x`` holds some
+    rows: the (2, B, C) moments of ``x``, ``average``d over the ranks that
+    hold the rest, folded (``groupnorm.gn_fold``).  A CPU tensor takes the
+    plain version; a CUDA tensor launches the moments + fold kernel (its
+    local fold unused) and the fold kernel.  Forward only (sampling)."""
+    if x.device.type == "cpu":
+        return gn_affine_slab_plain(x, gamma, beta, num_groups, eps, average,
+                                    emb=emb, film=film)
+    if emb is not None and film is not None:
+        raise ValueError("gn_affine takes emb or film, not both")
+    gamma, beta = check_inputs("gn_affine", x, gamma, beta, num_groups)
+    conds = (emb,) if emb is not None else tuple(film or ())
+    keep = all(t.dtype == torch.bfloat16 for t in conds)
+    conds = tuple(_cond_in(t, x, torch.bfloat16 if keep else torch.float32) for t in conds)
+    mode = 1 if emb is not None else 2 if film is not None else 0
+    local = moments_fold(x, gamma, beta, num_groups, eps)
+    gn_affine.launches += 1
+    ao = gn_fold(average(local[2:4]), gamma, beta, num_groups, eps, **_named(mode, conds))
+    return ao[0], ao[1]
 
 
 def _affine_silu_conv(x, a, off, w, bias, conv_dtype):

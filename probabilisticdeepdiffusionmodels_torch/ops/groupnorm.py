@@ -24,6 +24,13 @@ work is three parts:
   one launch; ``ops.gn_conv.gn_affine`` is built on it.
 - *apply*: ``y = x * a + off`` (+ SiLU), stored in the input dtype.
 
+The fold also has an entry of its own (``gn_fold``: one block a sample, from
+the (2, B, C) moments E[x], E[x^2] to the same (4, B, C) output as
+``moments_fold``).  A spatially sharded forward uses it: each rank's
+moments over its rows are averaged over the ranks and folded, so the
+normalisation uses whole-image statistics (``group_norm_silu_slab``,
+``gn_conv.gn_affine_slab``).
+
 ``gn_affine``'s gradient runs the same parts backwards (``fold_backward``,
 one small launch from the gradients of ``a`` and ``off`` to dL/dS1 and dL/dS2
 per (sample, channel), then ``apply_affine`` for dL/dx = 2 x dL/dS2 + dL/dS1).
@@ -58,7 +65,9 @@ from . import _build
 from .autograd import kernel_op
 
 __all__ = ["group_norm_silu", "group_norm_silu_plain", "groupnorm_design", "moments_plan",
-           "fused_plan", "moments_fold", "fold_backward", "apply_affine"]
+           "fused_plan", "moments_fold", "fold_backward", "apply_affine", "gn_fold",
+           "gn_fold_plain", "moments_plain", "group_norm_silu_slab",
+           "group_norm_silu_slab_plain"]
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _NT = 256                  # threads of a block (csrc/groupnorm.cu)
@@ -317,3 +326,105 @@ def _launch(x, gamma, beta, num_groups, eps, silu, design=None):
 
 
 group_norm_silu.launches = 0
+
+
+# ------------------------------------------------------------ the fold alone
+
+
+def moments_plain(x: torch.Tensor) -> torch.Tensor:
+    """(2, B, C) float32: E[x] and E[x^2] per (sample, channel) of a
+    (B, *spatial, C) tensor."""
+    b, c = x.shape[0], x.shape[-1]
+    xf = x.float().reshape(b, -1, c)
+    return torch.stack([xf.mean(dim=1), (xf * xf).mean(dim=1)])
+
+
+def gn_fold_plain(moments: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                  num_groups: int, eps: float, emb: Optional[torch.Tensor] = None,
+                  film: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+    """The fold in plain torch: from the (2, B, C) moments to the (4, B, C)
+    float32 (a, off, E[x], E[x^2]) that ``moments_fold`` returns, with
+    ``normalized(x [+ emb]) * gamma + beta [FiLM] == x * a + off``."""
+    mu_c, m2_c = moments[0].float(), moments[1].float()
+    b, c = mu_c.shape
+    g = num_groups
+    if emb is not None:
+        e = emb.float()
+        mu, m2 = mu_c + e, m2_c + 2.0 * e * mu_c + e * e
+    else:
+        mu, m2 = mu_c, m2_c
+    mu_g = mu.reshape(b, g, c // g).mean(dim=2)
+    m2_g = m2.reshape(b, g, c // g).mean(dim=2)
+    rstd = torch.rsqrt(m2_g - mu_g * mu_g + eps).repeat_interleave(c // g, dim=1)
+    a = rstd * gamma.float()[None, :]
+    off = beta.float()[None, :] - mu_g.repeat_interleave(c // g, dim=1) * a
+    if emb is not None:
+        off = off + emb.float() * a
+    if film is not None:
+        s = 1.0 + film[0].float()
+        a, off = a * s, off * s + film[1].float()
+    return torch.stack([a, off, mu_c, m2_c])
+
+
+def gn_fold(moments: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, num_groups: int,
+            eps: float, emb: Optional[torch.Tensor] = None,
+            film: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+    """``gn_fold_plain``'s (4, B, C).  A CPU tensor takes the plain version;
+    a CUDA tensor launches the fold kernel (one block a sample) or raises.
+    ``moments`` is (2, B, C) float32; gamma/beta float32 (C,); emb or the
+    FiLM pair (B, C), float32 or bfloat16 with unit channel stride (as
+    ``gn_conv.gn_affine`` hands them on).  Forward only."""
+    if moments.device.type == "cpu":
+        return gn_fold_plain(moments, gamma, beta, num_groups, eps, emb=emb, film=film)
+    if moments.device.type != "cuda":
+        raise ValueError(f"gn_fold: unsupported device {moments.device}")
+    if moments.dim() != 3 or moments.shape[0] < 2 or moments.dtype != torch.float32:
+        raise ValueError(f"gn_fold takes (2, B, C) float32 moments, got "
+                         f"{tuple(moments.shape)} {moments.dtype}")
+    _, b, c = moments.shape
+    if c % num_groups or c > _MAX_CHANNELS or b > 65535:
+        raise ValueError(f"gn_fold: {c} channels in {num_groups} groups, batch {b}")
+    if gamma.shape != (c,) or beta.shape != (c,):
+        raise ValueError(f"gamma/beta must be ({c},)")
+    moments = moments[:2].contiguous()
+    gamma, beta = _float32_on(gamma, moments.device), _float32_on(beta, moments.device)
+    ao = torch.empty((4, b, c), dtype=torch.float32, device=moments.device)
+    ptr0, ptr1, *rest = _cond_args(emb, film)
+    _build.launch("pddm_gn_fold", moments.data_ptr(), gamma.data_ptr(), beta.data_ptr(), ptr0,
+                  ptr1, ao.data_ptr(), b, c, num_groups, float(eps), *rest)
+    gn_fold.launches += 1
+    return ao
+
+
+gn_fold.launches = 0
+
+
+def group_norm_silu_slab_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                               num_groups: int, eps: float, silu: bool,
+                               average) -> torch.Tensor:
+    """``group_norm_silu_slab`` in plain torch (the moments, the fold, the
+    affine and SiLU)."""
+    ao = gn_fold_plain(average(moments_plain(x)), gamma, beta, num_groups, eps)
+    shape = (x.shape[0], *(1,) * (x.dim() - 2), x.shape[-1])
+    y = x.float() * ao[0].reshape(shape) + ao[1].reshape(shape)
+    if silu:
+        y = y * torch.sigmoid(y)
+    return y.to(x.dtype)
+
+
+def group_norm_silu_slab(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                         num_groups: int, eps: float, silu: bool, average) -> torch.Tensor:
+    """``group_norm_silu`` of a whole image of which ``x`` holds some rows:
+    the moments of ``x``, ``average``d over the ranks that hold the rest
+    ((2, B, C) float32 in, the same out), folded, applied to ``x``.  A CPU
+    tensor takes the plain version; a CUDA tensor launches the moments,
+    fold and apply kernels.  Forward only."""
+    if x.device.type == "cpu":
+        return group_norm_silu_slab_plain(x, gamma, beta, num_groups, eps, silu, average)
+    x = x.contiguous()
+    gamma, beta = check_inputs("group_norm_silu", x, gamma, beta, num_groups)
+    local = moments_fold(x, gamma, beta, num_groups, eps)
+    ao = gn_fold(average(local[2:4]), gamma, beta, num_groups, eps)
+    out = apply_affine(x, ao, silu)
+    group_norm_silu.launches += 1
+    return out

@@ -4,6 +4,7 @@ from .mesh import (
     batch_shard,
     data_sharding,
     fsdp_sharding,
+    local_shard,
     make_mesh,
     make_mesh_2d,
     replicated,

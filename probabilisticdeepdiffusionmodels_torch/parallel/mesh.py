@@ -16,7 +16,9 @@ program on its own device, and the code that shards says so:
     Flax shape and mapped to the port's layout (``convert.flax_layout``), so
     both packages split the same logical axis;
   * :func:`shard_batch` takes this rank's contiguous 1/N of the leading
-    axis, the block JAX's ``data_sharding`` puts on each device;
+    axis, the block JAX's ``data_sharding`` puts on each device, and
+    :func:`local_shard` this rank's block of any tensor under any
+    placements (a ``tp_sharding`` leaf, a ``spatial_sharding`` image);
   * :func:`batch_shard` is the batch axis split: while one is active
     (``with batch_shard(mesh):``) the per-sample draws of the train steps,
     the samplers, the likelihood and the UNet's dropout (``randn``,
@@ -38,7 +40,7 @@ import torch
 
 __all__ = ["DATA_AXIS", "MODEL_AXIS", "make_mesh", "make_mesh_2d", "data_sharding",
            "spatial_sharding", "replicated", "fsdp_sharding", "tp_sharding", "shard_batch",
-           "mesh_axis", "batch_shard", "randn", "rand", "randint",
+           "local_shard", "mesh_axis", "axis_size", "batch_shard", "randn", "rand", "randint",
            "global_batch", "batch_mean"]
 
 DATA_AXIS = "data"
@@ -87,7 +89,12 @@ def make_mesh(n_devices: Optional[int] = None, axis_name: str = DATA_AXIS, devic
 def make_mesh_2d(n_data: int, n_model: int, axis_names: tuple = (DATA_AXIS, MODEL_AXIS),
                  device=None):
     """2-D (data x model) mesh, ranks row-major (a rank's model-axis
-    neighbours are adjacent ranks)."""
+    neighbours are adjacent ranks), with a process group for each axis
+    (``mesh.get_group("data")`` holds the ranks of this rank's model
+    index, ``"model"`` those of its data index); ``mesh_axis`` gives this
+    rank's coordinate on either.  Raises where the group has fewer than
+    ``n_data * n_model`` ranks, as JAX's raises where the slice has fewer
+    devices."""
     return _mesh((int(n_data), int(n_model)), tuple(axis_names), device,
                  f"make_mesh_2d({n_data}, {n_model})")
 
@@ -96,6 +103,13 @@ def mesh_axis(mesh, axis_name: str = DATA_AXIS) -> Tuple[int, int, object]:
     """(this rank's index on the axis, the axis size, its process group)."""
     return (mesh.get_local_rank(axis_name), mesh.size(mesh.mesh_dim_names.index(axis_name)),
             mesh.get_group(axis_name))
+
+
+def axis_size(mesh, axis_name: str) -> int:
+    """The size of the mesh's axis ``axis_name``; 1 where it has none (a
+    1-D data mesh has no model axis)."""
+    names = tuple(mesh.mesh_dim_names or ())
+    return mesh.size(names.index(axis_name)) if axis_name in names else 1
 
 
 # ------------------------------------------------------------ placement rules
@@ -114,9 +128,8 @@ def data_sharding(mesh, ndim: int, axis_name: str = DATA_AXIS) -> tuple:
 
 
 def spatial_sharding(mesh, axis_name: str = DATA_AXIS) -> tuple:
-    """Shard NHWC images over the HEIGHT axis.  A rule only: no path of the
-    port runs it yet (``shard_mode="spatial"`` raises, ROADMAP.md Queue 1
-    item 21)."""
+    """Shard NHWC images over the HEIGHT axis: each rank holds H/N rows
+    (``generate_images(shard_mode="spatial")``, ``parallel.spatial``)."""
     return _placements(mesh, axis_name, 1)
 
 
@@ -168,9 +181,9 @@ def fsdp_sharding(mesh, model: torch.nn.Module, axis_name: str = DATA_AXIS,
 def tp_sharding(mesh, model: torch.nn.Module, axis_name: str = MODEL_AXIS,
                 min_size: int = 2048) -> Dict[str, tuple]:
     """The tensor-parallel layout: every large >= 2-D leaf split on its
-    output-feature dim (the last Flax dim) over the model axis.  A rule
-    only: no path of the port runs it yet (``param_sharding="tp"`` raises,
-    ROADMAP.md Queue 1 item 21)."""
+    output-feature dim (the last Flax dim) over the model axis, the rest
+    replicated (``param_sharding="tp"``; ``parallel.tp.shard_model`` cuts
+    the modules to it)."""
     return _by_flax_shape(mesh, model, axis_name, _tp_axis, min_size)
 
 
@@ -191,6 +204,25 @@ def shard_batch(mesh, batch, axis_name: str = DATA_AXIS):
                          "devices")
     k = b // n
     return batch[index * k:(index + 1) * k]
+
+
+def local_shard(mesh, full: torch.Tensor, placements: tuple) -> torch.Tensor:
+    """This rank's block of ``full`` under ``placements`` (one per mesh
+    axis, as the rules above return them): along each axis that shards a
+    dim, this rank's contiguous 1/N of it (a view).  A dim the axis does
+    not divide raises."""
+    out = full
+    for name, placement in zip(mesh.mesh_dim_names, placements):
+        if not placement.is_shard():
+            continue
+        index, n, _ = mesh_axis(mesh, name)
+        d = placement.dim
+        if out.shape[d] % n:
+            raise ValueError(f"dim {d} of {tuple(full.shape)} is not divisible by the "
+                             f"{n} ranks of mesh axis {name!r}")
+        k = out.shape[d] // n
+        out = out.narrow(d, index * k, k)
+    return out
 
 
 # ------------------------------------------------------------ the batch axis split

@@ -1,4 +1,5 @@
-"""The train state's collectives on a data mesh: data parallelism and FSDP.
+"""The train state's collectives on a mesh: data parallelism, FSDP and the
+gradient side of tensor parallelism.
 
 JAX's engine places its state on the mesh and XLA inserts the gradient
 all-reduce (or, with ``param_sharding="fsdp"``, the all-gathers and
@@ -20,6 +21,13 @@ so a step makes one collective of each kind:
     sharded gradients are reduce-scattered to the masters, the replicated
     ones all-reduced; the global gradient norm sums the shards' squares
     over the ranks.
+  * ``"tp"`` (on a data x model mesh): the modules hold this rank's slices
+    of the leaves ``tp_sharding`` splits over the model axis
+    (``parallel.tp.shard_model``), and so do the EMA and Adam's moments.
+    Every gradient is all-reduced over the DATA group only (a model rank's
+    data group holds its own slices); the global norm sums the squares of
+    the split leaves over the model group and adds the replicated ones
+    once.  A checkpoint gathers the slices whole, as FSDP's.
 
 Every collective is made by every rank in the same order: the steps, the
 endpoints and the checkpoint saves that reach them run on all ranks.  The
@@ -33,7 +41,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from .mesh import DATA_AXIS, fsdp_sharding, mesh_axis
+from .mesh import DATA_AXIS, MODEL_AXIS, fsdp_sharding, mesh_axis
+from .tp import tp_slice
 
 __all__ = ["MeshSync"]
 
@@ -56,13 +65,21 @@ class MeshSync:
     modules; the optimizer is built over :meth:`optimizer_params`."""
 
     def __init__(self, mesh, model: torch.nn.Module, ema_model: Optional[torch.nn.Module],
-                 mode: str = "replicated", min_size: int = 65536):
-        if mode not in ("replicated", "fsdp"):
-            raise ValueError(f"MeshSync mode {mode!r} (replicated | fsdp)")
+                 mode: str = "replicated", min_size: int = 65536,
+                 tp_dims: Optional[Dict[str, Optional[int]]] = None):
+        if mode not in ("replicated", "fsdp", "tp"):
+            raise ValueError(f"MeshSync mode {mode!r} (replicated | fsdp | tp)")
+        if (mode == "tp") != (tp_dims is not None):
+            raise ValueError('MeshSync takes tp_dims (parallel.tp.shard_model) with mode "tp" '
+                             "and only then")
         self.mesh, self.mode = mesh, mode
         self.index, self.size, self.group = mesh_axis(mesh, DATA_AXIS)
+        self.model_index, self.model_size, self.model_group = (
+            mesh_axis(mesh, MODEL_AXIS) if MODEL_AXIS in mesh.mesh_dim_names else (0, 1, None))
         self.src = dist.get_global_rank(self.group, 0)
         self.names = [n for n, _ in model.named_parameters()]
+        # each parameter's axis split over the model axis (tp), else None
+        self.tp_dims: List[Optional[int]] = [(tp_dims or {}).get(n) for n in self.names]
         self.modules = {"model": model, "ema": ema_model}
         self._broadcast([p for m in self.modules.values() if m is not None
                          for p in m.parameters()])
@@ -90,7 +107,19 @@ class MeshSync:
 
     @property
     def sharded(self) -> bool:
+        """Whether the optimizer runs over FSDP masters."""
         return self.mode == "fsdp"
+
+    @property
+    def splits(self) -> bool:
+        """Whether some leaves are split over ranks, so the global gradient
+        norm needs a collective (``grad_norms``)."""
+        return self.mode in ("fsdp", "tp")
+
+    @property
+    def is_main(self) -> bool:
+        """Rank (0, 0) of the mesh: the one that writes."""
+        return self.index == 0 and self.model_index == 0
 
     def _block(self, full: torch.Tensor, d: int) -> torch.Tensor:
         k = full.shape[d] // self.size
@@ -122,19 +151,48 @@ class MeshSync:
             _split_into(flat, tensors)
 
     def _gather(self, shards: List[torch.Tensor], dims: List[int],
-                outs: List[torch.Tensor]) -> None:
-        """All-gather each shard along its dim into ``outs`` (one collective)."""
+                outs: List[torch.Tensor], model_axis: bool = False) -> None:
+        """All-gather each shard along its dim into ``outs`` (one collective),
+        over the data group or, with ``model_axis``, the model group."""
+        size, group = ((self.model_size, self.model_group) if model_axis
+                       else (self.size, self.group))
         moved = [s.movedim(d, 0) for s, d in zip(shards, dims)]
         send = _flat(moved)
-        recv = torch.empty(self.size * send.numel(), dtype=send.dtype, device=send.device)
-        dist.all_gather_into_tensor(recv, send, group=self.group)
-        recv = recv.view(self.size, send.numel())
+        recv = torch.empty(size * send.numel(), dtype=send.dtype, device=send.device)
+        dist.all_gather_into_tensor(recv, send, group=group)
+        recv = recv.view(size, send.numel())
         off = 0
         for m, d, out in zip(moved, dims, outs):
             n = m.numel()
-            full = recv[:, off:off + n].reshape(self.size * m.shape[0], *m.shape[1:])
+            full = recv[:, off:off + n].reshape(size * m.shape[0], *m.shape[1:])
             out.copy_(full.movedim(0, d))
             off += n
+
+    def _tp_indices(self) -> List[int]:
+        return [i for i, d in enumerate(self.tp_dims) if d is not None]
+
+    def _tp_whole(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Per-parameter tensors in the tp layout gathered whole over the
+        model group; the replicated ones as they are."""
+        out = list(tensors)
+        idx = self._tp_indices()
+        if not idx:
+            return out
+        fulls = []
+        for i in idx:
+            shape = list(tensors[i].shape)
+            shape[self.tp_dims[i]] *= self.model_size
+            fulls.append(torch.empty(shape, dtype=tensors[i].dtype, device=tensors[i].device))
+        self._gather([tensors[i].detach() for i in idx], [self.tp_dims[i] for i in idx], fulls,
+                     model_axis=True)
+        for i, f in zip(idx, fulls):
+            out[i] = f
+        return out
+
+    def _tp_slice(self, full: torch.Tensor, d: Optional[int]) -> torch.Tensor:
+        if d is None:
+            return full
+        return tp_slice(full, self.model_index, self.model_size, d).clone()
 
     def materialize(self, which: str = "model") -> None:
         """The module's working copy gathered from the masters (FSDP; a
@@ -215,15 +273,17 @@ class MeshSync:
         ref = next(s for s in sq if s is not None)
         rep = torch.zeros(n_groups, dtype=torch.float32, device=ref.device)
         shard = torch.zeros_like(rep)
-        for s, grp, d in zip(sq, groups, self.dims):
+        for s, grp, d, td in zip(sq, groups, self.dims, self.tp_dims):
             if s is None:
                 continue
-            if self.sharded and d is not None:
+            if (self.sharded and d is not None) or td is not None:
                 shard[grp] += s
             else:
                 rep[grp] += s
         if self.sharded:
             dist.all_reduce(shard, group=self.group)
+        if self.mode == "tp":
+            dist.all_reduce(shard, group=self.model_group)
         return torch.sqrt(rep + shard)
 
     def gather_history(self, t: torch.Tensor, losses: torch.Tensor
@@ -250,13 +310,30 @@ class MeshSync:
         return out
 
     def barrier(self) -> None:
+        """Every rank of the mesh: the data group, then the model group."""
         dist.barrier(group=self.group)
+        if self.model_group is not None:
+            dist.barrier(group=self.model_group)
 
     # ------------------------------------------------------------ checkpoints
+
+    def state_dict(self, which: str = "model") -> Dict[str, torch.Tensor]:
+        """The module's whole (one-device) ``state_dict``: the FSDP working
+        copy gathered, or the tp slices gathered over the model group (a
+        collective: every rank calls it)."""
+        module = self.modules[which]
+        if self.sharded:
+            self.materialize(which)
+        state = module.state_dict()
+        if self.mode != "tp":
+            return state
+        return dict(zip(self.names, self._tp_whole([state[n] for n in self.names])))
 
     def gather_moments(self, moments: List[torch.Tensor]) -> List[torch.Tensor]:
         """Per-parameter tensors in the masters' layout (Adam's moments, the
         accumulation buffer) gathered whole; replicated ones as they are."""
+        if self.mode == "tp":
+            return self._tp_whole(moments)
         if not self.sharded:
             return list(moments)
         model_params = list(self.modules["model"].parameters())
@@ -270,7 +347,10 @@ class MeshSync:
         return out
 
     def shard_moments(self, moments: List[torch.Tensor]) -> List[torch.Tensor]:
-        """Whole per-parameter tensors cut to this rank's blocks (FSDP)."""
+        """Whole per-parameter tensors cut to this rank's blocks (FSDP) or
+        slices (tp)."""
+        if self.mode == "tp":
+            return [self._tp_slice(m, d) for m, d in zip(moments, self.tp_dims)]
         if not self.sharded:
             return list(moments)
         return [m if d is None else self._block(m, d).clone()
@@ -280,7 +360,10 @@ class MeshSync:
         """Whole parameters (a one-device ``state_dict``) into the module and,
         under FSDP, its masters; the working copy is released after."""
         module = self.modules[which]
-        if self.sharded:
+        if self.mode == "tp":
+            module.load_state_dict({n: self._tp_slice(state[n], d)
+                                    for n, d in zip(self.names, self.tp_dims)})
+        elif self.sharded:
             with torch.no_grad():
                 for p, master, name, d in zip(module.parameters(), self.masters[which],
                                               self.names, self.dims):

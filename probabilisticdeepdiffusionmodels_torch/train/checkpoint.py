@@ -13,10 +13,11 @@ optimizer chain, loss history, the state generator's state) beside
 renamed when complete.  The experiment config lives in the run directory, so
 a run can be rebuilt from it alone.
 
-On a data mesh (``state.sync``) every rank calls ``save`` and ``restore``:
-an FSDP state is gathered whole first (a collective), rank 0 writes, and
-the others wait at a barrier, so a checkpoint of N ranks is the one-device
-checkpoint and loads on one device; a restore cuts it to the rank's shards.
+On a mesh (``state.sync``) every rank calls ``save`` and ``restore``: an
+FSDP or tensor-parallel state is gathered whole first (a collective), rank 0
+writes, and the others wait at a barrier, so a checkpoint of N ranks is the
+one-device checkpoint and loads on one device; a restore cuts it to the
+rank's shards.
 """
 
 from __future__ import annotations
@@ -57,7 +58,7 @@ class CheckpointManager:
             return False
         metrics = {k: float(v) for k, v in metrics.items()} if metrics else None
         payload = _to_saveable(state)
-        writes = state.sync is None or state.sync.index == 0
+        writes = state.sync is None or state.sync.is_main
         if writes:
             tmp = self.directory / f"{step}.tmp"
             shutil.rmtree(tmp, ignore_errors=True)
@@ -138,17 +139,19 @@ def _map_moments(opt: dict, fn) -> dict:
 
 def _to_saveable(state: TrainState) -> dict:
     sync = state.sync
-    if sync is not None:
-        sync.materialize("model")
-        if state.ema_model is not None:
-            sync.materialize("ema")
+    if sync is None:
+        model = state.model.state_dict()
+        ema = None if state.ema_model is None else state.ema_model.state_dict()
+    else:
+        model = sync.state_dict("model")
+        ema = None if state.ema_model is None else sync.state_dict("ema")
     optimizer = state.optimizer.state_dict()
-    if sync is not None and sync.sharded:
+    if sync is not None and sync.splits:
         optimizer = _map_moments(optimizer, sync.gather_moments)
     return {
         "step": state.step,
-        "model": state.model.state_dict(),
-        "ema_model": None if state.ema_model is None else state.ema_model.state_dict(),
+        "model": model,
+        "ema_model": ema,
         "optimizer": optimizer,
         "loss_history": {name: getattr(state.loss_history, name) for name in _HISTORY},
         "generator": state.generator.get_state(),

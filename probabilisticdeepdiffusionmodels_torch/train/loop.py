@@ -232,7 +232,11 @@ class Trainer:
         run's media directory, plus each module's std and largest |weight|
         in the metric log."""
         modules = collections.defaultdict(list)
-        for name, p in self.engine.params().named_parameters():
+        sync = self.engine.state.sync
+        # on a mesh the whole weights (FSDP's or tp's shards gathered; a collective)
+        named = (self.engine.params().named_parameters() if sync is None
+                 else sync.state_dict("model").items())
+        for name, p in named:
             modules[name.split(".")[0]].append(p.detach().float().flatten())
         if not self.engine.is_main:
             return

@@ -100,7 +100,7 @@ def _backward_and_apply(state: TrainState, loss: torch.Tensor, t_hist: torch.Ten
         values = sync.reduce_gradients(state.model, values)
         t_hist, per_sample = sync.gather_history(t_hist, per_sample)
         grads = [p.grad for p in sync.optimizer_params(state.model)]
-        norm = sync.grad_norms if sync.sharded else None
+        norm = sync.grad_norms if sync.splits else None
     else:
         grads = [p.grad for _, p in named]
         norm = None
@@ -439,7 +439,9 @@ class CapturedSteps:
     """K train steps of ``step`` on one train state as one CUDA graph.
 
     The graph reads its batches from static buffers ``xs`` [K, B, ...] and
-    ``ys`` [K, B] (or none), and the optimizer's per-update scalars from a
+    ``ys`` [K, B] (or none), injected draws (``draws``: name -> [K, B, ...],
+    each step's row handed to ``step`` by name, as ``training_step`` takes
+    them) from more, and the optimizer's per-update scalars from a
     device table (``AdamChain.table_update``); everything else it touches
     (parameters, EMA, Adam's moments, the accumulation buffer, the loss
     history, the state's generator, registered with the graph) keeps its
@@ -458,14 +460,25 @@ class CapturedSteps:
     that fails raises.  ``capture=False`` runs the graph's steps eagerly on
     every call, on any device: the graph's arithmetic and bookkeeping
     without the graph, for tests on the CPU.
+
+    On a mesh (``state.sync``) the steps' collectives (the gradient
+    all-reduce, the history's all-gather, a sharded norm's all-reduce) are
+    recorded on the capture stream with the rest, so a replay runs them;
+    NCCL's can be captured, gloo's cannot (``engine.training_steps``
+    refuses a CUDA mesh over gloo).  The capture then checks only its own
+    thread's CUDA calls, since the process group's watchdog thread keeps
+    polling while the graph is captured.
     """
 
     def __init__(self, step: Callable, state: TrainState, xs: torch.Tensor,
-                 ys: Optional[torch.Tensor] = None, capture: bool = True):
+                 ys: Optional[torch.Tensor] = None, capture: bool = True,
+                 draws: Optional[Dict[str, torch.Tensor]] = None):
         self.step, self.state, self.k = step, state, xs.shape[0]
         self.xs = torch.empty_like(xs, memory_format=torch.contiguous_format)
         self.ys = None if ys is None else torch.empty_like(ys,
                                                            memory_format=torch.contiguous_format)
+        self.draws = {k: torch.empty_like(v, memory_format=torch.contiguous_format)
+                      for k, v in (draws or {}).items()}
         self.table = torch.zeros((self.k, 2), dtype=torch.float32, device=xs.device)
         state.optimizer.init_state()
         self.capture = capture
@@ -477,7 +490,8 @@ class CapturedSteps:
 
     def _body(self) -> Dict:
         with self.state.optimizer.table_updates(self.table):
-            rows = [self.step(self.state, self.xs[i], None if self.ys is None else self.ys[i])
+            rows = [self.step(self.state, self.xs[i], None if self.ys is None else self.ys[i],
+                              **{k: v[i] for k, v in self.draws.items()})
                     for i in range(self.k)]
         return _stack(rows)
 
@@ -493,10 +507,13 @@ class CapturedSteps:
         self.state.step += self.k
         self.state.optimizer.advance(self.k)
 
-    def __call__(self, xs: torch.Tensor, ys: Optional[torch.Tensor] = None) -> Dict:
+    def __call__(self, xs: torch.Tensor, ys: Optional[torch.Tensor] = None,
+                 draws: Optional[Dict[str, torch.Tensor]] = None) -> Dict:
         self.xs.copy_(xs)
         if self.ys is not None:
             self.ys.copy_(ys)
+        for k, v in (draws or {}).items():
+            self.draws[k].copy_(v)
         rows = self.state.optimizer.update_scalars(self.k)
         pin = self.table.device.type == "cuda"
         self.table.copy_(rows.pin_memory() if pin else rows, non_blocking=pin)
@@ -527,7 +544,8 @@ class CapturedSteps:
             # the capture sees the host counts the warm-up started from
             # (the accumulation phase, the step a CT grid level reads)
             self._set_host(counts)
-            with torch.cuda.graph(graph, stream=self.stream):
+            mode = "global" if self.state.sync is None else "thread_local"
+            with torch.cuda.graph(graph, stream=self.stream, capture_error_mode=mode):
                 self.static_metrics = self._body()
         finally:
             self._set_host(after)
@@ -550,9 +568,10 @@ class CapturedSteps:
 
 
 def make_fused_train_step(step: Callable) -> Callable[..., Dict]:
-    """Fuse K train steps into one dispatch: ``fused(state, xs, ys=None)``
-    over stacked ``[K, B, ...]`` batches (labels ``[K, B]``), metrics
-    stacked ``[K]`` each, one row a step.
+    """Fuse K train steps into one dispatch: ``fused(state, xs, ys=None,
+    **draws)`` over stacked ``[K, B, ...]`` batches (labels ``[K, B]``, the
+    steps' injected draws ``[K, B, ...]`` each), metrics stacked ``[K]``
+    each, one row a step.
 
     On a CUDA device the K steps are one captured CUDA graph
     (``CapturedSteps``), one per (K, batch shape and dtype, label presence,
@@ -570,8 +589,8 @@ def make_fused_train_step(step: Callable) -> Callable[..., Dict]:
     owner = [None]
     host_key = getattr(step, "host_key", None)
 
-    def graph_for(state: TrainState, xs: torch.Tensor,
-                  ys: Optional[torch.Tensor] = None) -> CapturedSteps:
+    def graph_for(state: TrainState, xs: torch.Tensor, ys: Optional[torch.Tensor] = None,
+                  draws: Optional[Dict[str, torch.Tensor]] = None) -> CapturedSteps:
         opt = state.optimizer
         if owner[0] != (id(state), opt.generation):
             graphs.clear()
@@ -581,17 +600,21 @@ def make_fused_train_step(step: Callable) -> Callable[..., Dict]:
             for old in [key for key in graphs if key[-1][0] < host[0]]:
                 del graphs[old]
         key = (tuple(xs.shape), xs.dtype,
-               None if ys is None else (tuple(ys.shape), ys.dtype), opt.mini_step, host)
+               None if ys is None else (tuple(ys.shape), ys.dtype),
+               tuple((k, tuple(v.shape), v.dtype) for k, v in sorted((draws or {}).items())),
+               opt.mini_step, host)
         chunk = graphs.get(key)
         if chunk is None:
-            chunk = graphs[key] = CapturedSteps(step, state, xs, ys)
+            chunk = graphs[key] = CapturedSteps(step, state, xs, ys, draws=draws)
         return chunk
 
-    def fused(state: TrainState, xs: torch.Tensor, ys: Optional[torch.Tensor] = None) -> Dict:
+    def fused(state: TrainState, xs: torch.Tensor, ys: Optional[torch.Tensor] = None,
+              **draws: torch.Tensor) -> Dict:
         if xs.device.type != "cuda":
-            return _stack([step(state, xs[i], None if ys is None else ys[i])
+            return _stack([step(state, xs[i], None if ys is None else ys[i],
+                                **{k: v[i] for k, v in draws.items()})
                            for i in range(xs.shape[0])])
-        return graph_for(state, xs, ys)(xs, ys)
+        return graph_for(state, xs, ys, draws)(xs, ys, draws)
 
     fused.graphs, fused.graph_for = graphs, graph_for
     return fused

@@ -234,13 +234,14 @@ def test_generate_images_takes_x_T_and_refuses_unported():
                                use_ema=False)
     np.testing.assert_array_equal(a[:2], b)
     # DDIM runs; the native EDM sampler needs an EDM engine; spatial
-    # sharding is item 21
+    # sharding without a mesh runs the whole image, as JAX's does
     ddim = engine.generate_images(n=1, minibatch=1, num_sample_steps=3, ddim=True)
     assert ddim.shape == (1, 8, 8, 3) and np.isfinite(ddim).all()
     with pytest.raises(ValueError, match='prediction_type="edm"'):
         engine.generate_images(n=1, edm=True)
-    with pytest.raises(NotImplementedError, match="item 21"):
-        engine.generate_images(n=1, shard_mode="spatial")
+    np.testing.assert_array_equal(
+        engine.generate_images(n=1, minibatch=1, num_sample_steps=3, ddim=True,
+                               shard_mode="spatial"), ddim)
     with pytest.raises(TypeError, match="unexpected"):
         engine.generate_images(n=1, bogus=1)
     # the values that leave an option off pass
@@ -384,7 +385,7 @@ def test_entry_points_need_a_card_unless_asked(tmp_path, monkeypatch, trained_ru
 
 @pytest.mark.parametrize("argv,match", [
     (["engine.prediction_type=edm"], None),
-    (["trainer.devices=2x1"], "item 21"),
+    (["trainer.devices=2x1"], None),
     (["trainer.fused_steps=2"], None),
     (["data.device_resident=true"], None),
     (["model.name=superres", "data.superres_factor=2"], None),
@@ -394,9 +395,9 @@ def test_entry_points_need_a_card_unless_asked(tmp_path, monkeypatch, trained_ru
 ], ids=["edm", "devices", "fused_steps", "device_resident", "superres", "consistency", "flow",
         "encoder_reuse"])
 def test_train_cli_refuses_what_is_not_ported(argv, match, tmp_path):
-    """A data x model mesh (item 21) raises; the EDM, consistency and flow
-    objectives, the
-    engine's encoder reuse, fused steps, the device-resident loader and
+    """Nothing here is refused any more: a data x model mesh (item 21,
+    ported: two spawned ranks), the EDM, consistency and flow objectives,
+    the engine's encoder reuse, fused steps, the device-resident loader and
     super-resolution (item 16, ported) run at the tiny size (match None): a
     consistency run records its CT loss where the others record the NLL
     test."""
@@ -420,16 +421,17 @@ def edm_run(tmp_path_factory):
 
 @pytest.mark.parametrize("argv,match", [
     (["regular_viz=false", "sampler=heun", "num_sample_steps=4"], None),
-    (["devices=2x1"], "item 21"),
+    (["regular_viz=false", "devices=2x1", "num_sample_steps=4"], None),
     (["regular_viz=false", "inpaint=true", "n_images=2"], None),
     (["regular_viz=false", "sampler=ddim", "num_sample_steps=4"], None),
     (["regular_viz=false", "sampler=edm", "num_sample_steps=3"], None),
     (["regular_viz=false", "guidance_scale=2.0"], "class-conditional"),
 ], ids=["heun", "devices", "inpaint", "ddim", "edm", "guidance"])
 def test_sample_cli_refuses_what_is_not_ported(argv, match, trained_run, request):
-    """``devices=DxM`` (item 21) raises; the Heun and DDIM grids, the inpainting
-    panel and the native EDM grid (on an EDM run) run and write their PNG;
-    guidance on the unconditional run raises JAX's error."""
+    """``devices=DxM`` (item 21, ported: the grid batch-sharded over two
+    spawned ranks), the Heun and DDIM grids, the inpainting panel and the
+    native EDM grid (on an EDM run) run and write their PNG; guidance on the
+    unconditional run raises JAX's error."""
     run_dir = (request.getfixturevalue("edm_run") if "sampler=edm" in argv
                else trained_run[1])["run_dir"]
     args = [f"run_dir={run_dir}"] + argv + CPU

@@ -410,9 +410,11 @@ def test_fid_score_cli(tiny_run, extras, monkeypatch, capsys):
 
 
 def test_fid_score_cli_refuses(tiny_run, capsys):
+    """No run directory; a devices value that is neither N nor DxM (a DxM
+    mesh itself runs since item 21 is ported)."""
     assert cli_fid_score.main([]) == 1
-    with pytest.raises(NotImplementedError, match="item 21"):
-        cli_fid_score.main([tiny_run, "true", "8", "4", "2x1"] + CPU)
+    with pytest.raises(ValueError, match="DxM"):
+        cli_fid_score.main([tiny_run, "true", "8", "4", "2xa"] + CPU)
 
 
 def test_fid_debug_cli(monkeypatch, capsys):
@@ -421,8 +423,8 @@ def test_fid_debug_cli(monkeypatch, capsys):
     line = capsys.readouterr().out.splitlines()[-1]
     assert line.startswith("FID floor (train vs val):")
     assert np.isfinite(float(line.split()[-1]))
-    with pytest.raises(NotImplementedError, match="item 21"):
-        cli_fid_debug.main(TINY + CPU + ["trainer.devices=2x1"])
+    with pytest.raises(ValueError, match="DxM"):
+        cli_fid_debug.main(TINY + CPU + ["trainer.devices=2xa"])
 
 
 # ------------------------------------------------------------- on the card

@@ -216,7 +216,7 @@ def test_ct_graphs_of_a_passed_level_are_dropped(monkeypatch):
 
     made = []
     monkeypatch.setattr(step_mod, "CapturedSteps",
-                        lambda step, state, xs, ys: made.append(xs.shape) or object())
+                        lambda step, state, xs, ys, **kw: made.append(xs.shape) or object())
     engine = DiffusionEngine(dict(CFG), {"lr": LR}, diffusion_steps=20, mode="cosine",
                              resolution=RES, device="cpu", prediction_type="consistency",
                              consistency_config=dict(grid_size=9, grid_init=3, anneal_steps=4))

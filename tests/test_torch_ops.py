@@ -48,6 +48,8 @@ from probabilisticdeepdiffusionmodels_torch.ops.groupnorm import (
     fused_plan,
     moments_plan,
 )
+from probabilisticdeepdiffusionmodels_torch.ops import gn_conv as _gc
+from probabilisticdeepdiffusionmodels_torch.ops import groupnorm as _gn
 from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 
@@ -746,3 +748,45 @@ def test_card_learned_sigma_head_at_batch_128(card):
     leaves = [t.requires_grad_(True) for t in leaves]
     _grads_match(gn_silu_conv3x3, gn_silu_conv3x3_plain, leaves, randn(128, 32, 32, 6),
                  torch.float32, gn_silu_conv3x3)
+
+
+# ------------------------------------------------------------- the fold alone, on the card
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["plain", "emb", "film"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fold_kernel_matches_plain_on_card(card, mode, dtype):
+    """The fold kernel against its plain version at the CIFAR UNet's widths
+    and a 256x256 UNet's, with float32 or bf16 conditioning: 1e-5 of the
+    largest output (float32 sums in another order)."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for b, c in ((2, 128), (8, 256), (1, 512)):
+        mom = torch.rand(2, b, c, device="cuda", generator=gen)
+        mom[1] += mom[0] ** 2
+        gamma, beta = torch.randn(2, c, device="cuda", generator=gen)
+        conds = torch.randn(2, b, c, device="cuda", generator=gen).to(dtype)
+        kw = {"plain": {}, "emb": {"emb": conds[0]}, "film": {"film": (conds[0], conds[1])}}[mode]
+        before = _gn.gn_fold.launches
+        got = _gn.gn_fold(mom, gamma, beta, 32, 1e-5, **kw)
+        assert _gn.gn_fold.launches == before + 1
+        want = _gn.gn_fold_plain(mom, gamma, beta, 32, 1e-5, **kw)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.gpu
+def test_slab_norms_on_card_match_the_whole_norms(card):
+    """With nothing to average, the slab GroupNorm (moments, fold, apply)
+    and ``gn_affine_slab`` on the card against the whole-image plain
+    versions."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn(2, 16, 16, 128, device="cuda", generator=gen)
+    gamma, beta = torch.randn(2, 128, device="cuda", generator=gen)
+    emb = torch.randn(2, 128, device="cuda", generator=gen)
+    same = lambda m: m  # noqa: E731
+    torch.testing.assert_close(_gn.group_norm_silu_slab(x, gamma, beta, 32, 1e-5, True, same),
+                               _gn.group_norm_silu_plain(x, gamma, beta, 32, 1e-5, True),
+                               rtol=1e-5, atol=1e-5)
+    for got, want in zip(_gc.gn_affine_slab(x, gamma, beta, 32, 1e-5, same, emb=emb),
+                         _gc.gn_affine_plain(x, gamma, beta, 32, 1e-5, emb=emb)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

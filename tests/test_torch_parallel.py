@@ -1,7 +1,8 @@
 """The port's data parallelism on the CPU: the runtime, the mesh's placement
 rules, the sharded loaders, the data-parallel and FSDP train steps, the
 batch-sharded chain, RePaint and NLL test, the mesh FID statistics, the
-2-rank train CLI, and what stays unported (ROADMAP.md Queue 1 item 21).
+2-rank train CLI, and the refusals (model parallelism itself is in
+``test_torch_model_parallel.py``).
 
 Two ranks over gloo run every scenario from one module fixture
 (``_torch_parallel_ranks.scenarios``, one rendezvous on a free port, the
@@ -340,15 +341,20 @@ def test_train_cli_on_two_ranks(world):
 
 
 def test_unported_raises_name_item_21():
-    with pytest.raises(NotImplementedError, match="item 21"):
-        cli_train.main(TINY + CPU + ["trainer.devices=2x1"])
-    with pytest.raises(NotImplementedError, match="item 21"):
-        DiffusionEngine(dict(SMALL), {"lr": LR}, resolution=RES, device="cpu",
-                        param_sharding="tp")
-    with pytest.raises(ValueError, match="requires a mesh"):
-        DiffusionEngine(dict(SMALL), {"lr": LR}, resolution=RES, device="cpu",
-                        param_sharding="fsdp")
+    """The refusals left once ROADMAP item 21 (model parallelism) is ported:
+    a malformed ``DxM``, tp or fsdp without a mesh (JAX's
+    test_tp_requires_model_axis), an unknown shard mode; a spatial chain
+    without a mesh runs whole, as JAX's does."""
+    with pytest.raises(ValueError, match="DxM"):
+        cli_train.main(TINY + CPU + ["trainer.devices=2xa"])
+    for mode in ("tp", "fsdp"):
+        with pytest.raises(ValueError, match="requires a mesh"):
+            DiffusionEngine(dict(SMALL), {"lr": LR}, resolution=RES, device="cpu",
+                            param_sharding=mode)
     engine = DiffusionEngine(dict(SMALL), {"lr": LR}, diffusion_steps=T, resolution=RES,
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="item 21"):
-        engine.generate_images(n=1, shard_mode="spatial")
+    with pytest.raises(ValueError, match="shard_mode"):
+        engine.generate_images(n=1, shard_mode="rows")
+    whole = engine.generate_images(n=1, minibatch=1, num_sample_steps=2, seed=1)
+    np.testing.assert_array_equal(engine.generate_images(n=1, minibatch=1, num_sample_steps=2,
+                                                         seed=1, shard_mode="spatial"), whole)
