@@ -15,8 +15,11 @@
    the least time the card needs for the work, and names the kernel design
    that ran at that site; ``gn_affine`` and GroupNorm are run twice and the
    two results compared bit for bit, GroupNorm is timed in both of its
-   designs, and at each ``gn_affine`` site its backward kernels
-   (``gn_affine_grad``) are held against autograd through the plain version;
+   designs, ``gn_affine`` in both of its (``cluster``, ``workspace``), and at
+   each ``gn_affine`` site its backward kernels (``gn_affine_grad``, designs
+   ``fused_bwd`` and ``fold_bwd+apply``) are held against autograd through
+   the plain version, run twice for the same bits and timed, each design by
+   name, with and without the host's cost of a call;
 4. main path: the 20-step ancestral sampler (linear T=1000 respaced to 20,
    clip=True) through ``get_model`` and ``p_sample_loop``: bf16 at batch 32
    with the launch counts asserted, float32 on the kernels against float32
@@ -32,7 +35,8 @@
    ``scripts/bench_train.py`` (bf16, batch 128, Adam 2e-4, EMA 0.9999,
    uniform t) timed over two passes of 10 steps with the launch counts
    asserted (the backward's ``gn_affine_grad`` among them), its forward /
-   backward / update split and a device profile;
+   backward / update split and a device profile, with the step's device
+   operations in each design of ``gn_affine_grad``;
    and a few importance-sampled steps on a warmed-up history;
 7. a second model: one bf16 forward of ``unet_celebahq64`` at 64x64 (head
    widths 96 and 128, FiLM conditioning) at batch 8 on the kernels, with
@@ -370,7 +374,7 @@ SR_PROFILE_ARGS = [f"steps={SR_PROFILE_STEPS}", f"sample_steps={SR_PROFILE_SAMPL
 # what cli.profile's traces must name: the conv, attention, the GroupNorm
 # statistics (GroupNorm and gn_affine) and, in training, gn_affine's backward
 PROFILE_SAMPLE_KERNELS = ("conv_wgmma_kernel", "attn_bf16_kernel", "gn_moments_kernel")
-PROFILE_TRAIN_KERNELS = PROFILE_SAMPLE_KERNELS + ("gn_fold_bwd_kernel",)
+PROFILE_TRAIN_KERNELS = PROFILE_SAMPLE_KERNELS + ("gn_affine_bwd_kernel", "gn_batch_sum_kernel")
 CKPT_TURNS = ("plain", "checkpoint", "checkpoint", "plain")
 CKPT_GRAD_BATCH, CKPT_DROPOUT = 8, 0.1
 CKPT_SAME_TOL = 1e-6  # float32 gradients with against without checkpoints (cuDNN deterministic)
@@ -417,12 +421,15 @@ SOURCES = {
 }
 
 
-LINES = []  # every line printed, for --out DIR/lines.jsonl
+LINES_OUT = []  # with --out DIR: DIR/lines.jsonl, every line printed, written as it is printed
 
 
 def emit(obj) -> None:
-    LINES.append(json.dumps(obj))
-    print(LINES[-1], flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    for path in LINES_OUT:
+        with open(path, "a") as f:
+            f.write(line + "\n")
 
 
 def sync_time(torch, fn, min_ms=50.0, max_reps=200):
@@ -577,9 +584,12 @@ def design(ops, name, args):
     if name == "gn_fold":
         return "one block a sample"
     if name in ("gn_affine", *SLAB_OPS):
-        b, n, c = ops.ops.groupnorm._shape(x)
-        plan = ops.ops.groupnorm.moments_plan(b, n, c, x.element_size(), x.data_ptr())
-        kind = f"moments_fold v{plan.v} cvb{plan.cvb} splits{plan.splits}"
+        gn = ops.ops.groupnorm
+        b, n, c = gn._shape(x)
+        groups = args[3]
+        plan = gn.affine_plan(b, n, c, groups, x.element_size(), x.data_ptr())
+        kind = (f"{gn.affine_design(x, groups)} v{plan.v} cvb{plan.cvb} splits{plan.splits} "
+                f"{plan.fold}")
         if name == "gn_affine_slab":
             return kind + " + gn_fold"
         return kind + " + gn_fold + apply" if name in SLAB_OPS else kind
@@ -682,7 +692,7 @@ def check_sites(torch, F, ops, calls, per_site, summary=None, only=None):
         if name == "gn_affine":
             site["mode"] = ("emb" if kw.get("emb") is not None
                             else "film" if kw.get("film") is not None else "plain")
-        if name in ("gn_affine", "group_norm_silu"):
+        if name in ("gn_affine", "group_norm_silu", "gn_fold"):
             # no float atomics: a second run gives the same bits
             with torch.no_grad():
                 again = as_tuple(kernel(*a, **kw))
@@ -702,6 +712,28 @@ def check_sites(torch, F, ops, calls, per_site, summary=None, only=None):
                     return graph_time(torch, round_of(run), max(1, 100 // len(xs)), 10) / len(xs)
 
             site["device_ms"] = device_ms(lambda x: kernel(x, *a[1:], **kw))
+        if name == "gn_affine":
+            # both designs by name, each held against the plain version and
+            # run twice, timed with and without the host's cost of a call
+            gn, gc = ops.ops.groupnorm, ops.ops.gn_conv
+            gamma, beta, mode, conds = gc.kernel_args(a[0], *a[1:4], kw.get("emb"),
+                                                      kw.get("film"))
+            conds = gc._named(mode, conds)
+            rest = (a[3], a[4] if len(a) > 4 else kw.get("eps", 1e-5))
+            site["design_ms"] = {}
+            for d in sorted({gn.affine_design(a[0], a[3]), "workspace"}):
+                def run(x=a[0], d=d):
+                    return gn.moments_fold(x, gamma, beta, *rest, design=d, **conds)
+                with torch.no_grad():
+                    got, again = run(), run()
+                    d_err = max(float((got[i] - refs[i].float()).abs().max()) for i in range(2))
+                    site["design_ms"][d] = {"ms": sync_time(torch, run),
+                                            "device_ms": device_ms(run),
+                                            "same_bits_twice": torch.equal(got, again)}
+                if not d_err <= tol or not site["design_ms"][d]["same_bits_twice"]:
+                    raise AssertionError(f"{name} {site['shape']} design {d}: max abs err "
+                                         f"{d_err} (tol {tol}), same bits twice "
+                                         f"{site['design_ms'][d]['same_bits_twice']}")
         if name == "group_norm_silu":
             gn = ops.ops.groupnorm
             gamma, beta = gn.check_inputs(name, *a[:4])
@@ -744,71 +776,105 @@ def check_sites(torch, F, ops, calls, per_site, summary=None, only=None):
             s[key] = None if val is None or s[key] is None else s[key] + n * val
         if "device_ms" in site:
             s["device_ms"] = s.get("device_ms", 0.0) + n * site["device_ms"]
+        add_designs(s, site, n)
         s["calls"] += n
+
+
+def add_designs(s, site, n):
+    """Into a kernel's summary: the designs that ran at its sites and, where
+    the site timed its designs by name, each one's device-only ms over the
+    sites, ``n`` calls a forward."""
+    if "design_ms" not in site:
+        return
+    ran = site["design"].split()[0]
+    s["design"] = ", ".join(sorted(set(filter(None, s.get("design", "").split(", "))) | {ran}))
+    per = s.setdefault("design_device_ms", {})
+    for d, t in site["design_ms"].items():
+        per[d] = per.get(d, 0.0) + n * t["device_ms"]
 
 
 def grad_site(torch, ops, a, kw, n, affine_site, per_site, summary):
     """``gn_affine``'s backward kernels at one recorded site, on seeded
     gradients of (a, off), against autograd through the plain version: each
     gradient within 2e-2 (bf16) or 1e-4 (float32: another formula and order
-    of sums) of its reference's largest element."""
+    of sums) of its reference's largest element, in the design the shape
+    selects and in the first design by name, each run twice for the same
+    bits and timed with and without the host's cost of a call."""
     gn_conv = ops.ops.gn_conv
     x = a[0]
     gen = torch.Generator(device="cuda").manual_seed(11)
     ga, goff = torch.randn(2, x.shape[0], x.shape[-1], device="cuda", generator=gen)
     with torch.no_grad():
         ao = ops.ops.groupnorm.moments_fold(*a, **kw)
-        run = lambda: gn_conv.gn_affine_grad(*a, ga, goff, ao, **kw)
-        got = run()
-        torch.cuda.synchronize()
     ref = gn_conv.gn_affine_grad_plain(*a, ga, goff, **kw)
-    err, tol = 0.0, 1.0
-    for p, q in zip(got, ref):
-        if p.dtype != q.dtype or p.shape != q.shape:
-            raise AssertionError(f"gn_affine_grad: {p.dtype} {tuple(p.shape)} against "
-                                 f"{q.dtype} {tuple(q.shape)}")
-        e = float((p.float() - q.float()).abs().max())
-        t = (2e-2 if q.dtype == torch.bfloat16 else 1e-4) * max(1e-30, float(q.float().abs().max()))
-        if not e <= t or e / t >= err / tol:
-            err, tol = e, t
     # x read, dL/dx written, the (B, C)-sized rest; a multiply-add an element
     nbytes = 2 * x.numel() * x.element_size() + 14 * ga.numel() * 4
-    device_ms = None
-    with torch.no_grad():
-        ms = sync_time(torch, run)
-        if summary is not None:
+    chosen = gn_conv.grad_design(x, a[3])
+    designs, worst = {}, None
+    for d in sorted({chosen, "fold_bwd+apply"}):
+        def run(xc=x, d=d):
+            return gn_conv.gn_affine_grad(xc, *a[1:], ga, goff, ao, design=d, **kw)
+
+        with torch.no_grad():
+            before = gn_conv.gn_affine_grad.launches
+            got, again = run(), run()
+            torch.cuda.synchronize()
+            launches = gn_conv.gn_affine_grad.launches - before
+        err, tol = 0.0, 1.0
+        for p, q in zip(got, ref):
+            if p.dtype != q.dtype or p.shape != q.shape:
+                raise AssertionError(f"gn_affine_grad {d}: {p.dtype} {tuple(p.shape)} against "
+                                     f"{q.dtype} {tuple(q.shape)}")
+            e = float((p.float() - q.float()).abs().max())
+            t = ((2e-2 if q.dtype == torch.bfloat16 else 1e-4)
+                 * max(1e-30, float(q.float().abs().max())))
+            if not e <= t or e / t >= err / tol:
+                err, tol = e, t
+        with torch.no_grad():
             # without the host's cost of a call, over copies of x that do
             # not fit the L2 cache together, as gn_affine's device_ms
             xs = cold_copies(x, nbytes)
 
             def one_round():
                 for xc in xs:
-                    gn_conv.gn_affine_grad(xc, *a[1:], ga, goff, ao, **kw)
+                    run(xc)
 
-            device_ms = graph_time(torch, one_round, max(1, 100 // len(xs)), 10) / len(xs)
+            designs[d] = {"ms": sync_time(torch, run),
+                          "device_ms": graph_time(torch, one_round, max(1, 100 // len(xs)),
+                                                  10) / len(xs),
+                          "max_abs_err": err, "tol": tol, "launches_two_calls": launches,
+                          "same_bits_twice": all(torch.equal(p, q) for p, q in zip(got, again))}
             del xs
+        if not err <= tol or launches != 2 or not designs[d]["same_bits_twice"]:
+            worst = f"design {d}: {designs[d]}"
     plain_ms = sync_time(torch, lambda: gn_conv.gn_affine_grad_plain(*a, ga, goff, **kw))
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, 2.0 * x.numel() / PEAK_FLOPS["float32"] * 1e3
+    main = designs[chosen]
     site = {"kernel": "gn_affine_grad", "shape": affine_site["shape"],
-            "dtype": affine_site["dtype"], "mode": affine_site["mode"], "design": "fold_bwd+apply",
-            "calls_per_forward": n, "max_abs_err": err, "tol": tol, "ms": ms,
-            "device_ms": device_ms, "plain_ms": plain_ms, "library_ms": None,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            "dtype": affine_site["dtype"], "mode": affine_site["mode"], "design": chosen,
+            "calls_per_forward": n, "max_abs_err": main["max_abs_err"], "tol": main["tol"],
+            "ms": main["ms"], "device_ms": main["device_ms"],
+            "same_bits_twice": main["same_bits_twice"], "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "design_ms": {d: {k: v[k] for k in ("ms", "device_ms", "same_bits_twice")}
+                          for d, v in designs.items()}}
     per_site.append(site)
     emit(dict(phase="kernel_site", **site))
-    if not err <= tol:
-        raise AssertionError(f"gn_affine_grad {site['shape']} {site['mode']}: kernel vs plain "
-                             f"max abs err {err} > {tol}")
+    if worst is not None:
+        raise AssertionError(f"gn_affine_grad {site['shape']} {site['mode']}: {worst} (kernel "
+                             f"vs plain within tol, one launch a call, the same bits twice)")
     if summary is None:
         return
     s = summary.setdefault("gn_affine_grad", dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
                                                   library_ms=None, bytes_ms=0.0, ops_ms=0.0,
                                                   bound_ms=0.0, calls=0))
-    s["max_abs_err"] = max(s["max_abs_err"], err)
-    for key, val in (("ms", ms), ("device_ms", device_ms), ("plain_ms", plain_ms),
-                     ("bytes_ms", t_bytes), ("ops_ms", t_ops), ("bound_ms", max(t_bytes, t_ops))):
+    s["max_abs_err"] = max(s["max_abs_err"], main["max_abs_err"])
+    for key, val in (("ms", main["ms"]), ("device_ms", main["device_ms"]),
+                     ("plain_ms", plain_ms), ("bytes_ms", t_bytes), ("ops_ms", t_ops),
+                     ("bound_ms", max(t_bytes, t_ops))):
         s[key] = s.get(key, 0.0) + n * val
+    add_designs(s, site, n)
     s["calls"] += n
 
 
@@ -1104,10 +1170,26 @@ def train_phases(torch, ops, model, gen):
     syncs = [k for k in all_kernels if "DtoH" in k["name"]]
     if syncs:
         raise AssertionError(f"the train step copies to the host: {syncs}")
+    # device operations a step, each the larger of two profiles (a profile
+    # may drop records, so each count is a lower bound), in the design of
+    # gn_affine's gradient the shapes select and in its first design
+    # (fold_bwd+apply: 4-5 operations a site)
+    ops_a_step = {}
+    gc = ops.ops.gn_conv
+    selected = gc.grad_design
+    for name, pick in (("selected", selected),
+                       ("fold_bwd+apply", lambda x, groups: "fold_bwd+apply")):
+        gc.grad_design = pick
+        try:
+            ops_a_step[name] = max(profile_device(torch, lambda: step(state, xb))["device_ops"]
+                                   for _ in range(2))
+        finally:
+            gc.grad_design = selected
+    ops_a_step["fewer"] = ops_a_step["fold_bwd+apply"] - ops_a_step["selected"]
     emit({"phase": "train_step_bf16", "batch": TRAIN_BATCH, "steps_per_pass": TRAIN_STEPS,
           "warmup_steps": TRAIN_WARMUP, "passes": passes, "launches_per_pass": train_launches,
           "split_one_step": split, "max_memory_allocated_bytes": peak, "loss": loss,
-          "grad_norm": grad_norm, "profile": prof})
+          "grad_norm": grad_norm, "profile": prof, "device_ops_by_grad_design": ops_a_step})
 
     # importance sampling on a history warmed past min_counts through update
     min_counts = 10
@@ -3037,7 +3119,8 @@ def consistency_distill_phase(torch, ops, gen, smi, run_dir, out_dir=None):
 # this repository's kernels as the profiler names them
 OWN_KERNELS = ("attn_bf16_kernel", "attn_f32_kernel", "conv_wgmma_kernel",
                "conv_narrow_f32_kernel", "conv_kernel<", "gn_moments_kernel", "gn_apply_kernel",
-               "gn_fold_bwd_kernel", "gn_fold_kernel")
+               "gn_affine_bwd_kernel", "gn_batch_sum_kernel", "gn_fold_bwd_kernel",
+               "gn_fold_kernel")
 
 
 def own_kernel_counts(kernels):
@@ -4207,6 +4290,8 @@ def main(argv=None) -> int:
         return 1
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
+        LINES_OUT.append(args.out / "lines.jsonl")
+        LINES_OUT[0].write_text("")
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -4410,10 +4495,11 @@ def main(argv=None) -> int:
          "bound_by": "bytes" if s["bytes_ms"] >= s["ops_ms"] else "operations",
          "library_ms": s["library_ms"],
          # without the host's launch cost, where it was measured (the probe)
-         "device_ms": s.get("device_ms"), "library_device_ms": s.get("library_device_ms")}
+         "device_ms": s.get("device_ms"), "library_device_ms": s.get("library_device_ms"),
+         # the designs that ran at the sites, and each design's device-only
+         # ms summed over them where both were timed by name
+         "design": s.get("design"), "design_device_ms": s.get("design_device_ms")}
         for name, s in summary.items()]})
-    if args.out is not None:
-        (args.out / "lines.jsonl").write_text("\n".join(LINES) + "\n")
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})
     return 0
 

@@ -16,11 +16,11 @@
 //   apply    y = x * a + off (+ SiLU), stored in the input dtype.
 //
 // gn_affine's gradient is the same three parts backwards: the fold's backward
-// is one small kernel that turns the gradients of (a, off) into dL/dS1 and
-// dL/dS2 per (sample, channel), and dL/dx = 2 x dL/dS2 + dL/dS1 is one pass of
-// the apply kernel.  (The JAX package differentiates the fold by recomputing
-// it in XLA, one fused pass; recomputed in eager PyTorch it is some 70 small
-// launches a site, which the host issues more slowly than the card runs them.)
+// turns the gradients of (a, off) into dL/dS1 and dL/dS2 per (sample,
+// channel), and dL/dx = 2 x dL/dS2 + dL/dS1.  (The JAX package
+// differentiates the fold by recomputing it in XLA, one fused pass;
+// recomputed in eager PyTorch it is some 70 small launches a site, which
+// the host issues more slowly than the card runs them.)
 //
 // Bound on the H100: bytes.  Moments reads x once (3 flops an element),
 // apply reads it again and writes y.  So every access is as wide as the
@@ -30,15 +30,48 @@
 // registers, eight loads in flight at a time; no index is divided per
 // element.  A block is cvb channel vectors wide and 256 / cvb rows tall, and
 // takes `rows` rows of one sample; its partial sums meet by warp shuffles and
-// in shared memory, in a fixed order.
+// in shared memory, in a fixed order.  What is left beside the bytes is
+// latency: at the UNet's small sites (4x4, 8x8: 1-4 MB at batch 128) a launch
+// lasts a few microseconds whatever it reads, so every launch and every
+// cross-block step that a site can do without is time.
 //
-// Enough blocks to fill 132 SMs: where B x (channel chunks) is too few, or N
-// is long, N is split over `splits` blocks a sample.  Their partial sums go
-// to a (B, splits, C, 2) workspace, and the block of a sample that finishes
-// last (a counter per sample, which that block sets back to 0) adds them in
-// split order and folds: no float atomicAdd, so two runs give the same bits.
-// A sample that one block covers (the 4x4 and 8x8 sites) is folded by that
-// block with no workspace and no counter.  gn_affine is this one launch.
+// gn_affine has two designs (ops/groupnorm.py::affine_design):
+//   cluster    the channels are cut into chunks of whole groups, about two
+//              blocks an SM in all (ops/groupnorm.py::affine_plan).  A block
+//              that takes all rows of its chunk folds its own groups: no
+//              cross-block step at all; this is every site of the CIFAR-10
+//              UNet at batch 128, and gives the small sites several blocks a
+//              sample.  Where a chunk of a sample is long and the batch small,
+//              its rows are split over at most 8 blocks launched as one
+//              thread-block cluster (cudaLaunchKernelEx): each block keeps its
+//              partial sums in its own shared memory, and after the cluster's
+//              barrier each block reads every block's partials for its own
+//              slice of whole groups through distributed shared memory, in
+//              rank order, and folds them.  No workspace, no fence, no
+//              counter, no atomic; the fold is spread over the cluster.
+//   workspace  the first design, kept where a sample needs more blocks than
+//              a cluster holds (the 256x256 sites) and, by name, for
+//              measurement: N split over `splits` blocks a sample whose
+//              partial sums go to a (B, splits, C, 2) workspace; the block of
+//              a sample that finishes last (a counter per sample, which that
+//              block sets back to 0) adds them in split order and folds every
+//              channel alone.
+// Neither adds floats with atomics, so two runs give the same bits.
+//
+// Its gradient has two designs (ops/gn_conv.py::grad_design):
+//   fused_bwd       gn_affine_bwd_kernel over the chunks of whole groups: each
+//                   block recomputes the fold's backward for its own sample
+//                   and groups in shared memory (B x C work, repeated on each
+//                   split, nothing beside the pass over x) and writes dL/dx;
+//                   the split-0 block of a sample writes its shares of
+//                   dL/dgamma and dL/dbeta and the conditioning's gradient in
+//                   its dtype.  Then gn_batch_sum_kernel adds the shares over
+//                   the batch in a fixed order.  Two launches a site.
+//   fold_bwd+apply  the first design, kept for groups wider than a block and,
+//                   by name, for measurement: gn_fold_bwd_kernel (one block a
+//                   sample, all C channels), the apply kernel for dL/dx, and
+//                   two torch sums over the batch (and a cast of the
+//                   conditioning's gradient): four or five operations a site.
 //
 // The fold also runs alone (gn_fold_kernel, one block a sample): from the
 // (2, B, C) moments E[x], E[x^2] to the same (4, B, C) output.  A spatially
@@ -50,24 +83,36 @@
 //          is a multiple of C/G and of V) over all N rows of a sample, folds
 //          them itself and reads its rows again, from L1/L2, to apply.  For
 //          the short sequences of the attention norms (a chunk is <= 48 KB).
-//   split  moments + fold as above, then the apply kernel, for long inputs
-//          (64x64 and larger), where one block per chunk would leave the
-//          card idle and the second read would miss the cache anyway.
+//   split  moments + fold as gn_affine runs them, then the apply kernel, for
+//          long inputs (64x64 and larger), where one block per chunk would
+//          leave the card idle and the second read would miss the cache.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
 using namespace pddm;
+namespace cgs = cooperative_groups;
 
 namespace {
 
 constexpr int NT = 256;
 
-// The launch geometry, from ops/groupnorm.py::moments_plan.
+// The launch geometry, from ops/groupnorm.py (moments_plan, affine_plan,
+// grad_plan).
 struct Plan {
   int B, N, C, G;
   int cvb;     // channel vectors of one block (its threads along the channels)
   int splits;  // blocks along N of one sample
   int rows;    // rows of one block
+  int fold;    // where a block's sums meet: kLocal, kCluster or kWorkspace
 };
+
+// kLocal: a block covers whole groups over all N rows and folds them itself;
+// kCluster: the splits of a sample are one thread-block cluster and meet in
+// distributed shared memory; kWorkspace: they meet in a global workspace and
+// the sample's last block folds every channel.
+constexpr int kLocal = 0, kCluster = 1, kWorkspace = 2;
+constexpr int kClusterMax = 8;  // blocks a portable cluster may hold
 
 // The conditioning folded into (a, off): nothing, the timestep embedding
 // (B, C), or the FiLM pair (scale, shift), each (B, C); unit channel stride,
@@ -288,13 +333,48 @@ __device__ __forceinline__ void apply_rows(const T* __restrict__ x, T* __restric
   apply_batch<T, V, 1>(px, py, step, left, av, ov, silu);
 }
 
+// The cluster's fold (CLUSTER launches): every block of the cluster holds
+// the sums of its rows for the chunk's nch channels in csum/csq.  After the
+// cluster's barrier, block `rank` takes its share of the chunk's groups,
+// adds the partial sums of every block of the cluster for them in rank order
+// (reads of the other blocks' shared memory), and folds them into ao; a
+// second barrier keeps each block's shared memory until all have read it.
+__device__ __forceinline__ void cluster_fold(const Plan& p, const Cond& cd,
+                                             const float* __restrict__ gamma,
+                                             const float* __restrict__ beta, float eps, int b,
+                                             int c0, int nch, float* csum, float* csq,
+                                             float* fsum, float* fsq, float* __restrict__ ao) {
+  cgs::cluster_group cluster = cgs::this_cluster();
+  cluster.sync();
+  const int S = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int cgr = p.C / p.G, groups = nch / cgr, per = (groups + S - 1) / S;
+  const int g_lo = min(groups, rank * per), g_hi = min(groups, g_lo + per);
+  const int lo = g_lo * cgr, mine = (g_hi - g_lo) * cgr;
+  for (int j = threadIdx.x; j < mine; j += NT) {
+    float a = 0.f, q = 0.f;
+    for (int r = 0; r < S; ++r) {
+      a += *cluster.map_shared_rank(csum + lo + j, r);
+      q += *cluster.map_shared_rank(csq + lo + j, r);
+    }
+    fsum[j] = a;
+    fsq[j] = q;
+  }
+  __syncthreads();
+  float* o = ao + (long)b * p.C + c0 + lo;  // ao is (4, B, C): a, off, E[x], E[x^2]
+  const long bc = (long)p.B * p.C;
+  fold(p, cd, gamma, beta, eps, b, c0 + lo, mine, fsum, fsq, o, o + bc, o + 2 * bc, o + 3 * bc);
+  cluster.sync();
+}
+
 // Four blocks an SM (64 registers a thread): the batches above are sized for
 // that, and the short fused launches need the residency, not the registers.
 // Grid (splits, channel chunks, B).  APPLY (the fused GroupNorm): splits is
 // 1 and a chunk is whole groups, so each block folds its own channels and
-// applies them.  Otherwise a block that covers its whole sample folds it;
-// any other grid meets in the workspace, and the sample's last block folds.
-template <typename T, int V, bool APPLY>
+// applies them.  Otherwise p.fold says where a block's sums go: kLocal, the
+// block folds its chunk (whole groups over all rows); kCluster (CLUSTER
+// launches), the cluster of a sample's splits folds; kWorkspace, the blocks
+// meet in the workspace, and the sample's last block folds.
+template <typename T, int V, bool APPLY, bool CLUSTER>
 __global__ void __launch_bounds__(NT, 4)
 gn_moments_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
                   const float* __restrict__ beta, Cond cd, float* __restrict__ ao,
@@ -306,13 +386,17 @@ gn_moments_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
   const int chb = p.cvb * V, c0 = blockIdx.y * chb;
   const int nch = chb < p.C - c0 ? chb : p.C - c0;
   const int r0 = s * p.rows, r1 = p.N < r0 + p.rows ? p.N : r0 + p.rows;
-  const bool local = gridDim.x == 1 && (APPLY || gridDim.y == 1);
-  const int cap = local ? chb : p.C;  // channels this block may fold
-  float* red = smem;                  // [NT][2 V]
-  float* csum = red + NT * 2 * V;     // [cap]
-  float* csq = csum + cap;            // [cap]
+  const bool local = APPLY || p.fold == kLocal;
+  const int cap = p.fold == kWorkspace ? p.C : chb;  // channels this block may fold
+  float* red = smem;                                 // [NT][2 V]
+  float* csum = red + NT * 2 * V;                    // [cap]
+  float* csq = csum + cap;                           // [cap]
 
   block_moments<T, V>(x, p, b, blockIdx.y * p.cvb, r0, r1, nch, red, csum, csq);
+  if constexpr (CLUSTER) {
+    cluster_fold(p, cd, gamma, beta, eps, b, c0, nch, csum, csq, csq + cap, csq + 2 * cap, ao);
+    return;
+  }
   int fc0 = c0, fn = nch;
   if (!local) {
     float* w = ws + (((long)b * gridDim.x + s) * p.C + c0) * 2;
@@ -446,6 +530,149 @@ gn_fold_bwd_kernel(const float* __restrict__ ao, const float* __restrict__ gamma
   }
 }
 
+__device__ __forceinline__ void cond_store(void* p, long i, float v, int is_bf16) {
+  if (is_bf16)
+    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(v);
+  else
+    static_cast<float*>(p)[i] = v;
+}
+
+// gn_affine's gradient (design fused_bwd), the first of its two launches.
+// Grid (splits, channel chunks, B), every chunk whole groups.  Each block
+// recomputes in shared memory the fold's backward for its sample and its
+// channels, with the arithmetic of gn_fold_bwd_kernel (B x C work repeated on
+// each split, nothing next to the pass over x), then writes dL/dx = x * 2
+// dL/dS2 + dL/dS1 over its rows in x's dtype.  The split-0 block of a sample
+// writes its shares of dL/dgamma and dL/dbeta to the (B, 2, C) `shares` and
+// the emb or FiLM gradients in the conditioning's dtype; gn_batch_sum_kernel
+// adds the shares over the batch.
+template <typename T, int V>
+__global__ void __launch_bounds__(NT, 4)
+gn_affine_bwd_kernel(const T* __restrict__ x, const float* __restrict__ ao,
+                     const float* __restrict__ gamma, const float* __restrict__ beta, Cond cd,
+                     const float* __restrict__ ga, const float* __restrict__ goff,
+                     T* __restrict__ dx, float* __restrict__ shares, void* dcond0, void* dcond1,
+                     Plan p, float eps) {
+  extern __shared__ float smem[];
+  const int b = blockIdx.z, chb = p.cvb * V, c0 = blockIdx.y * chb;
+  const int nch = chb < p.C - c0 ? chb : p.C - c0;
+  const int cgr = p.C / p.G;
+  const bool first = blockIdx.x == 0;
+  float* mu = smem;      // E[x + e] per channel of the chunk
+  float* m2 = mu + chb;  // E[(x + e)^2]
+  float* tm = m2 + chb;  // each channel's share of dL/d(group mean)
+  float* tr = tm + chb;  // ... of dL/d(group rstd)
+  float* g0 = tr + chb;  // 2 dL/dS2
+  float* g1 = g0 + chb;  // dL/dS1 (dL/d(emb) through the offset until then)
+  const long bc = (long)p.B * p.C, row = (long)b * p.C;
+  const float* mean_raw = ao + 2 * bc + row + c0;
+  const float* m2_raw = ao + 3 * bc + row + c0;
+  for (int j = threadIdx.x; j < nch; j += NT) {
+    const float mr = mean_raw[j];
+    const float e =
+        cd.mode == 1 ? cond_at(cd.p0, (long)b * cd.stride0 + c0 + j, cd.is_bf16) : 0.f;
+    mu[j] = mr + e;
+    m2[j] = m2_raw[j] + 2.f * e * mr + e * e;
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < nch; j += NT) {
+    const int c = c0 + j, gj = (c / cgr) * cgr - c0;
+    float mg = 0.f, qg = 0.f;
+    for (int i = 0; i < cgr; ++i) {
+      mg += mu[gj + i];
+      qg += m2[gj + i];
+    }
+    mg /= (float)cgr;
+    qg /= (float)cgr;
+    const float rstd = rsqrtf(qg - mg * mg + eps);
+    const float e = cd.mode == 1 ? cond_at(cd.p0, (long)b * cd.stride0 + c, cd.is_bf16) : 0.f;
+    const float gam = gamma[c];
+    const float a0 = rstd * gam, off0 = beta[c] - mg * a0 + e * a0;
+    float da = ga[row + c], doff = goff[row + c];
+    if (cd.mode == 2) {
+      const float sc = 1.f + cond_at(cd.p0, (long)b * cd.stride0 + c, cd.is_bf16);
+      if (first) {
+        cond_store(dcond0, row + c, da * a0 + doff * off0, cd.is_bf16);
+        cond_store(dcond1, row + c, doff, cd.is_bf16);
+      }
+      da *= sc;
+      doff *= sc;
+    }
+    da += doff * (e - mg);
+    if (first) {
+      shares[2 * row + c] = da * rstd;
+      shares[2 * row + p.C + c] = doff;
+    }
+    tm[j] = -a0 * doff;
+    g1[j] = doff * a0;
+    tr[j] = da * gam;
+  }
+  __syncthreads();
+  const float n = (float)p.N;
+  for (int j = threadIdx.x; j < nch; j += NT) {
+    const int c = c0 + j, gj = (c / cgr) * cgr - c0;
+    float mg = 0.f, qg = 0.f, sm = 0.f, sr = 0.f;
+    for (int i = 0; i < cgr; ++i) {
+      mg += mu[gj + i];
+      qg += m2[gj + i];
+      sm += tm[gj + i];
+      sr += tr[gj + i];
+    }
+    mg /= (float)cgr;
+    qg /= (float)cgr;
+    const float rstd = rsqrtf(qg - mg * mg + eps), r3 = rstd * rstd * rstd;
+    const float dmu = (sm + r3 * mg * sr) / (float)cgr, dm2 = -0.5f * r3 * sr / (float)cgr;
+    const float e = cd.mode == 1 ? cond_at(cd.p0, (long)b * cd.stride0 + c, cd.is_bf16) : 0.f;
+    if (cd.mode == 1 && first)
+      cond_store(dcond0, row + c, g1[j] + dmu + dm2 * (2.f * mean_raw[j] + 2.f * e), cd.is_bf16);
+    g0[j] = 2.f * dm2 / n;
+    g1[j] = (dmu + 2.f * e * dm2) / n;
+  }
+  __syncthreads();
+  if (dx != nullptr) {
+    const int r0 = blockIdx.x * p.rows, r1 = p.N < r0 + p.rows ? p.N : r0 + p.rows;
+    apply_rows<T, V>(x, dx, p, b, blockIdx.y * p.cvb, r0, r1, g0, g1, 0);
+  }
+}
+
+// The second launch of fused_bwd: dgamma[c], dbeta[c], the sums over the
+// batch of the (B, 2, C) shares, in a fixed order, so two runs give the same
+// bits.  A block takes 16 channels, so 32 columns (dgamma's, then dbeta's) of
+// 8 threads each: part q sums the samples q, q + 8, ...; the parts meet in
+// shared memory in part order.  (A tail run by the launch's last block
+// instead, one block summing a chunk's columns, cost more than this launch at
+// every site measured.)
+__global__ void __launch_bounds__(NT)
+gn_batch_sum_kernel(const float* __restrict__ shares, float* __restrict__ dgamma,
+                    float* __restrict__ dbeta, int B, int C) {
+  constexpr int CH = 16, COLS = 2 * CH, PARTS = NT / COLS;
+  __shared__ float acc[NT];
+  const int c0 = blockIdx.x * CH, nch = CH < C - c0 ? CH : C - c0;
+  const int col = threadIdx.x % COLS, part = threadIdx.x / COLS;
+  float s = 0.f;
+  if (col < 2 * nch) {
+    const float* src = shares + (col < nch ? c0 + col : C + c0 + col - nch);
+    int b = part;
+    for (; b + 3 * PARTS < B; b += 4 * PARTS) {
+      const float v0 = src[(long)b * 2 * C], v1 = src[(long)(b + PARTS) * 2 * C];
+      const float v2 = src[(long)(b + 2 * PARTS) * 2 * C];
+      const float v3 = src[(long)(b + 3 * PARTS) * 2 * C];
+      s = (((s + v0) + v1) + v2) + v3;
+    }
+    for (; b < B; b += PARTS) s += src[(long)b * 2 * C];
+  }
+  acc[threadIdx.x] = s;
+  __syncthreads();
+  if ((int)threadIdx.x < 2 * nch) {
+    float t = 0.f;
+    for (int q = 0; q < PARTS; ++q) t += acc[q * COLS + threadIdx.x];
+    if ((int)threadIdx.x < nch)
+      dgamma[c0 + threadIdx.x] = t;
+    else
+      dbeta[c0 + threadIdx.x - nch] = t;
+  }
+}
+
 // The fold alone for sample b: mom is (2, B, C) float32 (E[x], E[x^2]), ao
 // (4, B, C) as gn_moments_kernel writes it.  The moments go to shared memory
 // and the shared fold reads them as sums over one row.
@@ -480,6 +707,10 @@ dim3 plan_grid(const Plan& p, int V) {
   return dim3(p.splits, (cv + p.cvb - 1) / p.cvb, p.B);
 }
 
+// Whether a chunk of the plan's channels is whole groups (the last chunk
+// is what is left of C, so whole groups too).
+bool whole_groups(const Plan& p, int V) { return (p.cvb * V) % (p.C / p.G) == 0; }
+
 template <typename T, int V, bool APPLY>
 cudaError_t launch_moments(const void* x, const float* gamma, const float* beta, const Cond& cd,
                            float* ao, void* y, float* ws, unsigned* counters, const Plan& p,
@@ -488,17 +719,68 @@ cudaError_t launch_moments(const void* x, const float* gamma, const float* beta,
   const dim3 grid = plan_grid(p, V);
   if (grid.y > 65535) return cudaErrorInvalidValue;
   const int chb = p.cvb * V;
-  if (APPLY && (p.splits != 1 || chb % (p.C / p.G) != 0)) return cudaErrorInvalidValue;
-  const bool local = p.splits == 1 && (APPLY || grid.y == 1);
-  if (!local && (ws == nullptr || counters == nullptr)) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (NT * 2 * V + (APPLY ? 4 : 2) * (size_t)(local ? chb : p.C));
+  if (p.fold < kLocal || p.fold > kWorkspace) return cudaErrorInvalidValue;
+  if (APPLY && (p.splits != 1 || p.fold != kLocal)) return cudaErrorInvalidValue;
+  // a block or a cluster folds only whole groups
+  if (p.fold != kWorkspace && !whole_groups(p, V)) return cudaErrorInvalidValue;
+  if (p.fold == kLocal && p.splits != 1) return cudaErrorInvalidValue;
+  if (p.fold == kCluster && (p.splits < 2 || p.splits > kClusterMax)) return cudaErrorInvalidValue;
+  if (p.fold == kWorkspace && (ws == nullptr || counters == nullptr)) return cudaErrorInvalidValue;
+  const size_t cap = p.fold == kWorkspace ? p.C : chb;
+  const size_t smem =
+      sizeof(float) * (NT * 2 * V + (APPLY || p.fold == kCluster ? 4 : 2) * cap);
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  const T* xs = static_cast<const T*>(x);
+  T* ys = static_cast<T*>(y);
+  if (p.fold == kCluster) {
+    auto* kernel = gn_moments_kernel<T, V, false, true>;
+    const cudaError_t err = allow_smem(kernel, smem + 256);
+    if (err != cudaSuccess) return err;
+    // the splits of one (sample, chunk) are one cluster, along grid x
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = p.splits;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(NT);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t launched =
+        cudaLaunchKernelEx(&cfg, kernel, xs, gamma, beta, cd, ao, ys, ws, counters, p, eps, silu);
+    return launched != cudaSuccess ? launched : cudaGetLastError();
+  }
   // (the kernel's few static bytes count against the same 48 KB default)
-  const cudaError_t err = allow_smem(gn_moments_kernel<T, V, APPLY>, smem + 256);
+  const cudaError_t err = allow_smem(gn_moments_kernel<T, V, APPLY, false>, smem + 256);
   if (err != cudaSuccess) return err;
-  gn_moments_kernel<T, V, APPLY><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(x), gamma, beta, cd, ao, static_cast<T*>(y), ws, counters, p, eps,
-      silu);
+  gn_moments_kernel<T, V, APPLY, false><<<grid, NT, smem, stream>>>(
+      xs, gamma, beta, cd, ao, ys, ws, counters, p, eps, silu);
+  return cudaGetLastError();
+}
+
+template <typename T, int V>
+cudaError_t launch_affine_bwd(const void* x, const float* ao, const float* gamma,
+                              const float* beta, const Cond& cd, const float* ga,
+                              const float* goff, void* dx, float* shares, void* dcond0,
+                              void* dcond1, float* dgamma, float* dbeta, const Plan& p, float eps,
+                              cudaStream_t stream) {
+  if (!plan_ok(p, V, sizeof(T), x, dx == nullptr ? x : dx) || !whole_groups(p, V))
+    return cudaErrorInvalidValue;
+  const dim3 grid = plan_grid(p, V);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * 6 * (size_t)(p.cvb * V);  // six floats a channel
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem(gn_affine_bwd_kernel<T, V>, smem + 256);
+  if (err != cudaSuccess) return err;
+  gn_affine_bwd_kernel<T, V><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(x), ao, gamma, beta, cd, ga, goff, static_cast<T*>(dx), shares,
+      dcond0, dcond1, p, eps);
+  const cudaError_t launched = cudaGetLastError();
+  if (launched != cudaSuccess) return launched;
+  gn_batch_sum_kernel<<<(p.C + 15) / 16, NT, 0, stream>>>(shares, dgamma, dbeta, p.B, p.C);
   return cudaGetLastError();
 }
 
@@ -541,24 +823,73 @@ cudaError_t launch_apply(const void* x, const float* ao, void* y, const Plan& p,
 }  // namespace
 
 // Moments + fold in one launch: ao (4, B, C) float32 receives the scale, the
-// offset, E[x] and E[x^2] per (sample, channel).  ws (B, splits, C, 2)
-// float32 and counters (B, zero on entry, zero again on exit) are read only
-// where a sample takes more than one block.
+// offset, E[x] and E[x^2] per (sample, channel).  `fold` says where the
+// blocks of a sample meet (kLocal, kCluster, kWorkspace); ws (B, splits, C,
+// 2) float32 and counters (B, zero on entry, zero again on exit) are read
+// only by kWorkspace.
 extern "C" int pddm_gn_moments_fold(const void* x, const void* gamma, const void* beta,
                                     const void* cond0, const void* cond1, void* ao, void* ws,
                                     void* counters, int B, int N, int C, int G, float eps,
                                     int mode, int stride0, int stride1, int cond_is_bf16,
-                                    int is_bf16, int V, int cvb, int splits, int rows,
+                                    int is_bf16, int V, int cvb, int splits, int rows, int fold,
                                     void* stream_ptr) {
   if (mode < 0 || mode > 2 || (mode >= 1 && cond0 == nullptr) || (mode == 2 && cond1 == nullptr))
     return cudaErrorInvalidValue;
-  const Plan p{B, N, C, G, cvb, splits, rows};
+  const Plan p{B, N, C, G, cvb, splits, rows, fold};
   const Cond cd{cond0, cond1, stride0, stride1, mode, cond_is_bf16};
   return moments_any<false>(is_bf16, V, x, static_cast<const float*>(gamma),
                             static_cast<const float*>(beta), cd, static_cast<float*>(ao),
                             nullptr, static_cast<float*>(ws),
                             static_cast<unsigned*>(counters), p, eps, 0,
                             static_cast<cudaStream_t>(stream_ptr));
+}
+
+// gn_affine's gradient in two launches (gn_affine_bwd_kernel, then
+// gn_batch_sum_kernel): from x, the forward's ao (4, B, C) and the gradients
+// ga, goff (B, C) float32 of its scale and offset, dx (x's dtype; null: not
+// wanted), dgamma and dbeta (C) float32, and dcond0 (and dcond1 for FiLM)
+// (B, C) contiguous in the conditioning's dtype.  shares is (B, 2, C) float32
+// scratch.
+extern "C" int pddm_gn_affine_bwd(const void* x, const void* ao, const void* gamma,
+                                  const void* beta, const void* cond0, const void* cond1,
+                                  const void* ga, const void* goff, void* dx, void* shares,
+                                  void* dcond0, void* dcond1, void* dgamma, void* dbeta, int B,
+                                  int N, int C, int G, float eps, int mode, int stride0,
+                                  int stride1, int cond_is_bf16, int is_bf16, int V, int cvb,
+                                  int splits, int rows, void* stream_ptr) {
+  if (mode < 0 || mode > 2 || (mode >= 1 && (cond0 == nullptr || dcond0 == nullptr)) ||
+      (mode == 2 && (cond1 == nullptr || dcond1 == nullptr)) || shares == nullptr ||
+      dgamma == nullptr || dbeta == nullptr)
+    return cudaErrorInvalidValue;
+  const Plan p{B, N, C, G, cvb, splits, rows, kLocal};
+  const Cond cd{cond0, cond1, stride0, stride1, mode, cond_is_bf16};
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const float* f[5] = {static_cast<const float*>(ao), static_cast<const float*>(gamma),
+                       static_cast<const float*>(beta), static_cast<const float*>(ga),
+                       static_cast<const float*>(goff)};
+  float* sh = static_cast<float*>(shares);
+  float* dg = static_cast<float*>(dgamma);
+  float* db = static_cast<float*>(dbeta);
+#define PDDM_GN_CASE(T, W)                                                                     \
+  case W:                                                                                      \
+    return launch_affine_bwd<T, W>(x, f[0], f[1], f[2], cd, f[3], f[4], dx, sh, dcond0, dcond1, \
+                                   dg, db, p, eps, stream)
+  if (is_bf16) {
+    switch (V) {
+      PDDM_GN_CASE(__nv_bfloat16, 8);
+      PDDM_GN_CASE(__nv_bfloat16, 4);
+      PDDM_GN_CASE(__nv_bfloat16, 2);
+      PDDM_GN_CASE(__nv_bfloat16, 1);
+    }
+  } else {
+    switch (V) {
+      PDDM_GN_CASE(float, 4);
+      PDDM_GN_CASE(float, 2);
+      PDDM_GN_CASE(float, 1);
+    }
+  }
+#undef PDDM_GN_CASE
+  return cudaErrorInvalidValue;
 }
 
 // The fold's backward (gn_fold_bwd_kernel): g (6, B, C) float32 from the

@@ -21,8 +21,10 @@ from .gn_conv import (
     gn_affine_slab_plain,
     gn_silu_conv3x3,
     gn_silu_conv3x3_plain,
+    grad_design,
 )
 from .groupnorm import (
+    affine_design,
     gn_fold,
     gn_fold_plain,
     group_norm_silu,

@@ -39,9 +39,13 @@ _SIGNATURES = {
     "pddm_group_norm_silu": [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float,
                              _I, _I, _I, _I, _P],
     # x, gamma, beta, cond0, cond1, ao, ws, counters, B, N, C, groups, eps, mode,
-    # stride0, stride1, cond_is_bf16, is_bf16, V, cvb, splits, rows, stream
+    # stride0, stride1, cond_is_bf16, is_bf16, V, cvb, splits, rows, fold, stream
     "pddm_gn_moments_fold": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float,
-                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, ao, gamma, beta, cond0, cond1, ga, goff, dx, shares, dcond0, dcond1, dgamma,
+    # dbeta, B, N, C, groups, eps, mode, stride0, stride1, cond_is_bf16, is_bf16, V, cvb,
+    # splits, rows, stream
+    "pddm_gn_affine_bwd": [*[_P] * 14, _I, _I, _I, _I, ctypes.c_float, *[_I] * 9, _P],
     # ao, gamma, beta, cond0, cond1, ga, goff, g, B, N, C, groups, eps, mode, stride0,
     # stride1, cond_is_bf16, stream
     "pddm_gn_fold_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float,

@@ -9,11 +9,25 @@ the fused op is then ``conv3x3_SAME(silu(x*a + off)) + bias``.  There the
 fold is plain jnp that XLA fuses into one pass over x.  Here a CPU tensor
 takes ``gn_affine_plain``, and a CUDA tensor one launch of the moments + fold
 kernel of ``csrc/groupnorm.cu`` (``groupnorm.moments_fold``: x read once in
-16-byte loads, no full-size temporary, bits that repeat from run to run).
-Its gradient is two kernels as well (``gn_affine_grad``): the fold's backward
-and one apply pass for dL/dx, from x itself and the (4, B, C) statistics the
-forward left, so autograd keeps no float32 copy of x; ``gn_affine_grad_plain``
-(autograd through ``gn_affine_plain``) is what it is held against.
+16-byte loads, no full-size temporary, bits that repeat from run to run), in
+the design its shape selects (``groupnorm.affine_design``): ``cluster``,
+chunks of whole groups that each block folds itself, or whose split rows
+meet in a thread-block cluster's distributed shared memory, so no site of the
+CIFAR-10 UNet at batch 128 has a cross-block step; ``workspace``, the first
+design, for samples longer than a cluster takes.  The sites are bound by
+bytes at 32x32 and by the latency of a launch at 4x4 and 8x8.
+
+Its gradient (``gn_affine_grad``) reads x itself and the (4, B, C)
+statistics the forward left, so autograd keeps no float32 copy of x.  In
+design ``fused_bwd`` (``grad_design``) it is two launches a site: each block
+recomputes the fold's backward for its chunk of whole groups and writes
+dL/dx and the conditioning's gradient in its dtype, then a small kernel
+adds the per-sample shares of dL/dgamma and dL/dbeta over the batch in a
+fixed order.  The first design, ``fold_bwd+apply`` (the fold's backward, the
+apply pass, two torch sums and a cast: 4-5 device operations a site, which
+bounded it more than DRAM did), stays for groups wider than a block and by
+name for measurement.  ``gn_affine_grad_plain`` (autograd through
+``gn_affine_plain``) is what both are held against.
 
 Weight layout: the kernel reads the 3x3 weight as (kh, kw, Cout, Cin)
 ("HWOI"), so for one tap and one output channel the input channels are
@@ -63,12 +77,12 @@ import torch.nn.functional as F
 
 from . import _build
 from .autograd import forbid_forward_mode, kernel_op
-from .groupnorm import (apply_affine, check_inputs, fold_backward, gn_fold, gn_fold_plain,
-                        moments_fold, moments_plain)
+from .groupnorm import (_grad_plan, _shape, affine_backward, apply_affine, check_inputs,
+                        fold_backward, gn_fold, gn_fold_plain, moments_fold, moments_plain)
 
 __all__ = ["conv_design", "gn_affine", "gn_affine_plain", "gn_affine_grad",
-           "gn_affine_grad_plain", "gn_affine_slab", "gn_affine_slab_plain",
-           "gn_silu_conv3x3", "gn_silu_conv3x3_plain"]
+           "gn_affine_grad_plain", "grad_design", "gn_affine_slab",
+           "gn_affine_slab_plain", "gn_silu_conv3x3", "gn_silu_conv3x3_plain"]
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 # the C entry point's design argument
@@ -128,26 +142,49 @@ def gn_affine_grad_plain(x, gamma, beta, num_groups, eps, ga, goff, emb=None, fi
     return torch.autograd.grad(out, leaves, (ga, goff))
 
 
+def grad_design(x: torch.Tensor, num_groups: int) -> str:
+    """The design a ``gn_affine_grad`` call on CUDA tensor ``x`` runs:
+    ``fused_bwd`` (two launches), or ``fold_bwd+apply`` where a group is
+    wider than a block."""
+    b, n, c = _shape(x)
+    plan = _grad_plan(b, n, c, num_groups, x.element_size(), x.data_ptr() & 15)
+    return "fold_bwd+apply" if plan is None else "fused_bwd"
+
+
 def gn_affine_grad(x, gamma, beta, num_groups, eps, ga, goff, ao, emb=None, film=None,
-                   needs=None):
-    """``gn_affine_grad_plain`` on the card: the fold's backward kernel, the
-    apply kernel for dL/dx = 2 x dL/dS2 + dL/dS1, and two sums over the batch
-    for gamma and beta.  ``ao`` is the forward's ``moments_fold`` output (not
-    read for a CPU tensor); ``needs`` masks the gradients wanted (None where
-    one is not).  A CPU tensor takes the plain version; inputs are as
+                   needs=None, design=None):
+    """``gn_affine_grad_plain`` on the card.  ``fused_bwd``
+    (``groupnorm.affine_backward``): one launch that recomputes the fold's
+    backward in each block and writes dL/dx and the conditioning's
+    gradients in its dtype, one for the sums over the batch for gamma and
+    beta.  ``fold_bwd+apply`` (the first
+    design): the fold's backward kernel, the apply kernel for dL/dx = 2 x
+    dL/dS2 + dL/dS1, two sums over the batch and the casts.  ``design``:
+    None for ``grad_design``'s choice, or either by name (a measurement
+    times both).  ``ao`` is the forward's ``moments_fold`` output
+    (not read for a CPU tensor); ``needs`` masks the gradients wanted (None
+    where one is not).  A CPU tensor takes the plain version; inputs are as
     ``gn_affine`` hands them to its kernel (checked there)."""
     if x.device.type == "cpu":
         return gn_affine_grad_plain(x, gamma, beta, num_groups, eps, ga, goff, emb, film)
     conds = (emb,) if emb is not None else tuple(film or ())
     if needs is None:
         needs = (True,) * (3 + len(conds))
-    g = fold_backward(ao, gamma, beta, x.numel() // (ao.shape[1] * ao.shape[2]), num_groups,
-                      eps, ga, goff, emb=emb, film=film)
+    if design is None:
+        design = grad_design(x, num_groups)
+    if design == "fused_bwd":
+        grads = affine_backward(x, ao, gamma, beta, num_groups, eps, ga, goff, emb=emb,
+                                film=film, want_dx=needs[0])
+    elif design == "fold_bwd+apply":
+        g = fold_backward(ao, gamma, beta, x.numel() // (ao.shape[1] * ao.shape[2]),
+                          num_groups, eps, ga, goff, emb=emb, film=film)
+        grads = [apply_affine(x, g) if needs[0] else None,
+                 g[2].sum(0) if needs[1] else None, g[3].sum(0) if needs[2] else None]
+        grads += [g[4 + i].to(t.dtype) if needs[3 + i] else None for i, t in enumerate(conds)]
+    else:
+        raise ValueError(f"unknown gn_affine_grad design {design!r}")
     gn_affine_grad.launches += 1
-    grads = [apply_affine(x, g) if needs[0] else None,
-             g[2].sum(0) if needs[1] else None, g[3].sum(0) if needs[2] else None]
-    grads += [g[4 + i].to(t.dtype) if needs[3 + i] else None for i, t in enumerate(conds)]
-    return tuple(grads)
+    return tuple(t if need else None for t, need in zip(grads, needs))
 
 
 gn_affine_grad.launches = 0
@@ -186,6 +223,23 @@ def _cond_in(t: torch.Tensor, x: torch.Tensor, dtype: torch.dtype) -> torch.Tens
     return t if t.stride(-1) == 1 else t.contiguous()
 
 
+def kernel_args(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, num_groups: int,
+                emb: Optional[torch.Tensor] = None,
+                film: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """(gamma, beta, mode, conditioning) as ``gn_affine``'s kernels take them:
+    gamma/beta float32 on x's device (``check_inputs`` raises on what the
+    kernels do not take), the mode (0 none, 1 emb, 2 FiLM) and emb or the
+    FiLM pair as ``_cond_in`` makes them: bf16 conditioning is read as it
+    is, anything else in float32."""
+    if emb is not None and film is not None:
+        raise ValueError("gn_affine takes emb or film, not both")
+    gamma, beta = check_inputs("gn_affine", x, gamma, beta, num_groups)
+    conds = (emb,) if emb is not None else tuple(film or ())
+    keep = all(t.dtype == torch.bfloat16 for t in conds)
+    conds = tuple(_cond_in(t, x, torch.bfloat16 if keep else torch.float32) for t in conds)
+    return gamma, beta, 1 if emb is not None else 2 if film is not None else 0, conds
+
+
 def gn_affine(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
               num_groups: int, eps: float, emb: Optional[torch.Tensor] = None,
               film: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
@@ -197,15 +251,8 @@ def gn_affine(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     forward-mode tangent raises (``autograd.forbid_forward_mode``)."""
     if x.device.type == "cpu":
         return gn_affine_plain(x, gamma, beta, num_groups, eps, emb=emb, film=film)
-    if emb is not None and film is not None:
-        raise ValueError("gn_affine takes emb or film, not both")
-    conds = (emb,) if emb is not None else tuple(film or ())
-    forbid_forward_mode("gn_affine", x, gamma, beta, *conds)
-    gamma, beta = check_inputs("gn_affine", x, gamma, beta, num_groups)
-    mode = 1 if emb is not None else 2 if film is not None else 0
-    # bf16 conditioning is read as it is; anything else in float32
-    keep = all(t.dtype == torch.bfloat16 for t in conds)
-    conds = tuple(_cond_in(t, x, torch.bfloat16 if keep else torch.float32) for t in conds)
+    forbid_forward_mode("gn_affine", x, gamma, beta, emb, *(film or ()))
+    gamma, beta, mode, conds = kernel_args(x, gamma, beta, num_groups, emb, film)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, gamma, beta, *conds)):
         return _GnAffine.apply(num_groups, eps, mode, x, gamma, beta, *conds)
     ao = moments_fold(x, gamma, beta, num_groups, eps, **_named(mode, conds))
@@ -237,13 +284,7 @@ def gn_affine_slab(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     if x.device.type == "cpu":
         return gn_affine_slab_plain(x, gamma, beta, num_groups, eps, average,
                                     emb=emb, film=film)
-    if emb is not None and film is not None:
-        raise ValueError("gn_affine takes emb or film, not both")
-    gamma, beta = check_inputs("gn_affine", x, gamma, beta, num_groups)
-    conds = (emb,) if emb is not None else tuple(film or ())
-    keep = all(t.dtype == torch.bfloat16 for t in conds)
-    conds = tuple(_cond_in(t, x, torch.bfloat16 if keep else torch.float32) for t in conds)
-    mode = 1 if emb is not None else 2 if film is not None else 0
+    gamma, beta, mode, conds = kernel_args(x, gamma, beta, num_groups, emb, film)
     local = moments_fold(x, gamma, beta, num_groups, eps)
     gn_affine.launches += 1
     ao = gn_fold(average(local[2:4]), gamma, beta, num_groups, eps, **_named(mode, conds))

@@ -13,16 +13,29 @@ channels, narrower where C or the address is not a multiple of that).  The
 work is three parts:
 
 - *moments*: per-(sample, channel) float32 sum and sum of squares, x read
-  once.  Where a sample is long or the batch small, N is split over blocks;
-  their partial sums meet in a workspace and are added in split order by the
-  sample's last block (a counter per sample, no float atomics), so two runs
-  give the same bits.
+  once.
 - *fold*: the (B, C)-sized rest, in the tail of the same launch: channels to
   groups, ``rsqrt(var + eps)``, gamma/beta and (for ``gn_affine``) the
   timestep-embedding add or the FiLM pair folded into a scale ``a`` and an
   offset ``off`` with ``normalized = x * a + off``.  ``moments_fold`` is that
   one launch; ``ops.gn_conv.gn_affine`` is built on it.
 - *apply*: ``y = x * a + off`` (+ SiLU), stored in the input dtype.
+
+``affine_design`` picks one of two designs for ``moments_fold``:
+
+- ``cluster`` (``affine_plan``): chunks of whole groups, about two blocks an
+  SM; a block over all rows of its chunk folds its own groups (every site of
+  the CIFAR-10 UNet at batch 128, the small ones now several blocks a
+  sample), and where a chunk of a sample is long and the batch small its
+  rows are split over at most 8 blocks launched as one thread-block cluster,
+  whose blocks read each other's partial sums in distributed shared memory
+  and fold a slice of whole groups each.
+- ``workspace`` (``moments_plan``, the first design): N split over blocks
+  whose partial sums meet in a global workspace, added in split order by the
+  sample's last block (a counter per sample); kept where a sample needs more
+  blocks than a cluster holds (256x256) and, by name, for measurement.
+
+Neither adds floats with atomics, so two runs give the same bits.
 
 The fold also has an entry of its own (``gn_fold``: one block a sample, from
 the (2, B, C) moments E[x], E[x^2] to the same (4, B, C) output as
@@ -31,9 +44,15 @@ moments over its rows are averaged over the ranks and folded, so the
 normalisation uses whole-image statistics (``group_norm_silu_slab``,
 ``gn_conv.gn_affine_slab``).
 
-``gn_affine``'s gradient runs the same parts backwards (``fold_backward``,
-one small launch from the gradients of ``a`` and ``off`` to dL/dS1 and dL/dS2
-per (sample, channel), then ``apply_affine`` for dL/dx = 2 x dL/dS2 + dL/dS1).
+``gn_affine``'s gradient runs the same parts backwards.  ``affine_backward``
+(design ``fused_bwd``, ``grad_plan``): one launch in which each block
+recomputes the fold's backward for its chunk of whole groups and writes
+dL/dx, the conditioning's gradient and each sample's shares of dL/dgamma
+and dL/dbeta, then one launch that adds the shares over the batch in a fixed
+order; ``fold_backward_plain`` is its arithmetic in plain torch.  The first
+design, ``fold_backward`` (one small launch from the gradients of ``a`` and
+``off`` to dL/dS1 and dL/dS2 per (sample, channel)) then ``apply_affine``
+for dL/dx = 2 x dL/dS2 + dL/dS1, stays for groups wider than a block.
 
 ``groupnorm_design`` picks one of two designs for ``group_norm_silu``:
 
@@ -65,7 +84,8 @@ from . import _build
 from .autograd import kernel_op
 
 __all__ = ["group_norm_silu", "group_norm_silu_plain", "groupnorm_design", "moments_plan",
-           "fused_plan", "moments_fold", "fold_backward", "apply_affine", "gn_fold",
+           "fused_plan", "affine_plan", "grad_plan", "affine_design", "moments_fold",
+           "fold_backward", "fold_backward_plain", "affine_backward", "apply_affine", "gn_fold",
            "gn_fold_plain", "moments_plain", "group_norm_silu_slab",
            "group_norm_silu_slab_plain"]
 
@@ -76,6 +96,11 @@ _SPLIT_BYTES = 64 * 1024   # the least of x that one block of a split sample rea
 _FUSED_ROW_BYTES = 128     # fused design: the least bytes of a row one block takes
 _FUSED_BYTES = 48 * 1024   # fused design: the most of x one block takes (stays in L1)
 _MAX_CHANNELS = 8192       # the fold's backward keeps five floats a channel in shared memory
+_CLUSTER_MAX = 8           # blocks of a portable thread-block cluster (kClusterMax)
+_CHUNK_ROW_BYTES = 64      # cluster design: the least bytes of a row one block takes
+_CHUNK_FILL = 2 * 132      # cluster design: blocks wanted (two an SM measured best)
+# where the blocks of a sample meet (csrc/groupnorm.cu kLocal, kCluster, kWorkspace)
+_FOLDS = {"local": 0, "cluster": 1, "workspace": 2}
 
 
 class Plan(NamedTuple):
@@ -84,6 +109,10 @@ class Plan(NamedTuple):
     cvb: int     # channel vectors (threads along the channels) of a block
     splits: int  # blocks along N of one sample
     rows: int    # rows of one block
+    # where a sample's blocks meet: "local" (a block folds its own chunk of
+    # whole groups), "cluster" (a sample's splits are one cluster) or
+    # "workspace" (a global workspace, the sample's last block folds)
+    fold: str = "local"
 
     def chunks(self, c: int) -> int:
         """Blocks along the channels."""
@@ -123,6 +152,71 @@ def _moments_plan(b, n, c, itemsize, low):
     chunks = -(-cv // cvb)
     want = -(-_FILL // (b * chunks))
     splits = max(1, min(want, n * c * itemsize // _SPLIT_BYTES, n // (_NT // cvb)))
+    rows = -(-n // splits)
+    splits = -(-n // rows)
+    return Plan(v, cvb, splits, rows, "local" if splits == 1 and chunks == 1 else "workspace")
+
+
+def _chunking(b, n, c, groups, itemsize, low):
+    """(v, cvb, splits) with chunks of whole groups: a chunk is a power of
+    two times the least whole number of groups and vectors, at least
+    ``_CHUNK_ROW_BYTES`` of a row and as many vectors as keep the block's
+    256 threads on rows (256 / N), and the chunks are about ``_CHUNK_FILL``
+    / B; a chunk of a sample is split along N where it still leaves the card
+    short of blocks and is long.  None where one group is wider than a
+    block."""
+    v = _vector(c, itemsize, low)
+    cv = c // v
+    unit = math.lcm(c // groups, v) // v
+    if unit > _NT:
+        return None
+    least = max(-(-_CHUNK_ROW_BYTES // (v * itemsize)), -(-_NT // n))
+    want = -(-_CHUNK_FILL // b)
+    cvb = unit
+    while cvb < cv and 2 * cvb <= _NT and (cvb < least or cvb * want < cv):
+        cvb *= 2
+    cvb = min(cvb, cv)
+    chunks = -(-cv // cvb)
+    splits = max(1, min(want // chunks, n * cvb * v * itemsize // _SPLIT_BYTES, n // (_NT // cvb)))
+    return v, cvb, splits
+
+
+def affine_plan(b: int, n: int, c: int, groups: int, itemsize: int, *addresses: int) -> Plan:
+    """Geometry of ``moments_fold`` on a (B, N, C) tensor: the design
+    ``cluster`` (channel chunks of whole groups; a chunk of a sample split
+    over at most ``_CLUSTER_MAX`` blocks is one cluster, folded in
+    distributed shared memory; unsplit, its block folds it) or, where a
+    sample needs more blocks than a cluster holds or a group is wider than
+    a block, ``moments_plan``'s (design ``workspace``)."""
+    return _affine_plan(b, n, c, groups, itemsize, _low_bits(addresses))
+
+
+@functools.lru_cache(maxsize=1024)
+def _affine_plan(b, n, c, groups, itemsize, low):
+    chunked = _chunking(b, n, c, groups, itemsize, low)
+    if chunked is None or chunked[2] > _CLUSTER_MAX:
+        return _moments_plan(b, n, c, itemsize, low)
+    v, cvb, splits = chunked
+    rows = -(-n // splits)
+    splits = -(-n // rows)
+    return Plan(v, cvb, splits, rows, "cluster" if splits > 1 else "local")
+
+
+def grad_plan(b: int, n: int, c: int, groups: int, itemsize: int,
+              *addresses: int) -> Optional[Plan]:
+    """Geometry of the one-launch backward (``affine_backward``, design
+    ``fused_bwd``): the chunks of ``affine_plan``'s, N split with no limit
+    (the blocks of a sample do not meet); None where a group is wider than
+    a block (design ``fold_bwd+apply``)."""
+    return _grad_plan(b, n, c, groups, itemsize, _low_bits(addresses))
+
+
+@functools.lru_cache(maxsize=1024)
+def _grad_plan(b, n, c, groups, itemsize, low):
+    chunked = _chunking(b, n, c, groups, itemsize, low)
+    if chunked is None:
+        return None
+    v, cvb, splits = chunked
     rows = -(-n // splits)
     return Plan(v, cvb, -(-n // rows), rows)
 
@@ -236,20 +330,38 @@ def _counters_for(x: torch.Tensor, b: int) -> torch.Tensor:
     return buf
 
 
+def affine_design(x: torch.Tensor, num_groups: int) -> str:
+    """The design a ``moments_fold`` (``gn_affine``) call on CUDA tensor
+    ``x`` runs: ``cluster`` or, for samples longer than a cluster takes,
+    ``workspace``."""
+    b, n, c = _shape(x)
+    plan = _affine_plan(b, n, c, num_groups, x.element_size(), x.data_ptr() & 15)
+    return "workspace" if plan.fold == "workspace" else "cluster"
+
+
 def moments_fold(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, num_groups: int,
                  eps: float, emb: Optional[torch.Tensor] = None,
-                 film: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+                 film: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                 design: Optional[str] = None) -> torch.Tensor:
     """One launch: a (4, B, C) float32 tensor of the scale ``a``, the offset
     ``off`` with ``normalized(x [+ emb]) * gamma + beta [FiLM] == x * a + off``,
     and E[x], E[x^2] per (sample, channel), which the backward starts from.
     x is a contiguous CUDA (B, *spatial, C) tensor, gamma/beta float32; emb
     or the FiLM pair are (B, C), float32 or bfloat16 (both of one dtype), with
-    unit channel stride (``gn_conv.gn_affine`` checks and converts)."""
+    unit channel stride (``gn_conv.gn_affine`` checks and converts).
+    ``design``: None for ``affine_design``'s choice, or ``cluster`` or
+    ``workspace`` by name (a measurement times both on one input)."""
     b, n, c = _shape(x)
-    plan = _moments_plan(b, n, c, x.element_size(), x.data_ptr() & 15)
+    low = x.data_ptr() & 15
+    if design == "workspace":
+        plan = _moments_plan(b, n, c, x.element_size(), low)
+    else:
+        plan = _affine_plan(b, n, c, num_groups, x.element_size(), low)
+        if design not in (None, "cluster") or (design and plan.fold == "workspace"):
+            raise ValueError(f"the gn_affine design {design!r} does not take {tuple(x.shape)}")
     ao = torch.empty((4, b, c), dtype=torch.float32, device=x.device)
     ws = counters = None  # both alive until the launch is queued
-    if plan.splits > 1 or plan.chunks(c) > 1:
+    if plan.fold == "workspace":
         counters = _counters_for(x, b)
         ws = torch.empty((b, plan.splits, c, 2), dtype=torch.float32, device=x.device)
     ptr0, ptr1, *rest = _cond_args(emb, film)
@@ -257,7 +369,8 @@ def moments_fold(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, num_g
                   ptr0, ptr1, ao.data_ptr(), None if ws is None else ws.data_ptr(),
                   None if counters is None else counters.data_ptr(), b, n, c, num_groups,
                   float(eps), *rest,
-                  int(x.dtype == torch.bfloat16), plan.v, plan.cvb, plan.splits, plan.rows)
+                  int(x.dtype == torch.bfloat16), plan.v, plan.cvb, plan.splits, plan.rows,
+                  _FOLDS[plan.fold])
     return ao
 
 
@@ -292,6 +405,59 @@ def fold_backward(ao: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, n: 
     return g
 
 
+def fold_backward_plain(ao: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, n: int,
+                        num_groups: int, eps: float, ga: torch.Tensor, goff: torch.Tensor,
+                        emb: Optional[torch.Tensor] = None,
+                        film: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                        chunk: Optional[int] = None) -> torch.Tensor:
+    """``fold_backward``'s (6, B, C) in plain torch, by the formulas each
+    block of the one-launch backward runs on its chunk of ``chunk`` channels
+    (whole groups; default all C), chunk by chunk: rows 0-1 (2 dL/dS2,
+    dL/dS1), so that dL/dx = x * g[0] + g[1]; rows 2-3 each sample's share of
+    dL/dgamma and dL/dbeta; rows 4-5 dL/d(emb), or dL/d(FiLM scale) and
+    dL/d(FiLM shift).  float32."""
+    _, b, c = ao.shape
+    cg = c // num_groups
+    chunk = c if chunk is None else chunk
+    if chunk % cg:
+        raise ValueError(f"a chunk of {chunk} channels is no whole number of groups of {cg}")
+    g = torch.zeros((6, b, c), dtype=torch.float32, device=ao.device)
+    for c0 in range(0, c, chunk):
+        cs = slice(c0, min(c, c0 + chunk))
+        k = cs.stop - c0
+        mean_raw, m2_raw = ao[2, :, cs].float(), ao[3, :, cs].float()
+        e = emb[:, cs].float() if emb is not None else torch.zeros_like(mean_raw)
+        mu = mean_raw + e
+        m2 = m2_raw + 2.0 * e * mean_raw + e * e
+
+        def per_group(t):  # (B, k) -> each channel's group mean, (B, k)
+            return t.reshape(b, k // cg, cg).mean(dim=2).repeat_interleave(cg, dim=1)
+
+        mg, qg = per_group(mu), per_group(m2)
+        rstd = torch.rsqrt(qg - mg * mg + eps)
+        gam = gamma[cs].float()[None, :]
+        a0 = rstd * gam
+        off0 = beta[cs].float()[None, :] - mg * a0 + e * a0
+        da, doff = ga[:, cs].float(), goff[:, cs].float()
+        if film is not None:
+            sc = 1.0 + film[0][:, cs].float()
+            g[4, :, cs] = da * a0 + doff * off0
+            g[5, :, cs] = doff
+            da, doff = da * sc, doff * sc
+        g[3, :, cs] = doff
+        da = da + doff * (e - mg)
+        g[2, :, cs] = da * rstd
+        sm, sr = per_group(-a0 * doff), per_group(da * gam)
+        r3 = rstd * rstd * rstd
+        dmu = sm + r3 * mg * sr
+        dm2 = -0.5 * r3 * sr
+        g[0, :, cs] = 2.0 * dm2 / n
+        g[1, :, cs] = (dmu + 2.0 * e * dm2) / n
+        if emb is not None:
+            g[4, :, cs] = doff * a0 + dmu + dm2 * (2.0 * mean_raw + 2.0 * e)
+    return g
+
+
 def apply_affine(x: torch.Tensor, ao: torch.Tensor, silu: bool = False) -> torch.Tensor:
     """One launch: ``x * ao[0] + ao[1]`` (+ SiLU) in x's dtype, for a
     contiguous CUDA (B, *spatial, C) x and float32 (2 or more, B, C) ``ao``."""
@@ -302,6 +468,43 @@ def apply_affine(x: torch.Tensor, ao: torch.Tensor, silu: bool = False) -> torch
                   int(silu), int(x.dtype == torch.bfloat16), plan.v, plan.cvb, plan.splits,
                   plan.rows)
     return out
+
+
+def affine_backward(x: torch.Tensor, ao: torch.Tensor, gamma: torch.Tensor,
+                    beta: torch.Tensor, num_groups: int, eps: float, ga: torch.Tensor,
+                    goff: torch.Tensor, emb: Optional[torch.Tensor] = None,
+                    film: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                    want_dx: bool = True):
+    """``gn_affine``'s gradient (design ``fused_bwd``): one launch for dL/dx
+    in x's dtype (None unless ``want_dx``), each sample's shares of
+    dL/dgamma and dL/dbeta and the gradients of emb or of the FiLM pair,
+    (B, C) in their dtype; a second for the sums of the shares over the
+    batch, dL/dgamma and dL/dbeta (C,) float32.  A tuple (dx, dgamma, dbeta,
+    *conditioning).  ``ao`` is the forward's ``moments_fold`` output, ga /
+    goff the gradients of its scale and offset; inputs as ``moments_fold``
+    takes them.  Raises where ``grad_plan`` has no plan."""
+    b, n, c = _shape(x)
+    dx = torch.empty_like(x) if want_dx else None
+    low = (x.data_ptr() | (0 if dx is None else dx.data_ptr())) & 15
+    plan = _grad_plan(b, n, c, num_groups, x.element_size(), low)
+    if plan is None:
+        raise ValueError(f"the gn_affine_grad design 'fused_bwd' does not take {tuple(x.shape)} "
+                         f"in {num_groups} groups")
+    ga = _float32_on(ga, x.device)
+    goff = _float32_on(goff, x.device)
+    conds = (emb,) if emb is not None else tuple(film or ())
+    dconds = [torch.empty((b, c), dtype=t.dtype, device=x.device) for t in conds]
+    dgamma = torch.empty(c, dtype=torch.float32, device=x.device)
+    dbeta = torch.empty(c, dtype=torch.float32, device=x.device)
+    shares = torch.empty((b, 2, c), dtype=torch.float32, device=x.device)
+    ptr0, ptr1, *rest = _cond_args(emb, film)
+    dptr = [t.data_ptr() for t in dconds] + [None, None]
+    _build.launch("pddm_gn_affine_bwd", x.data_ptr(), ao.data_ptr(), gamma.data_ptr(),
+                  beta.data_ptr(), ptr0, ptr1, ga.data_ptr(), goff.data_ptr(),
+                  None if dx is None else dx.data_ptr(), shares.data_ptr(), dptr[0], dptr[1],
+                  dgamma.data_ptr(), dbeta.data_ptr(), b, n, c, num_groups, float(eps), *rest,
+                  int(x.dtype == torch.bfloat16), plan.v, plan.cvb, plan.splits, plan.rows)
+    return (dx, dgamma, dbeta, *dconds)
 
 
 def _launch(x, gamma, beta, num_groups, eps, silu, design=None):

@@ -581,6 +581,79 @@ def test_card_gn_affine_narrow_vectors_and_rules(card):
                   film=(torch.zeros(4, 64, device="cuda"),) * 2)
 
 
+def _affine_case_on_card(shape, dtype, gen):
+    b, c = shape[0], shape[-1]
+    x = (torch.randn(shape, device="cuda", generator=gen) + 0.5).to(dtype)
+    gamma = torch.randn(c, device="cuda", generator=gen)
+    beta = torch.randn(c, device="cuda", generator=gen)
+    emb = torch.randn(b, c, device="cuda", generator=gen).to(dtype)
+    film = torch.randn(b, 2 * c, device="cuda", generator=gen).to(dtype).chunk(2, dim=-1)
+    return x, gamma, beta, ({}, {"emb": emb}, {"film": film})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_card_gn_affine_designs_match_plain(dtype, card):
+    """``moments_fold`` in each design by name (``cluster`` where the shape
+    takes it, ``workspace`` at every shape) at every site shape in the three
+    modes, against the plain version, two runs bit for bit."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    for shape, groups in _AFFINE_SHAPES:
+        x, gamma, beta, modes = _affine_case_on_card(shape, dtype, gen)
+        for kw in modes:
+            g32, b32, mode, conds = _gc.kernel_args(x, gamma, beta, groups, kw.get("emb"),
+                                                    kw.get("film"))
+            ref = gn_affine_plain(x, gamma, beta, groups, 1e-5, **kw)
+            for design in {_gn.affine_design(x, groups), "workspace"}:
+                runs = [_gn.moments_fold(x, g32, b32, groups, 1e-5, design=design,
+                                         **_gc._named(mode, conds)) for _ in range(2)]
+                torch.cuda.synchronize()
+                assert torch.equal(runs[0], runs[1]), (shape, design, sorted(kw))
+                for got, want in zip(runs[0][:2], ref):
+                    err = float((got - want).abs().max())
+                    assert err <= _affine_tol(want), (shape, design, sorted(kw), err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_card_gn_affine_grad_designs_match_plain(dtype, card):
+    """``gn_affine_grad`` in each design by name (``fused_bwd`` where the
+    shape takes it, ``fold_bwd+apply`` at every shape) at every site shape
+    in the three modes, against autograd through the plain version: 2e-2
+    (bf16) or 1e-4 (float32) of each gradient's largest element, as
+    ``chip_smoke.py`` holds them; one launch counted a call; two runs bit
+    for bit.  The conditioning's gradient is held at the scale of its first
+    term, |dL/doff * a|: with one channel a group (C = 32 in 32 groups) it
+    is zero in exact arithmetic, and both sides leave round-off."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    for shape, groups in _AFFINE_SHAPES:
+        x, gamma, beta, modes = _affine_case_on_card(shape, dtype, gen)
+        b, c = shape[0], shape[-1]
+        ga, goff = torch.randn(2, b, c, device="cuda", generator=gen)
+        for kw in modes:
+            g32, b32, mode, conds = _gc.kernel_args(x, gamma, beta, groups, kw.get("emb"),
+                                                    kw.get("film"))
+            named = _gc._named(mode, conds)
+            ao = _gn.moments_fold(x, g32, b32, groups, 1e-5, **named)
+            want = gn_affine_grad_plain(x, gamma, beta, groups, 1e-5, ga, goff, **kw)
+            floor = float((goff * ao[0]).abs().max())
+            for design in {_gc.grad_design(x, groups), "fold_bwd+apply"}:
+                before = gn_affine_grad.launches
+                runs = [gn_affine_grad(x, g32, b32, groups, 1e-5, ga, goff, ao, design=design,
+                                       **named) for _ in range(2)]
+                torch.cuda.synchronize()
+                assert gn_affine_grad.launches == before + 2, design
+                for i, (got, again, ref) in enumerate(zip(*runs, want)):
+                    assert got.dtype == ref.dtype and got.shape == ref.shape, (design, i)
+                    assert torch.equal(got, again), (shape, design, sorted(kw), i)
+                    scale = float(ref.float().abs().max())
+                    if i >= 3:
+                        scale = max(scale, floor)
+                    err = float((got.float() - ref.float()).abs().max())
+                    rtol = 2e-2 if ref.dtype == torch.bfloat16 else 1e-4
+                    assert err <= rtol * scale, (shape, design, sorted(kw), i, err, scale)
+
+
 # the backward kernels compute the gradient by its formula, autograd by the
 # chain of the plain version's ops: float32 sums in another order
 _AFFINE_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
@@ -589,8 +662,8 @@ _AFFINE_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_card_gn_affine_gradients_match_plain(dtype, card):
-    """``backward`` through ``gn_affine`` on the card (the fold's backward
-    kernel and the apply kernel) against autograd through the plain version,
+    """``backward`` through ``gn_affine`` on the card (``gn_affine_grad`` in
+    the design the shape selects) against autograd through the plain version,
     at a 32x32, a 16x16 and a 4x4 site and groups of 3 channels, in the three
     modes; the backward counts one launch of ``gn_affine_grad`` and none of
     ``gn_affine``."""
