@@ -19,7 +19,13 @@
    each ``gn_affine`` site its backward kernels (``gn_affine_grad``, designs
    ``fused_bwd`` and ``fold_bwd+apply``) are held against autograd through
    the plain version, run twice for the same bits and timed, each design by
-   name, with and without the host's cost of a call;
+   name, with and without the host's cost of a call; at each fused conv
+   site (the float32 head too) its backward kernels
+   (``gn_silu_conv3x3_grad``, ``wgmma`` or ``general``) on a seeded output
+   gradient against the plain backward, run twice for the same bits and
+   timed with and without the host's cost, beside the parent's path
+   (``recompute``), the plain backward, ``convolution_backward``'s two bare
+   products without the host's cost, and their bound;
 4. main path: the 20-step ancestral sampler (linear T=1000 respaced to 20,
    clip=True) through ``get_model`` and ``p_sample_loop``: bf16 at batch 32
    with the launch counts asserted, float32 on the kernels against float32
@@ -34,9 +40,12 @@
    the same loss on the plain versions (batch cut to 8); the train step of
    ``scripts/bench_train.py`` (bf16, batch 128, Adam 2e-4, EMA 0.9999,
    uniform t) timed over two passes of 10 steps with the launch counts
-   asserted (the backward's ``gn_affine_grad`` among them), its forward /
-   backward / update split and a device profile, with the step's device
-   operations in each design of ``gn_affine_grad``;
+   asserted (the backward's ``gn_affine_grad`` and ``gn_silu_conv3x3_grad``
+   among them), its forward / backward / update split and a device profile,
+   with the step's device operations and device ms in the designs the shapes
+   select, with ``gn_affine_grad``'s first design and with the conv's
+   gradient as ``recompute`` (whose steps must leave the conv gradient's
+   launch count where it was);
    and a few importance-sampled steps on a warmed-up history;
 7. a second model: one bf16 forward of ``unet_celebahq64`` at 64x64 (head
    widths 96 and 128, FiLM conditioning) at batch 8 on the kernels, with
@@ -225,7 +234,9 @@ CHAIN_BATCH = 32
 FORWARD_BATCH = 128
 PER_FORWARD = {"gn_affine": 61, "gn_silu_conv3x3": 61, "qkv_attention": 15,
                "group_norm_silu": 15}
-PER_BACKWARD = {"gn_affine_grad": 61}  # the one op whose backward is a kernel too
+# the ops whose backward is a kernel too: the folded affine's and the fused
+# conv's, once a site of every backward
+PER_BACKWARD = {"gn_affine_grad": 61, "gn_silu_conv3x3_grad": 61}
 # the kernel that only a spatially sharded forward launches: the fold of the
 # ranks' averaged statistics, once a GroupNorm or gn_affine on a slab
 SLAB_ONLY = ("gn_fold",)
@@ -236,7 +247,12 @@ SLAB_OPS = {"gn_affine_slab": "gn_affine", "group_norm_silu_slab": "group_norm_s
 def expected_counts(steps, backward):
     """Launch counts of ``steps`` forwards, with or without their backwards."""
     return dict({n: steps * c for n, c in PER_FORWARD.items()},
-                **{n: steps * c * int(backward) for n, c in PER_BACKWARD.items()})
+                **backward_counts(steps * int(backward)))
+
+
+def backward_counts(n):
+    """Launch counts of the backward kernels of ``n`` backwards."""
+    return {name: n * c for name, c in PER_BACKWARD.items()}
 F32_CHAIN_TOL = 1e-3   # kernels vs plain, float32, after 20 steps (sums in another order)
 GRAD_BATCH = 8         # float32 gradient check at full width, batch cut from 128
 # float32 gradients, kernels vs plain: the forward sums run in another order,
@@ -374,7 +390,9 @@ SR_PROFILE_ARGS = [f"steps={SR_PROFILE_STEPS}", f"sample_steps={SR_PROFILE_SAMPL
 # what cli.profile's traces must name: the conv, attention, the GroupNorm
 # statistics (GroupNorm and gn_affine) and, in training, gn_affine's backward
 PROFILE_SAMPLE_KERNELS = ("conv_wgmma_kernel", "attn_bf16_kernel", "gn_moments_kernel")
-PROFILE_TRAIN_KERNELS = PROFILE_SAMPLE_KERNELS + ("gn_affine_bwd_kernel", "gn_batch_sum_kernel")
+PROFILE_TRAIN_KERNELS = PROFILE_SAMPLE_KERNELS + (
+    "gn_affine_bwd_kernel", "gn_batch_sum_kernel", "dgrad_wgmma_kernel", "wgrad_wgmma_kernel",
+    "dgrad_general_kernel", "wgrad_general_kernel", "grad_finish_kernel")
 CKPT_TURNS = ("plain", "checkpoint", "checkpoint", "plain")
 CKPT_GRAD_BATCH, CKPT_DROPOUT = 8, 0.1
 CKPT_SAME_TOL = 1e-6  # float32 gradients with against without checkpoints (cuDNN deterministic)
@@ -396,6 +414,9 @@ PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 REPLACES = {
+    # the fused conv's gradient, which the JAX package takes by jax.vjp of
+    # the XLA form inside the op's custom VJP
+    "gn_silu_conv3x3_grad": "probabilisticdeepdiffusionmodels_tpu/ops/gn_conv_pallas.py:238",
     # the fold that XLA fuses into one pass before the fused conv: the one
     # entry that is no Pallas kernel in the JAX package
     "gn_affine": "probabilisticdeepdiffusionmodels_tpu/ops/gn_conv_pallas.py:41",
@@ -411,6 +432,7 @@ REPLACES = {
     "gn_fold": "probabilisticdeepdiffusionmodels_tpu/ops/gn_conv_pallas.py:41",
 }
 SOURCES = {
+    "gn_silu_conv3x3_grad": f"{PKG}/csrc/gn_conv_grad.cu",
     "gn_affine": f"{PKG}/csrc/groupnorm.cu",
     "gn_affine_grad": f"{PKG}/csrc/groupnorm.cu",
     "gn_silu_conv3x3": f"{PKG}/csrc/gn_conv.cu",
@@ -753,6 +775,8 @@ def check_sites(torch, F, ops, calls, per_site, summary=None, only=None):
             site["grad_recompute"] = recompute_check(torch, ops.ops.gn_conv, a)
         if name == "gn_affine":
             grad_site(torch, ops, a, kw, n, site, per_site, summary)
+        if name == "gn_silu_conv3x3":
+            conv_grad_site(torch, ops, a, n, site, per_site, summary)
         per_site.append(site)
         emit(dict(phase="kernel_site", **site))
         if not err <= tol:
@@ -878,11 +902,123 @@ def grad_site(torch, ops, a, kw, n, affine_site, per_site, summary):
     s["calls"] += n
 
 
+# the conv's backward kernels against the plain backward: float32 sums over
+# up to 131,072 pixels in another order (float32); the kernel keeps the
+# conv's input gradient in float32 where the plain version rounds it to bf16
+CONV_GRAD_F32_TOL = 1e-4
+
+
+def conv_grad_site(torch, ops, a, n, conv_site, per_site, summary):
+    """``gn_silu_conv3x3``'s backward kernels (``gn_silu_conv3x3_grad``) at
+    one recorded site, on a seeded output gradient, against the plain
+    backward (each gradient within RECOMPUTE_TOL of its reference's largest
+    element in bf16, CONV_GRAD_F32_TOL in float32), in the design the shape
+    selects, run twice for the same bits, one count a call; timed with and
+    without the host's cost of a call (a CUDA graph over inputs that do not
+    fit L2 together), beside the parent's path (``recompute``: autograd
+    through ``_grad_reference``), the plain backward, the two bare products
+    of ``torch.ops.aten.convolution_backward`` (the library yardstick,
+    device-only as the kernels' own time is read) and the bound of the two
+    products."""
+    gc = ops.ops.gn_conv
+    x, sc, off, w, _ = a
+    wk = w.to(x.dtype).contiguous()
+    b, h, wd, cin = x.shape
+    cout = wk.shape[2]
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    g = torch.randn(b, h, wd, cout, device="cuda", generator=gen).to(x.dtype)
+    ref = gc.gn_silu_conv3x3_grad_plain(x, sc, off, wk, g)
+    chosen = gc.conv_grad_design(x, wk)
+
+    def run(xc=x, gg=g, d=chosen):
+        return gc.gn_silu_conv3x3_grad(xc, sc, off, wk, gg, design=d)
+
+    with torch.no_grad():
+        before = gc.gn_silu_conv3x3_grad.launches
+        got, again = run(), run()
+        torch.cuda.synchronize()
+        launches = gc.gn_silu_conv3x3_grad.launches - before
+    err, tol = 0.0, 1.0
+    for p, q in zip(got, ref):
+        if p.dtype != q.dtype or p.shape != q.shape:
+            raise AssertionError(f"gn_silu_conv3x3_grad: {p.dtype} {tuple(p.shape)} against "
+                                 f"{q.dtype} {tuple(q.shape)}")
+        e = float((p.float() - q.float()).abs().max())
+        t = ((RECOMPUTE_TOL if x.dtype == torch.bfloat16 else CONV_GRAD_F32_TOL)
+             * max(1e-30, float(q.float().abs().max())))
+        if not e <= t or e / t >= err / tol:
+            err, tol = e, t
+    same = all(torch.equal(p, q) for p, q in zip(got, again))
+    s = x.element_size()
+    # x and g read, dx and dw written, w, the scale and offset read, their
+    # gradients and dbias written; two products of the forward's size
+    nbytes = (2 * x.numel() + g.numel() + 2 * wk.numel()) * s + 6 * b * cin * 4 + cout * 4
+    flops = 2 * 2.0 * b * h * wd * 9 * cin * cout
+    dtype = str(x.dtype).replace("torch.", "")
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+
+    def activated(xc):
+        y = xc.float() * sc[:, None, None, :] + off[:, None, None, :]
+        return (y * torch.sigmoid(y)).to(x.dtype).permute(0, 3, 1, 2)
+
+    w_oihw = wk.permute(2, 3, 0, 1).contiguous(memory_format=torch.channels_last)
+
+    def library(hh, gg):
+        return torch.ops.aten.convolution_backward(
+            gg.permute(0, 3, 1, 2), hh, w_oihw, [cout], [1, 1], [1, 1], [1, 1], False, [0, 0],
+            1, [True, True, True])
+
+    with torch.no_grad():
+        # copies of (x, g) that do not fit the L2 cache together
+        pairs = [(x.clone(), g.clone()) for _ in range(len(cold_copies(x, nbytes)))]
+        hs = [activated(xc) for xc, _ in pairs]
+
+        def rounds(fn):
+            def go():
+                for i, (xc, gg) in enumerate(pairs):
+                    fn(i, xc, gg)
+            return go
+
+        ms = sync_time(torch, run)
+        device_ms = graph_time(torch, rounds(lambda i, xc, gg: run(xc, gg)),
+                               max(1, 100 // len(pairs)), 10) / len(pairs)
+        lib_device_ms = graph_time(torch, rounds(lambda i, xc, gg: library(hs[i], gg)),
+                                   max(1, 100 // len(pairs)), 10) / len(pairs)
+        del pairs, hs
+        plain_ms = sync_time(torch, lambda: gc.gn_silu_conv3x3_grad_plain(x, sc, off, wk, g))
+    parent_ms = sync_time(torch, lambda: run(d="recompute"))
+    site = {"kernel": "gn_silu_conv3x3_grad", "shape": conv_site["shape"],
+            "cout": cout, "dtype": conv_site["dtype"], "design": chosen,
+            "calls_per_forward": n, "max_abs_err": err, "tol": tol, "ms": ms,
+            "device_ms": device_ms, "same_bits_twice": same, "launches_two_calls": launches,
+            "recompute_ms": parent_ms, "plain_ms": plain_ms, "library_ms": lib_device_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    per_site.append(site)
+    emit(dict(phase="kernel_site", **site))
+    if not err <= tol or not same or launches != 2:
+        raise AssertionError(f"gn_silu_conv3x3_grad {site['shape']} -> {cout} {site['dtype']}: "
+                             f"max abs err {err} (tol {tol}), same bits twice {same}, "
+                             f"{launches} launches for 2 calls")
+    if summary is None:
+        return
+    s = summary.setdefault("gn_silu_conv3x3_grad", dict(max_abs_err=0.0, calls=0))
+    s["max_abs_err"] = max(s["max_abs_err"], err)
+    for key, val in (("ms", ms), ("device_ms", device_ms), ("plain_ms", plain_ms),
+                     ("recompute_ms", parent_ms), ("library_ms", lib_device_ms),
+                     ("library_device_ms", lib_device_ms), ("bytes_ms", t_bytes),
+                     ("ops_ms", t_ops), ("bound_ms", max(t_bytes, t_ops))):
+        s[key] = s.get(key, 0.0) + n * val
+    s["design"] = ", ".join(sorted(set(filter(None, s.get("design", "").split(", "))) | {chosen}))
+    s["calls"] += n
+
+
 def recompute_check(torch, gn_conv, args):
     """The fused conv's backward at one bf16 site: the largest difference,
     relative to each gradient's largest element, between the gradients of
-    the bf16-operand recompute the kernel's backward runs and those of the
-    float32 plain version, and the ms of each (recompute + autograd.grad)."""
+    the bf16-operand recompute that the backward's first design runs
+    (``recompute``, by name) and those of the float32 plain version, and the
+    ms of each (recompute + autograd.grad)."""
     x, a, off, w, bias = args
     leaves = [t.detach().clone().requires_grad_(True)
               for t in (x, a, off, w.to(x.dtype), bias)]
@@ -1171,25 +1307,43 @@ def train_phases(torch, ops, model, gen):
     if syncs:
         raise AssertionError(f"the train step copies to the host: {syncs}")
     # device operations a step, each the larger of two profiles (a profile
-    # may drop records, so each count is a lower bound), in the design of
-    # gn_affine's gradient the shapes select and in its first design
-    # (fold_bwd+apply: 4-5 operations a site)
-    ops_a_step = {}
+    # may drop records, so each count is a lower bound), and the device ms of
+    # each profile: in the designs the shapes select, with gn_affine's
+    # gradient in its first design (fold_bwd+apply: 4-5 operations a site),
+    # and with the conv's gradient as the parent ran it (recompute: autograd
+    # through the recomputed plain version, about 40 operations a site)
+    by_design = {}
     gc = ops.ops.gn_conv
-    selected = gc.grad_design
-    for name, pick in (("selected", selected),
-                       ("fold_bwd+apply", lambda x, groups: "fold_bwd+apply")):
-        gc.grad_design = pick
+    for name, swap in (("selected", {}),
+                       ("fold_bwd+apply", {"grad_design": lambda x, groups: "fold_bwd+apply"}),
+                       ("conv_recompute", {"conv_grad_design": lambda x, w: "recompute"})):
+        saved = {k: getattr(gc, k) for k in swap}
+        before = gc.gn_silu_conv3x3_grad.launches
         try:
-            ops_a_step[name] = max(profile_device(torch, lambda: step(state, xb))["device_ops"]
-                                   for _ in range(2))
+            for k, fn in swap.items():
+                setattr(gc, k, fn)
+            profs = [profile_device(torch, lambda: step(state, xb)) for _ in range(2)]
         finally:
-            gc.grad_design = selected
+            for k, fn in saved.items():
+                setattr(gc, k, fn)
+        # the recompute launches no kernel of the conv's gradient; the kernel
+        # designs launch it
+        moved = gc.gn_silu_conv3x3_grad.launches - before
+        if (moved == 0) != (name == "conv_recompute"):
+            raise AssertionError(f"train step, {name}: gn_silu_conv3x3_grad counted {moved} "
+                                 f"launches")
+        by_design[name] = {"device_ops": max(p["device_ops"] for p in profs),
+                           "device_busy_ms": [p["device_busy_ms"] for p in profs],
+                           "idle_share": [p["idle_share"] for p in profs]}
+    ops_a_step = {k: v["device_ops"] for k, v in by_design.items()}
     ops_a_step["fewer"] = ops_a_step["fold_bwd+apply"] - ops_a_step["selected"]
+    ops_a_step["fewer_than_conv_recompute"] = (ops_a_step["conv_recompute"]
+                                               - ops_a_step["selected"])
     emit({"phase": "train_step_bf16", "batch": TRAIN_BATCH, "steps_per_pass": TRAIN_STEPS,
           "warmup_steps": TRAIN_WARMUP, "passes": passes, "launches_per_pass": train_launches,
           "split_one_step": split, "max_memory_allocated_bytes": peak, "loss": loss,
-          "grad_norm": grad_norm, "profile": prof, "device_ops_by_grad_design": ops_a_step})
+          "grad_norm": grad_norm, "profile": prof, "device_ops_by_grad_design": ops_a_step,
+          "device_by_grad_design": by_design})
 
     # importance sampling on a history warmed past min_counts through update
     min_counts = 10
@@ -1231,7 +1385,7 @@ def celeba_phase(torch, F, ops, per_site):
     n_res = sum(isinstance(m, unet.ResBlock) for m in model.modules())
     n_attn = sum(isinstance(m, unet.AttentionBlock) for m in model.modules())
     expected = {"gn_affine": 2 * n_res + 1, "gn_silu_conv3x3": 2 * n_res + 1,
-                "qkv_attention": n_attn, "group_norm_silu": n_attn, "gn_affine_grad": 0}
+                "qkv_attention": n_attn, "group_norm_silu": n_attn, **backward_counts(0)}
     gen = torch.Generator(device="cuda").manual_seed(9)
     x = torch.randn(CELEBAHQ64_BATCH, CELEBAHQ64_RES, CELEBAHQ64_RES, 3, device="cuda",
                     generator=gen)
@@ -1343,7 +1497,6 @@ def cli_phase(torch, ops, smi, bare_passes, out_dir=None):
     next(iter(train_loader))
     executor = train_loader.transform.executor  # the loaders' transform: native or numpy
     batch = int(cfg["data"]["batch_size"])
-    grad_per_step = PER_BACKWARD["gn_affine_grad"]
     args = CLI_ARGS + [f"out_dir={root}"]
     launches, timed, readings = {}, {}, {}
     test_keys = ("test_nll", "test_L_0", "test_L_intermediate", "test_L_T", "test_mse")
@@ -1364,7 +1517,7 @@ def cli_phase(torch, ops, smi, bare_passes, out_dir=None):
         # the live weights, one checkpoint, the NLL test on one val batch
         trained = run("cli_train", lambda: cli_train.main(args + ["run_name=smoke"]),
                       dict(expected_counts(n_steps + 2 * n_val + NLL_T, False),
-                           gn_affine_grad=n_steps * grad_per_step))
+                           **backward_counts(n_steps)))
         run_dir = pathlib.Path(trained["run_dir"])
         final = json.loads((run_dir / "final_test.json").read_text())
         rows = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
@@ -1377,7 +1530,7 @@ def cli_phase(torch, ops, smi, bare_passes, out_dir=None):
         resumed = run("cli_resume", lambda: cli_train.main(
             args + ["cont_run=smoke", "run_name=smoke_resumed", "trainer.limit_test_batches=0"]),
             dict(expected_counts(n_steps + 2 * n_val, False),
-                 gn_affine_grad=n_steps * grad_per_step))
+                 **backward_counts(n_steps)))
         if resumed["steps"] != 2 * n_steps:
             raise AssertionError(f"cont_run: {resumed['steps']} steps, expected {2 * n_steps}")
 
@@ -1583,7 +1736,7 @@ def iddpm_phase(torch, ops, smi, out_dir=None):
         # 1. train with the default visualization: its train-end pass
         trained = run("iddpm_train", lambda: cli_train.main(args + ["run_name=iddpm"]),
                       dict(expected_counts(n_steps + 2 * n_val + viz_calls + T, False),
-                           gn_affine_grad=n_steps * PER_BACKWARD["gn_affine_grad"]))
+                           **backward_counts(n_steps)))
         run_dir = pathlib.Path(trained["run_dir"])
         final = json.loads((run_dir / "final_test.json").read_text())
         if trained["steps"] != n_steps or not all(math.isfinite(final[k]) for k in test_keys):
@@ -1956,7 +2109,7 @@ def fast_samplers_phase(torch, ops, model, gen, smi, out_dir=None):
                 launches[f"fs_{name}"] = ops.counts()
                 want = {k: n_full * PER_FORWARD[k] + n_cached * cached_counts[k]
                         for k in PER_FORWARD}
-                want.update(gn_affine_grad=0)
+                want.update(backward_counts(0))
                 if ops.counts() != want:
                     raise AssertionError(f"{name} launches {ops.counts()} != {want}")
         if not bool(torch.isfinite(out).all()):
@@ -2103,7 +2256,7 @@ def model_families_phase(torch, ops, gen, smi, out_dir=None):
     per_step = {"eps": expected_counts(1, True), "edm": expected_counts(1, True),
                 "flow": expected_counts(1, True),
                 "consistency": dict(expected_counts(2, False),
-                                    gn_affine_grad=PER_BACKWARD["gn_affine_grad"])}
+                                    **backward_counts(1))}
 
     def scaled(counts, n):
         return {k: n * v for k, v in counts.items()}
@@ -2245,7 +2398,7 @@ def model_families_phase(torch, ops, gen, smi, out_dir=None):
         # a step: 2 forwards and a backward; validation and the test batch:
         # 2 forwards for each of the live and the EMA weights
         want = dict(expected_counts(2 * n_steps + 4 * (n_val + 1), False),
-                    gn_affine_grad=n_steps * PER_BACKWARD["gn_affine_grad"])
+                    **backward_counts(n_steps))
         if ops.counts() != want:
             raise AssertionError(f"consistency cli.train launches {ops.counts()} != {want}")
         if trained["steps"] != n_steps or not math.isfinite(trained["test_ct_loss"]):
@@ -2310,7 +2463,7 @@ def nd_counts(model):
     kernel once an attention block; no fused conv."""
     n_res, n_attn = _block_counts(model)
     return {"gn_affine": 0, "gn_silu_conv3x3": 0, "qkv_attention": n_attn,
-            "group_norm_silu": 2 * n_res + n_attn + 1, "gn_affine_grad": 0}
+            "group_norm_silu": 2 * n_res + n_attn + 1, **backward_counts(0)}
 
 
 def f32_vs_plain(torch, ops, model, x, t, *cond, target=None):
@@ -2514,7 +2667,7 @@ def model_extras_phase(torch, F, ops, gen, smi, per_site, out_dir=None):
         train_s = time.perf_counter() - t_start
         launches["superres_cli_train"] = ops.counts()
         want = dict(expected_counts(n_steps + 2 * n_val + SR_CLI_T, False),
-                    gn_affine_grad=n_steps * PER_BACKWARD["gn_affine_grad"])
+                    **backward_counts(n_steps))
         if ops.counts() != want or trained["steps"] != n_steps or not all(
                 math.isfinite(trained[k]) for k in ("best_val_loss", "test_nll")):
             bad.append(f"superres cli.train: launches {ops.counts()} != {want}, {trained}")
@@ -2528,7 +2681,7 @@ def model_extras_phase(torch, F, ops, gen, smi, per_site, out_dir=None):
         # a warm-up step and the traced steps; a warm-up chain and the traced one
         n_train = 1 + SR_PROFILE_STEPS
         want = dict(expected_counts(n_train + 2 * SR_PROFILE_SAMPLE_STEPS, False),
-                    gn_affine_grad=n_train * PER_BACKWARD["gn_affine_grad"])
+                    **backward_counts(n_train))
         saved = json.loads((run_dir / "profile" / "timings.json").read_text())
         traced = {name: trace_kernels(run_dir / "profile" / name / "trace.json")
                   for name in ("train_trace", "sample_trace")}
@@ -2858,7 +3011,7 @@ def ode_checks(torch, ops, root, launches):
         counts = ops.counts()
         ode_calls = 2 * ODE_EVAL_STEPS
         want = dict(expected_counts(ODE_EVAL_T + ode_calls, False),
-                    gn_affine_grad=ode_calls * PER_BACKWARD["gn_affine_grad"])
+                    **backward_counts(ode_calls))
         if counts != want or not math.isfinite(result["test_ode_nll"]):
             raise AssertionError(f"cli.eval ode_nll {family}: launches {counts} != {want}, "
                                  f"{result}")
@@ -2984,7 +3137,7 @@ def consistency_distill_phase(torch, ops, gen, smi, run_dir, out_dir=None):
     phase_start = time.perf_counter()
     launches = {}
     per_step = dict(expected_counts(CD_FORWARDS, False),
-                    gn_affine_grad=PER_BACKWARD["gn_affine_grad"])
+                    **backward_counts(1))
     teachers = {"cd_eps": cli_sample.load_engine_from_run(run_dir)[0],
                 "cd_edm": DiffusionEngine(dict(MODEL_CFG), {"lr": 2e-4}, prediction_type="edm",
                                           device="cuda")}
@@ -3082,7 +3235,7 @@ def consistency_distill_phase(torch, ops, gen, smi, run_dir, out_dir=None):
     # a CD step; one validation batch: 2 forwards for each of the live and
     # the EMA weights
     want = dict(expected_counts(CD_FORWARDS * n_steps + 4, False),
-                gn_affine_grad=n_steps * PER_BACKWARD["gn_affine_grad"])
+                **backward_counts(n_steps))
     if ops.counts() != want or not math.isfinite(distilled["test_ct_loss"]):
         raise AssertionError(f"cli.consistency launches {ops.counts()} != {want}, {distilled}")
     ops.reset()
@@ -3120,7 +3273,8 @@ def consistency_distill_phase(torch, ops, gen, smi, run_dir, out_dir=None):
 OWN_KERNELS = ("attn_bf16_kernel", "attn_f32_kernel", "conv_wgmma_kernel",
                "conv_narrow_f32_kernel", "conv_kernel<", "gn_moments_kernel", "gn_apply_kernel",
                "gn_affine_bwd_kernel", "gn_batch_sum_kernel", "gn_fold_bwd_kernel",
-               "gn_fold_kernel")
+               "gn_fold_kernel", "dgrad_wgmma_kernel", "wgrad_wgmma_kernel",
+               "dgrad_general_kernel", "wgrad_general_kernel", "grad_finish_kernel")
 
 
 def own_kernel_counts(kernels):
@@ -3496,7 +3650,7 @@ def fused_train_phase(torch, ops, gen, smi, out_dir=None):
     # single steps; 10 validation batches an epoch on the EMA and live weights
     counted = 2 * k + 2 * 2
     want = dict(expected_counts(counted + 2 * 2 * 10, False),
-                gn_affine_grad=counted * PER_BACKWARD["gn_affine_grad"])
+                **backward_counts(counted))
     if (cli["fused"]["captures"] != 1 or cli["fused"]["steps"] != 20
             or launches["cli_train_fused_2_epochs"] != want
             or not math.isfinite(cli["fused"]["best_val_loss"])):
@@ -3579,7 +3733,6 @@ def distill_reflow_phase(torch, ops, gen, smi, run_dir, flow_run, out_dir=None):
 
     phase_start = time.perf_counter()
     launches, bad = {}, []
-    grad = PER_BACKWARD["gn_affine_grad"]
     teacher = cli_sample.load_engine_from_run(run_dir)[0]
     flow_teacher = cli_sample.load_engine_from_run(flow_run)[0]
     student, rstudent = halved_student(teacher), reflow_student(flow_teacher)
@@ -3608,7 +3761,7 @@ def distill_reflow_phase(torch, ops, gen, smi, run_dir, flow_run, out_dir=None):
                            torch.Generator(device="cuda").manual_seed(53), ema_decay=0.9999)
     eps_step = family_step("eps", tables)
     per_step = {"eps": expected_counts(1, True), "reflow": expected_counts(1, True),
-                "distill": dict(expected_counts(DISTILL_FORWARDS, False), gn_affine_grad=grad)}
+                "distill": dict(expected_counts(DISTILL_FORWARDS, False), **backward_counts(1))}
 
     def one(kind, i=0):
         if kind == "eps":
@@ -3704,13 +3857,13 @@ def distill_reflow_phase(torch, ops, gen, smi, run_dir, flow_run, out_dir=None):
         "cli_distill": (lambda: cli_distill.main(
             [f"run_dir={run_dir}", "epochs=1", f"out_dir={root}", "limit_test_batches=1"]),
             dict(expected_counts(DISTILL_FORWARDS * TRAIN_STEPS + half, False),
-                 gn_affine_grad=TRAIN_STEPS * grad)),
+                 **backward_counts(TRAIN_STEPS))),
         "cli_reflow": (lambda: cli_reflow.main(
             [f"run_dir={flow_run}", f"n_couplings={REFLOW_COUPLINGS}",
              f"batch_size={TRAIN_BATCH}", f"minibatch_gen={TRAIN_BATCH}", "epochs=1",
              f"out_dir={root}", "limit_test_batches=1"]),
             dict(expected_counts(n_chains * REFLOW_GEN_STEPS + n_chains + ODE_EVAL_T, False),
-                 gn_affine_grad=n_chains * grad)),
+                 **backward_counts(n_chains))),
     }
     samplers = {"cli_distill": (["sampler=ddim", "num_sample_steps=50"], 50),
                 "cli_reflow": (["sampler=flow", "num_sample_steps=4"], 4)}
@@ -4496,6 +4649,9 @@ def main(argv=None) -> int:
          "library_ms": s["library_ms"],
          # without the host's launch cost, where it was measured (the probe)
          "device_ms": s.get("device_ms"), "library_device_ms": s.get("library_device_ms"),
+         # the conv's gradient: the parent's path (autograd through the
+         # recomputed plain version), wrapper-inclusive
+         "recompute_ms": s.get("recompute_ms"),
          # the designs that ran at the sites, and each design's device-only
          # ms summed over them where both were timed by name
          "design": s.get("design"), "design_device_ms": s.get("design_device_ms")}

@@ -533,10 +533,23 @@ cudaError_t encode_bf16_map_uncached(CUtensorMap* map, const void* ptr, int rank
   cuuint64_t stride = 2;
   for (int i = 0; i < rank - 1; ++i) strides[i] = stride *= dims[i];
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr),
-                              dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  auto run = [&]() {
+    return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims,
+                  strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  };
+  CUresult res = run();
+  if (res == CUDA_ERROR_INVALID_CONTEXT) {
+    // a host thread that has made no runtime call yet (PyTorch's autograd
+    // thread, whose first call of this library can be a backward) has no
+    // current context for cuTensorMapEncodeTiled: bind the primary context
+    // of the device that holds the tensor, as the runtime would, and retry
+    cudaPointerAttributes attr;
+    cudaError_t err = cudaPointerGetAttributes(&attr, ptr);
+    if (err == cudaSuccess) err = cudaSetDevice(attr.device);
+    if (err != cudaSuccess) return err;
+    res = run();
+  }
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

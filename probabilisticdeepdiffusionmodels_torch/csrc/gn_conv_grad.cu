@@ -1,0 +1,1089 @@
+// The gradient of the fused affine + SiLU + 3x3 SAME conv + bias
+// (gn_conv.cu), channels last.  With p = x*a + off (float32), s = sigmoid(p),
+// h = silu(p) rounded to x's dtype and zero outside the image (after the
+// activation), and g = dL/dout:
+//   dbias[co]        = sum_pixels g[., co]
+//   dh[px, ci]       = sum_{tap, co} g[px - tap + 1, co] * w[tap, co, ci]
+//   dp               = dh * s * (1 + p * (1 - s))
+//   dx               = dp * a            (x's dtype)
+//   da[b, ci]        = sum_pixels dp * x,   doff[b, ci] = sum_pixels dp
+//   dw[tap, co, ci]  = sum_pixels g[px, co] * h[px + tap - 1, ci]   (w's dtype)
+// dh stays float32 between the product and the activation's backward (the
+// plain version rounds it to x's dtype, as the conv's input gradient is).
+//
+// Replaces the gradient of probabilisticdeepdiffusionmodels_tpu/ops/
+// gn_conv_pallas.py (_fused_bwd: jax.vjp of the XLA form, which XLA compiles
+// into two conv transposes and fused elementwise passes).  Bound on the H100:
+// tensor-core operations (two products each as large as the forward's: a
+// 32x32x128->128 site at batch 128 is 2 x 39 us at 989 TFLOP/s).  Three
+// launches a call, none with float atomics, so a call gives the same bits
+// every time, and no host synchronisation, so a CUDA graph can hold it:
+//   1. dgrad: dh as an implicit GEMM (M = output pixels, N = Cin,
+//      K = 9 taps x Cout), the activation's backward in its epilogue, which
+//      writes dx and one partial of sum(dp*x) and sum(dp) per (pixel tile,
+//      image of the tile, channel) to a workspace;
+//   2. wgrad: per tap, M x N = Cin x Cout over K = pixels, split over blocks
+//      in a fixed assignment of pixel tiles; h is recomputed in shared memory
+//      from x and never written to device memory; blocks of the first tap
+//      (row) and channel slice also add up g for dbias;
+//   3. finish: the partials added in a fixed order (da, doff, dw, dbias), dw
+//      cast to its dtype.
+// ops/gn_conv.py::conv_grad_design picks a design and grad_plan its tiles and
+// split; the workspaces are allocated there from them, and the entry point
+// refuses any smaller than its own tiling fills.
+//
+// wgmma (bf16, Cin and Cout multiples of 8, images of at least 4x4 whose
+// pixel count is over 64 or a multiple of 16, so no warp's 16 rows straddle
+// two images):
+//   dgrad: the forward's persistent, warp-specialised block (one thread
+//     issues the TMA copies of the weight ring and of each 64-channel slice
+//     of g's halo, whose border past the image arrives zero-filled as g's
+//     gradient is zero there; one or two consumer warpgroups), with no
+//     activation warps: g is taken as it is.  The weight tile of (Cout slice,
+//     tap) lands exactly as the forward stores it, (co, ci) with ci
+//     contiguous: an N-major B operand, which wgmma reads transposed
+//     (tnspB = 1); the taps are walked flipped (8 - tap).  The epilogue
+//     stages the warp's 16 rows of x through shared memory, forms dp from
+//     the float32 accumulators, writes dx with 16-byte stores and reduces the
+//     rows' dp*x and dp by shuffles; the warps of a tile add theirs in order.
+//   wgrad: a block per (split of the pixel tiles, 64-channel slice of Cin,
+//     64-channel slice of Cout, row dy of taps).  Warp 0 copies each tile's
+//     raw x halo and its g tile (pixels x 64 Cout, Cout contiguous) by TMA;
+//     the other 15 warps activate the halo in place (the activation, not the
+//     products, bounds this kernel: an activated element feeds only 3 taps x
+//     64 channels here); three consumer warpgroups, one per tap of the row,
+//     read A = h^T (Cin x pixels) with ldmatrix.trans from the halo shifted
+//     by their tap and multiply by B = the g tile, N-major (tnspB = 1),
+//     while the next tile is activated.
+// general (every other shape and dtype: the float32 output head and every
+// float32 site, bf16 with Cin or Cout not a multiple of 8): 64 pixels x 64
+// channels a block of 4 warps with operands staged in shared memory as
+// float32 and scalar FMAs in true float32 (no TF32, as JAX pins it).
+#include "common.cuh"
+#include "hopper.cuh"
+
+using namespace pddm;
+
+namespace {
+
+struct Geom {
+  int B, H, W, Cin, Cout;
+  int NI, TH, TW;        // images, rows and columns of a pixel tile
+  int tiles_y, tiles_x;  // tiles per image along y and x
+};
+
+// The same tiling as the forward's (gn_conv.cu::set_tile), mirrored by
+// ops/gn_conv.py::conv_tile: whole images, whole rows of one image or a
+// segment of one row.
+void set_tile(Geom& g, int pixels) {
+  const int hw = g.H * g.W;
+  if (hw <= pixels) {
+    g.NI = pixels / hw;
+    g.TH = g.H;
+    g.TW = g.W;
+  } else if (g.W <= pixels) {
+    g.NI = 1;
+    g.TW = g.W;
+    g.TH = pixels / g.W;
+  } else {
+    g.NI = 1;
+    g.TH = 1;
+    g.TW = pixels;
+  }
+  g.tiles_y = (g.H + g.TH - 1) / g.TH;
+  g.tiles_x = (g.W + g.TW - 1) / g.TW;
+}
+
+long n_tiles(const Geom& g) { return (long)(g.B + g.NI - 1) / g.NI * g.tiles_y * g.tiles_x; }
+
+__device__ __forceinline__ void tile_origin(const Geom& g, int tile, int& b0, int& y0, int& x0) {
+  const int tx = tile % g.tiles_x;
+  tile /= g.tiles_x;
+  const int ty = tile % g.tiles_y;
+  b0 = (tile / g.tiles_y) * g.NI;
+  y0 = ty * g.TH;
+  x0 = tx * g.TW;
+}
+
+// Pixel p of the tile -> its image/row/column and the halo index of its
+// tap-(0, 0) neighbour, the pixel up and left of it (0 for padding rows past
+// the tile); false for padding pixels past the batch or the image.
+__device__ __forceinline__ bool pixel(const Geom& g, int b0, int y0, int x0, int p, int& b,
+                                      int& y, int& x, int& hb) {
+  const int per_img = g.TH * g.TW;
+  const int i = p / per_img, r = (p / g.TW) % g.TH, c = p % g.TW;
+  b = b0 + i;
+  y = y0 + r;
+  x = x0 + c;
+  const bool in_tile = i < g.NI;
+  hb = in_tile ? (i * (g.TH + 2) + r) * (g.TW + 2) + c : 0;
+  return in_tile && b < g.B && y < g.H && x < g.W;
+}
+
+// Halo position -> image, row, column; false outside the batch or the image.
+__device__ __forceinline__ bool halo_at(const Geom& g, int b0, int y0, int x0, int pos, int& bb,
+                                        int& yy, int& xx) {
+  const int halo_w = g.TW + 2, halo_h = g.TH + 2;
+  const int hx = pos % halo_w, t2 = pos / halo_w;
+  const int hy = t2 % halo_h, i = t2 / halo_h;
+  bb = b0 + i;
+  yy = y0 - 1 + hy;
+  xx = x0 - 1 + hx;
+  return bb < g.B && yy >= 0 && yy < g.H && xx >= 0 && xx < g.W;
+}
+
+__device__ __forceinline__ float sigmoid_f(float v) { return 1.f / (1.f + expf(-v)); }
+
+// dL/dp from dL/dh through h = p * sigmoid(p)
+__device__ __forceinline__ float silu_grad(float dh, float p) {
+  const float s = sigmoid_f(p);
+  return dh * s * (1.f + p * (1.f - s));
+}
+
+// The same with the fast exponential and division (a few ulp of float32),
+// for a gradient stored in bf16 right after.
+__device__ __forceinline__ float silu_grad_fast(float dh, float p) {
+  const float s = __fdividef(1.f, 1.f + __expf(-p));
+  return dh * s * (1.f + p * (1.f - s));
+}
+
+__device__ __forceinline__ void bar_sync_named(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ----------------------------------------------------------------- wgmma
+
+constexpr int WK = 64;  // channels of one 128-byte swizzled row
+
+// Descriptor of an N-major B tile under the 128-byte swizzle (as
+// probe_mma.cu's): rows of 128 bytes hold 64 neighbouring n of one k, the
+// 8-row groups along k lie 1024 bytes apart (SBO), the next 64 n `lbo` bytes
+// further (LBO).  A k-step of 16 rows advances the start by 2048 bytes
+// (+128 in the descriptor's 16-byte units).
+__device__ __forceinline__ uint64_t smem_desc_sw128_mn(const void* p, int lbo) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// d += A (64 x 16, registers) * B (16 x BN, shared memory, N-major: tnspB = 1)
+template <int BN> struct WgmmaT;
+template <> struct WgmmaT<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <> struct WgmmaT<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+// ---------------------------------------------------------- wgmma dgrad
+
+constexpr int DSTAGES = 6;  // weight ring
+
+// Shared memory of dgrad, in order: the weight ring, two halo buffers of g
+// (each 1024-byte aligned), the consumer warps' epilogue rows, their
+// per-channel partial sums, the mbarriers.  Mirrored by
+// ops/gn_conv.py::_dgrad_smem.
+template <int NWG, int BN>
+struct DLayout {
+  static constexpr int STAGE = BN * 128;  // bytes of one weight tile
+  int halo_stride, ep, part, bars, bytes;
+  __host__ __device__ DLayout(int halo_px) {
+    halo_stride = (halo_px * 128 + 1023) / 1024 * 1024;
+    ep = DSTAGES * STAGE + 2 * halo_stride;
+    part = ep + NWG * 4 * 16 * (BN + 8) * 2;
+    bars = part + NWG * 4 * 2 * BN * 4;
+    bytes = bars + (2 * DSTAGES + 4) * 8;
+  }
+};
+
+// Warpgroup 0: warp 0 (one lane) issues every copy (per step the weight tile
+// of (Cout slice, flipped tap) by TMA, per slice the g halo by TMA), warps
+// 1-3 have nothing to do; warpgroups 1 .. NWG compute, as the forward's.
+template <int NWG, int BN>
+__global__ void __launch_bounds__(128 * (NWG + 1))
+dgrad_wgmma_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ a,
+                   const float* __restrict__ off, __nv_bfloat16* __restrict__ dx,
+                   float* __restrict__ ws_a, Geom g, const __grid_constant__ CUtensorMap wmap,
+                   const __grid_constant__ CUtensorMap gmap) {
+  constexpr int STAGE = DLayout<NWG, BN>::STAGE;
+  constexpr int LDE = BN + 8;
+  const int halo_w = g.TW + 2;
+  const int halo_px = g.NI * (g.TH + 2) * halo_w;
+  const DLayout<NWG, BN> L(halo_px);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* Wring = base;
+  unsigned char* Halo = base + DSTAGES * STAGE;
+  __nv_bfloat16* Ep = reinterpret_cast<__nv_bfloat16*>(base + L.ep);
+  float* Part = reinterpret_cast<float*>(base + L.part);  // [warp][dp*x | dp][channel]
+  uint64_t* wfull = reinterpret_cast<uint64_t*>(base + L.bars);
+  uint64_t* wempty = wfull + DSTAGES;
+  uint64_t* hfull = wempty + DSTAGES;
+  uint64_t* hempty = hfull + 2;
+
+  const int n0 = blockIdx.y * BN;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  const int nslices = (g.Cout + WK - 1) / WK, per_tile = 9 * nslices;
+  const int ntm = (g.B + g.NI - 1) / g.NI * g.tiles_y * g.tiles_x;
+  const int mine = (ntm - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int total = mine * per_tile, total_slices = mine * nslices;
+  constexpr int CONSUMER_WARPS = 4 * NWG;
+
+  if (tid == 0) {
+    for (int i = 0; i < DSTAGES; ++i) {
+      mbar_init(wfull + i, 1);
+      mbar_init(wempty + i, CONSUMER_WARPS);
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(hfull + i, 1);
+      mbar_init(hempty + i, CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 0) {
+    if (lane != 0) return;
+    auto load_halo = [&](int gs) {  // Cout slice gs of g's halo into buffer gs & 1
+      int b0, y0, x0;
+      tile_origin(g, blockIdx.x + (gs / nslices) * gridDim.x, b0, y0, x0);
+      uint64_t* bar = hfull + (gs & 1);
+      mbar_expect_tx(bar, halo_px * 128);
+      tma_load_4d(Halo + (gs & 1) * L.halo_stride, &gmap, bar, (gs % nslices) * WK, x0 - 1, y0 - 1,
+                  b0);
+    };
+    load_halo(0);
+    if (total_slices > 1) load_halo(1);
+    for (int u = 0; u < total; ++u) {
+      const int gs = u / 9;
+      if (u % 9 == 5 && gs >= 1 && gs + 1 < total_slices) {
+        mbar_wait(hempty + ((gs - 1) & 1), ((gs - 1) >> 1) & 1);
+        load_halo(gs + 1);
+      }
+      const int st = u % DSTAGES;
+      if (u >= DSTAGES) mbar_wait(wempty + st, ((u / DSTAGES) - 1) & 1);
+      mbar_expect_tx(wfull + st, STAGE);
+      // (co slice, tap 8 - t): 64 co rows of 64 ci, BN / 64 boxes side by side
+#pragma unroll
+      for (int j = 0; j < BN / 64; ++j)
+        tma_load_3d(Wring + st * STAGE + j * 8192, &wmap, wfull + st, n0 + 64 * j,
+                    (gs % nslices) * WK, 8 - u % 9);
+    }
+    return;
+  }
+  if (warp < 4) return;
+
+  // ------------------------------------------------------------ products
+  const int cw = warp - 4;
+  const int gq = lane >> 2, tq = lane & 3;
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  int b0 = 0, y0 = 0, x0 = 0, hb = 0;
+
+  // dp from the accumulators; dx out; the tile's per-(image, channel) sums of
+  // dp*x and dp into the workspace, warps added in order
+  auto epilogue = [&](int tile) {
+    __nv_bfloat16* Ew = Ep + cw * 16 * LDE;
+    const int per_img = g.TH * g.TW;
+    const long first = ((long)b0 * g.H + y0) * g.W + x0;
+    const int npix = g.NI > 1   ? (g.B - b0 < g.NI ? g.B - b0 : g.NI) * g.H * g.W
+                     : g.TW == g.W ? (g.H - y0 < g.TH ? g.H - y0 : g.TH) * g.W
+                                   : (g.W - x0 < g.TW ? g.W - x0 : g.TW);
+    // the warp's 16 rows lie in one image (the design's rule)
+    const int bw = b0 + (g.NI > 1 ? (16 * cw) / per_img : 0);
+    for (int idx = lane; idx < 16 * (BN / 8); idx += 32) {
+      const int r = idx / (BN / 8), c = idx % (BN / 8), ci = n0 + 8 * c, p = 16 * cw + r;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (ci < g.Cin && p < npix) v = *reinterpret_cast<const uint4*>(x + (first + p) * g.Cin + ci);
+      *reinterpret_cast<uint4*>(Ew + r * LDE + 8 * c) = v;
+    }
+    __syncwarp();
+    float* Pw = Part + cw * 2 * BN;
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt) {
+      const int c0 = 8 * nt + 2 * tq, ci = n0 + c0;
+      const bool cin_ok = ci < g.Cin && bw < g.B;
+      float2 av = make_float2(0.f, 0.f), ov = make_float2(0.f, 0.f);
+      if (cin_ok) {
+        av = *reinterpret_cast<const float2*>(a + (long)bw * g.Cin + ci);
+        ov = *reinterpret_cast<const float2*>(off + (long)bw * g.Cin + ci);
+      }
+      float sx0 = 0.f, sx1 = 0.f, sd0 = 0.f, sd1 = 0.f;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = gq + 8 * half;
+        const bool ok = cin_ok && 16 * cw + r < npix;
+        uint32_t* slot = reinterpret_cast<uint32_t*>(Ew + r * LDE + c0);
+        const float2 xv = unpack_bf16(*slot);
+        const float dp0 =
+            ok ? silu_grad_fast(acc[4 * nt + 2 * half], fmaf(xv.x, av.x, ov.x)) : 0.f;
+        const float dp1 =
+            ok ? silu_grad_fast(acc[4 * nt + 2 * half + 1], fmaf(xv.y, av.y, ov.y)) : 0.f;
+        *slot = pack_bf16(dp0 * av.x, dp1 * av.y);
+        sx0 = fmaf(dp0, xv.x, sx0);
+        sx1 = fmaf(dp1, xv.y, sx1);
+        sd0 += dp0;
+        sd1 += dp1;
+      }
+#pragma unroll
+      for (int m = 4; m < 32; m <<= 1) {
+        sx0 += __shfl_xor_sync(0xffffffffu, sx0, m);
+        sx1 += __shfl_xor_sync(0xffffffffu, sx1, m);
+        sd0 += __shfl_xor_sync(0xffffffffu, sd0, m);
+        sd1 += __shfl_xor_sync(0xffffffffu, sd1, m);
+      }
+      if (gq == 0) {
+        Pw[c0] = sx0;
+        Pw[c0 + 1] = sx1;
+        Pw[BN + c0] = sd0;
+        Pw[BN + c0 + 1] = sd1;
+      }
+    }
+    __syncwarp();
+    for (int idx = lane; idx < 16 * (BN / 8); idx += 32) {
+      const int r = idx / (BN / 8), c = idx % (BN / 8), ci = n0 + 8 * c, p = 16 * cw + r;
+      if (ci < g.Cin && p < npix)
+        *reinterpret_cast<uint4*>(dx + (first + p) * g.Cin + ci) =
+            *reinterpret_cast<const uint4*>(Ew + r * LDE + 8 * c);
+    }
+    bar_sync_named(1, 128 * NWG);  // every warp's partials are in
+    const int ct = tid - 128;
+    for (int idx = ct; idx < g.NI * 2 * BN; idx += 128 * NWG) {
+      const int c = idx % BN, q = (idx / BN) & 1, i = idx / (2 * BN);
+      if (b0 + i >= g.B || n0 + c >= g.Cin) continue;
+      float s = 0.f;
+      for (int w = 0; w < CONSUMER_WARPS; ++w)
+        if (g.NI == 1 || (16 * w) / per_img == i) s += Part[(w * 2 + q) * BN + c];
+      ws_a[((long)(tile * g.NI + i) * 2 + q) * g.Cin + n0 + c] = s;
+    }
+    bar_sync_named(1, 128 * NWG);  // Part is free for the next tile
+  };
+
+  auto step = [&](int u, uint32_t (&af)[WK / 16][4], uint32_t (&prev)[WK / 16][4]) {
+    const int r = u % per_tile, tap = u % 9, gs = u / 9;
+    const int tile = blockIdx.x + (u / per_tile) * gridDim.x;
+    if (r == 0) {
+      tile_origin(g, tile, b0, y0, x0);
+      int pb, py, px;
+      pixel(g, b0, y0, x0, 16 * cw + (lane & 15), pb, py, px, hb);
+    }
+    if (tap == 0) mbar_wait(hfull + (gs & 1), (gs >> 1) & 1);  // g slice gs landed
+    const int pos = hb + (tap / 3) * halo_w + tap % 3;
+    const unsigned char* row = Halo + (gs & 1) * L.halo_stride + pos * 128;
+#pragma unroll
+    for (int kk = 0; kk < WK / 16; ++kk)
+      ldmatrix_x4(af[kk], row + (((2 * kk + (lane >> 4)) ^ (pos & 7)) << 4));
+    __syncwarp();
+    mbar_arrive_lane0(hempty + (gs & 1), lane, tap == 8);
+    const int st = u % DSTAGES;
+    mbar_wait(wfull + st, (u / DSTAGES) & 1);
+    const uint64_t desc = smem_desc_sw128_mn(Wring + st * STAGE, 8192);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < WK / 16; ++kk) WgmmaT<BN>::mma(acc, af[kk], desc + 128 * kk);
+    wgmma_commit();
+    if (r == per_tile - 1) {
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) fence_reg(acc[i]);
+      epilogue(tile);
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    } else {
+      wgmma_wait<1>();
+    }
+    __syncwarp();
+    mbar_arrive_lane0(wempty + (u + DSTAGES - 1) % DSTAGES, lane, r != 0);
+    mbar_arrive_lane0(wempty + st, lane, r == per_tile - 1);
+#pragma unroll
+    for (int kk = 0; kk < WK / 16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) asm volatile("" ::"r"(prev[kk][e]));
+  };
+  uint32_t af0[WK / 16][4], af1[WK / 16][4];
+  int u = 0;
+  for (; u + 1 < total; u += 2) {
+    step(u, af0, af1);
+    step(u + 1, af1, af0);
+  }
+  if (u < total) step(u, af0, af1);
+  wgmma_wait<0>();
+}
+
+template <int NWG, int BN>
+size_t dgrad_smem(Geom g) {
+  set_tile(g, 64 * NWG);
+  return 1024 + DLayout<NWG, BN>(g.NI * (g.TH + 2) * (g.TW + 2)).bytes;
+}
+
+template <int NWG, int BN>
+cudaError_t launch_dgrad_wgmma(const void* x, const void* a, const void* off, const void* w,
+                               const void* gr, void* dx, float* ws_a, Geom g,
+                               cudaStream_t stream) {
+  const size_t smem = dgrad_smem<NWG, BN>(g);
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  set_tile(g, 64 * NWG);
+  CUtensorMap wmap, gmap;
+  const cuuint64_t wdims[3] = {(cuuint64_t)g.Cin, (cuuint64_t)g.Cout, 9};
+  const cuuint32_t wbox[3] = {WK, 64, 1};
+  const cuuint64_t gdims[4] = {(cuuint64_t)g.Cout, (cuuint64_t)g.W, (cuuint64_t)g.H,
+                               (cuuint64_t)g.B};
+  const cuuint32_t gbox[4] = {WK, (cuuint32_t)g.TW + 2, (cuuint32_t)g.TH + 2, (cuuint32_t)g.NI};
+  cudaError_t err = encode_bf16_map(&wmap, w, 3, wdims, wbox);
+  if (err != cudaSuccess) return err;
+  if ((err = encode_bf16_map(&gmap, gr, 4, gdims, gbox)) != cudaSuccess) return err;
+  if ((err = allow_smem(dgrad_wgmma_kernel<NWG, BN>, smem)) != cudaSuccess) return err;
+  static int sms = 0, per_sm = 0;
+  static size_t per_sm_smem = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return err;
+  }
+  if (per_sm_smem != smem) {
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, dgrad_wgmma_kernel<NWG, BN>, 128 * (NWG + 1), smem)) != cudaSuccess)
+      return err;
+    per_sm_smem = smem;
+  }
+  const long ntm = n_tiles(g), ntn = (g.Cin + BN - 1) / BN;
+  long gx = (long)(per_sm > 0 ? per_sm : 1) * sms / ntn;
+  gx = gx < 1 ? 1 : (gx > ntm ? ntm : gx);
+  dgrad_wgmma_kernel<NWG, BN><<<dim3((unsigned)gx, (unsigned)ntn), 128 * (NWG + 1), smem,
+                                  stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(a),
+      static_cast<const float*>(off), static_cast<__nv_bfloat16*>(dx), ws_a, g, wmap, gmap);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------- wgmma wgrad
+
+constexpr int WG_PX = 128;        // pixels of a wgrad tile: 8 k-steps of 16
+constexpr int WG_GBYTES = WG_PX * 128;  // one g tile: a 128-byte row a pixel
+constexpr int WG_WORKERS = 480;   // warps 1-15: every warp but the copying one
+constexpr int WG_STAGES = 3;      // tile buffers: a copy lands a whole tile ahead of its use
+
+constexpr int WG_BIAS_ROWS = 7;  // dbias: 7 x 64 threads add a g tile's rows
+
+// Shared memory of wgrad: WG_STAGES raw-then-activated x halo buffers, as
+// many g tiles and buffers of the slice's scale and offset for each image of
+// the tile, the dbias partials, the mbarriers.  Mirrored by
+// ops/gn_conv.py::_wgrad_smem.
+struct WGLayout {
+  int halo_stride, gbuf, ao, bias, bars, bytes;
+  __host__ __device__ WGLayout(int halo_px, int ni) {
+    halo_stride = (halo_px * 128 + 1023) / 1024 * 1024;
+    gbuf = WG_STAGES * halo_stride;
+    ao = gbuf + WG_STAGES * WG_GBYTES;
+    bias = ao + WG_STAGES * ni * 2 * WK * 4;
+    bars = bias + WG_BIAS_ROWS * WK * 4;
+    bytes = bars + 2 * WG_STAGES * 8;
+  }
+};
+
+// Warp 0 (one lane) copies each tile's raw x halo, g tile, scale and offset
+// into one of WG_STAGES buffers once the consumers have released it.  Every other
+// warp activates: the 15 of them write silu(x*a + off) in place over a
+// landed halo (0 outside the image and the batch), then meet at a named
+// barrier.  Warpgroups 1-3 then take taps (dy, 0), (dy, 1), (dy, 2): each
+// loads its A fragments and issues the tile's 8 products, and while the
+// tensor cores run them, helps to activate the next tile before it waits
+// for its products and releases the buffer.  dbias is spread evenly over the
+// blocks of a (split, Cout slice): block part = dy * (Cin slices) + its Cin
+// slice adds the g rows p == part (mod parts) of each tile, 448 of its
+// workers taking column t % 64 and every 7th of those rows from t / 64;
+// at the end the 7 partials of a column are added in order.
+__global__ void __launch_bounds__(512)
+wgrad_wgmma_kernel(const float* __restrict__ a, const float* __restrict__ off,
+                   float* __restrict__ ws_w, float* __restrict__ ws_b, Geom g,
+                   const __grid_constant__ CUtensorMap xmap,
+                   const __grid_constant__ CUtensorMap gmap) {
+  const int halo_w = g.TW + 2;
+  const int halo_px = g.NI * (g.TH + 2) * halo_w;
+  const int count = g.NI * g.TH * g.TW;  // rows of a g tile that TMA writes
+  const WGLayout L(halo_px, g.NI);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* Halo = base;
+  unsigned char* Gt = base + L.gbuf;
+  float* AO = reinterpret_cast<float*>(base + L.ao);  // [buffer][image][a | off][channel]
+  float* Bias = reinterpret_cast<float*>(base + L.bias);  // [row phase][channel]
+  uint64_t* hfull = reinterpret_cast<uint64_t*>(base + L.bars);
+  uint64_t* hempty = hfull + WG_STAGES;
+
+  const int ci_slices = (g.Cin + WK - 1) / WK;
+  const int cs = (blockIdx.y % ci_slices) * WK, n0 = (blockIdx.y / ci_slices) * WK;
+  const int dy = blockIdx.z, z = blockIdx.x, splits = gridDim.x;
+  const int ntm = (g.B + g.NI - 1) / g.NI * g.tiles_y * g.tiles_x;
+  const int mine = (ntm - z + splits - 1) / splits;
+  const int parts = 3 * ci_slices, part = dy * ci_slices + blockIdx.y % ci_slices;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
+
+  // the g rows past a tile's pixels stay zero: their products add nothing
+  for (int idx = tid; idx < WG_STAGES * (WG_PX - count) * 32; idx += 512) {
+    const int buf = idx / ((WG_PX - count) * 32), rest = idx % ((WG_PX - count) * 32);
+    reinterpret_cast<uint32_t*>(Gt + buf * WG_GBYTES + count * 128)[rest] = 0u;
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  if (tid == 0) {
+    for (int i = 0; i < WG_STAGES; ++i) {
+      mbar_init(hfull + i, 1);
+      mbar_init(hempty + i, 12);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 0) {
+    if (lane != 0) return;
+    const int nc = g.Cin - cs < WK ? g.Cin - cs : WK;
+    for (int j = 0; j < mine; ++j) {
+      const int buf = j % WG_STAGES;
+      if (j >= WG_STAGES) mbar_wait(hempty + buf, ((j - WG_STAGES) / WG_STAGES) & 1);
+      int b0, y0, x0;
+      tile_origin(g, z + j * splits, b0, y0, x0);
+      const int ni = g.B - b0 < g.NI ? g.B - b0 : g.NI;
+      uint64_t* bar = hfull + buf;
+      mbar_expect_tx(bar, halo_px * 128 + count * 128 + ni * 2 * nc * 4);
+      tma_load_4d(Halo + buf * L.halo_stride, &xmap, bar, cs, x0 - 1, y0 - 1, b0);
+      tma_load_4d(Gt + buf * WG_GBYTES, &gmap, bar, n0, x0, y0, b0);
+      float* ao = AO + buf * g.NI * 2 * WK;
+      for (int i = 0; i < ni; ++i) {
+        bulk_load(ao + (2 * i) * WK, a + (long)(b0 + i) * g.Cin + cs, nc * 4, bar);
+        bulk_load(ao + (2 * i + 1) * WK, off + (long)(b0 + i) * g.Cin + cs, nc * 4, bar);
+      }
+    }
+    return;
+  }
+
+  // ---------------------------------------------------- activation
+  // a thread always takes 16-byte chunk c of a position (480 % 8 == 0)
+  const int wt = tid - 32, c = wt & 7, ci = cs + 8 * c;
+  const float inv_w = 1.f / halo_w, inv_h = 1.f / (g.TH + 2);
+  float bsum = 0.f;
+  auto activate = [&](int j) {
+    const int buf = j % WG_STAGES;
+    int b0, y0, x0;
+    tile_origin(g, z + j * splits, b0, y0, x0);
+    mbar_wait(hfull + buf, (j / WG_STAGES) & 1);
+    unsigned char* hbuf = Halo + buf * L.halo_stride;
+    const float* ao = AO + buf * g.NI * 2 * WK;
+    float av[8], ov[8];
+    int loaded = -1;
+    // two positions at a time, their loads issued together
+    for (int idx0 = wt; idx0 < halo_px * 8; idx0 += 2 * WG_WORKERS) {
+      uint4 raw[2];
+      int img[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int idx = idx0 + q * WG_WORKERS, pos = idx >> 3;
+        img[q] = -1;
+        if (idx < halo_px * 8) {
+          const int t2 = (int)((pos + 0.5f) * inv_w), hx = pos - t2 * halo_w;
+          const int i = (int)((t2 + 0.5f) * inv_h), hy = t2 - i * (g.TH + 2);
+          const int yy = y0 - 1 + hy, xx = x0 - 1 + hx;
+          if (b0 + i < g.B && yy >= 0 && yy < g.H && xx >= 0 && xx < g.W && ci < g.Cin)
+            img[q] = i;
+          raw[q] = *reinterpret_cast<const uint4*>(hbuf + sw128(pos, c));
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int idx = idx0 + q * WG_WORKERS;
+        if (idx >= halo_px * 8) break;
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (img[q] >= 0) {
+          if (img[q] != loaded) {
+            loaded = img[q];
+            const float4* ap = reinterpret_cast<const float4*>(ao + loaded * 2 * WK + 8 * c);
+            const float4 a0 = ap[0], a1 = ap[1], o0 = ap[WK / 4], o1 = ap[WK / 4 + 1];
+            av[0] = a0.x, av[1] = a0.y, av[2] = a0.z, av[3] = a0.w;
+            av[4] = a1.x, av[5] = a1.y, av[6] = a1.z, av[7] = a1.w;
+            ov[0] = o0.x, ov[1] = o0.y, ov[2] = o0.z, ov[3] = o0.w;
+            ov[4] = o1.x, ov[5] = o1.y, ov[6] = o1.z, ov[7] = o1.w;
+          }
+          const uint32_t* xr = reinterpret_cast<const uint32_t*>(&raw[q]);
+          uint32_t* vr = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const float2 f = unpack_bf16(xr[k]);
+            vr[k] = pack_bf16(silu_fast(fmaf(f.x, av[2 * k], ov[2 * k])),
+                              silu_fast(fmaf(f.y, av[2 * k + 1], ov[2 * k + 1])));
+          }
+        }
+        *reinterpret_cast<uint4*>(hbuf + sw128(idx >> 3, c)) = v;
+      }
+    }
+    if (wt < WG_BIAS_ROWS * WK) {  // this block's share of the rows, column wt % 64
+      const unsigned char* gt = Gt + buf * WG_GBYTES;
+      const int col = wt % WK;
+      for (int p = part + parts * (wt / WK); p < count; p += parts * WG_BIAS_ROWS)
+        bsum += __bfloat162float(
+            *reinterpret_cast<const __nv_bfloat16*>(gt + sw128(p, col >> 3) + (col & 7) * 2));
+    }
+    // order these generic writes before the TMA that later refills the buffer
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  };
+
+  // ------------------------------------------------------------ products
+  const bool consumer = warp >= 4;
+  const int wg = warp / 4 - 1, w4 = warp & 3;
+  const int tap = consumer ? 3 * dy + wg : 0, shift = (tap / 3) * halo_w + tap % 3;
+  const int gq = lane >> 2, tq = lane & 3;
+  // this lane's ldmatrix.trans rows: pixel 16 kk + 8 (lane / 16) + lane % 8
+  // of the tile (its halo index the same in every tile), channel chunk
+  // 2 w4 + (lane / 8) % 2 of the slice
+  const int chunk = 2 * w4 + ((lane >> 3) & 1);
+  int hbk[WG_PX / 16];
+#pragma unroll
+  for (int kk = 0; kk < WG_PX / 16; ++kk) {
+    int pb, py, px;
+    pixel(g, 0, 0, 0, 16 * kk + 8 * (lane >> 4) + (lane & 7), pb, py, px, hbk[kk]);
+    hbk[kk] += shift;
+  }
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  uint32_t af[WG_PX / 16][4];
+
+  if (mine > 0) activate(0);
+  bar_sync_named(1, WG_WORKERS);  // tile 0 activated
+  for (int j = 0; j < mine; ++j) {
+    const int buf = j % WG_STAGES;
+    if (consumer) {
+      const unsigned char* hbuf = Halo + buf * L.halo_stride;
+#pragma unroll
+      for (int kk = 0; kk < WG_PX / 16; ++kk)
+        ldmatrix_x4_trans(af[kk], hbuf + hbk[kk] * 128 + ((chunk ^ (hbk[kk] & 7)) << 4));
+      const uint64_t desc = smem_desc_sw128_mn(Gt + buf * WG_GBYTES, WG_GBYTES);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < WG_PX / 16; ++kk) WgmmaT<64>::mma(acc, af[kk], desc + 128 * kk);
+      wgmma_commit();
+    }
+    if (j + 1 < mine) activate(j + 1);  // under tile j's products
+    if (consumer) {
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 32; ++i) fence_reg(acc[i]);
+#pragma unroll
+      for (int kk = 0; kk < WG_PX / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) asm volatile("" ::"r"(af[kk][e]));
+      __syncwarp();
+      mbar_arrive_lane0(hempty + buf, lane);
+    }
+    bar_sync_named(1, WG_WORKERS);  // tile j + 1 activated
+  }
+  if (wt < WG_BIAS_ROWS * WK) Bias[wt] = bsum;
+  bar_sync_named(1, WG_WORKERS);
+  if (wt < WK && n0 + wt < g.Cout) {
+    float s = 0.f;
+    for (int r = 0; r < WG_BIAS_ROWS; ++r) s += Bias[r * WK + wt];
+    ws_b[((long)z * parts + part) * g.Cout + n0 + wt] = s;
+  }
+  if (!consumer) return;
+  // rows: ci = cs + 16 w4 + gq (+ 8); columns: co = n0 + 8 nt + 2 tq (+ 1)
+  float* out = ws_w + (long)(z * 9 + tap) * g.Cout * g.Cin;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int ci = cs + 16 * w4 + gq + 8 * half, co = n0 + 8 * nt + 2 * tq + e;
+        if (ci < g.Cin && co < g.Cout) out[(long)co * g.Cin + ci] = acc[4 * nt + 2 * half + e];
+      }
+}
+
+cudaError_t launch_wgrad_wgmma(const void* x, const void* a, const void* off, const void* gr,
+                               float* ws_w, float* ws_b, Geom g, int splits,
+                               cudaStream_t stream) {
+  set_tile(g, WG_PX);
+  const size_t smem = 1024 + WGLayout(g.NI * (g.TH + 2) * (g.TW + 2), g.NI).bytes;
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  CUtensorMap xmap, gmap;
+  const cuuint64_t xdims[4] = {(cuuint64_t)g.Cin, (cuuint64_t)g.W, (cuuint64_t)g.H,
+                               (cuuint64_t)g.B};
+  const cuuint32_t xbox[4] = {WK, (cuuint32_t)g.TW + 2, (cuuint32_t)g.TH + 2, (cuuint32_t)g.NI};
+  const cuuint64_t gdims[4] = {(cuuint64_t)g.Cout, (cuuint64_t)g.W, (cuuint64_t)g.H,
+                               (cuuint64_t)g.B};
+  const cuuint32_t gbox[4] = {WK, (cuuint32_t)g.TW, (cuuint32_t)g.TH, (cuuint32_t)g.NI};
+  cudaError_t err = encode_bf16_map(&xmap, x, 4, xdims, xbox);
+  if (err != cudaSuccess) return err;
+  if ((err = encode_bf16_map(&gmap, gr, 4, gdims, gbox)) != cudaSuccess) return err;
+  if ((err = allow_smem(wgrad_wgmma_kernel, smem)) != cudaSuccess) return err;
+  const dim3 grid((unsigned)splits,
+                  (unsigned)(((g.Cin + WK - 1) / WK) * ((g.Cout + WK - 1) / WK)), 3);
+  wgrad_wgmma_kernel<<<grid, 512, smem, stream>>>(static_cast<const float*>(a),
+                                                  static_cast<const float*>(off), ws_w, ws_b, g,
+                                                  xmap, gmap);
+  return cudaGetLastError();
+}
+
+// --------------------------------------------------------------- general
+
+constexpr int GP = 64;   // pixels a block
+constexpr int GC = 64;   // channels a block
+constexpr int GK = 32;   // K channels a staged slice (dgrad)
+constexpr int GT = 128;  // threads a block
+constexpr int GLD = GK + 1;
+
+// dgrad: thread (tid / 16, tid % 16) owns pixels tid / 16 + 8 i (i < 8) and
+// channels tid % 16 + 16 j (j < 4) of the block's 64 x 64 tile.
+template <typename T>
+__global__ void __launch_bounds__(GT)
+dgrad_general_kernel(const T* __restrict__ x, const float* __restrict__ a,
+                     const float* __restrict__ off, const T* __restrict__ w,
+                     const T* __restrict__ gr, T* __restrict__ dx, float* __restrict__ ws_a,
+                     Geom g) {
+  extern __shared__ float sm[];
+  const int halo_w = g.TW + 2, halo_px = g.NI * (g.TH + 2) * halo_w;
+  float* Gs = sm;                  // [halo_px][GLD]: g, zero outside
+  float* Ws = Gs + halo_px * GLD;  // [tap][ci][GLD]: w flipped, (co) along k
+  int b0, y0, x0;
+  tile_origin(g, blockIdx.x, b0, y0, x0);
+  const int n0 = blockIdx.y * GC, tid = threadIdx.x, nl = tid & 15;
+  int hb[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    int pb, py, px;
+    pixel(g, b0, y0, x0, (tid >> 4) + 8 * i, pb, py, px, hb[i]);
+  }
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+
+  for (int co0 = 0; co0 < g.Cout; co0 += GK) {
+    __syncthreads();
+    for (int idx = tid; idx < halo_px * GK; idx += GT) {
+      const int k = idx % GK, pos = idx / GK, co = co0 + k;
+      int bb, yy, xx;
+      float v = 0.f;
+      if (halo_at(g, b0, y0, x0, pos, bb, yy, xx) && co < g.Cout)
+        v = to_f(gr[(((long)bb * g.H + yy) * g.W + xx) * g.Cout + co]);
+      Gs[pos * GLD + k] = v;
+    }
+    for (int idx = tid; idx < 9 * GK * GC; idx += GT) {
+      const int n = idx % GC, k = (idx / GC) % GK, tap = idx / (GC * GK);
+      const int ci = n0 + n, co = co0 + k;
+      Ws[(tap * GC + n) * GLD + k] =
+          (ci < g.Cin && co < g.Cout) ? to_f(w[((long)(8 - tap) * g.Cout + co) * g.Cin + ci]) : 0.f;
+    }
+    __syncthreads();
+    const int kc = g.Cout - co0 < GK ? g.Cout - co0 : GK;
+#pragma unroll 1
+    for (int tap = 0; tap < 9; ++tap) {
+      const int shift = (tap / 3) * halo_w + tap % 3;
+      const float* Wt = Ws + tap * GC * GLD;
+#pragma unroll 4
+      for (int k = 0; k < kc; ++k) {
+        float wv[4], gv[8];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) wv[j] = Wt[(nl + 16 * j) * GLD + k];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) gv[i] = Gs[(hb[i] + shift) * GLD + k];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(gv[i], wv[j], acc[i][j]);
+      }
+    }
+  }
+
+  __syncthreads();
+  float* Red = sm;  // [dp*x | dp][pixel][GC + 1]
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int p = (tid >> 4) + 8 * i;
+    int pb, py, px, h_unused;
+    const bool valid = pixel(g, b0, y0, x0, p, pb, py, px, h_unused);
+    const long at = (((long)pb * g.H + py) * g.W + px) * g.Cin;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = nl + 16 * j, ci = n0 + c;
+      float dp = 0.f, xv = 0.f;
+      if (valid && ci < g.Cin) {
+        xv = to_f(x[at + ci]);
+        const float av = a[(long)pb * g.Cin + ci];
+        dp = silu_grad(acc[i][j], fmaf(xv, av, off[(long)pb * g.Cin + ci]));
+        dx[at + ci] = from_f<T>(dp * av);
+      }
+      Red[p * (GC + 1) + c] = dp * xv;
+      Red[(GP + p) * (GC + 1) + c] = dp;
+    }
+  }
+  __syncthreads();
+  const int per_img = g.TH * g.TW;
+  for (int idx = tid; idx < g.NI * 2 * GC; idx += GT) {
+    const int c = idx % GC, q = (idx / GC) & 1, i = idx / (2 * GC);
+    if (b0 + i >= g.B || n0 + c >= g.Cin) continue;
+    const int hi = (i + 1) * per_img < GP ? (i + 1) * per_img : GP;
+    float s = 0.f;
+    for (int p = i * per_img; p < hi; ++p) s += Red[(q * GP + p) * (GC + 1) + c];
+    ws_a[((long)(blockIdx.x * g.NI + i) * 2 + q) * g.Cin + n0 + c] = s;
+  }
+}
+
+// wgrad: a block per (split, Cin tile x Cout tile, tap) walks the chunks of
+// 64 flattened pixels split, split + splits, ...; thread (tid / 16, tid % 16)
+// owns Cout rows tid / 16 + 8 i (i < BCO / 8) and Cin columns tid % 16 + 16 j.
+template <typename T, int BCO>
+__global__ void __launch_bounds__(GT)
+wgrad_general_kernel(const T* __restrict__ x, const float* __restrict__ a,
+                     const float* __restrict__ off, const T* __restrict__ gr,
+                     float* __restrict__ ws_w, float* __restrict__ ws_b, Geom g) {
+  __shared__ float Hs[GP][GC + 1];  // h at the pixel shifted by the tap
+  __shared__ float Gs[GP][BCO + 1];
+  const int tap = blockIdx.z, dy = tap / 3, dxp = tap % 3;
+  const int ci_tiles = (g.Cin + GC - 1) / GC;
+  const int c0 = (blockIdx.y % ci_tiles) * GC, co0 = (blockIdx.y / ci_tiles) * BCO;
+  const int z = blockIdx.x, splits = gridDim.x, tid = threadIdx.x;
+  const long npx = (long)g.B * g.H * g.W;
+  const long chunks = (npx + GP - 1) / GP;
+  const bool bias_block = tap == 0 && blockIdx.y % ci_tiles == 0;
+  float acc[BCO / 8][4];
+#pragma unroll
+  for (int i = 0; i < BCO / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  float bsum = 0.f;
+  for (long ch = z; ch < chunks; ch += splits) {
+    __syncthreads();
+    for (int idx = tid; idx < GP * GC; idx += GT) {
+      const int p = idx / GC, c = idx % GC, ci = c0 + c;
+      const long P = ch * GP + p;
+      float v = 0.f;
+      if (P < npx && ci < g.Cin) {
+        const int b = (int)(P / (g.H * g.W)), rem = (int)(P % (g.H * g.W));
+        const int yy = rem / g.W + dy - 1, xx = rem % g.W + dxp - 1;
+        if (yy >= 0 && yy < g.H && xx >= 0 && xx < g.W) {
+          const float xv = to_f(x[(((long)b * g.H + yy) * g.W + xx) * g.Cin + ci]);
+          v = to_f(from_f<T>(silu_f(fmaf(xv, a[(long)b * g.Cin + ci], off[(long)b * g.Cin + ci]))));
+        }
+      }
+      Hs[p][c] = v;
+    }
+    for (int idx = tid; idx < GP * BCO; idx += GT) {
+      const int p = idx / BCO, k = idx % BCO, co = co0 + k;
+      const long P = ch * GP + p;
+      Gs[p][k] = (P < npx && co < g.Cout) ? to_f(gr[P * g.Cout + co]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int p = 0; p < GP; ++p) {
+      float hv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) hv[j] = Hs[p][(tid & 15) + 16 * j];
+#pragma unroll
+      for (int i = 0; i < BCO / 8; ++i) {
+        const float gv = Gs[p][(tid >> 4) + 8 * i];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(gv, hv[j], acc[i][j]);
+      }
+    }
+    if (bias_block && tid < BCO)
+      for (int p = 0; p < GP; ++p) bsum += Gs[p][tid];
+  }
+  float* out = ws_w + (long)(z * 9 + tap) * g.Cout * g.Cin;
+#pragma unroll
+  for (int i = 0; i < BCO / 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int co = co0 + (tid >> 4) + 8 * i, ci = c0 + (tid & 15) + 16 * j;
+      if (co < g.Cout && ci < g.Cin) out[(long)co * g.Cin + ci] = acc[i][j];
+    }
+  if (bias_block && tid < BCO && co0 + tid < g.Cout) ws_b[(long)z * g.Cout + co0 + tid] = bsum;
+}
+
+template <typename T>
+cudaError_t launch_general(const void* x, const void* a, const void* off, const void* w,
+                           const void* gr, void* dx, float* ws_a, float* ws_w, float* ws_b,
+                           Geom g, bool want_d, bool want_w, int splits, cudaStream_t stream) {
+  if (want_d) {
+    Geom t = g;
+    set_tile(t, GP);
+    const size_t halo_px = (size_t)t.NI * (t.TH + 2) * (t.TW + 2);
+    size_t smem = sizeof(float) * (halo_px * GLD + 9 * GC * GLD);
+    const size_t red = sizeof(float) * 2 * GP * (GC + 1);
+    smem = smem > red ? smem : red;
+    if (smem > 227 * 1024) return cudaErrorInvalidValue;
+    cudaError_t err = allow_smem(dgrad_general_kernel<T>, smem);
+    if (err != cudaSuccess) return err;
+    dgrad_general_kernel<T><<<dim3((unsigned)n_tiles(t), (g.Cin + GC - 1) / GC), GT, smem,
+                               stream>>>(
+        static_cast<const T*>(x), static_cast<const float*>(a), static_cast<const float*>(off),
+        static_cast<const T*>(w), static_cast<const T*>(gr), static_cast<T*>(dx), ws_a, t);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (want_w) {
+    const int ci_tiles = (g.Cin + GC - 1) / GC;
+    if (g.Cout <= 16) {
+      wgrad_general_kernel<T, 16><<<dim3(splits, ci_tiles * ((g.Cout + 15) / 16), 9), GT, 0,
+                                    stream>>>(
+          static_cast<const T*>(x), static_cast<const float*>(a), static_cast<const float*>(off),
+          static_cast<const T*>(gr), ws_w, ws_b, g);
+    } else {
+      wgrad_general_kernel<T, 64><<<dim3(splits, ci_tiles * ((g.Cout + 63) / 64), 9), GT, 0,
+                                    stream>>>(
+          static_cast<const T*>(x), static_cast<const float*>(a), static_cast<const float*>(off),
+          static_cast<const T*>(gr), ws_w, ws_b, g);
+    }
+    return cudaGetLastError();
+  }
+  return cudaSuccess;
+}
+
+// ---------------------------------------------------------------- finish
+
+// One thread an output: da and doff (the sample's tiles in order), dw (the
+// splits in order, cast to its dtype), dbias (its bias_parts partials in
+// order).
+template <typename T>
+__global__ void __launch_bounds__(256)
+grad_finish_kernel(const float* __restrict__ ws_a, const float* __restrict__ ws_w,
+                   const float* __restrict__ ws_b, float* __restrict__ da,
+                   float* __restrict__ doff, T* __restrict__ dw, float* __restrict__ dbias,
+                   int B, int Cin, int Cout, int NI, int tiles_per_group, int splits,
+                   int bias_parts, int na, int nw, int nb) {
+  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx < na) {
+    const int b = (int)(idx / Cin), c = (int)(idx % Cin);
+    const long first = (long)(b / NI) * tiles_per_group;
+    float s0 = 0.f, s1 = 0.f;
+    for (int t = 0; t < tiles_per_group; ++t) {
+      const long slot = ((first + t) * NI + b % NI) * 2;
+      s0 += ws_a[slot * Cin + c];
+      s1 += ws_a[(slot + 1) * Cin + c];
+    }
+    da[idx] = s0;
+    doff[idx] = s1;
+  } else if (idx < (long)na + nw) {
+    const long e = idx - na;
+    float s = 0.f;
+    for (int z = 0; z < splits; ++z) s += ws_w[(long)z * nw + e];
+    dw[e] = from_f<T>(s);
+  } else if (idx < (long)na + nw + nb) {
+    const int co = (int)(idx - na - nw);
+    float s = 0.f;
+    for (int z = 0; z < bias_parts; ++z) s += ws_b[(long)z * Cout + co];
+    dbias[co] = s;
+  }
+}
+
+}  // namespace
+
+// design: 0 general, 1 wgmma (bf16); ops/gn_conv.py::conv_grad_design checks
+// what each takes and grad_plan gives the tiles and the split (nwg, bn: the
+// wgmma dgrad's consumer warpgroups and channels a block; splits: wgrad's
+// blocks along the pixels).  The workspaces hold n_a, n_w and n_b float32
+// elements; the kernels fill ws_a (tiles x images of a tile x 2 x Cin), ws_w
+// (splits x 9 x Cout x Cin) and ws_b (splits x Cout, wgmma: x 3 ceil(Cin /
+// 64)), and a smaller one is refused before any launch.  want_dgrad: dx, da
+// and doff; want_wgrad: dw and dbias.  A design, shape or workspace it does
+// not take returns cudaErrorInvalidValue.
+extern "C" int pddm_gn_silu_conv3x3_grad(const void* x, const void* a, const void* off,
+                                         const void* w, const void* gr, void* dx, void* da,
+                                         void* doff, void* dw, void* dbias, void* ws_a,
+                                         void* ws_w, void* ws_b, long long n_a, long long n_w,
+                                         long long n_b, int B, int H, int W, int Cin, int Cout,
+                                         int is_bf16, int design, int want_dgrad,
+                                         int want_wgrad, int nwg, int bn, int splits,
+                                         void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  Geom g{B, H, W, Cin, Cout, 0, 0, 0, 0, 0};
+  float* wsa = static_cast<float*>(ws_a);
+  float* wsw = static_cast<float*>(ws_w);
+  float* wsb = static_cast<float*>(ws_b);
+  cudaError_t err = cudaSuccess;
+  if ((design != 0 && design != 1) || splits < 1 ||
+      (design == 1 && want_dgrad && nwg != 1 && nwg != 2))
+    return cudaErrorInvalidValue;
+  const int dgrad_pixels = design == 1 && want_dgrad ? 64 * nwg : GP;
+  // the dbias partials: one a split (general); one a split and wgrad block
+  // of the split's Cout slice (wgmma)
+  const int bias_parts = splits * (design == 1 ? 3 * ((Cin + WK - 1) / WK) : 1);
+  Geom t = g;
+  set_tile(t, dgrad_pixels);
+  if ((want_dgrad && n_a < n_tiles(t) * t.NI * 2 * Cin) ||
+      (want_wgrad && (n_w < (long long)splits * 9 * Cout * Cin ||
+                      n_b < (long long)bias_parts * Cout)))
+    return cudaErrorInvalidValue;
+  if (design == 1) {
+    if (!is_bf16 || Cin % 8 || Cout % 8 || (H * W <= 64 && (H * W) % 16) ||
+        reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w) % 16 ||
+        reinterpret_cast<uintptr_t>(gr) % 16)
+      return cudaErrorInvalidValue;
+    if (want_dgrad) {
+      if (nwg == 2 && bn == 128)
+        err = launch_dgrad_wgmma<2, 128>(x, a, off, w, gr, dx, wsa, g, stream);
+      else if (nwg == 2 && bn == 64)
+        err = launch_dgrad_wgmma<2, 64>(x, a, off, w, gr, dx, wsa, g, stream);
+      else if (nwg == 1 && bn == 64)
+        err = launch_dgrad_wgmma<1, 64>(x, a, off, w, gr, dx, wsa, g, stream);
+      else
+        return cudaErrorInvalidValue;
+      if (err != cudaSuccess) return err;
+    }
+    if (want_wgrad && (err = launch_wgrad_wgmma(x, a, off, gr, wsw, wsb, g, splits, stream)) !=
+                          cudaSuccess)
+      return err;
+  } else {
+    err = is_bf16 ? launch_general<__nv_bfloat16>(x, a, off, w, gr, dx, wsa, wsw, wsb, g,
+                                                  want_dgrad, want_wgrad, splits, stream)
+                  : launch_general<float>(x, a, off, w, gr, dx, wsa, wsw, wsb, g, want_dgrad,
+                                          want_wgrad, splits, stream);
+    if (err != cudaSuccess) return err;
+  }
+  const int na = want_dgrad ? B * Cin : 0, nw = want_wgrad ? 9 * Cout * Cin : 0,
+            nb = want_wgrad ? Cout : 0;
+  const long total = (long)na + nw + nb;
+  if (total == 0) return cudaSuccess;
+  const unsigned blocks = (unsigned)((total + 255) / 256);
+  if (is_bf16)
+    grad_finish_kernel<__nv_bfloat16><<<blocks, 256, 0, stream>>>(
+        wsa, wsw, wsb, static_cast<float*>(da), static_cast<float*>(doff),
+        static_cast<__nv_bfloat16*>(dw), static_cast<float*>(dbias), B, Cin, Cout, t.NI,
+        t.tiles_y * t.tiles_x, splits, bias_parts, na, nw, nb);
+  else
+    grad_finish_kernel<float><<<blocks, 256, 0, stream>>>(
+        wsa, wsw, wsb, static_cast<float*>(da), static_cast<float*>(doff),
+        static_cast<float*>(dw), static_cast<float*>(dbias), B, Cin, Cout, t.NI,
+        t.tiles_y * t.tiles_x, splits, bias_parts, na, nw, nb);
+  return cudaGetLastError();
+}

@@ -1,6 +1,9 @@
 """The ops that hold hand-written CUDA kernels (``csrc/``): the four of the
 UNet forward (the folded GroupNorm affine, the fused conv, GroupNorm and
-attention), differentiable through their plain versions, exported here with
+attention), differentiable (the folded affine and the fused conv through
+backward kernels of their own, ``gn_affine_grad`` and
+``gn_silu_conv3x3_grad``; GroupNorm and attention through their plain
+versions), exported here with
 the fold of GroupNorm's statistics alone (``gn_fold``, the spatially
 sharded forward's), and the matrix-unit probe, in its own module
 ``ops.probe_mma``.
@@ -13,6 +16,7 @@ its kernel for a CUDA tensor (or raises); each counts its launches in
 from .attention import attention_design, qkv_attention, qkv_attention_plain
 from .gn_conv import (
     conv_design,
+    conv_grad_design,
     gn_affine,
     gn_affine_grad,
     gn_affine_grad_plain,
@@ -20,6 +24,8 @@ from .gn_conv import (
     gn_affine_slab,
     gn_affine_slab_plain,
     gn_silu_conv3x3,
+    gn_silu_conv3x3_grad,
+    gn_silu_conv3x3_grad_plain,
     gn_silu_conv3x3_plain,
     grad_design,
 )

@@ -5,9 +5,12 @@ differentiates its fused ops through custom VJPs that recompute the plain XLA
 math from the saved inputs (``_fused_bwd`` in
 ``probabilisticdeepdiffusionmodels_tpu/ops/gn_conv_pallas.py``, ``_gns_bwd``
 in ``ops/groupnorm_pallas.py``), and its attention through
-``qkv_attention_xla``.  ``KernelFunction`` is the counterpart of those VJPs:
-the forward runs a kernel, the backward recomputes a plain PyTorch version
-from the saved inputs and returns that version's gradient.
+``qkv_attention_xla``.  ``KernelFunction`` is the counterpart of those VJPs
+for GroupNorm and attention: the forward runs a kernel, the backward
+recomputes a plain PyTorch version from the saved inputs and returns that
+version's gradient.  The folded affine and the fused conv have backward
+kernels of their own instead (``gn_conv._GnAffine`` with ``gn_affine_grad``,
+``gn_conv._GnSiluConv`` with ``gn_silu_conv3x3_grad``).
 
 Gradients through the kernels exist in reverse mode only.  A kernel reads
 its inputs' memory and would drop a forward-mode tangent without a word, so

@@ -59,30 +59,46 @@ three designs (the source says more):
 
 The bias is added in float32 and the output stored in the input dtype.
 
-Backward: no Pallas kernel has a backward kernel, so this op has none
-either.  As ``_fused_bwd`` in ``gn_conv_pallas.py`` does, the gradient is
-that of the plain math, recomputed from the saved inputs
-(``autograd.kernel_op``); for a bf16 input the recomputed conv takes
-bf16 operands (cuDNN accumulates in float32), the precision of the forward
-kernel's product, instead of the plain version's float32 conv.
+Backward (``gn_silu_conv3x3_grad``, kernels in ``csrc/gn_conv_grad.cu``):
+the Pallas kernel has no backward kernel; ``_fused_bwd`` in
+``gn_conv_pallas.py`` takes ``jax.vjp`` of the XLA form, which XLA compiles
+into two conv transposes and fused elementwise passes.  Here a CUDA tensor
+takes three launches a call, chosen by ``conv_grad_design``: the input
+product (dgrad) with the activation's backward in its epilogue (dx out, and
+per-tile partial sums of the scale's and offset's gradients), the weight
+product (wgrad) that recomputes the activation in shared memory, split over
+blocks along the pixels, and one launch that adds the partials in a fixed
+order (no float atomics: the same bits on every run).  ``wgmma`` runs both
+products on the tensor cores for the bf16 sites (``grad_plan`` gives the
+tiles and the split); ``general`` is a simple pair of true-float32 FMA
+kernels for the rest (the float32 output head, every float32 site, bf16
+with channels not a multiple of 8).  ``recompute``, the first design
+(autograd through the plain version from the saved inputs), stays callable
+by name for measurement and adds nothing to the op's launch count.  ``gn_silu_conv3x3_grad_plain`` writes the five
+gradients out as formulas; it equals autograd through ``_grad_reference``
+(the plain version with the conv on operands of x's dtype), and a CPU
+tensor takes it.  Autograd keeps x, a, off, w and bias for the backward,
+no activation.
 """
 
 from __future__ import annotations
 
+import functools
 from collections import OrderedDict
-from typing import Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
-from .autograd import forbid_forward_mode, kernel_op
+from .autograd import forbid_forward_mode
 from .groupnorm import (_grad_plan, _shape, affine_backward, apply_affine, check_inputs,
                         fold_backward, gn_fold, gn_fold_plain, moments_fold, moments_plain)
 
-__all__ = ["conv_design", "gn_affine", "gn_affine_plain", "gn_affine_grad",
+__all__ = ["conv_design", "conv_grad_design", "gn_affine", "gn_affine_plain", "gn_affine_grad",
            "gn_affine_grad_plain", "grad_design", "gn_affine_slab",
-           "gn_affine_slab_plain", "gn_silu_conv3x3", "gn_silu_conv3x3_plain"]
+           "gn_affine_slab_plain", "gn_silu_conv3x3", "gn_silu_conv3x3_plain",
+           "gn_silu_conv3x3_grad", "gn_silu_conv3x3_grad_plain", "grad_plan"]
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 # the C entry point's design argument
@@ -321,7 +337,8 @@ def gn_silu_conv3x3(x: torch.Tensor, a: torch.Tensor, off: torch.Tensor,
                     w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """Fused ``conv3x3_SAME(silu(x*a + off)) + bias``; shapes as the plain
     version.  A CPU tensor takes the plain version; a CUDA tensor launches
-    the kernel or raises.  Differentiable in x, a, off, w and bias."""
+    the kernel or raises.  Differentiable in x, a, off, w and bias, on the
+    card by ``gn_silu_conv3x3_grad``'s kernels, in reverse mode only."""
     if x.device.type == "cpu":
         return gn_silu_conv3x3_plain(x, a, off, w, bias)
     if x.device.type != "cuda":
@@ -344,7 +361,10 @@ def gn_silu_conv3x3(x: torch.Tensor, a: torch.Tensor, off: torch.Tensor,
     off = off.to(device=x.device, dtype=torch.float32).contiguous()
     w = _weight_in(w, x)
     bias = bias.to(device=x.device, dtype=torch.float32).contiguous()
-    return kernel_op(_launch, _grad_reference, x, a, off, w, bias)
+    forbid_forward_mode("gn_silu_conv3x3", x, a, off, w, bias)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, a, off, w, bias)):
+        return _GnSiluConv.apply(x, a, off, w, bias)
+    return _launch(x, a, off, w, bias)
 
 
 def conv_design(x: torch.Tensor, w: torch.Tensor) -> str:
@@ -408,3 +428,291 @@ def _launch(x, a, off, w, bias):
 
 
 gn_silu_conv3x3.launches = 0
+
+
+# ----------------------------------------------------------------- gradient
+
+# the C entry point's design argument; "recompute" (autograd through
+# _grad_reference) is no kernel and runs only by name, for measurement
+GRAD_DESIGNS = {"general": 0, "wgmma": 1}
+_GENERAL_PX = 64    # pixels of a general dgrad tile, of a general wgrad chunk
+_DGRAD_STAGES = 6   # the wgmma dgrad's weight ring
+_WGRAD_PX = 128     # pixels of a wgmma wgrad tile (8 k-steps of 16)
+_WGRAD_WS_BYTES = 16 << 20  # the wgmma wgrad's partials of dw, at most
+
+
+class ConvTile(NamedTuple):
+    """A pixel tiling as ``set_tile`` in ``csrc/gn_conv.cu`` and
+    ``csrc/gn_conv_grad.cu`` makes it: ``ni`` whole images, or ``th`` rows
+    of ``tw`` columns of one image; tile k lies at
+    (k // (tiles_y * tiles_x) * ni, row k // tiles_x % tiles_y * th, column
+    k % tiles_x * tw)."""
+    ni: int
+    th: int
+    tw: int
+    tiles_y: int
+    tiles_x: int
+
+    def count(self, b: int) -> int:
+        return -(-b // self.ni) * self.tiles_y * self.tiles_x
+
+    def pixels(self, b: int, h: int, w: int, k: int) -> List[Tuple[int, int, int, int]]:
+        """(row p of the tile, image, y, x) of tile k's pixels inside the
+        batch and the image, in the tile's row order."""
+        b0 = k // (self.tiles_y * self.tiles_x) * self.ni
+        y0 = k // self.tiles_x % self.tiles_y * self.th
+        x0 = k % self.tiles_x * self.tw
+        out = []
+        for p in range(self.ni * self.th * self.tw):
+            i, r, c = p // (self.th * self.tw), p // self.tw % self.th, p % self.tw
+            if b0 + i < b and y0 + r < h and x0 + c < w:
+                out.append((p, b0 + i, y0 + r, x0 + c))
+        return out
+
+
+def conv_tile(h: int, w: int, pixels: int) -> ConvTile:
+    """Tiles of ``pixels`` output pixels: whole images, whole rows of one
+    image or a segment of one row."""
+    if h * w <= pixels:
+        ni, th, tw = pixels // (h * w), h, w
+    elif w <= pixels:
+        ni, th, tw = 1, pixels // w, w
+    else:
+        ni, th, tw = 1, 1, pixels
+    return ConvTile(ni, th, tw, -(-h // th), -(-w // tw))
+
+
+class GradPlan(NamedTuple):
+    """How ``gn_silu_conv3x3_grad``'s kernels cut one call.  ``dgrad``: the
+    tiles of the input product, each writing one partial of the scale's and
+    offset's gradients per (image of the tile, channel); ``nwg``, ``bn``:
+    the wgmma dgrad's consumer warpgroups and channels a block (0 in
+    ``general``); ``wgrad``: the wgmma weight product's tiles (None:
+    ``general``'s chunks of 64 flattened pixels); ``splits``: the weight
+    product's blocks along the pixels, block z taking tiles (chunks)
+    z, z + splits, ..."""
+    design: str
+    dgrad: ConvTile
+    nwg: int
+    bn: int
+    wgrad: Optional[ConvTile]
+    splits: int
+
+    def workspace(self, b: int, cin: int, cout: int) -> Tuple[int, int, int]:
+        """float32 elements of the three workspaces: the per-tile partials of
+        (da, doff), the per-split partials of dw and of dbias (wgmma: one
+        for each of a split's 3 x ceil(Cin / 64) weight-product blocks of a
+        Cout slice, each adding its share of the rows)."""
+        parts = 3 * -(-cin // 64) if self.design == "wgmma" else 1
+        return (self.dgrad.count(b) * self.dgrad.ni * 2 * cin, self.splits * 9 * cout * cin,
+                self.splits * parts * cout)
+
+    def dgrad_slots(self, b: int) -> List[List[Tuple[int, int]]]:
+        """For each sample, the (tile, image of the tile) partials that the
+        last launch adds for its da and doff, in the order it adds them."""
+        per = self.dgrad.tiles_y * self.dgrad.tiles_x
+        ni = self.dgrad.ni
+        return [[(s // ni * per + t, s % ni) for t in range(per)] for s in range(b)]
+
+    def wgrad_units(self, b: int, h: int, w: int) -> List[List[int]]:
+        """For each split, the tiles (wgmma) or 64-pixel chunks (general)
+        whose products it adds, in order."""
+        n = self.wgrad.count(b) if self.wgrad else -(-b * h * w // _GENERAL_PX)
+        return [list(range(z, n, self.splits)) for z in range(self.splits)]
+
+
+def _dgrad_smem(h: int, w: int, nwg: int, bn: int) -> int:
+    """Shared memory of the wgmma dgrad (``DLayout`` in gn_conv_grad.cu)."""
+    t = conv_tile(h, w, 64 * nwg)
+    halo = -(-t.ni * (t.th + 2) * (t.tw + 2) * 128 // 1024) * 1024
+    return (1024 + _DGRAD_STAGES * bn * 128 + 2 * halo + nwg * 4 * 16 * (bn + 8) * 2
+            + nwg * 4 * 2 * bn * 4 + (2 * _DGRAD_STAGES + 4) * 8)
+
+
+def _wgrad_smem(h: int, w: int) -> int:
+    """Shared memory of the wgmma wgrad (``WGLayout`` in gn_conv_grad.cu): three
+    stages of the x halo, the g tile, the scale and offset, two mbarriers;
+    the dbias partials."""
+    t = conv_tile(h, w, _WGRAD_PX)
+    halo = -(-t.ni * (t.th + 2) * (t.tw + 2) * 128 // 1024) * 1024
+    return 1024 + 3 * (halo + _WGRAD_PX * 128 + t.ni * 2 * 64 * 4 + 2 * 8) + 7 * 64 * 4
+
+
+def _dgrad_config(b, h, w, cin):
+    """(consumer warpgroups, channels a block) of the wgmma dgrad: as the
+    forward picks them, two warpgroups and 128 channels where the tiles give
+    most of a wave and fit shared memory, narrower blocks for the small
+    sites; None where nothing fits."""
+    m128 = conv_tile(h, w, 128).count(b)
+    for nwg, bn, ok in ((2, 128, cin > 64 and m128 * -(-cin // 128) >= 128),
+                        (2, 64, m128 * -(-cin // 64) >= 128), (1, 64, True)):
+        if ok and _dgrad_smem(h, w, nwg, bn) <= _SMEM_BYTES:
+            return nwg, bn
+    return None
+
+
+def grad_plan(b: int, h: int, w: int, cin: int, cout: int, design: str, sms: int) -> GradPlan:
+    """The tiles and the split of a ``gn_silu_conv3x3_grad`` call in design
+    ``wgmma`` or ``general`` on a card of ``sms`` SMs.  The weight product's
+    split fills the SMs in the fewest waves for its work (wgmma: a block of
+    512 threads an SM; at most 16 splits, whose partials of dw take at most
+    16 MB unless one split is larger) or about four times (general), with no
+    more splits than tiles.  The C entry point refuses workspaces smaller
+    than its own tiling fills, so a plan that drifts from it raises."""
+    if design == "wgmma":
+        nwg, bn = _dgrad_config(b, h, w, cin)
+        tile = conv_tile(h, w, _WGRAD_PX)
+        base = -(-cin // 64) * -(-cout // 64) * 3
+        most = max(1, min(tile.count(b), 16, _WGRAD_WS_BYTES // (9 * cin * cout * 4)))
+        # waves of blocks / splits: the time of the products, ties to fewer splits
+        splits = min(range(1, most + 1), key=lambda s: (-(-s * base // sms) / s, s))
+        return GradPlan("wgmma", conv_tile(h, w, 64 * nwg), nwg, bn, tile, splits)
+    chunks = -(-b * h * w // _GENERAL_PX)
+    base = -(-cin // 64) * -(-cout // (16 if cout <= 16 else 64)) * 9
+    return GradPlan("general", conv_tile(h, w, _GENERAL_PX), 0, 0, None,
+                    max(1, min(chunks, -(-4 * sms // base))))
+
+
+def conv_grad_design(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The design of ``gn_silu_conv3x3_grad`` for ``x`` (B, H, W, Cin) and
+    ``w`` (3, 3, Cout, Cin) in the kernel's dtype: ``wgmma`` for bf16 with
+    channels in multiples of 8, images of at least 4x4 whose pixel count is
+    over 64 or a multiple of 16 (no warp's 16 rows straddle two images),
+    16-byte aligned operands and tiles that fit shared memory; ``general``
+    otherwise."""
+    b, h, wd, cin = x.shape
+    cout = w.shape[2]
+    if (x.dtype == torch.bfloat16 and cin % 8 == 0 and cout % 8 == 0 and min(h, wd) >= 4
+            and (h * wd > 64 or h * wd % 16 == 0) and x.data_ptr() % 16 == 0
+            and w.data_ptr() % 16 == 0 and _dgrad_config(b, h, wd, cin) is not None
+            and _wgrad_smem(h, wd) <= _SMEM_BYTES):
+        return "wgmma"
+    return "general"
+
+
+def gn_silu_conv3x3_grad_plain(x: torch.Tensor, a: torch.Tensor, off: torch.Tensor,
+                               w: torch.Tensor, g: torch.Tensor, needs=None):
+    """The gradients (dx, da, doff, dw, dbias) of ``_grad_reference`` for
+    the output gradient ``g``, written out: the conv's input gradient dh as
+    the sum over taps of the shifted g times the tap's weight (accumulated
+    in float32, rounded to x's dtype as the conv's input gradient is), the
+    activation's backward dp = dh s (1 + p (1 - s)), dx = dp a in x's dtype,
+    da and doff the sums of dp x and dp over the sample's pixels, dw[tap] the
+    sum over pixels of g times the activation shifted by the tap (zero
+    outside the image after the activation) in w's dtype, dbias the sum of g,
+    float32.  ``needs`` masks the five (None where one is not wanted)."""
+    needs = (True,) * 5 if needs is None else tuple(needs)
+    b, h, wd, cin = x.shape
+    taps = [(dy, dx) for dy in range(3) for dx in range(3)]
+    xf = x.float()
+    p = xf * a.float()[:, None, None, :] + off.float()[:, None, None, :]
+    s = torch.sigmoid(p)
+    gf = g.to(x.dtype).float()
+    out = [None] * 5
+    if any(needs[:3]):
+        wf = w.to(x.dtype).float()
+        gp = F.pad(gf, (0, 0, 1, 1, 1, 1))
+        dh = sum(gp[:, 2 - dy:2 - dy + h, 2 - dx:2 - dx + wd] @ wf[dy, dx] for dy, dx in taps)
+        dp = dh.to(x.dtype).float() * s * (1 + p * (1 - s))
+        out[:3] = [(dp * a.float()[:, None, None, :]).to(x.dtype), (dp * xf).sum((1, 2)),
+                   dp.sum((1, 2))]
+    if needs[3]:
+        hp = F.pad((p * s).to(x.dtype).float(), (0, 0, 1, 1, 1, 1))
+        dw = torch.stack([torch.einsum("bhwo,bhwi->oi", gf, hp[:, dy:dy + h, dx:dx + wd])
+                          for dy, dx in taps])
+        out[3] = dw.reshape(3, 3, -1, cin).to(w.dtype)
+    if needs[4]:
+        out[4] = gf.sum((0, 1, 2))
+    return tuple(t if need else None for t, need in zip(out, needs))
+
+
+def _recompute(x, a, off, w, g, needs):
+    """The first design, by name only: autograd through ``_grad_reference``
+    recomputed from the inputs (about 40 device operations a call)."""
+    bias = torch.zeros(w.shape[2], dtype=torch.float32, device=x.device)
+    leaves = [t.detach().requires_grad_(n) for t, n in zip((x, a, off, w, bias), needs)]
+    with torch.enable_grad():
+        out = _grad_reference(*leaves)
+    grads = iter(torch.autograd.grad(out, [t for t in leaves if t.requires_grad], g))
+    return [next(grads) if n else None for n in needs]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _launch_grad(x, a, off, w, g, needs, design):
+    b, h, wd, cin = x.shape
+    cout = w.shape[2]
+    want_d, want_w = any(needs[:3]), any(needs[3:])
+    plan = grad_plan(b, h, wd, cin, cout, design, _sm_count(x.device))
+    g = g.to(x.dtype).contiguous()
+    if g.data_ptr() % 16:
+        g = g.clone()
+    f32 = dict(dtype=torch.float32, device=x.device)
+    n_a, n_w, n_b = plan.workspace(b, cin, cout)
+    out = [torch.empty_like(x), torch.empty(b, cin, **f32), torch.empty(b, cin, **f32)]
+    out = (out if want_d else [None] * 3) + ([torch.empty_like(w), torch.empty(cout, **f32)]
+                                            if want_w else [None] * 2)
+    ws = [torch.empty(n_a, **f32) if want_d else None, torch.empty(n_w, **f32) if want_w else None,
+          torch.empty(n_b, **f32) if want_w else None]
+    try:
+        _build.launch("pddm_gn_silu_conv3x3_grad", x.data_ptr(), a.data_ptr(), off.data_ptr(),
+                      w.data_ptr(), g.data_ptr(),
+                      *(0 if t is None else t.data_ptr() for t in (*out, *ws)),
+                      *(0 if t is None else t.numel() for t in ws), b, h, wd, cin, cout, int(x.dtype == torch.bfloat16), GRAD_DESIGNS[design],
+                      int(want_d), int(want_w), plan.nwg, plan.bn, plan.splits)
+    except RuntimeError as err:
+        raise RuntimeError(f"{err} (x {tuple(x.shape)} {x.dtype}, Cout {cout}, {plan})") from err
+    return out
+
+
+def gn_silu_conv3x3_grad(x: torch.Tensor, a: torch.Tensor, off: torch.Tensor, w: torch.Tensor,
+                         g: torch.Tensor, needs=None, design: Optional[str] = None):
+    """(dx, da, doff, dw, dbias) of ``gn_silu_conv3x3`` for the output
+    gradient ``g``, from the inputs as the op hands them to its kernel (a,
+    off float32; w in x's dtype).  A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernels of ``design`` (None: ``conv_grad_design``'s
+    choice; ``wgmma``, ``general`` or ``recompute`` by name, for measurement)
+    or raises.  ``needs`` (x, a, off, w, bias) masks the gradients wanted
+    (None where one is not): no input product where none of x, a, off
+    needs one, no weight product where neither w nor bias does.  dx in x's
+    dtype, dw in w's, the rest float32."""
+    needs = (True,) * 5 if needs is None else tuple(needs)
+    if x.device.type == "cpu":
+        return gn_silu_conv3x3_grad_plain(x, a, off, w, g, needs)
+    design = conv_grad_design(x, w) if design is None else design
+    if design == "recompute":
+        # plain PyTorch, no kernel of this op: the count stays
+        grads = _recompute(x, a, off, w, g, needs)
+    elif design in GRAD_DESIGNS:
+        grads = _launch_grad(x, a, off, w, g, needs, design)
+        gn_silu_conv3x3_grad.launches += 1
+    else:
+        raise ValueError(f"unknown gn_silu_conv3x3_grad design {design!r}")
+    return tuple(t if need else None for t, need in zip(grads, needs))
+
+
+gn_silu_conv3x3_grad.launches = 0
+
+
+class _GnSiluConv(torch.autograd.Function):
+    """``gn_silu_conv3x3`` with its gradient from ``gn_silu_conv3x3_grad``:
+    both directions are kernels on the card, and autograd keeps x, a, off, w
+    and bias, no activation.  On CPU tensors (the tests) the plain versions
+    stand in for both."""
+
+    @staticmethod
+    def forward(ctx, x, a, off, w, bias):
+        ctx.save_for_backward(x, a, off, w, bias)
+        if x.device.type == "cpu":
+            return gn_silu_conv3x3_plain(x, a, off, w, bias)
+        return _launch(x, a, off, w, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, a, off, w, bias = ctx.saved_tensors
+        dx, da, doff, dw, dbias = gn_silu_conv3x3_grad(x, a, off, w, g,
+                                                       needs=ctx.needs_input_grad)
+        return dx, da, doff, dw, None if dbias is None else dbias.to(bias.dtype)

@@ -65,7 +65,7 @@ from probabilisticdeepdiffusionmodels_torch.ops import (  # noqa: E402
     qkv_attention_plain,
 )
 from probabilisticdeepdiffusionmodels_torch.ops.autograd import KernelFunction  # noqa: E402
-from probabilisticdeepdiffusionmodels_torch.ops.gn_conv import _grad_reference  # noqa: E402
+from probabilisticdeepdiffusionmodels_torch.ops.gn_conv import _GnSiluConv, _grad_reference  # noqa: E402,E501
 from probabilisticdeepdiffusionmodels_torch.train import (  # noqa: E402
     LossHistory,
     TrainState,
@@ -283,11 +283,14 @@ def _grads_close(got, want, what):
         np.testing.assert_allclose(g, w, rtol=0, atol=1e-5 * np.abs(w).max(), err_msg=name)
 
 
+@pytest.mark.parametrize("function", ["kernel_function", "gn_silu_conv"])
 @pytest.mark.parametrize("mode", ["emb", "film"])
-def test_gn_conv_backward_matches_jax(mode):
+def test_gn_conv_backward_matches_jax(mode, function):
     """The Function with the plain version standing in for the kernel
     (gn_affine in torch autograd in front of it) against ``jax.vjp`` of the
-    custom-VJP op, whose forward is the interpret-mode Pallas kernel."""
+    custom-VJP op, whose forward is the interpret-mode Pallas kernel: the
+    recompute of ``KernelFunction`` and the op's own Function, whose
+    backward is ``gn_silu_conv3x3_grad`` (its plain version on the CPU)."""
     rng = np.random.RandomState(5)
     c = 128  # the Pallas path needs channels % 128 == 0
     x = rng.randn(2, 4, 4, c).astype(np.float32)
@@ -312,8 +315,11 @@ def test_gn_conv_backward_matches_jax(mode):
     extra = dict(emb=tcond[0]) if mode == "emb" else dict(film=tuple(tcond))
     a, off = gn_affine(tx, tgamma, tbeta, 32, 1e-5, **extra)
     w_hwoi = tw.permute(0, 1, 3, 2)
-    out = KernelFunction.apply(gn_silu_conv3x3_plain, _grad_reference, tx, a, off, w_hwoi,
-                               tbias)
+    if function == "kernel_function":
+        out = KernelFunction.apply(gn_silu_conv3x3_plain, _grad_reference, tx, a, off, w_hwoi,
+                                   tbias)
+    else:
+        out = _GnSiluConv.apply(tx, a, off, w_hwoi, tbias)
     assert out.grad_fn is not None
     out.backward(_t(g))
     _grads_close([p.grad.numpy() for p in leaves], want,
