@@ -21,11 +21,15 @@
    the plain version, run twice for the same bits and timed, each design by
    name, with and without the host's cost of a call; at each fused conv
    site (the float32 head too) its backward kernels
-   (``gn_silu_conv3x3_grad``, ``wgmma`` or ``general``) on a seeded output
-   gradient against the plain backward, run twice for the same bits and
-   timed with and without the host's cost, beside the parent's path
-   (``recompute``), the plain backward, ``convolution_backward``'s two bare
-   products without the host's cost, and their bound;
+   (``gn_silu_conv3x3_grad``: ``wgmma`` at the bf16 sites, ``narrow_f32``
+   at the head) and the first designs for the same shape by name
+   (``wgmma_taprow``, ``general``) on a seeded output gradient against the
+   plain backward, each run twice for the same bits and timed with and
+   without the host's cost, each kernel's device time from a profile of
+   that graph, beside the parent's path (``recompute``), the plain
+   backward, ``convolution_backward`` without the host's cost (the two bare
+   products, the weight product alone, the input product alone), and the
+   bounds of the two products and of the weight product;
 4. main path: the 20-step ancestral sampler (linear T=1000 respaced to 20,
    clip=True) through ``get_model`` and ``p_sample_loop``: bf16 at batch 32
    with the launch counts asserted, float32 on the kernels against float32
@@ -42,10 +46,11 @@
    uniform t) timed over two passes of 10 steps with the launch counts
    asserted (the backward's ``gn_affine_grad`` and ``gn_silu_conv3x3_grad``
    among them), its forward / backward / update split and a device profile,
-   with the step's device operations and device ms in the designs the shapes
-   select, with ``gn_affine_grad``'s first design and with the conv's
-   gradient as ``recompute`` (whose steps must leave the conv gradient's
-   launch count where it was);
+   with the step's device operations, device ms, idle share and peak
+   memory in the designs the shapes select, with ``gn_affine_grad``'s first
+   design, with the conv's gradient in its first designs by name and as
+   ``recompute`` (whose steps must leave the conv gradient's launch count
+   where it was);
    and a few importance-sampled steps on a warmed-up history;
 7. a second model: one bf16 forward of ``unet_celebahq64`` at 64x64 (head
    widths 96 and 128, FiLM conditioning) at batch 8 on the kernels, with
@@ -92,7 +97,9 @@
    counters zero; one replay's device operations from a profile, each of
    this repository's kernels 4x an eager step's, no copy to the host; img/s
    in turns (eager, fused, fused, eager) with peak memory, each mode's
-   device busy ms and idle share from its profile; ``cli.train trainer.fused_steps=4
+   device busy ms and idle share from its profile; a replay's device ms a
+   step with the conv's gradient captured in the selected designs and in
+   its first designs by name; ``cli.train trainer.fused_steps=4
    data.device_resident=true`` beside the plain CLI over 2 epochs with one
    capture asserted, and 2 + 2 steps resumed from its checkpoint against 4;
 12. progressive distillation and reflow (``distill_reflow``): the distil
@@ -391,8 +398,8 @@ SR_PROFILE_ARGS = [f"steps={SR_PROFILE_STEPS}", f"sample_steps={SR_PROFILE_SAMPL
 # statistics (GroupNorm and gn_affine) and, in training, gn_affine's backward
 PROFILE_SAMPLE_KERNELS = ("conv_wgmma_kernel", "attn_bf16_kernel", "gn_moments_kernel")
 PROFILE_TRAIN_KERNELS = PROFILE_SAMPLE_KERNELS + (
-    "gn_affine_bwd_kernel", "gn_batch_sum_kernel", "dgrad_wgmma_kernel", "wgrad_wgmma_kernel",
-    "dgrad_general_kernel", "wgrad_general_kernel", "grad_finish_kernel")
+    "gn_affine_bwd_kernel", "gn_batch_sum_kernel", "dgrad_wgmma_kernel", "wgrad9_wgmma_kernel",
+    "grad_narrow_f32_kernel", "grad_finish_kernel")
 CKPT_TURNS = ("plain", "checkpoint", "checkpoint", "plain")
 CKPT_GRAD_BATCH, CKPT_DROPOUT = 8, 0.1
 CKPT_SAME_TOL = 1e-6  # float32 gradients with against without checkpoints (cuDNN deterministic)
@@ -906,6 +913,23 @@ def grad_site(torch, ops, a, kw, n, affine_site, per_site, summary):
 # up to 131,072 pixels in another order (float32); the kernel keeps the
 # conv's input gradient in float32 where the plain version rounds it to bf16
 CONV_GRAD_F32_TOL = 1e-4
+# the designs timed beside the one a shape selects: the conv gradient's
+# first designs for that shape, by name
+CONV_GRAD_EARLIER = {"wgmma": "wgmma_taprow", "narrow_f32": "general"}
+
+
+def first_designs(selects):
+    """A ``conv_grad_design`` that picks the first design for each shape
+    where ``selects`` picks a later one."""
+    return lambda x, w: CONV_GRAD_EARLIER.get(selects(x, w), selects(x, w))
+
+
+def kernel_name(key):
+    """A profiler key without its return type, namespaces and argument list:
+    ``dgrad_wgmma_kernel<2, 128, true>``."""
+    key = key.replace("(anonymous namespace)::", "").replace("void ", "", 1)
+    base, sep, args = key.split("(")[0].partition("<")
+    return base.split("::")[-1].strip() + sep + args
 
 
 def conv_grad_site(torch, ops, a, n, conv_site, per_site, summary):
@@ -913,13 +937,17 @@ def conv_grad_site(torch, ops, a, n, conv_site, per_site, summary):
     one recorded site, on a seeded output gradient, against the plain
     backward (each gradient within RECOMPUTE_TOL of its reference's largest
     element in bf16, CONV_GRAD_F32_TOL in float32), in the design the shape
-    selects, run twice for the same bits, one count a call; timed with and
-    without the host's cost of a call (a CUDA graph over inputs that do not
-    fit L2 together), beside the parent's path (``recompute``: autograd
-    through ``_grad_reference``), the plain backward, the two bare products
-    of ``torch.ops.aten.convolution_backward`` (the library yardstick,
-    device-only as the kernels' own time is read) and the bound of the two
-    products."""
+    selects and in the first one for that shape by name (``wgmma_taprow`` at the bf16
+    sites, ``general`` at the float32 head), each run twice for the same
+    bits with one count a call, and timed with and without the host's cost
+    of a call (``design_ms``: a CUDA graph over inputs that do not fit L2
+    together), with each kernel's device ms a call from a profile of that
+    graph by kernel name (lower bounds: the profiler drops records); beside
+    the parent's path (``recompute``: autograd through ``_grad_reference``),
+    the plain backward, ``torch.ops.aten.convolution_backward`` device-only
+    (the two bare products; the weight product with dbias alone, output
+    mask (False, True, True); the input product alone, (True, False,
+    False)), the bound of the two products and of the weight product."""
     gc = ops.ops.gn_conv
     x, sc, off, w, _ = a
     wk = w.to(x.dtype).contiguous()
@@ -929,26 +957,7 @@ def conv_grad_site(torch, ops, a, n, conv_site, per_site, summary):
     g = torch.randn(b, h, wd, cout, device="cuda", generator=gen).to(x.dtype)
     ref = gc.gn_silu_conv3x3_grad_plain(x, sc, off, wk, g)
     chosen = gc.conv_grad_design(x, wk)
-
-    def run(xc=x, gg=g, d=chosen):
-        return gc.gn_silu_conv3x3_grad(xc, sc, off, wk, gg, design=d)
-
-    with torch.no_grad():
-        before = gc.gn_silu_conv3x3_grad.launches
-        got, again = run(), run()
-        torch.cuda.synchronize()
-        launches = gc.gn_silu_conv3x3_grad.launches - before
-    err, tol = 0.0, 1.0
-    for p, q in zip(got, ref):
-        if p.dtype != q.dtype or p.shape != q.shape:
-            raise AssertionError(f"gn_silu_conv3x3_grad: {p.dtype} {tuple(p.shape)} against "
-                                 f"{q.dtype} {tuple(q.shape)}")
-        e = float((p.float() - q.float()).abs().max())
-        t = ((RECOMPUTE_TOL if x.dtype == torch.bfloat16 else CONV_GRAD_F32_TOL)
-             * max(1e-30, float(q.float().abs().max())))
-        if not e <= t or e / t >= err / tol:
-            err, tol = e, t
-    same = all(torch.equal(p, q) for p, q in zip(got, again))
+    designs = [chosen] + ([CONV_GRAD_EARLIER[chosen]] if chosen in CONV_GRAD_EARLIER else [])
     s = x.element_size()
     # x and g read, dx and dw written, w, the scale and offset read, their
     # gradients and dbias written; two products of the forward's size
@@ -956,6 +965,12 @@ def conv_grad_site(torch, ops, a, n, conv_site, per_site, summary):
     flops = 2 * 2.0 * b * h * wd * 9 * cin * cout
     dtype = str(x.dtype).replace("torch.", "")
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+    # the weight product alone: x (as h) and g read, dw and dbias written
+    w_bytes = (x.numel() + g.numel() + wk.numel()) * s + cout * 4
+    wgrad_bound = max(w_bytes / PEAK_BYTES * 1e3, flops / 2 / PEAK_FLOPS[dtype] * 1e3)
+
+    def run(xc=x, gg=g, d=chosen):
+        return gc.gn_silu_conv3x3_grad(xc, sc, off, wk, gg, design=d)
 
     def activated(xc):
         y = xc.float() * sc[:, None, None, :] + off[:, None, None, :]
@@ -963,15 +978,17 @@ def conv_grad_site(torch, ops, a, n, conv_site, per_site, summary):
 
     w_oihw = wk.permute(2, 3, 0, 1).contiguous(memory_format=torch.channels_last)
 
-    def library(hh, gg):
+    def library(hh, gg, mask):
         return torch.ops.aten.convolution_backward(
             gg.permute(0, 3, 1, 2), hh, w_oihw, [cout], [1, 1], [1, 1], [1, 1], False, [0, 0],
-            1, [True, True, True])
+            1, list(mask))
 
+    by_design, worst = {}, None
     with torch.no_grad():
         # copies of (x, g) that do not fit the L2 cache together
         pairs = [(x.clone(), g.clone()) for _ in range(len(cold_copies(x, nbytes)))]
         hs = [activated(xc) for xc, _ in pairs]
+        per_graph = max(1, 100 // len(pairs))
 
         def rounds(fn):
             def go():
@@ -979,37 +996,77 @@ def conv_grad_site(torch, ops, a, n, conv_site, per_site, summary):
                     fn(i, xc, gg)
             return go
 
-        ms = sync_time(torch, run)
-        device_ms = graph_time(torch, rounds(lambda i, xc, gg: run(xc, gg)),
-                               max(1, 100 // len(pairs)), 10) / len(pairs)
-        lib_device_ms = graph_time(torch, rounds(lambda i, xc, gg: library(hs[i], gg)),
-                                   max(1, 100 // len(pairs)), 10) / len(pairs)
+        for d in designs:
+            before = gc.gn_silu_conv3x3_grad.launches
+            got, again = run(d=d), run(d=d)
+            torch.cuda.synchronize()
+            launches = gc.gn_silu_conv3x3_grad.launches - before
+            err, tol = 0.0, 1.0
+            for p, q in zip(got, ref):
+                if p.dtype != q.dtype or p.shape != q.shape:
+                    raise AssertionError(f"gn_silu_conv3x3_grad {d}: {p.dtype} {tuple(p.shape)} "
+                                         f"against {q.dtype} {tuple(q.shape)}")
+                e = float((p.float() - q.float()).abs().max())
+                t = ((RECOMPUTE_TOL if x.dtype == torch.bfloat16 else CONV_GRAD_F32_TOL)
+                     * max(1e-30, float(q.float().abs().max())))
+                if not e <= t or e / t >= err / tol:
+                    err, tol = e, t
+            same = all(torch.equal(p, q) for p, q in zip(got, again))
+            del got, again
+            one_round = rounds(lambda i, xc, gg, d=d: run(xc, gg, d))
+            graph = capture_graph(torch, one_round, per_graph)
+            by_design[d] = {
+                "ms": sync_time(torch, lambda d=d: run(d=d)),
+                "device_ms": replay_ms(torch, graph, 10) / (per_graph * len(pairs)),
+                "kernels": graph_kernels(torch, graph, per_graph * len(pairs)),
+                "max_abs_err": err, "tol": tol, "same_bits_twice": same,
+                "launches_two_calls": launches}
+            del graph
+            if not err <= tol or not same or launches != 2:
+                worst = f"design {d}: {by_design[d]}"
+        lib = {}
+        for key, mask in (("library_ms", (True, True, True)),
+                          ("library_weight_ms", (False, True, True)),
+                          ("library_input_ms", (True, False, False))):
+            lib[key] = graph_time(torch, rounds(lambda i, xc, gg, m=mask: library(hs[i], gg, m)),
+                                  per_graph, 10) / len(pairs)
         del pairs, hs
         plain_ms = sync_time(torch, lambda: gc.gn_silu_conv3x3_grad_plain(x, sc, off, wk, g))
     parent_ms = sync_time(torch, lambda: run(d="recompute"))
+    main = by_design[chosen]
     site = {"kernel": "gn_silu_conv3x3_grad", "shape": conv_site["shape"],
             "cout": cout, "dtype": conv_site["dtype"], "design": chosen,
-            "calls_per_forward": n, "max_abs_err": err, "tol": tol, "ms": ms,
-            "device_ms": device_ms, "same_bits_twice": same, "launches_two_calls": launches,
-            "recompute_ms": parent_ms, "plain_ms": plain_ms, "library_ms": lib_device_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            "calls_per_forward": n, "max_abs_err": main["max_abs_err"], "tol": main["tol"],
+            "ms": main["ms"], "device_ms": main["device_ms"],
+            "same_bits_twice": main["same_bits_twice"],
+            "launches_two_calls": main["launches_two_calls"], "recompute_ms": parent_ms,
+            "plain_ms": plain_ms, **lib, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "wgrad_bound_ms": wgrad_bound, "design_ms": by_design}
     per_site.append(site)
     emit(dict(phase="kernel_site", **site))
-    if not err <= tol or not same or launches != 2:
+    if worst is not None:
         raise AssertionError(f"gn_silu_conv3x3_grad {site['shape']} -> {cout} {site['dtype']}: "
-                             f"max abs err {err} (tol {tol}), same bits twice {same}, "
-                             f"{launches} launches for 2 calls")
+                             f"{worst} (kernel vs plain within tol, the same bits twice, one "
+                             f"launch a call)")
     if summary is None:
         return
     s = summary.setdefault("gn_silu_conv3x3_grad", dict(max_abs_err=0.0, calls=0))
-    s["max_abs_err"] = max(s["max_abs_err"], err)
-    for key, val in (("ms", ms), ("device_ms", device_ms), ("plain_ms", plain_ms),
-                     ("recompute_ms", parent_ms), ("library_ms", lib_device_ms),
-                     ("library_device_ms", lib_device_ms), ("bytes_ms", t_bytes),
-                     ("ops_ms", t_ops), ("bound_ms", max(t_bytes, t_ops))):
+    s["max_abs_err"] = max(s["max_abs_err"], main["max_abs_err"])
+    for key, val in (("ms", main["ms"]), ("device_ms", main["device_ms"]),
+                     ("plain_ms", plain_ms), ("recompute_ms", parent_ms),
+                     ("library_device_ms", lib["library_ms"]), ("bytes_ms", t_bytes),
+                     ("ops_ms", t_ops), ("bound_ms", max(t_bytes, t_ops)),
+                     ("wgrad_bound_ms", wgrad_bound), *lib.items()):
         s[key] = s.get(key, 0.0) + n * val
-    s["design"] = ", ".join(sorted(set(filter(None, s.get("design", "").split(", "))) | {chosen}))
+    add_designs(s, site, n)
+    # each kernel's device ms over the sites, by design (bf16 sites and the
+    # head apart), from the graphs' profiles
+    per = s.setdefault("design_kernel_device_ms", {})
+    for d, t in by_design.items():
+        into = per.setdefault(f"{d} ({site['dtype']})", {})
+        for name, ms in t["kernels"].items():
+            into[name] = into.get(name, 0.0) + n * ms
     s["calls"] += n
 
 
@@ -1087,10 +1144,9 @@ def cold_copies(x, nbytes, total=200e6, most=64):
     return [x.clone() for _ in range(int(max(1, min(most, -(-total // nbytes)))))]
 
 
-def graph_time(torch, fn, launches=100, replays=20):
-    """Device-only ms per call of ``fn``: ``launches`` calls captured into
-    one CUDA graph, replayed, by CUDA events over all of them (no host cost
-    between the kernels)."""
+def capture_graph(torch, fn, launches):
+    """``launches`` calls of ``fn`` captured into one CUDA graph, after a
+    warm-up on a side stream; replayed once."""
     fn()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -1103,13 +1159,36 @@ def graph_time(torch, fn, launches=100, replays=20):
             fn()
     graph.replay()
     torch.cuda.synchronize()
+    return graph
+
+
+def replay_ms(torch, graph, replays):
+    """ms of one replay of ``graph``, by CUDA events over ``replays``."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(replays):
         graph.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / (launches * replays)
+    return start.elapsed_time(end) / replays
+
+
+def graph_time(torch, fn, launches=100, replays=20):
+    """Device-only ms per call of ``fn``: ``launches`` calls captured into
+    one CUDA graph, replayed, by CUDA events over all of them (no host cost
+    between the kernels)."""
+    return replay_ms(torch, capture_graph(torch, fn, launches), replays) / launches
+
+
+def graph_kernels(torch, graph, calls):
+    """Each kernel's device ms a call, by kernel name, from a profile of one
+    replay of ``graph`` that holds ``calls`` calls: lower bounds, since the
+    profiler may drop records."""
+    out = {}
+    for k in profile_device(torch, graph.replay)["all"]:
+        name = kernel_name(k["name"])
+        out[name] = out.get(name, 0.0) + k["ms"] / calls
+    return out
 
 
 def wgmma_in_probe(library):
@@ -1307,22 +1386,29 @@ def train_phases(torch, ops, model, gen):
     if syncs:
         raise AssertionError(f"the train step copies to the host: {syncs}")
     # device operations a step, each the larger of two profiles (a profile
-    # may drop records, so each count is a lower bound), and the device ms of
-    # each profile: in the designs the shapes select, with gn_affine's
-    # gradient in its first design (fold_bwd+apply: 4-5 operations a site),
-    # and with the conv's gradient as the parent ran it (recompute: autograd
-    # through the recomputed plain version, about 40 operations a site)
+    # may drop records, so each count is a lower bound), the device ms and
+    # idle share of each profile and the peak memory: in the designs the
+    # shapes select, with gn_affine's gradient in its first design
+    # (fold_bwd+apply: 4-5 operations a site), with the conv's gradient in
+    # first designs by name (wgmma_taprow at the bf16 sites, general at the
+    # head), and as the parent ran it (recompute: autograd through the
+    # recomputed plain version, about 40 operations a site)
     by_design = {}
     gc = ops.ops.gn_conv
     for name, swap in (("selected", {}),
                        ("fold_bwd+apply", {"grad_design": lambda x, groups: "fold_bwd+apply"}),
+                       ("conv_wgmma_taprow", {"conv_grad_design": first_designs(
+                           gc.conv_grad_design)}),
                        ("conv_recompute", {"conv_grad_design": lambda x, w: "recompute"})):
         saved = {k: getattr(gc, k) for k in swap}
         before = gc.gn_silu_conv3x3_grad.launches
         try:
             for k, fn in swap.items():
                 setattr(gc, k, fn)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             profs = [profile_device(torch, lambda: step(state, xb)) for _ in range(2)]
+            turn_peak = torch.cuda.max_memory_allocated()
         finally:
             for k, fn in saved.items():
                 setattr(gc, k, fn)
@@ -1334,7 +1420,8 @@ def train_phases(torch, ops, model, gen):
                                  f"launches")
         by_design[name] = {"device_ops": max(p["device_ops"] for p in profs),
                            "device_busy_ms": [p["device_busy_ms"] for p in profs],
-                           "idle_share": [p["idle_share"] for p in profs]}
+                           "idle_share": [p["idle_share"] for p in profs],
+                           "max_memory_allocated_bytes": turn_peak}
     ops_a_step = {k: v["device_ops"] for k, v in by_design.items()}
     ops_a_step["fewer"] = ops_a_step["fold_bwd+apply"] - ops_a_step["selected"]
     ops_a_step["fewer_than_conv_recompute"] = (ops_a_step["conv_recompute"]
@@ -3274,6 +3361,7 @@ OWN_KERNELS = ("attn_bf16_kernel", "attn_f32_kernel", "conv_wgmma_kernel",
                "conv_narrow_f32_kernel", "conv_kernel<", "gn_moments_kernel", "gn_apply_kernel",
                "gn_affine_bwd_kernel", "gn_batch_sum_kernel", "gn_fold_bwd_kernel",
                "gn_fold_kernel", "dgrad_wgmma_kernel", "wgrad_wgmma_kernel",
+               "wgrad9_wgmma_kernel", "grad_narrow_f32_kernel", "activate_kernel",
                "dgrad_general_kernel", "wgrad_general_kernel", "grad_finish_kernel")
 
 
@@ -3576,6 +3664,7 @@ def fused_train_phase(torch, ops, gen, smi, out_dir=None):
 
     from probabilisticdeepdiffusionmodels_torch.cli import train as cli_train
     from probabilisticdeepdiffusionmodels_torch.config import load_config
+    from probabilisticdeepdiffusionmodels_torch.engine import DiffusionEngine
     from probabilisticdeepdiffusionmodels_torch.train.checkpoint import CheckpointManager
     from probabilisticdeepdiffusionmodels_torch.train.step import CapturedSteps
 
@@ -3623,7 +3712,37 @@ def fused_train_phase(torch, ops, gen, smi, out_dir=None):
     line["max_memory_reserved_bytes"] = reserved
     line["first_chunk_seconds"] = first_s
     line["capture_seconds"] = chunk.capture_seconds
-    del eager_e, graph_e, chunk
+    del eager_e
+
+    # (c2) a replay's device work a step with the conv's gradient captured in
+    # the designs the shapes select (the graph above) and in the first ones by name
+    # (a second engine captured with them), each from two profiles of a replay
+    line["replay_by_conv_grad_design"] = replays = {}
+    gc = ops.ops.gn_conv
+    selects = gc.conv_grad_design
+
+    def replay_work(e):
+        profs = [profile_device(torch, lambda: e.training_steps(xs[1])) for _ in range(2)]
+        return {"device_ms_per_step": [p["device_busy_ms"] / k for p in profs],
+                "idle_share": [p["idle_share"] for p in profs],
+                "device_ops": max(p["device_ops"] for p in profs)}
+
+    replays["selected"] = replay_work(graph_e)
+    del graph_e, chunk
+    taprow_e = DiffusionEngine(dict(MODEL_CFG), {"lr": FUSED_LR}, ema=0.9999, device="cuda")
+    fill_zero_params(torch, taprow_e.state.model, seed=50)
+    gc.conv_grad_design = first_designs(selects)
+    try:
+        before = gc.gn_silu_conv3x3_grad.launches
+        taprow_e.training_steps(xs[0])  # warm-up and capture
+        if gc.gn_silu_conv3x3_grad.launches - before != 2 * k * PER_BACKWARD[
+                "gn_silu_conv3x3_grad"]:
+            bad.append(f"the wgmma_taprow capture counted "
+                       f"{gc.gn_silu_conv3x3_grad.launches - before} conv-gradient launches")
+    finally:
+        gc.conv_grad_design = selects
+    replays["wgmma_taprow"] = replay_work(taprow_e)
+    del taprow_e
 
     # (d) the CLI with fused steps and the device-resident loader
     root = CLI_ROOT / "fused"
@@ -4654,7 +4773,14 @@ def main(argv=None) -> int:
          "recompute_ms": s.get("recompute_ms"),
          # the designs that ran at the sites, and each design's device-only
          # ms summed over them where both were timed by name
-         "design": s.get("design"), "design_device_ms": s.get("design_device_ms")}
+         "design": s.get("design"), "design_device_ms": s.get("design_device_ms"),
+         # the conv's gradient: each design's kernels by name, device-only,
+         # and the library's weight and input products alone beside the
+         # weight product's bound
+         "design_kernel_device_ms": s.get("design_kernel_device_ms"),
+         "library_weight_ms": s.get("library_weight_ms"),
+         "library_input_ms": s.get("library_input_ms"),
+         "wgrad_bound_ms": s.get("wgrad_bound_ms")}
         for name, s in summary.items()]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})
     return 0

@@ -12,29 +12,53 @@
 // plain version rounds it to x's dtype, as the conv's input gradient is).
 //
 // Replaces the gradient of probabilisticdeepdiffusionmodels_tpu/ops/
-// gn_conv_pallas.py (_fused_bwd: jax.vjp of the XLA form, which XLA compiles
-// into two conv transposes and fused elementwise passes).  Bound on the H100:
-// tensor-core operations (two products each as large as the forward's: a
-// 32x32x128->128 site at batch 128 is 2 x 39 us at 989 TFLOP/s).  Three
-// launches a call, none with float atomics, so a call gives the same bits
-// every time, and no host synchronisation, so a CUDA graph can hold it:
+// gn_conv_pallas.py (_fused_bwd, :238: jax.vjp of the XLA form, which XLA
+// compiles into two conv transposes and fused elementwise passes).  Bound on
+// the H100: tensor-core operations at the bf16 sites (two products each as
+// large as the forward's: a 32x32x128->128 site at batch 128 is 2 x 39 us at
+// 989 TFLOP/s), bytes at the float32 output head.  Every design is a fixed
+// set of launches with no float atomics, so a call gives the same bits every
+// time, and no host synchronisation, so a CUDA graph can hold it:
 //   1. dgrad: dh as an implicit GEMM (M = output pixels, N = Cin,
 //      K = 9 taps x Cout), the activation's backward in its epilogue, which
 //      writes dx and one partial of sum(dp*x) and sum(dp) per (pixel tile,
 //      image of the tile, channel) to a workspace;
-//   2. wgrad: per tap, M x N = Cin x Cout over K = pixels, split over blocks
-//      in a fixed assignment of pixel tiles; h is recomputed in shared memory
-//      from x and never written to device memory; blocks of the first tap
-//      (row) and channel slice also add up g for dbias;
+//   2. wgrad: dw[tap] = h^T g, M x N = Cin x Cout over K = pixels, split over
+//      blocks in a fixed assignment of pixel tiles, one partial a split;
 //   3. finish: the partials added in a fixed order (da, doff, dw, dbias), dw
 //      cast to its dtype.
 // ops/gn_conv.py::conv_grad_design picks a design and grad_plan its tiles and
-// split; the workspaces are allocated there from them, and the entry point
-// refuses any smaller than its own tiling fills.
+// split; the workspaces and the activation buffer are allocated there from
+// them, and the entry point refuses any smaller than its own tiling fills.
 //
 // wgmma (bf16, Cin and Cout multiples of 8, images of at least 4x4 whose
 // pixel count is over 64 or a multiple of 16, so no warp's 16 rows straddle
-// two images):
+// two images): dgrad as below, whose epilogue, which stages x for the
+// activation's backward anyway, also stores h = silu(x*a + off) in bf16 with
+// 16-byte stores into a transient (B, H, W, Cin) buffer (where no dx is
+// wanted, one elementwise launch writes h instead); then wgrad9:
+//   What bounded the first design's wgrad (wgmma_taprow below) on this card
+//   was not the products: each of its blocks re-activated the x halo for 3
+//   taps x 64 channels and refetched its tiles for every (Cout slice, tap
+//   row), so each x element was activated 3 x Cout/64 times and each g tile
+//   read 3 x Cin/64 times.  wgrad9 activates nothing: it reads h by TMA
+//   through a 4-D (Cin, W, H, B) map whose zero fill past the image is
+//   exactly the padding after the activation (no halo row of a neighbouring
+//   image is read), and one block owns all nine taps of its (pixel split,
+//   64 Cin, 64 Cout): three consumer warpgroups, one a tap row, each hold
+//   three 64x64 float32 accumulators and take their three shifted views of
+//   the same landed h halo (ldmatrix.trans, A = h^T) against the same g tile
+//   (B, N-major).  Each h element is read Cout/64 times, each g tile Cin/64
+//   times.  One thread of a fourth warpgroup issues the copies into a ring of
+//   up to four stages; in the blocks of Cin slice 0 that warpgroup also adds
+//   up the landed g rows for dbias (one 16-byte chunk a row and thread, so
+//   the sum keeps pace with the products: one warp adding 4 bytes a row held
+//   those blocks to half the others' speed), one partial a split.  It gives
+//   up registers (setmaxnreg) so that the consumers hold 152 a thread, for
+//   96 accumulators and two sets of A fragments (each SM sub-partition holds
+//   4 of a block's warps, so no block shape gives more without it).
+// wgmma_taprow (by name only: the first design of this pair, kept so that both
+// can be timed in one run):
 //   dgrad: the forward's persistent, warp-specialised block (one thread
 //     issues the TMA copies of the weight ring and of each 64-channel slice
 //     of g's halo, whose border past the image arrives zero-filled as g's
@@ -55,10 +79,25 @@
 //     read A = h^T (Cin x pixels) with ldmatrix.trans from the halo shifted
 //     by their tap and multiply by B = the g tile, N-major (tnspB = 1),
 //     while the next tile is activated.
-// general (every other shape and dtype: the float32 output head and every
-// float32 site, bf16 with Cin or Cout not a multiple of 8): 64 pixels x 64
-// channels a block of 4 warps with operands staged in shared memory as
-// float32 and scalar FMAs in true float32 (no TF32, as JAX pins it).
+// narrow_f32 (float32 with Cout <= 8 and Cin % 4 == 0: the UNet's output
+// head, 128 -> 3, or 6 under learned sigma).  Bound on the H100: bytes (x
+// read and dx written, 67 MB each at batch 128; the products are 2 x 9 x
+// Cin x Cout flops a pixel).  general, its first design here, staged K 32
+// at a time for a Cout of 3 and re-activated x once a tap.  This is one
+// launch (and the finish) that reads x once: the whole weight and the
+// tile's g halo stay in shared memory; a thread owns a run of 2 channels (1
+// for Cout 7 and 8) and walks every 256 / (Cin / run)-th pixel of the
+// tile; from each x value it forms dh (K = 9 Cout, the 9 Cout neighbouring
+// g values read once and used twice), dp, dx, its shares of sum(dp*x) and
+// sum(dp), h = silu(p) and h times the same g values into its 9 Cout x run
+// partials of dw, and its share of dbias.  The block adds its threads'
+// partials in a fixed order in shared memory: one partial of dw and dbias
+// a tile, one of da and doff a (tile, channel).  True float32 throughout
+// (no TF32, as JAX pins it).
+// general (every other shape and dtype: float32 sites wider than 8, bf16
+// with Cin or Cout not a multiple of 8): 64 pixels x 64 channels a block of
+// 4 warps with operands staged in shared memory as float32 and scalar FMAs
+// in true float32.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -151,6 +190,43 @@ __device__ __forceinline__ void bar_sync_named(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// h = silu(x*a + off) of 8 neighbouring bf16 channels, rounded to bf16, as
+// the forward's wgmma kernel activates its halo; a and off point at the
+// first channel's scale and offset (16-byte aligned)
+__device__ __forceinline__ uint4 activate8(uint4 xv, const float* a, const float* off) {
+  const float4 a0 = reinterpret_cast<const float4*>(a)[0];
+  const float4 a1 = reinterpret_cast<const float4*>(a)[1];
+  const float4 o0 = reinterpret_cast<const float4*>(off)[0];
+  const float4 o1 = reinterpret_cast<const float4*>(off)[1];
+  const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+  const float ov[8] = {o0.x, o0.y, o0.z, o0.w, o1.x, o1.y, o1.z, o1.w};
+  const uint32_t* xr = reinterpret_cast<const uint32_t*>(&xv);
+  uint4 out;
+  uint32_t* hr = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 f = unpack_bf16(xr[k]);
+    hr[k] = pack_bf16(silu_fast(fmaf(f.x, av[2 * k], ov[2 * k])),
+                      silu_fast(fmaf(f.y, av[2 * k + 1], ov[2 * k + 1])));
+  }
+  return out;
+}
+
+// h for the whole of x, 8 channels a thread and step: the wgmma design's
+// activation where no dgrad runs to store it
+__global__ void __launch_bounds__(256)
+activate_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ a,
+                const float* __restrict__ off, __nv_bfloat16* __restrict__ h, long n8, int hw,
+                int Cin) {
+  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < n8;
+       i += (long)gridDim.x * blockDim.x) {
+    const long e = 8 * i, px = e / Cin;
+    const long at = px / hw * Cin + (e - px * Cin);
+    *reinterpret_cast<uint4*>(h + e) =
+        activate8(*reinterpret_cast<const uint4*>(x + e), a + at, off + at);
+  }
+}
+
 // ----------------------------------------------------------------- wgmma
 
 constexpr int WK = 64;  // channels of one 128-byte swizzled row
@@ -232,11 +308,13 @@ struct DLayout {
 // Warpgroup 0: warp 0 (one lane) issues every copy (per step the weight tile
 // of (Cout slice, flipped tap) by TMA, per slice the g halo by TMA), warps
 // 1-3 have nothing to do; warpgroups 1 .. NWG compute, as the forward's.
-template <int NWG, int BN>
+// STORE_H: the epilogue also writes h of the x rows it stages (wgmma).
+template <int NWG, int BN, bool STORE_H>
 __global__ void __launch_bounds__(128 * (NWG + 1))
 dgrad_wgmma_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ a,
                    const float* __restrict__ off, __nv_bfloat16* __restrict__ dx,
-                   float* __restrict__ ws_a, Geom g, const __grid_constant__ CUtensorMap wmap,
+                   __nv_bfloat16* __restrict__ h, float* __restrict__ ws_a, Geom g,
+                   const __grid_constant__ CUtensorMap wmap,
                    const __grid_constant__ CUtensorMap gmap) {
   constexpr int STAGE = DLayout<NWG, BN>::STAGE;
   constexpr int LDE = BN + 8;
@@ -329,7 +407,13 @@ dgrad_wgmma_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict_
     for (int idx = lane; idx < 16 * (BN / 8); idx += 32) {
       const int r = idx / (BN / 8), c = idx % (BN / 8), ci = n0 + 8 * c, p = 16 * cw + r;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (ci < g.Cin && p < npix) v = *reinterpret_cast<const uint4*>(x + (first + p) * g.Cin + ci);
+      if (ci < g.Cin && p < npix) {
+        const long at = (first + p) * g.Cin + ci;
+        v = *reinterpret_cast<const uint4*>(x + at);
+        if (STORE_H)
+          *reinterpret_cast<uint4*>(h + at) =
+              activate8(v, a + (long)bw * g.Cin + ci, off + (long)bw * g.Cin + ci);
+      }
       *reinterpret_cast<uint4*>(Ew + r * LDE + 8 * c) = v;
     }
     __syncwarp();
@@ -451,9 +535,9 @@ size_t dgrad_smem(Geom g) {
   return 1024 + DLayout<NWG, BN>(g.NI * (g.TH + 2) * (g.TW + 2)).bytes;
 }
 
-template <int NWG, int BN>
+template <int NWG, int BN, bool STORE_H>
 cudaError_t launch_dgrad_wgmma(const void* x, const void* a, const void* off, const void* w,
-                               const void* gr, void* dx, float* ws_a, Geom g,
+                               const void* gr, void* dx, void* h, float* ws_a, Geom g,
                                cudaStream_t stream) {
   const size_t smem = dgrad_smem<NWG, BN>(g);
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
@@ -467,7 +551,7 @@ cudaError_t launch_dgrad_wgmma(const void* x, const void* a, const void* off, co
   cudaError_t err = encode_bf16_map(&wmap, w, 3, wdims, wbox);
   if (err != cudaSuccess) return err;
   if ((err = encode_bf16_map(&gmap, gr, 4, gdims, gbox)) != cudaSuccess) return err;
-  if ((err = allow_smem(dgrad_wgmma_kernel<NWG, BN>, smem)) != cudaSuccess) return err;
+  if ((err = allow_smem(dgrad_wgmma_kernel<NWG, BN, STORE_H>, smem)) != cudaSuccess) return err;
   static int sms = 0, per_sm = 0;
   static size_t per_sm_smem = 0;
   if (sms == 0) {
@@ -478,17 +562,19 @@ cudaError_t launch_dgrad_wgmma(const void* x, const void* a, const void* off, co
   }
   if (per_sm_smem != smem) {
     if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, dgrad_wgmma_kernel<NWG, BN>, 128 * (NWG + 1), smem)) != cudaSuccess)
+             &per_sm, dgrad_wgmma_kernel<NWG, BN, STORE_H>, 128 * (NWG + 1), smem)) !=
+         cudaSuccess)
       return err;
     per_sm_smem = smem;
   }
   const long ntm = n_tiles(g), ntn = (g.Cin + BN - 1) / BN;
   long gx = (long)(per_sm > 0 ? per_sm : 1) * sms / ntn;
   gx = gx < 1 ? 1 : (gx > ntm ? ntm : gx);
-  dgrad_wgmma_kernel<NWG, BN><<<dim3((unsigned)gx, (unsigned)ntn), 128 * (NWG + 1), smem,
-                                  stream>>>(
+  dgrad_wgmma_kernel<NWG, BN, STORE_H><<<dim3((unsigned)gx, (unsigned)ntn), 128 * (NWG + 1),
+                                           smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(a),
-      static_cast<const float*>(off), static_cast<__nv_bfloat16*>(dx), ws_a, g, wmap, gmap);
+      static_cast<const float*>(off), static_cast<__nv_bfloat16*>(dx),
+      static_cast<__nv_bfloat16*>(h), ws_a, g, wmap, gmap);
   return cudaGetLastError();
 }
 
@@ -758,6 +844,242 @@ cudaError_t launch_wgrad_wgmma(const void* x, const void* a, const void* off, co
   return cudaGetLastError();
 }
 
+// -------------------------------------------------------- wgmma wgrad9
+
+constexpr int W9_THREADS = 512;    // warpgroups 0-2 consume; warpgroup 3 copies (its warp 12)
+constexpr int W9_PRODUCER = 12;
+constexpr int W9_MAX_STAGES = 4;
+// registers a thread after the copying warpgroup gives its surplus to the
+// consumers: 40 x 128 + 152 x 384 <= 65,536, and each SM sub-partition's
+// one copying and three consuming warps take 32 x (40 + 3 x 152) <= 16,384
+constexpr int W9_PRODUCER_REGS = 40;
+constexpr int W9_CONSUMER_REGS = 152;
+
+constexpr int W9_BIAS_PHASES = 16;  // the copying warpgroup's 128 threads: 16 rows x 8 chunks
+
+// Shared memory of wgrad9: `stages` h halo buffers (each 1024-byte aligned),
+// as many g tiles, the dbias partials of the 16 row phases, the mbarriers.
+// Mirrored by ops/gn_conv.py::_wgrad9_smem.
+struct W9Layout {
+  int halo_stride, gbuf, bias, bars, bytes;
+  __host__ __device__ W9Layout(int halo_px, int stages) {
+    halo_stride = (halo_px * 128 + 1023) / 1024 * 1024;
+    gbuf = stages * halo_stride;
+    bias = gbuf + stages * WG_GBYTES;
+    bars = bias + W9_BIAS_PHASES * WK * 4;
+    bytes = bars + 2 * W9_MAX_STAGES * 8;
+  }
+};
+
+// Block (split z, Cin slice cs, Cout slice n0) walks tiles z, z + splits,
+// ...; warpgroup dy holds taps (dy, 0..2).  A k-step is 16 pixels of the
+// tile: the warpgroup loads its three taps' A fragments from the halo
+// shifted by each tap and issues three products on the k-step's rows of the
+// g tile; one k-step's products stay in flight while the next one's
+// fragments load, and the buffer of tile j - 1 is released once the first
+// k-step of tile j has retired tile j - 1's last products.
+__global__ void __launch_bounds__(W9_THREADS, 1)
+wgrad9_wgmma_kernel(float* __restrict__ ws_w, float* __restrict__ ws_b, Geom g, int stages,
+                    const __grid_constant__ CUtensorMap hmap,
+                    const __grid_constant__ CUtensorMap gmap) {
+  const int halo_w = g.TW + 2;
+  const int halo_px = g.NI * (g.TH + 2) * halo_w;
+  const int count = g.NI * g.TH * g.TW;  // rows of a g tile that TMA writes
+  const W9Layout L(halo_px, stages);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* Halo = base;
+  unsigned char* Gt = base + L.gbuf;
+  float* Bias = reinterpret_cast<float*>(base + L.bias);  // [row phase][channel]
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L.bars);
+  uint64_t* empty = full + W9_MAX_STAGES;
+
+  const int ci_slices = (g.Cin + WK - 1) / WK;
+  const int cs = (blockIdx.y % ci_slices) * WK, n0 = (blockIdx.y / ci_slices) * WK;
+  const bool bias_block = blockIdx.y % ci_slices == 0;
+  const int z = blockIdx.x, splits = gridDim.x;
+  const int ntm = (g.B + g.NI - 1) / g.NI * g.tiles_y * g.tiles_x;
+  const int mine = (ntm - z + splits - 1) / splits;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
+
+  // the g rows past a tile's pixels stay zero: their products add nothing
+  for (int idx = tid; idx < stages * (WG_PX - count) * 32; idx += W9_THREADS) {
+    const int buf = idx / ((WG_PX - count) * 32), rest = idx % ((WG_PX - count) * 32);
+    reinterpret_cast<uint32_t*>(Gt + buf * WG_GBYTES + count * 128)[rest] = 0u;
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  if (tid == 0) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, 12 + (bias_block ? 4 : 0));
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= W9_PRODUCER) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(W9_PRODUCER_REGS));
+    // thread 0 of the warpgroup keeps the ring full; in a Cin-slice-0 block
+    // the warpgroup adds the g rows of each tile that has landed, `lag`
+    // tiles behind the copies (thread t: the 8 channels of 16-byte chunk
+    // t % 8 in rows t / 8, t / 8 + 16, ...), and then releases the buffer
+    // too; at the end the 16 row phases of a channel are added in order
+    const int pt = tid - 32 * W9_PRODUCER;
+    if (!bias_block && pt != 0) return;
+    const int lag = stages - 1, col = pt & 7, phase = pt >> 3;
+    float sum[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) sum[k] = 0.f;
+    for (int j = 0; j < mine + lag; ++j) {
+      if (j < mine && pt == 0) {
+        const int buf = j % stages;
+        if (j >= stages) mbar_wait(empty + buf, ((j - stages) / stages) & 1);
+        int b0, y0, x0;
+        tile_origin(g, z + j * splits, b0, y0, x0);
+        mbar_expect_tx(full + buf, halo_px * 128 + count * 128);
+        tma_load_4d(Halo + buf * L.halo_stride, &hmap, full + buf, cs, x0 - 1, y0 - 1, b0);
+        tma_load_4d(Gt + buf * WG_GBYTES, &gmap, full + buf, n0, x0, y0, b0);
+      }
+      if (bias_block && j >= lag) {
+        const int jb = j - lag, buf = jb % stages;
+        mbar_wait(full + buf, (jb / stages) & 1);
+        const unsigned char* gt = Gt + buf * WG_GBYTES;
+#pragma unroll 4
+        for (int p = phase; p < count; p += W9_BIAS_PHASES) {
+          const uint4 v = *reinterpret_cast<const uint4*>(gt + sw128(p, col));
+          const uint32_t* vr = reinterpret_cast<const uint32_t*>(&v);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const float2 f = unpack_bf16(vr[k]);
+            sum[2 * k] += f.x;
+            sum[2 * k + 1] += f.y;
+          }
+        }
+        __syncwarp();
+        mbar_arrive_lane0(empty + buf, lane);
+      }
+    }
+    if (bias_block) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) Bias[phase * WK + 8 * col + k] = sum[k];
+      bar_sync_named(1, 128);
+      if (pt < WK && n0 + pt < g.Cout) {
+        float t = 0.f;
+        for (int ph = 0; ph < W9_BIAS_PHASES; ++ph) t += Bias[ph * WK + pt];
+        ws_b[(long)z * g.Cout + n0 + pt] = t;
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------ products
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(W9_CONSUMER_REGS));
+  const int dy = warp >> 2, w4 = warp & 3;
+  const int gq = lane >> 2, tq = lane & 3;
+  // this lane's ldmatrix.trans rows: pixel 16 kk + 8 (lane / 16) + lane % 8
+  // of the tile (its halo index, shifted by the tap row, the same in every
+  // tile), channel chunk 2 w4 + (lane / 8) % 2 of the slice
+  const int chunk = 2 * w4 + ((lane >> 3) & 1);
+  int hbk[WG_PX / 16];
+#pragma unroll
+  for (int kk = 0; kk < WG_PX / 16; ++kk) {
+    int pb, py, px;
+    pixel(g, 0, 0, 0, 16 * kk + 8 * (lane >> 4) + (lane & 7), pb, py, px, hbk[kk]);
+    hbk[kk] += dy * halo_w;
+  }
+  float acc[3][32];
+#pragma unroll
+  for (int t = 0; t < 3; ++t)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[t][i] = 0.f;
+
+  // k-step kk of tile j (buffer buf): A of taps (dy, 0..2) into af, while
+  // the previous k-step's products, which read prev, may still run
+  auto step = [&](int j, int buf, int kk, uint32_t (&af)[3][4], uint32_t (&prev)[3][4]) {
+    const unsigned char* hbuf = Halo + buf * L.halo_stride;
+#pragma unroll
+    for (int t = 0; t < 3; ++t) {
+      const int r = hbk[kk] + t;
+      ldmatrix_x4_trans(af[t], hbuf + r * 128 + ((chunk ^ (r & 7)) << 4));
+    }
+    const uint64_t desc = smem_desc_sw128_mn(Gt + buf * WG_GBYTES, WG_GBYTES) + 128 * kk;
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < 3; ++t) WgmmaT<64>::mma(acc[t], af[t], desc);
+    wgmma_commit();
+    wgmma_wait<1>();
+    __syncwarp();
+    // tile j - 1's last products retired: its buffer may be refilled
+    mbar_arrive_lane0(empty + (j + stages - 1) % stages, lane, kk == 0 && j > 0);
+#pragma unroll
+    for (int t = 0; t < 3; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) asm volatile("" ::"r"(prev[t][e]));
+  };
+  uint32_t af0[3][4], af1[3][4];
+  for (int j = 0; j < mine; ++j) {
+    const int buf = j % stages;
+    mbar_wait(full + buf, (j / stages) & 1);
+#pragma unroll
+    for (int kk = 0; kk < WG_PX / 16; kk += 2) {
+      step(j, buf, kk, af0, af1);
+      step(j, buf, kk + 1, af1, af0);
+    }
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int t = 0; t < 3; ++t)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) fence_reg(acc[t][i]);
+  // rows: ci = cs + 16 w4 + gq (+ 8); columns: co = n0 + 8 nt + 2 tq (+ 1)
+#pragma unroll
+  for (int t = 0; t < 3; ++t) {
+    float* out = ws_w + (long)(z * 9 + 3 * dy + t) * g.Cout * g.Cin;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int ci = cs + 16 * w4 + gq + 8 * half, co = n0 + 8 * nt + 2 * tq + e;
+          if (ci < g.Cin && co < g.Cout) out[(long)co * g.Cin + ci] = acc[t][4 * nt + 2 * half + e];
+        }
+  }
+}
+
+// The ring's stages: as many as fit the shared memory, at most 4; 0 where
+// two do not fit.  Mirrored by ops/gn_conv.py::_wgrad9_stages.
+int wgrad9_stages(Geom g) {
+  set_tile(g, WG_PX);
+  const int halo_px = g.NI * (g.TH + 2) * (g.TW + 2);
+  for (int s = W9_MAX_STAGES; s >= 2; --s)
+    if (1024 + W9Layout(halo_px, s).bytes <= 227 * 1024) return s;
+  return 0;
+}
+
+cudaError_t launch_wgrad9_wgmma(const void* h, const void* gr, float* ws_w, float* ws_b, Geom g,
+                                int splits, cudaStream_t stream) {
+  const int stages = wgrad9_stages(g);
+  if (stages == 0) return cudaErrorInvalidValue;
+  set_tile(g, WG_PX);
+  const size_t smem = 1024 + W9Layout(g.NI * (g.TH + 2) * (g.TW + 2), stages).bytes;
+  CUtensorMap hmap, gmap;
+  const cuuint64_t hdims[4] = {(cuuint64_t)g.Cin, (cuuint64_t)g.W, (cuuint64_t)g.H,
+                               (cuuint64_t)g.B};
+  const cuuint32_t hbox[4] = {WK, (cuuint32_t)g.TW + 2, (cuuint32_t)g.TH + 2, (cuuint32_t)g.NI};
+  const cuuint64_t gdims[4] = {(cuuint64_t)g.Cout, (cuuint64_t)g.W, (cuuint64_t)g.H,
+                               (cuuint64_t)g.B};
+  const cuuint32_t gbox[4] = {WK, (cuuint32_t)g.TW, (cuuint32_t)g.TH, (cuuint32_t)g.NI};
+  cudaError_t err = encode_bf16_map(&hmap, h, 4, hdims, hbox);
+  if (err != cudaSuccess) return err;
+  if ((err = encode_bf16_map(&gmap, gr, 4, gdims, gbox)) != cudaSuccess) return err;
+  if ((err = allow_smem(wgrad9_wgmma_kernel, smem)) != cudaSuccess) return err;
+  const dim3 grid((unsigned)splits, (unsigned)(((g.Cin + WK - 1) / WK) * ((g.Cout + WK - 1) / WK)));
+  wgrad9_wgmma_kernel<<<grid, W9_THREADS, smem, stream>>>(ws_w, ws_b, g, stages, hmap, gmap);
+  return cudaGetLastError();
+}
+
 // --------------------------------------------------------------- general
 
 constexpr int GP = 64;   // pixels a block
@@ -969,6 +1291,226 @@ cudaError_t launch_general(const void* x, const void* a, const void* off, const 
   return cudaSuccess;
 }
 
+// ------------------------------------------------------------ narrow_f32
+
+constexpr int NG_THREADS = 256;
+constexpr int NG_PIXELS = 1024;  // pixels of a tile, at most: whole rows of one image
+
+// channels a thread owns: its 9 Cout x run partials of dw stay in registers
+__host__ __device__ constexpr int narrow_run(int cout) { return cout <= 6 ? 2 : 1; }
+
+// A tile of whole rows of one image, NG_PIXELS at most (one row where the
+// row is longer).  Mirrored by ops/gn_conv.py::_narrow_tile.
+void set_narrow_tile(Geom& g) {
+  g.NI = 1;
+  g.TW = g.W;
+  g.TH = g.W >= NG_PIXELS ? 1 : (NG_PIXELS / g.W < g.H ? NG_PIXELS / g.W : g.H);
+  g.tiles_y = (g.H + g.TH - 1) / g.TH;
+  g.tiles_x = 1;
+}
+
+// Shared memory: the g halo and the weight, then (over them) the threads'
+// partials.  Mirrored by ops/gn_conv.py::_narrow_grad_smem.
+size_t narrow_grad_smem(Geom g) {
+  set_narrow_tile(g);
+  const size_t run = narrow_run(g.Cout), groups = NG_THREADS / (g.Cin / run);
+  const size_t halo = ((size_t)(g.TH + 2) * (g.W + 2) * g.Cout + 3) / 4 * 4;
+  const size_t first = halo + 9 * (size_t)g.Cout * g.Cin;
+  const size_t parts = groups * (9 * (size_t)g.Cout + 2) * g.Cin + groups * g.Cout;
+  return sizeof(float) * (first > parts ? first : parts);
+}
+
+template <int N>
+__device__ __forceinline__ void load_run(float (&v)[N], const float* p) {
+  if constexpr (N == 4) {
+    const float4 f = *reinterpret_cast<const float4*>(p);
+    v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
+  } else if constexpr (N == 2) {
+    const float2 f = *reinterpret_cast<const float2*>(p);
+    v[0] = f.x, v[1] = f.y;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_run(float* p, const float (&v)[N]) {
+  if constexpr (N == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (N == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
+  }
+}
+
+// Block = one tile (image b, rows y0 ..); thread (pg, cg) owns channels
+// cg * RUN .. + RUN and pixels pg, pg + groups, ... of the tile, with x two
+// pixels ahead in registers.
+template <int COUT>
+__global__ void __launch_bounds__(NG_THREADS, 1)
+grad_narrow_f32_kernel(const float* __restrict__ x, const float* __restrict__ a,
+                       const float* __restrict__ off, const float* __restrict__ w,
+                       const float* __restrict__ gr, float* __restrict__ dx,
+                       float* __restrict__ ws_a, float* __restrict__ ws_w,
+                       float* __restrict__ ws_b, Geom g, int want_d, int want_w) {
+  constexpr int K = 9 * COUT, RUN = narrow_run(COUT);
+  extern __shared__ __align__(16) float smf[];
+  const int halo_w = g.W + 2, halo_px = (g.TH + 2) * halo_w;
+  float* Gs = smf;                                // [halo pixel][co], zero outside the image
+  float* Ws = Gs + (halo_px * COUT + 3) / 4 * 4;  // [tap * Cout + co][ci], as w lies
+  const int tile = blockIdx.x, b = tile / g.tiles_y, y0 = (tile % g.tiles_y) * g.TH;
+  const int npix = (g.H - y0 < g.TH ? g.H - y0 : g.TH) * g.W;
+  const int tpp = g.Cin / RUN, groups = NG_THREADS / tpp;
+  const int tid = threadIdx.x, cg = tid % tpp, pg = tid / tpp, ci0 = cg * RUN;
+  const bool active = pg < groups;
+
+  for (int idx = tid; idx < halo_px * COUT; idx += NG_THREADS) {
+    const int pos = idx / COUT, co = idx - pos * COUT;
+    const int hy = pos / halo_w, yy = y0 - 1 + hy, xx = pos - hy * halo_w - 1;
+    Gs[idx] = (yy >= 0 && yy < g.H && xx >= 0 && xx < g.W)
+                  ? gr[(((long)b * g.H + yy) * g.W + xx) * COUT + co]
+                  : 0.f;
+  }
+  for (int idx = tid; idx < K * g.Cin / 4; idx += NG_THREADS)
+    reinterpret_cast<float4*>(Ws)[idx] = reinterpret_cast<const float4*>(w)[idx];
+  __syncthreads();
+
+  float dw[K][RUN], sx[RUN], sd[RUN], sb[COUT];
+#pragma unroll
+  for (int i = 0; i < RUN; ++i) {
+    sx[i] = sd[i] = 0.f;
+#pragma unroll
+    for (int k = 0; k < K; ++k) dw[k][i] = 0.f;
+  }
+#pragma unroll
+  for (int co = 0; co < COUT; ++co) sb[co] = 0.f;
+  if (active) {
+    float av[RUN], ov[RUN], xa[RUN], xb[RUN];
+    load_run(av, a + (long)b * g.Cin + ci0);
+    load_run(ov, off + (long)b * g.Cin + ci0);
+    const long first = ((long)b * g.H + y0) * g.W * g.Cin + ci0;
+    if (pg < npix) load_run(xa, x + first + (long)pg * g.Cin);
+    if (pg + groups < npix) load_run(xb, x + first + (long)(pg + groups) * g.Cin);
+    int r = pg / g.W, c = pg - r * g.W;
+    for (int q = pg; q < npix; q += groups) {
+      float xv[RUN];
+#pragma unroll
+      for (int i = 0; i < RUN; ++i) xv[i] = xa[i], xa[i] = xb[i];
+      if (q + 2 * groups < npix) load_run(xb, x + first + (long)(q + 2 * groups) * g.Cin);
+      float p[RUN], s[RUN], hv[RUN], dh[RUN];
+#pragma unroll
+      for (int i = 0; i < RUN; ++i) {
+        p[i] = fmaf(xv[i], av[i], ov[i]);
+        s[i] = sigmoid_f(p[i]);
+        hv[i] = silu_f(p[i]);
+        dh[i] = 0.f;
+      }
+      // the 9 Cout g values whose products reach this pixel: dh reads them
+      // against the weight, dw against h
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const float* gp = Gs + ((r + 2 - tap / 3) * halo_w + c + 2 - tap % 3) * COUT;
+#pragma unroll
+        for (int co = 0; co < COUT; ++co) {
+          const float gv = gp[co];
+          float wv[RUN];
+          load_run(wv, Ws + (tap * COUT + co) * g.Cin + ci0);
+#pragma unroll
+          for (int i = 0; i < RUN; ++i) {
+            dh[i] = fmaf(gv, wv[i], dh[i]);
+            dw[tap * COUT + co][i] = fmaf(gv, hv[i], dw[tap * COUT + co][i]);
+          }
+        }
+      }
+      if (cg == 0) {
+#pragma unroll
+        for (int co = 0; co < COUT; ++co) sb[co] += Gs[((r + 1) * halo_w + c + 1) * COUT + co];
+      }
+      float dxv[RUN];
+#pragma unroll
+      for (int i = 0; i < RUN; ++i) {
+        const float dp = dh[i] * s[i] * (1.f + p[i] * (1.f - s[i]));
+        dxv[i] = dp * av[i];
+        sx[i] = fmaf(dp, xv[i], sx[i]);
+        sd[i] += dp;
+      }
+      if (want_d) store_run(dx + first + (long)q * g.Cin, dxv);
+      for (c += groups; c >= g.W; c -= g.W) ++r;
+    }
+  }
+  __syncthreads();  // Gs and Ws are read: the partials go over them
+  float* Red = smf;                               // [group][tap * Cout + co][ci]
+  float* RedA = Red + groups * K * g.Cin;         // [group][dp*x | dp][ci]
+  float* RedB = RedA + groups * 2 * g.Cin;        // [group][co]
+  if (active) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) store_run(Red + (pg * K + k) * g.Cin + ci0, dw[k]);
+    store_run(RedA + (2 * pg) * g.Cin + ci0, sx);
+    store_run(RedA + (2 * pg + 1) * g.Cin + ci0, sd);
+    if (cg == 0) {
+#pragma unroll
+      for (int co = 0; co < COUT; ++co) RedB[pg * COUT + co] = sb[co];
+    }
+  }
+  __syncthreads();
+  // the groups' partials added in order
+  if (want_w) {
+    for (int e = tid; e < K * g.Cin; e += NG_THREADS) {
+      float t = 0.f;
+      for (int q = 0; q < groups; ++q) t += Red[q * K * g.Cin + e];
+      ws_w[(long)tile * K * g.Cin + e] = t;
+    }
+    if (tid < COUT) {
+      float t = 0.f;
+      for (int q = 0; q < groups; ++q) t += RedB[q * COUT + tid];
+      ws_b[(long)tile * COUT + tid] = t;
+    }
+  }
+  if (want_d) {
+    for (int e = tid; e < 2 * g.Cin; e += NG_THREADS) {
+      float t = 0.f;
+      for (int q = 0; q < groups; ++q) t += RedA[2 * q * g.Cin + e];
+      ws_a[(long)tile * 2 * g.Cin + e] = t;
+    }
+  }
+}
+
+template <int COUT>
+cudaError_t launch_narrow_cout(const void* x, const void* a, const void* off, const void* w,
+                               const void* gr, void* dx, float* ws_a, float* ws_w, float* ws_b,
+                               Geom g, bool want_d, bool want_w, cudaStream_t stream) {
+  const size_t smem = narrow_grad_smem(g);
+  set_narrow_tile(g);
+  cudaError_t err = allow_smem(grad_narrow_f32_kernel<COUT>, smem);
+  if (err != cudaSuccess) return err;
+  grad_narrow_f32_kernel<COUT><<<(unsigned)n_tiles(g), NG_THREADS, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(a), static_cast<const float*>(off),
+      static_cast<const float*>(w), static_cast<const float*>(gr), static_cast<float*>(dx),
+      ws_a, ws_w, ws_b, g, int(want_d), int(want_w));
+  return cudaGetLastError();
+}
+
+cudaError_t launch_narrow(const void* x, const void* a, const void* off, const void* w,
+                          const void* gr, void* dx, float* ws_a, float* ws_w, float* ws_b, Geom g,
+                          bool want_d, bool want_w, cudaStream_t stream) {
+  switch (g.Cout) {
+#define PDDM_NARROW(C) \
+  case C:              \
+    return launch_narrow_cout<C>(x, a, off, w, gr, dx, ws_a, ws_w, ws_b, g, want_d, want_w, stream);
+    PDDM_NARROW(1)
+    PDDM_NARROW(2)
+    PDDM_NARROW(3)
+    PDDM_NARROW(4)
+    PDDM_NARROW(5)
+    PDDM_NARROW(6)
+    PDDM_NARROW(7)
+    PDDM_NARROW(8)
+#undef PDDM_NARROW
+  }
+  return cudaErrorInvalidValue;
+}
+
 // ---------------------------------------------------------------- finish
 
 // One thread an output: da and doff (the sample's tiles in order), dw (the
@@ -1008,60 +1550,90 @@ grad_finish_kernel(const float* __restrict__ ws_a, const float* __restrict__ ws_
 
 }  // namespace
 
-// design: 0 general, 1 wgmma (bf16); ops/gn_conv.py::conv_grad_design checks
-// what each takes and grad_plan gives the tiles and the split (nwg, bn: the
-// wgmma dgrad's consumer warpgroups and channels a block; splits: wgrad's
-// blocks along the pixels).  The workspaces hold n_a, n_w and n_b float32
-// elements; the kernels fill ws_a (tiles x images of a tile x 2 x Cin), ws_w
-// (splits x 9 x Cout x Cin) and ws_b (splits x Cout, wgmma: x 3 ceil(Cin /
-// 64)), and a smaller one is refused before any launch.  want_dgrad: dx, da
-// and doff; want_wgrad: dw and dbias.  A design, shape or workspace it does
-// not take returns cudaErrorInvalidValue.
+// design: 0 general, 1 wgmma (bf16), 2 narrow_f32 (float32, Cout <= 8), 3
+// wgmma_taprow (bf16, by name); ops/gn_conv.py::conv_grad_design checks what
+// each takes and grad_plan gives the tiles and the split (nwg, bn: the wgmma
+// dgrad's consumer warpgroups and channels a block; splits: the weight
+// product's blocks along the pixels, narrow_f32: its tiles).  The workspaces
+// hold n_a, n_w and n_b float32 elements; the kernels fill ws_a (tiles x
+// images of a tile x 2 x Cin), ws_w (splits x 9 x Cout x Cin) and ws_b
+// (splits x Cout, wgmma_taprow: x 3 ceil(Cin / 64)); h, n_h bf16 elements, holds
+// the activation between wgmma's launches (B x H x W x Cin; unused by the
+// other designs).  A smaller one is refused before any launch.  want_dgrad:
+// dx, da and doff; want_wgrad: dw and dbias.  A design, shape, alignment or
+// buffer it does not take returns cudaErrorInvalidValue.
 extern "C" int pddm_gn_silu_conv3x3_grad(const void* x, const void* a, const void* off,
                                          const void* w, const void* gr, void* dx, void* da,
                                          void* doff, void* dw, void* dbias, void* ws_a,
-                                         void* ws_w, void* ws_b, long long n_a, long long n_w,
-                                         long long n_b, int B, int H, int W, int Cin, int Cout,
-                                         int is_bf16, int design, int want_dgrad,
-                                         int want_wgrad, int nwg, int bn, int splits,
-                                         void* stream_ptr) {
+                                         void* ws_w, void* ws_b, void* h, long long n_a,
+                                         long long n_w, long long n_b, long long n_h, int B,
+                                         int H, int W, int Cin, int Cout, int is_bf16,
+                                         int design, int want_dgrad, int want_wgrad, int nwg,
+                                         int bn, int splits, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   Geom g{B, H, W, Cin, Cout, 0, 0, 0, 0, 0};
   float* wsa = static_cast<float*>(ws_a);
   float* wsw = static_cast<float*>(ws_w);
   float* wsb = static_cast<float*>(ws_b);
   cudaError_t err = cudaSuccess;
-  if ((design != 0 && design != 1) || splits < 1 ||
-      (design == 1 && want_dgrad && nwg != 1 && nwg != 2))
+  const bool tc = design == 1 || design == 3;  // the tensor-core pairs
+  auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
+  if (design < 0 || design > 3 || splits < 1 || (tc && want_dgrad && nwg != 1 && nwg != 2))
     return cudaErrorInvalidValue;
-  const int dgrad_pixels = design == 1 && want_dgrad ? 64 * nwg : GP;
-  // the dbias partials: one a split (general); one a split and wgrad block
-  // of the split's Cout slice (wgmma)
-  const int bias_parts = splits * (design == 1 ? 3 * ((Cin + WK - 1) / WK) : 1);
+  // the tiles whose partials of da and doff the finish adds
   Geom t = g;
-  set_tile(t, dgrad_pixels);
+  if (design == 2)
+    set_narrow_tile(t);
+  else
+    set_tile(t, tc && want_dgrad ? 64 * nwg : GP);
+  // the dbias partials: one a split (narrow_f32: a tile), wgmma_taprow one a
+  // split and weight-product block of the split's Cout slice
+  const int bias_parts = splits * (design == 3 ? 3 * ((Cin + WK - 1) / WK) : 1);
   if ((want_dgrad && n_a < n_tiles(t) * t.NI * 2 * Cin) ||
       (want_wgrad && (n_w < (long long)splits * 9 * Cout * Cin ||
-                      n_b < (long long)bias_parts * Cout)))
+                      n_b < (long long)bias_parts * Cout)) ||
+      (design == 1 && want_wgrad && (n_h < (long long)B * H * W * Cin || misaligned(h))))
     return cudaErrorInvalidValue;
-  if (design == 1) {
-    if (!is_bf16 || Cin % 8 || Cout % 8 || (H * W <= 64 && (H * W) % 16) ||
-        reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w) % 16 ||
-        reinterpret_cast<uintptr_t>(gr) % 16)
+  if (tc) {
+    if (!is_bf16 || Cin % 8 || Cout % 8 || (H * W <= 64 && (H * W) % 16) || misaligned(x) ||
+        misaligned(w) || misaligned(gr) || (design == 1 && (misaligned(a) || misaligned(off))))
       return cudaErrorInvalidValue;
+    if (design == 1 && want_wgrad && wgrad9_stages(g) == 0) return cudaErrorInvalidValue;
+    const bool store_h = design == 1 && want_wgrad;
     if (want_dgrad) {
+      void* hs = store_h ? h : nullptr;
       if (nwg == 2 && bn == 128)
-        err = launch_dgrad_wgmma<2, 128>(x, a, off, w, gr, dx, wsa, g, stream);
+        err = store_h ? launch_dgrad_wgmma<2, 128, true>(x, a, off, w, gr, dx, hs, wsa, g, stream)
+                      : launch_dgrad_wgmma<2, 128, false>(x, a, off, w, gr, dx, hs, wsa, g, stream);
       else if (nwg == 2 && bn == 64)
-        err = launch_dgrad_wgmma<2, 64>(x, a, off, w, gr, dx, wsa, g, stream);
+        err = store_h ? launch_dgrad_wgmma<2, 64, true>(x, a, off, w, gr, dx, hs, wsa, g, stream)
+                      : launch_dgrad_wgmma<2, 64, false>(x, a, off, w, gr, dx, hs, wsa, g, stream);
       else if (nwg == 1 && bn == 64)
-        err = launch_dgrad_wgmma<1, 64>(x, a, off, w, gr, dx, wsa, g, stream);
+        err = store_h ? launch_dgrad_wgmma<1, 64, true>(x, a, off, w, gr, dx, hs, wsa, g, stream)
+                      : launch_dgrad_wgmma<1, 64, false>(x, a, off, w, gr, dx, hs, wsa, g, stream);
       else
         return cudaErrorInvalidValue;
       if (err != cudaSuccess) return err;
+    } else if (store_h) {
+      const long n8 = (long)B * H * W * Cin / 8;
+      const long blocks = (n8 + 255) / 256;
+      activate_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0, stream>>>(
+          static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(a),
+          static_cast<const float*>(off), static_cast<__nv_bfloat16*>(h), n8, H * W, Cin);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
     }
-    if (want_wgrad && (err = launch_wgrad_wgmma(x, a, off, gr, wsw, wsb, g, splits, stream)) !=
-                          cudaSuccess)
+    if (want_wgrad) {
+      err = design == 1 ? launch_wgrad9_wgmma(h, gr, wsw, wsb, g, splits, stream)
+                        : launch_wgrad_wgmma(x, a, off, gr, wsw, wsb, g, splits, stream);
+      if (err != cudaSuccess) return err;
+    }
+  } else if (design == 2) {
+    if (is_bf16 || Cout > 8 || Cin % 4 || Cin / narrow_run(Cout) > NG_THREADS || W > NG_PIXELS ||
+        splits != n_tiles(t) || narrow_grad_smem(g) > 227 * 1024 || misaligned(x) ||
+        misaligned(w) || misaligned(a) || misaligned(off))
+      return cudaErrorInvalidValue;
+    if ((err = launch_narrow(x, a, off, w, gr, dx, wsa, wsw, wsb, g, want_dgrad, want_wgrad,
+                             stream)) != cudaSuccess)
       return err;
   } else {
     err = is_bf16 ? launch_general<__nv_bfloat16>(x, a, off, w, gr, dx, wsa, wsw, wsb, g,

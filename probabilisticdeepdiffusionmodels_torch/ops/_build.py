@@ -58,9 +58,9 @@ _SIGNATURES = {
     "pddm_gn_apply": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, a, off, w, bias, out, B, H, W, Cin, Cout, is_bf16, design, stream
     "pddm_gn_silu_conv3x3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # x, a, off, w, g, dx, da, doff, dw, dbias, ws_a, ws_w, ws_b, n_a, n_w, n_b, B, H,
-    # W, Cin, Cout, is_bf16, design, want_dgrad, want_wgrad, nwg, bn, splits, stream
-    "pddm_gn_silu_conv3x3_grad": [*[_P] * 13, *[_L] * 3, *[_I] * 12, _P],
+    # x, a, off, w, g, dx, da, doff, dw, dbias, ws_a, ws_w, ws_b, h, n_a, n_w, n_b, n_h,
+    # B, H, W, Cin, Cout, is_bf16, design, want_dgrad, want_wgrad, nwg, bn, splits, stream
+    "pddm_gn_silu_conv3x3_grad": [*[_P] * 14, *[_L] * 4, *[_I] * 12, _P],
     # a, b, out, is_bf16, stream
     "pddm_probe_mma": [_P, _P, _P, _I, _P],
 }

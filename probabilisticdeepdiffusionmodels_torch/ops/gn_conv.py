@@ -63,22 +63,31 @@ Backward (``gn_silu_conv3x3_grad``, kernels in ``csrc/gn_conv_grad.cu``):
 the Pallas kernel has no backward kernel; ``_fused_bwd`` in
 ``gn_conv_pallas.py`` takes ``jax.vjp`` of the XLA form, which XLA compiles
 into two conv transposes and fused elementwise passes.  Here a CUDA tensor
-takes three launches a call, chosen by ``conv_grad_design``: the input
-product (dgrad) with the activation's backward in its epilogue (dx out, and
-per-tile partial sums of the scale's and offset's gradients), the weight
-product (wgrad) that recomputes the activation in shared memory, split over
-blocks along the pixels, and one launch that adds the partials in a fixed
-order (no float atomics: the same bits on every run).  ``wgmma`` runs both
-products on the tensor cores for the bf16 sites (``grad_plan`` gives the
-tiles and the split); ``general`` is a simple pair of true-float32 FMA
-kernels for the rest (the float32 output head, every float32 site, bf16
-with channels not a multiple of 8).  ``recompute``, the first design
-(autograd through the plain version from the saved inputs), stays callable
-by name for measurement and adds nothing to the op's launch count.  ``gn_silu_conv3x3_grad_plain`` writes the five
-gradients out as formulas; it equals autograd through ``_grad_reference``
-(the plain version with the conv on operands of x's dtype), and a CPU
-tensor takes it.  Autograd keeps x, a, off, w and bias for the backward,
-no activation.
+takes a fixed set of launches a call, chosen by ``conv_grad_design`` and cut
+by ``grad_plan``, each design ending in one launch that adds the partials in
+a fixed order (no float atomics: the same bits on every run):
+
+- ``wgmma`` (the bf16 sites): the input product (dgrad) on the tensor cores
+  with the activation's backward in its epilogue (dx out, per-tile partial
+  sums of the scale's and offset's gradients), which also stores the
+  activation h once a site into a transient bf16 buffer (``GradPlan.
+  activation``; one elementwise launch writes it where no dx is wanted);
+  then the weight product (wgrad9) reads h and g by TMA, a block owning all
+  nine taps of its (pixel split, 64 Cin, 64 Cout).
+- ``narrow_f32`` (float32 with Cout <= 8: the UNet's output head): one launch
+  that reads x once, with the whole weight and the tile's g halo in shared
+  memory, forming dx, h and every partial from the same x values.
+- ``general`` (every other float32 site, bf16 with channels not a multiple
+  of 8): a simple pair of true-float32 FMA kernels.
+
+By name only, for measurement: ``wgmma_taprow``, the first bf16 pair (its
+wgrad re-activates x in shared memory for 3 taps of a block), and
+``recompute``, the first design of all (autograd through the plain version
+from the saved inputs), which adds nothing to the op's launch count.
+``gn_silu_conv3x3_grad_plain`` writes the five gradients out as formulas; it
+equals autograd through ``_grad_reference`` (the plain version with the conv
+on operands of x's dtype), and a CPU tensor takes it.  Autograd keeps x, a,
+off, w and bias for the backward, no activation.
 """
 
 from __future__ import annotations
@@ -433,12 +442,18 @@ gn_silu_conv3x3.launches = 0
 # ----------------------------------------------------------------- gradient
 
 # the C entry point's design argument; "recompute" (autograd through
-# _grad_reference) is no kernel and runs only by name, for measurement
-GRAD_DESIGNS = {"general": 0, "wgmma": 1}
+# _grad_reference) is no kernel and runs only by name, for measurement, as
+# does "wgmma_taprow"
+GRAD_DESIGNS = {"general": 0, "wgmma": 1, "narrow_f32": 2, "wgmma_taprow": 3}
 _GENERAL_PX = 64    # pixels of a general dgrad tile, of a general wgrad chunk
 _DGRAD_STAGES = 6   # the wgmma dgrad's weight ring
 _WGRAD_PX = 128     # pixels of a wgmma wgrad tile (8 k-steps of 16)
-_WGRAD_WS_BYTES = 16 << 20  # the wgmma wgrad's partials of dw, at most
+_WGRAD_WS_BYTES = 16 << 20  # wgmma_taprow's partials of dw, at most
+_WGRAD9_WS_BYTES = 32 << 20  # wgrad9's partials of dw, at most (unless one split's are more)
+_WGRAD9_SPLITS = 64
+_WGRAD9_STAGES = 4  # wgrad9's ring of h halo and g tiles, at most
+_NARROW_PIXELS = 1024  # pixels of a narrow_f32 tile, at most
+_NARROW_THREADS = 256
 
 
 class ConvTile(NamedTuple):
@@ -487,10 +502,11 @@ class GradPlan(NamedTuple):
     tiles of the input product, each writing one partial of the scale's and
     offset's gradients per (image of the tile, channel); ``nwg``, ``bn``:
     the wgmma dgrad's consumer warpgroups and channels a block (0 in
-    ``general``); ``wgrad``: the wgmma weight product's tiles (None:
-    ``general``'s chunks of 64 flattened pixels); ``splits``: the weight
-    product's blocks along the pixels, block z taking tiles (chunks)
-    z, z + splits, ..."""
+    ``general`` and ``narrow_f32``); ``wgrad``: the tensor-core weight
+    product's tiles, or ``narrow_f32``'s (its one launch does both
+    products), None for ``general``'s chunks of 64 flattened pixels;
+    ``splits``: the weight product's blocks along the pixels, block z taking
+    tiles (chunks) z, z + splits, ... (``narrow_f32``: one a tile)."""
     design: str
     dgrad: ConvTile
     nwg: int
@@ -500,12 +516,18 @@ class GradPlan(NamedTuple):
 
     def workspace(self, b: int, cin: int, cout: int) -> Tuple[int, int, int]:
         """float32 elements of the three workspaces: the per-tile partials of
-        (da, doff), the per-split partials of dw and of dbias (wgmma: one
+        (da, doff), the per-split partials of dw and of dbias (wgmma_taprow: one
         for each of a split's 3 x ceil(Cin / 64) weight-product blocks of a
         Cout slice, each adding its share of the rows)."""
-        parts = 3 * -(-cin // 64) if self.design == "wgmma" else 1
+        parts = 3 * -(-cin // 64) if self.design == "wgmma_taprow" else 1
         return (self.dgrad.count(b) * self.dgrad.ni * 2 * cin, self.splits * 9 * cout * cin,
                 self.splits * parts * cout)
+
+    def activation(self, b: int, h: int, w: int, cin: int, want_w: bool = True) -> int:
+        """bf16 elements of the activation buffer that ``wgmma``'s dgrad (or
+        its elementwise launch) fills and its weight product reads: all of
+        x's, where the weight product runs; none in the other designs."""
+        return b * h * w * cin if self.design == "wgmma" and want_w else 0
 
     def dgrad_slots(self, b: int) -> List[List[Tuple[int, int]]]:
         """For each sample, the (tile, image of the tile) partials that the
@@ -515,10 +537,33 @@ class GradPlan(NamedTuple):
         return [[(s // ni * per + t, s % ni) for t in range(per)] for s in range(b)]
 
     def wgrad_units(self, b: int, h: int, w: int) -> List[List[int]]:
-        """For each split, the tiles (wgmma) or 64-pixel chunks (general)
-        whose products it adds, in order."""
+        """For each split, the tiles (wgmma, narrow_f32) or 64-pixel chunks
+        (general) whose products it adds, in order; the finish adds the
+        splits' partials in the order of the list."""
         n = self.wgrad.count(b) if self.wgrad else -(-b * h * w // _GENERAL_PX)
         return [list(range(z, n, self.splits)) for z in range(self.splits)]
+
+    def weight_blocks(self, cin: int,
+                      cout: int) -> List[Tuple[int, int, int, Tuple[int, ...], bool]]:
+        """The weight product's blocks as the grid numbers them: (split,
+        first Cin channel, first Cout channel, taps, adds dbias).  wgmma: a
+        block a (split, 64 Cin, 64 Cout), its three warpgroups taps 0-2, 3-5
+        and 6-8, the blocks of Cin slice 0 adding dbias; wgmma_taprow: a block a
+        tap row as well, every block a share of dbias; general: a block a
+        tap, 64 Cin x 64 Cout (16 for Cout <= 16); narrow_f32: a block a
+        tile, every channel and tap."""
+        if self.design == "narrow_f32":
+            return [(z, 0, 0, tuple(range(9)), True) for z in range(self.splits)]
+        if self.design == "general":
+            bco = 16 if cout <= 16 else 64
+            return [(z, ci, co, (tap,), ci == 0 and tap == 0) for z in range(self.splits)
+                    for tap in range(9) for co in range(0, cout, bco)
+                    for ci in range(0, cin, 64)]
+        rows = ((0, 1, 2, 3, 4, 5, 6, 7, 8),) if self.design == "wgmma" else (
+            (0, 1, 2), (3, 4, 5), (6, 7, 8))
+        return [(z, ci, co, taps, ci == 0 or self.design == "wgmma_taprow")
+                for z in range(self.splits) for taps in rows for co in range(0, cout, 64)
+                for ci in range(0, cin, 64)]
 
 
 def _dgrad_smem(h: int, w: int, nwg: int, bn: int) -> int:
@@ -530,12 +575,51 @@ def _dgrad_smem(h: int, w: int, nwg: int, bn: int) -> int:
 
 
 def _wgrad_smem(h: int, w: int) -> int:
-    """Shared memory of the wgmma wgrad (``WGLayout`` in gn_conv_grad.cu): three
-    stages of the x halo, the g tile, the scale and offset, two mbarriers;
-    the dbias partials."""
+    """Shared memory of wgmma_taprow's wgrad (``WGLayout`` in gn_conv_grad.cu):
+    three stages of the x halo, the g tile, the scale and offset, two
+    mbarriers; the dbias partials."""
     t = conv_tile(h, w, _WGRAD_PX)
     halo = -(-t.ni * (t.th + 2) * (t.tw + 2) * 128 // 1024) * 1024
     return 1024 + 3 * (halo + _WGRAD_PX * 128 + t.ni * 2 * 64 * 4 + 2 * 8) + 7 * 64 * 4
+
+
+def _wgrad9_smem(h: int, w: int, stages: int) -> int:
+    """Shared memory of wgrad9 (``W9Layout`` in gn_conv_grad.cu): ``stages``
+    h halo buffers and g tiles, the dbias partials of 16 row phases, the
+    mbarriers."""
+    t = conv_tile(h, w, _WGRAD_PX)
+    halo = -(-t.ni * (t.th + 2) * (t.tw + 2) * 128 // 1024) * 1024
+    return 1024 + stages * (halo + _WGRAD_PX * 128) + 16 * 64 * 4 + 2 * _WGRAD9_STAGES * 8
+
+
+def _wgrad9_stages(h: int, w: int) -> int:
+    """wgrad9's ring: as many stages as fit, at most 4; 0 where 2 do not
+    (``wgrad9_stages``)."""
+    return next((s for s in range(_WGRAD9_STAGES, 1, -1) if _wgrad9_smem(h, w, s) <= _SMEM_BYTES),
+                0)
+
+
+def _narrow_run(cout: int) -> int:
+    """Channels a thread of narrow_f32 owns: its 9 Cout x run partials of dw
+    stay in registers (``narrow_run``)."""
+    return 2 if cout <= 6 else 1
+
+
+def _narrow_tile(h: int, w: int) -> ConvTile:
+    """narrow_f32's tiles: whole rows of one image, 1,024 pixels at most
+    (``set_narrow_tile``)."""
+    th = 1 if w >= _NARROW_PIXELS else min(h, _NARROW_PIXELS // w)
+    return ConvTile(1, th, w, -(-h // th), 1)
+
+
+def _narrow_grad_smem(h: int, w: int, cin: int, cout: int) -> int:
+    """Shared memory of narrow_f32 (``narrow_grad_smem``): the g halo and the
+    whole weight, then over them the threads' partials of dw, of (da, doff)
+    and of dbias."""
+    t = _narrow_tile(h, w)
+    groups = _NARROW_THREADS // (cin // _narrow_run(cout))
+    first = -(-(t.th + 2) * (w + 2) * cout // 4) * 4 + 9 * cout * cin
+    return 4 * max(first, groups * (9 * cout + 2) * cin + groups * cout)
 
 
 def _dgrad_config(b, h, w, cin):
@@ -551,22 +635,37 @@ def _dgrad_config(b, h, w, cin):
     return None
 
 
+def _fewest_waves(base: int, most: int, sms: int) -> int:
+    """Splits of ``base`` blocks each, at most ``most``, whose blocks fill
+    ``sms`` SMs in the fewest waves for the work (one block an SM); ties to
+    fewer splits."""
+    return min(range(1, most + 1), key=lambda s: (-(-s * base // sms) / s, s))
+
+
 def grad_plan(b: int, h: int, w: int, cin: int, cout: int, design: str, sms: int) -> GradPlan:
     """The tiles and the split of a ``gn_silu_conv3x3_grad`` call in design
-    ``wgmma`` or ``general`` on a card of ``sms`` SMs.  The weight product's
-    split fills the SMs in the fewest waves for its work (wgmma: a block of
-    512 threads an SM; at most 16 splits, whose partials of dw take at most
-    16 MB unless one split is larger) or about four times (general), with no
-    more splits than tiles.  The C entry point refuses workspaces smaller
-    than its own tiling fills, so a plan that drifts from it raises."""
-    if design == "wgmma":
+    ``wgmma``, ``wgmma_taprow``, ``narrow_f32`` or ``general`` on a card of
+    ``sms`` SMs.  The weight product's split fills the SMs in the fewest
+    waves for its work (wgmma: a block of 416 threads an SM, at most 64
+    splits whose partials of dw take at most 32 MB unless one split is
+    larger; wgmma_taprow: 512 threads, at most 16 splits, 16 MB) or about four
+    times (general), with no more splits than tiles; narrow_f32 has a split
+    a tile.  The C entry point refuses workspaces smaller than its own
+    tiling fills, so a plan that drifts from it raises."""
+    if design in ("wgmma", "wgmma_taprow"):
         nwg, bn = _dgrad_config(b, h, w, cin)
         tile = conv_tile(h, w, _WGRAD_PX)
-        base = -(-cin // 64) * -(-cout // 64) * 3
-        most = max(1, min(tile.count(b), 16, _WGRAD_WS_BYTES // (9 * cin * cout * 4)))
-        # waves of blocks / splits: the time of the products, ties to fewer splits
-        splits = min(range(1, most + 1), key=lambda s: (-(-s * base // sms) / s, s))
-        return GradPlan("wgmma", conv_tile(h, w, 64 * nwg), nwg, bn, tile, splits)
+        base = -(-cin // 64) * -(-cout // 64)
+        if design == "wgmma":
+            cap, ws = _WGRAD9_SPLITS, _WGRAD9_WS_BYTES
+        else:
+            base, cap, ws = 3 * base, 16, _WGRAD_WS_BYTES
+        most = max(1, min(tile.count(b), cap, ws // (9 * cin * cout * 4)))
+        return GradPlan(design, conv_tile(h, w, 64 * nwg), nwg, bn, tile,
+                        _fewest_waves(base, most, sms))
+    if design == "narrow_f32":
+        tile = _narrow_tile(h, w)
+        return GradPlan(design, tile, 0, 0, tile, tile.count(b))
     chunks = -(-b * h * w // _GENERAL_PX)
     base = -(-cin // 64) * -(-cout // (16 if cout <= 16 else 64)) * 9
     return GradPlan("general", conv_tile(h, w, _GENERAL_PX), 0, 0, None,
@@ -578,15 +677,22 @@ def conv_grad_design(x: torch.Tensor, w: torch.Tensor) -> str:
     ``w`` (3, 3, Cout, Cin) in the kernel's dtype: ``wgmma`` for bf16 with
     channels in multiples of 8, images of at least 4x4 whose pixel count is
     over 64 or a multiple of 16 (no warp's 16 rows straddle two images),
-    16-byte aligned operands and tiles that fit shared memory; ``general``
-    otherwise."""
+    16-byte aligned operands and tiles that fit shared memory;
+    ``narrow_f32`` for float32 with Cout <= 8 and Cin % 4 == 0 (the output
+    head), rows of at most 1,024 pixels and 16-byte aligned operands, where
+    its tile fits shared memory; ``general`` otherwise.  ``wgmma_taprow`` and
+    ``recompute`` run by name only."""
     b, h, wd, cin = x.shape
     cout = w.shape[2]
+    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
     if (x.dtype == torch.bfloat16 and cin % 8 == 0 and cout % 8 == 0 and min(h, wd) >= 4
-            and (h * wd > 64 or h * wd % 16 == 0) and x.data_ptr() % 16 == 0
-            and w.data_ptr() % 16 == 0 and _dgrad_config(b, h, wd, cin) is not None
-            and _wgrad_smem(h, wd) <= _SMEM_BYTES):
+            and (h * wd > 64 or h * wd % 16 == 0) and aligned
+            and _dgrad_config(b, h, wd, cin) is not None and _wgrad9_stages(h, wd)):
         return "wgmma"
+    if (x.dtype == torch.float32 and cout <= 8 and cin % 4 == 0
+            and cin // _narrow_run(cout) <= _NARROW_THREADS and wd <= _NARROW_PIXELS and aligned
+            and _narrow_grad_smem(h, wd, cin, cout) <= _SMEM_BYTES):
+        return "narrow_f32"
     return "general"
 
 
@@ -642,27 +748,39 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _launch_grad(x, a, off, w, g, needs, design):
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address, as the kernels read it."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def _launch_grad(x, a, off, w, g, needs, design, act=None):
+    """The kernels of ``design`` on one call; ``act``: the activation buffer
+    (a new one where None), for a test that reads it."""
     b, h, wd, cin = x.shape
     cout = w.shape[2]
     want_d, want_w = any(needs[:3]), any(needs[3:])
     plan = grad_plan(b, h, wd, cin, cout, design, _sm_count(x.device))
-    g = g.to(x.dtype).contiguous()
-    if g.data_ptr() % 16:
-        g = g.clone()
+    g, a, off = _aligned(g.to(x.dtype)), _aligned(a), _aligned(off)
     f32 = dict(dtype=torch.float32, device=x.device)
     n_a, n_w, n_b = plan.workspace(b, cin, cout)
+    n_h = plan.activation(b, h, wd, cin, want_w)
     out = [torch.empty_like(x), torch.empty(b, cin, **f32), torch.empty(b, cin, **f32)]
     out = (out if want_d else [None] * 3) + ([torch.empty_like(w), torch.empty(cout, **f32)]
                                             if want_w else [None] * 2)
+    # transient: the partials the finish adds, and the activation between
+    # wgmma's input and weight products
     ws = [torch.empty(n_a, **f32) if want_d else None, torch.empty(n_w, **f32) if want_w else None,
-          torch.empty(n_b, **f32) if want_w else None]
+          torch.empty(n_b, **f32) if want_w else None,
+          act if act is not None else torch.empty(n_h, dtype=x.dtype, device=x.device)
+          if n_h else None]
     try:
         _build.launch("pddm_gn_silu_conv3x3_grad", x.data_ptr(), a.data_ptr(), off.data_ptr(),
                       w.data_ptr(), g.data_ptr(),
                       *(0 if t is None else t.data_ptr() for t in (*out, *ws)),
-                      *(0 if t is None else t.numel() for t in ws), b, h, wd, cin, cout, int(x.dtype == torch.bfloat16), GRAD_DESIGNS[design],
-                      int(want_d), int(want_w), plan.nwg, plan.bn, plan.splits)
+                      *(0 if t is None else t.numel() for t in ws), b, h, wd, cin, cout,
+                      int(x.dtype == torch.bfloat16), GRAD_DESIGNS[design], int(want_d),
+                      int(want_w), plan.nwg, plan.bn, plan.splits)
     except RuntimeError as err:
         raise RuntimeError(f"{err} (x {tuple(x.shape)} {x.dtype}, Cout {cout}, {plan})") from err
     return out
@@ -674,11 +792,12 @@ def gn_silu_conv3x3_grad(x: torch.Tensor, a: torch.Tensor, off: torch.Tensor, w:
     gradient ``g``, from the inputs as the op hands them to its kernel (a,
     off float32; w in x's dtype).  A CPU tensor takes the plain version; a
     CUDA tensor launches the kernels of ``design`` (None: ``conv_grad_design``'s
-    choice; ``wgmma``, ``general`` or ``recompute`` by name, for measurement)
-    or raises.  ``needs`` (x, a, off, w, bias) masks the gradients wanted
-    (None where one is not): no input product where none of x, a, off
-    needs one, no weight product where neither w nor bias does.  dx in x's
-    dtype, dw in w's, the rest float32."""
+    choice; ``wgmma``, ``wgmma_taprow``, ``narrow_f32``, ``general`` or
+    ``recompute`` by name, for measurement) or raises.  ``needs`` (x, a,
+    off, w, bias) masks the gradients wanted (None where one is not): no
+    input product where none of x, a, off needs one, no weight product
+    where neither w nor bias does.  dx in x's dtype, dw in w's, the rest
+    float32."""
     needs = (True,) * 5 if needs is None else tuple(needs)
     if x.device.type == "cpu":
         return gn_silu_conv3x3_grad_plain(x, a, off, w, g, needs)

@@ -6,9 +6,13 @@ each mask of wanted gradients; the composition with ``gn_affine``'s backward
 against ``jax.vjp`` of the JAX op on the same numpy inputs; the launch plans
 of the kernels (each sample's partials of the scale's and offset's gradients
 and each split of the weight product cover every pixel exactly once, in a
-fixed order); the design by shape.  On the card (``gpu``): the kernels in
-each design by name against the plain version at the main path's gradient
-sites and the visualization batches, two runs bit for bit.
+fixed order; each split's weight-product blocks every (tap, Cin slice, Cout
+slice) once; the narrow head's index arithmetic, emulated, against the
+plain version); the design by shape; the buffers' sizes.  On the card
+(``gpu``): the kernels in each design by name against the plain version at
+the main path's gradient sites and the visualization batches, two runs bit
+for bit; the activation buffer against the plain activation; short
+workspaces and buffers refused.
 """
 
 import numpy as np
@@ -140,8 +144,15 @@ def _wgmma_takes(b, h, w, cin, cout):
                             torch.empty(3, 3, cout, cin, dtype=torch.bfloat16)) == "wgmma"
 
 
+def _narrow_takes(b, h, w, cin, cout):
+    return conv_grad_design(torch.empty(b, h, w, cin),
+                            torch.empty(3, 3, cout, cin)) == "narrow_f32"
+
+
 _PLAN_CASES = [(s, "general") for s in _PLAN_SHAPES] + [
-    (s, "wgmma") for s in _PLAN_SHAPES if _wgmma_takes(*s)]
+    (s, "wgmma") for s in _PLAN_SHAPES if _wgmma_takes(*s)] + [
+    (s, "wgmma_taprow") for s in _PLAN_SHAPES if _wgmma_takes(*s)] + [
+    (s, "narrow_f32") for s in _PLAN_SHAPES if _narrow_takes(*s)]
 
 
 @pytest.mark.parametrize("shape,design", _PLAN_CASES)
@@ -154,7 +165,7 @@ def test_grad_plan_covers_every_pixel_once(shape, design):
     plan = grad_plan(b, h, w, cin, cout, design, _H100_SMS)
     assert plan == grad_plan(b, h, w, cin, cout, design, _H100_SMS)
     n_a, n_w, n_b = plan.workspace(b, cin, cout)
-    parts = 3 * -(-cin // 64) if design == "wgmma" else 1
+    parts = 3 * -(-cin // 64) if design == "wgmma_taprow" else 1
     assert (n_w, n_b) == (plan.splits * 9 * cout * cin, plan.splits * parts * cout)
     tile, per_img = plan.dgrad, plan.dgrad.th * plan.dgrad.tw
     owners = {}
@@ -171,7 +182,7 @@ def test_grad_plan_covers_every_pixel_once(shape, design):
     assert set(owners) == written
     units = plan.wgrad_units(b, h, w)
     assert len(units) == plan.splits and all(u == sorted(u) and u for u in units)
-    if design == "wgmma":
+    if plan.wgrad is not None:
         px = [(bb, y, x) for u in units for k in u for _, bb, y, x in plan.wgrad.pixels(b, h, w, k)]
     else:
         px = [p for u in units for k in u for p in range(k * 64, min(b * h * w, k * 64 + 64))]
@@ -180,19 +191,162 @@ def test_grad_plan_covers_every_pixel_once(shape, design):
 
 
 def test_wgmma_plans_fit_and_fill_the_card():
-    """Shared memory within a block's 227 KB; the weight product's blocks
-    fill the 132 SMs at the CIFAR 32x32 site."""
+    """Shared memory within a block's 227 KB (wgrad9 with a ring of at least
+    two stages); the weight product's blocks fill the 132 SMs at the CIFAR
+    32x32 site, one block an SM."""
     for shape, design in _PLAN_CASES:
-        if design != "wgmma":
+        if design not in ("wgmma", "wgmma_taprow"):
             continue
         b, h, w, cin, cout = shape
         plan = grad_plan(*shape, design, _H100_SMS)
         assert _gc._dgrad_smem(h, w, plan.nwg, plan.bn) <= 227 * 1024
-        assert _gc._wgrad_smem(h, w) <= 227 * 1024
+        if design == "wgmma":
+            stages = _gc._wgrad9_stages(h, w)
+            assert stages >= 2 and _gc._wgrad9_smem(h, w, stages) <= 227 * 1024
+        else:
+            assert _gc._wgrad_smem(h, w) <= 227 * 1024
         tile = plan.dgrad
         assert plan.wgrad == _gc.conv_tile(h, w, 128) and tile.ni * tile.th * tile.tw <= 128
     plan = grad_plan(128, 32, 32, 128, 128, "wgmma", _H100_SMS)
+    assert (plan.nwg, plan.bn, plan.splits) == (2, 128, 33)
+    assert len(plan.weight_blocks(128, 128)) == 132
+    plan = grad_plan(128, 32, 32, 128, 128, "wgmma_taprow", _H100_SMS)
     assert (plan.nwg, plan.bn, plan.splits) == (2, 128, 11)
+
+
+@pytest.mark.parametrize("shape,design", _PLAN_CASES)
+def test_weight_blocks_take_every_tap_and_slice_once(shape, design):
+    """Each split's weight-product blocks hold each (tap, Cin slice, Cout
+    slice) exactly once (wgmma: all nine taps in one block, three a
+    warpgroup); each split's dbias partials come from one block a Cout slice
+    (wgmma: the block of Cin slice 0), or, in wgmma_taprow, from every block of
+    the slice, as many as the workspace holds; the finish adds the splits in
+    the order of the list."""
+    b, h, w, cin, cout = shape
+    plan = grad_plan(b, h, w, cin, cout, design, _H100_SMS)
+    blocks = plan.weight_blocks(cin, cout)
+    _, n_w, n_b = plan.workspace(b, cin, cout)
+    for z in range(plan.splits):
+        mine = [blk for blk in blocks if blk[0] == z]
+        units = [(tap, ci, co) for _, ci, co, taps, _ in mine for tap in taps]
+        if design == "narrow_f32":
+            want = [(tap, 0, 0) for tap in range(9)]
+        else:
+            step_co = 16 if design == "general" and cout <= 16 else 64
+            want = [(tap, ci, co) for tap in range(9) for ci in range(0, cin, 64)
+                    for co in range(0, cout, step_co)]
+        assert sorted(units) == sorted(want) and len(units) == len(set(units)), z
+        bias = [blk for blk in mine if blk[4]]
+        if design == "wgmma":
+            assert all(len(blk[3]) == 9 for blk in mine)
+            assert sorted(blk[2] for blk in bias) == list(range(0, cout, 64))
+            assert all(blk[1] == 0 for blk in bias)
+        if design == "wgmma_taprow":
+            assert len(bias) == -(-cout // 64) * n_b // (plan.splits * cout)
+    assert [blk[0] for blk in blocks] == sorted(blk[0] for blk in blocks)
+    assert n_w == plan.splits * 9 * cout * cin
+
+
+def _narrow_emulated(x, a, off, w, g, plan):
+    """narrow_f32's arithmetic as the kernel orders it, in float64: per
+    tile, the halo of g zero outside the image, each pixel's 9 Cout
+    neighbouring g values read at (row + 2 - tap // 3, column + 2 - tap % 3)
+    of the halo and used against the weight (dh) and against h (the tile's
+    partial of dw); the partials in the workspaces' layouts, then added in
+    the finish's order."""
+    b, h, wd, cin = x.shape
+    cout = w.shape[2]
+    t = plan.dgrad
+    x, a, off, w, g = (v.double() for v in (x, a, off, w, g))
+    wk = w.reshape(9 * cout, cin)
+    n_a, n_w, n_b = plan.workspace(b, cin, cout)
+    ws_a, ws_w, ws_b = (torch.zeros(n, dtype=torch.float64) for n in (n_a, n_w, n_b))
+    dx = torch.zeros_like(x)
+    for tile in range(t.count(b)):
+        bb, y0 = tile // t.tiles_y, tile % t.tiles_y * t.th
+        rows = min(t.th, h - y0)
+        halo = torch.zeros(t.th + 2, wd + 2, cout, dtype=torch.float64)
+        lo, hi = max(0, y0 - 1), min(h, y0 + t.th + 1)
+        halo[lo - (y0 - 1):hi - (y0 - 1), 1:wd + 1] = g[bb, lo:hi]
+        r = torch.arange(rows)[:, None].expand(rows, wd).reshape(-1)
+        c = torch.arange(wd)[None, :].expand(rows, wd).reshape(-1)
+        gwin = torch.stack([halo[r + 2 - tap // 3, c + 2 - tap % 3] for tap in range(9)], 1)
+        gwin = gwin.reshape(-1, 9 * cout)                       # (pixels, 9 Cout)
+        xv = x[bb, y0:y0 + rows].reshape(-1, cin)
+        p = xv * a[bb] + off[bb]
+        s = torch.sigmoid(p)
+        dh = gwin @ wk
+        dp = dh * s * (1 + p * (1 - s))
+        dx[bb, y0:y0 + rows] = (dp * a[bb]).reshape(rows, wd, cin)
+        ws_w[tile * 9 * cout * cin:(tile + 1) * 9 * cout * cin] = (gwin.T @ (p * s)).reshape(-1)
+        ws_b[tile * cout:(tile + 1) * cout] = halo[1:rows + 1, 1:wd + 1].reshape(-1, cout).sum(0)
+        ws_a[tile * 2 * cin:(tile * 2 + 1) * cin] = (dp * xv).sum(0)
+        ws_a[(tile * 2 + 1) * cin:(tile * 2 + 2) * cin] = dp.sum(0)
+    slots = plan.dgrad_slots(b)
+    da = torch.stack([sum(ws_a[(k * 2) * cin:(k * 2 + 1) * cin] for k, _ in sl) for sl in slots])
+    doff = torch.stack([sum(ws_a[(k * 2 + 1) * cin:(k * 2 + 2) * cin] for k, _ in sl)
+                        for sl in slots])
+    units = plan.wgrad_units(b, h, wd)
+    dw = sum(ws_w[z * 9 * cout * cin:(z + 1) * 9 * cout * cin] for z in range(len(units)))
+    dbias = sum(ws_b[z * cout:(z + 1) * cout] for z in range(len(units)))
+    return dx, da, doff, dw.reshape(3, 3, cout, cin), dbias
+
+
+@pytest.mark.parametrize("shape", [(2, 32, 32, 16, 3), (2, 8, 8, 8, 6), (1, 40, 36, 12, 5)])
+def test_narrow_f32_arithmetic_matches_plain(shape):
+    """The narrow head's index arithmetic (halo offsets, the tiles of whole
+    rows, the partials' layouts and the finish's order), emulated, against
+    the plain version's formulas: within 1e-5 of each gradient's largest
+    element (float64 against the plain version's float32 sums), as the
+    float32 plain version is held to autograd above."""
+    b, h, w, cin, cout = shape
+    x, a, off, wt, _, g = _case(b, h, w, cin, cout, torch.float32, seed=sum(shape))
+    plan = grad_plan(b, h, w, cin, cout, "narrow_f32", _H100_SMS)
+    got = _narrow_emulated(x, a, off, wt, g, plan)
+    want = gn_silu_conv3x3_grad_plain(x, a, off, wt, g)
+    for i, (p, q) in enumerate(zip(got, want)):
+        assert p.shape == q.shape, i
+        assert float((p - q.double()).abs().max()) <= 1e-5 * float(q.abs().max()), i
+
+
+def test_narrow_f32_plan_and_buffers():
+    """The head's tiles are whole rows of one image, 1,024 pixels at most,
+    every pixel once; the whole weight and the g halo fit shared memory at
+    Cout 3 and 6 (the learned-sigma head), and so do the threads' partials;
+    the workspaces hold one partial of (da, doff) a (tile, channel) and one
+    of dw and dbias a tile; no activation buffer."""
+    for cout in (3, 6):
+        plan = grad_plan(128, 32, 32, 128, cout, "narrow_f32", _H100_SMS)
+        assert plan.dgrad == _gc.ConvTile(1, 32, 32, 1, 1) and plan.splits == 128
+        run = _gc._narrow_run(cout)
+        groups = 256 // (128 // run)
+        smem = _gc._narrow_grad_smem(32, 32, 128, cout)
+        assert smem >= 4 * (34 * 34 * cout + 9 * cout * 128) and smem <= 227 * 1024
+        assert smem == 4 * (groups * (9 * cout + 2) * 128 + groups * cout)
+        assert 9 * cout * run <= 108  # the thread's partials of dw in registers
+        assert plan.workspace(128, 128, cout) == (128 * 2 * 128, 128 * 9 * cout * 128,
+                                                  128 * cout)
+        assert plan.activation(128, 32, 32, 128) == 0
+    tile = _gc._narrow_tile(256, 256)
+    assert (tile.th, tile.tw, tile.tiles_y) == (4, 256, 64)
+
+
+@pytest.mark.parametrize("shape", [(128, 32, 32, 128, 128), (128, 32, 32, 384, 128),
+                                   (128, 16, 16, 256, 256), (128, 8, 8, 512, 256),
+                                   (128, 4, 4, 256, 256)])
+def test_wgmma_buffer_sizes(shape):
+    """The activation buffer holds all of x in bf16 where the weight product
+    runs (none where only dx is wanted, none in wgmma_taprow); wgrad9's partials
+    of dw stay within 32 MB at the CIFAR sites and its dbias partials are one
+    a split."""
+    b, h, w, cin, cout = shape
+    plan = grad_plan(*shape, "wgmma", _H100_SMS)
+    assert plan.activation(b, h, w, cin) == b * h * w * cin
+    assert plan.activation(b, h, w, cin, want_w=False) == 0
+    assert grad_plan(*shape, "wgmma_taprow", _H100_SMS).activation(b, h, w, cin) == 0
+    n_a, n_w, n_b = plan.workspace(b, cin, cout)
+    assert 4 * n_w <= 32 << 20 and n_b == plan.splits * cout
+    assert n_a == plan.dgrad.count(b) * plan.dgrad.ni * 2 * cin
 
 
 @pytest.mark.parametrize("shape,dtype,design", [
@@ -201,8 +355,10 @@ def test_wgmma_plans_fit_and_fill_the_card():
     ((8, 64, 64, 128, 128), torch.bfloat16, "wgmma"),
     ((16, 7, 7, 64, 64), torch.bfloat16, "general"),     # 49 pixels a sample
     ((3, 28, 28, 36, 24), torch.bfloat16, "general"),    # Cin % 8
-    ((128, 32, 32, 128, 3), torch.float32, "general"),   # the output head
+    ((128, 32, 32, 128, 3), torch.float32, "narrow_f32"),  # the output head
     ((128, 32, 32, 128, 128), torch.float32, "general"),
+    ((10, 32, 32, 128, 6), torch.float32, "narrow_f32"),   # learned sigma's head
+    ((2, 8, 8, 10, 3), torch.float32, "general"),          # Cin % 4
 ])
 def test_conv_grad_design_by_shape(shape, dtype, design):
     b, h, w, cin, cout = shape
@@ -255,7 +411,8 @@ def test_card_conv_grad_designs_match_plain(case, card):
     b, h, w, cin, cout, dtype = case
     x, a, off, wt, _, g = (t.cuda() for t in _case(b, h, w, cin, cout, dtype, seed=b + cin))
     want = gn_silu_conv3x3_grad_plain(x, a, off, wt, g)
-    designs = {conv_grad_design(x, wt), "general"}
+    chosen = conv_grad_design(x, wt)
+    designs = {chosen, "general"} | ({"wgmma_taprow"} if chosen == "wgmma" else set())
     for design in sorted(designs):
         before = gn_silu_conv3x3_grad.launches
         runs = [gn_silu_conv3x3_grad(x, a, off, wt, g, design=design) for _ in range(2)]
@@ -266,9 +423,12 @@ def test_card_conv_grad_designs_match_plain(case, card):
             assert torch.equal(p, again), (design, i)
             err = float((p.float() - q.float()).abs().max())
             assert err <= _CARD_TOL[dtype] * float(q.float().abs().max()), (design, i, err)
+        if design == chosen:
+            kept = runs[0]
+    # the masks in the design the shape selects: the same bits as all five
     for mask in (_NEEDS["x_only"], _NEEDS["weights_only"]):
         got = gn_silu_conv3x3_grad(x, a, off, wt, g, needs=mask)
-        for p, q, need in zip(got, runs[0], mask):
+        for p, q, need in zip(got, kept, mask):
             assert (p is None) != need and (p is None or torch.equal(p, q))
 
 
@@ -288,14 +448,54 @@ def test_card_recompute_counts_no_launch(card):
         assert err <= _CARD_TOL[torch.bfloat16] * float(q.float().abs().max())
 
 
+def _plain_activation(x, a, off):
+    p = x.float() * a[:, None, None, :] + off[:, None, None, :]
+    return (p * torch.sigmoid(p)).to(x.dtype)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("design", ["general", "wgmma"])
+@pytest.mark.parametrize("needs", ["all", "weights_only"])
+@pytest.mark.parametrize("shape", [(128, 32, 32, 128, 128), (128, 4, 4, 256, 256),
+                                   (8, 64, 64, 128, 128)])
+def test_card_activation_buffer_is_the_plain_activation(shape, needs, card):
+    """``wgmma``'s activation buffer, written by dgrad's epilogue (all) or by
+    the elementwise launch (weights only), holds silu(x*a + off) in bf16:
+    each element within one bf16 rounding (2^-7 of its size) of the plain
+    activation's, the kernel's exponential and division being the fast
+    ones the forward uses, plus 1e-6: the kernel forms x*a + off in one
+    fused multiply-add as the forward does, the plain version rounds x*a
+    first, and where off cancels x*a the two p differ by a float32 rounding
+    of x*a (|x*a| < 8 here: under 5e-7, and silu halves it near 0)."""
+    x, a, off, wt, _, g = (t.cuda() for t in _case(*shape, torch.bfloat16, seed=5))
+    plan = grad_plan(*shape[:5], "wgmma", _gc._sm_count(x.device))
+    act = torch.full((plan.activation(*shape[:4]),), float("nan"), dtype=torch.bfloat16,
+                     device="cuda")
+    _gc._launch_grad(x, a, off, wt, g, _NEEDS[needs], "wgmma", act=act)
+    torch.cuda.synchronize()
+    want = _plain_activation(x, a, off).float().reshape(-1)
+    got = act.float()
+    assert bool(torch.isfinite(got).all())
+    assert bool(((got - want).abs() <= 2.0 ** -7 * want.abs() + 1e-6).all())
+
+
+@pytest.mark.gpu
+def test_card_refuses_a_short_activation_buffer(card):
+    """An activation buffer one element short is refused before any launch."""
+    x, a, off, wt, _, g = (t.cuda() for t in _case(8, 16, 16, 64, 64, torch.bfloat16, seed=6))
+    act = torch.empty(8 * 16 * 16 * 64 - 1, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _gc._launch_grad(x, a, off, wt, g, _NEEDS["all"], "wgmma", act=act)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("design", ["general", "wgmma", "wgmma_taprow", "narrow_f32"])
 @pytest.mark.parametrize("short", [0, 1, 2])
 def test_card_refuses_a_short_workspace(design, short, card, monkeypatch):
     """A workspace one element shorter than the entry point's own tiling
     fills is refused before any launch, so a plan that drifts from the C
     side raises instead of writing past its end."""
-    x, a, off, wt, _, g = (t.cuda() for t in _case(8, 16, 16, 64, 64, torch.bfloat16, seed=4))
+    dtype, cout = (torch.float32, 3) if design == "narrow_f32" else (torch.bfloat16, 64)
+    x, a, off, wt, _, g = (t.cuda() for t in _case(8, 16, 16, 64, cout, dtype, seed=4))
     sized = _gc.GradPlan.workspace
 
     def workspace(plan, b, cin, cout):
