@@ -29,7 +29,15 @@
    that graph, beside the parent's path (``recompute``), the plain
    backward, ``convolution_backward`` without the host's cost (the two bare
    products, the weight product alone, the input product alone), and the
-   bounds of the two products and of the weight product;
+   bounds of the two products and of the weight product; at each
+   attention and GroupNorm site their backward kernels
+   (``qkv_attention_grad``, ``group_norm_silu_grad``) on a seeded output
+   gradient against the plain backward (bf16 1e-2, float32 1e-4 of the
+   largest element), run twice for the same bits with one count a call,
+   timed with and without the host's cost, each kernel's device ms from a
+   profile of the site's graph, beside the parent's path (``recompute``),
+   the plain backward, the library's backward alone (SDPA's flash backend;
+   ``native_group_norm_backward`` in NCHW, no SiLU) and the bound;
 4. main path: the 20-step ancestral sampler (linear T=1000 respaced to 20,
    clip=True) through ``get_model`` and ``p_sample_loop``: bf16 at batch 32
    with the launch counts asserted, float32 on the kernels against float32
@@ -50,12 +58,16 @@
    memory in the designs the shapes select, with ``gn_affine_grad``'s first
    design, with the conv's gradient in its first designs by name and as
    ``recompute`` (whose steps must leave the conv gradient's launch count
-   where it was);
+   where it was), and with attention's and GroupNorm's gradients as
+   ``recompute`` by name (the same rule for their counts); the float32
+   forward's attention and GroupNorm sites at batch 8 hold their backward
+   kernels against the plain versions;
    and a few importance-sampled steps on a warmed-up history;
 7. a second model: one bf16 forward of ``unet_celebahq64`` at 64x64 (head
    widths 96 and 128, FiLM conditioning) at batch 8 on the kernels, with
    the launch counts asserted, against the same model on the plain versions,
-   and ``gn_affine`` held against its plain version at each of its FiLM sites;
+   and ``gn_affine`` held against its plain version at each of its FiLM sites,
+   attention's and GroupNorm's backward kernels at their sites, timed;
 8. the command-line entry points at the CIFAR-10 UNet's full width (bf16,
    ``engine=cifar10``, ``data=synthetic`` with 1,280 images at batch 128):
    ``cli.train`` (10 steps, 10 validation batches, a checkpoint, the final
@@ -99,7 +111,8 @@
    in turns (eager, fused, fused, eager) with peak memory, each mode's
    device busy ms and idle share from its profile; a replay's device ms a
    step with the conv's gradient captured in the selected designs and in
-   its first designs by name; ``cli.train trainer.fused_steps=4
+   its first designs by name, and with attention's and GroupNorm's
+   gradients captured as ``recompute``; ``cli.train trainer.fused_steps=4
    data.device_resident=true`` beside the plain CLI over 2 epochs with one
    capture asserted, and 2 + 2 steps resumed from its checkpoint against 4;
 12. progressive distillation and reflow (``distill_reflow``): the distil
@@ -241,9 +254,10 @@ CHAIN_BATCH = 32
 FORWARD_BATCH = 128
 PER_FORWARD = {"gn_affine": 61, "gn_silu_conv3x3": 61, "qkv_attention": 15,
                "group_norm_silu": 15}
-# the ops whose backward is a kernel too: the folded affine's and the fused
-# conv's, once a site of every backward
-PER_BACKWARD = {"gn_affine_grad": 61, "gn_silu_conv3x3_grad": 61}
+# the backward kernels, once a site of every backward: the folded affine's,
+# the fused conv's, attention's and its GroupNorm's
+PER_BACKWARD = {"gn_affine_grad": 61, "gn_silu_conv3x3_grad": 61, "qkv_attention_grad": 15,
+                "group_norm_silu_grad": 15}
 # the kernel that only a spatially sharded forward launches: the fold of the
 # ranks' averaged statistics, once a GroupNorm or gn_affine on a slab
 SLAB_ONLY = ("gn_fold",)
@@ -399,7 +413,8 @@ SR_PROFILE_ARGS = [f"steps={SR_PROFILE_STEPS}", f"sample_steps={SR_PROFILE_SAMPL
 PROFILE_SAMPLE_KERNELS = ("conv_wgmma_kernel", "attn_bf16_kernel", "gn_moments_kernel")
 PROFILE_TRAIN_KERNELS = PROFILE_SAMPLE_KERNELS + (
     "gn_affine_bwd_kernel", "gn_batch_sum_kernel", "dgrad_wgmma_kernel", "wgrad9_wgmma_kernel",
-    "grad_narrow_f32_kernel", "grad_finish_kernel")
+    "grad_narrow_f32_kernel", "grad_finish_kernel", "attn_bwd_dq_bf16_kernel",
+    "attn_bwd_dkv_bf16_kernel", "gn_silu_bwd_kernel")
 CKPT_TURNS = ("plain", "checkpoint", "checkpoint", "plain")
 CKPT_GRAD_BATCH, CKPT_DROPOUT = 8, 0.1
 CKPT_SAME_TOL = 1e-6  # float32 gradients with against without checkpoints (cuDNN deterministic)
@@ -433,6 +448,10 @@ REPLACES = {
     "gn_silu_conv3x3": "probabilisticdeepdiffusionmodels_tpu/ops/gn_conv_pallas.py:180",
     "group_norm_silu": "probabilisticdeepdiffusionmodels_tpu/ops/groupnorm_pallas.py:112",
     "qkv_attention": "probabilisticdeepdiffusionmodels_tpu/ops/attention_pallas.py:67",
+    # the gradients that the JAX package takes through qkv_attention_xla and
+    # by jax.vjp of group_norm_silu_xla inside the custom VJP (_gns_bwd)
+    "qkv_attention_grad": "probabilisticdeepdiffusionmodels_tpu/ops/attention.py:37",
+    "group_norm_silu_grad": "probabilisticdeepdiffusionmodels_tpu/ops/groupnorm_pallas.py:98",
     "probe_mma": "scripts/probe_mosaic_bf16.py:21",
     # gn_affine's fold, the (B, C)-sized rest, which XLA's partitioner runs
     # on all-reduced statistics under spatial_sharding
@@ -445,6 +464,8 @@ SOURCES = {
     "gn_silu_conv3x3": f"{PKG}/csrc/gn_conv.cu",
     "group_norm_silu": f"{PKG}/csrc/groupnorm.cu",
     "qkv_attention": f"{PKG}/csrc/attention.cu",
+    "qkv_attention_grad": f"{PKG}/csrc/attention_grad.cu",
+    "group_norm_silu_grad": f"{PKG}/csrc/groupnorm_grad.cu",
     "probe_mma": f"{PKG}/csrc/probe_mma.cu",
     "gn_fold": f"{PKG}/csrc/groupnorm.cu",
 }
@@ -695,10 +716,12 @@ def hold_sites(torch, ops, calls):
     return sites
 
 
-def check_sites(torch, F, ops, calls, per_site, summary=None, only=None):
+def check_sites(torch, F, ops, calls, per_site, summary=None, only=None, grads_timed=True):
     """Hold each recorded call's kernel against its plain version on the
     recorded inputs, time both and the library call, and emit one
-    ``kernel_site`` line; sums go into ``summary`` by kernel name."""
+    ``kernel_site`` line; sums go into ``summary`` by kernel name.  At each
+    attention and GroupNorm site also its backward kernels
+    (``attn_gn_grad_site``, timed where ``grads_timed``)."""
     for entry in calls.values():
         name, a, kw, n = entry["name"], entry["args"], entry["kwargs"], entry["count"]
         if only is not None and name not in only:
@@ -784,6 +807,9 @@ def check_sites(torch, F, ops, calls, per_site, summary=None, only=None):
             grad_site(torch, ops, a, kw, n, site, per_site, summary)
         if name == "gn_silu_conv3x3":
             conv_grad_site(torch, ops, a, n, site, per_site, summary)
+        if name in GRAD_OF:
+            attn_gn_grad_site(torch, F, ops, name, a, kw, n, site, per_site, summary,
+                              grads_timed)
         per_site.append(site)
         emit(dict(phase="kernel_site", **site))
         if not err <= tol:
@@ -909,6 +935,182 @@ def grad_site(torch, ops, a, kw, n, affine_site, per_site, summary):
     s["calls"] += n
 
 
+# attention's and GroupNorm's backward kernels against their plain versions,
+# of the reference's largest element: bf16 outputs each side rounds
+# once from float32 values that differ in their last bits (a bf16 step is
+# 2^-8 of the value), float32 sums in another order, as the conv's gradient
+ATTN_GN_GRAD_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+GRAD_OF = {"qkv_attention": "qkv_attention_grad", "group_norm_silu": "group_norm_silu_grad"}
+
+
+def attn_gn_grad_site(torch, F, ops, name, a, kw, n, fwd_site, per_site, summary, timed=True):
+    """The backward kernels of ``qkv_attention`` or ``group_norm_silu`` at one
+    recorded site, on a seeded output gradient, against the plain backward
+    (within ATTN_GN_GRAD_TOL of each reference's largest element), in the
+    design the shape selects, run twice for the same bits with one count a
+    call.  ``timed``: also the ms with and without the host's cost (a CUDA
+    graph over copies of the inputs that do not fit L2 together) and each
+    kernel's device ms from a profile of that graph, beside the parent's
+    path (``recompute``: autograd through the plain version), the plain
+    backward, the library's backward alone, with and without the host's
+    cost (attention: SDPA's flash backend on the same q, k, v, bf16 only,
+    device time from a profile; GroupNorm:
+    ``aten.native_group_norm_backward`` on the same values in NCHW, without
+    the SiLU, device time from a CUDA graph of its calls) and the bound."""
+    gname = GRAD_OF[name]
+    kernel = ops.wrappers[gname]
+    x = a[0]
+    dtype = str(x.dtype).replace("torch.", "")
+    s = x.element_size()
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    lib = lib_device = None
+    if name == "qkv_attention":
+        mod = ops.ops.attention
+        heads = a[1] if len(a) > 1 else kw.get("num_heads", 1)
+        b, t, c3 = x.shape
+        ch = c3 // (3 * heads)
+        with torch.no_grad():
+            out, lse = mod.attention_forward(x, heads)
+        g = torch.randn(out.shape, device="cuda", generator=gen).to(x.dtype)
+        chosen = mod.attention_grad_design(x)
+        inputs = (x, g, lse)
+
+        def run(xc, gg, lc, d=None):
+            return (kernel(xc, gg, heads, lse=lc, design=d),)
+
+        def plain():
+            return (mod.qkv_attention_grad_plain(x, g, heads),)
+
+        # qkv, dO and the log-sum-exp read, dqkv written; the five products
+        # of FlashAttention-2's backward
+        nbytes = (2 * x.numel() + out.numel()) * s + lse.numel() * 4
+        flops = 10.0 * b * heads * t * t * ch
+        if timed and x.dtype == torch.bfloat16:
+            from torch.nn.attention import SDPBackend, sdpa_kernel
+
+            qh = x.view(b, t, heads, 3 * ch).permute(0, 2, 1, 3)
+            qkv_l = [z.detach().clone().requires_grad_(True)
+                     for z in (qh[..., :ch], qh[..., ch:2 * ch], qh[..., 2 * ch:])]
+            with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                o_l = F.scaled_dot_product_attention(*qkv_l, scale=1.0 / ch ** 0.5)
+            go_l = g.view(b, t, heads, ch).permute(0, 2, 1, 3)
+
+            def lib():
+                return torch.autograd.grad(o_l, qkv_l, go_l, retain_graph=True)
+
+            def lib_device():
+                # from a profile of 10 calls (autograd's backward does not
+                # capture into a graph from here); None where the profile
+                # recorded no device time
+                busy = profile_device(torch, lambda: [lib() for _ in range(10)])["device_busy_ms"]
+                return busy / 10 if busy > 0 else None
+    else:
+        gn = ops.ops.groupnorm
+        groups, eps = a[3], a[4] if len(a) > 4 else kw.get("eps", 1e-5)
+        silu = kw.get("silu", a[5] if len(a) > 5 else True)
+        gamma, beta = gn.check_inputs(name, *a[:4])
+        with torch.no_grad():
+            _, ao = gn._launch(x, gamma, beta, groups, eps, silu, want_ao=True)
+        g = torch.randn(x.shape, device="cuda", generator=gen).to(x.dtype)
+        chosen = gn.groupnorm_grad_design(x, groups)
+        inputs = (x, g, ao)
+
+        def run(xc, gg, ac, d=None):
+            return kernel(xc, gamma, beta, gg, groups, eps, silu, ao=ac, design=d)
+
+        def plain():
+            return gn.group_norm_silu_grad_plain(x, gamma, beta, g, groups, eps, silu, ao=ao)
+
+        # x and g read, dx written, the statistics read, dgamma and dbeta
+        # written; about 20 float32 operations an element
+        nbytes = 3 * x.numel() * s + ao.numel() * 4 + 4 * gamma.numel() * 4
+        flops = 20.0 * x.numel()
+        if timed:
+            bb, nn_, cc = gn._shape(x)
+            xc_ = x.reshape(bb, nn_, cc).permute(0, 2, 1).contiguous()
+            gc_ = g.reshape(bb, nn_, cc).permute(0, 2, 1).contiguous()
+            w_, bias_ = gamma.to(x.dtype), beta.to(x.dtype)
+            _, mean_, rstd_ = torch.ops.aten.native_group_norm(xc_, w_, bias_, bb, cc, nn_,
+                                                               groups, eps)
+
+            def lib():
+                return torch.ops.aten.native_group_norm_backward(
+                    gc_, xc_, mean_, rstd_, w_, bb, cc, nn_, groups, [True, True, True])
+            lib_device = lambda: graph_time(torch, lib, 20, 10)  # noqa: E731
+    ref = plain()
+    tol_rel = ATTN_GN_GRAD_TOL[dtype]
+    with torch.no_grad():
+        before = kernel.launches
+        got, again = run(*inputs), run(*inputs)
+        torch.cuda.synchronize()
+        launches = kernel.launches - before
+    err, tol = 0.0, 1.0
+    for mine, want in zip(got, ref):
+        if mine.dtype != want.dtype or mine.shape != want.shape:
+            raise AssertionError(f"{gname}: {mine.dtype} {tuple(mine.shape)} against "
+                                 f"{want.dtype} {tuple(want.shape)}")
+        e = float((mine.float() - want.float()).abs().max())
+        t_ = tol_rel * max(1e-30, float(want.float().abs().max()))
+        if not e <= t_ or e / t_ >= err / tol:
+            err, tol = e, t_
+    same = all(torch.equal(first, second) for first, second in zip(got, again))
+    del got, again
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+    site = {"kernel": gname, "shape": fwd_site["shape"], "dtype": dtype, "design": chosen,
+            "calls_per_forward": n, "max_abs_err": err, "tol": tol, "same_bits_twice": same,
+            "launches_two_calls": launches, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    if timed:
+        with torch.no_grad():
+            copies = [tuple(z.clone() for z in inputs)
+                      for _ in range(len(cold_copies(x, nbytes)))]
+            per_graph = max(1, 100 // len(copies))
+
+            def one_round():
+                for c in copies:
+                    run(*c)
+            graph = capture_graph(torch, one_round, per_graph)
+            site["ms"] = sync_time(torch, lambda: run(*inputs))
+            site["device_ms"] = replay_ms(torch, graph, 10) / (per_graph * len(copies))
+            site["kernels"] = graph_kernels(torch, graph, per_graph * len(copies))
+            del graph, copies
+            site["plain_ms"] = sync_time(torch, plain)
+        site["recompute_ms"] = sync_time(torch, lambda: run(*inputs, d="recompute"))
+        site["library_ms"] = None if lib is None else sync_time(torch, lib)
+        site["library_device_ms"] = None if lib_device is None else lib_device()
+    per_site.append(site)
+    emit(dict(phase="kernel_site", **site))
+    if not err <= tol or not same or launches != 2:
+        raise AssertionError(f"{gname} {site['shape']} {dtype}: {site} (kernel vs plain within "
+                             f"tol, the same bits twice, one launch a call)")
+    if summary is None or not timed:
+        return
+    sm = summary.setdefault(gname, dict(max_abs_err=0.0, calls=0, library_ms=0.0))
+    sm["max_abs_err"] = max(sm["max_abs_err"], err)
+    sm["design"] = ", ".join(sorted(set(filter(None, sm.get("design", "").split(", ")))
+                                    | {chosen}))
+    for key, val in (("ms", site["ms"]), ("device_ms", site["device_ms"]),
+                     ("plain_ms", site["plain_ms"]), ("recompute_ms", site["recompute_ms"]),
+                     ("library_ms", site["library_ms"]),
+                     ("library_device_ms", site["library_device_ms"]), ("bytes_ms", t_bytes),
+                     ("ops_ms", t_ops), ("bound_ms", max(t_bytes, t_ops))):
+        sm[key] = None if val is None or sm.get(key, 0.0) is None else sm.get(key, 0.0) + n * val
+    per = sm.setdefault("design_kernel_device_ms", {}).setdefault(f"{chosen} ({dtype})", {})
+    for kname, ms in site["kernels"].items():
+        per[kname] = per.get(kname, 0.0) + n * ms
+    sm["calls"] += n
+
+
+def grad_sites(torch, F, ops, calls, per_site, summary=None, timed=True):
+    """``attn_gn_grad_site`` at each recorded attention and GroupNorm call."""
+    for entry in calls.values():
+        if entry["name"] in GRAD_OF:
+            a = entry["args"]
+            fwd = {"shape": list(a[0].shape)}
+            attn_gn_grad_site(torch, F, ops, entry["name"], a, entry["kwargs"], entry["count"],
+                              fwd, per_site, summary, timed)
+
+
 # the conv's backward kernels against the plain backward: float32 sums over
 # up to 131,072 pixels in another order (float32); the kernel keeps the
 # conv's input gradient in float32 where the plain version rounds it to bf16
@@ -916,6 +1118,30 @@ CONV_GRAD_F32_TOL = 1e-4
 # the designs timed beside the one a shape selects: the conv gradient's
 # first designs for that shape, by name
 CONV_GRAD_EARLIER = {"wgmma": "wgmma_taprow", "narrow_f32": "general"}
+
+
+# attention's and GroupNorm's gradients as the parent ran them, by name
+# (module name, attribute) -> the design function swapped in
+ATTN_GN_RECOMPUTE = {("attention", "attention_grad_design"): lambda qkv: "recompute",
+                     ("groupnorm", "groupnorm_grad_design"): lambda x, groups=32: "recompute"}
+
+
+@contextlib.contextmanager
+def swapped_designs(ops, swap):
+    """Design functions swapped for a run: ``swap`` maps an attribute of
+    ``ops.gn_conv`` (a name) or (module name under ``ops``, attribute) to
+    the function swapped in; restored after."""
+    def owner(key):
+        return (ops.ops.gn_conv, key) if isinstance(key, str) else (getattr(ops.ops, key[0]),
+                                                                      key[1])
+    saved = {key: getattr(*owner(key)) for key in swap}
+    try:
+        for key, fn in swap.items():
+            setattr(*owner(key), fn)
+        yield
+    finally:
+        for key, fn in saved.items():
+            setattr(*owner(key), fn)
 
 
 def first_designs(selects):
@@ -1324,7 +1550,13 @@ def train_phases(torch, ops, model, gen):
     if not worst <= F32_GRAD_TOL or zero:
         raise AssertionError(f"float32 gradients: kernels vs plain {worst} at {worst_name} "
                              f"(tol {F32_GRAD_TOL}); all-zero gradients: {zero}")
-    del model32, g_k, g_p, out_k
+    # attention's and GroupNorm's backward kernels at every site of the
+    # float32 forward at GRAD_BATCH, held against their plain versions
+    calls32 = {}
+    with torch.no_grad(), ops.recording(calls32):
+        model32(q_sample(tables, xg, ng, tg), tg)
+    grad_sites(torch, None, ops, calls32, [], timed=False)
+    del model32, g_k, g_p, out_k, calls32
 
     # the bf16 train step of scripts/bench_train.py at batch 128
     tmodel = get_model(RESOLUTION, MODEL_CFG, device="cuda", seed=0)
@@ -1392,32 +1624,30 @@ def train_phases(torch, ops, model, gen):
     # (fold_bwd+apply: 4-5 operations a site), with the conv's gradient in
     # first designs by name (wgmma_taprow at the bf16 sites, general at the
     # head), and as the parent ran it (recompute: autograd through the
-    # recomputed plain version, about 40 operations a site)
+    # recomputed plain version, about 40 operations a site); and attention's
+    # and GroupNorm's gradients as the parent ran them
+    # (recompute by name, autograd through the plain versions)
     by_design = {}
     gc = ops.ops.gn_conv
     for name, swap in (("selected", {}),
                        ("fold_bwd+apply", {"grad_design": lambda x, groups: "fold_bwd+apply"}),
                        ("conv_wgmma_taprow", {"conv_grad_design": first_designs(
                            gc.conv_grad_design)}),
-                       ("conv_recompute", {"conv_grad_design": lambda x, w: "recompute"})):
-        saved = {k: getattr(gc, k) for k in swap}
-        before = gc.gn_silu_conv3x3_grad.launches
-        try:
-            for k, fn in swap.items():
-                setattr(gc, k, fn)
+                       ("conv_recompute", {"conv_grad_design": lambda x, w: "recompute"}),
+                       ("attn_gn_recompute", ATTN_GN_RECOMPUTE)):
+        before = {k: ops.wrappers[k].launches for k in PER_BACKWARD}
+        with swapped_designs(ops, swap):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             profs = [profile_device(torch, lambda: step(state, xb)) for _ in range(2)]
             turn_peak = torch.cuda.max_memory_allocated()
-        finally:
-            for k, fn in saved.items():
-                setattr(gc, k, fn)
-        # the recompute launches no kernel of the conv's gradient; the kernel
+        # a recompute launches no kernel of its op's gradient; the kernel
         # designs launch it
-        moved = gc.gn_silu_conv3x3_grad.launches - before
-        if (moved == 0) != (name == "conv_recompute"):
-            raise AssertionError(f"train step, {name}: gn_silu_conv3x3_grad counted {moved} "
-                                 f"launches")
+        moved = {k: ops.wrappers[k].launches - before[k] for k in PER_BACKWARD}
+        recomputed = {"conv_recompute": {"gn_silu_conv3x3_grad"},
+                      "attn_gn_recompute": {"qkv_attention_grad", "group_norm_silu_grad"}}
+        if any((moved[k] == 0) != (k in recomputed.get(name, ())) for k in PER_BACKWARD):
+            raise AssertionError(f"train step, {name}: the backward kernels counted {moved}")
         by_design[name] = {"device_ops": max(p["device_ops"] for p in profs),
                            "device_busy_ms": [p["device_busy_ms"] for p in profs],
                            "idle_share": [p["idle_share"] for p in profs],
@@ -1426,6 +1656,8 @@ def train_phases(torch, ops, model, gen):
     ops_a_step["fewer"] = ops_a_step["fold_bwd+apply"] - ops_a_step["selected"]
     ops_a_step["fewer_than_conv_recompute"] = (ops_a_step["conv_recompute"]
                                                - ops_a_step["selected"])
+    ops_a_step["fewer_than_attn_gn_recompute"] = (ops_a_step["attn_gn_recompute"]
+                                                  - ops_a_step["selected"])
     emit({"phase": "train_step_bf16", "batch": TRAIN_BATCH, "steps_per_pass": TRAIN_STEPS,
           "warmup_steps": TRAIN_WARMUP, "passes": passes, "launches_per_pass": train_launches,
           "split_one_step": split, "max_memory_allocated_bytes": peak, "loss": loss,
@@ -1503,6 +1735,9 @@ def celeba_phase(torch, F, ops, per_site):
         model(x, t)
     torch.cuda.synchronize()
     check_sites(torch, F, ops, calls, per_site, only=("gn_affine",))
+    # attention's and its GroupNorm's backward kernels at the heads of 96
+    # and 128 and their norms, timed
+    grad_sites(torch, F, ops, calls, per_site)
 
 
 @contextlib.contextmanager
@@ -2544,13 +2779,16 @@ def _block_counts(model):
             sum(isinstance(m, AttentionBlock) for m in mods))
 
 
-def nd_counts(model):
+def nd_counts(model, backward=False):
     """Launches of one forward of a 1-D or 3-D UNet: GroupNorm (+SiLU) twice
     a ResBlock, once an attention norm and once the head; the attention
-    kernel once an attention block; no fused conv."""
+    kernel once an attention block; no fused conv.  ``backward``: and one
+    backward, whose GroupNorm and attention gradients launch once a site."""
     n_res, n_attn = _block_counts(model)
+    n_gn = 2 * n_res + n_attn + 1
     return {"gn_affine": 0, "gn_silu_conv3x3": 0, "qkv_attention": n_attn,
-            "group_norm_silu": 2 * n_res + n_attn + 1, **backward_counts(0)}
+            "group_norm_silu": n_gn, **backward_counts(0),
+            **({"qkv_attention_grad": n_attn, "group_norm_silu_grad": n_gn} if backward else {})}
 
 
 def f32_vs_plain(torch, ops, model, x, t, *cond, target=None):
@@ -2914,7 +3152,7 @@ def model_extras_phase(torch, F, ops, gen, smi, per_site, out_dir=None):
         torch.cuda.synchronize()
         counts = ops.counts()
         sites = []
-        check_sites(torch, F, ops, calls, sites)
+        check_sites(torch, F, ops, calls, sites, grads_timed=False)
         per_site.extend(sites)
         with torch.no_grad():
             ms = sync_time(torch, lambda: m(xn, tn), min_ms=200.0, max_reps=20)
@@ -2922,12 +3160,12 @@ def model_extras_phase(torch, F, ops, gen, smi, per_site, out_dir=None):
         nd[f"{dims}d"] = {"config": cfg, "spatial": list(spatial), "batch": batch,
                           "forward_bf16_ms": ms, "launches": counts,
                           "f32_vs_plain": dict(f32, tol=F32_GRAD_TOL),
-                          "sites": [{k: s[k] for k in ("kernel", "shape", "dtype", "design",
-                                                       "max_abs_err", "tol", "ms",
-                                                       "plain_ms")} for s in sites]}
+                          "sites": [{k: s.get(k) for k in ("kernel", "shape", "dtype", "design",
+                                                           "max_abs_err", "tol", "ms",
+                                                           "plain_ms")} for s in sites]}
         if counts != nd_counts(m) or not bool(torch.isfinite(out).all()):
             bad.append(f"{dims}-D forward: launches {counts} != {nd_counts(m)}")
-        if f32["launches"] != nd_counts(m):
+        if f32["launches"] != nd_counts(m, backward=True):
             bad.append(f"{dims}-D float32 forward and backward launches {f32['launches']}")
         if not (f32["fwd_rel_err"] <= F32_GRAD_TOL and f32["grad_max_rel_err"] <= F32_GRAD_TOL
                 and not f32["all_zero_grads"]):
@@ -3357,7 +3595,9 @@ def consistency_distill_phase(torch, ops, gen, smi, run_dir, out_dir=None):
 
 
 # this repository's kernels as the profiler names them
-OWN_KERNELS = ("attn_bf16_kernel", "attn_f32_kernel", "conv_wgmma_kernel",
+OWN_KERNELS = ("attn_bf16_kernel", "attn_f32_kernel", "attn_bwd_dq_bf16_kernel",
+               "attn_bwd_dkv_bf16_kernel", "attn_bwd_dq_f32_kernel", "attn_bwd_dkv_f32_kernel",
+               "gn_silu_bwd_kernel", "gn_silu_bwd_sums_kernel", "conv_wgmma_kernel",
                "conv_narrow_f32_kernel", "conv_kernel<", "gn_moments_kernel", "gn_apply_kernel",
                "gn_affine_bwd_kernel", "gn_batch_sum_kernel", "gn_fold_bwd_kernel",
                "gn_fold_kernel", "dgrad_wgmma_kernel", "wgrad_wgmma_kernel",
@@ -3743,6 +3983,19 @@ def fused_train_phase(torch, ops, gen, smi, out_dir=None):
         gc.conv_grad_design = selects
     replays["wgmma_taprow"] = replay_work(taprow_e)
     del taprow_e
+    # (c3) and with attention's and GroupNorm's gradients captured as the
+    # parent ran them (recompute by name: autograd through the plain versions)
+    rc_e = DiffusionEngine(dict(MODEL_CFG), {"lr": FUSED_LR}, ema=0.9999, device="cuda")
+    fill_zero_params(torch, rc_e.state.model, seed=50)
+    names = ("qkv_attention_grad", "group_norm_silu_grad")
+    before = {n: ops.wrappers[n].launches for n in names}
+    with swapped_designs(ops, ATTN_GN_RECOMPUTE):
+        rc_e.training_steps(xs[0])  # warm-up and capture
+    moved = {n: ops.wrappers[n].launches - before[n] for n in names}
+    if any(moved.values()):
+        bad.append(f"the attention / GroupNorm recompute capture counted {moved}")
+    replays["attn_gn_recompute"] = replay_work(rc_e)
+    del rc_e
 
     # (d) the CLI with fused steps and the device-resident loader
     root = CLI_ROOT / "fused"
@@ -4678,6 +4931,11 @@ def main(argv=None) -> int:
 
     prof = profile_device(torch, forward128)
     all_kernels = prof.pop("all")
+    # copies and casts (the UNet no longer casts its unread features, 33 a
+    # forward of a bf16 model fed float32 x)
+    copies = [k for k in all_kernels if "copy" in k["name"].lower()]
+    prof["copy_ops"] = sum(k["calls"] for k in copies)
+    prof["copy_ms"] = sum(k["ms"] for k in copies)
     # the device's idle share of the unprofiled forward: its CUDA-event time
     # against the device time the profiler summed
     prof["idle_share_unprofiled"] = 1.0 - prof["device_busy_ms"] / fwd_ms

@@ -30,6 +30,9 @@
 //
 // float32 design (not on the bf16 main path): one block of 4 warps per
 // (64-query tile, head, batch) with scalar FMAs; two threads per query row.
+//
+// Where autograd records the op, both designs also write each row's
+// log-sum-exp (B, H, T) float32 for the backward (attention_grad.cu).
 #include "common.cuh"
 
 using namespace pddm;
@@ -44,7 +47,7 @@ constexpr float LOG2E = 1.4426950408889634f;
 template <int CH>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
 attn_bf16_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ out,
-                 int ntok, int heads, float scale, int stages) {
+                 float* __restrict__ lse, int ntok, int heads, float scale, int stages) {
   constexpr int LD = CH + 8;   // padded row (elements)
   constexpr int CPR = CH / 8;  // 16-byte chunks per row
   const int nthreads = blockDim.x, nq = nthreads / 2;  // 16 rows per warp
@@ -205,6 +208,14 @@ attn_bf16_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restric
     load_tile(j + stages);
   }
 
+  // Each row's log-sum-exp (natural log) for the backward, where asked.
+  if (lse != nullptr && tq == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int q = q0 + wrow + g + 8 * i;
+      if (q < ntok) lse[((long)b * heads + h) * ntok + q] = m_run[i] + logf(l_run[i]);
+    }
+  }
   // Normalise, stage the warp's 16 rows in its own Q rows, store 16 bytes a lane.
   __nv_bfloat16* Os = Qs + wrow * LD;
 #pragma unroll
@@ -231,8 +242,8 @@ constexpr int NT = 128;  // float32: threads per block
 // float32: two threads per query row (tid / 2); the pair splits the keys of
 // a tile and the output channels between them.
 __global__ void __launch_bounds__(NT)
-attn_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out, int ntok,
-                int heads, int ch, float scale) {
+attn_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out, float* __restrict__ lse,
+                int ntok, int heads, int ch, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ld = ch + 1;
   float* Qs = reinterpret_cast<float*>(smem_raw);  // BR x ld
@@ -300,6 +311,8 @@ attn_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out, int ntok
   }
 
   const int q = q0 + row;
+  if (q < ntok && lse != nullptr && half == 0)
+    lse[((long)b * heads + h) * ntok + q] = m_run + logf(l_run);
   if (q < ntok) {
     const float inv = 1.f / l_run;
     float* dst = out + ((long)b * ntok + q) * heads * ch + (long)h * ch;
@@ -308,7 +321,7 @@ attn_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out, int ntok
 }
 
 template <int CH>
-cudaError_t launch_bf16(const void* qkv, void* out, int B, int ntok, int heads,
+cudaError_t launch_bf16(const void* qkv, void* out, float* lse, int B, int ntok, int heads,
                         float scale, cudaStream_t stream) {
   const int warps = (ntok + 15) / 16 < MAX_WARPS ? (ntok + 15) / 16 : MAX_WARPS;
   const int stages = (ntok + BC - 1) / BC < MAX_STAGES ? (ntok + BC - 1) / BC : MAX_STAGES;
@@ -318,26 +331,28 @@ cudaError_t launch_bf16(const void* qkv, void* out, int B, int ntok, int heads,
   if (err != cudaSuccess) return err;
   const dim3 grid((ntok + 16 * warps - 1) / (16 * warps), heads, B);
   attn_bf16_kernel<CH><<<grid, 32 * warps, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out), ntok,
+      static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out), lse, ntok,
       heads, scale, stages);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int pddm_qkv_attention(const void* qkv, void* out, int B, int ntok, int heads,
-                                  int ch, float scale, int is_bf16, void* stream_ptr) {
+extern "C" int pddm_qkv_attention(const void* qkv, void* out, void* lse_ptr, int B, int ntok,
+                                  int heads, int ch, float scale, int is_bf16,
+                                  void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  float* lse = static_cast<float*>(lse_ptr);
   if (is_bf16) {
     switch (ch) {  // every multiple of 16 up to 128
-      case 16: return launch_bf16<16>(qkv, out, B, ntok, heads, scale, stream);
-      case 32: return launch_bf16<32>(qkv, out, B, ntok, heads, scale, stream);
-      case 48: return launch_bf16<48>(qkv, out, B, ntok, heads, scale, stream);
-      case 64: return launch_bf16<64>(qkv, out, B, ntok, heads, scale, stream);
-      case 80: return launch_bf16<80>(qkv, out, B, ntok, heads, scale, stream);
-      case 96: return launch_bf16<96>(qkv, out, B, ntok, heads, scale, stream);
-      case 112: return launch_bf16<112>(qkv, out, B, ntok, heads, scale, stream);
-      case 128: return launch_bf16<128>(qkv, out, B, ntok, heads, scale, stream);
+      case 16: return launch_bf16<16>(qkv, out, lse, B, ntok, heads, scale, stream);
+      case 32: return launch_bf16<32>(qkv, out, lse, B, ntok, heads, scale, stream);
+      case 48: return launch_bf16<48>(qkv, out, lse, B, ntok, heads, scale, stream);
+      case 64: return launch_bf16<64>(qkv, out, lse, B, ntok, heads, scale, stream);
+      case 80: return launch_bf16<80>(qkv, out, lse, B, ntok, heads, scale, stream);
+      case 96: return launch_bf16<96>(qkv, out, lse, B, ntok, heads, scale, stream);
+      case 112: return launch_bf16<112>(qkv, out, lse, B, ntok, heads, scale, stream);
+      case 128: return launch_bf16<128>(qkv, out, lse, B, ntok, heads, scale, stream);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -347,7 +362,7 @@ extern "C" int pddm_qkv_attention(const void* qkv, void* out, int B, int ntok, i
   if (err != cudaSuccess) return err;
   const dim3 grid((ntok + BR - 1) / BR, heads, B);
   attn_f32_kernel<<<grid, NT, smem, stream>>>(static_cast<const float*>(qkv),
-                                              static_cast<float*>(out), ntok, heads, ch,
+                                              static_cast<float*>(out), lse, ntok, heads, ch,
                                               scale);
   return cudaGetLastError();
 }

@@ -83,36 +83,34 @@
 //          is a multiple of C/G and of V) over all N rows of a sample, folds
 //          them itself and reads its rows again, from L1/L2, to apply.  For
 //          the short sequences of the attention norms (a chunk is <= 48 KB).
+//          Where autograd records the op it also writes the (4, B, C) ao.
 //   split  moments + fold as gn_affine runs them, then the apply kernel, for
 //          long inputs (64x64 and larger), where one block per chunk would
 //          leave the card idle and the second read would miss the cache.
+//
+// GroupNorm's gradient (replaces _gns_bwd in ops/groupnorm_pallas.py, the
+// jax.vjp of the XLA form) reuses gn_affine's backward: with g' = g silu'(p),
+// da = sum g' x and doff = sum g' are the gradients of the fold's (a, off),
+// the fold's backward gives 2 dL/dS2, dL/dS1 and the shares of dL/dgamma and
+// dL/dbeta, and dx = g' a + x 2 dL/dS2 + dL/dS1.  Its kernels are in
+// groupnorm_grad.cu (what both files share: groupnorm.cuh).  Bound by bytes:
+// x and g read, dx written.  Two designs (ops/groupnorm.py::groupnorm_grad_design):
+//   fused  gn_silu_bwd_kernel<LOCAL>: the forward's fused chunks, a block
+//          sums its rows, folds backwards in shared memory and reads x and g
+//          again (from L1/L2) for dx; then gn_batch_sum_kernel.  2 launches.
+//   split  gn_silu_bwd_sums_kernel (split rows' sums into a workspace), then
+//          gn_silu_bwd_kernel adds them in split order for the groups its
+//          chunk touches (a whole group where a chunk is narrower than one)
+//          and writes dx over its rows; then gn_batch_sum_kernel.  3 launches.
+// No float atomics: the same bits on every run.
 #include <cooperative_groups.h>
 
-#include "common.cuh"
+#include "groupnorm.cuh"
 
 using namespace pddm;
 namespace cgs = cooperative_groups;
 
 namespace {
-
-constexpr int NT = 256;
-
-// The launch geometry, from ops/groupnorm.py (moments_plan, affine_plan,
-// grad_plan).
-struct Plan {
-  int B, N, C, G;
-  int cvb;     // channel vectors of one block (its threads along the channels)
-  int splits;  // blocks along N of one sample
-  int rows;    // rows of one block
-  int fold;    // where a block's sums meet: kLocal, kCluster or kWorkspace
-};
-
-// kLocal: a block covers whole groups over all N rows and folds them itself;
-// kCluster: the splits of a sample are one thread-block cluster and meet in
-// distributed shared memory; kWorkspace: they meet in a global workspace and
-// the sample's last block folds every channel.
-constexpr int kLocal = 0, kCluster = 1, kWorkspace = 2;
-constexpr int kClusterMax = 8;  // blocks a portable cluster may hold
 
 // The conditioning folded into (a, off): nothing, the timestep embedding
 // (B, C), or the FiLM pair (scale, shift), each (B, C); unit channel stride,
@@ -129,31 +127,6 @@ struct Cond {
 __device__ __forceinline__ float cond_at(const void* p, long i, int is_bf16) {
   return is_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
                  : static_cast<const float*>(p)[i];
-}
-
-template <int BYTES> struct Raw;
-template <> struct Raw<16> { using type = uint4; };
-template <> struct Raw<8> { using type = uint2; };
-template <> struct Raw<4> { using type = uint32_t; };
-template <> struct Raw<2> { using type = uint16_t; };
-
-// V neighbouring channels as one load or store of V * sizeof(T) bytes.
-template <typename T, int V> using RawVec = typename Raw<V * sizeof(T)>::type;
-
-template <typename T, int V>
-__device__ __forceinline__ void unpack_vec(const RawVec<T, V>& r, float (&f)[V]) {
-  const T* e = reinterpret_cast<const T*>(&r);
-#pragma unroll
-  for (int k = 0; k < V; ++k) f[k] = to_f(e[k]);
-}
-
-template <typename T, int V>
-__device__ __forceinline__ void store_vec(T* p, const float (&f)[V]) {
-  RawVec<T, V> r;
-  T* e = reinterpret_cast<T*>(&r);
-#pragma unroll
-  for (int k = 0; k < V; ++k) e[k] = from_f<T>(f[k]);
-  *reinterpret_cast<RawVec<T, V>*>(p) = r;
 }
 
 // Add `left / U * U` rows, `step` elements apart, into the sums: the U loads
@@ -221,43 +194,7 @@ __device__ __forceinline__ void block_moments(const T* __restrict__ x, const Pla
     sum_rows<T, V, 2>(px, step, left, s, ss);
     sum_rows<T, V, 1>(px, step, left, s, ss);
   }
-  // Where a warp holds whole rows of the block (cvb divides 32), the lanes of
-  // one channel vector meet by shuffles first, and one partial sum a warp is
-  // left; the rest meet in shared memory, in row order.
-  int parts = R, slot = threadIdx.x;
-  if (32 % p.cvb == 0) {
-    for (int o = p.cvb; o < 32; o <<= 1) {
-#pragma unroll
-      for (int k = 0; k < V; ++k) {
-        s[k] += __shfl_xor_sync(0xffffffffu, s[k], o);
-        ss[k] += __shfl_xor_sync(0xffffffffu, ss[k], o);
-      }
-    }
-    parts = NT / 32;
-    const int lane = threadIdx.x & 31;
-    slot = lane < p.cvb ? (threadIdx.x >> 5) * p.cvb + lane : -1;
-  }
-  if (slot >= 0) {
-    float* mine = red + slot * 2 * V;
-#pragma unroll
-    for (int k = 0; k < V; ++k) {
-      mine[k] = s[k];
-      mine[V + k] = ss[k];
-    }
-  }
-  __syncthreads();
-  for (int j = threadIdx.x; j < nch; j += NT) {
-    const int jx = j / V, k = j % V;
-    float a = 0.f, q = 0.f;
-    for (int y = 0; y < parts; ++y) {
-      const float* o = red + (y * p.cvb + jx) * 2 * V;
-      a += o[k];
-      q += o[V + k];
-    }
-    csum[j] = a;
-    csq[j] = q;
-  }
-  __syncthreads();
+  block_reduce<V>(p, s, ss, nch, red, csum, csq);
 }
 
 // The fold for sample b and the nch channels from c0 on (whole groups):
@@ -430,8 +367,18 @@ gn_moments_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
   if constexpr (APPLY) {
     float* sa = csq + cap;
     float* so = sa + cap;
-    fold(p, cd, gamma, beta, eps, b, fc0, fn, csum, csq, sa, so, nullptr, nullptr);
+    // ao (where autograd records the op): a, off, E[x], E[x^2] for the backward
+    float* o = ao == nullptr ? nullptr : ao + (long)b * p.C + fc0;
+    const long bc = (long)p.B * p.C;
+    fold(p, cd, gamma, beta, eps, b, fc0, fn, csum, csq, sa, so, o == nullptr ? nullptr : o + 2 * bc,
+         o == nullptr ? nullptr : o + 3 * bc);
     __syncthreads();
+    if (o != nullptr) {
+      for (int j = threadIdx.x; j < fn; j += NT) {
+        o[j] = sa[j];
+        o[bc + j] = so[j];
+      }
+    }
     apply_rows<T, V>(x, y, p, b, blockIdx.y * p.cvb, r0, r1, sa, so, silu);
   } else {
     float* o = ao + (long)b * p.C + fc0;  // ao is (4, B, C): a, off, E[x], E[x^2]
@@ -635,44 +582,6 @@ gn_affine_bwd_kernel(const T* __restrict__ x, const float* __restrict__ ao,
   }
 }
 
-// The second launch of fused_bwd: dgamma[c], dbeta[c], the sums over the
-// batch of the (B, 2, C) shares, in a fixed order, so two runs give the same
-// bits.  A block takes 16 channels, so 32 columns (dgamma's, then dbeta's) of
-// 8 threads each: part q sums the samples q, q + 8, ...; the parts meet in
-// shared memory in part order.  (A tail run by the launch's last block
-// instead, one block summing a chunk's columns, cost more than this launch at
-// every site measured.)
-__global__ void __launch_bounds__(NT)
-gn_batch_sum_kernel(const float* __restrict__ shares, float* __restrict__ dgamma,
-                    float* __restrict__ dbeta, int B, int C) {
-  constexpr int CH = 16, COLS = 2 * CH, PARTS = NT / COLS;
-  __shared__ float acc[NT];
-  const int c0 = blockIdx.x * CH, nch = CH < C - c0 ? CH : C - c0;
-  const int col = threadIdx.x % COLS, part = threadIdx.x / COLS;
-  float s = 0.f;
-  if (col < 2 * nch) {
-    const float* src = shares + (col < nch ? c0 + col : C + c0 + col - nch);
-    int b = part;
-    for (; b + 3 * PARTS < B; b += 4 * PARTS) {
-      const float v0 = src[(long)b * 2 * C], v1 = src[(long)(b + PARTS) * 2 * C];
-      const float v2 = src[(long)(b + 2 * PARTS) * 2 * C];
-      const float v3 = src[(long)(b + 3 * PARTS) * 2 * C];
-      s = (((s + v0) + v1) + v2) + v3;
-    }
-    for (; b < B; b += PARTS) s += src[(long)b * 2 * C];
-  }
-  acc[threadIdx.x] = s;
-  __syncthreads();
-  if ((int)threadIdx.x < 2 * nch) {
-    float t = 0.f;
-    for (int q = 0; q < PARTS; ++q) t += acc[q * COLS + threadIdx.x];
-    if ((int)threadIdx.x < nch)
-      dgamma[c0 + threadIdx.x] = t;
-    else
-      dbeta[c0 + threadIdx.x - nch] = t;
-  }
-}
-
 // The fold alone for sample b: mom is (2, B, C) float32 (E[x], E[x^2]), ao
 // (4, B, C) as gn_moments_kernel writes it.  The moments go to shared memory
 // and the shared fold reads them as sums over one row.
@@ -694,22 +603,6 @@ gn_fold_kernel(const float* __restrict__ mom, const float* __restrict__ gamma,
   fold(p, cd, gamma, beta, eps, b, 0, C, csum, csq, ao + row, ao + bc + row, ao + 2 * bc + row,
        ao + 3 * bc + row);
 }
-
-bool plan_ok(const Plan& p, int V, size_t elem, const void* x, const void* y) {
-  return p.B >= 1 && p.B <= 65535 && p.N >= 1 && p.C >= 1 && p.G >= 1 && p.C % p.G == 0 &&
-         V >= 1 && p.C % V == 0 && p.cvb >= 1 && p.cvb <= NT && p.splits >= 1 && p.rows >= 1 &&
-         (long)p.splits * p.rows >= p.N && reinterpret_cast<uintptr_t>(x) % (V * elem) == 0 &&
-         reinterpret_cast<uintptr_t>(y) % (V * elem) == 0;
-}
-
-dim3 plan_grid(const Plan& p, int V) {
-  const int cv = p.C / V;
-  return dim3(p.splits, (cv + p.cvb - 1) / p.cvb, p.B);
-}
-
-// Whether a chunk of the plan's channels is whole groups (the last chunk
-// is what is left of C, so whole groups too).
-bool whole_groups(const Plan& p, int V) { return (p.cvb * V) % (p.C / p.G) == 0; }
 
 template <typename T, int V, bool APPLY>
 cudaError_t launch_moments(const void* x, const float* gamma, const float* beta, const Cond& cd,
@@ -965,12 +858,14 @@ extern "C" int pddm_gn_apply(const void* x, const void* ao, void* y, int B, int 
 
 // The fused GroupNorm: moments, fold and apply in one launch, a block per
 // (sample, chunk of cvb * V channels: whole groups).
+// ao (nullable): (4, B, C) float32 receives a, off, E[x] and E[x^2], which
+// the backward reads (written only where autograd records the op).
 extern "C" int pddm_group_norm_silu(const void* x, const void* gamma, const void* beta, void* y,
-                                    int B, int N, int C, int G, float eps, int silu,
+                                    void* ao, int B, int N, int C, int G, float eps, int silu,
                                     int is_bf16, int V, int cvb, void* stream_ptr) {
   const Plan p{B, N, C, G, cvb, 1, N};
   const Cond cd{nullptr, nullptr, 0, 0, 0, 0};
   return moments_any<true>(is_bf16, V, x, static_cast<const float*>(gamma),
-                           static_cast<const float*>(beta), cd, nullptr, y, nullptr, nullptr, p,
-                           eps, silu, static_cast<cudaStream_t>(stream_ptr));
+                           static_cast<const float*>(beta), cd, static_cast<float*>(ao), y,
+                           nullptr, nullptr, p, eps, silu, static_cast<cudaStream_t>(stream_ptr));
 }

@@ -387,7 +387,6 @@ class UNetModel(nn.Module):
                              "'down' activations would be empty")
         emb = self._embed(timesteps, y)
         in_dtype = x.dtype
-        down = []
         if cache is not None:
             h, skips = cache
             h = h.to(self.dtype)
@@ -398,17 +397,20 @@ class UNetModel(nn.Module):
             for entry in self.encoder:
                 h = self._run(h, entry, emb, generator)
                 hs.append(h)
-            down = [s.to(in_dtype) for s in hs]
+        # the features are cast only where they are returned: an eager cast
+        # that nothing reads is a copy on the card (JAX's jit drops them)
+        down = [s.to(in_dtype) for s in hs] if return_features else []
         new_cache = (h, tuple(hs)) if return_cache and not cache_middle else None
         if not (cache is not None and cache_middle):
             h = self._run(h, self.middle, emb, generator)
-        middle = h.to(in_dtype)
+        middle = h.to(in_dtype) if return_features else None
         if return_cache and cache_middle:
             new_cache = (h, tuple(hs))
         up = []
         for entry in self.decoder:
             h = self._run(torch.cat([h, hs.pop()], dim=-1), entry, emb, generator)
-            up.append(h.to(in_dtype))
+            if return_features:
+                up.append(h.to(in_dtype))
         if return_features:
             return {"down": down, "middle": middle, "up": up}
         if self.dims == 2:

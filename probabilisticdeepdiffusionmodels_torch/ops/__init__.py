@@ -1,9 +1,8 @@
 """The ops that hold hand-written CUDA kernels (``csrc/``): the four of the
 UNet forward (the folded GroupNorm affine, the fused conv, GroupNorm and
-attention), differentiable (the folded affine and the fused conv through
-backward kernels of their own, ``gn_affine_grad`` and
-``gn_silu_conv3x3_grad``; GroupNorm and attention through their plain
-versions), exported here with
+attention), each differentiable through backward kernels of its own
+(``gn_affine_grad``, ``gn_silu_conv3x3_grad``, ``group_norm_silu_grad``,
+``qkv_attention_grad``), exported here with
 the fold of GroupNorm's statistics alone (``gn_fold``, the spatially
 sharded forward's), and the matrix-unit probe, in its own module
 ``ops.probe_mma``.
@@ -13,7 +12,14 @@ its kernel for a CUDA tensor (or raises); each counts its launches in
 ``<wrapper>.launches``.
 """
 
-from .attention import attention_design, qkv_attention, qkv_attention_plain
+from .attention import (
+    attention_design,
+    attention_grad_design,
+    qkv_attention,
+    qkv_attention_grad,
+    qkv_attention_grad_plain,
+    qkv_attention_plain,
+)
 from .gn_conv import (
     conv_design,
     conv_grad_design,
@@ -34,8 +40,11 @@ from .groupnorm import (
     gn_fold,
     gn_fold_plain,
     group_norm_silu,
+    group_norm_silu_grad,
+    group_norm_silu_grad_plain,
     group_norm_silu_plain,
     group_norm_silu_slab,
     group_norm_silu_slab_plain,
     groupnorm_design,
+    groupnorm_grad_design,
 )

@@ -34,11 +34,16 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C entry point -> argtypes; every entry point returns cudaGetLastError().
 _SIGNATURES = {
-    # qkv, out, B, T, heads, ch, scale, is_bf16, stream
-    "pddm_qkv_attention": [_P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P],
-    # x, gamma, beta, out, B, N, C, groups, eps, silu, is_bf16, V, cvb, stream
-    "pddm_group_norm_silu": [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float,
+    # qkv, out, lse, B, T, heads, ch, scale, is_bf16, stream
+    "pddm_qkv_attention": [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P],
+    # qkv, dout, lse, delta, dqkv, B, T, heads, ch, scale, is_bf16, stream
+    "pddm_qkv_attention_grad": [*[_P] * 5, _I, _I, _I, _I, ctypes.c_float, _I, _P],
+    # x, gamma, beta, out, ao, B, N, C, groups, eps, silu, is_bf16, V, cvb, stream
+    "pddm_group_norm_silu": [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float,
                              _I, _I, _I, _I, _P],
+    # x, g, ao, gamma, dx, ws, shares, dgamma, dbeta, B, N, C, groups, eps, silu, is_bf16,
+    # V, cvb, splits, rows, local, stream
+    "pddm_group_norm_silu_grad": [*[_P] * 9, _I, _I, _I, _I, ctypes.c_float, *[_I] * 7, _P],
     # x, gamma, beta, cond0, cond1, ao, ws, counters, B, N, C, groups, eps, mode,
     # stride0, stride1, cond_is_bf16, is_bf16, V, cvb, splits, rows, fold, stream
     "pddm_gn_moments_fold": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float,

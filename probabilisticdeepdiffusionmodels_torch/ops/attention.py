@@ -1,4 +1,4 @@
-"""Fused-qkv self-attention: plain torch version and the CUDA kernel.
+"""Fused-qkv self-attention: plain torch version and the CUDA kernels.
 
 Semantics of ``probabilisticdeepdiffusionmodels_tpu/ops/attention.py``:
 heads are contiguous ``[q|k|v]`` chunks of the fused ``(B, T, 3C)`` channel
@@ -20,24 +20,39 @@ q and k are scaled in shared memory as they land, fragments come from
 ``ldmatrix`` (``.trans`` for V), both products are ``mma.sync`` m16n8k16
 with the score tile in registers and an online softmax in float32, and the
 output leaves in 16-byte stores.  float32 (design ``scalar_f32``): one
-block per (batch, head, 64-query tile) with scalar FMAs.
+block per (batch, head, 64-query tile) with scalar FMAs.  Where autograd
+records the op, the forward also writes each row's log-sum-exp, (B, H, T)
+float32.
 
-Backward: the Pallas attention kernel has no custom VJP; JAX differentiates
-the op through ``qkv_attention_xla``.  So here too there is no backward
-kernel: the gradient is that of the plain version, recomputed from the saved
-input (``autograd.kernel_op``).
+Backward (``qkv_attention_grad``, ``csrc/attention_grad.cu``): the Pallas
+kernel has no VJP; JAX differentiates the op through ``qkv_attention_xla``.
+Here the gradient has kernels of its own, FlashAttention-2's backward with
+dQ split out (two launches: each row's D = rowsum(P * dP), then dQ, in two
+passes over the keys; then dK and dV; bf16 products on ``mma.sync``, true
+float32 FMAs for float32; no float atomics, so a call gives the same bits
+twice), from qkv and the log-sum-exp that autograd keeps.  D is summed from
+P * dP, not from the stored output as FlashAttention does, so each row's dS
+sums to zero over the keys as in the plain version's softmax backward (the
+source's header says why that matters).  ``attention_grad_design`` names
+the design a call runs (``mma_ring`` or ``scalar_f32``, as the forward's);
+``recompute`` (autograd through the plain version, the parent's path) runs
+by name only and counts no launch.  ``qkv_attention_grad_plain`` writes the
+gradient out with the kernel's rounding points.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
-from .autograd import kernel_op
+from .autograd import forbid_forward_mode
+from .gn_conv import _aligned
 
-__all__ = ["attention_design", "qkv_attention", "qkv_attention_plain"]
+__all__ = ["attention_design", "attention_grad_design", "attention_forward", "qkv_attention",
+           "qkv_attention_plain", "qkv_attention_grad", "qkv_attention_grad_plain"]
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _BF16_HEAD_DIMS = tuple(range(16, 129, 16))
@@ -67,11 +82,8 @@ def qkv_attention_plain(qkv: torch.Tensor, num_heads: int = 1) -> torch.Tensor:
     return out.reshape(b, t, c3 // 3)
 
 
-def qkv_attention(qkv: torch.Tensor, num_heads: int = 1) -> torch.Tensor:
-    """(B, T, 3C) -> (B, T, C).  A CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel or raises.  Differentiable in qkv."""
-    if qkv.device.type == "cpu":
-        return qkv_attention_plain(qkv, num_heads)
+def _check(qkv: torch.Tensor, num_heads: int) -> None:
+    """Raise on what the kernels do not take."""
     if qkv.device.type != "cuda":
         raise ValueError(f"qkv_attention: unsupported device {qkv.device}")
     if qkv.dim() != 3:
@@ -90,8 +102,20 @@ def qkv_attention(qkv: torch.Tensor, num_heads: int = 1) -> torch.Tensor:
                          f"(bf16: {_BF16_HEAD_DIMS}; float32: <= 128)")
     if bf16 and qkv.data_ptr() % 16:
         raise ValueError("qkv_attention kernel: bf16 qkv must be 16-byte aligned")
-    return kernel_op(lambda qkv: _launch(qkv, num_heads),
-                                lambda qkv: qkv_attention_plain(qkv, num_heads), qkv)
+
+
+def qkv_attention(qkv: torch.Tensor, num_heads: int = 1) -> torch.Tensor:
+    """(B, T, 3C) -> (B, T, C).  A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernel or raises.  Differentiable in qkv, on the
+    card by ``qkv_attention_grad``'s kernels, in reverse mode only (a
+    forward-mode tangent raises, ``autograd.forbid_forward_mode``)."""
+    if qkv.device.type == "cpu":
+        return qkv_attention_plain(qkv, num_heads)
+    forbid_forward_mode("qkv_attention", qkv)
+    _check(qkv, num_heads)
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return _QkvAttention.apply(qkv, num_heads)
+    return _launch(qkv, num_heads)
 
 
 def attention_design(qkv: torch.Tensor) -> str:
@@ -99,15 +123,127 @@ def attention_design(qkv: torch.Tensor) -> str:
     return "mma_ring" if qkv.dtype == torch.bfloat16 else "scalar_f32"
 
 
-def _launch(qkv, num_heads):
+def attention_grad_design(qkv: torch.Tensor) -> str:
+    """The design of ``qkv_attention_grad`` on CUDA tensor ``qkv``:
+    ``mma_ring`` (bf16, on the tensor cores) or ``scalar_f32``, as the
+    forward's; ``recompute`` runs by name only."""
+    return attention_design(qkv)
+
+
+def _launch(qkv, num_heads, lse=None):
+    """The forward kernel; ``lse``: a (B, H, T) float32 tensor for each
+    row's log-sum-exp, or None (nothing stored)."""
     b, t, c3 = qkv.shape
     ch = c3 // (3 * num_heads)
     out = torch.empty((b, t, c3 // 3), dtype=qkv.dtype, device=qkv.device)
     scale = 1.0 / math.sqrt(math.sqrt(ch))
     _build.launch("pddm_qkv_attention", qkv.data_ptr(), out.data_ptr(),
-                  b, t, num_heads, ch, scale, int(qkv.dtype == torch.bfloat16))
+                  None if lse is None else lse.data_ptr(), b, t, num_heads, ch, scale,
+                  int(qkv.dtype == torch.bfloat16))
     qkv_attention.launches += 1
     return out
 
 
 qkv_attention.launches = 0
+
+
+def attention_forward(qkv: torch.Tensor, num_heads: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel on a checked CUDA ``qkv`` (one count), returning
+    the output and each row's log-sum-exp (B, H, T) float32: what the
+    backward reads."""
+    b, t, _ = qkv.shape
+    lse = torch.empty((b, num_heads, t), dtype=torch.float32, device=qkv.device)
+    return _launch(qkv, num_heads, lse), lse
+
+
+class _QkvAttention(torch.autograd.Function):
+    """``qkv_attention`` with its gradient from ``qkv_attention_grad``: on
+    the card both directions are kernels, and autograd keeps qkv and the
+    log-sum-exp.  On CPU tensors (the tests) the plain versions stand in for
+    both."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads):
+        if qkv.device.type == "cpu":
+            out, lse = qkv_attention_plain(qkv, num_heads), None
+        else:
+            out, lse = attention_forward(qkv, num_heads)
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(qkv, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, lse = ctx.saved_tensors
+        return qkv_attention_grad(qkv, g, ctx.num_heads, lse=lse), None
+
+
+def qkv_attention_grad_plain(qkv: torch.Tensor, g: torch.Tensor,
+                             num_heads: int = 1) -> torch.Tensor:
+    """dqkv (B, T, 3C) in qkv's dtype for the output gradient ``g``
+    (B, T, C), written out with the kernel's rounding points: P = softmax of
+    the float32 scores of the scaled, rounded q and k; dP = dO V^T,
+    D = rowsum(P * dP) and dS = P (dP - D) in float32; dV = bf16(P)^T dO;
+    dq = (bf16(dS) ks) ch^-1/4 and dk = (bf16(dS)^T qs) ch^-1/4, each
+    accumulated in float32 and rounded once to qkv's dtype."""
+    b, t, c3 = qkv.shape
+    q, k, v = _split_heads(qkv, num_heads)
+    ch = q.shape[-1]
+    scale = 1.0 / math.sqrt(math.sqrt(ch))
+    dt = qkv.dtype
+    qs, ks = (q * scale).float(), (k * scale).float()
+    p = torch.softmax(torch.einsum("bthc,bshc->bhts", qs, ks), dim=-1)
+    do = g.to(dt).float().reshape(b, t, num_heads, ch)
+    dp = torch.einsum("bthc,bshc->bhts", do, v.float())
+    ds = (p * (dp - (p * dp).sum(-1, keepdim=True))).to(dt).float()
+    dv = torch.einsum("bhts,bthc->bshc", p.to(dt).float(), do)
+    dq = torch.einsum("bhts,bshc->bthc", ds, ks) * scale
+    dk = torch.einsum("bhts,bthc->bshc", ds, qs) * scale
+    return torch.cat([dq, dk, dv], dim=-1).to(dt).reshape(b, t, c3)
+
+
+def _recompute(qkv, g, num_heads):
+    """The parent's path, by name only: autograd through the plain version
+    recomputed from qkv."""
+    leaf = qkv.detach().requires_grad_(True)
+    with torch.enable_grad():
+        out = qkv_attention_plain(leaf, num_heads)
+    return torch.autograd.grad(out, leaf, g)[0]
+
+
+def qkv_attention_grad(qkv: torch.Tensor, g: torch.Tensor, num_heads: int = 1,
+                       lse: Optional[torch.Tensor] = None,
+                       design: Optional[str] = None) -> torch.Tensor:
+    """dqkv of ``qkv_attention`` for the output gradient ``g``, in qkv's
+    dtype.  A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernels (two launches, one count a call) or raises; ``lse`` is the
+    forward's log-sum-exp (``attention_forward``).  ``design``: None for
+    ``attention_grad_design``'s choice, or ``recompute`` by name (autograd
+    through the plain version, no count)."""
+    if qkv.device.type == "cpu":
+        return qkv_attention_grad_plain(qkv, g, num_heads)
+    design = attention_grad_design(qkv) if design is None else design
+    if design == "recompute":
+        return _recompute(qkv, g, num_heads)
+    if design != attention_design(qkv):
+        raise ValueError(f"the qkv_attention_grad design {design!r} does not take {qkv.dtype}")
+    _check(qkv, num_heads)
+    if lse is None:
+        raise ValueError("qkv_attention_grad needs the forward's log-sum-exp")
+    b, t, c3 = qkv.shape
+    ch = c3 // (3 * num_heads)
+    if lse.shape != (b, num_heads, t) or g.shape != (b, t, c3 // 3):
+        raise ValueError(f"qkv_attention_grad: g {tuple(g.shape)}, lse {tuple(lse.shape)} do "
+                         f"not fit qkv {tuple(qkv.shape)}")
+    g = _aligned(g.to(qkv.dtype))
+    lse = lse.contiguous()
+    dqkv = torch.empty_like(qkv)
+    delta = torch.empty_like(lse)  # each row's D, between the two launches
+    _build.launch("pddm_qkv_attention_grad", qkv.data_ptr(), g.data_ptr(), lse.data_ptr(),
+                  delta.data_ptr(), dqkv.data_ptr(), b, t, num_heads, ch,
+                  1.0 / math.sqrt(math.sqrt(ch)), int(qkv.dtype == torch.bfloat16))
+    qkv_attention_grad.launches += 1
+    return dqkv
+
+
+qkv_attention_grad.launches = 0

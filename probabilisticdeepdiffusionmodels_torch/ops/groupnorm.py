@@ -66,10 +66,29 @@ for dL/dx = 2 x dL/dS2 + dL/dS1, stays for groups wider than a block.
 CPU tests reach it; the C side checks it and launches.  Everything is CUDA
 C++ like the other kernels, so the port builds from one toolchain.
 
-Backward: no Pallas kernel has a backward kernel, so this op has none
-either.  As ``_gns_bwd`` in ``groupnorm_pallas.py`` does, the gradient is
-that of the plain version, recomputed from the saved inputs
-(``autograd.kernel_op``).
+Backward (``group_norm_silu_grad``, ``csrc/groupnorm_grad.cu``): the Pallas
+kernel has no backward kernel; ``_gns_bwd`` in ``groupnorm_pallas.py`` takes ``jax.vjp`` of the XLA
+form.  Here the gradient has kernels of its own, built on ``gn_affine``'s:
+with g' = g * silu'(x * a + off), the gradients of the fold's (a, off) are
+sums over the rows of g' x and g', the fold's backward turns them into
+dL/dS1, dL/dS2 and each sample's shares of dL/dgamma and dL/dbeta, and
+dx = g' a + 2 x dL/dS2 + dL/dS1.  The forward, where autograd records it,
+also writes its (4, B, C) ``ao`` (a, off, E[x], E[x^2]), which the
+backward starts from.  ``groupnorm_grad_design`` picks one of two designs:
+
+- ``fused`` (where the forward's ``fused`` plan applies: a chunk of whole
+  groups over all rows of a sample in 48 KB): one block a chunk sums its
+  rows, folds backwards in shared memory and reads its rows again, from
+  L1/L2, for dx; then the fixed-order batch sums of ``gn_affine``'s
+  gradient.  Two launches.
+- ``split`` (longer inputs): the rows of a chunk split over blocks whose
+  sums meet in a workspace, added in split order by the blocks of the
+  second launch (a chunk narrower than a group folds its whole group), then
+  the batch sums.  Three launches.
+
+``recompute`` (autograd through the plain version, the parent's path) runs
+by name only and counts no launch; ``group_norm_silu_grad_plain`` writes the
+gradient out with the kernels' arithmetic.
 """
 
 from __future__ import annotations
@@ -81,9 +100,11 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from . import _build
-from .autograd import kernel_op
+from .autograd import forbid_forward_mode
 
-__all__ = ["group_norm_silu", "group_norm_silu_plain", "groupnorm_design", "moments_plan",
+__all__ = ["group_norm_silu", "group_norm_silu_plain", "group_norm_silu_grad",
+           "group_norm_silu_grad_plain", "groupnorm_design", "groupnorm_grad_design",
+           "silu_grad_plan", "moments_plan",
            "fused_plan", "affine_plan", "grad_plan", "affine_design", "moments_fold",
            "fold_backward", "fold_backward_plain", "affine_backward", "apply_affine", "gn_fold",
            "gn_fold_plain", "moments_plain", "group_norm_silu_slab",
@@ -277,14 +298,16 @@ def group_norm_silu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                     silu: bool = True) -> torch.Tensor:
     """x: (B, *spatial, C), channels last; gamma/beta: (C,).  A CPU tensor
     takes the plain version; a CUDA tensor launches the kernels or raises.
-    Differentiable in x, gamma and beta."""
+    Differentiable in x, gamma and beta, on the card by
+    ``group_norm_silu_grad``'s kernels, in reverse mode only (a forward-mode
+    tangent raises, ``autograd.forbid_forward_mode``)."""
     if x.device.type == "cpu":
         return group_norm_silu_plain(x, gamma, beta, num_groups, eps, silu)
+    forbid_forward_mode("group_norm_silu", x, gamma, beta)
     gamma, beta = check_inputs("group_norm_silu", x, gamma, beta, num_groups)
-    return kernel_op(
-        lambda x, gamma, beta: _launch(x, gamma, beta, num_groups, eps, silu),
-        lambda x, gamma, beta: group_norm_silu_plain(x, gamma, beta, num_groups, eps, silu),
-        x, gamma, beta)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, gamma, beta)):
+        return _GroupNormSilu.apply(x, gamma, beta, num_groups, eps, silu)
+    return _launch(x, gamma, beta, num_groups, eps, silu)
 
 
 def check_inputs(name: str, x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -507,28 +530,179 @@ def affine_backward(x: torch.Tensor, ao: torch.Tensor, gamma: torch.Tensor,
     return (dx, dgamma, dbeta, *dconds)
 
 
-def _launch(x, gamma, beta, num_groups, eps, silu, design=None):
+def _launch(x, gamma, beta, num_groups, eps, silu, design=None, want_ao=False):
     """``design``: None for ``groupnorm_design``'s choice, or one by name (a
-    measurement times both on one input)."""
+    measurement times both on one input).  ``want_ao``: also return the
+    (4, B, C) float32 (a, off, E[x], E[x^2]) the backward reads."""
     b, n, c = _shape(x)
     fused = None
     if design in (None, "fused"):
         out = torch.empty_like(x)
         fused = _fused_plan(n, c, num_groups, x.element_size(),
                             (x.data_ptr() | out.data_ptr()) & 15)
+    ao = None
     if fused is not None:
+        if want_ao:
+            ao = torch.empty((4, b, c), dtype=torch.float32, device=x.device)
         _build.launch("pddm_group_norm_silu", x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-                      out.data_ptr(), b, n, c, num_groups, float(eps), int(silu),
-                      int(x.dtype == torch.bfloat16), fused.v, fused.cvb)
+                      out.data_ptr(), None if ao is None else ao.data_ptr(), b, n, c,
+                      num_groups, float(eps), int(silu), int(x.dtype == torch.bfloat16),
+                      fused.v, fused.cvb)
     elif design in (None, "split"):
-        out = apply_affine(x, moments_fold(x, gamma, beta, num_groups, eps), silu)
+        ao = moments_fold(x, gamma, beta, num_groups, eps)
+        out = apply_affine(x, ao, silu)
     else:
         raise ValueError(f"the GroupNorm design {design!r} does not take {tuple(x.shape)}")
     group_norm_silu.launches += 1
-    return out
+    return (out, ao) if want_ao else out
 
 
 group_norm_silu.launches = 0
+
+
+class _GroupNormSilu(torch.autograd.Function):
+    """``group_norm_silu`` with its gradient from ``group_norm_silu_grad``:
+    on the card both directions are kernels, and autograd keeps x, gamma,
+    beta and the forward's (4, B, C) statistics.  On CPU tensors (the tests)
+    the plain versions stand in for both."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, num_groups, eps, silu):
+        if x.device.type == "cpu":
+            out = group_norm_silu_plain(x, gamma, beta, num_groups, eps, silu)
+            ao = gn_fold_plain(moments_plain(x), gamma, beta, num_groups, eps)
+        else:
+            out, ao = _launch(x, gamma, beta, num_groups, eps, silu, want_ao=True)
+        ctx.args = (num_groups, eps, silu)
+        ctx.save_for_backward(x, gamma, beta, ao)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gamma, beta, ao = ctx.saved_tensors
+        num_groups, eps, silu = ctx.args
+        grads = group_norm_silu_grad(x, gamma, beta, g, num_groups, eps, silu, ao=ao,
+                                     needs=ctx.needs_input_grad[:3])
+        return (*grads, None, None, None)
+
+
+# ------------------------------------------------------------ the gradient
+
+
+def silu_grad_plan(b: int, n: int, c: int, groups: int, itemsize: int,
+                   *addresses: int) -> Tuple[str, Plan]:
+    """(design, geometry) of ``group_norm_silu_grad`` on a (B, N, C) tensor:
+    ``fused`` with the forward's fused plan (one block a chunk of whole
+    groups over all N rows) where it applies, else ``split`` with
+    ``grad_plan``'s chunks of whole groups and split rows or, where a group
+    is wider than a block, ``moments_plan``'s."""
+    return _silu_grad_plan(b, n, c, groups, itemsize, _low_bits(addresses))
+
+
+@functools.lru_cache(maxsize=1024)
+def _silu_grad_plan(b, n, c, groups, itemsize, low):
+    fused = _fused_plan(n, c, groups, itemsize, low)
+    if fused is not None:
+        return "fused", fused
+    return "split", _split_grad_plan(b, n, c, groups, itemsize, low)
+
+
+def _split_grad_plan(b, n, c, groups, itemsize, low):
+    """The split design's geometry: ``grad_plan``'s, or ``moments_plan``'s
+    where a group is wider than a block."""
+    return _grad_plan(b, n, c, groups, itemsize, low) or _moments_plan(b, n, c, itemsize, low)
+
+
+def groupnorm_grad_design(x: torch.Tensor, num_groups: int = 32) -> str:
+    """The design a ``group_norm_silu_grad`` call on CUDA tensor ``x`` runs:
+    ``fused`` or ``split``; ``recompute`` runs by name only."""
+    b, n, c = _shape(x)
+    return _silu_grad_plan(b, n, c, num_groups, x.element_size(), x.data_ptr() & 15)[0]
+
+
+def group_norm_silu_grad_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                               g: torch.Tensor, num_groups: int = 32, eps: float = 1e-5,
+                               silu: bool = True, ao: Optional[torch.Tensor] = None):
+    """(dx in x's dtype, dgamma, dbeta float32 (C,)) of ``group_norm_silu``
+    for the output gradient ``g``, written out with the kernels' arithmetic:
+    (a, off) folded from the one-pass moments (``ao``, the forward's, or
+    ``gn_fold_plain``'s where None); g' = g * s (1 + p (1 - s)) with
+    p = x a + off, s = sigmoid(p) (g without SiLU); the sums of g' x and g'
+    over the rows into ``fold_backward_plain``; dx = g' a + x 2 dL/dS2 +
+    dL/dS1; dgamma, dbeta the sums of the samples' shares."""
+    b, n, c = _bnc(tuple(x.shape))
+    if ao is None:
+        ao = gn_fold_plain(moments_plain(x), gamma, beta, num_groups, eps)
+    ao = ao.float()
+    xf = x.float().reshape(b, n, c)
+    a, off = ao[0][:, None, :], ao[1][:, None, :]
+    gp = g.to(x.dtype).float().reshape(b, n, c)
+    if silu:
+        p = xf * a + off
+        s = torch.sigmoid(p)
+        gp = gp * s * (1 + p * (1 - s))
+    f = fold_backward_plain(ao, gamma, beta, n, num_groups, eps, (gp * xf).sum(1), gp.sum(1))
+    dx = gp * a + (xf * f[0][:, None, :] + f[1][:, None, :])
+    return dx.to(x.dtype).reshape(x.shape), f[2].sum(0), f[3].sum(0)
+
+
+def _recompute(x, gamma, beta, g, num_groups, eps, silu, needs):
+    """The parent's path, by name only: autograd through the plain version
+    recomputed from the inputs."""
+    leaves = [t.detach().requires_grad_(n) for t, n in zip((x, gamma, beta), needs)]
+    with torch.enable_grad():
+        out = group_norm_silu_plain(*leaves, num_groups, eps, silu)
+    grads = iter(torch.autograd.grad(out, [t for t in leaves if t.requires_grad], g))
+    return [next(grads) if n else None for n in needs]
+
+
+def group_norm_silu_grad(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                         g: torch.Tensor, num_groups: int = 32, eps: float = 1e-5,
+                         silu: bool = True, ao: Optional[torch.Tensor] = None, needs=None,
+                         design: Optional[str] = None):
+    """(dx, dgamma, dbeta) of ``group_norm_silu`` for the output gradient
+    ``g``: dx in x's dtype, dgamma and dbeta float32 (C,).  A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernels of
+    ``design`` (None: ``groupnorm_grad_design``'s choice; ``fused``,
+    ``split`` or ``recompute`` by name) or raises, with one count a call.
+    ``ao``: the forward's (4, B, C) statistics (where None, one launch of
+    ``moments_fold`` forms them); ``needs`` masks the three (None where one
+    is not wanted)."""
+    needs = (True,) * 3 if needs is None else tuple(needs)
+    if x.device.type == "cpu":
+        grads = group_norm_silu_grad_plain(x, gamma, beta, g, num_groups, eps, silu, ao=ao)
+        return tuple(t if need else None for t, need in zip(grads, needs))
+    b, n, c = _shape(x)
+    if design is None:
+        design = groupnorm_grad_design(x, num_groups)
+    if design == "recompute":
+        return tuple(_recompute(x, gamma, beta, g, num_groups, eps, silu, needs))
+    gamma, beta = check_inputs("group_norm_silu_grad", x, gamma, beta, num_groups)
+    g = g.to(x.dtype).contiguous()
+    dx = torch.empty_like(x)
+    low = (x.data_ptr() | g.data_ptr() | dx.data_ptr()) & 15
+    chosen, plan = _silu_grad_plan(b, n, c, num_groups, x.element_size(), low)
+    if design != chosen:
+        if design != "split":
+            raise ValueError(f"the group_norm_silu_grad design {design!r} does not take "
+                             f"{tuple(x.shape)} in {num_groups} groups")
+        plan = _split_grad_plan(b, n, c, num_groups, x.element_size(), low)
+    if ao is None:
+        ao = moments_fold(x, gamma, beta, num_groups, eps)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    ws = torch.empty((b, plan.splits, c, 2), **f32) if design == "split" else None
+    shares = torch.empty((b, 2, c), **f32)
+    dgamma, dbeta = torch.empty(c, **f32), torch.empty(c, **f32)
+    _build.launch("pddm_group_norm_silu_grad", x.data_ptr(), g.data_ptr(), ao.data_ptr(),
+                  gamma.data_ptr(), dx.data_ptr(), None if ws is None else ws.data_ptr(),
+                  shares.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), b, n, c, num_groups,
+                  float(eps), int(silu), int(x.dtype == torch.bfloat16), plan.v, plan.cvb,
+                  plan.splits, plan.rows, int(design == "fused"))
+    group_norm_silu_grad.launches += 1
+    return tuple(t if need else None for t, need in zip((dx, dgamma, dbeta), needs))
+
+
+group_norm_silu_grad.launches = 0
 
 
 # ------------------------------------------------------------ the fold alone

@@ -31,8 +31,13 @@ from probabilisticdeepdiffusionmodels_torch.core import TIME_SCALE, precond
 from probabilisticdeepdiffusionmodels_torch.engine import DiffusionEngine
 from probabilisticdeepdiffusionmodels_torch.evals.ode_nll import edm_ode_nll, flow_ode_nll
 from probabilisticdeepdiffusionmodels_torch.models import get_model
-from probabilisticdeepdiffusionmodels_torch.ops import gn_affine
-from probabilisticdeepdiffusionmodels_torch.ops.autograd import kernel_op
+from probabilisticdeepdiffusionmodels_torch.ops import (
+    gn_affine,
+    group_norm_silu,
+    group_norm_silu_plain,
+    qkv_attention,
+    qkv_attention_plain,
+)
 from test_torch_cli import write_run
 from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
@@ -226,28 +231,38 @@ def test_eval_cli_ode_nll(family, tmp_path):
 
 
 def test_forward_mode_tangent_through_a_kernel_op_raises():
-    """A kernel reads its inputs' memory and would drop a tangent: the op
-    raises instead, through the CPU stand-in of ``kernel_op`` (the plain
-    version in the kernel's place) and before ``gn_affine``'s kernel
-    (a tensor on the meta device takes the kernel's path here); the same
-    ops without a tangent run, inside a forward-mode level or not."""
-    plain = lambda t: 2.0 * t  # noqa: E731
-    x = torch.randn(2, 4, 4, 32)
+    """A kernel reads its inputs' memory and would drop a tangent: each op
+    with a kernel and a Function of its own (GroupNorm, attention,
+    ``gn_affine``) raises instead, before its kernel (a tensor on the meta
+    device takes the kernel's path here), under a forward-mode tangent and
+    under a ``torch.func`` transform; without a tangent, inside a
+    forward-mode level or not, the meta tensor reaches the kernel's checks,
+    and a CPU tensor takes the plain version."""
+    meta = torch.empty(2, 4, 4, 32, device="meta")
+    qkv = torch.empty(2, 16, 3 * 32, device="meta")
+    gamma, beta = torch.ones(32), torch.zeros(32)
+    ops = {"group_norm_silu": lambda t: group_norm_silu(t, gamma, beta, 32, 1e-5, False),
+           "qkv_attention": lambda t: qkv_attention(t, 1),
+           "gn_affine": lambda t: gn_affine(t, gamma, beta, 32, 1e-5)}
+    inputs = {"group_norm_silu": meta, "qkv_attention": qkv, "gn_affine": meta}
     with forward_ad.dual_level():
-        dual = forward_ad.make_dual(x, torch.ones_like(x))
-        with pytest.raises(RuntimeError, match="forward-mode tangent"):
-            kernel_op(plain, plain, dual)
-        assert torch.equal(kernel_op(plain, plain, x), 2.0 * x)
-        meta = torch.empty(2, 4, 4, 32, device="meta")
-        with pytest.raises(RuntimeError, match="forward-mode tangent"):
-            gn_affine(forward_ad.make_dual(meta, torch.empty_like(meta)), torch.ones(32),
-                      torch.zeros(32), 32, 1e-5)
-    with pytest.raises(RuntimeError, match="torch.func"):
-        torch.func.jvp(lambda t: kernel_op(plain, plain, t), (x,), (torch.ones_like(x),))
-    assert torch.equal(kernel_op(plain, plain, x), 2.0 * x)
-    with pytest.raises(ValueError, match="unsupported device"):
-        gn_affine(torch.empty(2, 4, 4, 32, device="meta"), torch.ones(32), torch.zeros(32),
-                  32, 1e-5)
+        for name, op in ops.items():
+            t = inputs[name]
+            with pytest.raises(RuntimeError, match="forward-mode tangent"):
+                op(forward_ad.make_dual(t, torch.empty_like(t)))
+            with pytest.raises(ValueError, match="unsupported device"):
+                op(t)
+    for name, op in ops.items():
+        t = inputs[name]
+        with pytest.raises(RuntimeError, match="torch.func"):
+            torch.func.jvp(op, (t,), (torch.empty_like(t),))
+        with pytest.raises(ValueError, match="unsupported device"):
+            op(t)
+    x = torch.randn(2, 4, 4, 32)
+    assert torch.equal(ops["group_norm_silu"](x),
+                       group_norm_silu_plain(x, gamma, beta, 32, 1e-5, False))
+    q = torch.randn(2, 16, 3 * 32)
+    assert torch.equal(ops["qkv_attention"](q), qkv_attention_plain(q, 1))
 
 
 # ------------------------------------------------------------- on the card

@@ -58,13 +58,9 @@ from probabilisticdeepdiffusionmodels_torch.engine import (  # noqa: E402
     make_lr_schedule,
 )
 from probabilisticdeepdiffusionmodels_torch.models import get_model, unet  # noqa: E402
-from probabilisticdeepdiffusionmodels_torch.ops import (  # noqa: E402
-    gn_affine,
-    gn_silu_conv3x3_plain,
-    group_norm_silu_plain,
-    qkv_attention_plain,
-)
-from probabilisticdeepdiffusionmodels_torch.ops.autograd import KernelFunction  # noqa: E402
+from probabilisticdeepdiffusionmodels_torch.ops import gn_affine  # noqa: E402
+from probabilisticdeepdiffusionmodels_torch.ops.attention import _QkvAttention  # noqa: E402
+from probabilisticdeepdiffusionmodels_torch.ops.groupnorm import _GroupNormSilu  # noqa: E402
 from probabilisticdeepdiffusionmodels_torch.ops.gn_conv import _GnSiluConv, _grad_reference  # noqa: E402,E501
 from probabilisticdeepdiffusionmodels_torch.train import (  # noqa: E402
     LossHistory,
@@ -286,11 +282,13 @@ def _grads_close(got, want, what):
 @pytest.mark.parametrize("function", ["kernel_function", "gn_silu_conv"])
 @pytest.mark.parametrize("mode", ["emb", "film"])
 def test_gn_conv_backward_matches_jax(mode, function):
-    """The Function with the plain version standing in for the kernel
-    (gn_affine in torch autograd in front of it) against ``jax.vjp`` of the
-    custom-VJP op, whose forward is the interpret-mode Pallas kernel: the
-    recompute of ``KernelFunction`` and the op's own Function, whose
-    backward is ``gn_silu_conv3x3_grad`` (its plain version on the CPU)."""
+    """The conv's gradient (gn_affine in torch autograd in front of it)
+    against ``jax.vjp`` of the custom-VJP op, whose forward is the
+    interpret-mode Pallas kernel: ``kernel_function``, the recompute that
+    the backward's ``recompute`` design runs (autograd through
+    ``_grad_reference``), and the op's own Function with the plain version
+    standing in for the kernel, whose backward is ``gn_silu_conv3x3_grad``
+    (its plain version on the CPU)."""
     rng = np.random.RandomState(5)
     c = 128  # the Pallas path needs channels % 128 == 0
     x = rng.randn(2, 4, 4, c).astype(np.float32)
@@ -316,8 +314,7 @@ def test_gn_conv_backward_matches_jax(mode, function):
     a, off = gn_affine(tx, tgamma, tbeta, 32, 1e-5, **extra)
     w_hwoi = tw.permute(0, 1, 3, 2)
     if function == "kernel_function":
-        out = KernelFunction.apply(gn_silu_conv3x3_plain, _grad_reference, tx, a, off, w_hwoi,
-                                   tbias)
+        out = _grad_reference(tx, a, off, w_hwoi, tbias)
     else:
         out = _GnSiluConv.apply(tx, a, off, w_hwoi, tbias)
     assert out.grad_fn is not None
@@ -328,8 +325,10 @@ def test_gn_conv_backward_matches_jax(mode, function):
 
 @pytest.mark.parametrize("silu", [True, False])
 def test_groupnorm_backward_matches_jax(silu, monkeypatch):
-    """Against ``jax.vjp`` of ``group_norm_silu`` (custom VJP, forward the
-    interpret-mode Pallas kernel as tests/test_pallas_ops.py runs it)."""
+    """The op's Function (the plain versions standing in for the kernels:
+    its backward is ``group_norm_silu_grad_plain``) against ``jax.vjp`` of
+    ``group_norm_silu`` (custom VJP, forward the interpret-mode Pallas
+    kernel as tests/test_pallas_ops.py runs it)."""
     orig = groupnorm_pallas.group_norm_silu_pallas
     monkeypatch.setattr(groupnorm_pallas, "group_norm_silu_pallas",
                         lambda *a, **k: orig(*a, **{**k, "interpret": True}))
@@ -342,11 +341,7 @@ def test_groupnorm_backward_matches_jax(silu, monkeypatch):
                      jnp.asarray(x), jnp.asarray(gamma), jnp.asarray(beta))
     want = vjp(jnp.asarray(g))
     leaves = [_t(a.copy()).requires_grad_(True) for a in (x, gamma, beta)]
-
-    def plain(x, gm, bt):
-        return group_norm_silu_plain(x, gm, bt, 32, 1e-5, silu)
-
-    KernelFunction.apply(plain, plain, *leaves).backward(_t(g))
+    _GroupNormSilu.apply(*leaves, 32, 1e-5, silu).backward(_t(g))
     _grads_close([p.grad.numpy() for p in leaves], want, ["x", "gamma", "beta"])
 
 
@@ -358,11 +353,8 @@ def test_attention_backward_matches_jax(num_heads):
     _, vjp = jax.vjp(lambda q: qkv_attention_xla(q, num_heads), jnp.asarray(qkv))
     (want,) = vjp(jnp.asarray(g))
     leaf = _t(qkv.copy()).requires_grad_(True)
-
-    def plain(q):
-        return qkv_attention_plain(q, num_heads)
-
-    KernelFunction.apply(plain, plain, leaf).backward(_t(g))
+    # the op's Function, the plain versions standing in for the kernels
+    _QkvAttention.apply(leaf, num_heads).backward(_t(g))
     _grads_close([leaf.grad.numpy()], [want], ["qkv"])
 
 
@@ -374,7 +366,7 @@ def test_function_returns_grads_in_each_input_dtype():
     off = torch.randn(1, 32)
     w = torch.randn(3, 3, 8, 32).bfloat16().requires_grad_(True)
     bias = torch.zeros(8, requires_grad=True)
-    out = KernelFunction.apply(gn_silu_conv3x3_plain, _grad_reference, x, a, off, w, bias)
+    out = _GnSiluConv.apply(x, a, off, w, bias)
     out.float().sum().backward()
     assert (x.grad.dtype, a.grad.dtype, w.grad.dtype, bias.grad.dtype) == (
         torch.bfloat16, torch.float32, torch.bfloat16, torch.float32)
