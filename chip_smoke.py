@@ -22,17 +22,19 @@
    name, with and without the host's cost of a call; at each fused conv
    site (the float32 head too) its backward kernels
    (``gn_silu_conv3x3_grad``: ``wgmma`` at the bf16 sites, ``narrow_f32``
-   at the head) and the first designs for the same shape by name
-   (``wgmma_taprow``, ``general``) on a seeded output gradient against the
-   plain backward, each run twice for the same bits and timed with and
-   without the host's cost, each kernel's device time from a profile of
-   that graph, beside the parent's path (``recompute``), the plain
+   at the head) and the earlier designs for the same shape by name
+   (``wgmma_sync_epilogue`` and ``wgmma_taprow``, ``general``) on a seeded
+   output gradient against the plain backward, each run twice for the same
+   bits, the selected and the latest earlier design timed with and without
+   the host's cost (``wgmma_taprow`` only checked), each kernel's device
+   time from a profile of that graph, beside the parent's path (``recompute``), the plain
    backward, ``convolution_backward`` without the host's cost (the two bare
    products, the weight product alone, the input product alone), and the
-   bounds of the two products and of the weight product; at each
-   attention and GroupNorm site their backward kernels
-   (``qkv_attention_grad``, ``group_norm_silu_grad``) on a seeded output
-   gradient against the plain backward (bf16 1e-2, float32 1e-4 of the
+   bounds of the two products, of the input product and of the weight
+   product; at each attention and GroupNorm site their backward kernels
+   (``qkv_attention_grad``, ``group_norm_silu_grad``; attention also in
+   its earlier design ``two_pass`` by name where ``wgmma`` runs) on a seeded
+   output gradient against the plain backward (bf16 1e-2, float32 1e-4 of the
    largest element), run twice for the same bits with one count a call,
    timed with and without the host's cost, each kernel's device ms from a
    profile of the site's graph, beside the parent's path (``recompute``),
@@ -56,7 +58,9 @@
    among them), its forward / backward / update split and a device profile,
    with the step's device operations, device ms, idle share and peak
    memory in the designs the shapes select, with ``gn_affine_grad``'s first
-   design, with the conv's gradient in its first designs by name and as
+   design, with the conv's and attention's gradients in the designs the
+   parent ran, by name (``wgmma_sync_epilogue`` at the bf16 conv sites,
+   ``two_pass``), with the conv's gradient as
    ``recompute`` (whose steps must leave the conv gradient's launch count
    where it was), and with attention's and GroupNorm's gradients as
    ``recompute`` by name (the same rule for their counts); the float32
@@ -110,9 +114,10 @@
    this repository's kernels 4x an eager step's, no copy to the host; img/s
    in turns (eager, fused, fused, eager) with peak memory, each mode's
    device busy ms and idle share from its profile; a replay's device ms a
-   step with the conv's gradient captured in the selected designs and in
-   its first designs by name, and with attention's and GroupNorm's
-   gradients captured as ``recompute``; ``cli.train trainer.fused_steps=4
+   step with the gradients captured in the selected designs and with the
+   conv's and attention's in the parent's designs by name
+   (``wgmma_sync_epilogue``, ``two_pass``), and with attention's and
+   GroupNorm's gradients captured as ``recompute``; ``cli.train trainer.fused_steps=4
    data.device_resident=true`` beside the plain CLI over 2 epochs with one
    capture asserted, and 2 + 2 steps resumed from its checkpoint against 4;
 12. progressive distillation and reflow (``distill_reflow``): the distil
@@ -144,7 +149,7 @@
    ``encoder_reuse=3``, DDIM-50 under guidance 3 on a class-conditional
    variant (its forward at batch 256), RePaint (``right_half``, 50 steps)
    and DDIM inversion at 50 steps and back (``fast_samplers``): each chain
-   timed twice with its launches asserted (a cached call launches the
+   timed once with its launches asserted (a cached call launches the
    decoder's share), the launches and device operations of a full, a
    cached and a guided model call, one chain profiled with no copy to the
    host, the guided and cached calls' kernel sites against the plain
@@ -412,9 +417,9 @@ SR_PROFILE_ARGS = [f"steps={SR_PROFILE_STEPS}", f"sample_steps={SR_PROFILE_SAMPL
 # statistics (GroupNorm and gn_affine) and, in training, gn_affine's backward
 PROFILE_SAMPLE_KERNELS = ("conv_wgmma_kernel", "attn_bf16_kernel", "gn_moments_kernel")
 PROFILE_TRAIN_KERNELS = PROFILE_SAMPLE_KERNELS + (
-    "gn_affine_bwd_kernel", "gn_batch_sum_kernel", "dgrad_wgmma_kernel", "wgrad9_wgmma_kernel",
-    "grad_narrow_f32_kernel", "grad_finish_kernel", "attn_bwd_dq_bf16_kernel",
-    "attn_bwd_dkv_bf16_kernel", "gn_silu_bwd_kernel")
+    "gn_affine_bwd_kernel", "gn_batch_sum_kernel", "dgrad_pingpong_kernel", "wgrad9_wgmma_kernel",
+    "grad_narrow_f32_kernel", "grad_finish_kernel", "attn_bwd_wgmma_kernel",
+    "attn_bwd_dq_bf16_kernel", "attn_bwd_dkv_bf16_kernel", "gn_silu_bwd_kernel")
 CKPT_TURNS = ("plain", "checkpoint", "checkpoint", "plain")
 CKPT_GRAD_BATCH, CKPT_DROPOUT = 8, 0.1
 CKPT_SAME_TOL = 1e-6  # float32 gradients with against without checkpoints (cuDNN deterministic)
@@ -972,7 +977,7 @@ def attn_gn_grad_site(torch, F, ops, name, a, kw, n, fwd_site, per_site, summary
         with torch.no_grad():
             out, lse = mod.attention_forward(x, heads)
         g = torch.randn(out.shape, device="cuda", generator=gen).to(x.dtype)
-        chosen = mod.attention_grad_design(x)
+        chosen = mod.attention_grad_design(x, heads)
         inputs = (x, g, lse)
 
         def run(xc, gg, lc, d=None):
@@ -1039,54 +1044,67 @@ def attn_gn_grad_site(torch, F, ops, name, a, kw, n, fwd_site, per_site, summary
             lib_device = lambda: graph_time(torch, lib, 20, 10)  # noqa: E731
     ref = plain()
     tol_rel = ATTN_GN_GRAD_TOL[dtype]
-    with torch.no_grad():
-        before = kernel.launches
-        got, again = run(*inputs), run(*inputs)
-        torch.cuda.synchronize()
-        launches = kernel.launches - before
-    err, tol = 0.0, 1.0
-    for mine, want in zip(got, ref):
-        if mine.dtype != want.dtype or mine.shape != want.shape:
-            raise AssertionError(f"{gname}: {mine.dtype} {tuple(mine.shape)} against "
-                                 f"{want.dtype} {tuple(want.shape)}")
-        e = float((mine.float() - want.float()).abs().max())
-        t_ = tol_rel * max(1e-30, float(want.float().abs().max()))
-        if not e <= t_ or e / t_ >= err / tol:
-            err, tol = e, t_
-    same = all(torch.equal(first, second) for first, second in zip(got, again))
-    del got, again
+    # the design the shape selects and, where attention runs wgmma, its
+    # earlier design by name
+    designs = [chosen] + ([ATTN_GRAD_EARLIER[chosen]] if chosen in ATTN_GRAD_EARLIER else [])
+    by_design, worst = {}, None
+    for d in designs:
+        with torch.no_grad():
+            before = kernel.launches
+            got, again = run(*inputs, d=d), run(*inputs, d=d)
+            torch.cuda.synchronize()
+            launches = kernel.launches - before
+        err, tol = 0.0, 1.0
+        for mine, want in zip(got, ref):
+            if mine.dtype != want.dtype or mine.shape != want.shape:
+                raise AssertionError(f"{gname} {d}: {mine.dtype} {tuple(mine.shape)} against "
+                                     f"{want.dtype} {tuple(want.shape)}")
+            e = float((mine.float() - want.float()).abs().max())
+            t_ = tol_rel * max(1e-30, float(want.float().abs().max()))
+            if not e <= t_ or e / t_ >= err / tol:
+                err, tol = e, t_
+        same = all(torch.equal(first, second) for first, second in zip(got, again))
+        del got, again
+        by_design[d] = {"max_abs_err": err, "tol": tol, "same_bits_twice": same,
+                        "launches_two_calls": launches}
+        if not err <= tol or not same or launches != 2:
+            worst = f"design {d}: {by_design[d]}"
+    main = by_design[chosen]
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
     site = {"kernel": gname, "shape": fwd_site["shape"], "dtype": dtype, "design": chosen,
-            "calls_per_forward": n, "max_abs_err": err, "tol": tol, "same_bits_twice": same,
-            "launches_two_calls": launches, "bound_ms": max(t_bytes, t_ops),
+            "calls_per_forward": n, **main, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
     if timed:
         with torch.no_grad():
             copies = [tuple(z.clone() for z in inputs)
                       for _ in range(len(cold_copies(x, nbytes)))]
             per_graph = max(1, 100 // len(copies))
-
-            def one_round():
-                for c in copies:
-                    run(*c)
-            graph = capture_graph(torch, one_round, per_graph)
-            site["ms"] = sync_time(torch, lambda: run(*inputs))
-            site["device_ms"] = replay_ms(torch, graph, 10) / (per_graph * len(copies))
-            site["kernels"] = graph_kernels(torch, graph, per_graph * len(copies))
-            del graph, copies
+            for d in designs:
+                def one_round(d=d):
+                    for c in copies:
+                        run(*c, d=d)
+                graph = capture_graph(torch, one_round, per_graph)
+                by_design[d]["ms"] = sync_time(torch, lambda d=d: run(*inputs, d=d))
+                by_design[d]["device_ms"] = replay_ms(torch, graph, 10) / (per_graph * len(copies))
+                by_design[d]["kernels"] = graph_kernels(torch, graph, per_graph * len(copies))
+                del graph
+            del copies
+            site.update({k: by_design[chosen][k] for k in ("ms", "device_ms", "kernels")})
+            if len(designs) > 1:
+                site["design_ms"] = by_design
             site["plain_ms"] = sync_time(torch, plain)
         site["recompute_ms"] = sync_time(torch, lambda: run(*inputs, d="recompute"))
         site["library_ms"] = None if lib is None else sync_time(torch, lib)
         site["library_device_ms"] = None if lib_device is None else lib_device()
     per_site.append(site)
     emit(dict(phase="kernel_site", **site))
-    if not err <= tol or not same or launches != 2:
-        raise AssertionError(f"{gname} {site['shape']} {dtype}: {site} (kernel vs plain within "
+    if worst is not None:
+        raise AssertionError(f"{gname} {site['shape']} {dtype}: {worst} (kernel vs plain within "
                              f"tol, the same bits twice, one launch a call)")
     if summary is None or not timed:
         return
     sm = summary.setdefault(gname, dict(max_abs_err=0.0, calls=0, library_ms=0.0))
-    sm["max_abs_err"] = max(sm["max_abs_err"], err)
+    sm["max_abs_err"] = max(sm["max_abs_err"], main["max_abs_err"])
     sm["design"] = ", ".join(sorted(set(filter(None, sm.get("design", "").split(", ")))
                                     | {chosen}))
     for key, val in (("ms", site["ms"]), ("device_ms", site["device_ms"]),
@@ -1095,9 +1113,11 @@ def attn_gn_grad_site(torch, F, ops, name, a, kw, n, fwd_site, per_site, summary
                      ("library_device_ms", site["library_device_ms"]), ("bytes_ms", t_bytes),
                      ("ops_ms", t_ops), ("bound_ms", max(t_bytes, t_ops))):
         sm[key] = None if val is None or sm.get(key, 0.0) is None else sm.get(key, 0.0) + n * val
-    per = sm.setdefault("design_kernel_device_ms", {}).setdefault(f"{chosen} ({dtype})", {})
-    for kname, ms in site["kernels"].items():
-        per[kname] = per.get(kname, 0.0) + n * ms
+    add_designs(sm, site, n)
+    for d, t in by_design.items():
+        per = sm.setdefault("design_kernel_device_ms", {}).setdefault(f"{d} ({dtype})", {})
+        for kname, ms in t["kernels"].items():
+            per[kname] = per.get(kname, 0.0) + n * ms
     sm["calls"] += n
 
 
@@ -1115,14 +1135,19 @@ def grad_sites(torch, F, ops, calls, per_site, summary=None, timed=True):
 # up to 131,072 pixels in another order (float32); the kernel keeps the
 # conv's input gradient in float32 where the plain version rounds it to bf16
 CONV_GRAD_F32_TOL = 1e-4
-# the designs timed beside the one a shape selects: the conv gradient's
-# first designs for that shape, by name
-CONV_GRAD_EARLIER = {"wgmma": "wgmma_taprow", "narrow_f32": "general"}
+# the designs run beside the one a shape selects: the conv gradient's
+# earlier designs for that shape, by name, the first timed and the rest
+# checked against the plain backward untimed (wgmma_sync_epilogue: the bf16
+# pair before the ping-pong dgrad; wgmma_taprow: the first bf16 pair;
+# general: the head's first); attention's
+ATTN_GRAD_EARLIER = {"wgmma": "two_pass"}
+CONV_GRAD_EARLIER = {"wgmma": ("wgmma_sync_epilogue", "wgmma_taprow"), "narrow_f32": ("general",)}
 
 
-# attention's and GroupNorm's gradients as the parent ran them, by name
-# (module name, attribute) -> the design function swapped in
-ATTN_GN_RECOMPUTE = {("attention", "attention_grad_design"): lambda qkv: "recompute",
+# attention's and GroupNorm's gradients as recompute by name (autograd
+# through the plain versions): (module name, attribute) -> the design
+# function swapped in
+ATTN_GN_RECOMPUTE = {("attention", "attention_grad_design"): lambda qkv, heads=1: "recompute",
                      ("groupnorm", "groupnorm_grad_design"): lambda x, groups=32: "recompute"}
 
 
@@ -1144,15 +1169,27 @@ def swapped_designs(ops, swap):
             setattr(*owner(key), fn)
 
 
-def first_designs(selects):
-    """A ``conv_grad_design`` that picks the first design for each shape
-    where ``selects`` picks a later one."""
-    return lambda x, w: CONV_GRAD_EARLIER.get(selects(x, w), selects(x, w))
+def earlier_designs(selects, earlier=CONV_GRAD_EARLIER):
+    """A design function that picks the latest earlier design for each shape
+    where ``selects`` picks one that has an earlier design by name."""
+    def pick(*a):
+        d = earlier.get(selects(*a), selects(*a))
+        return d if isinstance(d, str) else d[0]
+    return pick
+
+
+def parent_designs(ops):
+    """The conv's and attention's gradients in the designs the parent ran
+    (``wgmma_sync_epilogue``, ``two_pass``), by name: a swap for
+    ``swapped_designs``."""
+    return {"conv_grad_design": earlier_designs(ops.ops.gn_conv.conv_grad_design),
+            ("attention", "attention_grad_design"): earlier_designs(
+                ops.ops.attention.attention_grad_design, ATTN_GRAD_EARLIER)}
 
 
 def kernel_name(key):
     """A profiler key without its return type, namespaces and argument list:
-    ``dgrad_wgmma_kernel<2, 128, true>``."""
+    ``dgrad_pingpong_kernel<1, 128, true>``."""
     key = key.replace("(anonymous namespace)::", "").replace("void ", "", 1)
     base, sep, args = key.split("(")[0].partition("<")
     return base.split("::")[-1].strip() + sep + args
@@ -1163,17 +1200,21 @@ def conv_grad_site(torch, ops, a, n, conv_site, per_site, summary):
     one recorded site, on a seeded output gradient, against the plain
     backward (each gradient within RECOMPUTE_TOL of its reference's largest
     element in bf16, CONV_GRAD_F32_TOL in float32), in the design the shape
-    selects and in the first one for that shape by name (``wgmma_taprow`` at the bf16
-    sites, ``general`` at the float32 head), each run twice for the same
-    bits with one count a call, and timed with and without the host's cost
+    selects and in the earlier ones for that shape by name (``wgmma_sync_epilogue``
+    and ``wgmma_taprow`` at the bf16 sites, ``general`` at the float32 head),
+    each run twice for the same bits with one count a call; the selected
+    design and the latest earlier one timed with and without the host's cost
     of a call (``design_ms``: a CUDA graph over inputs that do not fit L2
     together), with each kernel's device ms a call from a profile of that
-    graph by kernel name (lower bounds: the profiler drops records); beside
+    graph by kernel name (lower bounds: the profiler drops records), and the
+    older ones only checked (``checked_designs``); beside
     the parent's path (``recompute``: autograd through ``_grad_reference``),
     the plain backward, ``torch.ops.aten.convolution_backward`` device-only
     (the two bare products; the weight product with dbias alone, output
     mask (False, True, True); the input product alone, (True, False,
-    False)), the bound of the two products and of the weight product."""
+    False)), the bound of the two products, of the input product (dgrad:
+    x, h, dx and g moved once, the product of the forward's size) and of
+    the weight product."""
     gc = ops.ops.gn_conv
     x, sc, off, w, _ = a
     wk = w.to(x.dtype).contiguous()
@@ -1183,7 +1224,8 @@ def conv_grad_site(torch, ops, a, n, conv_site, per_site, summary):
     g = torch.randn(b, h, wd, cout, device="cuda", generator=gen).to(x.dtype)
     ref = gc.gn_silu_conv3x3_grad_plain(x, sc, off, wk, g)
     chosen = gc.conv_grad_design(x, wk)
-    designs = [chosen] + ([CONV_GRAD_EARLIER[chosen]] if chosen in CONV_GRAD_EARLIER else [])
+    earlier = CONV_GRAD_EARLIER.get(chosen, ())
+    designs, checked = [chosen, *earlier[:1]], list(earlier[1:])
     s = x.element_size()
     # x and g read, dx and dw written, w, the scale and offset read, their
     # gradients and dbias written; two products of the forward's size
@@ -1194,6 +1236,10 @@ def conv_grad_site(torch, ops, a, n, conv_site, per_site, summary):
     # the weight product alone: x (as h) and g read, dw and dbias written
     w_bytes = (x.numel() + g.numel() + wk.numel()) * s + cout * 4
     wgrad_bound = max(w_bytes / PEAK_BYTES * 1e3, flops / 2 / PEAK_FLOPS[dtype] * 1e3)
+    # the input product with the activation's backward: x read, h and dx
+    # written (h where the weight product reads it: bf16), g read
+    d_bytes = ((3 if x.dtype == torch.bfloat16 else 2) * x.numel() + g.numel()) * s
+    dgrad_bound = max(d_bytes / PEAK_BYTES * 1e3, flops / 2 / PEAK_FLOPS[dtype] * 1e3)
 
     def run(xc=x, gg=g, d=chosen):
         return gc.gn_silu_conv3x3_grad(xc, sc, off, wk, gg, design=d)
@@ -1209,7 +1255,7 @@ def conv_grad_site(torch, ops, a, n, conv_site, per_site, summary):
             gg.permute(0, 3, 1, 2), hh, w_oihw, [cout], [1, 1], [1, 1], [1, 1], False, [0, 0],
             1, list(mask))
 
-    by_design, worst = {}, None
+    by_design, by_check, worst = {}, {}, None
     with torch.no_grad():
         # copies of (x, g) that do not fit the L2 cache together
         pairs = [(x.clone(), g.clone()) for _ in range(len(cold_copies(x, nbytes)))]
@@ -1222,7 +1268,7 @@ def conv_grad_site(torch, ops, a, n, conv_site, per_site, summary):
                     fn(i, xc, gg)
             return go
 
-        for d in designs:
+        for d in designs + checked:
             before = gc.gn_silu_conv3x3_grad.launches
             got, again = run(d=d), run(d=d)
             torch.cuda.synchronize()
@@ -1239,6 +1285,12 @@ def conv_grad_site(torch, ops, a, n, conv_site, per_site, summary):
                     err, tol = e, t
             same = all(torch.equal(p, q) for p, q in zip(got, again))
             del got, again
+            if d in checked:
+                by_check[d] = {"max_abs_err": err, "tol": tol, "same_bits_twice": same,
+                               "launches_two_calls": launches}
+                if not err <= tol or not same or launches != 2:
+                    worst = f"design {d}: {by_check[d]}"
+                continue
             one_round = rounds(lambda i, xc, gg, d=d: run(xc, gg, d))
             graph = capture_graph(torch, one_round, per_graph)
             by_design[d] = {
@@ -1268,7 +1320,9 @@ def conv_grad_site(torch, ops, a, n, conv_site, per_site, summary):
             "launches_two_calls": main["launches_two_calls"], "recompute_ms": parent_ms,
             "plain_ms": plain_ms, **lib, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "wgrad_bound_ms": wgrad_bound, "design_ms": by_design}
+            "wgrad_bound_ms": wgrad_bound, "dgrad_bound_ms": dgrad_bound,
+            "dgrad_bytes_ms": d_bytes / PEAK_BYTES * 1e3, "design_ms": by_design,
+            "checked_designs": by_check}
     per_site.append(site)
     emit(dict(phase="kernel_site", **site))
     if worst is not None:
@@ -1283,7 +1337,8 @@ def conv_grad_site(torch, ops, a, n, conv_site, per_site, summary):
                      ("plain_ms", plain_ms), ("recompute_ms", parent_ms),
                      ("library_device_ms", lib["library_ms"]), ("bytes_ms", t_bytes),
                      ("ops_ms", t_ops), ("bound_ms", max(t_bytes, t_ops)),
-                     ("wgrad_bound_ms", wgrad_bound), *lib.items()):
+                     ("wgrad_bound_ms", wgrad_bound), ("dgrad_bound_ms", dgrad_bound),
+                     ("dgrad_bytes_ms", d_bytes / PEAK_BYTES * 1e3), *lib.items()):
         s[key] = s.get(key, 0.0) + n * val
     add_designs(s, site, n)
     # each kernel's device ms over the sites, by design (bf16 sites and the
@@ -1621,18 +1676,17 @@ def train_phases(torch, ops, model, gen):
     # may drop records, so each count is a lower bound), the device ms and
     # idle share of each profile and the peak memory: in the designs the
     # shapes select, with gn_affine's gradient in its first design
-    # (fold_bwd+apply: 4-5 operations a site), with the conv's gradient in
-    # first designs by name (wgmma_taprow at the bf16 sites, general at the
-    # head), and as the parent ran it (recompute: autograd through the
-    # recomputed plain version, about 40 operations a site); and attention's
-    # and GroupNorm's gradients as the parent ran them
-    # (recompute by name, autograd through the plain versions)
+    # (fold_bwd+apply: 4-5 operations a site), with the conv's and
+    # attention's gradients as the parent ran them, by name
+    # (wgmma_sync_epilogue at the bf16 sites, two_pass), with the conv's gradient as
+    # recompute (autograd through the recomputed plain version, about 40
+    # operations a site); and attention's and GroupNorm's gradients as
+    # recompute (autograd through the plain versions)
     by_design = {}
     gc = ops.ops.gn_conv
     for name, swap in (("selected", {}),
                        ("fold_bwd+apply", {"grad_design": lambda x, groups: "fold_bwd+apply"}),
-                       ("conv_wgmma_taprow", {"conv_grad_design": first_designs(
-                           gc.conv_grad_design)}),
+                       ("parent_designs", parent_designs(ops)),
                        ("conv_recompute", {"conv_grad_design": lambda x, w: "recompute"}),
                        ("attn_gn_recompute", ATTN_GN_RECOMPUTE)):
         before = {k: ops.wrappers[k].launches for k in PER_BACKWARD}
@@ -1654,6 +1708,9 @@ def train_phases(torch, ops, model, gen):
                            "max_memory_allocated_bytes": turn_peak}
     ops_a_step = {k: v["device_ops"] for k, v in by_design.items()}
     ops_a_step["fewer"] = ops_a_step["fold_bwd+apply"] - ops_a_step["selected"]
+    # device ms a step, the mean of the two profiles, by design
+    device_ms = {k: sum(v["device_busy_ms"]) / len(v["device_busy_ms"])
+                 for k, v in by_design.items()}
     ops_a_step["fewer_than_conv_recompute"] = (ops_a_step["conv_recompute"]
                                                - ops_a_step["selected"])
     ops_a_step["fewer_than_attn_gn_recompute"] = (ops_a_step["attn_gn_recompute"]
@@ -1662,7 +1719,7 @@ def train_phases(torch, ops, model, gen):
           "warmup_steps": TRAIN_WARMUP, "passes": passes, "launches_per_pass": train_launches,
           "split_one_step": split, "max_memory_allocated_bytes": peak, "loss": loss,
           "grad_norm": grad_norm, "profile": prof, "device_ops_by_grad_design": ops_a_step,
-          "device_by_grad_design": by_design})
+          "device_ms_by_grad_design": device_ms, "device_by_grad_design": by_design})
 
     # importance sampling on a history warmed past min_counts through update
     min_counts = 10
@@ -3600,7 +3657,8 @@ OWN_KERNELS = ("attn_bf16_kernel", "attn_f32_kernel", "attn_bwd_dq_bf16_kernel",
                "gn_silu_bwd_kernel", "gn_silu_bwd_sums_kernel", "conv_wgmma_kernel",
                "conv_narrow_f32_kernel", "conv_kernel<", "gn_moments_kernel", "gn_apply_kernel",
                "gn_affine_bwd_kernel", "gn_batch_sum_kernel", "gn_fold_bwd_kernel",
-               "gn_fold_kernel", "dgrad_wgmma_kernel", "wgrad_wgmma_kernel",
+               "gn_fold_kernel", "dgrad_wgmma_kernel", "dgrad_pingpong_kernel",
+               "attn_bwd_wgmma_kernel", "wgrad_wgmma_kernel",
                "wgrad9_wgmma_kernel", "grad_narrow_f32_kernel", "activate_kernel",
                "dgrad_general_kernel", "wgrad_general_kernel", "grad_finish_kernel")
 
@@ -3954,12 +4012,11 @@ def fused_train_phase(torch, ops, gen, smi, out_dir=None):
     line["capture_seconds"] = chunk.capture_seconds
     del eager_e
 
-    # (c2) a replay's device work a step with the conv's gradient captured in
-    # the designs the shapes select (the graph above) and in the first ones by name
-    # (a second engine captured with them), each from two profiles of a replay
+    # (c2) a replay's device work a step with the gradients captured in the
+    # designs the shapes select (the graph above) and with the conv's and
+    # attention's in the designs the parent ran, by name (a second engine
+    # captured with them), each from two profiles of a replay
     line["replay_by_conv_grad_design"] = replays = {}
-    gc = ops.ops.gn_conv
-    selects = gc.conv_grad_design
 
     def replay_work(e):
         profs = [profile_device(torch, lambda: e.training_steps(xs[1])) for _ in range(2)]
@@ -3969,20 +4026,17 @@ def fused_train_phase(torch, ops, gen, smi, out_dir=None):
 
     replays["selected"] = replay_work(graph_e)
     del graph_e, chunk
-    taprow_e = DiffusionEngine(dict(MODEL_CFG), {"lr": FUSED_LR}, ema=0.9999, device="cuda")
-    fill_zero_params(torch, taprow_e.state.model, seed=50)
-    gc.conv_grad_design = first_designs(selects)
-    try:
-        before = gc.gn_silu_conv3x3_grad.launches
-        taprow_e.training_steps(xs[0])  # warm-up and capture
-        if gc.gn_silu_conv3x3_grad.launches - before != 2 * k * PER_BACKWARD[
-                "gn_silu_conv3x3_grad"]:
-            bad.append(f"the wgmma_taprow capture counted "
-                       f"{gc.gn_silu_conv3x3_grad.launches - before} conv-gradient launches")
-    finally:
-        gc.conv_grad_design = selects
-    replays["wgmma_taprow"] = replay_work(taprow_e)
-    del taprow_e
+    parent_e = DiffusionEngine(dict(MODEL_CFG), {"lr": FUSED_LR}, ema=0.9999, device="cuda")
+    fill_zero_params(torch, parent_e.state.model, seed=50)
+    names = ("gn_silu_conv3x3_grad", "qkv_attention_grad")
+    before = {n: ops.wrappers[n].launches for n in names}
+    with swapped_designs(ops, parent_designs(ops)):
+        parent_e.training_steps(xs[0])  # warm-up and capture
+    moved = {n: ops.wrappers[n].launches - before[n] for n in names}
+    if moved != {n: 2 * k * PER_BACKWARD[n] for n in names}:
+        bad.append(f"the parent designs' capture counted {moved}")
+    replays["parent_designs"] = replay_work(parent_e)
+    del parent_e
     # (c3) and with attention's and GroupNorm's gradients captured as the
     # parent ran them (recompute by name: autograd through the plain versions)
     rc_e = DiffusionEngine(dict(MODEL_CFG), {"lr": FUSED_LR}, ema=0.9999, device="cuda")
@@ -5038,7 +5092,7 @@ def main(argv=None) -> int:
          "design_kernel_device_ms": s.get("design_kernel_device_ms"),
          "library_weight_ms": s.get("library_weight_ms"),
          "library_input_ms": s.get("library_input_ms"),
-         "wgrad_bound_ms": s.get("wgrad_bound_ms")}
+         "wgrad_bound_ms": s.get("wgrad_bound_ms"), "dgrad_bound_ms": s.get("dgrad_bound_ms")}
         for name, s in summary.items()]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})
     return 0

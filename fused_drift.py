@@ -7,9 +7,11 @@ steps (the CIFAR-10 UNet at full width, bf16, batch 128) against the same
 steps run eagerly from one copy of the state, within lr / 10 of the largest
 parameter: the graph's Adam update rounds once more than torch.optim.Adam,
 and the later steps carry that round-off.  This script shows what sets that
-distance: for each seed it runs the gate's two sides with attention's and
-GroupNorm's gradients on their kernels and as ``recompute`` by name
-(autograd through the plain versions), in turns, and prints one JSON line a
+distance: for each seed it runs the gate's two sides with every gradient
+on the kernels the shapes select (attention's: ``wgmma``), with the conv's
+and attention's in the designs before them by name (``wgmma_sync_epilogue``,
+``two_pass``), and with attention's and GroupNorm's as ``recompute`` by
+name (autograd through the plain versions), in turns, and prints one JSON line a
 run with the largest differences by parameter name.  A gradient that is
 zero in exact arithmetic (the attention key bias's: softmax ignores a shift
 of every key) is where Adam turns round-off into whole steps.  Needs a CUDA
@@ -52,7 +54,8 @@ def main(argv=None) -> int:
         return e
 
     for seed in args.seeds:
-        for design, swap in (("kernels", {}), ("recompute", cs.ATTN_GN_RECOMPUTE)):
+        for design, swap in (("kernels", {}), ("parent_designs", cs.parent_designs(ops)),
+                             ("recompute", cs.ATTN_GN_RECOMPUTE)):
             gen = torch.Generator(device="cuda").manual_seed(seed)
             with cs.swapped_designs(ops, swap):
                 graph_e, eager_e = engine(), engine()

@@ -12,10 +12,33 @@
 //   dP  = dO V^T,  D = rowsum(P o dP),  dS = P o (dP - D)
 //   dV  = P^T dO,  dqs = dS ks,  dks = dS^T qs,  dq = dqs ch^-1/4, dk = dks ch^-1/4
 //
-// Design: FlashAttention-2's backward with dQ split out, so no two blocks
-// add into one element and no float atomic is needed: every sum has a fixed
-// order, a call gives the same bits twice, and the launches hold no host
-// synchronisation (a CUDA graph can capture them).  Two launches:
+// No float atomics: every sum has a fixed order, a call gives the same bits
+// twice, and the launches hold no host synchronisation (a CUDA graph can
+// capture them).  Two bf16 designs, chosen by shape
+// (ops/attention.py::attention_grad_design):
+//
+// wgmma (head widths 16..64, 64 <= T <= 256, heads x ch >= 64: every
+// attention site of the CIFAR-10 UNet but its T = 16 one): one launch, a
+// block a (head, sample) with the head's Q, K, V and dO resident in shared
+// memory (one TMA box of 64 tokens x 64 channels each, 128 KB at T = 256),
+// every product m64n64k16 wgmma with float32 accumulators.  Phase 1: each
+// warpgroup takes query tiles and forms S and dP against every key tile,
+// P = exp(S - L) and D = rowsum(P o dP) in float32 (the quad's and the key
+// tiles' shares added in a fixed order).  Phase 2: rounds of two key tiles,
+// each warpgroup keeping its tile's dK and dV in registers over every query
+// tile: S^T and dP^T again, P^T and dS^T in registers, dV += bf16(P^T) dO
+// and dK += bf16(dS^T) Q with A from registers; the warpgroups' dS^T rows
+// meet in shared memory, where one warpgroup forms the query tile's dQ share
+// of the round's keys and adds it to float32 sums (one warpgroup a query
+// tile, rounds in order).  Seven products a (query, key) pair and two
+// exponentials, against the two-pass design's nine and three; no pass over
+// the keys is made twice for D.  What the register file allows: the dK and
+// dV of 256 keys alone (64 K floats at ch = 64) would fill it, hence rounds
+// of 128 keys and D first.  Wider heads and longer T (T > 256 does not fit)
+// keep two_pass.
+//
+// two_pass (every other bf16 shape; the first design, by name everywhere):
+// FlashAttention-2's backward with dQ split out.  Two launches:
 //
 //   dq   one block per (64-query tile, head, sample), as the forward: Q and
 //        dO rows stay in shared memory, K and V tiles of 64 keys pass through
@@ -42,17 +65,20 @@
 //        transposed products S^T = K Q^T and dP^T = V dO^T, then
 //        dV += bf16(P)^T dO and dK += bf16(dS)^T Q.
 //
-// bf16: every product is mma.sync m16n8k16 (bf16 operands, float32
+// two_pass: every product is mma.sync m16n8k16 (bf16 operands, float32
 // accumulation) with fragments from ldmatrix (.trans where the operand's k
 // runs down the rows), as the forward's mma_ring; the head width is a
-// template over every multiple of 16 up to 128.  float32: true float32
-// scalar FMAs, two threads a row, as the forward's scalar_f32.
+// template over every multiple of 16 up to 128.  float32 (scalar_f32): true
+// float32 scalar FMAs, two threads a row, as the forward's scalar_f32.
 //
 // Bound on the H100 (the CIFAR-10 UNet's 15 sites at batch 128): bytes.
 // qkv, dO and L read, dqkv written: about 1.0 GB against about 160 GFLOP of
 // bf16 products (the five of FlashAttention-2's backward), 0.30 ms against
-// 0.16 ms.
+// 0.16 ms.  What held two_pass back: its dq launch passes over the keys
+// twice and all three passes recompute S, dP and P (nine products and three
+// exponentials a pair), on mma.sync from 4-warp blocks.
 #include "common.cuh"
+#include "hopper.cuh"
 
 using namespace pddm;
 
@@ -536,6 +562,346 @@ attn_bwd_dkv_f32_kernel(const float* __restrict__ qkv, const float* __restrict__
   }
 }
 
+// ----------------------------------------------------------------- wgmma
+
+constexpr int RT = 64;               // rows of a tile (queries or keys): wgmma's M
+constexpr int RT_BYTES = RT * 128;   // one tile of one tensor, a 128-byte swizzled row a token
+constexpr int LDQ = RT + 8;          // floats a row of the dQ sums (2-way bank conflicts)
+constexpr int RES_THREADS = 256;     // at most two warpgroups
+
+// d (64 x 64) += A (64 x 16) * B (16 x 64), both from shared memory
+// (descriptors); TA / TB: 1 where the operand is MN-major (transposed)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma64_ss(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// Shared memory of the wgmma design for nt tiles of 64 tokens and nwg
+// warpgroups, in order: Q, K, V and dO (each nt tiles of 64 swizzled 128-byte
+// rows, the box TMA writes), the dS^T rows of one query tile (64 a
+// warpgroup), the float32 sums of dQ (nt x 64 rows of LDQ), each query's L
+// (times log2 e) and D, one mbarrier.  Mirrored by
+// ops/attention.py::_wgmma_smem.
+struct ResLayout {
+  int k, v, o, ds, dq, l, d, bar, bytes;
+  __host__ __device__ ResLayout(int nt, int nwg) {
+    k = nt * RT_BYTES;
+    v = 2 * k;
+    o = 3 * k;
+    ds = 4 * k;
+    dq = ds + nwg * RT_BYTES;
+    l = dq + nt * RT * LDQ * 4;
+    d = l + nt * RT * 4;
+    bar = d + nt * RT * 4;
+    bytes = bar + 8;
+  }
+};
+
+// One block a (head, sample) with the head's Q, K, V and dO resident in
+// shared memory (T <= 256, CH <= 64: the box of a 64-channel row is CH
+// channels of the head and, past them, its neighbours', which only the
+// products' discarded columns read).  The products are m64n64k16 wgmma with
+// float32 accumulators.  Phase 1, query tiles t = wg, wg + nwg, ...: S = Q_t
+// K^T and dP = dO_t V^T (both operands K-major in shared memory), P = exp(S -
+// L), D = rowsum(P o dP) over every key in float32, each quad's and key
+// tile's share added in a fixed order.  Phase 2, rounds of nwg key tiles,
+// warpgroup wg owning key tile j = round * nwg + wg with its dK and dV in
+// registers, over every query tile t: S^T = K_j Q_t^T and dP^T = V_j dO_t^T
+// again, P^T and dS^T = P^T o (dP^T - D) in registers; dV += bf16(P^T) dO_t
+// and dK += bf16(dS^T) Q_t with A from registers and B = the same rows
+// MN-major; the warpgroups' dS^T rows meet in shared memory and warpgroup
+// t % nwg forms dQ_t += dS_t K_round (A = dS^T MN-major, B = the round's K
+// rows MN-major), added to the float32 sums in shared memory round after
+// round (one warpgroup a tile: a fixed order).  Seven products a (query,
+// key) pair and two exponentials, against the two-pass design's nine and
+// three.
+template <int CH>
+__global__ void __launch_bounds__(RES_THREADS, 1)
+attn_bwd_wgmma_kernel(const float* __restrict__ lse, __nv_bfloat16* __restrict__ dqkv, int ntok,
+                      int heads, float scale, const __grid_constant__ CUtensorMap qkvmap,
+                      const __grid_constant__ CUtensorMap omap) {
+  const int nt = (ntok + RT - 1) / RT, nwg = blockDim.x / 128;
+  const ResLayout L(nt, nwg);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* Qs = base;
+  unsigned char* Ks = base + L.k;
+  unsigned char* Vs = base + L.v;
+  unsigned char* Os = base + L.o;
+  unsigned char* DS = base + L.ds;
+  float* dQ = reinterpret_cast<float*>(base + L.dq);
+  float* Ls = reinterpret_cast<float*>(base + L.l);
+  float* Ds = reinterpret_cast<float*>(base + L.d);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(base + L.bar);
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  const int wg = warp >> 2, w4 = warp & 3, g = lane >> 2, tq = lane & 3;
+  const long tok = 3L * heads * CH;
+  const long lbase = ((long)b * heads + h) * ntok;
+
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar, 4 * nt * RT_BYTES);
+    for (int i = 0; i < nt; ++i) {
+      tma_load_3d(Qs + i * RT_BYTES, &qkvmap, bar, h * 3 * CH, i * RT, b);
+      tma_load_3d(Ks + i * RT_BYTES, &qkvmap, bar, h * 3 * CH + CH, i * RT, b);
+      tma_load_3d(Vs + i * RT_BYTES, &qkvmap, bar, h * 3 * CH + 2 * CH, i * RT, b);
+      tma_load_3d(Os + i * RT_BYTES, &omap, bar, h * CH, i * RT, b);
+    }
+  }
+  for (int q = tid; q < nt * RT; q += blockDim.x) Ls[q] = q < ntok ? lse[lbase + q] * LOG2E : 0.f;
+  mbar_wait(bar, 0);
+  // q and k scaled by ch^-1/4 and rounded to bf16 in place, as the forward
+  // (the two regions are neighbours; the scale is per element, so the
+  // swizzle does not matter)
+  for (int idx = tid; idx < 2 * nt * RT * 8; idx += blockDim.x) {
+    uint4* p = reinterpret_cast<uint4*>(Qs) + idx;
+    uint4 v = *p;
+    uint32_t* w = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = unpack_bf16(w[e]);
+      w[e] = pack_bf16(f.x * scale, f.y * scale);
+    }
+    *p = v;
+  }
+  fence_async_shared();
+  __syncthreads();
+
+  // ------------------------------------------------------ phase 1: D
+  for (int t = wg; t < nt; t += nwg) {
+    float dsum[2] = {0.f, 0.f};  // rows g and g + 8 of the warp
+    for (int j = 0; j < nt; ++j) {
+      float s[32], dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < CH / 16; ++kk)
+        wgmma64_ss<0, 0>(s, smem_desc_sw128(Qs + t * RT_BYTES) + 2 * kk,
+                         smem_desc_sw128(Ks + j * RT_BYTES) + 2 * kk);
+#pragma unroll
+      for (int kk = 0; kk < CH / 16; ++kk)
+        wgmma64_ss<0, 0>(dp, smem_desc_sw128(Os + t * RT_BYTES) + 2 * kk,
+                         smem_desc_sw128(Vs + j * RT_BYTES) + 2 * kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        fence_reg(s[i]);
+        fence_reg(dp[i]);
+      }
+#pragma unroll
+      for (int nt8 = 0; nt8 < 8; ++nt8)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = j * RT + 8 * nt8 + 2 * tq + (e & 1);
+          const int q = t * RT + 16 * w4 + g + 8 * (e >> 1);
+          const float p = key < ntok ? exp2f(fmaf(s[4 * nt8 + e], LOG2E, -Ls[q])) : 0.f;
+          dsum[e >> 1] = fmaf(p, dp[4 * nt8 + e], dsum[e >> 1]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      dsum[i] += __shfl_xor_sync(0xffffffffu, dsum[i], 1);
+      dsum[i] += __shfl_xor_sync(0xffffffffu, dsum[i], 2);
+      if (tq == 0) Ds[t * RT + 16 * w4 + g + 8 * i] = dsum[i];
+    }
+  }
+  __syncthreads();
+
+  // ------------------------------------------- phase 2: dK, dV and dQ
+  const int rounds = (nt + nwg - 1) / nwg;
+  for (int r = 0; r < rounds; ++r) {
+    const int j = r * nwg + wg;
+    const int in_round = nt - r * nwg < nwg ? nt - r * nwg : nwg;
+    const bool active = j < nt;
+    float dk[32], dv[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+    for (int t = 0; t < nt; ++t) {
+      uint32_t pa[4][4], da[4][4];  // bf16 P^T and dS^T as A fragments, k-step kk
+      if (active) {
+        float st[32], dpt[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < CH / 16; ++kk)
+          wgmma64_ss<0, 0>(st, smem_desc_sw128(Ks + j * RT_BYTES) + 2 * kk,
+                           smem_desc_sw128(Qs + t * RT_BYTES) + 2 * kk);
+#pragma unroll
+        for (int kk = 0; kk < CH / 16; ++kk)
+          wgmma64_ss<0, 0>(dpt, smem_desc_sw128(Vs + j * RT_BYTES) + 2 * kk,
+                           smem_desc_sw128(Os + t * RT_BYTES) + 2 * kk);
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          fence_reg(st[i]);
+          fence_reg(dpt[i]);
+        }
+        // P^T = exp(S^T - L[query]), zero past the last query or key;
+        // dS^T = P^T (dP^T - D[query])
+#pragma unroll
+        for (int nt8 = 0; nt8 < 8; ++nt8)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int q = t * RT + 8 * nt8 + 2 * tq + (e & 1);
+            const int key = j * RT + 16 * w4 + g + 8 * (e >> 1);
+            const float p =
+                q < ntok && key < ntok ? exp2f(fmaf(st[4 * nt8 + e], LOG2E, -Ls[q])) : 0.f;
+            dpt[4 * nt8 + e] = p * (dpt[4 * nt8 + e] - Ds[q]);
+            st[4 * nt8 + e] = p;
+          }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * (2 * kk + (e >> 1)) + 2 * (e & 1);
+            pa[kk][e] = pack_bf16(st[i], st[i + 1]);
+            da[kk][e] = pack_bf16(dpt[i], dpt[i + 1]);
+          }
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          WgmmaT<64>::mma(dv, pa[kk], smem_desc_sw128_mn(Os + t * RT_BYTES, RT_BYTES) + 128 * kk);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          WgmmaT<64>::mma(dk, da[kk], smem_desc_sw128_mn(Qs + t * RT_BYTES, RT_BYTES) + 128 * kk);
+        wgmma_commit();
+      }
+      bar_sync_named(1, blockDim.x);  // the dQ product of query tile t - 1 has read DS
+      if (active) {
+        // dS^T rows of this warpgroup's keys: row wg * 64 + 16 w4 + g (+ 8),
+        // queries 16 kk + 2 tq (+ 8) in chunks 2 kk (+ 1)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = wg * RT + 16 * w4 + g + 8 * (e & 1);
+            const int chunk = 2 * kk + (e >> 1);
+            *reinterpret_cast<uint32_t*>(DS + row * 128 + ((chunk ^ (row & 7)) << 4) + 4 * tq) =
+                da[kk][e];
+          }
+      }
+      fence_async_shared();
+      bar_sync_named(2, blockDim.x);  // DS holds every key of the round
+      if (wg == t % nwg) {
+        float dq[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+        wgmma_fence();
+        for (int kk = 0; kk < 4 * in_round; ++kk)
+          wgmma64_ss<1, 1>(dq, smem_desc_sw128_mn(DS, RT_BYTES) + 128 * kk,
+                           smem_desc_sw128_mn(Ks + r * nwg * RT_BYTES, RT_BYTES) + 128 * kk);
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int i = 0; i < 32; ++i) fence_reg(dq[i]);
+#pragma unroll
+        for (int nt8 = 0; nt8 < 8; ++nt8)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            float2* p = reinterpret_cast<float2*>(dQ + (t * RT + 16 * w4 + g + 8 * half) * LDQ +
+                                                  8 * nt8 + 2 * tq);
+            const float2 add = make_float2(dq[4 * nt8 + 2 * half], dq[4 * nt8 + 2 * half + 1]);
+            if (r == 0) {
+              *p = add;
+            } else {
+              const float2 was = *p;
+              *p = make_float2(was.x + add.x, was.y + add.y);
+            }
+          }
+      }
+      wgmma_wait<0>();  // dV and dK of tile t: pa and da are rewritten next
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) asm volatile("" ::"r"(pa[kk][e]), "r"(da[kk][e]));
+    }
+    if (active) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        fence_reg(dk[i]);
+        fence_reg(dv[i]);
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int key = j * RT + 16 * w4 + g + 8 * half;
+        if (key >= ntok) continue;
+        __nv_bfloat16* dst = dqkv + ((long)b * ntok + key) * tok + (long)h * 3 * CH;
+#pragma unroll
+        for (int nt8 = 0; nt8 < 8; ++nt8) {
+          const int col = 8 * nt8 + 2 * tq;
+          if (col >= CH) continue;
+          const int i = 4 * nt8 + 2 * half;
+          *reinterpret_cast<uint32_t*>(dst + CH + col) =
+              pack_bf16(dk[i] * scale, dk[i + 1] * scale);
+          *reinterpret_cast<uint32_t*>(dst + 2 * CH + col) = pack_bf16(dv[i], dv[i + 1]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  // dq = dqs ch^-1/4, 16 bytes a thread and step
+  for (int idx = tid; idx < ntok * (CH / 8); idx += blockDim.x) {
+    const int q = idx / (CH / 8), c = idx % (CH / 8);
+    const float4* src = reinterpret_cast<const float4*>(dQ + q * LDQ + 8 * c);
+    const float4 lo = src[0], hi = src[1];
+    uint4 v;
+    v.x = pack_bf16(lo.x * scale, lo.y * scale);
+    v.y = pack_bf16(lo.z * scale, lo.w * scale);
+    v.z = pack_bf16(hi.x * scale, hi.y * scale);
+    v.w = pack_bf16(hi.z * scale, hi.w * scale);
+    *reinterpret_cast<uint4*>(dqkv + ((long)b * ntok + q) * tok + (long)h * 3 * CH + 8 * c) = v;
+  }
+}
+
+// Shared memory of the wgmma design at T tokens, or 0 where it does not
+// take T (64 <= T and the layout within a block's 227 KB)
+size_t wgmma_smem(int ntok) {
+  if (ntok < RT) return 0;
+  const int nt = (ntok + RT - 1) / RT;
+  const size_t bytes = 1024 + ResLayout(nt, nt > 1 ? 2 : 1).bytes;
+  return bytes <= 227 * 1024 ? bytes : 0;
+}
+
+template <int CH>
+cudaError_t launch_grad_wgmma(const void* qkv, const void* dout, const float* lse, void* dqkv,
+                              int B, int ntok, int heads, float scale, cudaStream_t stream) {
+  const size_t smem = wgmma_smem(ntok);
+  if (smem == 0 || heads * CH < RT) return cudaErrorInvalidValue;
+  CUtensorMap qmap, omap;
+  const cuuint64_t qdims[3] = {(cuuint64_t)3 * heads * CH, (cuuint64_t)ntok, (cuuint64_t)B};
+  const cuuint64_t odims[3] = {(cuuint64_t)heads * CH, (cuuint64_t)ntok, (cuuint64_t)B};
+  const cuuint32_t box[3] = {RT, RT, 1};
+  cudaError_t err = encode_bf16_map(&qmap, qkv, 3, qdims, box);
+  if (err != cudaSuccess) return err;
+  if ((err = encode_bf16_map(&omap, dout, 3, odims, box)) != cudaSuccess) return err;
+  if ((err = allow_smem(attn_bwd_wgmma_kernel<CH>, smem)) != cudaSuccess) return err;
+  const int nt = (ntok + RT - 1) / RT;
+  attn_bwd_wgmma_kernel<CH><<<dim3(heads, B), nt > 1 ? 256 : 128, smem, stream>>>(
+      lse, static_cast<__nv_bfloat16*>(dqkv), ntok, heads, scale, qmap, omap);
+  return cudaGetLastError();
+}
+
 template <int CH>
 cudaError_t launch_grad_bf16(const void* qkv, const void* dout, const float* lse, float* delta,
                              void* dqkv, int B, int ntok, int heads, float scale,
@@ -570,17 +936,35 @@ cudaError_t launch_grad_bf16(const void* qkv, const void* dout, const float* lse
 
 // dqkv (B, T, 3C) from qkv (B, T, 3C) and the output's gradient `dout`
 // (B, T, C), contiguous in one dtype (bf16: 16-byte aligned), and the
-// forward's log-sum-exp (B, H, T) float32; delta (B, H, T) float32 is
-// scratch (the rows' D, written by the first launch and read by the second).
+// forward's log-sum-exp (B, H, T) float32.  design: 0 the two-launch design
+// (two_pass in bf16, scalar_f32 in float32), whose delta (B, H, T) float32 is
+// scratch (the rows' D, written by the first launch and read by the second);
+// 1 wgmma (bf16, head widths 16..64, 64 <= T <= 256, heads x ch >= 64; delta
+// unused).  A design, shape or buffer it does not take returns
+// cudaErrorInvalidValue before any launch.
 extern "C" int pddm_qkv_attention_grad(const void* qkv, const void* dout, const void* lse_ptr,
                                        void* delta_ptr, void* dqkv, int B, int ntok, int heads,
-                                       int ch, float scale, int is_bf16, void* stream_ptr) {
+                                       int ch, float scale, int is_bf16, int design,
+                                       void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const float* lse = static_cast<const float*>(lse_ptr);
   float* delta = static_cast<float*>(delta_ptr);
   if (B < 1 || ntok < 1 || heads < 1 || B > 65535 || heads > 65535 || lse == nullptr ||
-      delta == nullptr)
+      design < 0 || design > 1 || (design == 0 && delta == nullptr) || (design == 1 && !is_bf16))
     return cudaErrorInvalidValue;
+  if (design == 1) {
+    switch (ch) {
+#define PDDM_ATTN_GRAD_CASE(W) \
+  case W:                      \
+    return launch_grad_wgmma<W>(qkv, dout, lse, dqkv, B, ntok, heads, scale, stream)
+      PDDM_ATTN_GRAD_CASE(16);
+      PDDM_ATTN_GRAD_CASE(32);
+      PDDM_ATTN_GRAD_CASE(48);
+      PDDM_ATTN_GRAD_CASE(64);
+#undef PDDM_ATTN_GRAD_CASE
+      default: return cudaErrorInvalidValue;
+    }
+  }
   if (is_bf16) {
     switch (ch) {  // every multiple of 16 up to 128, as the forward
 #define PDDM_ATTN_GRAD_CASE(W) \

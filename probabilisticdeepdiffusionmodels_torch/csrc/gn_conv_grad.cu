@@ -33,10 +33,45 @@
 //
 // wgmma (bf16, Cin and Cout multiples of 8, images of at least 4x4 whose
 // pixel count is over 64 or a multiple of 16, so no warp's 16 rows straddle
-// two images): dgrad as below, whose epilogue, which stages x for the
-// activation's backward anyway, also stores h = silu(x*a + off) in bf16 with
-// 16-byte stores into a transient (B, H, W, Cin) buffer (where no dx is
-// wanted, one elementwise launch writes h instead); then wgrad9:
+// two images): the ping-pong dgrad, whose epilogue also stores h =
+// silu(x*a + off) in bf16 into a transient (B, H, W, Cin) buffer (where no dx
+// is wanted, one elementwise launch writes h instead); then wgrad9.
+//   What held the earlier dgrad (wgmma_sync_epilogue below) back: its two
+//   consumer warpgroups shared one tile of 128 pixels, so both stopped their
+//   products together for the epilogue, which loaded x with dependent 16-byte
+//   loads and wrote h and dx with plain stores.  The ping-pong dgrad gives
+//   each consumer warpgroup tiles of its own (64 pixels x 128 channels, or
+//   128 x 64 where Cin is 64; 128 x 128 would hold 128 float32 accumulators
+//   a thread, which serialised the products): tile k of a block goes to
+//   warpgroup k % 2, so one warpgroup's products run while the other's
+//   epilogue does.  One producer thread streams the weight ring (up to 16
+//   stages, as many as fit) and the g halos (four buffers, up to three Cout
+//   slices ahead); a second copies each tile's x by TMA through a 4-D (Cin,
+//   W, H, B) map, with its images' scale and offset by bulk copies, as soon
+//   as the warpgroup's tile before has left the buffer, so no copy of the
+//   products waits for an epilogue.  The epilogue reads x from the landed
+//   tile (all of a thread's pairs first, then the math, one exponential an
+//   element for both h and dp), writes h over x and stores it by TMA (the
+//   map clips a ragged tile), then dx over it once that store has read it,
+//   and adds the rows' dp*x and dp by shuffles and, warps in order, into the
+//   workspace.  A landed weight stage or halo is signalled on a full barrier
+//   of the consuming warpgroup's own, waited on in that warpgroup's order
+//   (its phase a bit a stage in a register): on a barrier shared by the two,
+//   the warpgroup of tile k + 1 waits on a phase up to three ahead of the
+//   barrier's, which a parity test takes for the one before.  Each step
+//   keeps two groups of products in flight.
+//   Measured (time_conv_grad.py, NVIDIA H100 80GB HBM3, 700 W, the CIFAR-10
+//   UNet's 60 bf16 sites at batch 128, device-only): 4.11-4.19 ms against
+//   the earlier 6.93-6.97 and the library's input product 2.79-2.81; 39-40%
+//   of the 1.646 ms bound (operations).  The weight stream: each 64-pixel
+//   tile reads its whole weight slice from L2, 5.6-7.2 TB/s at the sites;
+//   tiles of 128 pixels x 64 channels halve it (2.4-3.3 TB/s) and made
+//   dgrad 5-15% slower, not faster (time_conv_grad.py --dgrad-tile 2,64),
+//   so the stream does not set the time and no cluster multicasts it.  A
+//   lone warpgroup's step latency and the epilogue's exponentials,
+//   reciprocals and bf16 packs, as long as the products they should hide,
+//   are the likelier limits; no profiler reaches inside a kernel here.
+// wgrad9:
 //   What bounded the first design's wgrad (wgmma_taprow below) on this card
 //   was not the products: each of its blocks re-activated the x halo for 3
 //   taps x 64 channels and refetched its tiles for every (Cout slice, tap
@@ -57,6 +92,9 @@
 //   up registers (setmaxnreg) so that the consumers hold 152 a thread, for
 //   96 accumulators and two sets of A fragments (each SM sub-partition holds
 //   4 of a block's warps, so no block shape gives more without it).
+// wgmma_sync_epilogue (by name only: the second design of this pair, kept so
+// that both can be timed in one run): the dgrad of wgmma_taprow below, with
+// h stored by its epilogue, then wgrad9.
 // wgmma_taprow (by name only: the first design of this pair, kept so that both
 // can be timed in one run):
 //   dgrad: the forward's persistent, warp-specialised block (one thread
@@ -186,10 +224,6 @@ __device__ __forceinline__ float silu_grad_fast(float dh, float p) {
   return dh * s * (1.f + p * (1.f - s));
 }
 
-__device__ __forceinline__ void bar_sync_named(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
 // h = silu(x*a + off) of 8 neighbouring bf16 channels, rounded to bf16, as
 // the forward's wgmma kernel activates its halo; a and off point at the
 // first channel's scale and offset (16-byte aligned)
@@ -230,59 +264,6 @@ activate_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ a
 // ----------------------------------------------------------------- wgmma
 
 constexpr int WK = 64;  // channels of one 128-byte swizzled row
-
-// Descriptor of an N-major B tile under the 128-byte swizzle (as
-// probe_mma.cu's): rows of 128 bytes hold 64 neighbouring n of one k, the
-// 8-row groups along k lie 1024 bytes apart (SBO), the next 64 n `lbo` bytes
-// further (LBO).  A k-step of 16 rows advances the start by 2048 bytes
-// (+128 in the descriptor's 16-byte units).
-__device__ __forceinline__ uint64_t smem_desc_sw128_mn(const void* p, int lbo) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-// d += A (64 x 16, registers) * B (16 x BN, shared memory, N-major: tnspB = 1)
-template <int BN> struct WgmmaT;
-template <> struct WgmmaT<64> {
-  static __device__ __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4],
-                                             uint64_t desc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-  }
-};
-
-template <> struct WgmmaT<128> {
-  static __device__ __forceinline__ void mma(float (&d)[64], const uint32_t (&a)[4],
-                                             uint64_t desc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-  }
-};
 
 // ---------------------------------------------------------- wgmma dgrad
 
@@ -575,6 +556,457 @@ cudaError_t launch_dgrad_wgmma(const void* x, const void* a, const void* off, co
       static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(a),
       static_cast<const float*>(off), static_cast<__nv_bfloat16*>(dx),
       static_cast<__nv_bfloat16*>(h), ws_a, g, wmap, gmap);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------- wgmma dgrad, ping-pong
+
+constexpr int PP_THREADS = 384;  // warpgroups 0 and 1 consume; warpgroup 2 copies
+constexpr int PP_PRODUCER = 8;   // its first warp: weights and halos; the second: x
+constexpr int PP_HALOS = 4;      // g halo buffers
+constexpr int PP_MAX_STAGES = 16;
+constexpr int PP_MIN_STAGES = 3;
+// registers a thread once the copying warpgroup gives its surplus to the
+// consumers: 40 x 128 + 232 x 256 <= 65,536
+constexpr int PP_PRODUCER_REGS = 40;
+constexpr int PP_CONSUMER_REGS = 232;
+
+// Shared memory of the ping-pong dgrad, in order: the weight ring (`stages`
+// tiles of 64 Cout x BN Cin), PP_HALOS g halo buffers (each 1024-byte aligned),
+// one x tile a consumer warpgroup (BN / 64 panels of the tile's 64 MT pixels,
+// a 128-byte swizzled row a pixel: the box TMA writes; h and then dx are
+// staged over it for the TMA stores), the per-(warpgroup, m-tile, warp)
+// partial sums of dp*x and dp, each warpgroup's scale and offset of its
+// tile's images and channels (copied with x), the mbarriers (a full barrier of each weight
+// stage and halo buffer for each consumer warpgroup, one empty barrier of
+// each, those of the x tiles).  Mirrored by ops/gn_conv.py::_pingpong_smem.
+template <int MT, int BN>
+struct PLayout {
+  static constexpr int STAGE = BN * 128;
+  static constexpr int PANEL = MT * 64 * 128;
+  static constexpr int XTILE = (BN / 64) * PANEL;
+  int halo_stride, halo, xt, part, ao, bars, bytes;
+  __host__ __device__ PLayout(int halo_px, int ni, int stages) {
+    halo_stride = (halo_px * 128 + 1023) / 1024 * 1024;
+    halo = stages * STAGE;
+    xt = halo + PP_HALOS * halo_stride;
+    part = xt + 2 * XTILE;
+    ao = part + 2 * MT * 4 * 2 * BN * 4;
+    bars = ao + 2 * ni * 2 * BN * 4;
+    bytes = bars + (3 * PP_MAX_STAGES + 3 * PP_HALOS + 4) * 8;
+  }
+};
+
+// Block (persistent over tiles blockIdx.x, + gridDim.x, ...; Cin slice
+// blockIdx.y) of 384 threads.  Lane 0 of warp 8 issues the copies of the
+// products in the order they take them: per step the weight tile of (Cout
+// slice, flipped tap), per Cout slice the g halo of the tile, up to
+// PP_HALOS - 1 slices ahead; lane 0 of warp 9 copies each tile's x (the
+// map's zero fill past the image and the channels) and its images' scale
+// and offset as soon as the warpgroup's previous tile has left its buffer,
+// so no copy of the products waits for an epilogue.  The
+// tiles alternate between consumer warpgroups 1 and 2 (tile k of the block
+// to warpgroup k % 2), each holding the tile's MT m64 x BN accumulators, so
+// one warpgroup's products run while the other's epilogue does.  The two
+// walk the same ring of weight stages and halo buffers, each step taken by
+// the warpgroup of its tile; a landed stage or halo is signalled on a full
+// barrier of that warpgroup's own, which it waits on in its own order (its
+// phase a bit a stage in a register): on a barrier shared by both, the
+// warpgroup of tile k + 1 would wait on a phase up to three ahead of the
+// barrier's, which a parity test cannot tell from the one before it.
+// The epilogue reads x from its landed tile, forms dp, writes h over x and
+// stores it by TMA (STORE_H), writes dx over it once that store has read
+// the tile and stores it by TMA, and adds the rows' dp*x and dp by shuffles
+// and, in a fixed order, through shared memory into the workspace.
+template <int MT, int BN, bool STORE_H>
+__global__ void __launch_bounds__(PP_THREADS, 1)
+dgrad_pingpong_kernel(const float* __restrict__ a, const float* __restrict__ off,
+                      float* __restrict__ ws_a, Geom g, int stages,
+                      const __grid_constant__ CUtensorMap wmap,
+                      const __grid_constant__ CUtensorMap gmap,
+                      const __grid_constant__ CUtensorMap xmap,
+                      const __grid_constant__ CUtensorMap dxmap,
+                      const __grid_constant__ CUtensorMap hmap) {
+  using Lay = PLayout<MT, BN>;
+  constexpr int STAGE = Lay::STAGE, PANEL = Lay::PANEL, XTILE = Lay::XTILE;
+  const int halo_w = g.TW + 2;
+  const int halo_px = g.NI * (g.TH + 2) * halo_w;
+  const int count = g.NI * g.TH * g.TW;  // rows of an x tile that TMA writes
+  const Lay L(halo_px, g.NI, stages);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* Wring = base;
+  unsigned char* Halo = base + L.halo;
+  unsigned char* Xt = base + L.xt;
+  float* Part = reinterpret_cast<float*>(base + L.part);  // [wg][mt][warp][dp*x | dp][channel]
+  float* AO = reinterpret_cast<float*>(base + L.ao);      // [wg][image][a | off][channel]
+  uint64_t* wfull = reinterpret_cast<uint64_t*>(base + L.bars);  // [warpgroup][stage]
+  uint64_t* wempty = wfull + 2 * PP_MAX_STAGES;
+  uint64_t* hfull = wempty + PP_MAX_STAGES;  // [warpgroup][buffer]
+  uint64_t* hempty = hfull + 2 * PP_HALOS;
+  uint64_t* xfull = hempty + PP_HALOS;
+  uint64_t* xempty = xfull + 2;
+
+  const int n0 = blockIdx.y * BN;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  const int nslices = (g.Cout + WK - 1) / WK, per_tile = 9 * nslices;
+  const int ntm = (g.B + g.NI - 1) / g.NI * g.tiles_y * g.tiles_x;
+  const int mine = (ntm - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int total = mine * per_tile, total_slices = mine * nslices;
+
+  if (tid == 0) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(wfull + i, 1);
+      mbar_init(wfull + PP_MAX_STAGES + i, 1);
+      mbar_init(wempty + i, 4);
+    }
+    for (int i = 0; i < PP_HALOS; ++i) {
+      mbar_init(hfull + i, 1);
+      mbar_init(hfull + PP_HALOS + i, 1);
+      mbar_init(hempty + i, 4);
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(xfull + i, 1);
+      mbar_init(xempty + i, 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= PP_PRODUCER) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PP_PRODUCER_REGS));
+    if (lane != 0 || warp > PP_PRODUCER + 1) return;
+    if (warp == PP_PRODUCER + 1) {
+      // tile k's x and its images' scale and offset into its warpgroup's
+      // buffer, once the tile before in that buffer has been stored
+      const int nc = g.Cin - n0 < BN ? g.Cin - n0 : BN;
+      for (int k = 0; k < mine; ++k) {
+        int b0, y0, x0;
+        tile_origin(g, blockIdx.x + k * gridDim.x, b0, y0, x0);
+        const int ni = g.B - b0 < g.NI ? g.B - b0 : g.NI;
+        uint64_t* bar = xfull + (k & 1);
+        if (k >= 2) mbar_wait(xempty + (k & 1), ((k >> 1) - 1) & 1);
+        mbar_expect_tx(bar, (BN / 64) * count * 128 + ni * 2 * nc * 4);
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+          tma_load_4d(Xt + (k & 1) * XTILE + j * PANEL, &xmap, bar, n0 + 64 * j, x0, y0, b0);
+        float* ao = AO + (k & 1) * g.NI * 2 * BN;
+        for (int i = 0; i < ni; ++i) {
+          bulk_load(ao + 2 * i * BN, a + (long)(b0 + i) * g.Cin + n0, nc * 4, bar);
+          bulk_load(ao + (2 * i + 1) * BN, off + (long)(b0 + i) * g.Cin + n0, nc * 4, bar);
+        }
+      }
+      return;
+    }
+    // Cout slice gs of g's halo into buffer gs % PP_HALOS
+    auto load_halo = [&](int gs) {
+      const int k = gs / nslices;
+      int b0, y0, x0;
+      tile_origin(g, blockIdx.x + k * gridDim.x, b0, y0, x0);
+      uint64_t* bar = hfull + (k & 1) * PP_HALOS + gs % PP_HALOS;
+      mbar_expect_tx(bar, halo_px * 128);
+      tma_load_4d(Halo + (gs % PP_HALOS) * L.halo_stride, &gmap, bar, (gs % nslices) * WK, x0 - 1,
+                  y0 - 1, b0);
+    };
+    for (int gs = 0; gs < PP_HALOS - 1 && gs < total_slices; ++gs) load_halo(gs);
+    // step u: stage st of ring round `round`, tap `tap` of Cout slice gs
+    // (slice `slice` of tile k); counted, not divided (the stages are a
+    // runtime count)
+    int st = 0, round = 0, tap = 0, gs = 0, slice = 0, k = 0;
+    for (int u = 0; u < total; ++u) {
+      // slice gs + PP_HALOS - 1 into the buffer of slice gs - 1 (slice
+      // PP_HALOS - 1 into a free one)
+      if (tap == 5 && gs + PP_HALOS - 1 < total_slices) {
+        if (gs >= 1) mbar_wait(hempty + (gs - 1) % PP_HALOS, ((gs - 1) / PP_HALOS) & 1);
+        load_halo(gs + PP_HALOS - 1);
+      }
+      uint64_t* full = wfull + (k & 1) * PP_MAX_STAGES + st;
+      if (round > 0) mbar_wait(wempty + st, (round - 1) & 1);
+      mbar_expect_tx(full, STAGE);
+      // (co slice, tap 8 - t): 64 co rows of 64 ci, BN / 64 boxes side by side
+#pragma unroll
+      for (int j = 0; j < BN / 64; ++j)
+        tma_load_3d(Wring + st * STAGE + j * 8192, &wmap, full, n0 + 64 * j, slice * WK, 8 - tap);
+      if (++st == stages) st = 0, ++round;
+      if (++tap == 9) {
+        tap = 0, ++gs;
+        if (++slice == nslices) slice = 0, ++k;
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(PP_CONSUMER_REGS));
+
+  // ------------------------------------------------------------ products
+  const int c = warp / 4, cw = warp & 3, ct = tid - 128 * c;
+  const int gq = lane >> 2, tq = lane & 3;
+  unsigned char* X = Xt + c * XTILE;
+  float acc[MT][BN / 2];
+  uint64_t* my_wfull = wfull + c * PP_MAX_STAGES;
+  uint64_t* my_hfull = hfull + PP_HALOS * c;
+  uint32_t wph = 0, hph = 0;  // the phase of each of this warpgroup's full barriers
+
+  for (int k = c; k < mine; k += 2) {
+    const int tile = blockIdx.x + k * gridDim.x;
+    int b0, y0, x0, hb[MT];
+    tile_origin(g, tile, b0, y0, x0);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      int pb, py, px;
+      pixel(g, b0, y0, x0, 64 * mt + 16 * cw + (lane & 15), pb, py, px, hb[mt]);
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[mt][i] = 0.f;
+
+    // step r of the tile (u of the block, ring stage st; s1 and s2 those of
+    // the two steps before): A of the MT m-tiles from the g halo shifted by
+    // the tap into af, while the two previous steps' products, which read
+    // prev and the buffer before it, may still run; once this step's are
+    // issued, those of step u - 2 have retired
+    int st = k * per_tile % stages, s1 = 0, s2 = 0;
+    auto step = [&](int r, uint32_t (&af)[MT][WK / 16][4], uint32_t (&prev)[MT][WK / 16][4]) {
+      const int tap = r % 9, gs = k * nslices + r / 9;
+      if (tap == 0) {  // g slice gs landed
+        mbar_wait(my_hfull + gs % PP_HALOS, (hph >> (gs % PP_HALOS)) & 1);
+        hph ^= 1u << (gs % PP_HALOS);
+      }
+      const unsigned char* hbuf = Halo + (gs % PP_HALOS) * L.halo_stride;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int pos = hb[mt] + (tap / 3) * halo_w + tap % 3;
+        const unsigned char* row = hbuf + pos * 128;
+#pragma unroll
+        for (int kk = 0; kk < WK / 16; ++kk)
+          ldmatrix_x4(af[mt][kk], row + (((2 * kk + (lane >> 4)) ^ (pos & 7)) << 4));
+      }
+      __syncwarp();
+      mbar_arrive_lane0(hempty + gs % PP_HALOS, lane, tap == 8);
+      mbar_wait(my_wfull + st, (wph >> st) & 1);
+      wph ^= 1u << st;
+      const uint64_t desc = smem_desc_sw128_mn(Wring + st * STAGE, 8192);
+      wgmma_fence();
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int kk = 0; kk < WK / 16; ++kk) WgmmaT<BN>::mma(acc[mt], af[mt][kk], desc + 128 * kk);
+      wgmma_commit();
+      const bool last = r == per_tile - 1;
+      if (last) {
+        wgmma_wait<0>();
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i) fence_reg(acc[mt][i]);
+      } else {
+        wgmma_wait<2>();
+      }
+      __syncwarp();
+      // the stages of the steps whose products have retired
+      mbar_arrive_lane0(wempty + s2, lane, r >= 2);
+      mbar_arrive_lane0(wempty + s1, lane, last && r >= 1);
+      mbar_arrive_lane0(wempty + st, lane, last);
+      s2 = s1;
+      s1 = st;
+      st = st + 1 == stages ? 0 : st + 1;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int kk = 0; kk < WK / 16; ++kk)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) asm volatile("" ::"r"(prev[mt][kk][e]), "r"(af[mt][kk][e]));
+    };
+    // three A buffers in turn (a tile's steps are a multiple of 9)
+    uint32_t af0[MT][WK / 16][4], af1[MT][WK / 16][4], af2[MT][WK / 16][4];
+    for (int r = 0; r < per_tile; r += 3) {
+      step(r, af0, af2);
+      step(r + 1, af1, af0);
+      step(r + 2, af2, af1);
+    }
+
+    // ---------------------------------------------------------- epilogue
+    const int per_img = g.TH * g.TW;
+    const int npix = g.NI > 1   ? (g.B - b0 < g.NI ? g.B - b0 : g.NI) * g.H * g.W
+                     : g.TW == g.W ? (g.H - y0 < g.TH ? g.H - y0 : g.TH) * g.W
+                                   : (g.W - x0 < g.TW ? g.W - x0 : g.TW);
+    mbar_wait(xfull + c, (k >> 1) & 1);  // the tile's x landed
+    // the thread's pairs (pixel 64 mt + 16 w + gq (+ 8), channels c0, c0 + 1
+    // with c0 = 8 nt + 2 tq) in the landed tile; every x read before any h
+    // is written over it, so the reads are issued together
+    auto slot = [&](int mt, int nt, int half) {
+      const int p = 64 * mt + 16 * cw + gq + 8 * half, c0 = 8 * nt + 2 * tq;
+      return reinterpret_cast<uint32_t*>(X + (c0 >> 6) * PANEL + p * 128 +
+                                         ((((c0 & 63) >> 3) ^ (p & 7)) << 4) + 4 * tq);
+    };
+    uint32_t xr[MT][BN / 8][2], dxr[MT][BN / 8][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < BN / 8; ++nt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) xr[mt][nt][half] = *slot(mt, nt, half);
+    float sums[MT][BN / 8][4];  // the thread's rows' dp*x and dp of channels c0, c0 + 1
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      // the warp's 16 rows of the m-tile lie in one image (the design's rule)
+      const int iw = g.NI > 1 ? (64 * mt + 16 * cw) / per_img : 0;
+      const float* aow = AO + (c * g.NI + iw) * 2 * BN;
+#pragma unroll
+      for (int nt = 0; nt < BN / 8; ++nt) {
+        const int c0 = 8 * nt + 2 * tq;
+        const bool cin_ok = n0 + c0 < g.Cin && b0 + iw < g.B;
+        float2 av = make_float2(0.f, 0.f), ov = make_float2(0.f, 0.f);
+        if (cin_ok) {
+          av = *reinterpret_cast<const float2*>(aow + c0);
+          ov = *reinterpret_cast<const float2*>(aow + BN + c0);
+        }
+        float* sm = sums[mt][nt];
+        sm[0] = sm[1] = sm[2] = sm[3] = 0.f;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const bool ok = cin_ok && 64 * mt + 16 * cw + gq + 8 * half < npix;
+          const float2 xv = unpack_bf16(xr[mt][nt][half]);
+          const float p0 = fmaf(xv.x, av.x, ov.x), p1 = fmaf(xv.y, av.y, ov.y);
+          // one exponential a value for h = silu_fast(p) and dp =
+          // silu_grad_fast(dh, p), each the same bits as those functions'
+          const float e0 = __expf(-p0), e1 = __expf(-p1);
+          const float s0 = __fdividef(1.f, 1.f + e0), s1 = __fdividef(1.f, 1.f + e1);
+          const float dp0 = ok ? acc[mt][4 * nt + 2 * half] * s0 * (1.f + p0 * (1.f - s0)) : 0.f;
+          const float dp1 =
+              ok ? acc[mt][4 * nt + 2 * half + 1] * s1 * (1.f + p1 * (1.f - s1)) : 0.f;
+          dxr[mt][nt][half] = pack_bf16(dp0 * av.x, dp1 * av.y);
+          if (STORE_H)
+            *slot(mt, nt, half) = pack_bf16(__fdividef(p0, 1.f + e0), __fdividef(p1, 1.f + e1));
+          sm[0] = fmaf(dp0, xv.x, sm[0]);
+          sm[1] = fmaf(dp1, xv.y, sm[1]);
+          sm[2] += dp0;
+          sm[3] += dp1;
+        }
+      }
+    }
+    // the rows' sums over the warp's 8 row groups, every chain at once
+#pragma unroll
+    for (int m = 4; m < 32; m <<= 1)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < BN / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sums[mt][nt][e] += __shfl_xor_sync(0xffffffffu, sums[mt][nt][e], m);
+    if (gq == 0) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        float* Pw = Part + ((c * MT + mt) * 4 + cw) * 2 * BN;
+#pragma unroll
+        for (int nt = 0; nt < BN / 8; ++nt) {
+          const int c0 = 8 * nt + 2 * tq;
+          *reinterpret_cast<float2*>(Pw + c0) = make_float2(sums[mt][nt][0], sums[mt][nt][1]);
+          *reinterpret_cast<float2*>(Pw + BN + c0) = make_float2(sums[mt][nt][2], sums[mt][nt][3]);
+        }
+      }
+    }
+    if (STORE_H) {
+      fence_async_shared();
+      bar_sync_named(2 + c, 128);  // h is in the tile
+      if (ct == 0) {
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+          tma_store_4d(&hmap, X + j * PANEL, n0 + 64 * j, x0, y0, b0);
+        bulk_commit();
+        bulk_wait_read<0>();
+      }
+      bar_sync_named(2 + c, 128);  // the store has read h
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < BN / 8; ++nt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) *slot(mt, nt, half) = dxr[mt][nt][half];
+    fence_async_shared();
+    bar_sync_named(2 + c, 128);  // dx and every warp's partials are in
+    if (ct == 0) {
+#pragma unroll
+      for (int j = 0; j < BN / 64; ++j)
+        tma_store_4d(&dxmap, X + j * PANEL, n0 + 64 * j, x0, y0, b0);
+      bulk_commit();
+    }
+    // the tile's per-(image, channel) sums, its warps and m-tiles in order
+    for (int idx = ct; idx < g.NI * 2 * BN; idx += 128) {
+      const int ch = idx % BN, q = (idx / BN) & 1, i = idx / (2 * BN);
+      if (b0 + i >= g.B || n0 + ch >= g.Cin) continue;
+      float s = 0.f;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        for (int w = 0; w < 4; ++w)
+          if (g.NI == 1 || (64 * mt + 16 * w) / per_img == i)
+            s += Part[((c * MT + mt) * 4 + w) * 2 * BN + q * BN + ch];
+      ws_a[((long)(tile * g.NI + i) * 2 + q) * g.Cin + n0 + ch] = s;
+    }
+    bar_sync_named(2 + c, 128);  // Part is free for the next tile
+    if (ct == 0) {
+      bulk_wait_read<0>();  // the dx store has read the tile: x of tile k + 2 may land
+      mbar_arrive(xempty + c);
+    }
+  }
+}
+
+// The weight ring's stages of the ping-pong dgrad: as many as fit the
+// shared memory, at most 16; 0 where 3 do not fit.  Mirrored by
+// ops/gn_conv.py::_pingpong_stages.
+template <int MT, int BN>
+int pingpong_stages(Geom g) {
+  set_tile(g, 64 * MT);
+  const int halo_px = g.NI * (g.TH + 2) * (g.TW + 2);
+  for (int s = PP_MAX_STAGES; s >= PP_MIN_STAGES; --s)
+    if (1024 + PLayout<MT, BN>(halo_px, g.NI, s).bytes <= 227 * 1024) return s;
+  return 0;
+}
+
+template <int MT, int BN, bool STORE_H>
+cudaError_t launch_dgrad_pingpong(const void* x, const void* a, const void* off, const void* w,
+                                  const void* gr, void* dx, void* h, float* ws_a, Geom g,
+                                  cudaStream_t stream) {
+  const int stages = pingpong_stages<MT, BN>(g);
+  if (stages == 0) return cudaErrorInvalidValue;
+  set_tile(g, 64 * MT);
+  const size_t smem =
+      1024 + PLayout<MT, BN>(g.NI * (g.TH + 2) * (g.TW + 2), g.NI, stages).bytes;
+  CUtensorMap wmap, gmap, xmap, dxmap, hmap;
+  const cuuint64_t wdims[3] = {(cuuint64_t)g.Cin, (cuuint64_t)g.Cout, 9};
+  const cuuint32_t wbox[3] = {WK, 64, 1};
+  const cuuint64_t gdims[4] = {(cuuint64_t)g.Cout, (cuuint64_t)g.W, (cuuint64_t)g.H,
+                               (cuuint64_t)g.B};
+  const cuuint32_t gbox[4] = {WK, (cuuint32_t)g.TW + 2, (cuuint32_t)g.TH + 2, (cuuint32_t)g.NI};
+  const cuuint64_t xdims[4] = {(cuuint64_t)g.Cin, (cuuint64_t)g.W, (cuuint64_t)g.H,
+                               (cuuint64_t)g.B};
+  const cuuint32_t xbox[4] = {WK, (cuuint32_t)g.TW, (cuuint32_t)g.TH, (cuuint32_t)g.NI};
+  cudaError_t err = encode_bf16_map(&wmap, w, 3, wdims, wbox);
+  if (err != cudaSuccess) return err;
+  if ((err = encode_bf16_map(&gmap, gr, 4, gdims, gbox)) != cudaSuccess) return err;
+  if ((err = encode_bf16_map(&xmap, x, 4, xdims, xbox)) != cudaSuccess) return err;
+  if ((err = encode_bf16_map(&dxmap, dx, 4, xdims, xbox)) != cudaSuccess) return err;
+  // no h where the weight product does not run: the map is never read
+  if ((err = encode_bf16_map(&hmap, STORE_H ? h : dx, 4, xdims, xbox)) != cudaSuccess) return err;
+  if ((err = allow_smem(dgrad_pingpong_kernel<MT, BN, STORE_H>, smem)) != cudaSuccess) return err;
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return err;
+  }
+  // one block an SM (its registers allow no second)
+  const long ntm = n_tiles(g), ntn = (g.Cin + BN - 1) / BN;
+  long gx = sms / ntn;
+  gx = gx < 1 ? 1 : (gx > ntm ? ntm : gx);
+  dgrad_pingpong_kernel<MT, BN, STORE_H><<<dim3((unsigned)gx, (unsigned)ntn), PP_THREADS, smem,
+                                           stream>>>(static_cast<const float*>(a),
+                                                     static_cast<const float*>(off), ws_a, g,
+                                                     stages, wmap, gmap, xmap, dxmap, hmap);
   return cudaGetLastError();
 }
 
@@ -1551,17 +1983,20 @@ grad_finish_kernel(const float* __restrict__ ws_a, const float* __restrict__ ws_
 }  // namespace
 
 // design: 0 general, 1 wgmma (bf16), 2 narrow_f32 (float32, Cout <= 8), 3
-// wgmma_taprow (bf16, by name); ops/gn_conv.py::conv_grad_design checks what
-// each takes and grad_plan gives the tiles and the split (nwg, bn: the wgmma
-// dgrad's consumer warpgroups and channels a block; splits: the weight
-// product's blocks along the pixels, narrow_f32: its tiles).  The workspaces
-// hold n_a, n_w and n_b float32 elements; the kernels fill ws_a (tiles x
-// images of a tile x 2 x Cin), ws_w (splits x 9 x Cout x Cin) and ws_b
-// (splits x Cout, wgmma_taprow: x 3 ceil(Cin / 64)); h, n_h bf16 elements, holds
-// the activation between wgmma's launches (B x H x W x Cin; unused by the
-// other designs).  A smaller one is refused before any launch.  want_dgrad:
-// dx, da and doff; want_wgrad: dw and dbias.  A design, shape, alignment or
-// buffer it does not take returns cudaErrorInvalidValue.
+// wgmma_taprow (bf16, by name), 4 wgmma_sync_epilogue (bf16, by name);
+// ops/gn_conv.py::conv_grad_design checks what each takes and grad_plan
+// gives the tiles and the split (nwg: the tensor-core dgrad's tile in rows of
+// 64 pixels, its consumer warpgroups in wgmma_sync_epilogue and wgmma_taprow,
+// each consumer's m-tiles in wgmma; bn: its channels a block; splits: the
+// weight product's blocks along the pixels, narrow_f32: its tiles).  The
+// workspaces hold n_a, n_w and n_b float32 elements; the kernels fill ws_a
+// (tiles x images of a tile x 2 x Cin), ws_w (splits x 9 x Cout x Cin) and
+// ws_b (splits x Cout, wgmma_taprow: x 3 ceil(Cin / 64)); h, n_h bf16
+// elements, holds the activation between the launches of wgmma and
+// wgmma_sync_epilogue (B x H x W x Cin; unused by the other designs).  A
+// smaller one is refused before any launch.  want_dgrad: dx, da and doff;
+// want_wgrad: dw and dbias.  A design, shape, alignment or buffer it does
+// not take returns cudaErrorInvalidValue.
 extern "C" int pddm_gn_silu_conv3x3_grad(const void* x, const void* a, const void* off,
                                          const void* w, const void* gr, void* dx, void* da,
                                          void* doff, void* dw, void* dbias, void* ws_a,
@@ -1576,9 +2011,10 @@ extern "C" int pddm_gn_silu_conv3x3_grad(const void* x, const void* a, const voi
   float* wsw = static_cast<float*>(ws_w);
   float* wsb = static_cast<float*>(ws_b);
   cudaError_t err = cudaSuccess;
-  const bool tc = design == 1 || design == 3;  // the tensor-core pairs
+  const bool tc = design == 1 || design == 3 || design == 4;  // the tensor-core pairs
+  const bool h_pair = design == 1 || design == 4;             // dgrad stores h, wgrad9 reads it
   auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
-  if (design < 0 || design > 3 || splits < 1 || (tc && want_dgrad && nwg != 1 && nwg != 2))
+  if (design < 0 || design > 4 || splits < 1 || (tc && want_dgrad && nwg != 1 && nwg != 2))
     return cudaErrorInvalidValue;
   // the tiles whose partials of da and doff the finish adds
   Geom t = g;
@@ -1592,27 +2028,42 @@ extern "C" int pddm_gn_silu_conv3x3_grad(const void* x, const void* a, const voi
   if ((want_dgrad && n_a < n_tiles(t) * t.NI * 2 * Cin) ||
       (want_wgrad && (n_w < (long long)splits * 9 * Cout * Cin ||
                       n_b < (long long)bias_parts * Cout)) ||
-      (design == 1 && want_wgrad && (n_h < (long long)B * H * W * Cin || misaligned(h))))
+      (h_pair && want_wgrad && (n_h < (long long)B * H * W * Cin || misaligned(h))))
     return cudaErrorInvalidValue;
   if (tc) {
     if (!is_bf16 || Cin % 8 || Cout % 8 || (H * W <= 64 && (H * W) % 16) || misaligned(x) ||
-        misaligned(w) || misaligned(gr) || (design == 1 && (misaligned(a) || misaligned(off))))
+        misaligned(w) || misaligned(gr) || (h_pair && (misaligned(a) || misaligned(off))) ||
+        (design == 1 && want_dgrad && misaligned(dx)))
       return cudaErrorInvalidValue;
-    if (design == 1 && want_wgrad && wgrad9_stages(g) == 0) return cudaErrorInvalidValue;
-    const bool store_h = design == 1 && want_wgrad;
+    if (h_pair && want_wgrad && wgrad9_stages(g) == 0) return cudaErrorInvalidValue;
+    const bool store_h = h_pair && want_wgrad;
     if (want_dgrad) {
       void* hs = store_h ? h : nullptr;
-      if (nwg == 2 && bn == 128)
+      if (design == 1) {
+#define PDDM_PINGPONG(MT, BN)                                                                  \
+  err = store_h ? launch_dgrad_pingpong<MT, BN, true>(x, a, off, w, gr, dx, hs, wsa, g, stream) \
+                : launch_dgrad_pingpong<MT, BN, false>(x, a, off, w, gr, dx, hs, wsa, g, stream)
+        if (nwg == 2 && bn == 64)
+          PDDM_PINGPONG(2, 64);
+        else if (nwg == 1 && bn == 128)
+          PDDM_PINGPONG(1, 128);
+        else if (nwg == 1 && bn == 64)
+          PDDM_PINGPONG(1, 64);
+        else
+          return cudaErrorInvalidValue;
+#undef PDDM_PINGPONG
+      } else if (nwg == 2 && bn == 128) {
         err = store_h ? launch_dgrad_wgmma<2, 128, true>(x, a, off, w, gr, dx, hs, wsa, g, stream)
                       : launch_dgrad_wgmma<2, 128, false>(x, a, off, w, gr, dx, hs, wsa, g, stream);
-      else if (nwg == 2 && bn == 64)
+      } else if (nwg == 2 && bn == 64) {
         err = store_h ? launch_dgrad_wgmma<2, 64, true>(x, a, off, w, gr, dx, hs, wsa, g, stream)
                       : launch_dgrad_wgmma<2, 64, false>(x, a, off, w, gr, dx, hs, wsa, g, stream);
-      else if (nwg == 1 && bn == 64)
+      } else if (nwg == 1 && bn == 64) {
         err = store_h ? launch_dgrad_wgmma<1, 64, true>(x, a, off, w, gr, dx, hs, wsa, g, stream)
                       : launch_dgrad_wgmma<1, 64, false>(x, a, off, w, gr, dx, hs, wsa, g, stream);
-      else
+      } else {
         return cudaErrorInvalidValue;
+      }
       if (err != cudaSuccess) return err;
     } else if (store_h) {
       const long n8 = (long)B * H * W * Cin / 8;
@@ -1623,8 +2074,8 @@ extern "C" int pddm_gn_silu_conv3x3_grad(const void* x, const void* a, const voi
       if ((err = cudaGetLastError()) != cudaSuccess) return err;
     }
     if (want_wgrad) {
-      err = design == 1 ? launch_wgrad9_wgmma(h, gr, wsw, wsb, g, splits, stream)
-                        : launch_wgrad_wgmma(x, a, off, gr, wsw, wsb, g, splits, stream);
+      err = h_pair ? launch_wgrad9_wgmma(h, gr, wsw, wsb, g, splits, stream)
+                   : launch_wgrad_wgmma(x, a, off, gr, wsw, wsb, g, splits, stream);
       if (err != cudaSuccess) return err;
     }
   } else if (design == 2) {

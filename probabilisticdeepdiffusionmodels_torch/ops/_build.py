@@ -36,8 +36,8 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     # qkv, out, lse, B, T, heads, ch, scale, is_bf16, stream
     "pddm_qkv_attention": [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P],
-    # qkv, dout, lse, delta, dqkv, B, T, heads, ch, scale, is_bf16, stream
-    "pddm_qkv_attention_grad": [*[_P] * 5, _I, _I, _I, _I, ctypes.c_float, _I, _P],
+    # qkv, dout, lse, delta, dqkv, B, T, heads, ch, scale, is_bf16, design, stream
+    "pddm_qkv_attention_grad": [*[_P] * 5, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P],
     # x, gamma, beta, out, ao, B, N, C, groups, eps, silu, is_bf16, V, cvb, stream
     "pddm_group_norm_silu": [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float,
                              _I, _I, _I, _I, _P],

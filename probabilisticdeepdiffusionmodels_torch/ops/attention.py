@@ -26,18 +26,25 @@ float32.
 
 Backward (``qkv_attention_grad``, ``csrc/attention_grad.cu``): the Pallas
 kernel has no VJP; JAX differentiates the op through ``qkv_attention_xla``.
-Here the gradient has kernels of its own, FlashAttention-2's backward with
-dQ split out (two launches: each row's D = rowsum(P * dP), then dQ, in two
-passes over the keys; then dK and dV; bf16 products on ``mma.sync``, true
-float32 FMAs for float32; no float atomics, so a call gives the same bits
-twice), from qkv and the log-sum-exp that autograd keeps.  D is summed from
-P * dP, not from the stored output as FlashAttention does, so each row's dS
-sums to zero over the keys as in the plain version's softmax backward (the
-source's header says why that matters).  ``attention_grad_design`` names
-the design a call runs (``mma_ring`` or ``scalar_f32``, as the forward's);
-``recompute`` (autograd through the plain version, the parent's path) runs
-by name only and counts no launch.  ``qkv_attention_grad_plain`` writes the
-gradient out with the kernel's rounding points.
+Here the gradient has kernels of its own (no float atomics, so a call gives
+the same bits twice), from qkv and the log-sum-exp that autograd keeps.
+``attention_grad_design`` picks by shape: ``wgmma`` (bf16, head widths
+16..64, 64 <= T <= 256, heads x ch >= 64: every attention site of the
+CIFAR-10 UNet but its T = 16 one) is one launch a (head, sample) with the
+head's Q, K, V and dO resident in shared memory, every product on
+``wgmma``: each row's D = rowsum(P * dP) summed over every key first, then
+rounds of key tiles that keep dK and dV in registers and add each query
+tile's dQ in a fixed order in shared memory (seven products a (query, key)
+pair, two exponentials).  ``two_pass`` (every other bf16 shape, and by
+name: the first design) is FlashAttention-2's backward with dQ split out:
+dQ + D in two passes over the keys, then dK and dV, on ``mma.sync``;
+``scalar_f32`` the same in true float32 FMAs.  D is summed from P * dP, not
+from the stored output as FlashAttention does, so each row's dS sums to
+zero over the keys as in the plain version's softmax backward (the source's
+header says why that matters).  ``recompute`` (autograd through the plain
+version) runs by name only and counts no launch.
+``qkv_attention_grad_plain`` writes the gradient out with the kernels'
+rounding points.
 """
 
 from __future__ import annotations
@@ -49,7 +56,7 @@ import torch
 
 from . import _build
 from .autograd import forbid_forward_mode
-from .gn_conv import _aligned
+from .gn_conv import _SMEM_BYTES, _aligned
 
 __all__ = ["attention_design", "attention_grad_design", "attention_forward", "qkv_attention",
            "qkv_attention_plain", "qkv_attention_grad", "qkv_attention_grad_plain"]
@@ -123,11 +130,40 @@ def attention_design(qkv: torch.Tensor) -> str:
     return "mma_ring" if qkv.dtype == torch.bfloat16 else "scalar_f32"
 
 
-def attention_grad_design(qkv: torch.Tensor) -> str:
-    """The design of ``qkv_attention_grad`` on CUDA tensor ``qkv``:
-    ``mma_ring`` (bf16, on the tensor cores) or ``scalar_f32``, as the
-    forward's; ``recompute`` runs by name only."""
-    return attention_design(qkv)
+# the backward's kernel designs and the C entry point's numbers for them
+GRAD_DESIGNS = {"two_pass": 0, "scalar_f32": 0, "wgmma": 1}
+_WGMMA_ROWS = 64          # the wgmma design's tiles: 64 queries or keys
+_WGMMA_LDQ = _WGMMA_ROWS + 8  # floats a row of its dQ sums
+
+
+def _wgmma_smem(t: int) -> int:
+    """Shared memory of the wgmma backward at T = ``t`` (``ResLayout``): Q,
+    K, V and dO resident (128-byte rows, 64 a tile), the dS^T rows of one
+    query tile (64 a warpgroup, two where there are two key tiles), the
+    float32 dQ sums, each query's L and D, one mbarrier, and the slack that
+    aligns the base to 1,024 bytes."""
+    nt = -(-t // _WGMMA_ROWS)
+    nwg = 2 if nt > 1 else 1
+    rows = nt * _WGMMA_ROWS
+    return (1024 + 4 * rows * 128 + nwg * _WGMMA_ROWS * 128 + rows * _WGMMA_LDQ * 4
+            + 2 * rows * 4 + 8)
+
+
+def attention_grad_design(qkv: torch.Tensor, num_heads: int = 1) -> str:
+    """The design of ``qkv_attention_grad`` on ``qkv`` split into
+    ``num_heads`` heads: ``wgmma`` for bf16 with head widths 16..64,
+    64 <= T with the head resident in shared memory (T <= 256) and
+    heads x ch >= 64 (a 64-channel row of dO lies in the tensor);
+    ``two_pass`` for every other bf16 shape; ``scalar_f32`` for float32.
+    ``two_pass`` and ``recompute`` also run by name."""
+    if qkv.dtype != torch.bfloat16:
+        return "scalar_f32"
+    b, t, c3 = qkv.shape
+    ch = c3 // (3 * num_heads)
+    if (ch <= 64 and t >= _WGMMA_ROWS and _wgmma_smem(t) <= _SMEM_BYTES
+            and num_heads * ch >= _WGMMA_ROWS):
+        return "wgmma"
+    return "two_pass"
 
 
 def _launch(qkv, num_heads, lse=None):
@@ -216,16 +252,18 @@ def qkv_attention_grad(qkv: torch.Tensor, g: torch.Tensor, num_heads: int = 1,
                        design: Optional[str] = None) -> torch.Tensor:
     """dqkv of ``qkv_attention`` for the output gradient ``g``, in qkv's
     dtype.  A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernels (two launches, one count a call) or raises; ``lse`` is the
-    forward's log-sum-exp (``attention_forward``).  ``design``: None for
-    ``attention_grad_design``'s choice, or ``recompute`` by name (autograd
-    through the plain version, no count)."""
+    kernels (one count a call) or raises; ``lse`` is the forward's
+    log-sum-exp (``attention_forward``).  ``design``: None for
+    ``attention_grad_design``'s choice, ``two_pass`` or ``wgmma`` by name
+    (bf16; ``wgmma`` raises where the shape does not fit it), or
+    ``recompute`` (autograd through the plain version, no count)."""
     if qkv.device.type == "cpu":
         return qkv_attention_grad_plain(qkv, g, num_heads)
-    design = attention_grad_design(qkv) if design is None else design
+    design = attention_grad_design(qkv, num_heads) if design is None else design
     if design == "recompute":
         return _recompute(qkv, g, num_heads)
-    if design != attention_design(qkv):
+    bf16 = qkv.dtype == torch.bfloat16
+    if design not in GRAD_DESIGNS or (design == "scalar_f32") == bf16:
         raise ValueError(f"the qkv_attention_grad design {design!r} does not take {qkv.dtype}")
     _check(qkv, num_heads)
     if lse is None:
@@ -238,10 +276,11 @@ def qkv_attention_grad(qkv: torch.Tensor, g: torch.Tensor, num_heads: int = 1,
     g = _aligned(g.to(qkv.dtype))
     lse = lse.contiguous()
     dqkv = torch.empty_like(qkv)
-    delta = torch.empty_like(lse)  # each row's D, between the two launches
+    # each row's D between the two launches of two_pass and scalar_f32
+    delta = None if design == "wgmma" else torch.empty_like(lse)
     _build.launch("pddm_qkv_attention_grad", qkv.data_ptr(), g.data_ptr(), lse.data_ptr(),
-                  delta.data_ptr(), dqkv.data_ptr(), b, t, num_heads, ch,
-                  1.0 / math.sqrt(math.sqrt(ch)), int(qkv.dtype == torch.bfloat16))
+                  None if delta is None else delta.data_ptr(), dqkv.data_ptr(), b, t, num_heads,
+                  ch, 1.0 / math.sqrt(math.sqrt(ch)), int(bf16), GRAD_DESIGNS[design])
     qkv_attention_grad.launches += 1
     return dqkv
 

@@ -71,17 +71,23 @@ a fixed order (no float atomics: the same bits on every run):
   with the activation's backward in its epilogue (dx out, per-tile partial
   sums of the scale's and offset's gradients), which also stores the
   activation h once a site into a transient bf16 buffer (``GradPlan.
-  activation``; one elementwise launch writes it where no dx is wanted);
-  then the weight product (wgrad9) reads h and g by TMA, a block owning all
-  nine taps of its (pixel split, 64 Cin, 64 Cout).
+  activation``; one elementwise launch writes it where no dx is wanted):
+  two consumer warpgroups take alternate tiles ("ping-pong"), so one tile's
+  epilogue runs under the other's products, x arrives by TMA with the
+  tile's last g slice and h and dx leave by TMA stores; then the weight
+  product (wgrad9) reads h and g by TMA, a block owning all nine taps of its
+  (pixel split, 64 Cin, 64 Cout).
 - ``narrow_f32`` (float32 with Cout <= 8: the UNet's output head): one launch
   that reads x once, with the whole weight and the tile's g halo in shared
   memory, forming dx, h and every partial from the same x values.
 - ``general`` (every other float32 site, bf16 with channels not a multiple
   of 8): a simple pair of true-float32 FMA kernels.
 
-By name only, for measurement: ``wgmma_taprow``, the first bf16 pair (its
-wgrad re-activates x in shared memory for 3 taps of a block), and
+By name only, for measurement: ``wgmma_sync_epilogue``, the second bf16
+pair (its dgrad's two warpgroups share a tile and both stop their products
+for its epilogue, which loads x and stores h and dx with plain 16-byte
+accesses), ``wgmma_taprow``, the first (its wgrad re-activates x in shared
+memory for 3 taps of a block), and
 ``recompute``, the first design of all (autograd through the plain version
 from the saved inputs), which adds nothing to the op's launch count.
 ``gn_silu_conv3x3_grad_plain`` writes the five gradients out as formulas; it
@@ -443,10 +449,13 @@ gn_silu_conv3x3.launches = 0
 
 # the C entry point's design argument; "recompute" (autograd through
 # _grad_reference) is no kernel and runs only by name, for measurement, as
-# does "wgmma_taprow"
-GRAD_DESIGNS = {"general": 0, "wgmma": 1, "narrow_f32": 2, "wgmma_taprow": 3}
+# do "wgmma_taprow" and "wgmma_sync_epilogue"
+GRAD_DESIGNS = {"general": 0, "wgmma": 1, "narrow_f32": 2, "wgmma_taprow": 3,
+                "wgmma_sync_epilogue": 4}
 _GENERAL_PX = 64    # pixels of a general dgrad tile, of a general wgrad chunk
-_DGRAD_STAGES = 6   # the wgmma dgrad's weight ring
+_DGRAD_STAGES = 6   # wgmma_sync_epilogue's (and wgmma_taprow's) dgrad weight ring
+_PP_STAGES = (16, 3)  # the ping-pong dgrad's weight ring: most stages, fewest
+_PP_HALOS = 4  # the ping-pong dgrad's g halo buffers
 _WGRAD_PX = 128     # pixels of a wgmma wgrad tile (8 k-steps of 16)
 _WGRAD_WS_BYTES = 16 << 20  # wgmma_taprow's partials of dw, at most
 _WGRAD9_WS_BYTES = 32 << 20  # wgrad9's partials of dw, at most (unless one split's are more)
@@ -501,8 +510,10 @@ class GradPlan(NamedTuple):
     """How ``gn_silu_conv3x3_grad``'s kernels cut one call.  ``dgrad``: the
     tiles of the input product, each writing one partial of the scale's and
     offset's gradients per (image of the tile, channel); ``nwg``, ``bn``:
-    the wgmma dgrad's consumer warpgroups and channels a block (0 in
-    ``general`` and ``narrow_f32``); ``wgrad``: the tensor-core weight
+    the tensor-core dgrad's tile in rows of 64 pixels (the m-tiles of each
+    consumer warpgroup in ``wgmma``, the warpgroups sharing a tile in
+    ``wgmma_sync_epilogue`` and ``wgmma_taprow``) and its channels a block
+    (0 in ``general`` and ``narrow_f32``); ``wgrad``: the tensor-core weight
     product's tiles, or ``narrow_f32``'s (its one launch does both
     products), None for ``general``'s chunks of 64 flattened pixels;
     ``splits``: the weight product's blocks along the pixels, block z taking
@@ -524,10 +535,11 @@ class GradPlan(NamedTuple):
                 self.splits * parts * cout)
 
     def activation(self, b: int, h: int, w: int, cin: int, want_w: bool = True) -> int:
-        """bf16 elements of the activation buffer that ``wgmma``'s dgrad (or
-        its elementwise launch) fills and its weight product reads: all of
-        x's, where the weight product runs; none in the other designs."""
-        return b * h * w * cin if self.design == "wgmma" and want_w else 0
+        """bf16 elements of the activation buffer that the dgrad of ``wgmma``
+        or ``wgmma_sync_epilogue`` (or their elementwise launch) fills and
+        their weight product reads: all of x's, where the weight product
+        runs; none in the other designs."""
+        return b * h * w * cin if self.design in _WGRAD9_PAIRS and want_w else 0
 
     def dgrad_slots(self, b: int) -> List[List[Tuple[int, int]]]:
         """For each sample, the (tile, image of the tile) partials that the
@@ -546,7 +558,8 @@ class GradPlan(NamedTuple):
     def weight_blocks(self, cin: int,
                       cout: int) -> List[Tuple[int, int, int, Tuple[int, ...], bool]]:
         """The weight product's blocks as the grid numbers them: (split,
-        first Cin channel, first Cout channel, taps, adds dbias).  wgmma: a
+        first Cin channel, first Cout channel, taps, adds dbias).  wgmma and
+        wgmma_sync_epilogue (wgrad9): a
         block a (split, 64 Cin, 64 Cout), its three warpgroups taps 0-2, 3-5
         and 6-8, the blocks of Cin slice 0 adding dbias; wgmma_taprow: a block a
         tap row as well, every block a share of dbias; general: a block a
@@ -559,19 +572,48 @@ class GradPlan(NamedTuple):
             return [(z, ci, co, (tap,), ci == 0 and tap == 0) for z in range(self.splits)
                     for tap in range(9) for co in range(0, cout, bco)
                     for ci in range(0, cin, 64)]
-        rows = ((0, 1, 2, 3, 4, 5, 6, 7, 8),) if self.design == "wgmma" else (
+        rows = ((0, 1, 2, 3, 4, 5, 6, 7, 8),) if self.design in _WGRAD9_PAIRS else (
             (0, 1, 2), (3, 4, 5), (6, 7, 8))
         return [(z, ci, co, taps, ci == 0 or self.design == "wgmma_taprow")
                 for z in range(self.splits) for taps in rows for co in range(0, cout, 64)
                 for ci in range(0, cin, 64)]
 
 
+_WGRAD9_PAIRS = ("wgmma", "wgmma_sync_epilogue")  # the designs whose weight product is wgrad9
+
+
 def _dgrad_smem(h: int, w: int, nwg: int, bn: int) -> int:
-    """Shared memory of the wgmma dgrad (``DLayout`` in gn_conv_grad.cu)."""
+    """Shared memory of wgmma_sync_epilogue's (and wgmma_taprow's) dgrad
+    (``DLayout`` in gn_conv_grad.cu)."""
     t = conv_tile(h, w, 64 * nwg)
     halo = -(-t.ni * (t.th + 2) * (t.tw + 2) * 128 // 1024) * 1024
     return (1024 + _DGRAD_STAGES * bn * 128 + 2 * halo + nwg * 4 * 16 * (bn + 8) * 2
             + nwg * 4 * 2 * bn * 4 + (2 * _DGRAD_STAGES + 4) * 8)
+
+
+def _pingpong_smem(h: int, w: int, mt: int, bn: int, stages: int) -> int:
+    """Shared memory of wgmma's ping-pong dgrad (``PLayout`` in
+    gn_conv_grad.cu): ``stages`` weight tiles of 64 Cout x ``bn`` Cin, four g
+    halo buffers of a tile of 64 ``mt`` pixels, two x tiles (one a consumer
+    warpgroup, over which h and dx are staged), the partial sums of
+    (warpgroup, m-tile, warp), each warpgroup's scale and offset of its
+    tile's images, the mbarriers (a full barrier of each stage
+    and halo buffer for each consumer warpgroup, one empty barrier of each,
+    the x tiles'), the 1,024-byte alignment."""
+    t = conv_tile(h, w, 64 * mt)
+    halo = -(-t.ni * (t.th + 2) * (t.tw + 2) * 128 // 1024) * 1024
+    return (1024 + stages * bn * 128 + _PP_HALOS * halo + 2 * (bn // 64) * mt * 64 * 128
+            + 2 * mt * 4 * 2 * bn * 4 + 2 * t.ni * 2 * bn * 4
+            + (3 * _PP_STAGES[0] + 3 * _PP_HALOS + 4) * 8)
+
+
+@functools.lru_cache(maxsize=None)
+def _pingpong_stages(h: int, w: int, mt: int, bn: int) -> int:
+    """The ping-pong dgrad's weight ring: as many stages as fit, at most 16;
+    0 where 3 do not (``pingpong_stages``)."""
+    most, fewest = _PP_STAGES
+    return next((s for s in range(most, fewest - 1, -1)
+                 if _pingpong_smem(h, w, mt, bn, s) <= _SMEM_BYTES), 0)
 
 
 def _wgrad_smem(h: int, w: int) -> int:
@@ -635,6 +677,22 @@ def _dgrad_config(b, h, w, cin):
     return None
 
 
+@functools.lru_cache(maxsize=None)
+def _pingpong_config(b, h, w, cin):
+    """(m-tiles of 64 pixels a consumer warpgroup, channels a block) of
+    wgmma's ping-pong dgrad: 64 pixels x 128 channels where Cin is wider
+    than 64, or 128 x 64, the first whose tiles give at least two a block on
+    128 SMs (so one tile's epilogue has another's products to run under),
+    else 64 x 64; None where no ring of 3 stages fits.  (128 x 128 would
+    hold 128 accumulators a thread, which serialised the products.)"""
+    fits = [(mt, bn) for mt, bn in ((1, 128), (2, 64), (1, 64))
+            if (bn == 64 or cin > 64) and _pingpong_stages(h, w, mt, bn)]
+    for mt, bn in fits:
+        if conv_tile(h, w, 64 * mt).count(b) * -(-cin // bn) >= 256:
+            return mt, bn
+    return fits[-1] if fits else None
+
+
 def _fewest_waves(base: int, most: int, sms: int) -> int:
     """Splits of ``base`` blocks each, at most ``most``, whose blocks fill
     ``sms`` SMs in the fewest waves for the work (one block an SM); ties to
@@ -644,19 +702,24 @@ def _fewest_waves(base: int, most: int, sms: int) -> int:
 
 def grad_plan(b: int, h: int, w: int, cin: int, cout: int, design: str, sms: int) -> GradPlan:
     """The tiles and the split of a ``gn_silu_conv3x3_grad`` call in design
-    ``wgmma``, ``wgmma_taprow``, ``narrow_f32`` or ``general`` on a card of
-    ``sms`` SMs.  The weight product's split fills the SMs in the fewest
-    waves for its work (wgmma: a block of 416 threads an SM, at most 64
+    ``wgmma``, ``wgmma_sync_epilogue``, ``wgmma_taprow``, ``narrow_f32`` or
+    ``general`` on a card of ``sms`` SMs.  The weight product's split fills
+    the SMs in the fewest waves for its work (wgrad9: a block of 512
+    threads an SM, at most 64
     splits whose partials of dw take at most 32 MB unless one split is
     larger; wgmma_taprow: 512 threads, at most 16 splits, 16 MB) or about four
     times (general), with no more splits than tiles; narrow_f32 has a split
     a tile.  The C entry point refuses workspaces smaller than its own
     tiling fills, so a plan that drifts from it raises."""
-    if design in ("wgmma", "wgmma_taprow"):
-        nwg, bn = _dgrad_config(b, h, w, cin)
+    if design in ("wgmma", "wgmma_sync_epilogue", "wgmma_taprow"):
+        config = (_pingpong_config if design == "wgmma" else _dgrad_config)(b, h, w, cin)
+        if config is None:
+            raise ValueError(f"gn_silu_conv3x3_grad design {design!r}: no dgrad tile of "
+                             f"{h}x{w} fits shared memory")
+        nwg, bn = config
         tile = conv_tile(h, w, _WGRAD_PX)
         base = -(-cin // 64) * -(-cout // 64)
-        if design == "wgmma":
+        if design in _WGRAD9_PAIRS:
             cap, ws = _WGRAD9_SPLITS, _WGRAD9_WS_BYTES
         else:
             base, cap, ws = 3 * base, 16, _WGRAD_WS_BYTES
@@ -680,14 +743,15 @@ def conv_grad_design(x: torch.Tensor, w: torch.Tensor) -> str:
     16-byte aligned operands and tiles that fit shared memory;
     ``narrow_f32`` for float32 with Cout <= 8 and Cin % 4 == 0 (the output
     head), rows of at most 1,024 pixels and 16-byte aligned operands, where
-    its tile fits shared memory; ``general`` otherwise.  ``wgmma_taprow`` and
-    ``recompute`` run by name only."""
+    its tile fits shared memory; ``general`` otherwise.
+    ``wgmma_sync_epilogue``, ``wgmma_taprow`` and ``recompute`` run by name
+    only."""
     b, h, wd, cin = x.shape
     cout = w.shape[2]
     aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
     if (x.dtype == torch.bfloat16 and cin % 8 == 0 and cout % 8 == 0 and min(h, wd) >= 4
             and (h * wd > 64 or h * wd % 16 == 0) and aligned
-            and _dgrad_config(b, h, wd, cin) is not None and _wgrad9_stages(h, wd)):
+            and _pingpong_config(b, h, wd, cin) is not None and _wgrad9_stages(h, wd)):
         return "wgmma"
     if (x.dtype == torch.float32 and cout <= 8 and cin % 4 == 0
             and cin // _narrow_run(cout) <= _NARROW_THREADS and wd <= _NARROW_PIXELS and aligned
@@ -792,7 +856,8 @@ def gn_silu_conv3x3_grad(x: torch.Tensor, a: torch.Tensor, off: torch.Tensor, w:
     gradient ``g``, from the inputs as the op hands them to its kernel (a,
     off float32; w in x's dtype).  A CPU tensor takes the plain version; a
     CUDA tensor launches the kernels of ``design`` (None: ``conv_grad_design``'s
-    choice; ``wgmma``, ``wgmma_taprow``, ``narrow_f32``, ``general`` or
+    choice; ``wgmma``, ``wgmma_sync_epilogue``, ``wgmma_taprow``,
+    ``narrow_f32``, ``general`` or
     ``recompute`` by name, for measurement) or raises.  ``needs`` (x, a,
     off, w, bias) masks the gradients wanted (None where one is not): no
     input product where none of x, a, off needs one, no weight product

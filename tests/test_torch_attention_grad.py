@@ -120,18 +120,44 @@ def test_grad_on_cpu_takes_the_plain_version():
     assert torch.equal(qkv_attention_grad(qkv, g, 1), qkv_attention_grad_plain(qkv, g, 1))
 
 
-def test_grad_design_names():
-    qkv = torch.empty(1, 4, 3 * 16, dtype=torch.bfloat16)
-    assert attention_grad_design(qkv) == "mma_ring"
-    assert attention_grad_design(qkv.float()) == "scalar_f32"
+@pytest.mark.parametrize("b,t,heads,ch,design", [
+    (1, 4, 1, 16, "two_pass"),        # T < 64: no 64-row tile
+    (128, 256, 4, 64, "wgmma"),       # the CIFAR-10 UNet's three sites
+    (128, 64, 4, 64, "wgmma"),
+    (128, 16, 4, 64, "two_pass"),
+    (8, 256, 4, 96, "two_pass"),      # unet_celebahq64's: heads wider than 64
+    (8, 64, 4, 128, "two_pass"),
+    (2, 100, 4, 48, "wgmma"),         # ragged T, a narrow head
+    (2, 100, 1, 48, "two_pass"),      # a 64-channel row of dO past the tensor
+    (2, 320, 4, 64, "two_pass"),      # the head no longer fits shared memory
+])
+def test_grad_design_names(b, t, heads, ch, design):
+    """``wgmma`` where a head of width 16..64 with 64 <= T fits one block's
+    shared memory, ``two_pass`` (the first bf16 design) elsewhere in bf16,
+    ``scalar_f32`` in float32; every kernel design has the C entry point's
+    number, ``two_pass`` and ``scalar_f32`` the same launches."""
+    qkv = torch.empty(b, t, 3 * heads * ch, dtype=torch.bfloat16)
+    assert attention_grad_design(qkv, heads) == design
+    assert attention_grad_design(qkv.float(), heads) == "scalar_f32"
+    assert _attn.GRAD_DESIGNS == {"two_pass": 0, "scalar_f32": 0, "wgmma": 1}
+    if design == "wgmma":
+        assert _attn._wgmma_smem(t) <= 227 * 1024
+    # Q, K, V and dO resident, 64 rows a tile of 128 bytes; dS^T of two key
+    # tiles; the float32 dQ sums in rows of 72; L and D
+    assert _attn._wgmma_smem(256) == (1024 + 4 * 256 * 128 + 2 * 64 * 128 + 256 * 72 * 4
+                                      + 2 * 256 * 4 + 8)
+    assert _attn._wgmma_smem(320) > 227 * 1024
 
 
 # ------------------------------------------------------------- on the card
 
 # (B, T, heads, ch): the CIFAR-10 UNet's three attention sites at batch 128,
-# unet_celebahq64's (heads of 96 and 128) at batch 8, ragged T
+# unet_celebahq64's (heads of 96 and 128) at batch 8, ragged T (wgmma at
+# (2, 100, 4, 48), (3, 200, 2, 32) and (2, 192, 1, 64): three key tiles, the
+# last round's second warpgroup idle)
 _CARD_SITES = [(128, 256, 4, 64), (128, 64, 4, 64), (128, 16, 4, 64), (8, 256, 4, 96),
-               (8, 64, 4, 128), (3, 33, 2, 16), (2, 100, 1, 48), (2, 7, 2, 112)]
+               (8, 64, 4, 128), (3, 33, 2, 16), (2, 100, 1, 48), (2, 7, 2, 112),
+               (2, 100, 4, 48), (3, 200, 2, 32), (2, 192, 1, 64)]
 
 
 def _card_inputs(b, t, heads, ch, dtype, seed):
@@ -144,11 +170,13 @@ def _card_inputs(b, t, heads, ch, dtype, seed):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_card_attention_grad_matches_plain(dtype, card):  # noqa: F811
-    """At every site: the kernels within bf16 1e-2 / float32 1e-4 of the
+    """At every site, in the design the shape selects and in bf16 in
+    ``two_pass`` by name: the kernels within bf16 1e-2 / float32 1e-4 of the
     plain backward's largest element (the chip check's tolerances), the
     same bits twice, one count a call; the forward's log-sum-exp against
-    the plain one; ``recompute`` counts nothing; in float32 the key shift's
-    gradient (dk summed over the keys) stays at round-off."""
+    the plain one; ``recompute`` counts nothing; ``wgmma`` by name where the
+    shape does not fit it raises before any launch; in float32 the key
+    shift's gradient (dk summed over the keys) stays at round-off."""
     for i, (b, t, heads, ch) in enumerate(_CARD_SITES):
         if dtype == torch.float32:
             b = min(b, 8)
@@ -158,14 +186,21 @@ def test_card_attention_grad_matches_plain(dtype, card):  # noqa: F811
             (z * (1.0 / math.sqrt(math.sqrt(ch)))).float() for z in _attn._split_heads(qkv, heads)[:2]])
         torch.testing.assert_close(lse, torch.logsumexp(scores, -1), rtol=0, atol=1e-4)
         ref = qkv_attention_grad_plain(qkv, g, heads)
-        before = qkv_attention_grad.launches
-        runs = [qkv_attention_grad(qkv, g, heads, lse=lse) for _ in range(2)]
-        torch.cuda.synchronize()
-        assert qkv_attention_grad.launches - before == 2
-        assert torch.equal(runs[0], runs[1]), (b, t, heads, ch)
+        chosen = attention_grad_design(qkv, heads)
         tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
-        err = float((runs[0].float() - ref.float()).abs().max())
-        assert err <= tol * float(ref.float().abs().max()), ((b, t, heads, ch), err)
+        for design in [chosen] + (["two_pass"] if chosen == "wgmma" else []):
+            before = qkv_attention_grad.launches
+            runs = [qkv_attention_grad(qkv, g, heads, lse=lse, design=design) for _ in range(2)]
+            torch.cuda.synchronize()
+            assert qkv_attention_grad.launches - before == 2
+            assert torch.equal(runs[0], runs[1]), (b, t, heads, ch, design)
+            err = float((runs[0].float() - ref.float()).abs().max())
+            assert err <= tol * float(ref.float().abs().max()), ((b, t, heads, ch, design), err)
+        if dtype == torch.bfloat16 and chosen != "wgmma":
+            before = qkv_attention_grad.launches
+            with pytest.raises(RuntimeError, match="CUDA error"):
+                qkv_attention_grad(qkv, g, heads, lse=lse, design="wgmma")
+            assert qkv_attention_grad.launches == before
         if dtype == torch.float32:
             dk = runs[0].reshape(b, t, heads, 3 * ch)[..., ch:2 * ch]
             assert float(dk.sum(1).abs().max()) <= 1e-5 * t * float(dk.abs().max())

@@ -149,9 +149,9 @@ def _narrow_takes(b, h, w, cin, cout):
                             torch.empty(3, 3, cout, cin)) == "narrow_f32"
 
 
+_TC_DESIGNS = ("wgmma", "wgmma_sync_epilogue", "wgmma_taprow")
 _PLAN_CASES = [(s, "general") for s in _PLAN_SHAPES] + [
-    (s, "wgmma") for s in _PLAN_SHAPES if _wgmma_takes(*s)] + [
-    (s, "wgmma_taprow") for s in _PLAN_SHAPES if _wgmma_takes(*s)] + [
+    (s, d) for d in _TC_DESIGNS for s in _PLAN_SHAPES if _wgmma_takes(*s)] + [
     (s, "narrow_f32") for s in _PLAN_SHAPES if _narrow_takes(*s)]
 
 
@@ -190,28 +190,74 @@ def test_grad_plan_covers_every_pixel_once(shape, design):
     assert sorted(px) == [(s, y, x) for s in range(b) for y in range(h) for x in range(w)]
 
 
-def test_wgmma_plans_fit_and_fill_the_card():
-    """Shared memory within a block's 227 KB (wgrad9 with a ring of at least
-    two stages); the weight product's blocks fill the 132 SMs at the CIFAR
-    32x32 site, one block an SM."""
-    for shape, design in _PLAN_CASES:
-        if design not in ("wgmma", "wgmma_taprow"):
-            continue
-        b, h, w, cin, cout = shape
-        plan = grad_plan(*shape, design, _H100_SMS)
+# the bf16 sites of the CIFAR-10 UNet at batch 128 and of unet_celebahq64 at
+# batch 8 (B, H, W, Cin, Cout)
+_SITE_SHAPES = [(128, 32, 32, 128, 128), (128, 32, 32, 256, 128), (128, 32, 32, 384, 128),
+                (128, 16, 16, 128, 256), (128, 16, 16, 256, 256), (128, 16, 16, 384, 256),
+                (128, 16, 16, 512, 256), (128, 8, 8, 256, 256), (128, 8, 8, 512, 256),
+                (128, 4, 4, 256, 256), (128, 4, 4, 512, 256), (8, 64, 64, 128, 128),
+                (8, 64, 64, 256, 128), (8, 32, 32, 128, 256), (8, 32, 32, 256, 256),
+                (8, 32, 32, 512, 256), (8, 16, 16, 256, 384), (8, 16, 16, 384, 384),
+                (8, 16, 16, 768, 384), (8, 8, 8, 384, 512), (8, 8, 8, 512, 512),
+                (8, 8, 8, 1024, 512)]
+
+
+@pytest.mark.parametrize("shape,design", [c for c in _PLAN_CASES if c[1] in _TC_DESIGNS] + [
+    (s, d) for d in _TC_DESIGNS for s in _SITE_SHAPES])
+def test_wgmma_plans_fit_and_fill_the_card(shape, design):
+    """Shared memory within a block's 227 KB: wgmma's ping-pong dgrad with a
+    weight ring of 3 to 16 stages, four g halo buffers and an x tile a
+    consumer warpgroup that holds the TMA box of the tile's pixels x 64
+    channels for each 64 of the block (the box that brings x in and takes h
+    and dx out, each side at most 256, its bytes what the tile's barrier
+    expects), the earlier designs' dgrad, wgrad9 with a ring of at least two
+    stages or wgmma_taprow's wgrad; the tiles of 64 or 128 pixels; the
+    weight product's tiles of 128 pixels."""
+    b, h, w, cin, cout = shape
+    plan = grad_plan(*shape, design, _H100_SMS)
+    tile = plan.dgrad
+    assert plan.nwg in (1, 2) and plan.bn in (64, 128)
+    assert tile == _gc.conv_tile(h, w, 64 * plan.nwg)
+    assert tile.ni * tile.th * tile.tw <= 64 * plan.nwg
+    if design == "wgmma":
+        stages = _gc._pingpong_stages(h, w, plan.nwg, plan.bn)
+        smem = _gc._pingpong_smem(h, w, plan.nwg, plan.bn, stages)
+        assert 3 <= stages <= 16 and smem <= 227 * 1024
+        assert stages == 16 or _gc._pingpong_smem(h, w, plan.nwg, plan.bn, stages + 1) > 227 * 1024
+        box = (64, tile.tw, tile.th, tile.ni)
+        assert max(box) <= 256 and box[0] * 2 == 128  # one swizzled 128-byte row a pixel
+        x_tile = plan.bn // 64 * 64 * plan.nwg * 128
+        assert plan.bn // 64 * tile.ni * tile.th * tile.tw * 128 <= x_tile
+        halo = -(-tile.ni * (tile.th + 2) * (tile.tw + 2) * 128 // 1024) * 1024
+        # the scale and offset of the tile's images for each warpgroup
+        assert smem >= (1024 + stages * plan.bn * 128 + 4 * halo + 2 * x_tile
+                        + 2 * tile.ni * 2 * plan.bn * 4)
+        # 128 pixels x 64 channels or 64 x 128 (128 x 128 would serialise the products)
+        assert plan.nwg * plan.bn <= 128 and (plan.bn == 64 or cin > 64)
+    else:
         assert _gc._dgrad_smem(h, w, plan.nwg, plan.bn) <= 227 * 1024
-        if design == "wgmma":
-            stages = _gc._wgrad9_stages(h, w)
-            assert stages >= 2 and _gc._wgrad9_smem(h, w, stages) <= 227 * 1024
-        else:
-            assert _gc._wgrad_smem(h, w) <= 227 * 1024
-        tile = plan.dgrad
-        assert plan.wgrad == _gc.conv_tile(h, w, 128) and tile.ni * tile.th * tile.tw <= 128
-    plan = grad_plan(128, 32, 32, 128, 128, "wgmma", _H100_SMS)
-    assert (plan.nwg, plan.bn, plan.splits) == (2, 128, 33)
-    assert len(plan.weight_blocks(128, 128)) == 132
-    plan = grad_plan(128, 32, 32, 128, 128, "wgmma_taprow", _H100_SMS)
-    assert (plan.nwg, plan.bn, plan.splits) == (2, 128, 11)
+    if design in ("wgmma", "wgmma_sync_epilogue"):
+        stages = _gc._wgrad9_stages(h, w)
+        assert stages >= 2 and _gc._wgrad9_smem(h, w, stages) <= 227 * 1024
+    else:
+        assert _gc._wgrad_smem(h, w) <= 227 * 1024
+    assert plan.wgrad == _gc.conv_tile(h, w, 128)
+
+
+@pytest.mark.parametrize("design,want", [("wgmma", (1, 128, 33)),
+                                         ("wgmma_sync_epilogue", (2, 128, 33)),
+                                         ("wgmma_taprow", (2, 128, 11))])
+def test_wgmma_plans_at_the_32x32_site(design, want):
+    """At the CIFAR 32x32 128 -> 128 site, dgrad tiles of 128 channels
+    (wgmma: 64 pixels, one a consumer warpgroup, at least two a block on 132
+    SMs; the earlier designs: 128 pixels, both warpgroups on one tile);
+    wgrad9's blocks fill the 132 SMs, one block an SM."""
+    plan = grad_plan(128, 32, 32, 128, 128, design, _H100_SMS)
+    assert (plan.nwg, plan.bn, plan.splits) == want
+    if design != "wgmma_taprow":
+        assert len(plan.weight_blocks(128, 128)) == 132
+    if design == "wgmma":
+        assert plan.dgrad.count(128) * 128 // plan.bn // _H100_SMS >= 2
 
 
 @pytest.mark.parametrize("shape,design", _PLAN_CASES)
@@ -237,7 +283,7 @@ def test_weight_blocks_take_every_tap_and_slice_once(shape, design):
                     for co in range(0, cout, step_co)]
         assert sorted(units) == sorted(want) and len(units) == len(set(units)), z
         bias = [blk for blk in mine if blk[4]]
-        if design == "wgmma":
+        if design in ("wgmma", "wgmma_sync_epilogue"):
             assert all(len(blk[3]) == 9 for blk in mine)
             assert sorted(blk[2] for blk in bias) == list(range(0, cout, 64))
             assert all(blk[1] == 0 for blk in bias)
@@ -331,16 +377,17 @@ def test_narrow_f32_plan_and_buffers():
     assert (tile.th, tile.tw, tile.tiles_y) == (4, 256, 64)
 
 
+@pytest.mark.parametrize("design", ["wgmma", "wgmma_sync_epilogue"])
 @pytest.mark.parametrize("shape", [(128, 32, 32, 128, 128), (128, 32, 32, 384, 128),
                                    (128, 16, 16, 256, 256), (128, 8, 8, 512, 256),
-                                   (128, 4, 4, 256, 256)])
-def test_wgmma_buffer_sizes(shape):
+                                   (128, 4, 4, 256, 256), (8, 64, 64, 128, 128)])
+def test_wgmma_buffer_sizes(shape, design):
     """The activation buffer holds all of x in bf16 where the weight product
     runs (none where only dx is wanted, none in wgmma_taprow); wgrad9's partials
     of dw stay within 32 MB at the CIFAR sites and its dbias partials are one
-    a split."""
+    a split; the partials of da and doff one a (tile, image, channel)."""
     b, h, w, cin, cout = shape
-    plan = grad_plan(*shape, "wgmma", _H100_SMS)
+    plan = grad_plan(*shape, design, _H100_SMS)
     assert plan.activation(b, h, w, cin) == b * h * w * cin
     assert plan.activation(b, h, w, cin, want_w=False) == 0
     assert grad_plan(*shape, "wgmma_taprow", _H100_SMS).activation(b, h, w, cin) == 0
@@ -353,6 +400,9 @@ def test_wgmma_buffer_sizes(shape):
     ((128, 32, 32, 128, 128), torch.bfloat16, "wgmma"),
     ((128, 4, 4, 512, 256), torch.bfloat16, "wgmma"),
     ((8, 64, 64, 128, 128), torch.bfloat16, "wgmma"),
+    ((128, 8, 8, 256, 256), torch.bfloat16, "wgmma"),
+    ((1, 32, 32, 128, 128), torch.bfloat16, "wgmma"),      # a visualization batch
+    ((2, 8, 256, 128, 128), torch.bfloat16, "wgmma"),      # row segments
     ((16, 7, 7, 64, 64), torch.bfloat16, "general"),     # 49 pixels a sample
     ((3, 28, 28, 36, 24), torch.bfloat16, "general"),    # Cin % 8
     ((128, 32, 32, 128, 3), torch.float32, "narrow_f32"),  # the output head
@@ -412,7 +462,8 @@ def test_card_conv_grad_designs_match_plain(case, card):
     x, a, off, wt, _, g = (t.cuda() for t in _case(b, h, w, cin, cout, dtype, seed=b + cin))
     want = gn_silu_conv3x3_grad_plain(x, a, off, wt, g)
     chosen = conv_grad_design(x, wt)
-    designs = {chosen, "general"} | ({"wgmma_taprow"} if chosen == "wgmma" else set())
+    designs = {chosen, "general"} | ({"wgmma_sync_epilogue", "wgmma_taprow"}
+                                     if chosen == "wgmma" else set())
     for design in sorted(designs):
         before = gn_silu_conv3x3_grad.launches
         runs = [gn_silu_conv3x3_grad(x, a, off, wt, g, design=design) for _ in range(2)]
@@ -454,11 +505,13 @@ def _plain_activation(x, a, off):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("design", ["wgmma", "wgmma_sync_epilogue"])
 @pytest.mark.parametrize("needs", ["all", "weights_only"])
 @pytest.mark.parametrize("shape", [(128, 32, 32, 128, 128), (128, 4, 4, 256, 256),
                                    (8, 64, 64, 128, 128)])
-def test_card_activation_buffer_is_the_plain_activation(shape, needs, card):
-    """``wgmma``'s activation buffer, written by dgrad's epilogue (all) or by
+def test_card_activation_buffer_is_the_plain_activation(shape, needs, design, card):
+    """The activation buffer of ``wgmma`` (dgrad's TMA store of h) and of
+    ``wgmma_sync_epilogue`` (its plain stores), written by dgrad's epilogue (all) or by
     the elementwise launch (weights only), holds silu(x*a + off) in bf16:
     each element within one bf16 rounding (2^-7 of its size) of the plain
     activation's, the kernel's exponential and division being the fast
@@ -467,10 +520,10 @@ def test_card_activation_buffer_is_the_plain_activation(shape, needs, card):
     first, and where off cancels x*a the two p differ by a float32 rounding
     of x*a (|x*a| < 8 here: under 5e-7, and silu halves it near 0)."""
     x, a, off, wt, _, g = (t.cuda() for t in _case(*shape, torch.bfloat16, seed=5))
-    plan = grad_plan(*shape[:5], "wgmma", _gc._sm_count(x.device))
+    plan = grad_plan(*shape[:5], design, _gc._sm_count(x.device))
     act = torch.full((plan.activation(*shape[:4]),), float("nan"), dtype=torch.bfloat16,
                      device="cuda")
-    _gc._launch_grad(x, a, off, wt, g, _NEEDS[needs], "wgmma", act=act)
+    _gc._launch_grad(x, a, off, wt, g, _NEEDS[needs], design, act=act)
     torch.cuda.synchronize()
     want = _plain_activation(x, a, off).float().reshape(-1)
     got = act.float()
@@ -488,7 +541,8 @@ def test_card_refuses_a_short_activation_buffer(card):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("design", ["general", "wgmma", "wgmma_taprow", "narrow_f32"])
+@pytest.mark.parametrize("design", ["general", "wgmma", "wgmma_sync_epilogue", "wgmma_taprow",
+                                    "narrow_f32"])
 @pytest.mark.parametrize("short", [0, 1, 2])
 def test_card_refuses_a_short_workspace(design, short, card, monkeypatch):
     """A workspace one element shorter than the entry point's own tiling
