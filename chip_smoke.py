@@ -33,7 +33,9 @@
    bounds of the two products, of the input product and of the weight
    product; at each attention and GroupNorm site their backward kernels
    (``qkv_attention_grad``, ``group_norm_silu_grad``; attention also in
-   its earlier design ``two_pass`` by name where ``wgmma`` runs) on a seeded
+   its earlier design ``two_pass`` by name where ``wgmma`` runs, GroupNorm
+   in ``fused`` by name where ``tma_resident`` runs, with the captured
+   graph's edges read for the batch sums' programmatic launch) on a seeded
    output gradient against the plain backward (bf16 1e-2, float32 1e-4 of the
    largest element), run twice for the same bits with one count a call,
    timed with and without the host's cost, each kernel's device ms from a
@@ -58,9 +60,9 @@
    among them), its forward / backward / update split and a device profile,
    with the step's device operations, device ms, idle share and peak
    memory in the designs the shapes select, with ``gn_affine_grad``'s first
-   design, with the conv's and attention's gradients in the designs the
-   parent ran, by name (``wgmma_sync_epilogue`` at the bf16 conv sites,
-   ``two_pass``), with the conv's gradient as
+   design, with the conv's, attention's and GroupNorm's gradients in the
+   designs before their last redesigns, by name (``wgmma_sync_epilogue`` at
+   the bf16 conv sites, ``two_pass``, ``fused``), with the conv's gradient as
    ``recompute`` (whose steps must leave the conv gradient's launch count
    where it was), and with attention's and GroupNorm's gradients as
    ``recompute`` by name (the same rule for their counts); the float32
@@ -115,8 +117,8 @@
    in turns (eager, fused, fused, eager) with peak memory, each mode's
    device busy ms and idle share from its profile; a replay's device ms a
    step with the gradients captured in the selected designs and with the
-   conv's and attention's in the parent's designs by name
-   (``wgmma_sync_epilogue``, ``two_pass``), and with attention's and
+   conv's, attention's and GroupNorm's in the designs before their last
+   redesigns by name (``wgmma_sync_epilogue``, ``two_pass``, ``fused``), and with attention's and
    GroupNorm's gradients captured as ``recompute``; ``cli.train trainer.fused_steps=4
    data.device_resident=true`` beside the plain CLI over 2 epochs with one
    capture asserted, and 2 + 2 steps resumed from its checkpoint against 4;
@@ -419,7 +421,8 @@ PROFILE_SAMPLE_KERNELS = ("conv_wgmma_kernel", "attn_bf16_kernel", "gn_moments_k
 PROFILE_TRAIN_KERNELS = PROFILE_SAMPLE_KERNELS + (
     "gn_affine_bwd_kernel", "gn_batch_sum_kernel", "dgrad_pingpong_kernel", "wgrad9_wgmma_kernel",
     "grad_narrow_f32_kernel", "grad_finish_kernel", "attn_bwd_wgmma_kernel",
-    "attn_bwd_dq_bf16_kernel", "attn_bwd_dkv_bf16_kernel", "gn_silu_bwd_kernel")
+    "attn_bwd_dq_bf16_kernel", "attn_bwd_dkv_bf16_kernel", "gn_silu_bwd_resident_kernel",
+    "gn_batch_sum_pdl_kernel")
 CKPT_TURNS = ("plain", "checkpoint", "checkpoint", "plain")
 CKPT_GRAD_BATCH, CKPT_DROPOUT = 8, 0.1
 CKPT_SAME_TOL = 1e-6  # float32 gradients with against without checkpoints (cuDNN deterministic)
@@ -1044,9 +1047,10 @@ def attn_gn_grad_site(torch, F, ops, name, a, kw, n, fwd_site, per_site, summary
             lib_device = lambda: graph_time(torch, lib, 20, 10)  # noqa: E731
     ref = plain()
     tol_rel = ATTN_GN_GRAD_TOL[dtype]
-    # the design the shape selects and, where attention runs wgmma, its
-    # earlier design by name
-    designs = [chosen] + ([ATTN_GRAD_EARLIER[chosen]] if chosen in ATTN_GRAD_EARLIER else [])
+    # the design the shape selects and, where attention runs wgmma or
+    # GroupNorm tma_resident, its earlier design by name
+    earlier = (ATTN_GRAD_EARLIER if name == "qkv_attention" else GN_GRAD_EARLIER).get(chosen)
+    designs = [chosen] + ([earlier] if earlier else [])
     by_design, worst = {}, None
     for d in designs:
         with torch.no_grad():
@@ -1089,6 +1093,8 @@ def attn_gn_grad_site(torch, F, ops, name, a, kw, n, fwd_site, per_site, summary
                 by_design[d]["kernels"] = graph_kernels(torch, graph, per_graph * len(copies))
                 del graph
             del copies
+            if chosen == "tma_resident":
+                site["programmatic_edges"] = graph_edges(torch, lambda: run(*inputs))
             site.update({k: by_design[chosen][k] for k in ("ms", "device_ms", "kernels")})
             if len(designs) > 1:
                 site["design_ms"] = by_design
@@ -1141,6 +1147,8 @@ CONV_GRAD_F32_TOL = 1e-4
 # pair before the ping-pong dgrad; wgmma_taprow: the first bf16 pair;
 # general: the head's first); attention's
 ATTN_GRAD_EARLIER = {"wgmma": "two_pass"}
+# GroupNorm's gradient: the fused design, by name beside tma_resident
+GN_GRAD_EARLIER = {"tma_resident": "fused"}
 CONV_GRAD_EARLIER = {"wgmma": ("wgmma_sync_epilogue", "wgmma_taprow"), "narrow_f32": ("general",)}
 
 
@@ -1179,12 +1187,14 @@ def earlier_designs(selects, earlier=CONV_GRAD_EARLIER):
 
 
 def parent_designs(ops):
-    """The conv's and attention's gradients in the designs the parent ran
-    (``wgmma_sync_epilogue``, ``two_pass``), by name: a swap for
-    ``swapped_designs``."""
+    """The conv's, attention's and GroupNorm's gradients in the designs
+    before this slice's and the last one's (``wgmma_sync_epilogue``,
+    ``two_pass``, ``fused``), by name: a swap for ``swapped_designs``."""
     return {"conv_grad_design": earlier_designs(ops.ops.gn_conv.conv_grad_design),
             ("attention", "attention_grad_design"): earlier_designs(
-                ops.ops.attention.attention_grad_design, ATTN_GRAD_EARLIER)}
+                ops.ops.attention.attention_grad_design, ATTN_GRAD_EARLIER),
+            ("groupnorm", "groupnorm_grad_design"): earlier_designs(
+                ops.ops.groupnorm.groupnorm_grad_design, GN_GRAD_EARLIER)}
 
 
 def kernel_name(key):
@@ -1443,6 +1453,49 @@ def capture_graph(torch, fn, launches):
     return graph
 
 
+def graph_edges(torch, fn):
+    """The edges of a CUDA graph captured over one call of ``fn``, by kind:
+    ``programmatic`` where a launch made with programmatic stream
+    serialization kept its early start under capture, ``default`` (a full
+    dependency) otherwise; None where this torch does not keep a captured
+    graph for reading or libcuda has no ``cuGraphGetEdges_v2``."""
+    import ctypes
+
+    class EdgeData(ctypes.Structure):  # CUgraphEdgeData
+        _fields_ = [("from_port", ctypes.c_ubyte), ("to_port", ctypes.c_ubyte),
+                    ("type", ctypes.c_ubyte), ("reserved", ctypes.c_ubyte * 5)]
+
+    try:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        get = ctypes.CDLL("libcuda.so.1").cuGraphGetEdges_v2
+    except (TypeError, OSError, AttributeError):
+        return None
+    # (graph, from nodes, to nodes, edge data, edge count) -> CUresult
+    get.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.POINTER(EdgeData), ctypes.POINTER(ctypes.c_size_t)]
+    get.restype = ctypes.c_int
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        fn()
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if get(raw, None, None, None, ctypes.byref(n)) != 0:
+        return None
+    ends = [(ctypes.c_void_p * max(1, n.value))() for _ in range(2)]
+    data = (EdgeData * max(1, n.value))()
+    if get(raw, ctypes.addressof(ends[0]), ctypes.addressof(ends[1]), data,
+           ctypes.byref(n)) != 0:
+        return None
+    kinds = [data[i].type for i in range(n.value)]
+    return {"programmatic": kinds.count(1), "default": kinds.count(0),
+            "ports": sorted({(data[i].from_port, data[i].to_port) for i in range(n.value)})}
+
+
 def replay_ms(torch, graph, replays):
     """ms of one replay of ``graph``, by CUDA events over ``replays``."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1676,9 +1729,9 @@ def train_phases(torch, ops, model, gen):
     # may drop records, so each count is a lower bound), the device ms and
     # idle share of each profile and the peak memory: in the designs the
     # shapes select, with gn_affine's gradient in its first design
-    # (fold_bwd+apply: 4-5 operations a site), with the conv's and
-    # attention's gradients as the parent ran them, by name
-    # (wgmma_sync_epilogue at the bf16 sites, two_pass), with the conv's gradient as
+    # (fold_bwd+apply: 4-5 operations a site), with the conv's, attention's
+    # and GroupNorm's gradients in the designs before their last redesigns,
+    # by name (wgmma_sync_epilogue at the bf16 sites, two_pass, fused), with the conv's gradient as
     # recompute (autograd through the recomputed plain version, about 40
     # operations a site); and attention's and GroupNorm's gradients as
     # recompute (autograd through the plain versions)
@@ -3654,7 +3707,8 @@ def consistency_distill_phase(torch, ops, gen, smi, run_dir, out_dir=None):
 # this repository's kernels as the profiler names them
 OWN_KERNELS = ("attn_bf16_kernel", "attn_f32_kernel", "attn_bwd_dq_bf16_kernel",
                "attn_bwd_dkv_bf16_kernel", "attn_bwd_dq_f32_kernel", "attn_bwd_dkv_f32_kernel",
-               "gn_silu_bwd_kernel", "gn_silu_bwd_sums_kernel", "conv_wgmma_kernel",
+               "gn_silu_bwd_kernel", "gn_silu_bwd_sums_kernel", "gn_silu_bwd_resident_kernel",
+               "gn_batch_sum_pdl_kernel", "conv_wgmma_kernel",
                "conv_narrow_f32_kernel", "conv_kernel<", "gn_moments_kernel", "gn_apply_kernel",
                "gn_affine_bwd_kernel", "gn_batch_sum_kernel", "gn_fold_bwd_kernel",
                "gn_fold_kernel", "dgrad_wgmma_kernel", "dgrad_pingpong_kernel",
@@ -4013,9 +4067,10 @@ def fused_train_phase(torch, ops, gen, smi, out_dir=None):
     del eager_e
 
     # (c2) a replay's device work a step with the gradients captured in the
-    # designs the shapes select (the graph above) and with the conv's and
-    # attention's in the designs the parent ran, by name (a second engine
-    # captured with them), each from two profiles of a replay
+    # designs the shapes select (the graph above) and with the conv's,
+    # attention's and GroupNorm's in the designs before their last
+    # redesigns, by name (a second engine captured with them), each from two
+    # profiles of a replay
     line["replay_by_conv_grad_design"] = replays = {}
 
     def replay_work(e):
@@ -4028,7 +4083,7 @@ def fused_train_phase(torch, ops, gen, smi, out_dir=None):
     del graph_e, chunk
     parent_e = DiffusionEngine(dict(MODEL_CFG), {"lr": FUSED_LR}, ema=0.9999, device="cuda")
     fill_zero_params(torch, parent_e.state.model, seed=50)
-    names = ("gn_silu_conv3x3_grad", "qkv_attention_grad")
+    names = ("gn_silu_conv3x3_grad", "qkv_attention_grad", "group_norm_silu_grad")
     before = {n: ops.wrappers[n].launches for n in names}
     with swapped_designs(ops, parent_designs(ops)):
         parent_e.training_steps(xs[0])  # warm-up and capture

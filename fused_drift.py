@@ -8,9 +8,11 @@ steps run eagerly from one copy of the state, within lr / 10 of the largest
 parameter: the graph's Adam update rounds once more than torch.optim.Adam,
 and the later steps carry that round-off.  This script shows what sets that
 distance: for each seed it runs the gate's two sides with every gradient
-on the kernels the shapes select (attention's: ``wgmma``), with the conv's
-and attention's in the designs before them by name (``wgmma_sync_epilogue``,
-``two_pass``), and with attention's and GroupNorm's as ``recompute`` by
+on the kernels the shapes select (attention's: ``wgmma``; GroupNorm's:
+``tma_resident``, its batch sums a programmatic dependent launch inside the
+graph), with the conv's, attention's and GroupNorm's in the designs before
+them by name (``wgmma_sync_epilogue``, ``two_pass``, ``fused``), and with
+attention's and GroupNorm's as ``recompute`` by
 name (autograd through the plain versions), in turns, and prints one JSON line a
 run with the largest differences by parameter name.  A gradient that is
 zero in exact arithmetic (the attention key bias's: softmax ignores a shift

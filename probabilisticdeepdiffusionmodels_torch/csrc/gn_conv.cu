@@ -518,7 +518,8 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
 cudaError_t encode_bf16_map_uncached(CUtensorMap* map, const void* ptr, int rank,
-                                     const cuuint64_t* dims, const cuuint32_t* box) {
+                                     const cuuint64_t* dims, const cuuint32_t* box,
+                                     CUtensorMapSwizzle swizzle) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -535,7 +536,7 @@ cudaError_t encode_bf16_map_uncached(CUtensorMap* map, const void* ptr, int rank
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
   auto run = [&]() {
     return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims,
-                  strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   };
   CUresult res = run();
@@ -557,14 +558,15 @@ cudaError_t encode_bf16_map_uncached(CUtensorMap* map, const void* ptr, int rank
 
 namespace pddm {
 
-// The maps of recent (address, shape, box) triples, reused: the caching
-// allocator hands a forward's activations the same addresses call after
-// call, and a model's weights keep theirs, so most calls encode nothing.
+// The maps of recent (address, shape, box, swizzle) keys, reused: the
+// caching allocator hands a forward's activations the same addresses call
+// after call, and a model's weights keep theirs, so most calls encode nothing.
 cudaError_t encode_bf16_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
-                            const cuuint32_t* box) {
+                            const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
   struct Entry {
     const void* ptr;
     int rank;
+    CUtensorMapSwizzle swizzle;
     cuuint64_t dims[4];
     cuuint32_t box[4];
     CUtensorMap map;
@@ -576,7 +578,7 @@ cudaError_t encode_bf16_map(CUtensorMap* map, const void* ptr, int rank, const c
   std::lock_guard<std::mutex> guard(lock);
   for (int i = 0; i < used; ++i) {
     const Entry& e = entries[i];
-    if (e.ptr != ptr || e.rank != rank) continue;
+    if (e.ptr != ptr || e.rank != rank || e.swizzle != swizzle) continue;
     bool same = true;
     for (int d = 0; d < rank; ++d) same = same && e.dims[d] == dims[d] && e.box[d] == box[d];
     if (same) {
@@ -584,11 +586,12 @@ cudaError_t encode_bf16_map(CUtensorMap* map, const void* ptr, int rank, const c
       return cudaSuccess;
     }
   }
-  const cudaError_t err = encode_bf16_map_uncached(map, ptr, rank, dims, box);
+  const cudaError_t err = encode_bf16_map_uncached(map, ptr, rank, dims, box, swizzle);
   if (err != cudaSuccess) return err;
   Entry& e = entries[next];
   e.ptr = ptr;
   e.rank = rank;
+  e.swizzle = swizzle;
   for (int d = 0; d < rank; ++d) e.dims[d] = dims[d], e.box[d] = box[d];
   e.map = *map;
   next = (next + 1) % kEntries;

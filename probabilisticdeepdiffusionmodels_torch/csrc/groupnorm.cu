@@ -94,10 +94,18 @@
 // the fold's backward gives 2 dL/dS2, dL/dS1 and the shares of dL/dgamma and
 // dL/dbeta, and dx = g' a + x 2 dL/dS2 + dL/dS1.  Its kernels are in
 // groupnorm_grad.cu (what both files share: groupnorm.cuh).  Bound by bytes:
-// x and g read, dx written.  Two designs (ops/groupnorm.py::groupnorm_grad_design):
+// x and g read, dx written.  Three designs (ops/groupnorm.py::groupnorm_grad_design):
+//   tma_resident  (bf16 where fused applies) gn_silu_bwd_resident_kernel:
+//          items of whole groups landed once in shared memory by TMA, a
+//          copying warp and 256 consumers, the grid sized to the card
+//          (persistent, 2-3 buffers a block, where the items outnumber what
+//          the card holds at once); then gn_batch_sum_pdl_kernel as its
+//          programmatic dependent.  2 launches.  groupnorm_grad.cu's header
+//          has the design and what bounded fused.
 //   fused  gn_silu_bwd_kernel<LOCAL>: the forward's fused chunks, a block
 //          sums its rows, folds backwards in shared memory and reads x and g
 //          again (from L1/L2) for dx; then gn_batch_sum_kernel.  2 launches.
+//          float32, and bf16 by name.
 //   split  gn_silu_bwd_sums_kernel (split rows' sums into a workspace), then
 //          gn_silu_bwd_kernel adds them in split order for the groups its
 //          chunk touches (a whole group where a chunk is narrower than one)

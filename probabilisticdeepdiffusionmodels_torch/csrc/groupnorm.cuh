@@ -103,15 +103,17 @@ __device__ __forceinline__ void block_reduce(const Plan& p, float (&s)[V], float
 
 // The second launch of fused_bwd: dgamma[c], dbeta[c], the sums over the
 // batch of the (B, 2, C) shares, in a fixed order, so two runs give the same
-// bits.  A block takes 16 channels, so 32 columns (dgamma's, then dbeta's) of
-// 8 threads each: part q sums the samples q, q + 8, ...; the parts meet in
-// shared memory in part order.  (A tail run by the launch's last block
-// instead, one block summing a chunk's columns, cost more than this launch at
-// every site measured.)
-__global__ void __launch_bounds__(NT)
-gn_batch_sum_kernel(const float* __restrict__ shares, float* __restrict__ dgamma,
-                    float* __restrict__ dbeta, int B, int C) {
-  constexpr int CH = 16, COLS = 2 * CH, PARTS = NT / COLS;
+// bits.  A block takes CH channels, so 2 CH columns (dgamma's, then
+// dbeta's) of NT / (2 CH) parts each: part q sums the samples q, q + parts,
+// ... (four loads in flight, neighbouring threads on neighbouring columns);
+// the parts meet in shared memory in part order.  (A tail run by the
+// launch's last block instead, one block summing a chunk's columns, cost
+// more than this launch at every site measured.)
+template <int CH>
+__device__ __forceinline__ void batch_sums(const float* __restrict__ shares,
+                                           float* __restrict__ dgamma, float* __restrict__ dbeta,
+                                           int B, int C) {
+  constexpr int COLS = 2 * CH, PARTS = NT / COLS;
   __shared__ float acc[NT];
   const int c0 = blockIdx.x * CH, nch = CH < C - c0 ? CH : C - c0;
   const int col = threadIdx.x % COLS, part = threadIdx.x / COLS;
@@ -137,6 +139,12 @@ gn_batch_sum_kernel(const float* __restrict__ shares, float* __restrict__ dgamma
     else
       dbeta[c0 + threadIdx.x - nch] = t;
   }
+}
+
+__global__ void __launch_bounds__(NT)
+gn_batch_sum_kernel(const float* __restrict__ shares, float* __restrict__ dgamma,
+                    float* __restrict__ dbeta, int B, int C) {
+  batch_sums<16>(shares, dgamma, dbeta, B, C);
 }
 
 bool plan_ok(const Plan& p, int V, size_t elem, const void* x, const void* y) {

@@ -1,8 +1,9 @@
 // Hopper-only helpers shared by the kernels that copy by TMA and multiply
-// with wgmma (gn_conv.cu, gn_conv_grad.cu, attention_grad.cu, probe_mma.cu):
+// with wgmma (gn_conv.cu, gn_conv_grad.cu, attention_grad.cu, probe_mma.cu,
+// groupnorm_grad.cu):
 // the shared-memory matrix descriptors, the wgmma fences, mbarriers, named
-// barriers, the TMA loads and stores and bulk copies, and the declaration of
-// the host side's tensor-map encoder.
+// barriers, the TMA loads and stores and bulk copies, programmatic dependent
+// launch, and the declaration of the host side's tensor-map encoder.
 #pragma once
 
 #include <cuda.h>
@@ -188,10 +189,24 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
+// Programmatic dependent launch: a kernel launched with the attribute
+// cudaLaunchAttributeProgrammaticStreamSerialization may start while the
+// kernel before it runs; griddepcontrol.wait holds it until that kernel has
+// completed and its writes are visible (a no-op in a kernel launched
+// without the attribute).  launch_dependents lets the dependent be
+// scheduled once every block of this grid has issued it or exited.
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
 // Encode (or find among recent ones) the tiled bf16 tensor map of `rank`
-// dimensions `dims` (innermost first) at `ptr`, copied in boxes of `box` under
-// the 128-byte swizzle.  Defined in gn_conv.cu.
+// dimensions `dims` (innermost first) at `ptr`, copied in boxes of `box`
+// under `swizzle` (the 128-byte swizzle unless named).  Defined in gn_conv.cu.
 cudaError_t encode_bf16_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
-                            const cuuint32_t* box);
+                            const cuuint32_t* box,
+                            CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B);
 
 }  // namespace pddm

@@ -44,6 +44,10 @@ _SIGNATURES = {
     # x, g, ao, gamma, dx, ws, shares, dgamma, dbeta, B, N, C, groups, eps, silu, is_bf16,
     # V, cvb, splits, rows, local, stream
     "pddm_group_norm_silu_grad": [*[_P] * 9, _I, _I, _I, _I, ctypes.c_float, *[_I] * 7, _P],
+    # x, g, ao, gamma, dx, shares, dgamma, dbeta, B, N, C, groups, eps, silu, chb, spb,
+    # srows, stages, grid, bufs, stream
+    "pddm_group_norm_silu_grad_resident": [*[_P] * 8, _I, _I, _I, _I, ctypes.c_float,
+                                           *[_I] * 7, _P],
     # x, gamma, beta, cond0, cond1, ao, ws, counters, B, N, C, groups, eps, mode,
     # stride0, stride1, cond_is_bf16, is_bf16, V, cvb, splits, rows, fold, stream
     "pddm_gn_moments_fold": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float,

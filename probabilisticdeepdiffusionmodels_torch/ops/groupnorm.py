@@ -74,19 +74,30 @@ sums over the rows of g' x and g', the fold's backward turns them into
 dL/dS1, dL/dS2 and each sample's shares of dL/dgamma and dL/dbeta, and
 dx = g' a + 2 x dL/dS2 + dL/dS1.  The forward, where autograd records it,
 also writes its (4, B, C) ``ao`` (a, off, E[x], E[x^2]), which the
-backward starts from.  ``groupnorm_grad_design`` picks one of two designs:
+backward starts from.  ``groupnorm_grad_design`` picks one of three designs:
 
-- ``fused`` (where the forward's ``fused`` plan applies: a chunk of whole
-  groups over all rows of a sample in 48 KB): one block a chunk sums its
-  rows, folds backwards in shared memory and reads its rows again, from
-  L1/L2, for dx; then the fixed-order batch sums of ``gn_affine``'s
-  gradient.  Two launches.
+- ``tma_resident`` (bf16 where the fused plan applies, 16-byte rows and
+  addresses; ``resident_plan``): items of whole groups over all rows of a
+  sample land once in shared memory by TMA, with the statistics and gamma by
+  bulk copies; a copying warp lands items and stores dx by TMA, 256
+  consumer threads sum, fold backwards and write dx from shared memory; the
+  grid is planned per site from the 132 SMs and the shared memory (one
+  block an item where they fit the card at once, else a persistent grid with
+  2-3 buffers a block); the batch sums are a programmatic dependent launch.
+  Two launches.  Timed on the H100 (``time_groupnorm.py --grad``), the fused
+  design's time at the 4x4 and 8x8 attention norms had been the chain of its
+  phases, not its bytes (10.1 and 12.6 us a call for 1.1 and 3.9 us of
+  bytes), 1.7x its bytes at 16x16, and 2.1-2.8 us a call of batch sums.
+- ``fused`` (float32, and bf16 by name: a chunk of whole groups over all rows
+  of a sample in 48 KB): one block a chunk sums its rows, folds backwards in
+  shared memory and reads its rows again, from L1/L2, for dx; then the
+  fixed-order batch sums of ``gn_affine``'s gradient.  Two launches.
 - ``split`` (longer inputs): the rows of a chunk split over blocks whose
   sums meet in a workspace, added in split order by the blocks of the
   second launch (a chunk narrower than a group folds its whole group), then
   the batch sums.  Three launches.
 
-``recompute`` (autograd through the plain version, the parent's path) runs
+``recompute`` (autograd through the plain version, the path before the kernels) runs
 by name only and counts no launch; ``group_norm_silu_grad_plain`` writes the
 gradient out with the kernels' arithmetic.
 """
@@ -104,7 +115,7 @@ from .autograd import forbid_forward_mode
 
 __all__ = ["group_norm_silu", "group_norm_silu_plain", "group_norm_silu_grad",
            "group_norm_silu_grad_plain", "groupnorm_design", "groupnorm_grad_design",
-           "silu_grad_plan", "moments_plan",
+           "silu_grad_plan", "resident_plan", "resident_smem", "moments_plan",
            "fused_plan", "affine_plan", "grad_plan", "affine_design", "moments_fold",
            "fold_backward", "fold_backward_plain", "affine_backward", "apply_affine", "gn_fold",
            "gn_fold_plain", "moments_plain", "group_norm_silu_slab",
@@ -120,6 +131,16 @@ _MAX_CHANNELS = 8192       # the fold's backward keeps five floats a channel in 
 _CLUSTER_MAX = 8           # blocks of a portable thread-block cluster (kClusterMax)
 _CHUNK_ROW_BYTES = 64      # cluster design: the least bytes of a row one block takes
 _CHUNK_FILL = 2 * 132      # cluster design: blocks wanted (two an SM measured best)
+_SMS = 132                 # the H100's streaming multiprocessors
+_RESIDENT_FILL = 2 * _SMS  # tma_resident: items wanted, about two an SM
+_RESIDENT_BYTES = 32 * 1024  # tma_resident: x + g of an item, as far as it widens
+_RESIDENT_STAGES = 2       # tma_resident: TMA stages of a sample's rows, at most
+_RESIDENT_STAGE_ROWS = 16  # tma_resident: rows of a stage, at least (where N has them)
+_RESIDENT_SAMPLES = 8      # tma_resident: samples of an item, at most
+_RESIDENT_CONSUMERS = 256  # tma_resident: consumer threads of a block (kConsumers)
+_RESIDENT_THREADS = _RESIDENT_CONSUMERS + 32  # and its copying warp
+_SM_SMEM = 228 * 1024      # shared memory of an SM (each block also holds 1 KB of it)
+_SMEM = 227 * 1024         # shared memory a block may use
 # where the blocks of a sample meet (csrc/groupnorm.cu kLocal, kCluster, kWorkspace)
 _FOLDS = {"local": 0, "cluster": 1, "workspace": 2}
 
@@ -138,6 +159,55 @@ class Plan(NamedTuple):
     def chunks(self, c: int) -> int:
         """Blocks along the channels."""
         return -(-(c // self.v) // self.cvb)
+
+
+class ResidentPlan(NamedTuple):
+    """Launch geometry of ``group_norm_silu_grad``'s ``tma_resident`` design
+    (``csrc/groupnorm_grad.cu``): an item is ``spb`` samples and a chunk of
+    ``chb`` channels over all N rows, whose rows land in ``stages`` TMA boxes
+    of ``srows`` rows of x and of g a sample; ``grid`` blocks take the items
+    in turn (block i the items i, i + grid, ...), each with ``bufs`` buffers
+    (2 or 3 where it takes more than one item: the next land while one is
+    worked).  A consumer thread takes 8 channels of one sample."""
+    chb: int     # channels of an item: whole groups, a multiple of 8, dividing C
+    spb: int     # samples of an item
+    srows: int   # rows of a stage
+    stages: int  # stages of a sample's rows
+    grid: int = 1  # blocks of the launch
+    bufs: int = 1  # buffers of a block
+
+    @property
+    def cvb(self) -> int:
+        """Threads across a block's channels."""
+        return self.chb // 8
+
+    @property
+    def thread_rows(self) -> int:
+        """Consumer thread rows of a sample (``_RESIDENT_CONSUMERS // (cvb * spb)``)."""
+        return _RESIDENT_CONSUMERS // (self.cvb * self.spb)
+
+    def items(self, b: int, c: int) -> int:
+        """Items of the launch: chunks times groups of samples."""
+        return c // self.chb * -(-b // self.spb)
+
+
+def resident_smem(plan: ResidentPlan) -> int:
+    """Shared memory of a ``tma_resident`` block (``ResidentLayout`` in
+    ``csrc/groupnorm_grad.cu``): 128 bytes of alignment; each buffer's x
+    and g stages (each 128-byte aligned) and five floats a (sample,
+    channel), the item's a, off, E[x], E[x^2] and gamma (128-byte aligned);
+    four floats a (sample, channel) for the fold's backward; the
+    reduction's partials (a warp's where its lanes hold whole thread rows of
+    one sample, else a thread's); a buffer's mbarriers, one a stage and one
+    for its dx."""
+    cvb, nf = plan.cvb, plan.spb * plan.chb
+    per = cvb * plan.thread_rows
+    stages = plan.spb * plan.stages
+    stage = -(-plan.srows * plan.chb * 2 // 128) * 128
+    buf = 2 * stages * stage + -(-4 * 5 * nf // 128) * 128
+    nred = (_RESIDENT_CONSUMERS // 32 * cvb * 16 if 32 % cvb == 0 and per % 32 == 0
+            else plan.spb * per * 16)
+    return 128 + plan.bufs * buf + 4 * (4 * nf + nred) + 8 * plan.bufs * (stages + 1)
 
 
 def _low_bits(addresses) -> int:
@@ -258,6 +328,72 @@ def _fused_plan(n, c, groups, itemsize, low):
     if cvb > _NT or n * chunk * itemsize > _FUSED_BYTES:
         return None
     return Plan(v, cvb, 1, n)
+
+
+def resident_plan(b: int, n: int, c: int, groups: int, itemsize: int,
+                  *addresses: int) -> Optional[ResidentPlan]:
+    """Geometry of ``tma_resident`` on a (B, N, C) tensor, or None where it
+    does not apply (not bf16, C not a multiple of 8, an address not 16-byte
+    aligned, or an input the fused design does not take).  From the
+    narrowest chunk of whole groups that divides C, an item widens its
+    chunk (then takes more samples, up to ``_RESIDENT_SAMPLES``) while a row
+    of it is under 128 bytes, a thread row would have no row, or there are
+    more than ``_RESIDENT_FILL`` items, as long as x + g of an item stay
+    within ``_RESIDENT_BYTES`` and a block's shared memory within 227 KB.
+    Then the grid: one block an item where they fit the card at once; else
+    the blocks an SM (as many as its shared memory holds, each with three
+    buffers or two) whose rounds over the items leave the fewest block
+    slots idle, the most blocks where two tie."""
+    return _resident_plan(b, n, c, groups, itemsize, _low_bits(addresses))
+
+
+@functools.lru_cache(maxsize=1024)
+def _resident_plan(b, n, c, groups, itemsize, low):
+    if itemsize != 2 or c % 8 or low % 16 or _fused_plan(n, c, groups, itemsize, low) is None:
+        return None
+    unit = math.lcm(c // groups, 8)
+    widths = [w for w in range(unit, min(c, 8 * _NT) + 1, unit) if c % w == 0]
+    stages = max(1, min(_RESIDENT_STAGES, n // _RESIDENT_STAGE_ROWS))
+    srows = -(-n // stages)
+    stages = -(-n // srows)
+    if srows > 256:  # a TMA box is at most 256 rows
+        return None
+
+    def plan(i, s, grid=1, bufs=1):
+        return ResidentPlan(widths[i], s, srows, stages, grid, bufs)
+
+    def fits(i, s):
+        return (i < len(widths) and s <= min(b, _RESIDENT_SAMPLES)
+                and widths[i] // 8 * s <= _RESIDENT_CONSUMERS
+                and 2 * s * stages * srows * widths[i] * itemsize <= _RESIDENT_BYTES
+                and resident_smem(plan(i, s)) <= _SMEM)
+
+    def short(i, s):  # a row under 128 bytes, or thread rows with no row
+        return widths[i] * itemsize < 128 or _RESIDENT_CONSUMERS // (widths[i] // 8 * s) > n
+
+    def grown(i, s):  # a wider chunk, else more samples
+        return (i + 1, s) if i + 1 < len(widths) else (i, 2 * s)
+
+    i, s = 0, 1
+    while (short(i, s) or plan(i, s).items(b, c) > _RESIDENT_FILL) and fits(*grown(i, s)):
+        i, s = grown(i, s)
+    items = plan(i, s).items(b, c)
+    best, best_key = None, None
+    for per_sm in range(1, 2048 // _RESIDENT_THREADS + 1):
+        grid = min(items, per_sm * _SMS)
+        fit = [q for q in ((1,) if grid == items else (3, 2))
+               if resident_smem(plan(i, s, grid, q)) <= _SMEM
+               and per_sm * (resident_smem(plan(i, s, grid, q)) + 1024) <= _SM_SMEM]
+        if not fit:
+            break
+        p = plan(i, s, grid, fit[0])
+        rounds = -(-items // grid)
+        key = (items / (rounds * grid), per_sm)
+        if best_key is None or key > best_key:
+            best, best_key = p, key
+        if grid == items:
+            break
+    return best or (plan(i, s, items, 1) if resident_smem(plan(i, s)) <= _SMEM else None)
 
 
 def group_norm_silu_plain(x: torch.Tensor, gamma: torch.Tensor,
@@ -590,12 +726,13 @@ class _GroupNormSilu(torch.autograd.Function):
 
 
 def silu_grad_plan(b: int, n: int, c: int, groups: int, itemsize: int,
-                   *addresses: int) -> Tuple[str, Plan]:
+                   *addresses: int):
     """(design, geometry) of ``group_norm_silu_grad`` on a (B, N, C) tensor:
-    ``fused`` with the forward's fused plan (one block a chunk of whole
-    groups over all N rows) where it applies, else ``split`` with
-    ``grad_plan``'s chunks of whole groups and split rows or, where a group
-    is wider than a block, ``moments_plan``'s."""
+    where the forward's fused plan (one block a chunk of whole groups over
+    all N rows) applies, ``tma_resident`` with ``resident_plan``'s geometry
+    (bf16, 16-byte rows and addresses) or else ``fused`` with that plan;
+    elsewhere ``split`` with ``grad_plan``'s chunks of whole groups and split
+    rows or, where a group is wider than a block, ``moments_plan``'s."""
     return _silu_grad_plan(b, n, c, groups, itemsize, _low_bits(addresses))
 
 
@@ -603,7 +740,8 @@ def silu_grad_plan(b: int, n: int, c: int, groups: int, itemsize: int,
 def _silu_grad_plan(b, n, c, groups, itemsize, low):
     fused = _fused_plan(n, c, groups, itemsize, low)
     if fused is not None:
-        return "fused", fused
+        resident = _resident_plan(b, n, c, groups, itemsize, low)
+        return ("tma_resident", resident) if resident is not None else ("fused", fused)
     return "split", _split_grad_plan(b, n, c, groups, itemsize, low)
 
 
@@ -615,7 +753,8 @@ def _split_grad_plan(b, n, c, groups, itemsize, low):
 
 def groupnorm_grad_design(x: torch.Tensor, num_groups: int = 32) -> str:
     """The design a ``group_norm_silu_grad`` call on CUDA tensor ``x`` runs:
-    ``fused`` or ``split``; ``recompute`` runs by name only."""
+    ``tma_resident``, ``fused`` or ``split``; ``recompute`` (and ``fused``
+    where ``tma_resident`` applies) runs by name only."""
     b, n, c = _shape(x)
     return _silu_grad_plan(b, n, c, num_groups, x.element_size(), x.data_ptr() & 15)[0]
 
@@ -663,8 +802,9 @@ def group_norm_silu_grad(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tenso
     """(dx, dgamma, dbeta) of ``group_norm_silu`` for the output gradient
     ``g``: dx in x's dtype, dgamma and dbeta float32 (C,).  A CPU tensor
     takes the plain version; a CUDA tensor launches the kernels of
-    ``design`` (None: ``groupnorm_grad_design``'s choice; ``fused``,
-    ``split`` or ``recompute`` by name) or raises, with one count a call.
+    ``design`` (None: ``groupnorm_grad_design``'s choice; ``tma_resident``,
+    ``fused``, ``split`` or ``recompute`` by name) or raises, with one count
+    a call.
     ``ao``: the forward's (4, B, C) statistics (where None, one launch of
     ``moments_fold`` forms them); ``needs`` masks the three (None where one
     is not wanted)."""
@@ -682,22 +822,34 @@ def group_norm_silu_grad(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tenso
     dx = torch.empty_like(x)
     low = (x.data_ptr() | g.data_ptr() | dx.data_ptr()) & 15
     chosen, plan = _silu_grad_plan(b, n, c, num_groups, x.element_size(), low)
-    if design != chosen:
-        if design != "split":
-            raise ValueError(f"the group_norm_silu_grad design {design!r} does not take "
-                             f"{tuple(x.shape)} in {num_groups} groups")
-        plan = _split_grad_plan(b, n, c, num_groups, x.element_size(), low)
     if ao is None:
         ao = moments_fold(x, gamma, beta, num_groups, eps)
+    if chosen == "tma_resident" and (ao.data_ptr() | gamma.data_ptr()) & 15:
+        # the statistics and gamma land by bulk copies of 16-byte rows
+        chosen, plan = "fused", _fused_plan(n, c, num_groups, x.element_size(), low)
+    if design != chosen:
+        if design == "split":
+            plan = _split_grad_plan(b, n, c, num_groups, x.element_size(), low)
+        elif design == "fused" and chosen == "tma_resident":
+            plan = _fused_plan(n, c, num_groups, x.element_size(), low)
+        else:
+            raise ValueError(f"the group_norm_silu_grad design {design!r} does not take "
+                             f"{tuple(x.shape)} in {num_groups} groups")
     f32 = dict(dtype=torch.float32, device=x.device)
     ws = torch.empty((b, plan.splits, c, 2), **f32) if design == "split" else None
     shares = torch.empty((b, 2, c), **f32)
     dgamma, dbeta = torch.empty(c, **f32), torch.empty(c, **f32)
-    _build.launch("pddm_group_norm_silu_grad", x.data_ptr(), g.data_ptr(), ao.data_ptr(),
-                  gamma.data_ptr(), dx.data_ptr(), None if ws is None else ws.data_ptr(),
-                  shares.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), b, n, c, num_groups,
-                  float(eps), int(silu), int(x.dtype == torch.bfloat16), plan.v, plan.cvb,
-                  plan.splits, plan.rows, int(design == "fused"))
+    if design == "tma_resident":
+        _build.launch("pddm_group_norm_silu_grad_resident", x.data_ptr(), g.data_ptr(),
+                      ao.data_ptr(), gamma.data_ptr(), dx.data_ptr(), shares.data_ptr(),
+                      dgamma.data_ptr(), dbeta.data_ptr(), b, n, c, num_groups, float(eps),
+                      int(silu), *plan)
+    else:
+        _build.launch("pddm_group_norm_silu_grad", x.data_ptr(), g.data_ptr(), ao.data_ptr(),
+                      gamma.data_ptr(), dx.data_ptr(), None if ws is None else ws.data_ptr(),
+                      shares.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), b, n, c,
+                      num_groups, float(eps), int(silu), int(x.dtype == torch.bfloat16),
+                      plan.v, plan.cvb, plan.splits, plan.rows, int(design == "fused"))
     group_norm_silu_grad.launches += 1
     return tuple(t if need else None for t, need in zip((dx, dgamma, dbeta), needs))
 

@@ -8,8 +8,10 @@ against autograd through the op's plain version, against ``jax.vjp`` of
 ``group_norm_silu_xla`` and of the custom-VJP ``group_norm_silu`` of
 ``ops/groupnorm_pallas.py`` (its forward the interpret-mode Pallas kernel),
 with SiLU on and off and one-channel groups.  The op's Function is held
-with the plain versions standing in for the launches, and the plans' blocks
-are checked to cover every element once with the groups each block folds.
+with the plain versions standing in for the launches, the plans' blocks
+are checked to cover every element once with the groups each block folds,
+the design is checked by shape and dtype, and the ``tma_resident`` kernel's
+index arithmetic is emulated in numpy against the plain backward.
 Tolerances, of the reference's largest element: float32 1e-5 (one-pass
 against two-pass statistics, sums in another order); bf16 inputs 1e-2 for
 dx, which each side rounds to bf16 once from float32 values that differ in
@@ -156,14 +158,69 @@ _PLAN_CASES = [(128, 256, 256, 32, 2, 0), (128, 64, 256, 32, 2, 0), (128, 16, 25
                (1, 8, 8192, 1, 4, 0), (4, 100, 96, 32, 2, 2)]
 
 
+def _resident_threads(plan):
+    """(thread, sample of the item, thread row, channel vector) of a
+    ``tma_resident`` block's consumers, as ``gn_silu_bwd_resident_kernel``
+    lays them out (a thread past the item's samples has none)."""
+    per = plan.cvb * plan.thread_rows
+    return [(t, t // per, t % per // plan.cvb, t % plan.cvb)
+            for t in range(_gn._RESIDENT_CONSUMERS)]
+
+
+def _first_row(lo, ty, rows):
+    return ty if lo <= ty else ty + (lo - ty + rows - 1) // rows * rows
+
+
+def _check_resident_plan(b, n, c, groups, plan):
+    """A ``tma_resident`` plan: chunks of whole groups tile C and groups of
+    samples tile B; each item's threads take every (sample, row, channel)
+    of it once, walking the stages in order; the boxes are TMA's (at most
+    256 a dimension, 16-byte rows); the grid's blocks take every item once
+    (block i the items i, i + grid, ...), with two buffers where a block
+    takes more than one; a block's stages, the dx staging (over g's stages)
+    and the fold's floats fit 227 KB, and the blocks an SM the grid assumes
+    fit its 228 KB."""
+    cg = c // groups
+    assert plan.chb % cg == 0 and plan.chb % 8 == 0 and c % plan.chb == 0
+    assert 1 <= plan.spb <= 8 and plan.cvb * plan.spb <= _gn._RESIDENT_CONSUMERS
+    assert plan.thread_rows >= 1
+    assert 1 <= plan.srows <= 256 and plan.stages * plan.srows >= n > (plan.stages - 1) * plan.srows
+    smem = _gn.resident_smem(plan)
+    items = plan.items(b, c)
+    assert smem <= 227 * 1024 and -(-plan.grid // 132) * (smem + 1024) <= 228 * 1024
+    assert 1 <= plan.grid <= items and (plan.bufs == 1) == (plan.grid == items)
+    assert plan.bufs <= min(3, -(-items // plan.grid))
+    taken = sorted(it for blk in range(plan.grid) for it in range(blk, items, plan.grid))
+    assert taken == list(range(items))
+    seen = np.zeros((plan.spb, n, plan.chb), dtype=np.int64)
+    for _, j, ty, tx in _resident_threads(plan):
+        if j >= plan.spb:
+            continue
+        last = -1
+        for q in range(plan.stages):
+            r = _first_row(q * plan.srows, ty, plan.thread_rows)
+            for r in range(r, min(n, (q + 1) * plan.srows), plan.thread_rows):
+                assert r > last and r // plan.srows == q
+                last = r
+                seen[j, r, tx * 8:tx * 8 + 8] += 1
+    assert (seen == 1).all()
+    groups_of_samples = -(-b // plan.spb)
+    assert groups_of_samples * plan.spb >= b > (groups_of_samples - 1) * plan.spb
+
+
 @pytest.mark.parametrize("b,n,c,groups,itemsize,addr", _PLAN_CASES)
 def test_grad_plan_covers_every_element_once(b, n, c, groups, itemsize, addr):
     """Each design's blocks (splits x channel chunks x samples) take every
     (row, channel) of a sample once; a fused block holds whole groups over
     all rows; a split block's fold region (the groups its chunk touches, as
     ``gn_silu_bwd_kernel`` computes it) holds whole groups, covers its
-    chunk and fits the shared memory ``launch_silu_bwd`` sizes."""
+    chunk and fits the shared memory ``launch_silu_bwd`` sizes; a
+    ``tma_resident`` plan as ``_check_resident_plan`` says, and the fused
+    plan ``fused`` by name runs beside it covers the same way."""
     design, plan = _gn.silu_grad_plan(b, n, c, groups, itemsize, addr)
+    if design == "tma_resident":
+        _check_resident_plan(b, n, c, groups, plan)
+        design, plan = "fused", _gn._fused_plan(n, c, groups, itemsize, addr)
     cg = c // groups
     chb = plan.cvb * plan.v
     assert c % plan.v == 0 and addr % (plan.v * itemsize) == 0 and 1 <= plan.cvb <= 256
@@ -188,6 +245,240 @@ def test_grad_plan_covers_every_element_once(b, n, c, groups, itemsize, addr):
     assert design == ("fused" if _gn._fused_plan(n, c, groups, itemsize, addr) else "split")
 
 
+# (B, N, C, groups, dtype, address low bits, design): the CIFAR-10 UNet's
+# 15 attention norms at batch 128 (three shapes) in bf16 and in float32,
+# unet_celebahq64's two, a 4x4 norm of 64 channels (two samples a block),
+# groups of 3, a misaligned address, long inputs (a 64x64 image, the 1-D
+# UNet's rows) and a group wider than a block
+_DESIGN_CASES = [
+    (128, 256, 256, 32, torch.bfloat16, 0, "tma_resident"),
+    (128, 64, 256, 32, torch.bfloat16, 0, "tma_resident"),
+    (128, 16, 256, 32, torch.bfloat16, 0, "tma_resident"),
+    (128, 256, 256, 32, torch.float32, 0, "fused"),
+    (128, 16, 256, 32, torch.float32, 0, "fused"),
+    (8, 256, 384, 32, torch.bfloat16, 0, "tma_resident"),
+    (8, 64, 512, 32, torch.bfloat16, 0, "tma_resident"),
+    (128, 16, 64, 32, torch.bfloat16, 0, "tma_resident"),
+    (8, 256, 96, 32, torch.bfloat16, 0, "tma_resident"),
+    (4, 100, 96, 32, torch.bfloat16, 2, "fused"),
+    (4, 4096, 128, 32, torch.bfloat16, 0, "split"),
+    (16, 1024, 64, 32, torch.bfloat16, 0, "split"),
+    (2, 40, 4096, 1, torch.bfloat16, 0, "split"),
+]
+
+
+@pytest.mark.parametrize("b,n,c,groups,dtype,addr,want", _DESIGN_CASES)
+def test_grad_design_by_shape_and_dtype(b, n, c, groups, dtype, addr, want):
+    """The design chosen by shape and dtype: ``tma_resident`` where the
+    fused design applies in bf16 with 16-byte rows and addresses, ``fused``
+    in float32 or where an address is misaligned, ``split`` for long inputs
+    and groups wider than a block; where ``tma_resident`` is chosen the
+    fused plan is still there for ``fused`` by name; the wrapper's choice
+    on a tensor is the plan's."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    design, plan = _gn.silu_grad_plan(b, n, c, groups, itemsize, addr)
+    assert design == want
+    fused = _gn._fused_plan(n, c, groups, itemsize, addr)
+    assert (fused is not None) == (want != "split")
+    assert (_gn.resident_plan(b, n, c, groups, itemsize, addr) is not None) == (
+        want == "tma_resident")
+    if addr == 0:
+        x = torch.empty((b, n, c), dtype=dtype)
+        assert _gn.groupnorm_grad_design(x, groups) == want
+
+
+# (B, N, C, groups, plan): the CIFAR-10 UNet's 4x4 norm as planned; groups
+# of 3 with a ragged last stage; two samples an item with a ragged last
+# group of samples, one block over both items (two buffers); a chunk of 6
+# channel vectors (no shuffles), one block over four items (three
+# buffers); eight samples an item
+_EMULATED = [
+    (3, 16, 256, 32, None),
+    (2, 37, 96, 32, None),
+    (3, 16, 64, 32, _gn.ResidentPlan(64, 2, 4, 4, 1, 2)),
+    (2, 21, 96, 32, _gn.ResidentPlan(48, 1, 6, 4, 1, 3)),
+    (9, 3, 32, 8, _gn.ResidentPlan(32, 8, 1, 3, 2, 1)),
+]
+
+
+def _group_tree(v, cg):
+    """Each of 8 neighbouring entries' values replaced by its group's sum,
+    by the kernel's xor tree of shuffles over an entry a lane
+    (``group_sum``), in float32."""
+    for o in (1, 2, 4):
+        if o < cg:
+            v = v + v[np.arange(8) ^ o]
+    return v
+
+
+def _fold_by_shuffles(sda, sdo, mu, m2, gamma, shares, b0, c0, nsb, chb, cg, eps, n):
+    """The fold's backward where the kernel sums a group's entries by
+    shuffles (an entry a lane; here groups of at most 8): from the entries'
+    sums (sda, sdo) to 2 dL/dS2 and dL/dS1 in place, and the samples'
+    shares."""
+    for jj in range(nsb):
+        for cl in range(0, chb, 8):
+            e = slice(jj * chb + cl, jj * chb + cl + 8)
+            mg, qg = _group_tree(mu[e], cg) / cg, _group_tree(m2[e], cg) / cg
+            rstd = 1 / np.sqrt(qg - mg * mg + eps)
+            gam, doff = gamma[cl:cl + 8], sdo[e].copy()
+            da = sda[e] - doff * mg
+            shares[b0 + jj, 0, c0 + cl:c0 + cl + 8] = da * rstd
+            shares[b0 + jj, 1, c0 + cl:c0 + cl + 8] = doff
+            sm, sr = _group_tree(-rstd * gam * doff, cg), _group_tree(da * gam, cg)
+            r3 = rstd ** 3
+            sda[e] = 2 * (-0.5 * r3 * sr / cg) / n
+            sdo[e] = (sm + r3 * mg * sr) / cg / n
+
+
+def _emulate_resident(x, g, ao, gamma, plan, groups, eps, silu):
+    """``gn_silu_bwd_resident_kernel`` and the batch sums written out in
+    numpy: each block's items in turn, each in its buffer (k % bufs), the
+    stage buffers as TMA fills them (boxes of srows rows, zero past N, each
+    padded to 128 bytes), each thread's rows and channels, the
+    partial sums' slots and the order they are added in, the fold's
+    backward by entry index (the groups' sums by a tree of shuffles where a
+    group is at most 8 channels, else in order), dx over g's stage and the
+    TMA store of each stage (clipped at N and B).  float32 throughout (the
+    kernel's bf16 inputs are exact in float32, its dx rounded to bf16
+    after)."""
+    x, g = x.float().numpy(), g.float().numpy()
+    ao, gamma = ao.numpy(), gamma.numpy()
+    b, n, c = x.shape
+    cg = c // groups
+    cvb, rows = plan.cvb, plan.thread_rows
+    per, nst = cvb * rows, plan.spb * plan.stages
+    sbe = -(-plan.srows * plan.chb * 2 // 128) * 128 // 2
+    shfl = 32 % cvb == 0 and per % 32 == 0
+    dx = np.full_like(x, np.nan)
+    shares = np.full((b, 2, c), np.nan, dtype=np.float32)
+    threads = _resident_threads(plan)
+    chunks, items = c // plan.chb, plan.items(b, c)
+    for blk in range(plan.grid):
+        smem = np.full(plan.bufs * 2 * nst * sbe, np.nan, dtype=np.float32)
+        for k, it in enumerate(range(blk, items, plan.grid)):
+            b0, c0 = it // chunks * plan.spb, it % chunks * plan.chb
+            nsb = min(plan.spb, b - b0)
+            u = k % plan.bufs
+            xs = smem[u * 2 * nst * sbe:][:nst * sbe]  # views: the buffer's x, then g, stages
+            gs = smem[(u * 2 + 1) * nst * sbe:][:nst * sbe]
+            for s in range(nsb * plan.stages):
+                j, r0 = divmod(s, plan.stages)
+                r0 *= plan.srows
+                for buf, src in ((xs, x), (gs, g)):
+                    box = np.zeros((plan.srows, plan.chb), dtype=np.float32)
+                    part = src[b0 + j, r0:r0 + plan.srows, c0:c0 + plan.chb]
+                    box[:len(part)] = part
+                    buf[s * sbe:s * sbe + box.size] = box.ravel()
+
+            def at(j, r, tx):
+                return ((j * plan.stages + r // plan.srows) * sbe + r % plan.srows * plan.chb
+                        + tx * 8)
+
+            def thread_rows(j, ty, q):
+                r = _first_row(q * plan.srows, ty, rows)
+                return range(r, min(n, (q + 1) * plan.srows), rows)
+
+            partial = np.zeros((_gn._RESIDENT_CONSUMERS, 16), dtype=np.float32)
+            coef = {}
+            for t, j, ty, tx in threads:
+                if j >= nsb:
+                    continue
+                ch = slice(c0 + tx * 8, c0 + tx * 8 + 8)
+                a, off = ao[0, b0 + j, ch], ao[1, b0 + j, ch]
+                coef[t] = (a, off)
+                for q in range(plan.stages):
+                    for r in thread_rows(j, ty, q):
+                        xf, gf = xs[at(j, r, tx):][:8], gs[at(j, r, tx):][:8]
+                        if silu:
+                            p_ = xf * a + off
+                            s_ = 1 / (1 + np.exp(-p_))
+                            gf = gf * s_ * (1 + p_ * (1 - s_))
+                        partial[t, 8:] += gf
+                        partial[t, :8] += gf * xf
+            if shfl:  # lanes of one channel vector meet in their warp
+                red = np.zeros((_gn._RESIDENT_CONSUMERS // 32 * cvb, 16), dtype=np.float32)
+                for t in range(_gn._RESIDENT_CONSUMERS):
+                    red[t // 32 * cvb + t % 32 % cvb] += partial[t]
+                slots = [[jj * (per // 32) * cvb + w * cvb for w in range(per // 32)]
+                         for jj in range(nsb)]
+            else:
+                red = partial
+                slots = [[jj * per + y * cvb for y in range(rows)] for jj in range(nsb)]
+            m = nsb * plan.chb
+            sda, sdo = np.zeros(m, np.float32), np.zeros(m, np.float32)
+            mu, m2 = np.zeros(m, np.float32), np.zeros(m, np.float32)
+            for i in range(m):
+                jj, cc = divmod(i, plan.chb)
+                for slot in slots[jj]:
+                    sda[i] += red[slot + cc // 8, cc % 8]
+                    sdo[i] += red[slot + cc // 8, 8 + cc % 8]
+                mu[i], m2[i] = ao[2, b0 + jj, c0 + cc], ao[3, b0 + jj, c0 + cc]
+            if 8 % cg == 0:  # the groups' sums by shuffles
+                _fold_by_shuffles(sda, sdo, mu, m2, gamma[c0:c0 + plan.chb], shares, b0, c0,
+                                 nsb, plan.chb, cg, eps, n)
+            else:  # an entry a thread, the groups in shared memory
+                tm, tr = np.zeros(m, np.float32), np.zeros(m, np.float32)
+                for i in range(m):
+                    jj, cc = divmod(i, plan.chb)
+                    gi = i - cc + cc // cg * cg
+                    mg, qg = mu[gi:gi + cg].mean(), m2[gi:gi + cg].mean()
+                    rstd = 1 / np.sqrt(qg - mg * mg + eps)
+                    gam = gamma[c0 + cc]
+                    doff, da = sdo[i], sda[i] - sdo[i] * mg
+                    shares[b0 + jj, 0, c0 + cc], shares[b0 + jj, 1, c0 + cc] = da * rstd, doff
+                    tm[i], tr[i] = -rstd * gam * doff, da * gam
+                for i in range(m):
+                    cc = i % plan.chb
+                    gi = i - cc + cc // cg * cg
+                    mg, qg = mu[gi:gi + cg].mean(), m2[gi:gi + cg].mean()
+                    rstd = 1 / np.sqrt(qg - mg * mg + eps)
+                    r3 = rstd ** 3
+                    sr = tr[gi:gi + cg].sum()
+                    dmu = (tm[gi:gi + cg].sum() + r3 * mg * sr) / cg
+                    sda[i], sdo[i] = 2 * (-0.5 * r3 * sr / cg) / n, dmu / n
+            for q in range(plan.stages):
+                for t, j, ty, tx in threads:
+                    if j >= nsb:
+                        continue
+                    a, off = coef[t]
+                    k = slice(j * plan.chb + tx * 8, j * plan.chb + tx * 8 + 8)
+                    for r in thread_rows(j, ty, q):
+                        xf, gf = xs[at(j, r, tx):][:8], gs[at(j, r, tx):][:8].copy()
+                        if silu:
+                            p_ = xf * a + off
+                            s_ = 1 / (1 + np.exp(-p_))
+                            gf = gf * s_ * (1 + p_ * (1 - s_))
+                        gs[at(j, r, tx):at(j, r, tx) + 8] = gf * a + (xf * sda[k] + sdo[k])
+                for jj in range(nsb):  # the stage's TMA store, clipped at N
+                    s = jj * plan.stages + q
+                    box = gs[s * sbe:s * sbe + plan.srows * plan.chb].reshape(plan.srows, -1)
+                    r0 = q * plan.srows
+                    dx[b0 + jj, r0:r0 + plan.srows, c0:c0 + plan.chb] = box[:max(0, n - r0)]
+    return dx, shares[:, 0].sum(0), shares[:, 1].sum(0)
+
+
+@pytest.mark.parametrize("silu", [True, False])
+@pytest.mark.parametrize("b,n,c,groups,plan", _EMULATED)
+def test_resident_kernel_arithmetic_emulated(b, n, c, groups, plan, silu):
+    """The ``tma_resident`` kernel's index arithmetic and reduction order,
+    emulated in numpy on bf16 inputs, against the plain backward: every dx
+    element written, dx within bf16 1e-2 and dgamma, dbeta within float32
+    1e-5 of the largest element (sums in another order)."""
+    if plan is None:
+        design, plan = _gn.silu_grad_plan(b, n, c, groups, 2, 0)
+        assert design == "tma_resident"
+    _check_resident_plan(b, n, c, groups, plan)
+    x, gamma, beta, g = _inputs((b, n, c), torch.bfloat16, seed=b + n + c)
+    ao = _gn.gn_fold_plain(_gn.moments_plain(x), gamma, beta, groups, 1e-5)
+    want = group_norm_silu_grad_plain(x, gamma, beta, g, groups, 1e-5, silu, ao=ao)
+    got = _emulate_resident(x, g, ao, gamma, plan, groups, 1e-5, silu)
+    assert not np.isnan(got[0]).any()
+    _close(torch.from_numpy(got[0]).to(torch.bfloat16), want[0], BF16_TOL, "dx")
+    _close(torch.from_numpy(got[1]), want[1], F32_TOL, "dgamma")
+    _close(torch.from_numpy(got[2]), want[2], F32_TOL, "dbeta")
+
+
 # ------------------------------------------------------------- on the card
 
 # (shape, groups): the CIFAR-10 UNet's attention norms at batch 128,
@@ -202,7 +493,8 @@ _CARD_SHAPES = [((128, 256, 256), 32), ((128, 64, 256), 32), ((128, 16, 256), 32
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_card_groupnorm_grad_matches_plain(dtype, card):  # noqa: F811
-    """At every shape and design that takes it, SiLU on and off: the kernels
+    """At every shape and design that takes it (``tma_resident`` at the bf16
+    attention norms, with ``fused`` by name beside it), SiLU on and off: the kernels
     within bf16 1e-2 / float32 1e-4 of the plain backward's largest element
     (the chip check's tolerances), the same bits twice, one count a call;
     the fused forward's statistics against the plain fold; ``recompute``
@@ -218,7 +510,10 @@ def test_card_groupnorm_grad_matches_plain(dtype, card):  # noqa: F811
             ao_ref = _gn.gn_fold_plain(_gn.moments_plain(x), gamma, beta, groups, 1e-5)
             torch.testing.assert_close(ao, ao_ref, rtol=1e-4, atol=1e-4)
             ref = group_norm_silu_grad_plain(x, gamma, beta, g, groups, 1e-5, silu, ao=ao)
-            designs = {_gn.groupnorm_grad_design(x, groups), "split"}
+            chosen = _gn.groupnorm_grad_design(x, groups)
+            # the selected design, fused by name where tma_resident
+            # is selected, and split
+            designs = {chosen, "split"} | ({"fused"} if chosen == "tma_resident" else set())
             tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
             for design in sorted(designs):
                 before = group_norm_silu_grad.launches
@@ -239,7 +534,8 @@ def test_card_groupnorm_grad_matches_plain(dtype, card):  # noqa: F811
 @pytest.mark.gpu
 def test_card_groupnorm_autograd_uses_the_kernels(card):  # noqa: F811
     """Under autograd the op launches the forward and the backward kernels
-    once each, no plain version."""
+    once each, no plain version; the backward is ``tma_resident``'s (the
+    same bits as that design by name)."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     x = torch.randn(16, 64, 256, device="cuda", generator=gen).to(torch.bfloat16)
     g = torch.randn(x.shape, device="cuda", generator=gen).to(torch.bfloat16)
@@ -252,5 +548,50 @@ def test_card_groupnorm_autograd_uses_the_kernels(card):  # noqa: F811
     assert (_gn.group_norm_silu.launches - before[0],
             group_norm_silu_grad.launches - before[1]) == (1, 1)
     _, ao = _gn._launch(x, gamma.detach(), beta.detach(), 32, 1e-5, False, want_ao=True)
-    want = group_norm_silu_grad(x, gamma.detach(), beta.detach(), g, 32, 1e-5, False, ao=ao)
+    assert _gn.groupnorm_grad_design(x, 32) == "tma_resident"
+    want = group_norm_silu_grad(x, gamma.detach(), beta.detach(), g, 32, 1e-5, False, ao=ao,
+                                design="tma_resident")
     assert torch.equal(leaf.grad, want[0]) and torch.equal(gamma.grad, want[1])
+    assert torch.equal(beta.grad, want[2])
+
+
+@pytest.mark.gpu
+def test_card_resident_entry_point_refuses_overruns(card):  # noqa: F811
+    """The C entry point of ``tma_resident`` refuses a plan whose tiling
+    would overrun: stages that do not reach N, a chunk of no whole groups,
+    more samples than a block's threads take, a misaligned dx, more blocks
+    than items, one buffer for several items, four buffers; a grid of fewer
+    blocks than items, with two buffers or three, gives the plan's bits."""
+    from probabilisticdeepdiffusionmodels_torch.ops import _build
+
+    b, n, c = 4, 64, 256
+    x = torch.randn(b, n, c, device="cuda").to(torch.bfloat16)
+    g = torch.randn_like(x)
+    gamma, beta = torch.ones(c, device="cuda"), torch.zeros(c, device="cuda")
+    _, ao = _gn._launch(x, gamma, beta, 32, 1e-5, True, want_ao=True)
+    f32 = dict(dtype=torch.float32, device="cuda")
+    shares = torch.empty(b, 2, c, **f32)
+    dgamma, dbeta = torch.empty(c, **f32), torch.empty(c, **f32)
+    spare = torch.empty(x.numel() + 8, dtype=x.dtype, device="cuda")
+
+    def launch(dx, chb, spb, srows, stages, grid, bufs):
+        _build.launch("pddm_group_norm_silu_grad_resident", x.data_ptr(), g.data_ptr(),
+                      ao.data_ptr(), gamma.data_ptr(), dx, shares.data_ptr(), dgamma.data_ptr(),
+                      dbeta.data_ptr(), b, n, c, 32, 1e-5, 1, chb, spb, srows, stages, grid, bufs)
+
+    plan = _gn.resident_plan(b, n, c, 32, 2, x.data_ptr())
+    assert plan.items(b, c) == plan.grid == 16 and plan.bufs == 1
+    launch(spare.data_ptr(), *plan)  # the plan's own geometry launches
+    want = spare[:x.numel()].clone()
+    for grid, bufs in ((5, 2), (5, 3), (1, 2), (1, 3)):
+        spare.zero_()
+        launch(spare.data_ptr(), *plan._replace(grid=grid, bufs=bufs))
+        assert torch.equal(spare[:x.numel()], want), (grid, bufs)
+    bad = [plan._replace(srows=plan.srows - 1), plan._replace(chb=60), plan._replace(spb=16),
+           plan._replace(grid=17), plan._replace(grid=8, bufs=1), plan._replace(grid=8, bufs=4)]
+    for geometry in bad:
+        with pytest.raises(RuntimeError):
+            launch(spare.data_ptr(), *geometry)
+    with pytest.raises(RuntimeError):
+        launch(spare.data_ptr() + 2, *plan)
+    torch.cuda.synchronize()
