@@ -10,8 +10,10 @@ and the later steps carry that round-off.  This script shows what sets that
 distance: for each seed it runs the gate's two sides with every gradient
 on the kernels the shapes select (attention's: ``wgmma``; GroupNorm's:
 ``tma_resident``, its batch sums a programmatic dependent launch inside the
-graph), with the conv's, attention's and GroupNorm's in the designs before
-them by name (``wgmma_sync_epilogue``, ``two_pass``, ``fused``), and with
+graph; attention's forward ``wgmma``, whose log-sum-exp the backward reads),
+with the conv's, attention's and GroupNorm's, and attention's forward, in
+the designs before them by name (``wgmma_sync_epilogue``, ``two_pass``,
+``fused``, ``mma_ring``), and with
 attention's and GroupNorm's as ``recompute`` by
 name (autograd through the plain versions), in turns, and prints one JSON line a
 run with the largest differences by parameter name.  A gradient that is

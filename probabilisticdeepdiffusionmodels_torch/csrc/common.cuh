@@ -121,4 +121,19 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
   return err;
 }
 
+// The SM count of the current device, asked once: the grid of
+// a persistent kernel, one block an SM or a few.
+inline cudaError_t sm_count(int* sms) {
+  static int count = 0;
+  if (count == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if ((err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return err;
+  }
+  *sms = count;
+  return cudaSuccess;
+}
+
 }  // namespace pddm

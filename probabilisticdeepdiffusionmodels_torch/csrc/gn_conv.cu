@@ -626,14 +626,10 @@ cudaError_t launch_wgmma(const void* x, const void* a, const void* off, const vo
   if ((err = encode_bf16_map(&xmap, x, 4, xdims, xbox)) != cudaSuccess) return err;
   if ((err = allow_smem(conv_wgmma_kernel<NWG, BN>, smem)) != cudaSuccess) return err;
   // the card's SM count and the blocks of this size an SM holds, asked once
-  static int sms = 0, per_sm = 0;
+  int sms = 0;
+  static int per_sm = 0;
   static size_t per_sm_smem = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-      return err;
-  }
+  if ((err = sm_count(&sms)) != cudaSuccess) return err;
   if (per_sm_smem != smem) {
     if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
              &per_sm, conv_wgmma_kernel<NWG, BN>, 128 * (NWG + 1), smem)) != cudaSuccess)

@@ -533,14 +533,10 @@ cudaError_t launch_dgrad_wgmma(const void* x, const void* a, const void* off, co
   if (err != cudaSuccess) return err;
   if ((err = encode_bf16_map(&gmap, gr, 4, gdims, gbox)) != cudaSuccess) return err;
   if ((err = allow_smem(dgrad_wgmma_kernel<NWG, BN, STORE_H>, smem)) != cudaSuccess) return err;
-  static int sms = 0, per_sm = 0;
+  int sms = 0;
+  static int per_sm = 0;
   static size_t per_sm_smem = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-      return err;
-  }
+  if ((err = sm_count(&sms)) != cudaSuccess) return err;
   if (per_sm_smem != smem) {
     if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
              &per_sm, dgrad_wgmma_kernel<NWG, BN, STORE_H>, 128 * (NWG + 1), smem)) !=
@@ -992,13 +988,8 @@ cudaError_t launch_dgrad_pingpong(const void* x, const void* a, const void* off,
   // no h where the weight product does not run: the map is never read
   if ((err = encode_bf16_map(&hmap, STORE_H ? h : dx, 4, xdims, xbox)) != cudaSuccess) return err;
   if ((err = allow_smem(dgrad_pingpong_kernel<MT, BN, STORE_H>, smem)) != cudaSuccess) return err;
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-      return err;
-  }
+  int sms = 0;
+  if ((err = sm_count(&sms)) != cudaSuccess) return err;
   // one block an SM (its registers allow no second)
   const long ntm = n_tiles(g), ntn = (g.Cin + BN - 1) / BN;
   long gx = sms / ntn;

@@ -34,8 +34,8 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C entry point -> argtypes; every entry point returns cudaGetLastError().
 _SIGNATURES = {
-    # qkv, out, lse, B, T, heads, ch, scale, is_bf16, stream
-    "pddm_qkv_attention": [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P],
+    # qkv, out, lse, B, T, heads, ch, scale, is_bf16, design, stream
+    "pddm_qkv_attention": [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P],
     # qkv, dout, lse, delta, dqkv, B, T, heads, ch, scale, is_bf16, design, stream
     "pddm_qkv_attention_grad": [*[_P] * 5, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P],
     # x, gamma, beta, out, ao, B, N, C, groups, eps, silu, is_bf16, V, cvb, stream

@@ -9,20 +9,45 @@ before the PV product, which accumulates in float32.
 Kernel (``csrc/attention.cu``) — replaces ``qkv_attention_pallas`` /
 ``_attn_kernel`` in ``probabilisticdeepdiffusionmodels_tpu/ops/attention_pallas.py``.
 On the H100 it is bound by bytes: each site reads the (B, T, 3C) input once
-and writes (B, T, C), and at T <= 1024, ch <= 128 the two products are far
-below the bf16 ridge.  The design keeps everything between the read and the
-write on chip.  bf16 (design ``mma_ring``, every head width that is a
-multiple of 16 up to 128): one block of up to 8 warps covers up to 128
-query rows of one (batch, head); q, k and v rows are copied straight from
-the fused tensor with 16-byte ``cp.async`` into padded rows, K and V pass
-through a ring of up to 4 stages of 64 keys (the whole head at T <= 256),
-q and k are scaled in shared memory as they land, fragments come from
-``ldmatrix`` (``.trans`` for V), both products are ``mma.sync`` m16n8k16
-with the score tile in registers and an online softmax in float32, and the
-output leaves in 16-byte stores.  float32 (design ``scalar_f32``): one
-block per (batch, head, 64-query tile) with scalar FMAs.  Where autograd
-records the op, the forward also writes each row's log-sum-exp, (B, H, T)
-float32.
+and writes (B, T, C).  At the CIFAR-10 UNet's sites (4 heads of 64, batch
+128) that is 20.0 us at T = 256, 5.0 us at T = 64 and 1.25 us at T = 16 at
+3.35 TB/s, against 8.7 us of bf16 products and 33.5 M exponentials at
+T = 256: the products and the softmax have to hide under the copies.
+``attention_design`` picks by shape, and ``design=`` names one:
+
+* ``wgmma`` (bf16, head widths 16..64, 64 <= T <= 256, heads x ch >= 64,
+  at least half as many (head, sample) items as the card has SMs: every
+  CIFAR-10 site at batch 128 but the T = 16 one): a persistent block an SM
+  walks over the (head, sample) items.  A landing warpgroup copies each item's
+  K, Q and V by TMA (64-token boxes of the fused tensor) into a ring of
+  stages, one item ahead or more, and scales k in shared memory as it
+  lands; two consumer warpgroups take the 64-query tiles in turn.  A
+  tile's whole key row (T <= 256) lies in one accumulator set of
+  S = Qs Ks^T (one ``wgmma`` m64nTk16 a k-step, q scaled in registers as
+  the A operand, K from shared memory), so the softmax is exact in one
+  pass, with ``ex2`` and the scale folded in; P is rounded to bf16 in
+  registers as the A operand of O = P V (``wgmma``, V the transposed B
+  operand), key tile by key tile, each tile's products issued behind its
+  exponentials so that the next tile's exponentials run under them.  The
+  two warpgroups run free (taking turns to issue their products,
+  FlashAttention-3's ping-pong, measured slower).  O / l leaves through
+  shared memory by TMA.
+* ``mma_ring`` (every other bf16 shape: T = 16, below ``wgmma``'s 64
+  rows; heads of 80..128, whose score row and output do not fit the
+  consumers' registers beside each other; T > 256, whose key row does not
+  fit one accumulator set; fewer items than half the SMs, where
+  ``wgmma``'s grid of one block an item leaves most SMs idle and this
+  design's block per 128 query rows fills more of the card; and by name
+  wherever ``wgmma`` runs): one block
+  of up to 8 warps covers up to 128 query rows of one (batch, head); q, k
+  and v rows are copied with 16-byte ``cp.async``, K and V pass through a
+  ring of up to 4 stages of 64 keys, fragments come from ``ldmatrix``, both
+  products are ``mma.sync`` m16n8k16 with an online softmax in float32.
+* ``scalar_f32`` (float32): one block per (batch, head, 64-query tile) with
+  scalar FMAs.
+
+Where autograd records the op, the forward also writes each row's
+log-sum-exp, (B, H, T) float32, for the backward.
 
 Backward (``qkv_attention_grad``, ``csrc/attention_grad.cu``): the Pallas
 kernel has no VJP; JAX differentiates the op through ``qkv_attention_xla``.
@@ -49,6 +74,7 @@ rounding points.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -111,29 +137,103 @@ def _check(qkv: torch.Tensor, num_heads: int) -> None:
         raise ValueError("qkv_attention kernel: bf16 qkv must be 16-byte aligned")
 
 
-def qkv_attention(qkv: torch.Tensor, num_heads: int = 1) -> torch.Tensor:
+def qkv_attention(qkv: torch.Tensor, num_heads: int = 1,
+                  design: Optional[str] = None) -> torch.Tensor:
     """(B, T, 3C) -> (B, T, C).  A CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel or raises.  Differentiable in qkv, on the
-    card by ``qkv_attention_grad``'s kernels, in reverse mode only (a
-    forward-mode tangent raises, ``autograd.forbid_forward_mode``)."""
+    CUDA tensor launches the kernel (one count a call) or raises.
+    ``design``: None for ``attention_design``'s choice, or a design by name
+    (``mma_ring`` or ``wgmma`` in bf16, ``scalar_f32`` in float32; one
+    that does not take the dtype or shape raises before any launch).
+    Differentiable in qkv, on the card by ``qkv_attention_grad``'s kernels,
+    in reverse mode only (a forward-mode tangent raises,
+    ``autograd.forbid_forward_mode``)."""
     if qkv.device.type == "cpu":
         return qkv_attention_plain(qkv, num_heads)
     forbid_forward_mode("qkv_attention", qkv)
     _check(qkv, num_heads)
+    design = _forward_design(qkv, num_heads, design)
     if torch.is_grad_enabled() and qkv.requires_grad:
-        return _QkvAttention.apply(qkv, num_heads)
-    return _launch(qkv, num_heads)
+        return _QkvAttention.apply(qkv, num_heads, design)
+    return _launch(qkv, num_heads, design)
 
 
-def attention_design(qkv: torch.Tensor) -> str:
-    """The kernel design that a call on ``qkv`` runs."""
-    return "mma_ring" if qkv.dtype == torch.bfloat16 else "scalar_f32"
-
-
-# the backward's kernel designs and the C entry point's numbers for them
+# the forward's kernel designs and the C entry point's numbers for them
+DESIGNS = {"mma_ring": 0, "scalar_f32": 0, "wgmma": 1}
+# the backward's
 GRAD_DESIGNS = {"two_pass": 0, "scalar_f32": 0, "wgmma": 1}
-_WGMMA_ROWS = 64          # the wgmma design's tiles: 64 queries or keys
-_WGMMA_LDQ = _WGMMA_ROWS + 8  # floats a row of its dQ sums
+_WGMMA_ROWS = 64          # the wgmma designs' tiles: 64 queries or keys
+_WGMMA_LDQ = _WGMMA_ROWS + 8  # floats a row of the backward's dQ sums
+_FWD_MAX_STAGES = 4       # the wgmma forward's ring: heads in flight
+_H100_SMS = 132           # the SMs of an H100 SXM: the grid fill of a tensor not on a card
+
+
+def _fwd_wgmma_smem(t: int, stages: int) -> int:
+    """Shared memory of the wgmma forward at T = ``t`` with ``stages``
+    stages (``FwdLayout``): each stage one head's Q, K and V (64-token
+    tiles of 128-byte rows), four mbarriers a stage of the most, and the
+    slack that aligns the base to 1,024 bytes."""
+    nt = -(-t // _WGMMA_ROWS)
+    return 1024 + stages * 3 * nt * _WGMMA_ROWS * 128 + 4 * _FWD_MAX_STAGES * 8
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_wgmma_stages(t: int) -> int:
+    """The wgmma forward's stages at T = ``t`` (``fwd_stages``): as many as
+    fit, at most 4, 0 where two do not; even at one key tile, where the two
+    warpgroups take alternate heads, each in its own stages."""
+    nt = -(-t // _WGMMA_ROWS)
+    for stages in range(_FWD_MAX_STAGES, 1, -1):
+        if (nt > 1 or stages % 2 == 0) and _fwd_wgmma_smem(t, stages) <= _SMEM_BYTES:
+            return stages
+    return 0
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_wgmma_takes(t: int, num_heads: int, ch: int) -> bool:
+    """Whether the wgmma forward takes a bf16 head of width ``ch`` over
+    ``t`` tokens: 64 <= T (wgmma's 64 rows) <= 256 (a whole key row in one
+    accumulator set), ch a multiple of 16 up to 64, heads x ch >= 64."""
+    return (ch <= 64 and ch % 16 == 0 and _WGMMA_ROWS <= t <= 4 * _WGMMA_ROWS
+            and num_heads * ch >= _WGMMA_ROWS and _fwd_wgmma_stages(t) > 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    """The SMs of ``device``'s card; an H100 SXM's for a tensor not on one."""
+    if device.type != "cuda":
+        return _H100_SMS
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def attention_design(qkv: torch.Tensor, num_heads: int = 1) -> str:
+    """The forward's design on ``qkv`` split into ``num_heads`` heads:
+    ``wgmma`` where it takes the bf16 shape (``_fwd_wgmma_takes``) and its
+    grid, one block an SM and at most one an item, covers at least half the
+    card's SMs (at T = 256, heads of 64, on an H100 it overtakes
+    ``mma_ring`` between 64 and 96 items, ``time_attention.py``),
+    ``mma_ring`` for every other bf16 shape, ``scalar_f32`` for float32.  ``mma_ring`` also runs by name wherever
+    ``wgmma`` does, and ``wgmma`` by name wherever it takes the shape."""
+    if qkv.dtype != torch.bfloat16:
+        return "scalar_f32"
+    b, t, c3 = qkv.shape
+    ch = c3 // (3 * num_heads)
+    if _fwd_wgmma_takes(t, num_heads, ch) and 2 * b * num_heads >= _sm_count(qkv.device):
+        return "wgmma"
+    return "mma_ring"
+
+
+def _forward_design(qkv: torch.Tensor, num_heads: int, design: Optional[str]) -> str:
+    """``design``, or ``attention_design``'s choice where None; raise where
+    the name is unknown or the design does not take the dtype or shape."""
+    chosen = attention_design(qkv, num_heads) if design is None else design
+    bf16 = qkv.dtype == torch.bfloat16
+    if chosen not in DESIGNS or (chosen == "scalar_f32") == bf16:
+        raise ValueError(f"the qkv_attention design {chosen!r} does not take {qkv.dtype}")
+    b, t, c3 = qkv.shape
+    if chosen == "wgmma" and not _fwd_wgmma_takes(t, num_heads, c3 // (3 * num_heads)):
+        raise ValueError(f"the qkv_attention design {chosen!r} does not take "
+                         f"{tuple(qkv.shape)} in {num_heads} heads")
+    return chosen
 
 
 def _wgmma_smem(t: int) -> int:
@@ -166,16 +266,16 @@ def attention_grad_design(qkv: torch.Tensor, num_heads: int = 1) -> str:
     return "two_pass"
 
 
-def _launch(qkv, num_heads, lse=None):
-    """The forward kernel; ``lse``: a (B, H, T) float32 tensor for each
-    row's log-sum-exp, or None (nothing stored)."""
+def _launch(qkv, num_heads, design, lse=None):
+    """The forward kernel of ``design`` (checked); ``lse``: a (B, H, T)
+    float32 tensor for each row's log-sum-exp, or None (nothing stored)."""
     b, t, c3 = qkv.shape
     ch = c3 // (3 * num_heads)
     out = torch.empty((b, t, c3 // 3), dtype=qkv.dtype, device=qkv.device)
     scale = 1.0 / math.sqrt(math.sqrt(ch))
     _build.launch("pddm_qkv_attention", qkv.data_ptr(), out.data_ptr(),
                   None if lse is None else lse.data_ptr(), b, t, num_heads, ch, scale,
-                  int(qkv.dtype == torch.bfloat16))
+                  int(qkv.dtype == torch.bfloat16), DESIGNS[design])
     qkv_attention.launches += 1
     return out
 
@@ -183,13 +283,19 @@ def _launch(qkv, num_heads, lse=None):
 qkv_attention.launches = 0
 
 
-def attention_forward(qkv: torch.Tensor, num_heads: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The forward kernel on a checked CUDA ``qkv`` (one count), returning
-    the output and each row's log-sum-exp (B, H, T) float32: what the
-    backward reads."""
+def attention_forward(qkv: torch.Tensor, num_heads: int = 1,
+                      design: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel on a checked CUDA ``qkv`` (one count), in
+    ``design`` (None: ``attention_design``'s choice), returning the output
+    and each row's log-sum-exp (B, H, T) float32: what the backward reads."""
+    return _launch_with_lse(qkv, num_heads, _forward_design(qkv, num_heads, design))
+
+
+def _launch_with_lse(qkv, num_heads, design):
+    """``_launch`` of a resolved ``design`` with each row's log-sum-exp."""
     b, t, _ = qkv.shape
     lse = torch.empty((b, num_heads, t), dtype=torch.float32, device=qkv.device)
-    return _launch(qkv, num_heads, lse), lse
+    return _launch(qkv, num_heads, design, lse), lse
 
 
 class _QkvAttention(torch.autograd.Function):
@@ -199,11 +305,15 @@ class _QkvAttention(torch.autograd.Function):
     both."""
 
     @staticmethod
-    def forward(ctx, qkv, num_heads):
+    def forward(ctx, qkv, num_heads, design=None):
+        """``design``: as ``qkv_attention`` resolved and checked it, or None
+        for ``attention_forward`` to resolve."""
         if qkv.device.type == "cpu":
             out, lse = qkv_attention_plain(qkv, num_heads), None
-        else:
+        elif design is None:
             out, lse = attention_forward(qkv, num_heads)
+        else:
+            out, lse = _launch_with_lse(qkv, num_heads, design)
         ctx.num_heads = num_heads
         ctx.save_for_backward(qkv, lse)
         return out
@@ -211,7 +321,7 @@ class _QkvAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         qkv, lse = ctx.saved_tensors
-        return qkv_attention_grad(qkv, g, ctx.num_heads, lse=lse), None
+        return qkv_attention_grad(qkv, g, ctx.num_heads, lse=lse), None, None
 
 
 def qkv_attention_grad_plain(qkv: torch.Tensor, g: torch.Tensor,
