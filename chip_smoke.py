@@ -13,8 +13,12 @@
    library call that computes the same function (for ``gn_affine``
    ``torch.var_mean`` over the spatial axis, the nearest single call), beside
    the least time the card needs for the work, and names the kernel design
-   that ran at that site; ``gn_affine`` and GroupNorm are run twice and the
-   two results compared bit for bit, GroupNorm is timed in both of its
+   that ran at that site (then the same forward through the spatially
+   sharded path on a world of one rank: the folding conv at every conv site
+   and fold + apply at every GroupNorm, each against its plain version, the
+   same bits twice and as ``gn_fold`` + the consumer fed its (a, off), timed
+   device-only beside both, by name); ``gn_affine`` and GroupNorm are run
+   twice and the two results compared bit for bit, GroupNorm is timed in both of its
    designs, ``gn_affine`` in both of its (``cluster``, ``workspace``),
    attention, where ``wgmma`` takes the shape, in both bf16 designs by
    name, ``wgmma`` and ``mma_ring``, whichever the shape selects (each held
@@ -221,10 +225,14 @@
    bf16 steps with their launches, 64-channel conv slices on ``wgmma``,
    every kernel site of a step against the plain versions), then
    ``unet_celebahq`` at 256x256 with its height over the two ranks: the
-   forward's launches against one process's plus one ``gn_fold`` a norm,
-   every slab site against the plain versions, ``gn_fold`` timed at each,
-   the forward and a 4-step chain against one process, the chain's
-   launches; G. a 2x2 mesh of four ranks against one process.
+   forward's launches against one process's (no ``gn_fold``: a folding conv
+   for each conv, a fold + apply for each GroupNorm), every slab site
+   against the plain versions, each folding consumer timed at its sites
+   beside ``gn_fold`` and the consumer fed its (a, off), by name, one
+   sharded forward's device operations in both designs, the forward and a
+   4-step chain against one process, the chain's launches, one bf16 sharded
+   forward against one process's; G. a 2x2 mesh of four ranks against one
+   process.
 
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Any failure raises and
@@ -273,11 +281,16 @@ PER_FORWARD = {"gn_affine": 61, "gn_silu_conv3x3": 61, "qkv_attention": 15,
 # the fused conv's, attention's and its GroupNorm's
 PER_BACKWARD = {"gn_affine_grad": 61, "gn_silu_conv3x3_grad": 61, "qkv_attention_grad": 15,
                 "group_norm_silu_grad": 15}
-# the kernel that only a spatially sharded forward launches: the fold of the
-# ranks' averaged statistics, once a GroupNorm or gn_affine on a slab
-SLAB_ONLY = ("gn_fold",)
-# the two ops of a slab (rows of an image) and the kernel counter each ticks
-SLAB_OPS = {"gn_affine_slab": "gn_affine", "group_norm_silu_slab": "group_norm_silu"}
+# the kernels that only a spatially sharded forward launches: the consumers
+# that fold the ranks' summed statistics themselves, one a GroupNorm (fold +
+# apply) and one a fused conv on a slab
+SLAB_ONLY = ("gn_fold_apply", "gn_silu_conv3x3_fold")
+# their first design, by name only: the fold alone, whose (a, off) fed the
+# GroupNorm's apply and the conv; no path may launch it
+FOLD_ALONE = "gn_fold"
+# the two ops of a slab (rows of an image) that launch the moments, and the
+# kernel counter each ticks
+SLAB_OPS = {"gn_moments_slab": "gn_affine", "group_norm_silu_slab": "group_norm_silu"}
 
 
 def expected_counts(steps, backward):
@@ -471,8 +484,10 @@ REPLACES = {
     "group_norm_silu_grad": "probabilisticdeepdiffusionmodels_tpu/ops/groupnorm_pallas.py:98",
     "probe_mma": "scripts/probe_mosaic_bf16.py:21",
     # gn_affine's fold, the (B, C)-sized rest, which XLA's partitioner runs
-    # on all-reduced statistics under spatial_sharding
-    "gn_fold": "probabilisticdeepdiffusionmodels_tpu/ops/gn_conv_pallas.py:41",
+    # on all-reduced statistics under spatial_sharding, folded into the
+    # consumers of a slab: GroupNorm's apply and the fused conv
+    "gn_fold_apply": "probabilisticdeepdiffusionmodels_tpu/ops/gn_conv_pallas.py:41",
+    "gn_silu_conv3x3_fold": "probabilisticdeepdiffusionmodels_tpu/ops/gn_conv_pallas.py:41",
 }
 SOURCES = {
     "gn_silu_conv3x3_grad": f"{PKG}/csrc/gn_conv_grad.cu",
@@ -484,7 +499,8 @@ SOURCES = {
     "qkv_attention_grad": f"{PKG}/csrc/attention_grad.cu",
     "group_norm_silu_grad": f"{PKG}/csrc/groupnorm_grad.cu",
     "probe_mma": f"{PKG}/csrc/probe_mma.cu",
-    "gn_fold": f"{PKG}/csrc/groupnorm.cu",
+    "gn_fold_apply": f"{PKG}/csrc/groupnorm.cu",
+    "gn_silu_conv3x3_fold": f"{PKG}/csrc/gn_conv.cu",
 }
 
 
@@ -524,9 +540,10 @@ def sync_time(torch, fn, min_ms=50.0, max_reps=200):
 
 class Ops:
     """The ops as the model modules see them (the forward's four, the
-    slab ops of a spatially sharded forward and the fold they call), with a
-    context manager that swaps them for recorders or for the plain
-    versions, and the kernels' launch counters."""
+    slab ops of a spatially sharded forward and the folding consumers they
+    call), with a context manager that swaps them for recorders or for the
+    plain versions, and the kernels' launch counters (the fold alone's
+    too, which no path may launch)."""
 
     def __init__(self):
         import importlib
@@ -541,10 +558,11 @@ class Ops:
                       (self.unet, "gn_silu_conv3x3"): "gn_silu_conv3x3",
                       (self.unet, "qkv_attention"): "qkv_attention",
                       (self.layers, "group_norm_silu"): "group_norm_silu",
-                      (self.unet, "gn_affine_slab"): "gn_affine_slab",
+                      (self.unet, "gn_moments_slab"): "gn_moments_slab",
+                      (self.unet, "gn_silu_conv3x3_fold"): "gn_silu_conv3x3_fold",
                       (self.layers, "group_norm_silu_slab"): "group_norm_silu_slab",
-                      (gn_conv, "gn_fold"): "gn_fold", (groupnorm, "gn_fold"): "gn_fold"}
-        self.kernels = (*PER_FORWARD, *PER_BACKWARD, *SLAB_ONLY)
+                      (groupnorm, "gn_fold_apply"): "gn_fold_apply"}
+        self.kernels = (*PER_FORWARD, *PER_BACKWARD, *SLAB_ONLY, FOLD_ALONE)
         self.wrappers = {name: getattr(self.ops, name) for name in (*self.kernels, *SLAB_OPS)}
         self.plain = {name: getattr(self.ops, name + "_plain") for name in self.wrappers}
 
@@ -553,10 +571,10 @@ class Ops:
             self.wrappers[name].launches = 0
 
     def counts(self):
-        """Each kernel's launches since ``reset``; the slab-only fold where
-        it launched (no other path launches it)."""
+        """Each kernel's launches since ``reset``; the slab-only kernels and
+        the fold alone where they launched (no other path launches them)."""
         out = {name: self.wrappers[name].launches for name in (*PER_FORWARD, *PER_BACKWARD)}
-        out.update({name: self.wrappers[name].launches for name in SLAB_ONLY
+        out.update({name: self.wrappers[name].launches for name in (*SLAB_ONLY, FOLD_ALONE)
                     if self.wrappers[name].launches})
         return out
 
@@ -588,8 +606,8 @@ class Ops:
             real = self.wrappers[name]
 
             class Recorder:
-                # a wrapper swapped in its own module (gn_fold) counts its
-                # launches on the name it is called by
+                # a wrapper swapped in its own module (gn_fold_apply) counts
+                # its launches on the name it is called by
                 launches = property(lambda self: real.launches,
                                     lambda self, n: setattr(real, "launches", n))
 
@@ -624,14 +642,22 @@ def work(name, args, kwargs):
         b, t, c3 = x.shape
         ch = c3 // (3 * heads)
         return x.numel() * s * 4 / 3, 4.0 * b * heads * t * t * ch, dtype
-    if name == "gn_fold":
-        # the (2, B, C) moments, gamma and beta and the conditioning in,
-        # (4, B, C) out; about 12 float32 operations a (sample, channel)
+    if name == "gn_silu_conv3x3_fold":
+        # the conv's bytes and products, with the (2, B, Cin) moments, gamma,
+        # beta and the conditioning read in place of (a, off)
+        _, mom, _, _, _, _, _, w, _ = args
+        b, h, wd, cin = x.shape
+        cout = w.shape[2]
         conds = [t for t in (kwargs.get("emb"), *(kwargs.get("film") or ())) if t is not None]
-        _, b, c = x.shape
-        nbytes = (2 * b * c * 4 + 2 * c * 4 + sum(t.numel() * t.element_size() for t in conds)
-                  + 4 * b * c * 4)
-        return nbytes, 12.0 * b * c, "float32"
+        nbytes = (x.numel() * s + mom.numel() * 4 + 2 * cin * 4
+                  + sum(t.numel() * t.element_size() for t in conds) + w.numel() * s
+                  + cout * 4 + b * h * wd * cout * s)
+        return nbytes, 2.0 * b * h * wd * 9 * cin * cout, dtype
+    if name == "gn_fold_apply":
+        # x in, y out, the (2, B, C) moments and gamma/beta in; ~8 flops an
+        # element (the fold's B x C work is a few hundredths of that)
+        b, c = x.shape[0], x.shape[-1]
+        return 2 * x.numel() * s + 2 * b * c * 4 + 2 * c * 4, 8.0 * x.numel(), dtype
     if name == "gn_affine":
         # x in, (a, off) out, gamma/beta and the conditioning in; a sum, a
         # square and an add per element.  The flops run outside the tensor
@@ -651,10 +677,15 @@ def design(ops, name, args):
     x = args[0]
     if name == "gn_silu_conv3x3":
         return ops.ops.conv_design(x, args[3].to(x.dtype).contiguous())
+    if name == "gn_silu_conv3x3_fold":
+        return ops.ops.conv_design(x, args[7].to(x.dtype).contiguous(), args[5]) + " (folding)"
     if name == "qkv_attention":
         return ops.ops.attention_design(x, args[1])
-    if name == "gn_fold":
-        return "one block a sample"
+    if name == "gn_fold_apply":
+        gn = ops.ops.groupnorm
+        b, n, c = gn._shape(x)
+        plan = gn.moments_plan(b, n, c, x.element_size(), x.data_ptr())
+        return f"fold + apply v{plan.v} cvb{plan.cvb} splits{plan.splits}"
     if name in ("gn_affine", *SLAB_OPS):
         gn = ops.ops.groupnorm
         b, n, c = gn._shape(x)
@@ -662,9 +693,9 @@ def design(ops, name, args):
         plan = gn.affine_plan(b, n, c, groups, x.element_size(), x.data_ptr())
         kind = (f"{gn.affine_design(x, groups)} v{plan.v} cvb{plan.cvb} splits{plan.splits} "
                 f"{plan.fold}")
-        if name == "gn_affine_slab":
-            return kind + " + gn_fold"
-        return kind + " + gn_fold + apply" if name in SLAB_OPS else kind
+        if name == "gn_moments_slab":
+            return kind + " (moments; folded in the conv)"
+        return kind + " (moments) + fold + apply" if name in SLAB_OPS else kind
     return ops.ops.groupnorm_design(x, args[3])
 
 
@@ -672,8 +703,18 @@ def library_call(torch, F, name, args, kwargs):
     """One PyTorch call computing the same function (the conv alone on the
     pre-activated input for the fused conv), or None."""
     x = args[0]
-    if name == "gn_fold":
-        return None
+    if name == "gn_fold_apply":
+        # the nearest single call: GroupNorm with the slab's own statistics
+        gamma, beta, groups = args[3].to(x.dtype), args[4].to(x.dtype), args[5]
+        xc = x.reshape(x.shape[0], -1, x.shape[-1]).permute(0, 2, 1)
+        return lambda: F.group_norm(xc, groups, gamma, beta, 1e-5)
+    if name == "gn_silu_conv3x3_fold":
+        # the conv alone on the input the kernel activates (as for the conv)
+        from probabilisticdeepdiffusionmodels_torch.ops.groupnorm import gn_fold_plain
+
+        mom, ranks, gamma, beta, groups, eps, w, bias = args[1:]
+        ao = gn_fold_plain(mom / ranks, gamma, beta, groups, eps, **kwargs)
+        args = (x, ao[0], ao[1], w, bias)
     if name == "qkv_attention":
         heads = args[1]
         b, t, c3 = x.shape
@@ -766,7 +807,7 @@ def check_sites(torch, F, ops, calls, per_site, summary=None, only=None, grads_t
         if name == "gn_affine":
             site["mode"] = ("emb" if kw.get("emb") is not None
                             else "film" if kw.get("film") is not None else "plain")
-        if name in ("gn_affine", "group_norm_silu", "gn_fold"):
+        if name in ("gn_affine", "group_norm_silu"):
             # no float atomics: a second run gives the same bits
             with torch.no_grad():
                 again = as_tuple(kernel(*a, **kw))
@@ -867,6 +908,122 @@ def check_sites(torch, F, ops, calls, per_site, summary=None, only=None, grads_t
                     per[kname] = per.get(kname, 0.0) + n * kms
         s.setdefault("site_designs", []).append([site["shape"], site["design"], n])
         s["calls"] += n
+
+
+def fold_fed(ops, name, a, kw):
+    """(gn_fold alone, the consumer fed its (a, off)) of a folding
+    consumer's recorded call: the first design, by name; the ranks' mean
+    moments are formed once, outside both."""
+    gn, gc = ops.ops.groupnorm, ops.ops.gn_conv
+    x, mom, ranks, gamma, beta, groups, eps = a[:7]
+    mean = mom / ranks
+    if name == "gn_fold_apply":
+        ao = gn.gn_fold(mean, gamma, beta, groups, eps)
+        return (lambda: gn.gn_fold(mean, gamma, beta, groups, eps),
+                lambda: gn.apply_affine(x, ao, a[7]))
+    ao = gn.gn_fold(mean, gamma, beta, groups, eps, **kw)
+    w, bias = a[7:]
+    return (lambda: gn.gn_fold(mean, gamma, beta, groups, eps, **kw),
+            lambda: gc.gn_silu_conv3x3(x, ao[0], ao[1], w, bias))
+
+
+def fold_sites(torch, F, ops, calls, per_site, summary, timed=True, launches=20,
+               replays=5):
+    """Each recorded call of a consumer that folds a slab's summed
+    statistics (``gn_fold_apply``, ``gn_silu_conv3x3_fold``) held against
+    its plain version (``hold``'s tolerances), run twice for the same bits,
+    and against its first design by name, gn_fold and the consumer fed
+    gn_fold's (a, off): the same bits, so the same (a, off).  Device-only ms
+    (``launches`` calls captured in a CUDA graph, replayed ``replays``
+    times) of the folding consumer,
+    of the consumer fed (a, off) and of gn_fold alone; where ``timed``, the
+    wrapper-inclusive ms, the plain version's and the library call's too.
+    One ``kernel_site`` line each; sums into ``summary`` by kernel name.
+    Raises where a site misses a gate."""
+    for entry in calls.values():
+        name, a, kw, n = entry["name"], entry["args"], entry["kwargs"], entry["count"]
+        if name not in SLAB_ONLY:
+            continue
+        kernel = ops.wrappers[name]
+        nbytes, flops, dtype = work(name, a, kw)
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        outs, _, err, tol = hold(torch, ops, name, a, kw)
+        fold_alone, fed = fold_fed(ops, name, a, kw)
+        with torch.no_grad():
+            again = kernel(*a, **kw)
+            before = fed()
+            site = {"kernel": name, "shape": list(a[0].shape), "design": design(ops, name, a),
+                    "dtype": str(a[0].dtype).replace("torch.", ""), "calls_per_forward": n,
+                    "ranks": a[2], "max_abs_err": err, "tol": tol,
+                    "same_bits_twice": torch.equal(outs[0], again),
+                    "same_bits_as_gn_fold_fed": torch.equal(outs[0], before),
+                    "bound_ms": max(t_bytes, t_ops),
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            if name == "gn_silu_conv3x3_fold":
+                site["mode"] = ("emb" if kw.get("emb") is not None
+                                else "film" if kw.get("film") is not None else "plain")
+            del again, before
+            site["device_ms"] = graph_time(torch, lambda: kernel(*a, **kw), launches, replays)
+            site["fed_device_ms"] = graph_time(torch, fed, launches, replays)
+            site["gn_fold_device_ms"] = graph_time(torch, fold_alone, launches, replays)
+            ms = plain_ms = lib_ms = None
+            if timed:  # (a few calls each: the slab sites' convs take up to 3.6 ms)
+                ms = sync_time(torch, lambda: kernel(*a, **kw), 20.0, 5)
+                plain_ms = sync_time(torch, lambda: ops.plain[name](*a, **kw), 20.0, 5)
+                lib = library_call(torch, F, name, a, kw)
+                lib_ms = None if lib is None else sync_time(torch, lib, 20.0, 5)
+            site.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms)
+        per_site.append(site)
+        emit(dict(phase="kernel_site", **site))
+        if not (err <= tol and site["same_bits_twice"] and site["same_bits_as_gn_fold_fed"]):
+            raise AssertionError(f"{name} {site['shape']} {site['dtype']}: max abs err {err} "
+                                 f"(tol {tol}), same bits twice {site['same_bits_twice']}, "
+                                 f"the same bits as gn_fold + the consumer fed its (a, off) "
+                                 f"{site['same_bits_as_gn_fold_fed']}")
+        s = summary.setdefault(name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
+                                          bytes_ms=0.0, ops_ms=0.0, bound_ms=0.0, calls=0,
+                                          device_ms=0.0, fed_device_ms=0.0,
+                                          gn_fold_device_ms=0.0))
+        s["max_abs_err"] = max(s["max_abs_err"], err)
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                         ("bytes_ms", t_bytes), ("ops_ms", t_ops),
+                         ("bound_ms", max(t_bytes, t_ops)), ("device_ms", site["device_ms"]),
+                         ("fed_device_ms", site["fed_device_ms"]),
+                         ("gn_fold_device_ms", site["gn_fold_device_ms"])):
+            s[key] = None if val is None or s[key] is None else s[key] + n * val
+        s.setdefault("site_designs", []).append([site["shape"], site["design"], n])
+        s["design"] = ", ".join(sorted(set(filter(None, s.get("design", "").split(", ")))
+                                       | {site["design"]}))
+        s["calls"] += n
+
+
+@contextlib.contextmanager
+def gn_fold_slabs(ops, spatial):
+    """The slab ops in their first design, by name (forward only, no tp):
+    the moments averaged over the ranks (a copy, the all-reduce, a divide),
+    ``gn_fold``, then the apply kernel or the conv fed (a, off)."""
+    gn, gc = ops.ops.groupnorm, ops.ops.gn_conv
+
+    def norm_slab(x, gamma, beta, groups, eps, silu, total, ranks):
+        rows = spatial.active()
+        return gn.group_norm_silu_slab_gn_fold(x, gamma, beta, groups, eps, silu,
+                                               lambda m: spatial.average(m, rows))
+
+    def conv_slab(x, norm, conv, rows, emb, film):
+        a, off = gc.gn_affine_slab(x, norm.weight, norm.bias, norm.groups, norm.eps,
+                                   lambda m: spatial.average(m, rows), emb=emb, film=film)
+        h = x.shape[1]
+        x, top, _ = spatial.halo(x, 1, 1, rows)
+        y = gc.gn_silu_conv3x3(x, a, off, conv.weight, conv.bias)
+        return y[:, top:top + h].contiguous()
+
+    saved = ops.layers.group_norm_silu_slab, ops.unet._gn_silu_conv_slab
+    ops.layers.group_norm_silu_slab, ops.unet._gn_silu_conv_slab = norm_slab, conv_slab
+    try:
+        yield
+    finally:
+        ops.layers.group_norm_silu_slab, ops.unet._gn_silu_conv_slab = saved
 
 
 ATTN_LSE_TOL = 1e-4  # each row's log-sum-exp, of the plain one's largest element
@@ -4636,14 +4793,16 @@ def _tp_ranks(rank, device):
     and design; ``training_steps`` refused on a CUDA gloo mesh; then the
     spatial phase: ``unet_celebahq`` at 256x256 in float32, the height split
     over the two ranks, its forward and a respaced chain against one
-    process, the halo bytes and each rank's seconds, the fold kernel against
-    its plain version at every site."""
+    process, the halo bytes and each rank's seconds, every kernel against
+    its plain version at every site, the folding consumers of the float32
+    and of the bf16 forward also against their first design (``gn_fold``)."""
     import numpy as np
     import torch
     import torch.distributed as dist
     import torch.nn.functional as F
 
     from probabilisticdeepdiffusionmodels_torch.engine import DiffusionEngine
+    from probabilisticdeepdiffusionmodels_torch.models import get_model
     from probabilisticdeepdiffusionmodels_torch.parallel import make_mesh, make_mesh_2d, spatial
 
     t_start = time.perf_counter()
@@ -4735,8 +4894,9 @@ def _tp_ranks(rank, device):
     forward_s = time.perf_counter() - t0
     out["spatial_fwd_launches"] = ops.counts()
     # every kernel against its plain version at this rank's slab sites, the
-    # slab ops on both ranks at once (each averages over the two); the fold
-    # timed on rank 0 for the kernels line
+    # slab ops on both ranks at once (each sums over the two); the folding
+    # consumers held and timed on rank 0 (beside gn_fold and the consumer
+    # fed its (a, off), by name) for the kernels line
     out["spatial_sites"] = hold_sites(torch, ops, {k: e for k, e in calls.items()
                                                    if e["name"] not in SLAB_ONLY})
     if rank == 0:
@@ -4747,11 +4907,49 @@ def _tp_ranks(rank, device):
         out["spatial_fwd_max_abs_diff"] = float((y - ref).abs().max())
         out["spatial_fwd_tol"] = SPATIAL_FWD_TOL * float(ref.abs().max())
         del ref
-        out["fold_sites"], summary = [], {}
-        check_sites(torch, F, ops, {k: e for k, e in calls.items() if e["name"] in SLAB_ONLY},
-                    out["fold_sites"], summary)
-        out["fold_summary"] = summary["gn_fold"]
+        out["fold_sites"], out["fold_summary"] = [], {}
+        fold_sites(torch, F, ops, calls, out["fold_sites"], out["fold_summary"], launches=5,
+                   replays=2)
     del calls
+    # one sharded forward's device operations and device ms, in the design
+    # that folds in the consumers and in the first (gn_fold) by name; the
+    # copies (the first design's clone, the gloo all-reduce's host copies)
+    # counted apart
+    designs = {}
+    for label in ("fold_in_consumer", "gn_fold"):
+        with gn_fold_slabs(ops, spatial) if label == "gn_fold" else contextlib.nullcontext():
+            prof = profile_device(torch, lambda: fwd(x, t))
+        copies = sum(k["calls"] for k in prof["all"] if "memcpy" in k["name"].lower())
+        d = designs.setdefault(label, {"device_ops": [], "device_ops_no_copies": [],
+                                       "device_busy_ms": [], "fold_kernel_calls": []})
+        d["device_ops"].append(prof["device_ops"])
+        d["device_ops_no_copies"].append(prof["device_ops"] - copies)
+        d["device_busy_ms"].append(prof["device_busy_ms"])
+        d["fold_kernel_calls"].append(sum(k["calls"] for k in prof["all"]
+                                          if "gn_fold_kernel" in k["name"]))
+    out["spatial_fwd_designs"] = designs
+    # bf16: the sharded forward of the same weights against one process's
+    model16 = get_model(SPATIAL_RES, dict(SPATIAL_CFG, compute_dtype="bfloat16"),
+                        device="cuda", seed=0)
+    model16.load_state_dict(model.state_dict())
+    calls16 = {}
+    ops.reset()
+    with ops.recording(calls16):
+        y16 = spatial.sharded_forward(model16, smesh)(x, t)
+    out["spatial_bf16_fwd_launches"] = ops.counts()
+    if rank == 0:
+        with torch.no_grad():
+            ref16 = model16(x, t)
+        out["spatial_bf16_fwd_max_abs_diff"] = float((y16.float() - ref16.float()).abs().max())
+        out["spatial_bf16_fwd_tol"] = BF16_FORWARD_TOL * max(1.0, float(ref16.float().abs().max()))
+        out["spatial_bf16_fwd_finite"] = bool(torch.isfinite(y16).all())
+        del ref16
+        # its folding consumers (wgmma's at the convs) held and timed as the
+        # float32 ones are
+        out["bf16_fold_sites"], out["bf16_fold_summary"] = [], {}
+        fold_sites(torch, F, ops, calls16, out["bf16_fold_sites"], out["bf16_fold_summary"],
+                   timed=False, launches=5, replays=2)
+    del model16, y16, calls16
     torch.cuda.synchronize()
     ops.reset()
     t0 = time.perf_counter()
@@ -4948,7 +5146,7 @@ def parallel_phase(torch, ops, smi, out_dir=None):
     fold_summary = tp.pop("fold_summary")
     line["model_parallel_2_ranks"] = tp
     problems = []
-    for key in ("tp_f32", "tp_chain", "spatial_fwd", "spatial_chain"):
+    for key in ("tp_f32", "tp_chain", "spatial_fwd", "spatial_chain", "spatial_bf16_fwd"):
         if not tp[f"{key}_max_abs_diff"] <= tp[f"{key}_tol"]:
             problems.append(f"{key}: {tp[f'{key}_max_abs_diff']} > {tp[f'{key}_tol']}")
     tp_counts = tp["tp_bf16_launches"]
@@ -4958,15 +5156,28 @@ def parallel_phase(torch, ops, smi, out_dir=None):
     halves = [d for cout, d in tp["tp_conv_sites"] if cout == MODEL_CFG["model_channels"] // 2]
     if not halves or set(halves) != {"wgmma"}:
         problems.append(f"tp conv sites (Cout, design): {tp['tp_conv_sites']}")
-    # a sharded forward launches what one process's does, and one fold a
-    # norm (each GroupNorm and gn_affine on a slab); the chain one forward
-    # a step
+    # a sharded forward launches one process's moments, attention and
+    # GroupNorm kernels, a folding conv for each conv (and no conv fed (a,
+    # off)), one fold + apply a GroupNorm, and no gn_fold; the chain one
+    # forward a step; the bf16 forward the same counts
     one = tp["one_process_fwd_launches"]
-    want = dict(one, gn_fold=one["gn_affine"] + one["group_norm_silu"])
+    want = dict(one, gn_silu_conv3x3=0, gn_silu_conv3x3_fold=one["gn_silu_conv3x3"],
+                gn_fold_apply=one["group_norm_silu"])
     if (tp["spatial_fwd_launches"] != want
             or not all(n for k, n in one.items() if k not in PER_BACKWARD)):
         problems.append(f"a spatial forward launched {tp['spatial_fwd_launches']}, one "
-                        f"process {one}")
+                        f"process {one}, want {want}")
+    if tp["spatial_bf16_fwd_launches"] != want:
+        problems.append(f"a bf16 spatial forward launched {tp['spatial_bf16_fwd_launches']}")
+    if not tp["spatial_bf16_fwd_finite"]:
+        problems.append("the bf16 spatial forward is not finite")
+    designs = tp["spatial_fwd_designs"]
+    # (the profiler may drop records: the first design's count at most the
+    # fold's launches, none in the design that folds in the consumers)
+    if (any(designs["fold_in_consumer"]["fold_kernel_calls"])
+            or not 0 < designs["gn_fold"]["fold_kernel_calls"][0] <= (
+                want["gn_affine"] + want["group_norm_silu"])):
+        problems.append(f"gn_fold kernels in the profiles: {designs}")
     chain_want = {k: SPATIAL_STEPS * n for k, n in want.items()}
     if not tp["spatial_chain_finite"] or tp["spatial_chain_launches"] != chain_want:
         problems.append(f"spatial chain: finite {tp['spatial_chain_finite']}, launches "
@@ -5090,6 +5301,32 @@ def main(argv=None) -> int:
             raise AssertionError(f"{name}: {summary.get(name, {}).get('calls')} calls per "
                                  f"forward, expected {n}")
     del calls
+    # the same forward through the slab path on a world of one rank (the
+    # identity sum): the folding consumers at every site, held and timed
+    # beside gn_fold + the consumer fed (a, off)
+    slab_calls, slab_summary = {}, {}
+    from probabilisticdeepdiffusionmodels_torch.parallel import spatial
+
+    ops.reset()
+    with torch.no_grad(), spatial.one_rank(), ops.recording(slab_calls):
+        y_slab = model(x128, t128)
+    slab_launches = ops.counts()
+    with torch.no_grad():
+        y_whole = model(x128, t128)
+    fold_sites(torch, F, ops, slab_calls, per_site, slab_summary, timed=False)
+    want_slab = dict(expected_counts(1, False), gn_silu_conv3x3=0,
+                     gn_silu_conv3x3_fold=PER_FORWARD["gn_silu_conv3x3"],
+                     gn_fold_apply=PER_FORWARD["group_norm_silu"])
+    emit({"phase": "slab_fold_one_rank", "launches": slab_launches,
+          "max_abs_diff_vs_forward": float((y_slab.float() - y_whole.float()).abs().max()),
+          "tol": BF16_FORWARD_TOL * max(1.0, float(y_whole.float().abs().max())),
+          "summary": slab_summary})
+    if slab_launches != want_slab:
+        raise AssertionError(f"one-rank slab forward launched {slab_launches} != {want_slab}")
+    if not float((y_slab.float() - y_whole.float()).abs().max()) <= (
+            BF16_FORWARD_TOL * max(1.0, float(y_whole.float().abs().max()))):
+        raise AssertionError("one-rank slab forward: off the forward")
+    del slab_calls, y_slab, y_whole
 
     # 4. main path: 20-step sampler, bf16, batch 32, on the kernels
     sched, tmap = respaced_schedule(NoiseSchedule.create(1000, "linear"),
@@ -5217,8 +5454,9 @@ def main(argv=None) -> int:
 
     # 17. data parallelism: DP and FSDP on a one-rank NCCL group, two gloo
     # ranks on one card, the CLI's devices, the native transform
-    par_launches, summary["gn_fold"] = parallel_phase(torch, ops, smi, args.out)
+    par_launches, fold_summary = parallel_phase(torch, ops, smi, args.out)
     cli_launches.update(par_launches)
+    summary.update(fold_summary)
 
     if args.out is not None:
         (args.out / "chip_smoke_sites.json").write_text(json.dumps(
@@ -5233,9 +5471,11 @@ def main(argv=None) -> int:
                       **{path: counts[name] for path, counts in cli_launches.items()}}
                for name in (*PER_FORWARD, *PER_BACKWARD)}
     by_path["probe_mma"] = {"probe": main_launches["probe_mma"]}
-    # the fold alone runs on the spatially sharded path only
-    main_launches["gn_fold"] = cli_launches["spatial_chain"]["gn_fold"]
-    by_path["gn_fold"] = {"spatial_chain": main_launches["gn_fold"]}
+    # the folding consumers run on the spatially sharded path only (the fold
+    # alone, their first design, on no path: every path's gate above)
+    for name in SLAB_ONLY:
+        main_launches[name] = cli_launches["spatial_chain"][name]
+        by_path[name] = {"spatial_chain": main_launches[name]}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "launches": main_launches[name], "launches_by_path": by_path[name],
@@ -5259,7 +5499,11 @@ def main(argv=None) -> int:
          "design_kernel_device_ms": s.get("design_kernel_device_ms"),
          "library_weight_ms": s.get("library_weight_ms"),
          "library_input_ms": s.get("library_input_ms"),
-         "wgrad_bound_ms": s.get("wgrad_bound_ms"), "dgrad_bound_ms": s.get("dgrad_bound_ms")}
+         "wgrad_bound_ms": s.get("wgrad_bound_ms"), "dgrad_bound_ms": s.get("dgrad_bound_ms"),
+         # the folding consumers: the consumer fed gn_fold's (a, off) and
+         # gn_fold alone (their first design), device-only, at the same sites
+         "fed_device_ms": s.get("fed_device_ms"),
+         "gn_fold_device_ms": s.get("gn_fold_device_ms")}
         for name, s in summary.items()]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})
     return 0

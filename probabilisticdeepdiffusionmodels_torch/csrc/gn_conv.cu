@@ -59,9 +59,24 @@
 // pixels x 64 channels a block of 4 warps, the activated halo and the
 // weight of a 32-channel slice staged with plain loads; bf16 on mma.sync
 // m16n8k16, float32 with scalar FMAs.
+//
+// Each design has a folding variant (template FOLD; pddm_gn_silu_conv3x3_fold)
+// for a spatially sharded forward's slab: in place of (a, off) it takes the
+// ranks' summed (2, B, Cin) moments, the rank count, GroupNorm's gamma, beta
+// and groups and the conditioning, and folds (a, off) itself with
+// gn_fold_kernel's arithmetic (gn_fold.cuh).  Before its main loop a block
+// stages the moments of every image it will read in shared memory, forms
+// each image's group statistics (whole groups, whatever channels a slice
+// cuts) and then a table of every channel's scale and offset, which its
+// main loop reads where it read (a, off): wgmma for all its tiles (every
+// warp but the copying one, which issues the first copies meanwhile; more
+// blocks where the table would not fit), general for its tile, narrow_f32
+// for its one image.  No fold launch runs before the conv, and the main
+// loop is unchanged.  The instantiations without FOLD are the main path's.
 #include <mutex>
 
 #include "common.cuh"
+#include "gn_fold.cuh"
 #include "hopper.cuh"
 
 using namespace pddm;
@@ -222,18 +237,20 @@ template <> struct Wgmma<256> {
 // Shared memory of the wgmma design, in order: the weight ring, two halo
 // buffers (each 1024-byte aligned: the TMA's 128-byte swizzle is laid on
 // the address bits), the consumer warps' epilogue rows, two buffers of the
-// slice's scale and offset for each image of the tile, the halo table, the
-// mbarriers.
+// slice's scale and offset for each image of the tile, the folding variant's
+// `fold` bytes (its table of every image of the block's tiles; none
+// without FOLD), the halo table, the mbarriers.
 template <int NWG, int BN>
 struct WLayout {
   static constexpr int WSTAGES = wstages<BN>();
   static constexpr int STAGE = BN * 128;  // bytes of one weight tile
-  int halo_stride, ep, ao, tab, bars, bytes;
-  __host__ __device__ WLayout(int halo_px, int ni) {
+  int halo_stride, ep, ao, fold, tab, bars, bytes;
+  __host__ __device__ WLayout(int halo_px, int ni, int fold_bytes = 0) {
     halo_stride = (halo_px * 128 + 1023) / 1024 * 1024;
     ep = WSTAGES * STAGE + 2 * halo_stride;
     ao = ep + NWG * 4 * 16 * (BN + 8) * 2;
-    tab = ao + 2 * ni * 2 * WK * 4;
+    fold = ao + 2 * ni * 2 * WK * 4;
+    tab = fold + fold_bytes;
     bars = (tab + halo_px * 8 + 7) / 8 * 8;
     bytes = bars + (2 * WSTAGES + 6) * 8;
   }
@@ -248,20 +265,70 @@ struct WLayout {
 //   the consumer warpgroups: per step wait for the weight tile, ldmatrix the
 //     A fragments from the activated halo, issue the wgmma products and
 //     release the stage of the previous step once it retires.
+// FOLD (a spatially sharded forward's slab): no scale or offset is copied.
+// Before the roles begin, every warp but the copying one (whose thread
+// issues the first copies meanwhile) folds the scale and offset of every
+// channel of every image of the block's tiles into a table in shared
+// memory, from the ranks' summed moments (FoldArgs) with gn_fold_kernel's
+// arithmetic (gn_fold.cuh: the moments staged, each image's group
+// statistics over whole groups, then each channel's (a, off)); the
+// activation warps read the table where they read the copied slice.  The
+// main loop is the one without FOLD: work added to the activation warps'
+// loop lengthened every slice (they set its pace), and so did folding each
+// slice in the copying warp (both measured on the H100); landing the
+// moments by bulk copies was no faster than these loads.
 constexpr int ACT_THREADS = 96;
+constexpr int FOLD_BARRIER = 1;  // the warps that fold the table
 
-template <int NWG, int BN>
+// FOLD's table slot of the block's tile k: one a distinct group of NI
+// images among its tiles.  Where the grid is narrower than an image's tiles,
+// consecutive tiles of a block (gridDim.x apart) hold the same images or the
+// next ones, so the slots are the image groups from the first tile's on;
+// else every tile holds other images and has a slot of its own.
+__device__ __forceinline__ int fold_slot(const Geom& g, int k) {
+  const int tpi = g.tiles_y * g.tiles_x, bx = blockIdx.x;
+  return (int)gridDim.x >= tpi ? k : (bx + k * (int)gridDim.x) / tpi - bx / tpi;
+}
+
+// FOLD's table in conv_wgmma_kernel, by threads t < nth: row s NI + i holds
+// image i of slot s's group (none past the batch), first its summed moments
+// [S1 | S2], then its [a | off] over Cin channels; after the rows, each
+// (row, group)'s (mean, rstd).  Outlined (noinline): inlined, its registers
+// changed how ptxas allocated the main loop, which then ran slower on the
+// H100.
+__device__ __noinline__ void fold_fill(FoldArgs f, Geom g, int rows, float* table, int t,
+                                       int nth) {
+  auto image = [&](int r) {
+    const int tpi = g.tiles_y * g.tiles_x, bx = blockIdx.x, s = r / g.NI;
+    const int group = (int)gridDim.x >= tpi ? (bx + s * (int)gridDim.x) / tpi : bx / tpi + s;
+    const int b = group * g.NI + r % g.NI;
+    return b < g.B ? b : -1;
+  };
+  auto sync = [&]() { bar_sync_named(FOLD_BARRIER, nth); };
+  // four floats a load where aligned (Cin is a multiple of 8 here)
+  if (((reinterpret_cast<uintptr_t>(f.mom) | reinterpret_cast<uintptr_t>(f.gamma) |
+        reinterpret_cast<uintptr_t>(f.beta)) & 15) == 0)
+    fold_table<true>(f, g.B, g.Cin, rows, image, table, table + rows * 2 * g.Cin, t, nth, sync);
+  else
+    fold_table<false>(f, g.B, g.Cin, rows, image, table, table + rows * 2 * g.Cin, t, nth, sync);
+}
+
+template <int NWG, int BN, bool FOLD>
 __global__ void __launch_bounds__(128 * (NWG + 1))
 conv_wgmma_kernel(const float* __restrict__ a, const float* __restrict__ off,
                   const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, Geom g,
                   const __grid_constant__ CUtensorMap wmap,
-                  const __grid_constant__ CUtensorMap xmap) {
+                  const __grid_constant__ CUtensorMap xmap, FoldArgs f) {
   constexpr int STAGE = WLayout<NWG, BN>::STAGE;
   constexpr int WSTAGES = WLayout<NWG, BN>::WSTAGES;
   constexpr int LDE = BN + 8;  // epilogue row (elements)
   const int halo_w = g.TW + 2;
   const int halo_px = g.NI * (g.TH + 2) * halo_w;
-  const WLayout<NWG, BN> L(halo_px, g.NI);
+  // this block's pixel tiles: blockIdx.x, blockIdx.x + gridDim.x, ...
+  const int ntm = (g.B + g.NI - 1) / g.NI * g.tiles_y * g.tiles_x;
+  const int mine = (ntm - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int slots = FOLD ? fold_slot(g, mine - 1) + 1 : 0;
+  const WLayout<NWG, BN> L(halo_px, g.NI, slots * g.NI * 2 * (g.Cin + f.G) * 4);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* Wring = base;
@@ -283,9 +350,6 @@ conv_wgmma_kernel(const float* __restrict__ a, const float* __restrict__ off,
   // the warp index, broadcast so the compiler knows it is warp-uniform
   const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
   const int nslices = (g.Cin + WK - 1) / WK, per_tile = 9 * nslices;
-  // this block's pixel tiles: blockIdx.x, blockIdx.x + gridDim.x, ...
-  const int ntm = (g.B + g.NI - 1) / g.NI * g.tiles_y * g.tiles_x;
-  const int mine = (ntm - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
   const int total = mine * per_tile, total_slices = mine * nslices;
   constexpr int CONSUMER_WARPS = 4 * NWG;
 
@@ -302,6 +366,11 @@ conv_wgmma_kernel(const float* __restrict__ a, const float* __restrict__ off,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  // FOLD: the table (fold_fill), by every warp but the copying one
+  float* Tab_ao = reinterpret_cast<float*>(base + L.fold);
+  if constexpr (FOLD) {
+    if (warp > 0) fold_fill(f, g, slots * g.NI, Tab_ao, tid - 32, (int)blockDim.x - 32);
+  }
 
   if (warp == 0) {
     // ---------------------------------------------------------- copies
@@ -313,12 +382,14 @@ conv_wgmma_kernel(const float* __restrict__ a, const float* __restrict__ off,
       const int ni = g.B - b0 < g.NI ? g.B - b0 : g.NI;
       const int nc = g.Cin - cs < WK ? g.Cin - cs : WK;
       uint64_t* bar = hfull + (gs & 1);
-      mbar_expect_tx(bar, halo_px * 128 + ni * 2 * nc * 4);
+      mbar_expect_tx(bar, halo_px * 128 + (FOLD ? 0 : ni * 2 * nc * 4));
       tma_load_4d(Halo + (gs & 1) * L.halo_stride, &xmap, bar, cs, x0 - 1, y0 - 1, b0);
-      float* ao = AO + (gs & 1) * g.NI * 2 * WK;
-      for (int i = 0; i < ni; ++i) {
-        bulk_load(ao + (2 * i) * WK, a + (long)(b0 + i) * g.Cin + cs, nc * 4, bar);
-        bulk_load(ao + (2 * i + 1) * WK, off + (long)(b0 + i) * g.Cin + cs, nc * 4, bar);
+      if constexpr (!FOLD) {
+        float* ao = AO + (gs & 1) * g.NI * 2 * WK;
+        for (int i = 0; i < ni; ++i) {
+          bulk_load(ao + (2 * i) * WK, a + (long)(b0 + i) * g.Cin + cs, nc * 4, bar);
+          bulk_load(ao + (2 * i + 1) * WK, off + (long)(b0 + i) * g.Cin + cs, nc * 4, bar);
+        }
       }
     };
     load_halo(0);
@@ -349,14 +420,17 @@ conv_wgmma_kernel(const float* __restrict__ a, const float* __restrict__ off,
       tile_origin(g, blockIdx.x + (gs / nslices) * gridDim.x, b0, y0, x0);
       mbar_wait(hfull + buf, (gs >> 1) & 1);
       unsigned char* hbuf = Halo + buf * L.halo_stride;
-      const float* ao = AO + buf * g.NI * 2 * WK;
+      // the slice's scale and offset: the copied ones, or (FOLD) the table's
+      const int img = FOLD ? 2 * g.Cin : 2 * WK, half = FOLD ? g.Cin : WK;
+      const float* ao = FOLD ? Tab_ao + fold_slot(g, gs / nslices) * g.NI * img + cs
+                             : AO + buf * g.NI * 2 * WK;
       const int c = t & 7, ci = cs + 8 * c;  // a thread always takes chunk t & 7
       // the chunk's scale and offset, for the tile's first image (the only
       // one, except at whole-image tiles, which reload per chunk)
       float av[8], ov[8];
       auto load_ao = [&](int i) {
-        const float4* ap = reinterpret_cast<const float4*>(ao + i * 2 * WK + 8 * c);
-        const float4 a0 = ap[0], a1 = ap[1], o0 = ap[WK / 4], o1 = ap[WK / 4 + 1];
+        const float4* ap = reinterpret_cast<const float4*>(ao + i * img + 8 * c);
+        const float4 a0 = ap[0], a1 = ap[1], o0 = ap[half / 4], o1 = ap[half / 4 + 1];
         av[0] = a0.x, av[1] = a0.y, av[2] = a0.z, av[3] = a0.w;
         av[4] = a1.x, av[5] = a1.y, av[6] = a1.z, av[7] = a1.w;
         ov[0] = o0.x, ov[1] = o0.y, ov[2] = o0.z, ov[3] = o0.w;
@@ -506,9 +580,26 @@ conv_wgmma_kernel(const float* __restrict__ a, const float* __restrict__ off,
 }
 
 template <int NWG, int BN>
-size_t wgmma_smem(Geom g) {
+size_t wgmma_smem(Geom g, int fold_bytes = 0) {
   set_tile(g, 64 * NWG);
-  return 1024 + WLayout<NWG, BN>(g.NI * (g.TH + 2) * (g.TW + 2), g.NI).bytes;
+  return 1024 + WLayout<NWG, BN>(g.NI * (g.TH + 2) * (g.TW + 2), g.NI, fold_bytes).bytes;
+}
+
+// FOLD: the table's bytes for each slot (fold_slot: a group of NI images'
+// [a | off] and group statistics) at the tiling of NWG warpgroups.
+int fold_slot_bytes(Geom g, int nwg, const FoldArgs& f) {
+  set_tile(g, 64 * nwg);
+  return g.NI * 2 * (g.Cin + f.G) * 4;
+}
+
+// FOLD: the most table slots a block of a grid gx wide takes (fold_slot),
+// g tiled: ceil((mine - 1) gx / tiles an image) + 1 at most where the grid
+// is narrower than an image's tiles, else one a tile.
+long fold_slots(const Geom& g, long gx) {
+  const long ntm = n_tiles(g), tpi = (long)g.tiles_y * g.tiles_x, mine = (ntm + gx - 1) / gx;
+  if (gx >= tpi) return mine;
+  const long s = ((mine - 1) * gx + tpi - 1) / tpi + 1;
+  return s < mine ? s : mine;
 }
 
 // cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda).
@@ -610,10 +701,12 @@ namespace {
 // weight as a (Cin, Cout, 9) map in 64 x BN boxes, x as a (Cin, W, H, B)
 // map in 64 x (TW+2) x (TH+2) x NI boxes that start one pixel before the
 // tile, so the halo's border past the image arrives zero-filled.
-template <int NWG, int BN>
+template <int NWG, int BN, bool FOLD>
 cudaError_t launch_wgmma(const void* x, const void* a, const void* off, const void* w,
-                         const void* bias, void* out, Geom g, cudaStream_t stream) {
-  const size_t smem = wgmma_smem<NWG, BN>(g);
+                         const void* bias, void* out, Geom g, const FoldArgs& f,
+                         cudaStream_t stream) {
+  size_t smem = wgmma_smem<NWG, BN>(g);
+  const int per_slot = FOLD ? fold_slot_bytes(g, NWG, f) : 0;
   set_tile(g, 64 * NWG);
   CUtensorMap wmap, xmap;
   const cuuint64_t wdims[3] = {(cuuint64_t)g.Cin, (cuuint64_t)g.Cout, 9};
@@ -624,7 +717,7 @@ cudaError_t launch_wgmma(const void* x, const void* a, const void* off, const vo
   cudaError_t err = encode_bf16_map(&wmap, w, 3, wdims, wbox);
   if (err != cudaSuccess) return err;
   if ((err = encode_bf16_map(&xmap, x, 4, xdims, xbox)) != cudaSuccess) return err;
-  if ((err = allow_smem(conv_wgmma_kernel<NWG, BN>, smem)) != cudaSuccess) return err;
+  if ((err = allow_smem(conv_wgmma_kernel<NWG, BN, FOLD>, smem)) != cudaSuccess) return err;
   // the card's SM count and the blocks of this size an SM holds, asked once
   int sms = 0;
   static int per_sm = 0;
@@ -632,17 +725,39 @@ cudaError_t launch_wgmma(const void* x, const void* a, const void* off, const vo
   if ((err = sm_count(&sms)) != cudaSuccess) return err;
   if (per_sm_smem != smem) {
     if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, conv_wgmma_kernel<NWG, BN>, 128 * (NWG + 1), smem)) != cudaSuccess)
+             &per_sm, conv_wgmma_kernel<NWG, BN, FOLD>, 128 * (NWG + 1), smem)) != cudaSuccess)
       return err;
     per_sm_smem = smem;
   }
   const long ntm = n_tiles(g), ntn = (g.Cout + BN - 1) / BN;
   long gx = (long)(per_sm > 0 ? per_sm : 1) * sms / ntn;
   gx = gx < 1 ? 1 : (gx > ntm ? ntm : gx);
+  if constexpr (FOLD) {
+    // The table adds to the block's shared memory, the more the fewer
+    // blocks (fold_slots): the grid is sized at the occupancy of the whole,
+    // the most blocks an SM holds with their tables (so no second wave),
+    // and where one block's table does not fit, more blocks with fewer tiles.
+    const size_t base = smem;
+    constexpr size_t kMost = 227 * 1024;
+    for (int want = per_sm > 1 ? per_sm : 1;; --want) {
+      gx = (long)want * sms / ntn;
+      gx = gx < 1 ? 1 : (gx > ntm ? ntm : gx);
+      while (base + fold_slots(g, gx) * per_slot > kMost && gx < ntm)
+        gx = gx + (gx + 7) / 8 < ntm ? gx + (gx + 7) / 8 : ntm;
+      smem = base + (size_t)fold_slots(g, gx) * per_slot;
+      if (smem > kMost) return cudaErrorInvalidValue;
+      if ((err = allow_smem(conv_wgmma_kernel<NWG, BN, FOLD>, smem)) != cudaSuccess) return err;
+      int fits = 0;
+      if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+               &fits, conv_wgmma_kernel<NWG, BN, FOLD>, 128 * (NWG + 1), smem)) != cudaSuccess)
+        return err;
+      if (fits >= want || want == 1) break;
+    }
+  }
   const dim3 grid((unsigned)gx, (unsigned)ntn);
-  conv_wgmma_kernel<NWG, BN><<<grid, 128 * (NWG + 1), smem, stream>>>(
+  conv_wgmma_kernel<NWG, BN, FOLD><<<grid, 128 * (NWG + 1), smem, stream>>>(
       static_cast<const float*>(a), static_cast<const float*>(off),
-      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), g, wmap, xmap);
+      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), g, wmap, xmap, f);
   return cudaGetLastError();
 }
 
@@ -650,10 +765,15 @@ cudaError_t launch_wgmma(const void* x, const void* a, const void* off, const vo
 // wave of the 132 SMs and fit in shared memory; narrower blocks for the
 // small late sites (4x4, and Cout <= 64) and the wide rows, so their grids
 // still fill the card.
+template <bool FOLD>
 cudaError_t launch_wgmma_any(const void* x, const void* a, const void* off, const void* w,
-                             const void* bias, void* out, Geom g, cudaStream_t stream) {
+                             const void* bias, void* out, Geom g, const FoldArgs& f,
+                             cudaStream_t stream) {
   constexpr long kFill = 128;
   constexpr size_t kSmem = 227 * 1024;
+  // (FOLD: with the table of one tile a block, at least)
+  const int fold1 = FOLD ? fold_slot_bytes(g, 1, f) : 0;
+  const int fold2 = FOLD ? fold_slot_bytes(g, 2, f) : 0;
   Geom t = g;
   set_tile(t, 128);
   const long m128 = n_tiles(t);
@@ -662,14 +782,27 @@ cudaError_t launch_wgmma_any(const void* x, const void* a, const void* off, cons
   // Cout of 256 and more: one warpgroup of 64 pixels x 256 channels, so the
   // halo of a pixel tile is activated once for 256 channels, not twice
   if (g.Cout > 128 && n_tiles(t64) * ((g.Cout + 255) / 256) >= kFill &&
-      wgmma_smem<1, 256>(g) <= kSmem)
-    return launch_wgmma<1, 256>(x, a, off, w, bias, out, g, stream);
-  if (g.Cout > 64 && m128 * ((g.Cout + 127) / 128) >= kFill && wgmma_smem<2, 128>(g) <= kSmem)
-    return launch_wgmma<2, 128>(x, a, off, w, bias, out, g, stream);
-  if (m128 * ((g.Cout + 63) / 64) >= kFill && wgmma_smem<2, 64>(g) <= kSmem)
-    return launch_wgmma<2, 64>(x, a, off, w, bias, out, g, stream);
-  if (wgmma_smem<1, 64>(g) <= kSmem) return launch_wgmma<1, 64>(x, a, off, w, bias, out, g, stream);
+      wgmma_smem<1, 256>(g, fold1) <= kSmem)
+    return launch_wgmma<1, 256, FOLD>(x, a, off, w, bias, out, g, f, stream);
+  if (g.Cout > 64 && m128 * ((g.Cout + 127) / 128) >= kFill &&
+      wgmma_smem<2, 128>(g, fold2) <= kSmem)
+    return launch_wgmma<2, 128, FOLD>(x, a, off, w, bias, out, g, f, stream);
+  if (m128 * ((g.Cout + 63) / 64) >= kFill && wgmma_smem<2, 64>(g, fold2) <= kSmem)
+    return launch_wgmma<2, 64, FOLD>(x, a, off, w, bias, out, g, f, stream);
+  if (wgmma_smem<1, 64>(g, fold1) <= kSmem)
+    return launch_wgmma<1, 64, FOLD>(x, a, off, w, bias, out, g, f, stream);
   return cudaErrorInvalidValue;
+}
+
+// FOLD's table of images b0 .. b0 + rows - 1 in the narrow_f32 and general
+// kernels, by all nth threads of the block (fold_table).  Outlined
+// (noinline), as fold_fill is: inlined, the fold's registers changed how
+// ptxas allocated the general kernel's main loop, which then spilled and
+// ran slower than the kernel fed (a, off) on the H100.
+__device__ __noinline__ void fold_images(FoldArgs f, Geom g, int b0, int rows, float* table,
+                                         float* gs, int t, int nth) {
+  fold_table(f, g.B, g.Cin, rows, [&](int r) { return b0 + r; }, table, gs, t, nth,
+             []() { __syncthreads(); });
 }
 
 // ------------------------------------------------------------ narrow_f32
@@ -677,21 +810,28 @@ cudaError_t launch_wgmma_any(const void* x, const void* a, const void* off, cons
 constexpr int NKC = 8;    // input channels per slice: two 16-byte chunks a pixel
 constexpr int NNT = 256;  // threads per block: 4 pixels each
 
-template <int CP>  // Cout padded to 4 or 8
+// FOLD (a slab): the tile's image's scale and offset for every channel are
+// folded into shared memory first, from the ranks' summed moments
+// (gn_fold.cuh), and read from there.
+template <int CP, bool FOLD>  // Cout padded to 4 or 8
 __global__ void __launch_bounds__(NNT)
 conv_narrow_f32_kernel(const float* __restrict__ x, const float* __restrict__ a,
                        const float* __restrict__ off, const float* __restrict__ w,
-                       const float* __restrict__ bias, float* __restrict__ out, Geom g) {
+                       const float* __restrict__ bias, float* __restrict__ out, Geom g,
+                       FoldArgs f) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int halo_w = g.TW + 2, halo_px = (g.TH + 2) * halo_w;
   const int hs = halo_px | 1;                            // odd channel stride: no conflicts
   float* Raw = reinterpret_cast<float*>(smem_raw);      // 2 x [halo_px][NKC], pixel-major
   float* Xs = Raw + 2 * halo_px * NKC;                  // [NKC][hs], activated
   float* Wn = Xs + NKC * hs;                            // [Cin][9][CP]
+  float* AOn = Wn + g.Cin * 9 * CP;                     // FOLD: [a | off][Cin]
+  float* GSn = AOn + 2 * g.Cin;                         // FOLD: [group][mean, rstd]
 
   int b0, y0, x0;
   tile_origin(g, blockIdx.x, b0, y0, x0);
   const int tid = threadIdx.x;
+  if constexpr (FOLD) fold_images(f, g, b0, 1, AOn, GSn, tid, NNT);  // one image a tile
   const int per_row = g.TW / 4, tr = tid / per_row, tc = tid % per_row;
   const bool active = tr < g.TH;
   const int nslices = (g.Cin + NKC - 1) / NKC;
@@ -735,8 +875,14 @@ conv_narrow_f32_kernel(const float* __restrict__ x, const float* __restrict__ a,
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
       if (halo_pixel(g, b0, y0, x0, pos, px, bb) && ci < g.Cin) {
         const float4 r = *reinterpret_cast<const float4*>(src + pos * NKC + c4);
-        const float4 av = __ldg(reinterpret_cast<const float4*>(a + (long)bb * g.Cin + ci));
-        const float4 ov = __ldg(reinterpret_cast<const float4*>(off + (long)bb * g.Cin + ci));
+        float4 av, ov;
+        if constexpr (FOLD) {  // (bb is b0: one image a tile)
+          av = *reinterpret_cast<const float4*>(AOn + ci);
+          ov = *reinterpret_cast<const float4*>(AOn + g.Cin + ci);
+        } else {
+          av = __ldg(reinterpret_cast<const float4*>(a + (long)bb * g.Cin + ci));
+          ov = __ldg(reinterpret_cast<const float4*>(off + (long)bb * g.Cin + ci));
+        }
         v = make_float4(silu_f(fmaf(r.x, av.x, ov.x)), silu_f(fmaf(r.y, av.y, ov.y)),
                         silu_f(fmaf(r.z, av.z, ov.z)), silu_f(fmaf(r.w, av.w, ov.w)));
       }
@@ -790,9 +936,10 @@ conv_narrow_f32_kernel(const float* __restrict__ x, const float* __restrict__ a,
   }
 }
 
-template <int CP>
+template <int CP, bool FOLD>
 cudaError_t launch_narrow(const void* x, const void* a, const void* off, const void* w,
-                          const void* bias, void* out, Geom g, cudaStream_t stream) {
+                          const void* bias, void* out, Geom g, const FoldArgs& f,
+                          cudaStream_t stream) {
   // one image per tile: TW columns (a multiple of 4, at most 128) by as many
   // rows as 256 threads of 4 pixels cover
   g.NI = 1;
@@ -802,14 +949,15 @@ cudaError_t launch_narrow(const void* x, const void* a, const void* off, const v
   g.tiles_x = (g.W + g.TW - 1) / g.TW;
   const size_t halo_px = (size_t)(g.TH + 2) * (g.TW + 2);
   const size_t smem =
-      sizeof(float) * (2 * halo_px * NKC + NKC * (halo_px | 1) + (size_t)g.Cin * 9 * CP);
+      sizeof(float) * (2 * halo_px * NKC + NKC * (halo_px | 1) + (size_t)g.Cin * 9 * CP +
+                       (FOLD ? 2 * (size_t)(g.Cin + f.G) : 0));
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(conv_narrow_f32_kernel<CP>, smem);
+  cudaError_t err = allow_smem(conv_narrow_f32_kernel<CP, FOLD>, smem);
   if (err != cudaSuccess) return err;
-  conv_narrow_f32_kernel<CP><<<(unsigned)n_tiles(g), NNT, smem, stream>>>(
+  conv_narrow_f32_kernel<CP, FOLD><<<(unsigned)n_tiles(g), NNT, smem, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(a),
       static_cast<const float*>(off), static_cast<const float*>(w),
-      static_cast<const float*>(bias), static_cast<float*>(out), g);
+      static_cast<const float*>(bias), static_cast<float*>(out), g, f);
   return cudaGetLastError();
 }
 
@@ -825,19 +973,26 @@ template <> struct Ld<__nv_bfloat16> { static constexpr int v = KC + 8; };  // 8
 template <> struct Ld<float> { static constexpr int v = KC + 1; };
 
 // Stage the activated halo tile of channels [ci0, ci0 + KC): zero outside
-// the batch, the image and Cin.
-template <typename T>
+// the batch, the image and Cin.  FOLD: the scale and offset of image b0 + i
+// and channel c are AOs[2 i Cin + c], AOs[(2 i + 1) Cin + c].
+template <typename T, bool FOLD>
 __device__ __forceinline__ void stage_halo(const T* __restrict__ x, const float* __restrict__ a,
-                                           const float* __restrict__ off, T* Xs, const Geom& g,
-                                           int b0, int y0, int x0, int ci0, int halo_px) {
+                                           const float* __restrict__ off, const float* AOs,
+                                           T* Xs, const Geom& g, int b0, int y0, int x0, int ci0,
+                                           int halo_px) {
   constexpr int LD = Ld<T>::v;
   for (int idx = threadIdx.x; idx < halo_px * KC; idx += NT) {
     const int cc = idx % KC, pos = idx / KC, ci = ci0 + cc;
     long px;
     int bb;
     float v = 0.f;
-    if (halo_pixel(g, b0, y0, x0, pos, px, bb) && ci < g.Cin)
-      v = silu_f(to_f(x[px + ci]) * a[(long)bb * g.Cin + ci] + off[(long)bb * g.Cin + ci]);
+    if (halo_pixel(g, b0, y0, x0, pos, px, bb) && ci < g.Cin) {
+      if constexpr (FOLD)
+        v = silu_f(to_f(x[px + ci]) * AOs[2 * (bb - b0) * g.Cin + ci] +
+                   AOs[(2 * (bb - b0) + 1) * g.Cin + ci]);
+      else
+        v = silu_f(to_f(x[px + ci]) * a[(long)bb * g.Cin + ci] + off[(long)bb * g.Cin + ci]);
+    }
     Xs[pos * LD + cc] = from_f<T>(v);
   }
 }
@@ -855,22 +1010,29 @@ __device__ __forceinline__ void stage_weight(const T* __restrict__ w, T* Ws, con
   }
 }
 
-template <typename T>
+// FOLD (a slab): the scale and offset of every channel of the tile's images
+// are folded into a table in shared memory first, from the ranks' summed
+// moments (gn_fold.cuh), and staging reads them there.
+template <typename T, bool FOLD>
 __global__ void __launch_bounds__(NT)
 conv_kernel(const T* __restrict__ x, const float* __restrict__ a,
             const float* __restrict__ off, const T* __restrict__ w,
-            const float* __restrict__ bias, T* __restrict__ out, Geom g) {
+            const float* __restrict__ bias, T* __restrict__ out, Geom g, FoldArgs f) {
   constexpr int LD = Ld<T>::v;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int halo_w = g.TW + 2, halo_h = g.TH + 2;
   const int halo_px = g.NI * halo_h * halo_w;
   T* Xs = reinterpret_cast<T*>(smem_raw);  // halo_px x LD
   T* Ws = Xs + halo_px * LD;               // 9 x BN x LD
+  float* AOs = reinterpret_cast<float*>(Ws + 9 * BN * LD);  // FOLD: [image][a | off][Cin]
+  float* GSg = AOs + g.NI * 2 * g.Cin;                      // FOLD: [image][group][mean, rstd]
 
   int b0, y0, x0;
   tile_origin(g, blockIdx.x, b0, y0, x0);
   const int n0 = blockIdx.y * BN;
   const int tid = threadIdx.x;
+  if constexpr (FOLD)
+    fold_images(f, g, b0, g.B - b0 < g.NI ? g.B - b0 : g.NI, AOs, GSg, tid, NT);
 
   // bf16: warp (wm, wn) owns pixels 32*wm.. and channels 32*wn..; lane
   // (gq, tq) holds rows gq and gq+8 of each 16-row m-tile.
@@ -897,7 +1059,7 @@ conv_kernel(const T* __restrict__ x, const float* __restrict__ a,
 
   for (int ci0 = 0; ci0 < g.Cin; ci0 += KC) {
     __syncthreads();  // the previous slice is consumed
-    stage_halo(x, a, off, Xs, g, b0, y0, x0, ci0, halo_px);
+    stage_halo<T, FOLD>(x, a, off, AOs, Xs, g, b0, y0, x0, ci0, halo_px);
     stage_weight(w, Ws, g, n0, ci0);
     __syncthreads();
 
@@ -982,19 +1144,50 @@ conv_kernel(const T* __restrict__ x, const float* __restrict__ a,
   }
 }
 
-template <typename T>
+template <typename T, bool FOLD>
 cudaError_t launch_general(const void* x, const void* a, const void* off, const void* w,
-                           const void* bias, void* out, Geom g, cudaStream_t stream) {
+                           const void* bias, void* out, Geom g, const FoldArgs& f,
+                           cudaStream_t stream) {
   set_tile(g, BM);
   const long halo_px = (long)g.NI * (g.TH + 2) * (g.TW + 2);
-  const size_t smem = sizeof(T) * (size_t)(halo_px + 9 * BN) * Ld<T>::v;
-  cudaError_t err = allow_smem(conv_kernel<T>, smem);
+  const size_t smem = sizeof(T) * (size_t)(halo_px + 9 * BN) * Ld<T>::v +
+                      (FOLD ? sizeof(float) * (size_t)g.NI * 2 * (g.Cin + f.G) : 0);
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(conv_kernel<T, FOLD>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)n_tiles(g), (g.Cout + BN - 1) / BN);
-  conv_kernel<T><<<grid, NT, smem, stream>>>(
+  conv_kernel<T, FOLD><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(a), static_cast<const float*>(off),
-      static_cast<const T*>(w), static_cast<const float*>(bias), static_cast<T*>(out), g);
+      static_cast<const T*>(w), static_cast<const float*>(bias), static_cast<T*>(out), g, f);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+namespace {
+
+template <bool FOLD>
+int conv_any(const void* x, const void* a, const void* off, const void* w, const void* bias,
+             void* out, Geom g, int is_bf16, int design, const FoldArgs& f,
+             cudaStream_t stream) {
+  switch (design) {
+    case 0:
+      if (is_bf16)
+        return launch_general<__nv_bfloat16, FOLD>(x, a, off, w, bias, out, g, f, stream);
+      return launch_general<float, FOLD>(x, a, off, w, bias, out, g, f, stream);
+    case 1:
+      if (!is_bf16 || g.Cin % 8 || g.Cout % 8 || reinterpret_cast<uintptr_t>(x) % 16 ||
+          reinterpret_cast<uintptr_t>(w) % 16)
+        return cudaErrorInvalidValue;
+      return launch_wgmma_any<FOLD>(x, a, off, w, bias, out, g, f, stream);
+    case 2:
+      if (is_bf16 || g.Cout > 8 || g.Cin % 4 || reinterpret_cast<uintptr_t>(x) % 16)
+        return cudaErrorInvalidValue;
+      if (g.Cout <= 4) return launch_narrow<4, FOLD>(x, a, off, w, bias, out, g, f, stream);
+      return launch_narrow<8, FOLD>(x, a, off, w, bias, out, g, f, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -1006,23 +1199,37 @@ extern "C" int pddm_gn_silu_conv3x3(const void* x, const void* a, const void* of
                                     const void* w, const void* bias, void* out, int B,
                                     int H, int W, int Cin, int Cout, int is_bf16,
                                     int design, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  Geom g{B, H, W, Cin, Cout, 0, 0, 0, 0, 0};
-  switch (design) {
-    case 0:
-      if (is_bf16) return launch_general<__nv_bfloat16>(x, a, off, w, bias, out, g, stream);
-      return launch_general<float>(x, a, off, w, bias, out, g, stream);
-    case 1:
-      if (!is_bf16 || Cin % 8 || Cout % 8 || reinterpret_cast<uintptr_t>(x) % 16 ||
-          reinterpret_cast<uintptr_t>(w) % 16)
-        return cudaErrorInvalidValue;
-      return launch_wgmma_any(x, a, off, w, bias, out, g, stream);
-    case 2:
-      if (is_bf16 || Cout > 8 || Cin % 4 || reinterpret_cast<uintptr_t>(x) % 16)
-        return cudaErrorInvalidValue;
-      if (Cout <= 4) return launch_narrow<4>(x, a, off, w, bias, out, g, stream);
-      return launch_narrow<8>(x, a, off, w, bias, out, g, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  const Geom g{B, H, W, Cin, Cout, 0, 0, 0, 0, 0};
+  return conv_any<false>(x, a, off, w, bias, out, g, is_bf16, design, FoldArgs{},
+                         static_cast<cudaStream_t>(stream_ptr));
+}
+
+// The folding conv of a spatially sharded forward's slab: the same designs,
+// with (a, off) folded inside the kernel from mom (2, B, Cin) float32, the
+// ranks' summed per-slab E[x], E[x^2] (mom_len elements from mom on, at
+// least 2 B Cin), `ranks` of them, gamma and beta (Cin) float32, G groups,
+// and the conditioning as pddm_gn_fold takes it (cond_len0 / cond_len1: the
+// elements from cond0 / cond1 on, which must hold B rows of `stride`).
+extern "C" int pddm_gn_silu_conv3x3_fold(const void* x, const void* mom, const void* gamma,
+                                         const void* beta, const void* cond0, const void* cond1,
+                                         const void* w, const void* bias, void* out,
+                                         long long mom_len, long long cond_len0,
+                                         long long cond_len1, int B, int H, int W, int Cin,
+                                         int Cout, int G, int ranks, float eps, int mode,
+                                         int stride0, int stride1, int cond_is_bf16,
+                                         int is_bf16, int design, void* stream_ptr) {
+  auto rows_fit = [&](const void* p, long long len, int stride) {
+    return p != nullptr && stride >= Cin && len >= (long long)(B - 1) * stride + Cin;
+  };
+  if (mom == nullptr || gamma == nullptr || beta == nullptr || B < 1 || Cin < 1 || G < 1 ||
+      Cin % G != 0 || ranks < 1 || mom_len < 2LL * B * Cin || mode < 0 || mode > 2 ||
+      (mode >= 1 && !rows_fit(cond0, cond_len0, stride0)) ||
+      (mode == 2 && !rows_fit(cond1, cond_len1, stride1)))
+    return cudaErrorInvalidValue;
+  const Geom g{B, H, W, Cin, Cout, 0, 0, 0, 0, 0};
+  const FoldArgs f{static_cast<const float*>(mom), static_cast<const float*>(gamma),
+                   static_cast<const float*>(beta),
+                   Cond{cond0, cond1, stride0, stride1, mode, cond_is_bf16}, G, ranks, eps};
+  return conv_any<true>(x, nullptr, nullptr, w, bias, out, g, is_bf16, design, f,
+                        static_cast<cudaStream_t>(stream_ptr));
 }

@@ -73,10 +73,21 @@
 //                   two torch sums over the batch (and a cast of the
 //                   conditioning's gradient): four or five operations a site.
 //
-// The fold also runs alone (gn_fold_kernel, one block a sample): from the
-// (2, B, C) moments E[x], E[x^2] to the same (4, B, C) output.  A spatially
-// sharded forward averages each rank's moments over the ranks first, so the
-// fold sees whole-image statistics; B x C work, bound by the launch.
+// A spatially sharded forward (each rank a slab of every image's rows)
+// folds whole-image statistics: each rank's moments (this file's moments
+// launch, its fold unused) are summed over the ranks in place by one
+// all-reduce, and the kernel that consumes them folds them itself, with
+// the rank count as the divisor (gn_fold.cuh holds the fold's arithmetic,
+// which every consumer shares, so each gets gn_fold_kernel's bits).  The
+// slab's GroupNorm is gn_fold_apply_kernel: each block folds the groups its
+// chunk touches in shared memory and applies them, one launch in place of
+// a fold launch and an apply launch; the fused conv folds in gn_conv.cu.
+// The fold alone (gn_fold_kernel, one block a sample: from the (2, B, C)
+// moments E[x], E[x^2] to the same (4, B, C) output) was the slab's first
+// design; B x C work, bound by its launch (2.8 us on the H100 against
+// 0.007 us of bytes), so the fold went into the consumers, which were
+// launched anyway.
+// It stays callable by name; no path launches it.
 //
 // GroupNorm has two designs (ops/groupnorm.py::groupnorm_design):
 //   fused  one launch: a block owns whole groups (a chunk of channels that
@@ -113,29 +124,13 @@
 // No float atomics: the same bits on every run.
 #include <cooperative_groups.h>
 
+#include "gn_fold.cuh"
 #include "groupnorm.cuh"
 
 using namespace pddm;
 namespace cgs = cooperative_groups;
 
 namespace {
-
-// The conditioning folded into (a, off): nothing, the timestep embedding
-// (B, C), or the FiLM pair (scale, shift), each (B, C); unit channel stride,
-// `stride` elements between samples (the FiLM pair is two halves of one
-// (B, 2C) tensor), float32 or bf16.
-struct Cond {
-  const void* p0;
-  const void* p1;
-  int stride0, stride1;
-  int mode;  // 0 none, 1 embedding add, 2 FiLM
-  int is_bf16;
-};
-
-__device__ __forceinline__ float cond_at(const void* p, long i, int is_bf16) {
-  return is_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
-                 : static_cast<const float*>(p)[i];
-}
 
 // Add `left / U * U` rows, `step` elements apart, into the sums: the U loads
 // of a batch are all issued before the first is used, so a thread keeps U
@@ -208,50 +203,14 @@ __device__ __forceinline__ void block_moments(const T* __restrict__ x, const Pla
 // The fold for sample b and the nch channels from c0 on (whole groups):
 // csum/csq hold their sums over N on entry; a_out[j], off_out[j] receive the
 // scale and offset of local channel j, and mean_out[j], m2_out[j] (where
-// given) E[x] and E[x^2], which the backward starts from.
+// given) E[x] and E[x^2], which the backward starts from (gn_fold.cuh).
 __device__ __forceinline__ void fold(const Plan& p, const Cond& cd,
                                      const float* __restrict__ gamma,
                                      const float* __restrict__ beta, float eps, int b, int c0,
                                      int nch, float* csum, float* csq, float* a_out,
                                      float* off_out, float* mean_out, float* m2_out) {
-  const float n = (float)p.N;
-  for (int j = threadIdx.x; j < nch; j += NT) {
-    float mu = csum[j] / n, m2 = csq[j] / n;
-    if (mean_out != nullptr) {
-      mean_out[j] = mu;
-      m2_out[j] = m2;
-    }
-    if (cd.mode == 1) {
-      const float e = cond_at(cd.p0, (long)b * cd.stride0 + c0 + j, cd.is_bf16);
-      m2 = m2 + 2.f * e * mu + e * e;
-      mu = mu + e;
-    }
-    csum[j] = mu;
-    csq[j] = m2;
-  }
-  __syncthreads();
-  const int cg = p.C / p.G;
-  for (int j = threadIdx.x; j < nch; j += NT) {
-    const int c = c0 + j, g0 = (c / cg) * cg - c0;
-    float mg = 0.f, qg = 0.f;
-    for (int i = 0; i < cg; ++i) {
-      mg += csum[g0 + i];
-      qg += csq[g0 + i];
-    }
-    mg /= (float)cg;
-    qg /= (float)cg;
-    const float rstd = rsqrtf(qg - mg * mg + eps);
-    float a = rstd * gamma[c];
-    float off = beta[c] - mg * a;
-    if (cd.mode == 1) off += cond_at(cd.p0, (long)b * cd.stride0 + c, cd.is_bf16) * a;
-    if (cd.mode == 2) {
-      const float sc = 1.f + cond_at(cd.p0, (long)b * cd.stride0 + c, cd.is_bf16);
-      a *= sc;
-      off = off * sc + cond_at(cd.p1, (long)b * cd.stride1 + c, cd.is_bf16);
-    }
-    a_out[j] = a;
-    off_out[j] = off;
-  }
+  fold_channels<NT>((float)p.N, p.C, p.G, cd, gamma, beta, eps, b, c0, nch, csum, csq, a_out,
+                    off_out, mean_out, m2_out);
 }
 
 // y = x * a + off (+ SiLU) over rows [r0, r1) of sample b for the channels
@@ -612,6 +571,61 @@ gn_fold_kernel(const float* __restrict__ mom, const float* __restrict__ gamma,
        ao + 3 * bc + row);
 }
 
+// The slab's GroupNorm (a spatially sharded forward): fold + apply in one
+// launch, in place of gn_fold_kernel and gn_apply_kernel.  Grid (splits,
+// channel chunks, B) as the apply kernel's.  mom (2, B, C) float32 holds the
+// ranks' summed per-slab E[x], E[x^2]; each block loads them for the whole
+// groups its chunk touches (a chunk may start or end inside a group) into
+// shared memory, folds them there with n = ranks (fold_channels: the
+// ranks' mean is sum / ranks, then gn_fold_kernel's arithmetic, so (a, off)
+// have its bits) and applies (+ SiLU) to its rows.
+template <typename T, int V>
+__global__ void __launch_bounds__(NT, 4)
+gn_fold_apply_kernel(const T* __restrict__ x, const float* __restrict__ mom,
+                     const float* __restrict__ gamma, const float* __restrict__ beta,
+                     T* __restrict__ y, Plan p, int ranks, float eps, int silu) {
+  extern __shared__ float smem[];
+  const int b = blockIdx.z, chb = p.cvb * V, c0 = blockIdx.y * chb;
+  const int nch = chb < p.C - c0 ? chb : p.C - c0;
+  const int cg = p.C / p.G, f0 = c0 / cg * cg;
+  const int f1 = min(p.C, (c0 + nch + cg - 1) / cg * cg), span = f1 - f0;
+  const int cap = chb + 2 * cg;  // channels of the groups a chunk touches, at most
+  float* csum = smem;
+  float* csq = csum + cap;
+  float* sa = csq + cap;
+  float* so = sa + cap;
+  const long bc = (long)p.B * p.C, row = (long)b * p.C;
+  for (int j = threadIdx.x; j < span; j += NT) {
+    csum[j] = mom[row + f0 + j];
+    csq[j] = mom[bc + row + f0 + j];
+  }
+  __syncthreads();
+  const Cond cd{nullptr, nullptr, 0, 0, 0, 0};
+  fold_channels<NT>((float)ranks, p.C, p.G, cd, gamma, beta, eps, b, f0, span, csum, csq, sa, so,
+                    nullptr, nullptr);
+  __syncthreads();
+  const int r0 = blockIdx.x * p.rows, r1 = p.N < r0 + p.rows ? p.N : r0 + p.rows;
+  apply_rows<T, V>(x, y, p, b, blockIdx.y * p.cvb, r0, r1, sa + (c0 - f0), so + (c0 - f0), silu);
+}
+
+template <typename T, int V>
+cudaError_t launch_fold_apply(const void* x, const float* mom, const float* gamma,
+                              const float* beta, void* y, const Plan& p, int ranks, float eps,
+                              int silu, cudaStream_t stream) {
+  if (!plan_ok(p, V, sizeof(T), x, y)) return cudaErrorInvalidValue;
+  const dim3 grid = plan_grid(p, V);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  // csum, csq, a and off
+  const size_t cap = p.cvb * V + 2 * (p.C / p.G);
+  const size_t smem = sizeof(float) * 4 * cap;
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem(gn_fold_apply_kernel<T, V>, smem + 256);
+  if (err != cudaSuccess) return err;
+  gn_fold_apply_kernel<T, V><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(x), mom, gamma, beta, static_cast<T*>(y), p, ranks, eps, silu);
+  return cudaGetLastError();
+}
+
 template <typename T, int V, bool APPLY>
 cudaError_t launch_moments(const void* x, const float* gamma, const float* beta, const Cond& cd,
                            float* ao, void* y, float* ws, unsigned* counters, const Plan& p,
@@ -833,6 +847,43 @@ extern "C" int pddm_gn_fold(const void* mom, const void* gamma, const void* beta
       static_cast<const float*>(mom), static_cast<const float*>(gamma),
       static_cast<const float*>(beta), cd, static_cast<float*>(ao), B, C, G, eps);
   return cudaGetLastError();
+}
+
+// The slab's GroupNorm, fold + apply (gn_fold_apply_kernel): y = x * a + off
+// (+ SiLU) in x's dtype, (a, off) folded from mom (2, B, C) float32, the
+// ranks' summed per-slab E[x] and E[x^2] (mom_len elements from mom on, at
+// least 2 B C), divided by `ranks`.
+extern "C" int pddm_gn_fold_apply(const void* x, const void* mom, const void* gamma,
+                                  const void* beta, void* y, long long mom_len, int B,
+                                  int N, int C, int G, int ranks, float eps, int silu,
+                                  int is_bf16, int V, int cvb, int splits, int rows,
+                                  void* stream_ptr) {
+  if (mom == nullptr || gamma == nullptr || beta == nullptr || B < 1 || C < 1 || G < 1 ||
+      C % G != 0 || ranks < 1 || mom_len < 2LL * B * C)
+    return cudaErrorInvalidValue;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const Plan p{B, N, C, G, cvb, splits, rows};
+  const float* f[3] = {static_cast<const float*>(mom), static_cast<const float*>(gamma),
+                       static_cast<const float*>(beta)};
+#define PDDM_GN_CASE(T, W) \
+  case W:                  \
+    return launch_fold_apply<T, W>(x, f[0], f[1], f[2], y, p, ranks, eps, silu, stream)
+  if (is_bf16) {
+    switch (V) {
+      PDDM_GN_CASE(__nv_bfloat16, 8);
+      PDDM_GN_CASE(__nv_bfloat16, 4);
+      PDDM_GN_CASE(__nv_bfloat16, 2);
+      PDDM_GN_CASE(__nv_bfloat16, 1);
+    }
+  } else {
+    switch (V) {
+      PDDM_GN_CASE(float, 4);
+      PDDM_GN_CASE(float, 2);
+      PDDM_GN_CASE(float, 1);
+    }
+  }
+#undef PDDM_GN_CASE
+  return cudaErrorInvalidValue;
 }
 
 // y = x * a + off (+ SiLU) with ao = (a, off, ...) as pddm_gn_moments_fold

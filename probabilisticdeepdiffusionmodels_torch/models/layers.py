@@ -190,7 +190,8 @@ class GroupNorm32(nn.Module):
         rows = spatial.active()
         if rows is not None:
             return group_norm_silu_slab(x.contiguous(), self.weight, self.bias, self.groups,
-                                        self.eps, silu, lambda m: spatial.average(m, rows))
+                                        self.eps, silu, lambda m: spatial.total(m, rows),
+                                        rows.count)
         return group_norm_silu(x.contiguous(), self.weight, self.bias,
                                self.groups, self.eps, silu=silu)
 

@@ -22,8 +22,9 @@ as JAX threads the step's dropout key), never from torch's default one.
 Under tensor parallelism (``parallel.tp``) a sharded fused conv runs the
 kernel on this rank's slice of Cout and gathers the channels; under a
 spatial row split (``parallel.spatial``) it runs on a halo slab with
-whole-image statistics (``gn_affine_slab``), and attention gathers the
-token rows of ``qkv`` and keeps this rank's queries.
+whole-image statistics, the ranks' summed moments folded inside the conv
+kernel (``gn_moments_slab``, ``gn_silu_conv3x3_fold``), and attention
+gathers the token rows of ``qkv`` and keeps this rank's queries.
 
 At 1-D and 3-D the JAX model fuses no conv: a ResBlock is GroupNorm + SiLU
 (the GroupNorm op, kernel on the card) then a plain ``F.conv1d`` /
@@ -49,7 +50,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.diffusion import timestep_embedding
 from ..ops.attention import qkv_attention
-from ..ops.gn_conv import gn_affine, gn_affine_slab, gn_silu_conv3x3
+from ..ops.gn_conv import gn_affine, gn_moments_slab, gn_silu_conv3x3, gn_silu_conv3x3_fold
 from ..parallel import mesh as P
 from ..parallel import spatial
 from ..parallel.tp import gather_channels, to_model
@@ -88,25 +89,40 @@ def _gn_silu_conv(x: torch.Tensor, norm: GroupNorm32, conv: FusedConv3x3,
                   emb: Optional[torch.Tensor] = None, film=None) -> torch.Tensor:
     x = x.contiguous()  # the statistics and the conv kernel read one tensor
     rows = spatial.active()
-    if rows is None:
-        a, off = gn_affine(x, norm.weight, norm.bias, norm.groups, norm.eps,
-                           emb=emb, film=film)
-        top, h = 0, x.shape[1]
-    else:
-        # whole-image statistics; the kernel activates the halo rows and
-        # pads zeros at the slab's edges, whose rows are dropped
-        a, off = gn_affine_slab(x, norm.weight, norm.bias, norm.groups, norm.eps,
-                                lambda m: spatial.average(m, rows), emb=emb, film=film)
-        h = x.shape[1]
-        x, top, _ = spatial.halo(x, 1, 1, rows)
+    if rows is not None:
+        return _gn_silu_conv_slab(x, norm, conv, rows, emb, film)
+    a, off = gn_affine(x, norm.weight, norm.bias, norm.groups, norm.eps, emb=emb, film=film)
     if conv.tp is None:
-        y = gn_silu_conv3x3(x, a, off, conv.weight, conv.bias)
-        return y if rows is None else y[:, top:top + h].contiguous()
+        return gn_silu_conv3x3(x, a, off, conv.weight, conv.bias)
     # this rank's Cout slice; the whole bias after the gather
     x, a, off = to_model(conv.tp, x, a, off)
     y = gn_silu_conv3x3(x, a, off, conv.weight, conv.bias.new_zeros(conv.weight.shape[2]))
-    if rows is not None:
-        y = y[:, top:top + h]
+    return gather_channels(conv.tp, y) + conv.bias.to(y.dtype)
+
+
+def _gn_silu_conv_slab(x: torch.Tensor, norm: GroupNorm32, conv: FusedConv3x3, rows,
+                       emb: Optional[torch.Tensor], film) -> torch.Tensor:
+    """``_gn_silu_conv`` on this rank's rows: whole-image statistics (the
+    ranks' summed moments, folded inside the conv kernel); the kernel
+    activates the halo rows and pads zeros at the slab's edges, whose rows
+    are dropped."""
+    mom = gn_moments_slab(x, norm.weight, norm.bias, norm.groups, norm.eps,
+                          lambda m: spatial.total(m, rows))
+    h = x.shape[1]
+    x, top, _ = spatial.halo(x, 1, 1, rows)
+    ins = (x, mom, norm.weight, norm.bias, *((emb,) if emb is not None else film or ()))
+    bias = conv.bias
+    if conv.tp is not None:
+        # this rank's Cout slice; the whole bias after the gather
+        ins = to_model(conv.tp, *ins)
+        bias = conv.bias.new_zeros(conv.weight.shape[2])
+    x, mom, gamma, beta, *conds = ins
+    y = gn_silu_conv3x3_fold(x, mom, rows.count, gamma, beta, norm.groups, norm.eps,
+                             conv.weight, bias, emb=conds[0] if emb is not None else None,
+                             film=tuple(conds) if film is not None else None)
+    y = y[:, top:top + h]
+    if conv.tp is None:
+        return y.contiguous()
     return gather_channels(conv.tp, y) + conv.bias.to(y.dtype)
 
 

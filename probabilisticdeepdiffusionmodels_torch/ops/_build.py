@@ -65,8 +65,16 @@ _SIGNATURES = {
     "pddm_gn_fold": [_P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _I, _I, _I, _P],
     # x, ao, out, B, N, C, silu, is_bf16, V, cvb, splits, rows, stream
     "pddm_gn_apply": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, moments, gamma, beta, out, moments' length, B, N, C, groups, ranks, eps, silu,
+    # is_bf16, V, cvb, splits, rows, stream
+    "pddm_gn_fold_apply": [*[_P] * 5, _L, *[_I] * 5, ctypes.c_float, *[_I] * 6, _P],
     # x, a, off, w, bias, out, B, H, W, Cin, Cout, is_bf16, design, stream
     "pddm_gn_silu_conv3x3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, moments, gamma, beta, cond0, cond1, w, bias, out, the lengths of moments, cond0 and
+    # cond1, B, H, W, Cin, Cout, groups, ranks, eps, mode, stride0, stride1, cond_is_bf16,
+    # is_bf16, design, stream
+    "pddm_gn_silu_conv3x3_fold": [*[_P] * 9, *[_L] * 3, *[_I] * 7, ctypes.c_float, *[_I] * 6,
+                                  _P],
     # x, a, off, w, g, dx, da, doff, dw, dbias, ws_a, ws_w, ws_b, h, n_a, n_w, n_b, n_h,
     # B, H, W, Cin, Cout, is_bf16, design, want_dgrad, want_wgrad, nwg, bn, splits, stream
     "pddm_gn_silu_conv3x3_grad": [*[_P] * 14, *[_L] * 4, *[_I] * 12, _P],

@@ -59,6 +59,15 @@ three designs (the source says more):
 
 The bias is added in float32 and the output stored in the input dtype.
 
+A spatially sharded forward's slab (``models/unet.py``) runs the folding
+variant of the same designs, ``gn_silu_conv3x3_fold``: it takes the ranks'
+summed (2, B, Cin) moments (``gn_moments_slab``: one moments launch and
+one all-reduce in place), the rank count, gamma, beta and the
+conditioning, and folds (a, off) inside the kernel with ``gn_fold``'s
+arithmetic (``csrc/gn_fold.cuh``), so no fold kernel runs before it.  The
+first design, ``gn_affine_slab`` (the moments averaged over the ranks,
+``groupnorm.gn_fold``) then the conv fed (a, off), stays callable by name.
+
 Backward (``gn_silu_conv3x3_grad``, kernels in ``csrc/gn_conv_grad.cu``):
 the Pallas kernel has no backward kernel; ``_fused_bwd`` in
 ``gn_conv_pallas.py`` takes ``jax.vjp`` of the XLA form, which XLA compiles
@@ -107,13 +116,16 @@ import torch.nn.functional as F
 
 from . import _build
 from .autograd import forbid_forward_mode
-from .groupnorm import (_grad_plan, _shape, affine_backward, apply_affine, check_inputs,
-                        fold_backward, gn_fold, gn_fold_plain, moments_fold, moments_plain)
+from .groupnorm import (_cond_args, _float32_on, _grad_plan, _shape, affine_backward,
+                        apply_affine, check_inputs, fold_backward, gn_fold, gn_fold_plain,
+                        moments_fold, moments_plain)
 
 __all__ = ["conv_design", "conv_grad_design", "gn_affine", "gn_affine_plain", "gn_affine_grad",
            "gn_affine_grad_plain", "grad_design", "gn_affine_slab",
-           "gn_affine_slab_plain", "gn_silu_conv3x3", "gn_silu_conv3x3_plain",
-           "gn_silu_conv3x3_grad", "gn_silu_conv3x3_grad_plain", "grad_plan"]
+           "gn_affine_slab_plain", "gn_moments_slab", "gn_moments_slab_plain",
+           "gn_silu_conv3x3", "gn_silu_conv3x3_plain", "gn_silu_conv3x3_fold",
+           "gn_silu_conv3x3_fold_plain", "gn_silu_conv3x3_grad", "gn_silu_conv3x3_grad_plain",
+           "grad_plan"]
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 # the C entry point's design argument
@@ -298,7 +310,9 @@ def gn_affine_slab_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tenso
                          num_groups: int, eps: float, average,
                          emb: Optional[torch.Tensor] = None,
                          film: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
-    """``gn_affine_slab`` in plain torch (the moments and the fold)."""
+    """``gn_affine_slab`` in plain torch (the moments and the fold).  The
+    slab's first design, by name only (``gn_silu_conv3x3_fold`` folds
+    inside the conv)."""
     ao = gn_fold_plain(average(moments_plain(x)), gamma, beta, num_groups, eps,
                        emb=emb, film=film)
     return ao[0], ao[1]
@@ -311,7 +325,10 @@ def gn_affine_slab(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     rows: the (2, B, C) moments of ``x``, ``average``d over the ranks that
     hold the rest, folded (``groupnorm.gn_fold``).  A CPU tensor takes the
     plain version; a CUDA tensor launches the moments + fold kernel (its
-    local fold unused) and the fold kernel.  Forward only (sampling)."""
+    local fold unused) and the fold kernel.  Forward only (sampling).  The
+    slab's first design, callable by name for measurement; no path runs it
+    (the slab's statistics come from ``gn_moments_slab`` and are folded
+    inside ``gn_silu_conv3x3_fold``)."""
     if x.device.type == "cpu":
         return gn_affine_slab_plain(x, gamma, beta, num_groups, eps, average,
                                     emb=emb, film=film)
@@ -320,6 +337,28 @@ def gn_affine_slab(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     gn_affine.launches += 1
     ao = gn_fold(average(local[2:4]), gamma, beta, num_groups, eps, **_named(mode, conds))
     return ao[0], ao[1]
+
+
+def gn_moments_slab_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                          num_groups: int, eps: float, total) -> torch.Tensor:
+    """``gn_moments_slab`` in plain torch: ``total(moments_plain(x))``."""
+    return total(moments_plain(x))
+
+
+def gn_moments_slab(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, num_groups: int,
+                    eps: float, total) -> torch.Tensor:
+    """The (2, B, C) float32 E[x] and E[x^2] of the rows of an image that
+    ``x`` holds, summed in place over the ranks that hold the rest by
+    ``total`` (an all-reduce; the identity on one rank): what
+    ``gn_silu_conv3x3_fold`` folds.  A CPU tensor takes the plain version; a
+    CUDA tensor one launch of the moments + fold kernel (its fold unused,
+    counted as ``gn_affine``'s).  Forward only."""
+    if x.device.type == "cpu":
+        return gn_moments_slab_plain(x, gamma, beta, num_groups, eps, total)
+    gamma, beta, _, _ = kernel_args(x, gamma, beta, num_groups)
+    local = moments_fold(x, gamma, beta, num_groups, eps)
+    gn_affine.launches += 1
+    return total(local[2:4])
 
 
 def _affine_silu_conv(x, a, off, w, bias, conv_dtype):
@@ -356,20 +395,9 @@ def gn_silu_conv3x3(x: torch.Tensor, a: torch.Tensor, off: torch.Tensor,
     card by ``gn_silu_conv3x3_grad``'s kernels, in reverse mode only."""
     if x.device.type == "cpu":
         return gn_silu_conv3x3_plain(x, a, off, w, bias)
-    if x.device.type != "cuda":
-        raise ValueError(f"gn_silu_conv3x3: unsupported device {x.device}")
-    if x.dtype not in _KERNEL_DTYPES:
-        raise ValueError(f"gn_silu_conv3x3 kernel takes float32/bfloat16, got {x.dtype}")
-    if x.dim() != 4 or not x.is_contiguous():
-        raise ValueError("x must be a contiguous (B, H, W, Cin) tensor")
-    b, h, wd, cin = x.shape
-    if w.dim() != 4 or w.shape[:2] != (3, 3) or w.shape[3] != cin:
-        raise ValueError(f"w must be (3, 3, Cout, {cin}), got {tuple(w.shape)}")
-    cout = w.shape[2]
+    b, _, _, cin = _check_conv("gn_silu_conv3x3", x, w, bias)
     if a.shape != (b, cin) or off.shape != (b, cin):
         raise ValueError(f"a/off must be ({b}, {cin})")
-    if bias.shape != (cout,):
-        raise ValueError(f"bias must be ({cout},)")
     # the casts stay outside the Function, so autograd carries each gradient
     # back to the float32 parameter it came from
     a = a.to(device=x.device, dtype=torch.float32).contiguous()
@@ -382,9 +410,29 @@ def gn_silu_conv3x3(x: torch.Tensor, a: torch.Tensor, off: torch.Tensor,
     return _launch(x, a, off, w, bias)
 
 
-def conv_design(x: torch.Tensor, w: torch.Tensor) -> str:
+def _check_conv(name: str, x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor):
+    """(B, H, W, Cin) of a fused conv's call; raise on what its kernels do
+    not take."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"{name} kernel takes float32/bfloat16, got {x.dtype}")
+    if x.dim() != 4 or not x.is_contiguous():
+        raise ValueError("x must be a contiguous (B, H, W, Cin) tensor")
+    b, h, wd, cin = x.shape
+    if w.dim() != 4 or w.shape[:2] != (3, 3) or w.shape[3] != cin:
+        raise ValueError(f"w must be (3, 3, Cout, {cin}), got {tuple(w.shape)}")
+    if bias.shape != (w.shape[2],):
+        raise ValueError(f"bias must be ({w.shape[2]},)")
+    return b, h, wd, cin
+
+
+def conv_design(x: torch.Tensor, w: torch.Tensor, groups: int = 0) -> str:
     """The kernel design that a call on ``x`` (B, H, W, Cin) and ``w``
-    (3, 3, Cout, Cin), both in the kernel's dtype, runs."""
+    (3, 3, Cout, Cin), both in the kernel's dtype, runs; ``groups``: the
+    folding conv's GroupNorm groups (its narrow_f32 keeps the scale, the
+    offset and each group's statistics in shared memory too), 0 for the
+    conv fed (a, off)."""
     _, h, wd, cin = x.shape
     cout = w.shape[2]
     if (x.dtype == torch.bfloat16 and cin % 8 == 0 and cout % 8 == 0 and min(h, wd) >= 4
@@ -394,7 +442,9 @@ def conv_design(x: torch.Tensor, w: torch.Tensor) -> str:
         # two raw 8-channel halo buffers, the activated one, the whole weight
         tw = (wd + 3) // 4 * 4 if wd <= 128 else 128
         halo = (256 // (tw // 4) + 2) * (tw + 2)
-        if 4 * (16 * halo + 8 * (halo | 1) + 9 * cin * (4 if cout <= 4 else 8)) <= _SMEM_BYTES:
+        fold = 2 * (cin + groups) if groups else 0
+        if (4 * (16 * halo + 8 * (halo | 1) + 9 * cin * (4 if cout <= 4 else 8) + fold)
+                <= _SMEM_BYTES):
             return "narrow_f32"
     return "general"
 
@@ -443,6 +493,73 @@ def _launch(x, a, off, w, bias):
 
 
 gn_silu_conv3x3.launches = 0
+
+
+def gn_silu_conv3x3_fold_plain(x: torch.Tensor, moments: torch.Tensor, ranks: int,
+                               gamma: torch.Tensor, beta: torch.Tensor, num_groups: int,
+                               eps: float, w: torch.Tensor, bias: torch.Tensor,
+                               emb: Optional[torch.Tensor] = None,
+                               film: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                               ) -> torch.Tensor:
+    """``gn_silu_conv3x3_fold`` in plain torch: the fold (``gn_fold_plain``)
+    of the ranks' mean moments ``moments / ranks``, then
+    ``gn_silu_conv3x3_plain``."""
+    ao = gn_fold_plain(moments / ranks, gamma, beta, num_groups, eps, emb=emb, film=film)
+    return gn_silu_conv3x3_plain(x, ao[0], ao[1], w, bias)
+
+
+def _elements_from(t: torch.Tensor) -> int:
+    """The elements of ``t``'s storage from its first one on: what the C
+    entry point may read behind its pointer."""
+    return t.untyped_storage().nbytes() // t.element_size() - t.storage_offset()
+
+
+def gn_silu_conv3x3_fold(x: torch.Tensor, moments: torch.Tensor, ranks: int,
+                         gamma: torch.Tensor, beta: torch.Tensor, num_groups: int, eps: float,
+                         w: torch.Tensor, bias: torch.Tensor, emb: Optional[torch.Tensor] = None,
+                         film: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                         ) -> torch.Tensor:
+    """The fused conv of a spatially sharded forward's slab, its scale and
+    offset folded inside the kernel: ``gn_silu_conv3x3`` of ``x`` (this
+    rank's rows and the halo rows, (B, H, W, Cin)) with the (a, off) that
+    ``gn_fold`` gives for the ranks' mean moments, ``moments`` (2, B, Cin)
+    float32 being their sum over ``ranks`` ranks (``gn_moments_slab``).
+    GroupNorm's gamma/beta and groups, and emb or the FiLM pair, as
+    ``gn_affine`` takes them.  Each block folds its images' group statistics
+    (whole groups, whatever channels its slices cut), then each slice's
+    scale and offset, with ``gn_fold_kernel``'s arithmetic; the design is
+    ``conv_design``'s.  A CPU tensor takes the plain version; a CUDA tensor
+    one launch or raises.  Forward only: raises where autograd would record
+    it."""
+    if x.device.type == "cpu":
+        return gn_silu_conv3x3_fold_plain(x, moments, ranks, gamma, beta, num_groups, eps, w,
+                                          bias, emb=emb, film=film)
+    b, h, wd, cin = _check_conv("gn_silu_conv3x3_fold", x, w, bias)
+    conds = (emb,) if emb is not None else tuple(film or ())
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, moments, gamma, beta, w, bias, *conds)):
+        raise ValueError("gn_silu_conv3x3_fold is forward only (a spatially sharded forward)")
+    gamma, beta, mode, conds = kernel_args(x, gamma, beta, num_groups, emb, film)
+    moments = _float32_on(moments, x.device)
+    if moments.shape != (2, b, cin) or ranks < 1:
+        raise ValueError(f"gn_silu_conv3x3_fold takes (2, {b}, {cin}) moments summed over "
+                         f"ranks >= 1, got {tuple(moments.shape)} over {ranks}")
+    w = _weight_in(w, x)
+    bias = bias.to(device=x.device, dtype=torch.float32).contiguous()
+    cout = w.shape[2]
+    out = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
+    ptr0, ptr1, *rest = _cond_args(**_named(mode, conds))
+    lens = [_elements_from(t) for t in conds] + [0, 0]
+    _build.launch("pddm_gn_silu_conv3x3_fold", x.data_ptr(), moments.data_ptr(),
+                  gamma.data_ptr(), beta.data_ptr(), ptr0, ptr1, w.data_ptr(), bias.data_ptr(),
+                  out.data_ptr(), moments.numel(), lens[0], lens[1], b, h, wd, cin, cout,
+                  num_groups, int(ranks), float(eps), *rest, int(x.dtype == torch.bfloat16),
+                  DESIGNS[conv_design(x, w, num_groups)])
+    gn_silu_conv3x3_fold.launches += 1
+    return out
+
+
+gn_silu_conv3x3_fold.launches = 0
 
 
 # ----------------------------------------------------------------- gradient

@@ -37,12 +37,19 @@ work is three parts:
 
 Neither adds floats with atomics, so two runs give the same bits.
 
-The fold also has an entry of its own (``gn_fold``: one block a sample, from
-the (2, B, C) moments E[x], E[x^2] to the same (4, B, C) output as
-``moments_fold``).  A spatially sharded forward uses it: each rank's
-moments over its rows are averaged over the ranks and folded, so the
-normalisation uses whole-image statistics (``group_norm_silu_slab``,
-``gn_conv.gn_affine_slab``).
+A spatially sharded forward normalises each rank's rows (a slab) with
+whole-image statistics: each rank's moments over its rows are summed over
+the ranks in place (one all-reduce) and folded inside the kernel that
+consumes them, with the rank count as the divisor (``csrc/gn_fold.cuh``
+holds the fold's arithmetic, shared by every consumer, so each folds
+(a, off) to the same bits).  ``group_norm_silu_slab`` is three device
+operations: the moments (``moments_fold``, its own fold unused), the
+all-reduce, and ``gn_fold_apply`` (fold + apply in one launch); the fused
+conv's slab folds in the conv (``gn_conv.gn_silu_conv3x3_fold``).  The
+fold alone (``gn_fold``: one block a sample, from the (2, B, C) moments
+E[x], E[x^2] to the same (4, B, C) output as ``moments_fold``) was the
+first design, and stays callable by name for measurement; no path
+launches it.
 
 ``gn_affine``'s gradient runs the same parts backwards.  ``affine_backward``
 (design ``fused_bwd``, ``grad_plan``): one launch in which each block
@@ -119,7 +126,8 @@ __all__ = ["group_norm_silu", "group_norm_silu_plain", "group_norm_silu_grad",
            "fused_plan", "affine_plan", "grad_plan", "affine_design", "moments_fold",
            "fold_backward", "fold_backward_plain", "affine_backward", "apply_affine", "gn_fold",
            "gn_fold_plain", "moments_plain", "group_norm_silu_slab",
-           "group_norm_silu_slab_plain"]
+           "group_norm_silu_slab_plain", "group_norm_silu_slab_gn_fold", "gn_fold_apply",
+           "gn_fold_apply_plain"]
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _NT = 256                  # threads of a block (csrc/groupnorm.cu)
@@ -857,7 +865,7 @@ def group_norm_silu_grad(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tenso
 group_norm_silu_grad.launches = 0
 
 
-# ------------------------------------------------------------ the fold alone
+# ------------------------------------------------------------ the slab's fold
 
 
 def moments_plain(x: torch.Tensor) -> torch.Tensor:
@@ -902,7 +910,9 @@ def gn_fold(moments: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, num_
     a CUDA tensor launches the fold kernel (one block a sample) or raises.
     ``moments`` is (2, B, C) float32; gamma/beta float32 (C,); emb or the
     FiLM pair (B, C), float32 or bfloat16 with unit channel stride (as
-    ``gn_conv.gn_affine`` hands them on).  Forward only."""
+    ``gn_conv.gn_affine`` hands them on).  Forward only.  The slab's first
+    design, before the fold moved into its consumers (``gn_fold_apply``,
+    ``gn_conv.gn_silu_conv3x3_fold``): callable by name, on no path."""
     if moments.device.type == "cpu":
         return gn_fold_plain(moments, gamma, beta, num_groups, eps, emb=emb, film=film)
     if moments.device.type != "cuda":
@@ -928,12 +938,9 @@ def gn_fold(moments: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, num_
 gn_fold.launches = 0
 
 
-def group_norm_silu_slab_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                               num_groups: int, eps: float, silu: bool,
-                               average) -> torch.Tensor:
-    """``group_norm_silu_slab`` in plain torch (the moments, the fold, the
-    affine and SiLU)."""
-    ao = gn_fold_plain(average(moments_plain(x)), gamma, beta, num_groups, eps)
+def _apply_plain(x: torch.Tensor, ao: torch.Tensor, silu: bool) -> torch.Tensor:
+    """``x * ao[0] + ao[1]`` (+ SiLU) per (sample, channel), in float32,
+    stored in x's dtype."""
     shape = (x.shape[0], *(1,) * (x.dim() - 2), x.shape[-1])
     y = x.float() * ao[0].reshape(shape) + ao[1].reshape(shape)
     if silu:
@@ -941,19 +948,91 @@ def group_norm_silu_slab_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch
     return y.to(x.dtype)
 
 
-def group_norm_silu_slab(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                         num_groups: int, eps: float, silu: bool, average) -> torch.Tensor:
-    """``group_norm_silu`` of a whole image of which ``x`` holds some rows:
-    the moments of ``x``, ``average``d over the ranks that hold the rest
-    ((2, B, C) float32 in, the same out), folded, applied to ``x``.  A CPU
-    tensor takes the plain version; a CUDA tensor launches the moments,
-    fold and apply kernels.  Forward only."""
+def gn_fold_apply_plain(x: torch.Tensor, moments: torch.Tensor, ranks: int,
+                        gamma: torch.Tensor, beta: torch.Tensor, num_groups: int, eps: float,
+                        silu: bool) -> torch.Tensor:
+    """``gn_fold_apply`` in plain torch: the fold (``gn_fold_plain``) of the
+    ranks' mean moments ``moments / ranks``, then the affine (+ SiLU)."""
+    return _apply_plain(x, gn_fold_plain(moments / ranks, gamma, beta, num_groups, eps), silu)
+
+
+def gn_fold_apply(x: torch.Tensor, moments: torch.Tensor, ranks: int, gamma: torch.Tensor,
+                  beta: torch.Tensor, num_groups: int, eps: float, silu: bool) -> torch.Tensor:
+    """``gn_fold_apply_plain``'s output for a (B, *spatial, C) ``x``: each
+    block folds the ranks' summed (2, B, C) float32 ``moments`` (E[x] and
+    E[x^2] of each rank's rows, summed over ``ranks`` ranks) for the groups
+    its channels touch, dividing by ``ranks``, and applies them to its rows.
+    A CPU tensor takes the plain version; a CUDA tensor one launch of
+    ``gn_fold_apply_kernel`` or raises.  Forward only: raises where autograd
+    would record it."""
     if x.device.type == "cpu":
-        return group_norm_silu_slab_plain(x, gamma, beta, num_groups, eps, silu, average)
+        return gn_fold_apply_plain(x, moments, ranks, gamma, beta, num_groups, eps, silu)
+    x = x.contiguous()
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, moments, gamma, beta)):
+        raise ValueError("gn_fold_apply is forward only (a spatially sharded forward)")
+    gamma, beta = check_inputs("gn_fold_apply", x, gamma, beta, num_groups)
+    b, n, c = _shape(x)
+    moments = _float32_on(moments, x.device)
+    if moments.shape != (2, b, c) or ranks < 1:
+        raise ValueError(f"gn_fold_apply takes (2, {b}, {c}) moments summed over ranks >= 1, "
+                         f"got {tuple(moments.shape)} over {ranks}")
+    out = torch.empty_like(x)
+    plan = _moments_plan(b, n, c, x.element_size(), (x.data_ptr() | out.data_ptr()) & 15)
+    _build.launch("pddm_gn_fold_apply", x.data_ptr(), moments.data_ptr(), gamma.data_ptr(),
+                  beta.data_ptr(), out.data_ptr(), moments.numel(), b, n, c, num_groups,
+                  int(ranks), float(eps), int(silu), int(x.dtype == torch.bfloat16), plan.v,
+                  plan.cvb, plan.splits, plan.rows)
+    gn_fold_apply.launches += 1
+    return out
+
+
+gn_fold_apply.launches = 0
+
+
+def group_norm_silu_slab_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                               num_groups: int, eps: float, silu: bool, total,
+                               ranks: int = 1) -> torch.Tensor:
+    """``group_norm_silu_slab`` in plain torch: the moments, summed over the
+    ranks (``total``), then ``gn_fold_apply_plain``.  The ranks' mean, sum /
+    ranks, is ``parallel.spatial.average``'s to the bit."""
+    return gn_fold_apply_plain(x, total(moments_plain(x)), ranks, gamma, beta, num_groups, eps,
+                               silu)
+
+
+def group_norm_silu_slab_gn_fold(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                                 num_groups: int, eps: float, silu: bool,
+                                 average) -> torch.Tensor:
+    """``group_norm_silu_slab``'s first design, callable by name for
+    measurement (no path runs it): the moments of ``x`` ``average``d over
+    the ranks ((2, B, C) float32 in, the same out: ``parallel.spatial.average``,
+    a copy, the all-reduce and a divide), ``gn_fold``, then the apply kernel
+    (``apply_affine``).  ``gn_conv.gn_affine_slab`` is the fused conv's.  A
+    CPU tensor takes the plain version, which is
+    ``group_norm_silu_slab_plain``'s for the averaged moments."""
+    if x.device.type == "cpu":
+        return _apply_plain(x, gn_fold_plain(average(moments_plain(x)), gamma, beta,
+                                             num_groups, eps), silu)
     x = x.contiguous()
     gamma, beta = check_inputs("group_norm_silu", x, gamma, beta, num_groups)
     local = moments_fold(x, gamma, beta, num_groups, eps)
-    ao = gn_fold(average(local[2:4]), gamma, beta, num_groups, eps)
-    out = apply_affine(x, ao, silu)
     group_norm_silu.launches += 1
-    return out
+    return apply_affine(x, gn_fold(average(local[2:4]), gamma, beta, num_groups, eps), silu)
+
+
+def group_norm_silu_slab(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                         num_groups: int, eps: float, silu: bool, total,
+                         ranks: int = 1) -> torch.Tensor:
+    """``group_norm_silu`` of a whole image of which ``x`` holds some rows:
+    the (2, B, C) float32 moments of ``x``, summed in place over the
+    ``ranks`` ranks that hold the rest by ``total`` (an all-reduce; the
+    identity on one rank), folded and applied to ``x`` (``gn_fold_apply``).
+    A CPU tensor takes the plain version; a CUDA tensor launches the moments
+    + fold kernel (its fold unused) and the fold + apply kernel.  Forward
+    only."""
+    if x.device.type == "cpu":
+        return group_norm_silu_slab_plain(x, gamma, beta, num_groups, eps, silu, total, ranks)
+    x = x.contiguous()
+    gamma, beta = check_inputs("group_norm_silu", x, gamma, beta, num_groups)
+    local = moments_fold(x, gamma, beta, num_groups, eps)
+    group_norm_silu.launches += 1
+    return gn_fold_apply(x, total(local[2:4]), ranks, gamma, beta, num_groups, eps, silu)

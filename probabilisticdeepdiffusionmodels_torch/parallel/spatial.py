@@ -13,9 +13,11 @@ of the axis's N ranks holds H/N rows of every activation.
     which is the image's edge or a row that is dropped, so the kept rows
     are the unsharded conv's.  The stride-2 downsample (JAX's ``SAME``
     pads (0, 1)) takes only the row below;
-  * GroupNorm and ``gn_affine`` fold whole-image statistics: the per-(sample,
-    channel) E[x] and E[x^2] of each slab averaged over the ranks
-    (:func:`average`, one all-reduce of a (2, B, C) tensor);
+  * GroupNorm and the fused conv fold whole-image statistics: the per-(sample,
+    channel) E[x] and E[x^2] of each slab summed over the ranks in place
+    (:func:`total`, one all-reduce of a (2, B, C) tensor) and folded inside
+    the kernel that consumes them, which divides by the rank count as
+    :func:`average` does;
   * attention gathers ``qkv`` along the token rows (:func:`gather_rows`),
     runs over every token and keeps this rank's queries: N times the
     compute, cheap at the 16x16 and 8x8 sites;
@@ -38,8 +40,8 @@ import torch.distributed as dist
 
 from .mesh import DATA_AXIS, local_shard, mesh_axis, spatial_sharding
 
-__all__ = ["Rows", "rows", "active", "halo", "average", "gather_rows", "check_height",
-           "sharded_forward"]
+__all__ = ["Rows", "rows", "one_rank", "active", "halo", "average", "total", "gather_rows",
+           "check_height", "sharded_forward"]
 
 
 class Rows(NamedTuple):
@@ -62,6 +64,19 @@ def rows(mesh, axis_name: str = DATA_AXIS):
         _ROWS.reset(token)
 
 
+@contextlib.contextmanager
+def one_rank():
+    """Within: a row split over a world of one rank, in one process, with no
+    process group: every layer takes its slab path on the whole image, the
+    all-reduce the identity and the all-gather a copy.  What holds the slab
+    path against the unsharded forward on one card or the CPU."""
+    token = _ROWS.set(Rows(0, 1, None))
+    try:
+        yield
+    finally:
+        _ROWS.reset(token)
+
+
 def active() -> Optional[Rows]:
     """The row split in force, or None."""
     return _ROWS.get()
@@ -71,6 +86,8 @@ def _gather(x: torch.Tensor, r: Rows) -> torch.Tensor:
     """[N, *x.shape]: every rank's ``x`` in rank order."""
     x = x.contiguous()
     # gloo takes the output as the inputs concatenated on dim 0
+    if r.count == 1:
+        return x.unsqueeze(0)
     out = torch.empty((r.count * x.shape[0], *x.shape[1:]), dtype=x.dtype, device=x.device)
     dist.all_gather_into_tensor(out, x, group=r.group)
     return out.view(r.count, *x.shape)
@@ -105,8 +122,18 @@ halo.sent_bytes = 0
 def average(moments: torch.Tensor, r: Rows) -> torch.Tensor:
     """Per-rank statistics averaged over the ranks (each holds as many rows)."""
     out = moments.contiguous().clone()
-    dist.all_reduce(out, group=r.group)
+    if r.count > 1:
+        dist.all_reduce(out, group=r.group)
     return out / r.count
+
+
+def total(moments: torch.Tensor, r: Rows) -> torch.Tensor:
+    """Contiguous per-rank statistics summed over the ranks in place (one
+    all-reduce) and returned: :func:`average` without its copy and its
+    divide, which the kernel that folds them does (sum / count)."""
+    if r.count > 1:
+        dist.all_reduce(moments, group=r.group)
+    return moments
 
 
 def gather_rows(tokens: torch.Tensor, r: Rows) -> torch.Tensor:

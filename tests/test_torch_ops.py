@@ -877,11 +877,127 @@ def test_fold_kernel_matches_plain_on_card(card, mode, dtype):
         torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * float(want.abs().max()))
 
 
+# (B, H, W, Cin, Cout, groups): the folding conv's designs at slab-like
+# shapes: the CIFAR UNet's bf16 sites and head (wgmma, narrow_f32), a
+# 256x256 slab of two ranks with its halo rows, unet_celebahq64's 384
+# channels in groups of 12 (a 64-channel slice cuts a group), MNIST's 28x28
+# (general) and a ragged one
+_FOLD_CONV_SHAPES = [(128, 32, 32, 128, 128, 32), (128, 16, 16, 384, 256, 32),
+                     (128, 4, 4, 512, 256, 32), (128, 32, 32, 128, 3, 32),
+                     (2, 130, 256, 128, 128, 32), (8, 16, 16, 384, 384, 32),
+                     (16, 28, 28, 32, 64, 32), (3, 28, 28, 36, 24, 4)]
+
+
+def _slab_sum(x, ranks=2):
+    """The moments of ``x`` cut into ``ranks`` slabs along the height,
+    summed: what the all-reduce leaves."""
+    parts = [_gn.moments_plain(s) for s in torch.chunk(x, ranks, dim=1)]
+    return sum(parts[1:], parts[0].clone())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["plain", "emb", "film"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fold_conv_kernel_matches_plain_on_card(card, mode, dtype):
+    """The folding conv in every design against its plain version (the
+    fold, then the plain conv), the same bits twice, one count a call, and
+    bit for bit the conv fed ``gn_fold``'s (a, off) of the ranks' mean."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for b, h, w, cin, cout, groups in _FOLD_CONV_SHAPES:
+        x = (torch.randn(b, h, w, cin, device="cuda", generator=gen) + 0.3).to(dtype)
+        gamma = 1.0 + 0.1 * torch.randn(cin, device="cuda", generator=gen)
+        beta = 0.1 * torch.randn(cin, device="cuda", generator=gen)
+        film = (0.2 * torch.randn(b, 2 * cin, device="cuda", generator=gen)).to(dtype)
+        kw = {"plain": {}, "emb": {"emb": film[:, :cin].contiguous()},
+              "film": {"film": film.chunk(2, dim=1)}}[mode]
+        wt = torch.randn(3, 3, cout, cin, device="cuda", generator=gen) / (3 * cin ** 0.5)
+        bias = torch.randn(cout, device="cuda", generator=gen)
+        mom = _slab_sum(x)
+        args = (x, mom, 2, gamma, beta, groups, 1e-5, wt, bias)
+        before = _gc.gn_silu_conv3x3_fold.launches
+        runs = [_gc.gn_silu_conv3x3_fold(*args, **kw) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert _gc.gn_silu_conv3x3_fold.launches == before + 2
+        assert torch.equal(runs[0], runs[1]), (b, h, w, cin, cout)
+        ref = _gc.gn_silu_conv3x3_fold_plain(*args, **kw)
+        scale = max(1.0, float(ref.float().abs().max()))
+        torch.testing.assert_close(runs[0].float(), ref.float(), rtol=0,
+                                   atol=_TOL[dtype] * scale)
+        ao = _gn.gn_fold(mom / 2, gamma, beta, groups, 1e-5, **kw)
+        fed = gn_silu_conv3x3(x, ao[0], ao[1], wt, bias)
+        assert torch.equal(runs[0], fed), ("(a, off) differ from gn_fold's", b, h, w, cin)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fold_apply_kernel_matches_plain_on_card(card, dtype):
+    """The slab GroupNorm's fold + apply against its plain version at the
+    GroupNorm shapes, the same bits twice, and its output the apply
+    kernel's fed ``gn_fold``'s (a, off) of the ranks' mean, bit for bit (so
+    it folds the same (a, off))."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for shape, groups in _GN_SHAPES:
+        x = (torch.randn(shape, device="cuda", generator=gen) + 0.5).to(dtype)
+        gamma = torch.randn(shape[-1], device="cuda", generator=gen)
+        beta = torch.randn(shape[-1], device="cuda", generator=gen)
+        mom = _slab_sum(x.reshape(shape[0], -1, shape[-1]))
+        for silu in (False, True):
+            args = (x, mom, 2, gamma, beta, groups, 1e-5, silu)
+            before = _gn.gn_fold_apply.launches
+            runs = [_gn.gn_fold_apply(*args) for _ in range(2)]
+            torch.cuda.synchronize()
+            assert _gn.gn_fold_apply.launches == before + 2
+            assert torch.equal(runs[0], runs[1])
+            ref = _gn.gn_fold_apply_plain(*args)
+            torch.testing.assert_close(runs[0].float(), ref.float(), rtol=_TOL[dtype],
+                                       atol=_TOL[dtype])
+            ao = _gn.gn_fold(mom / 2, gamma, beta, groups, 1e-5)
+            assert torch.equal(runs[0], _gn.apply_affine(x, ao, silu)), (shape, "y")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_slab_forward_launches_no_fold_on_card(card, dtype):
+    """A small UNet's forward through the slab path (a world of one rank)
+    launches no ``gn_fold``: one fold + apply a GroupNorm, one folding conv
+    a fused conv (and no conv fed (a, off)), close to the plain forward."""
+    from probabilisticdeepdiffusionmodels_torch.parallel import spatial
+    from test_torch_slab_fold import small_unet
+
+    model = small_unet("cuda", dtype)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(2, 16, 16, 3, device="cuda", generator=gen)
+    t = torch.tensor([10, 700], device="cuda")
+    names = [(_gn, "gn_fold"), (_gn, "gn_fold_apply"), (_gn, "group_norm_silu"),
+             (_gc, "gn_silu_conv3x3"), (_gc, "gn_silu_conv3x3_fold"), (_gc, "gn_affine")]
+
+    def counts():
+        return [getattr(m, n).launches for m, n in names]
+
+    with torch.no_grad():
+        c0 = counts()
+        want = model(x, t)
+        c1 = counts()
+        with spatial.one_rank():
+            got = model(x, t)
+        torch.cuda.synchronize()
+        c2 = counts()
+    whole = dict(zip([n for _, n in names], (b - a for a, b in zip(c0, c1))))
+    slab = dict(zip([n for _, n in names], (b - a for a, b in zip(c1, c2))))
+    assert whole["gn_silu_conv3x3"] > 0 and whole["group_norm_silu"] > 0
+    assert slab == dict(gn_fold=0, gn_fold_apply=whole["group_norm_silu"],
+                        group_norm_silu=whole["group_norm_silu"], gn_silu_conv3x3=0,
+                        gn_silu_conv3x3_fold=whole["gn_silu_conv3x3"],
+                        gn_affine=whole["gn_affine"]), (whole, slab)
+    tol = _TOL[getattr(torch, dtype)] * max(1.0, float(want.float().abs().max()))
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
 @pytest.mark.gpu
 def test_slab_norms_on_card_match_the_whole_norms(card):
-    """With nothing to average, the slab GroupNorm (moments, fold, apply)
-    and ``gn_affine_slab`` on the card against the whole-image plain
-    versions."""
+    """With nothing to sum (one rank), the slab GroupNorm (moments, then
+    fold + apply) and ``gn_affine_slab`` (the first design, by name) on the
+    card against the whole-image plain versions."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     x = torch.randn(2, 16, 16, 128, device="cuda", generator=gen)
     gamma, beta = torch.randn(2, 128, device="cuda", generator=gen)

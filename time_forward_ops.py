@@ -8,10 +8,13 @@ this file's directory), builds the full-width CIFAR-10 UNet in bf16
 as ``chip_smoke.py`` does) and profiles one forward on float32 x at batch
 128, twice.  Prints one JSON line: the device operations (the larger of the
 two profiles' counts: a profile may drop records), each profile's device
-busy ms, the copy kernels (``copy`` in the name) and their ms, and a SHA-256
-of the output's bytes, so two commits unpacked side by side, one process
-each, show the same output and the operations one has fewer.  Needs a CUDA
-card; the measuring helpers are ``chip_smoke.py``'s.
+busy ms, the copy kernels (``copy`` in the name) and their ms, each
+kernel's device ms and launches by its name without template arguments
+(``kernels``: one entry a profile, so the main path's kernels, such as the
+fused conv's ``conv_wgmma_kernel``, read device-only beside the parent's),
+and a SHA-256 of the output's bytes, so two commits unpacked side by side,
+one process each, show the same output and the operations one has fewer.
+Needs a CUDA card; the measuring helpers are ``chip_smoke.py``'s.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ def main(argv=None) -> int:
         print("time_forward_ops.py needs a CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(here))
-    from chip_smoke import MODEL_CFG, fill_zero_params, profile_device
+    from chip_smoke import MODEL_CFG, fill_zero_params, kernel_name, profile_device
     sys.path.insert(0, str(args.root.resolve()))
     from probabilisticdeepdiffusionmodels_torch.models import get_model
 
@@ -55,12 +58,20 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     profs = [profile_device(torch, forward) for _ in range(2)]
     copies = [[k for k in p["all"] if "copy" in k["name"].lower()] for p in profs]
+    kernels = {}
+    for i, p in enumerate(profs):
+        for k in p["all"]:
+            entry = kernels.setdefault(kernel_name(k["name"]).split("<")[0],
+                                       {"ms": [0.0] * len(profs), "calls": [0] * len(profs)})
+            entry["ms"][i] += k["ms"]
+            entry["calls"][i] += k["calls"]
     print(json.dumps({
         "label": args.label or str(args.root), "batch": BATCH,
         "device_ops": max(p["device_ops"] for p in profs),
         "device_busy_ms": [p["device_busy_ms"] for p in profs],
         "copy_ops": max(sum(k["calls"] for k in c) for c in copies),
         "copy_ms": [sum(k["ms"] for k in c) for c in copies],
+        "kernels": kernels,
         "output_sha256": hashlib.sha256(out.float().cpu().numpy().tobytes()).hexdigest()}),
         flush=True)
     return 0
