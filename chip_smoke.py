@@ -51,7 +51,15 @@
    timed with and without the host's cost, each kernel's device ms from a
    profile of the site's graph, beside the parent's path (``recompute``),
    the plain backward, the library's backward alone (SDPA's flash backend;
-   ``native_group_norm_backward`` in NCHW, no SiLU) and the bound;
+   ``native_group_norm_backward`` in NCHW, no SiLU) and the bound; then the
+   float32 rows (``kernels_f32``): the calls of one float32 batch-128 forward
+   (the shipped configs' default dtype), each fused-conv signature but the
+   head in ``tiled_f32`` and ``general`` by name, forward and gradient (its
+   input and weight products apart), held against the plain versions, run
+   twice for the same bits and timed device-only beside ``F.conv2d`` and
+   ``convolution_backward``'s products (TF32 off), each attention and
+   GroupNorm signature as above (SDPA's memory-efficient backend for the
+   float32 backward), ``tiled_f32`` asserted at all 60 sites;
 4. main path: the 20-step ancestral sampler (linear T=1000 respaced to 20,
    clip=True) through ``get_model`` and ``p_sample_loop``: bf16 at batch 32
    with the launch counts asserted, float32 on the kernels against float32
@@ -1217,8 +1225,8 @@ def attn_gn_grad_site(torch, F, ops, name, a, kw, n, fwd_site, per_site, summary
     kernel's device ms from a profile of that graph, beside the parent's
     path (``recompute``: autograd through the plain version), the plain
     backward, the library's backward alone, with and without the host's
-    cost (attention: SDPA's flash backend on the same q, k, v, bf16 only,
-    device time from a profile; GroupNorm:
+    cost (attention: SDPA's flash backend on the same q, k, v in bf16, its
+    memory-efficient one in float32, device time from a profile; GroupNorm:
     ``aten.native_group_norm_backward`` on the same values in NCHW, without
     the SiLU, device time from a CUDA graph of its calls) and the bound."""
     gname = GRAD_OF[name]
@@ -1249,13 +1257,15 @@ def attn_gn_grad_site(torch, F, ops, name, a, kw, n, fwd_site, per_site, summary
         # of FlashAttention-2's backward
         nbytes = (2 * x.numel() + out.numel()) * s + lse.numel() * 4
         flops = 10.0 * b * heads * t * t * ch
-        if timed and x.dtype == torch.bfloat16:
+        if timed:
             from torch.nn.attention import SDPBackend, sdpa_kernel
 
             qh = x.view(b, t, heads, 3 * ch).permute(0, 2, 1, 3)
             qkv_l = [z.detach().clone().requires_grad_(True)
                      for z in (qh[..., :ch], qh[..., ch:2 * ch], qh[..., 2 * ch:])]
-            with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            # flash takes bf16 only; float32 takes the memory-efficient backend
+            with sdpa_kernel(SDPBackend.FLASH_ATTENTION if x.dtype == torch.bfloat16
+                             else SDPBackend.EFFICIENT_ATTENTION):
                 o_l = F.scaled_dot_product_attention(*qkv_l, scale=1.0 / ch ** 0.5)
             go_l = g.view(b, t, heads, ch).permute(0, 2, 1, 3)
 
@@ -1618,6 +1628,213 @@ def conv_grad_site(torch, ops, a, n, conv_site, per_site, summary):
         for name, ms in t["kernels"].items():
             into[name] = into.get(name, 0.0) + n * ms
     s["calls"] += n
+
+
+# a float32 fused-conv site's device-only times: calls captured in one CUDA
+# graph and its replays (general takes up to 10 ms a call at batch 128)
+F32_CONV_LAUNCHES, F32_CONV_REPLAYS = 3, 3
+# the design timed beside the one a float32 site selects, by name
+F32_CONV_EARLIER = "general"
+
+
+def few_ms(torch, fn, reps=2):
+    """ms a call of ``fn`` by CUDA events over ``reps`` calls after one
+    warm-up: the plain versions at batch 128 in float32 take 10-100 ms."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def f32_conv_site(torch, F, ops, a, n, per_site, summary):
+    """One fused-conv signature of a float32 batch-128 forward (``a``: the
+    recorded call, ``n`` calls a forward), forward and gradient: the design
+    the shape selects (``tiled_f32``) and ``general`` by name, each held
+    against the plain version (forward: ``hold``'s tolerance; gradient:
+    CONV_GRAD_F32_TOL of each gradient's largest element, on a seeded output
+    gradient), run twice for the same bits with one count a call, and timed
+    device-only (F32_CONV_LAUNCHES calls in a CUDA graph, F32_CONV_REPLAYS
+    replays; the gradient's input product with its finish, needs (x, a,
+    off), and its weight product, needs (w, bias), apart); beside the
+    library's calls device-only (``F.conv2d`` on the activated input, the
+    input and the weight products of ``convolution_backward``, TF32 off,
+    cuDNN's settings recorded), the plain versions' ms and the bounds at
+    the float32 peak.  Two ``kernel_site`` lines; sums into ``summary``
+    (``gn_silu_conv3x3 (float32)``, ``gn_silu_conv3x3_grad (float32)``)."""
+    gc = ops.ops.gn_conv
+    x, sc, off, w, bias = a
+    wk = w.to(x.dtype).contiguous()
+    b, h, wd, cin = x.shape
+    cout = wk.shape[2]
+    flops = 2.0 * b * h * wd * 9 * cin * cout
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    cudnn = {"allow_tf32": torch.backends.cudnn.allow_tf32,
+             "deterministic": torch.backends.cudnn.deterministic,
+             "benchmark": torch.backends.cudnn.benchmark}
+
+    def graph_ms(fn):
+        return graph_time(torch, fn, F32_CONV_LAUNCHES, F32_CONV_REPLAYS)
+
+    worst = []
+    # the forward
+    nbytes, _, _ = work("gn_silu_conv3x3", a, {})
+    chosen = gc.conv_design(x, wk)
+    fwd = {}
+    with torch.no_grad():
+        ref = gc.gn_silu_conv3x3_plain(*a)
+        tol = 1e-4 * max(1.0, float(ref.abs().max()))
+        for d in (chosen, F32_CONV_EARLIER):
+            before = gc.gn_silu_conv3x3.launches
+            runs = [gc.gn_silu_conv3x3(*a, design=d) for _ in range(2)]
+            torch.cuda.synchronize()
+            fwd[d] = {"max_abs_err": float((runs[0] - ref).abs().max()), "tol": tol,
+                      "same_bits_twice": torch.equal(runs[0], runs[1]),
+                      "launches_two_calls": gc.gn_silu_conv3x3.launches - before,
+                      "device_ms": graph_ms(lambda d=d: gc.gn_silu_conv3x3(*a, design=d))}
+            del runs
+            if not (fwd[d]["max_abs_err"] <= tol and fwd[d]["same_bits_twice"]
+                    and fwd[d]["launches_two_calls"] == 2):
+                worst.append(f"forward {d}: {fwd[d]}")
+        del ref
+        lib_ms = graph_ms(library_call(torch, F, "gn_silu_conv3x3", a, {}))
+        plain_ms = few_ms(torch, lambda: gc.gn_silu_conv3x3_plain(*a))
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    site = {"kernel": "gn_silu_conv3x3", "shape": list(x.shape), "cout": cout,
+            "dtype": "float32", "design": chosen, "calls_per_forward": n,
+            **{k: fwd[chosen][k] for k in ("max_abs_err", "tol", "same_bits_twice")},
+            "device_ms": fwd[chosen]["device_ms"], "design_ms": fwd, "plain_ms": plain_ms,
+            "library_device_ms": lib_ms, "library": "F.conv2d", "cudnn": cudnn,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    per_site.append(site)
+    emit(dict(phase="kernel_site", **site))
+    s = summary.setdefault("gn_silu_conv3x3 (float32)", dict(calls=0))
+    for key, val in (("device_ms", site["device_ms"]), ("library_device_ms", lib_ms),
+                     ("plain_ms", plain_ms), ("bound_ms", site["bound_ms"]),
+                     *((f"{d}_device_ms", v["device_ms"]) for d, v in fwd.items())):
+        s[key] = s.get(key, 0.0) + n * val
+    s.setdefault("site_designs", []).append([site["shape"], cout, chosen, n])
+    s["calls"] += n
+
+    # the gradient, on a seeded output gradient
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    g = torch.randn(b, h, wd, cout, device="cuda", generator=gen)
+    ref = gc.gn_silu_conv3x3_grad_plain(x, sc, off, wk, g)
+    chosen_g = gc.conv_grad_design(x, wk)
+    parts = {"dgrad": (True, True, True, False, False), "wgrad": (False, False, False, True, True)}
+    grads = {}
+    with torch.no_grad():
+        for d in (chosen_g, F32_CONV_EARLIER):
+            before = gc.gn_silu_conv3x3_grad.launches
+            runs = [gc.gn_silu_conv3x3_grad(x, sc, off, wk, g, design=d) for _ in range(2)]
+            torch.cuda.synchronize()
+            err, etol = 0.0, 1.0
+            for p, q in zip(runs[0], ref):
+                e = float((p - q).abs().max())
+                t_ = CONV_GRAD_F32_TOL * max(1e-30, float(q.abs().max()))
+                if not e <= t_ or e / t_ >= err / etol:
+                    err, etol = e, t_
+            grads[d] = {"max_abs_err": err, "tol": etol,
+                        "same_bits_twice": all(torch.equal(p, q) for p, q in zip(*runs)),
+                        "launches_two_calls": gc.gn_silu_conv3x3_grad.launches - before,
+                        **{f"{part}_device_ms": graph_ms(
+                            lambda d=d, nd=nd: gc.gn_silu_conv3x3_grad(x, sc, off, wk, g,
+                                                                        needs=nd, design=d))
+                           for part, nd in parts.items()}}
+            del runs
+            if not (err <= etol and grads[d]["same_bits_twice"]
+                    and grads[d]["launches_two_calls"] == 2):
+                worst.append(f"gradient {d}: {grads[d]}")
+        y = x * sc[:, None, None, :] + off[:, None, None, :]
+        hh = (y * torch.sigmoid(y)).permute(0, 3, 1, 2)
+        w_oihw = wk.permute(2, 3, 0, 1).contiguous(memory_format=torch.channels_last)
+
+        def library(mask):
+            return lambda: torch.ops.aten.convolution_backward(
+                g.permute(0, 3, 1, 2), hh, w_oihw, [cout], [1, 1], [1, 1], [1, 1], False,
+                [0, 0], 1, list(mask))
+
+        lib = {"library_input_device_ms": graph_ms(library((True, False, False))),
+               "library_weight_device_ms": graph_ms(library((False, True, True)))}
+        del y, hh
+    plain_g_ms = few_ms(torch, lambda: gc.gn_silu_conv3x3_grad_plain(x, sc, off, wk, g), 1)
+    del ref
+    # the input product with the activation's backward: x and g read, dx
+    # written; the weight product: x (as h) and g read, dw written
+    d_bytes = (2 * x.numel() + g.numel()) * 4
+    w_bytes = (x.numel() + g.numel() + wk.numel()) * 4 + cout * 4
+    half = flops / PEAK_FLOPS["float32"] * 1e3
+    gsite = {"kernel": "gn_silu_conv3x3_grad", "shape": list(x.shape), "cout": cout,
+             "dtype": "float32", "design": chosen_g, "calls_per_forward": n,
+             **{k: grads[chosen_g][k] for k in ("max_abs_err", "tol", "same_bits_twice")},
+             "design_ms": grads, "plain_ms": plain_g_ms, **lib, "cudnn": cudnn,
+             "dgrad_bound_ms": max(d_bytes / PEAK_BYTES * 1e3, half),
+             "wgrad_bound_ms": max(w_bytes / PEAK_BYTES * 1e3, half)}
+    per_site.append(gsite)
+    emit(dict(phase="kernel_site", **gsite))
+    s = summary.setdefault("gn_silu_conv3x3_grad (float32)", dict(calls=0))
+    for key, val in (("plain_ms", plain_g_ms), ("dgrad_bound_ms", gsite["dgrad_bound_ms"]),
+                     ("wgrad_bound_ms", gsite["wgrad_bound_ms"]), *lib.items(),
+                     *((f"{d}_{part}_device_ms", v[f"{part}_device_ms"])
+                       for d, v in grads.items() for part in parts)):
+        s[key] = s.get(key, 0.0) + n * val
+    s.setdefault("site_designs", []).append([gsite["shape"], cout, chosen_g, n])
+    s["calls"] += n
+    if worst:
+        raise AssertionError(f"float32 conv {list(x.shape)} -> {cout}: {worst} (kernel vs "
+                             f"plain within tol, the same bits twice, one count a call)")
+
+
+# a kernel's row in f32_kernels' summary, where its name differs
+F32_ROWS = {"gn_silu_conv3x3": "gn_silu_conv3x3 (float32)",
+            "gn_silu_conv3x3_grad": "gn_silu_conv3x3_grad (float32)"}
+# the fused convs of a CIFAR-10 UNet forward but the output head
+F32_CONV_SITES = 60
+
+
+def f32_kernels(torch, F, ops, model, x, t, per_site, convs_only=False):
+    """The float32 rows: the calls of one float32 batch-128 forward of the
+    CIFAR-10 UNet (the shipped configs' default ``compute_dtype``; the same
+    weights as ``model``), each fused-conv signature but the head (timed with
+    the bf16 model's) by ``f32_conv_site``, each attention and GroupNorm
+    signature by ``check_sites`` (forward and backward, scalar_f32 and
+    fused, beside SDPA's memory-efficient backend and GroupNorm's library
+    calls); one ``kernels_f32`` line with the sums over a forward's calls."""
+    from probabilisticdeepdiffusionmodels_torch.models import get_model
+
+    model32 = get_model(RESOLUTION, dict(MODEL_CFG, compute_dtype="float32"), device="cuda",
+                        seed=0)
+    model32.load_state_dict(model.state_dict())
+    calls = {}
+    with torch.no_grad(), ops.recording(calls):
+        model32(x, t)
+    torch.cuda.synchronize()
+    del model32
+    summary = {}
+    for entry in calls.values():
+        a = entry["args"]
+        if entry["name"] == "gn_silu_conv3x3" and a[3].shape[2] > 8:
+            f32_conv_site(torch, F, ops, a, entry["count"], per_site, summary)
+    for row in F32_ROWS.values():
+        ran = {d for _, _, d, _ in summary[row]["site_designs"]}
+        if ran != {"tiled_f32"} or summary[row]["calls"] != F32_CONV_SITES:
+            raise AssertionError(f"{row}: designs {ran} at {summary[row]['calls']} sites, "
+                                 f"expected tiled_f32 at {F32_CONV_SITES}")
+    if not convs_only:
+        check_sites(torch, F, ops, calls, per_site, summary,
+                    only=("qkv_attention", "group_norm_silu"))
+    designs = {}
+    for entry in calls.values():
+        designs.setdefault(entry["name"], set()).add(design(ops, entry["name"], entry["args"]))
+    emit({"phase": "kernels_f32", "batch": FORWARD_BATCH, "summary": summary,
+          "designs": {k: sorted(v) for k, v in designs.items()}})
+    del calls
+    return summary
 
 
 def recompute_check(torch, gn_conv, args):
@@ -5327,6 +5544,8 @@ def main(argv=None) -> int:
             BF16_FORWARD_TOL * max(1.0, float(y_whole.float().abs().max()))):
         raise AssertionError("one-rank slab forward: off the forward")
     del slab_calls, y_slab, y_whole
+    # the float32 rows: one float32 batch-128 forward's kernels, timed
+    f32_summary = f32_kernels(torch, F, ops, model, x128, t128, per_site)
 
     # 4. main path: 20-step sampler, bf16, batch 32, on the kernels
     sched, tmap = respaced_schedule(NoiseSchedule.create(1000, "linear"),
@@ -5503,7 +5722,10 @@ def main(argv=None) -> int:
          # the folding consumers: the consumer fed gn_fold's (a, off) and
          # gn_fold alone (their first design), device-only, at the same sites
          "fed_device_ms": s.get("fed_device_ms"),
-         "gn_fold_device_ms": s.get("gn_fold_device_ms")}
+         "gn_fold_device_ms": s.get("gn_fold_device_ms"),
+         # the same kernel's sums over a float32 batch-128 forward's calls
+         # (the shipped configs' default dtype), device-only, where it ran
+         "float32": f32_summary.get(F32_ROWS.get(name, name))}
         for name, s in summary.items()]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})
     return 0

@@ -14,7 +14,7 @@
 // channel the input channels are contiguous, which is the K-major B operand
 // of an implicit GEMM with M = output pixels, N = Cout, K = 9 taps x Cin.
 //
-// Three designs; ops/gn_conv.py::conv_design picks one and passes it in.
+// Four designs; ops/gn_conv.py::conv_design picks one and passes it in.
 //
 // wgmma (bf16 with Cin % 8 == 0, Cout % 8 == 0, 16-byte aligned x and w:
 // every bf16 site of the shipped configs).  Bound on the H100: tensor-core
@@ -53,12 +53,21 @@
 // each thread computes 4 neighbouring pixels x all of Cout with scalar
 // FMAs in true float32 (no TF32, as JAX pins it).
 //
-// general (everything else: float32 with wider Cout, bf16 with Cin % 8 != 0
-// or Cout % 8 != 0, as the card test's (3, 28, 28, 36, 24)).  The first
-// design of this kernel, kept for shapes the two above do not take: 64
-// pixels x 64 channels a block of 4 warps, the activated halo and the
-// weight of a 32-channel slice staged with plain loads; bf16 on mma.sync
-// m16n8k16, float32 with scalar FMAs.
+// tiled_f32 (float32 with Cin % 4 == 0, Cout % 4 == 0 and Cout > 8, 16-byte
+// aligned x, w, a and off: every float32 site of the shipped configs but
+// the head; tiled_f32.cuh holds its main loop, shared with the input
+// gradient).  Bound on the H100: FP32 operations.  128 pixels x 128 channels
+// a block of 256 threads, 8 x 8 accumulators a thread fed by 16-byte shared
+// loads; the raw halo and weight slices by cp.async two slices ahead, each
+// slice activated once a block; a thread-block cluster splits K where the
+// tiles do not fill the card.
+//
+// general (everything else: bf16 with Cin % 8 != 0 or Cout % 8 != 0, as the
+// card test's (3, 28, 28, 36, 24), float32 with Cin % 4 != 0).  The first
+// design of this kernel, kept for shapes the three above do not take and by
+// name for measurement: 64 pixels x 64 channels a block of 4 warps, the
+// activated halo and the weight of a 32-channel slice staged with plain
+// loads; bf16 on mma.sync m16n8k16, float32 with scalar FMAs.
 //
 // Each design has a folding variant (template FOLD; pddm_gn_silu_conv3x3_fold)
 // for a spatially sharded forward's slab: in place of (a, off) it takes the
@@ -70,14 +79,15 @@
 // cuts) and then a table of every channel's scale and offset, which its
 // main loop reads where it read (a, off): wgmma for all its tiles (every
 // warp but the copying one, which issues the first copies meanwhile; more
-// blocks where the table would not fit), general for its tile, narrow_f32
-// for its one image.  No fold launch runs before the conv, and the main
+// blocks where the table would not fit), general and tiled_f32 for the
+// images of their tile, narrow_f32 for its one image.  No fold launch runs before the conv, and the main
 // loop is unchanged.  The instantiations without FOLD are the main path's.
 #include <mutex>
 
 #include "common.cuh"
 #include "gn_fold.cuh"
 #include "hopper.cuh"
+#include "tiled_f32.cuh"
 
 using namespace pddm;
 
@@ -1185,6 +1195,13 @@ int conv_any(const void* x, const void* a, const void* off, const void* w, const
         return cudaErrorInvalidValue;
       if (g.Cout <= 4) return launch_narrow<4, FOLD>(x, a, off, w, bias, out, g, f, stream);
       return launch_narrow<8, FOLD>(x, a, off, w, bias, out, g, f, stream);
+    case 3:
+      if (is_bf16) return cudaErrorInvalidValue;
+      return tiled::launch<FOLD ? tiled::kForwardFold : tiled::kForward>(
+          static_cast<const float*>(x), static_cast<const float*>(w),
+          static_cast<const float*>(a), static_cast<const float*>(off),
+          static_cast<const float*>(bias), nullptr, static_cast<float*>(out), nullptr, g.B, g.H,
+          g.W, g.Cin, g.Cout, f, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1192,7 +1209,8 @@ int conv_any(const void* x, const void* a, const void* off, const void* w, const
 
 }  // namespace
 
-// design: 0 general, 1 wgmma (bf16), 2 narrow_f32 (float32, Cout <= 8); the
+// design: 0 general, 1 wgmma (bf16), 2 narrow_f32 (float32, Cout <= 8), 3
+// tiled_f32 (float32, Cin and Cout multiples of 4); the
 // caller (ops/gn_conv.py::conv_design) checks what each one takes, and a
 // design that does not take the call returns cudaErrorInvalidValue.
 extern "C" int pddm_gn_silu_conv3x3(const void* x, const void* a, const void* off,

@@ -132,12 +132,20 @@
 // partials in a fixed order in shared memory: one partial of dw and dbias
 // a tile, one of da and doff a (tile, channel).  True float32 throughout
 // (no TF32, as JAX pins it).
-// general (every other shape and dtype: float32 sites wider than 8, bf16
-// with Cin or Cout not a multiple of 8): 64 pixels x 64 channels a block of
-// 4 warps with operands staged in shared memory as float32 and scalar FMAs
-// in true float32.
+// tiled_f32 (float32 with Cin and Cout multiples of 4, Cout > 8, 16-byte
+// aligned x, w and g: every float32 site of the shipped configs but the
+// head): the input product on the forward's tiled_f32 main loop
+// (tiled_f32.cuh: g's halo in place of the activation, the weight flipped,
+// read as it lies, (co, ci) with ci along N), its epilogue the activation's
+// backward (dx, and one partial of sum(dp*x) and sum(dp) a (tile, image,
+// channel)); then general's weight product, unchanged, and the finish.
+// general (every other shape and dtype: bf16 with Cin or Cout not a
+// multiple of 8, float32 with Cin or Cout not a multiple of 4; by name for
+// measurement): 64 pixels x 64 channels a block of 4 warps with operands
+// staged in shared memory as float32 and scalar FMAs in true float32.
 #include "common.cuh"
 #include "hopper.cuh"
+#include "tiled_f32.cuh"
 
 using namespace pddm;
 
@@ -1974,7 +1982,9 @@ grad_finish_kernel(const float* __restrict__ ws_a, const float* __restrict__ ws_
 }  // namespace
 
 // design: 0 general, 1 wgmma (bf16), 2 narrow_f32 (float32, Cout <= 8), 3
-// wgmma_taprow (bf16, by name), 4 wgmma_sync_epilogue (bf16, by name);
+// wgmma_taprow (bf16, by name), 4 wgmma_sync_epilogue (bf16, by name), 5
+// tiled_f32 (float32, channels in multiples of 4: its dgrad's tiles are
+// tiled_f32.cuh's, its wgrad general's);
 // ops/gn_conv.py::conv_grad_design checks what each takes and grad_plan
 // gives the tiles and the split (nwg: the tensor-core dgrad's tile in rows of
 // 64 pixels, its consumer warpgroups in wgmma_sync_epilogue and wgmma_taprow,
@@ -2005,14 +2015,19 @@ extern "C" int pddm_gn_silu_conv3x3_grad(const void* x, const void* a, const voi
   const bool tc = design == 1 || design == 3 || design == 4;  // the tensor-core pairs
   const bool h_pair = design == 1 || design == 4;             // dgrad stores h, wgrad9 reads it
   auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
-  if (design < 0 || design > 4 || splits < 1 || (tc && want_dgrad && nwg != 1 && nwg != 2))
+  if (design < 0 || design > 5 || splits < 1 || (tc && want_dgrad && nwg != 1 && nwg != 2))
     return cudaErrorInvalidValue;
   // the tiles whose partials of da and doff the finish adds
   Geom t = g;
-  if (design == 2)
+  if (design == 2) {
     set_narrow_tile(t);
-  else
+  } else if (design == 5) {
+    tiled::Tile tt{B, H, W, Cout, Cin, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1};
+    tiled::set_tile(tt);
+    t.NI = tt.NI, t.TH = tt.TH, t.TW = tt.TW, t.tiles_y = tt.tiles_y, t.tiles_x = tt.tiles_x;
+  } else {
     set_tile(t, tc && want_dgrad ? 64 * nwg : GP);
+  }
   // the dbias partials: one a split (narrow_f32: a tile), wgmma_taprow one a
   // split and weight-product block of the split's Cout slice
   const int bias_parts = splits * (design == 3 ? 3 * ((Cin + WK - 1) / WK) : 1);
@@ -2076,6 +2091,19 @@ extern "C" int pddm_gn_silu_conv3x3_grad(const void* x, const void* a, const voi
       return cudaErrorInvalidValue;
     if ((err = launch_narrow(x, a, off, w, gr, dx, wsa, wsw, wsb, g, want_dgrad, want_wgrad,
                              stream)) != cudaSuccess)
+      return err;
+  } else if (design == 5) {
+    if (is_bf16 || Cin % 4 || Cout % 4 || misaligned(w) || misaligned(gr))
+      return cudaErrorInvalidValue;
+    if (want_dgrad &&
+        (err = tiled::launch<tiled::kDgrad>(
+             static_cast<const float*>(gr), static_cast<const float*>(w),
+             static_cast<const float*>(a), static_cast<const float*>(off), nullptr,
+             static_cast<const float*>(x), static_cast<float*>(dx), wsa, B, H, W, Cout, Cin,
+             FoldArgs{}, stream)) != cudaSuccess)
+      return err;
+    if (want_wgrad && (err = launch_general<float>(x, a, off, w, gr, dx, wsa, wsw, wsb, g, false,
+                                                   true, splits, stream)) != cudaSuccess)
       return err;
   } else {
     err = is_bf16 ? launch_general<__nv_bfloat16>(x, a, off, w, gr, dx, wsa, wsw, wsb, g,

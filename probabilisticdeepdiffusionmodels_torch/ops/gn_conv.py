@@ -38,7 +38,7 @@ kernel out once; the port's own init creates it in this layout.
 Kernel (``csrc/gn_conv.cu``) — replaces ``gn_silu_conv3x3_pallas`` /
 ``_kernel`` in ``gn_conv_pallas.py``; one launch per call, and the
 activation is never written to device memory.  ``conv_design`` picks one of
-three designs (the source says more):
+four designs (the source says more):
 
 - ``wgmma`` (bf16, Cin and Cout multiples of 8, 16-byte aligned x and w:
   every bf16 site of the shipped configs).  Bound by tensor-core operations
@@ -53,9 +53,20 @@ three designs (the source says more):
   head).  Bound by bytes.  The raw input halo streams in with ``cp.async``
   under the math, the whole weight stays in shared memory, each thread
   computes 4 pixels x all of Cout in true float32.
-- ``general`` (every other shape, such as Cin % 8 != 0 or a wide float32
-  conv): 64 pixels x 64 channels a block on ``mma.sync`` (bf16) or scalar
-  FMAs (float32), the first design of this kernel.
+- ``tiled_f32`` (float32 with Cin and Cout multiples of 4, Cout > 8,
+  16-byte aligned x and w: every float32 site of the shipped configs but the
+  head; float32 is the configs' default ``compute_dtype``).  Bound by FP32
+  operations.  128 pixels x 128 channels a block of 256 threads, 8 x 8
+  float32 accumulators a thread fed by 16-byte shared loads, the raw halo
+  and weight slices landing by ``cp.async`` two slices ahead, each slice
+  activated once a block; where the tiles would not fill the card (the 8x8
+  and 4x4 sites) a thread-block cluster splits the input channels and adds
+  its partial tiles in rank order through distributed shared memory.
+  ``tiled_tile`` mirrors its tiling.
+- ``general`` (every other shape, such as bf16 with Cin % 8 != 0 or float32
+  with Cin % 4 != 0, and by name for measurement): 64 pixels x 64 channels
+  a block on ``mma.sync`` (bf16) or scalar FMAs (float32), the first design
+  of this kernel.
 
 The bias is added in float32 and the output stored in the input dtype.
 
@@ -89,8 +100,14 @@ a fixed order (no float atomics: the same bits on every run):
 - ``narrow_f32`` (float32 with Cout <= 8: the UNet's output head): one launch
   that reads x once, with the whole weight and the tile's g halo in shared
   memory, forming dx, h and every partial from the same x values.
-- ``general`` (every other float32 site, bf16 with channels not a multiple
-  of 8): a simple pair of true-float32 FMA kernels.
+- ``tiled_f32`` (the forward's float32 shapes): the input product on the
+  forward's ``tiled_f32`` main loop (g's halo in place of the activation,
+  the weight flipped), the activation's backward in its epilogue (dx, one
+  partial of the scale's and offset's gradients a (tile, image, channel)),
+  then ``general``'s weight product, unchanged.
+- ``general`` (bf16 with channels not a multiple of 8, float32 with
+  channels not a multiple of 4, and by name): a simple pair of true-float32
+  FMA kernels.
 
 By name only, for measurement: ``wgmma_sync_epilogue``, the second bf16
 pair (its dgrad's two warpgroups share a tile and both stop their products
@@ -129,8 +146,10 @@ __all__ = ["conv_design", "conv_grad_design", "gn_affine", "gn_affine_plain", "g
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 # the C entry point's design argument
-DESIGNS = {"general": 0, "wgmma": 1, "narrow_f32": 2}
+DESIGNS = {"general": 0, "wgmma": 1, "narrow_f32": 2, "tiled_f32": 3}
 _SMEM_BYTES = 227 * 1024  # shared memory a block may use on the H100
+_TILED_POSITIONS = 512  # halo positions of a tiled_f32 tile, at most (MAX_POS)
+_TILED_SLICE = 4 * 9 * 128  # floats of a tiled_f32 weight slice (WSLICE)
 
 
 def gn_affine_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -388,10 +407,12 @@ def _grad_reference(x, a, off, w, bias):
 
 
 def gn_silu_conv3x3(x: torch.Tensor, a: torch.Tensor, off: torch.Tensor,
-                    w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+                    w: torch.Tensor, bias: torch.Tensor,
+                    design: Optional[str] = None) -> torch.Tensor:
     """Fused ``conv3x3_SAME(silu(x*a + off)) + bias``; shapes as the plain
     version.  A CPU tensor takes the plain version; a CUDA tensor launches
-    the kernel or raises.  Differentiable in x, a, off, w and bias, on the
+    the kernel of ``design`` (None: ``conv_design``'s choice; a name, for
+    measurement) or raises.  Differentiable in x, a, off, w and bias, on the
     card by ``gn_silu_conv3x3_grad``'s kernels, in reverse mode only."""
     if x.device.type == "cpu":
         return gn_silu_conv3x3_plain(x, a, off, w, bias)
@@ -406,8 +427,8 @@ def gn_silu_conv3x3(x: torch.Tensor, a: torch.Tensor, off: torch.Tensor,
     bias = bias.to(device=x.device, dtype=torch.float32).contiguous()
     forbid_forward_mode("gn_silu_conv3x3", x, a, off, w, bias)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, a, off, w, bias)):
-        return _GnSiluConv.apply(x, a, off, w, bias)
-    return _launch(x, a, off, w, bias)
+        return _GnSiluConv.apply(x, a, off, w, bias, design)
+    return _launch(x, a, off, w, bias, design)
 
 
 def _check_conv(name: str, x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor):
@@ -427,12 +448,66 @@ def _check_conv(name: str, x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor)
     return b, h, wd, cin
 
 
+def tiled_tile(h: int, w: int) -> ConvTile:
+    """tiled_f32's pixel tiles (``tiled::set_tile``): TW columns, the width
+    rounded up to a power of two from 4, at most 128 (row segments beyond),
+    and the rows that the 16 thread rows of 8 pixels hold (8 columns a
+    thread, or 4 columns of two rows at TW = 4): TH rows of one image, or
+    ``ni`` whole images where an image has fewer rows."""
+    tw = 4
+    while tw < w and tw < 128:
+        tw *= 2
+    pc = 8 if tw >= 8 else 4
+    cap = 16 // (tw // pc) * (8 // pc)
+    if h >= cap:
+        ni, th = 1, cap
+    else:
+        ni, th = cap // _tiled_rows(h, tw), h
+    return ConvTile(ni, th, tw, -(-h // th), -(-w // tw))
+
+
+def tiled_splits(b: int, h: int, w: int, k: int, n: int, sms: int) -> int:
+    """The blocks of a thread-block cluster that split tiled_f32's K (``k``
+    channels of its A operand) for ``n`` output channels (``tiled::launch_pc``):
+    the most, up to 8, whose blocks still fit one wave of two blocks an SM,
+    each taking a multiple of 4 channels."""
+    blocks = tiled_tile(h, w).count(b) * -(-n // 128)
+    s = 1
+    while s < 8 and blocks * s * 2 <= 2 * sms and k % (4 * s * 2) == 0:
+        s *= 2
+    return s
+
+
+def _tiled_rows(th: int, tw: int) -> int:
+    """A tiled_f32 tile's rows of one image, padded to a thread's rows."""
+    pr = 1 if tw >= 8 else 2
+    return -(-th // pr) * pr
+
+
+def _tiled_positions(h: int, w: int) -> int:
+    """tiled_f32's halo positions: ``ni`` images of (padded rows + 2) rows of
+    TW + 4 floats."""
+    t = tiled_tile(h, w)
+    return t.ni * (_tiled_rows(t.th, t.tw) + 2) * (t.tw + 4)
+
+
+def _tiled_smem(h: int, w: int, fold_floats: int = 0) -> int:
+    """Shared memory of tiled_f32 (``tiled::Layout``): the position table,
+    two raw halo and weight slices, two activated halos and weight slices,
+    the FOLD table; or, where larger, the epilogue's partial tile and sums."""
+    npos = _tiled_positions(h, w)
+    raw_w = _TILED_SLICE + _TILED_SLICE // 8  # a unit of padding after every 8
+    main = (-(-npos * 8 // 16) * 16 + 2 * npos * 16 + 2 * (raw_w + _TILED_SLICE) * 4
+            + 2 * 4 * npos * 4)
+    return max(main + fold_floats * 4, (128 * 128 + 16 * 128 * 2) * 4)
+
+
 def conv_design(x: torch.Tensor, w: torch.Tensor, groups: int = 0) -> str:
     """The kernel design that a call on ``x`` (B, H, W, Cin) and ``w``
     (3, 3, Cout, Cin), both in the kernel's dtype, runs; ``groups``: the
-    folding conv's GroupNorm groups (its narrow_f32 keeps the scale, the
-    offset and each group's statistics in shared memory too), 0 for the
-    conv fed (a, off)."""
+    folding conv's GroupNorm groups (its narrow_f32 and tiled_f32 keep the
+    scale, the offset and each group's statistics in shared memory too), 0
+    for the conv fed (a, off)."""
     _, h, wd, cin = x.shape
     cout = w.shape[2]
     if (x.dtype == torch.bfloat16 and cin % 8 == 0 and cout % 8 == 0 and min(h, wd) >= 4
@@ -446,6 +521,12 @@ def conv_design(x: torch.Tensor, w: torch.Tensor, groups: int = 0) -> str:
         if (4 * (16 * halo + 8 * (halo | 1) + 9 * cin * (4 if cout <= 4 else 8) + fold)
                 <= _SMEM_BYTES):
             return "narrow_f32"
+    if (x.dtype == torch.float32 and cin % 4 == 0 and cout % 4 == 0 and cout > 8
+            and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+            and _tiled_positions(h, wd) <= _TILED_POSITIONS
+            and _tiled_smem(h, wd, tiled_tile(h, wd).ni * 2 * (cin + groups) if groups else 0)
+            <= _SMEM_BYTES):
+        return "tiled_f32"
     return "general"
 
 
@@ -480,14 +561,18 @@ def _weight_in(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _launch(x, a, off, w, bias):
+def _launch(x, a, off, w, bias, design=None):
     b, h, wd, cin = x.shape
     cout = w.shape[2]
+    design = conv_design(x, w) if design is None else design
+    if design not in DESIGNS:
+        raise ValueError(f"unknown gn_silu_conv3x3 design {design!r}")
+    if design == "tiled_f32":  # its scale and offset in 16-byte loads
+        a, off = _aligned(a), _aligned(off)
     out = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
     _build.launch("pddm_gn_silu_conv3x3", x.data_ptr(), a.data_ptr(),
                   off.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                  b, h, wd, cin, cout, int(x.dtype == torch.bfloat16),
-                  DESIGNS[conv_design(x, w)])
+                  b, h, wd, cin, cout, int(x.dtype == torch.bfloat16), DESIGNS[design])
     gn_silu_conv3x3.launches += 1
     return out
 
@@ -568,7 +653,7 @@ gn_silu_conv3x3_fold.launches = 0
 # _grad_reference) is no kernel and runs only by name, for measurement, as
 # do "wgmma_taprow" and "wgmma_sync_epilogue"
 GRAD_DESIGNS = {"general": 0, "wgmma": 1, "narrow_f32": 2, "wgmma_taprow": 3,
-                "wgmma_sync_epilogue": 4}
+                "wgmma_sync_epilogue": 4, "tiled_f32": 5}
 _GENERAL_PX = 64    # pixels of a general dgrad tile, of a general wgrad chunk
 _DGRAD_STAGES = 6   # wgmma_sync_epilogue's (and wgmma_taprow's) dgrad weight ring
 _PP_STAGES = (16, 3)  # the ping-pong dgrad's weight ring: most stages, fewest
@@ -630,9 +715,10 @@ class GradPlan(NamedTuple):
     the tensor-core dgrad's tile in rows of 64 pixels (the m-tiles of each
     consumer warpgroup in ``wgmma``, the warpgroups sharing a tile in
     ``wgmma_sync_epilogue`` and ``wgmma_taprow``) and its channels a block
-    (0 in ``general`` and ``narrow_f32``); ``wgrad``: the tensor-core weight
-    product's tiles, or ``narrow_f32``'s (its one launch does both
-    products), None for ``general``'s chunks of 64 flattened pixels;
+    (0 in ``general``, ``tiled_f32`` and ``narrow_f32``); ``wgrad``: the
+    tensor-core weight product's tiles, or ``narrow_f32``'s (its one launch
+    does both products), None for ``general``'s chunks of 64 flattened
+    pixels (``tiled_f32``'s weight product is ``general``'s);
     ``splits``: the weight product's blocks along the pixels, block z taking
     tiles (chunks) z, z + splits, ... (``narrow_f32``: one a tile)."""
     design: str
@@ -680,11 +766,11 @@ class GradPlan(NamedTuple):
         block a (split, 64 Cin, 64 Cout), its three warpgroups taps 0-2, 3-5
         and 6-8, the blocks of Cin slice 0 adding dbias; wgmma_taprow: a block a
         tap row as well, every block a share of dbias; general: a block a
-        tap, 64 Cin x 64 Cout (16 for Cout <= 16); narrow_f32: a block a
-        tile, every channel and tap."""
+        tap, 64 Cin x 64 Cout (16 for Cout <= 16), and tiled_f32 as general;
+        narrow_f32: a block a tile, every channel and tap."""
         if self.design == "narrow_f32":
             return [(z, 0, 0, tuple(range(9)), True) for z in range(self.splits)]
-        if self.design == "general":
+        if self.design in ("general", "tiled_f32"):
             bco = 16 if cout <= 16 else 64
             return [(z, ci, co, (tap,), ci == 0 and tap == 0) for z in range(self.splits)
                     for tap in range(9) for co in range(0, cout, bco)
@@ -819,15 +905,18 @@ def _fewest_waves(base: int, most: int, sms: int) -> int:
 
 def grad_plan(b: int, h: int, w: int, cin: int, cout: int, design: str, sms: int) -> GradPlan:
     """The tiles and the split of a ``gn_silu_conv3x3_grad`` call in design
-    ``wgmma``, ``wgmma_sync_epilogue``, ``wgmma_taprow``, ``narrow_f32`` or
-    ``general`` on a card of ``sms`` SMs.  The weight product's split fills
-    the SMs in the fewest waves for its work (wgrad9: a block of 512
-    threads an SM, at most 64
+    ``wgmma``, ``wgmma_sync_epilogue``, ``wgmma_taprow``, ``narrow_f32``,
+    ``tiled_f32`` or ``general`` on a card of ``sms`` SMs.  The weight
+    product's split fills the SMs in the fewest waves for its work (wgrad9:
+    a block of 512 threads an SM, at most 64
     splits whose partials of dw take at most 32 MB unless one split is
     larger; wgmma_taprow: 512 threads, at most 16 splits, 16 MB) or about four
-    times (general), with no more splits than tiles; narrow_f32 has a split
-    a tile.  The C entry point refuses workspaces smaller than its own
-    tiling fills, so a plan that drifts from it raises."""
+    times (general, and tiled_f32's weight product, which is general's),
+    with no more splits than tiles; narrow_f32 has a split a tile.
+    tiled_f32's input product has ``tiled_tile``'s tiles (the input channels
+    a cluster splits are added inside the kernel: one partial a tile still).
+    The C entry point refuses workspaces smaller than its own tiling fills,
+    so a plan that drifts from it raises."""
     if design in ("wgmma", "wgmma_sync_epilogue", "wgmma_taprow"):
         config = (_pingpong_config if design == "wgmma" else _dgrad_config)(b, h, w, cin)
         if config is None:
@@ -848,7 +937,8 @@ def grad_plan(b: int, h: int, w: int, cin: int, cout: int, design: str, sms: int
         return GradPlan(design, tile, 0, 0, tile, tile.count(b))
     chunks = -(-b * h * w // _GENERAL_PX)
     base = -(-cin // 64) * -(-cout // (16 if cout <= 16 else 64)) * 9
-    return GradPlan("general", conv_tile(h, w, _GENERAL_PX), 0, 0, None,
+    tile = tiled_tile(h, w) if design == "tiled_f32" else conv_tile(h, w, _GENERAL_PX)
+    return GradPlan("tiled_f32" if design == "tiled_f32" else "general", tile, 0, 0, None,
                     max(1, min(chunks, -(-4 * sms // base))))
 
 
@@ -860,7 +950,9 @@ def conv_grad_design(x: torch.Tensor, w: torch.Tensor) -> str:
     16-byte aligned operands and tiles that fit shared memory;
     ``narrow_f32`` for float32 with Cout <= 8 and Cin % 4 == 0 (the output
     head), rows of at most 1,024 pixels and 16-byte aligned operands, where
-    its tile fits shared memory; ``general`` otherwise.
+    its tile fits shared memory; ``tiled_f32`` for float32 with Cin and Cout
+    multiples of 4, Cout > 8 and 16-byte aligned operands, where its tile
+    fits (the forward's rule); ``general`` otherwise.
     ``wgmma_sync_epilogue``, ``wgmma_taprow`` and ``recompute`` run by name
     only."""
     b, h, wd, cin = x.shape
@@ -874,6 +966,10 @@ def conv_grad_design(x: torch.Tensor, w: torch.Tensor) -> str:
             and cin // _narrow_run(cout) <= _NARROW_THREADS and wd <= _NARROW_PIXELS and aligned
             and _narrow_grad_smem(h, wd, cin, cout) <= _SMEM_BYTES):
         return "narrow_f32"
+    if (x.dtype == torch.float32 and cin % 4 == 0 and cout % 4 == 0 and cout > 8 and aligned
+            and _tiled_positions(h, wd) <= _TILED_POSITIONS
+            and _tiled_smem(h, wd) <= _SMEM_BYTES):
+        return "tiled_f32"
     return "general"
 
 
@@ -974,7 +1070,7 @@ def gn_silu_conv3x3_grad(x: torch.Tensor, a: torch.Tensor, off: torch.Tensor, w:
     off float32; w in x's dtype).  A CPU tensor takes the plain version; a
     CUDA tensor launches the kernels of ``design`` (None: ``conv_grad_design``'s
     choice; ``wgmma``, ``wgmma_sync_epilogue``, ``wgmma_taprow``,
-    ``narrow_f32``, ``general`` or
+    ``narrow_f32``, ``tiled_f32``, ``general`` or
     ``recompute`` by name, for measurement) or raises.  ``needs`` (x, a,
     off, w, bias) masks the gradients wanted (None where one is not): no
     input product where none of x, a, off needs one, no weight product
@@ -1005,15 +1101,15 @@ class _GnSiluConv(torch.autograd.Function):
     stand in for both."""
 
     @staticmethod
-    def forward(ctx, x, a, off, w, bias):
+    def forward(ctx, x, a, off, w, bias, design=None):
         ctx.save_for_backward(x, a, off, w, bias)
         if x.device.type == "cpu":
             return gn_silu_conv3x3_plain(x, a, off, w, bias)
-        return _launch(x, a, off, w, bias)
+        return _launch(x, a, off, w, bias, design)
 
     @staticmethod
     def backward(ctx, g):
         x, a, off, w, bias = ctx.saved_tensors
         dx, da, doff, dw, dbias = gn_silu_conv3x3_grad(x, a, off, w, g,
-                                                       needs=ctx.needs_input_grad)
-        return dx, da, doff, dw, None if dbias is None else dbias.to(bias.dtype)
+                                                       needs=ctx.needs_input_grad[:5])
+        return dx, da, doff, dw, None if dbias is None else dbias.to(bias.dtype), None

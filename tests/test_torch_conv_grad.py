@@ -7,8 +7,8 @@ against ``jax.vjp`` of the JAX op on the same numpy inputs; the launch plans
 of the kernels (each sample's partials of the scale's and offset's gradients
 and each split of the weight product cover every pixel exactly once, in a
 fixed order; each split's weight-product blocks every (tap, Cin slice, Cout
-slice) once; the narrow head's index arithmetic, emulated, against the
-plain version); the design by shape; the buffers' sizes.  On the card
+slice) once; the narrow head's and tiled_f32's index arithmetic, emulated,
+against the plain version); the design by shape; the buffers' sizes.  On the card
 (``gpu``): the kernels in each design by name against the plain version at
 the main path's gradient sites and the visualization batches, two runs bit
 for bit; the activation buffer against the plain activation; short
@@ -36,7 +36,7 @@ from probabilisticdeepdiffusionmodels_torch.ops.gn_conv import (
     gn_silu_conv3x3_grad_plain,
     grad_plan,
 )
-from test_torch_ops import _GRAD_CONV_SHAPES, _VIZ_CONV, card  # noqa: F401
+from test_torch_ops import _F32_CONV_SHAPES, _GRAD_CONV_SHAPES, _VIZ_CONV, card  # noqa: F401
 from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 _NEEDS = {"all": (True,) * 5, "x_only": (True, False, False, False, False),
@@ -149,10 +149,16 @@ def _narrow_takes(b, h, w, cin, cout):
                             torch.empty(3, 3, cout, cin)) == "narrow_f32"
 
 
+def _tiled_takes(b, h, w, cin, cout):
+    return conv_grad_design(torch.empty(b, h, w, cin),
+                            torch.empty(3, 3, cout, cin)) == "tiled_f32"
+
+
 _TC_DESIGNS = ("wgmma", "wgmma_sync_epilogue", "wgmma_taprow")
 _PLAN_CASES = [(s, "general") for s in _PLAN_SHAPES] + [
     (s, d) for d in _TC_DESIGNS for s in _PLAN_SHAPES if _wgmma_takes(*s)] + [
-    (s, "narrow_f32") for s in _PLAN_SHAPES if _narrow_takes(*s)]
+    (s, "narrow_f32") for s in _PLAN_SHAPES if _narrow_takes(*s)] + [
+    (s, "tiled_f32") for s in _PLAN_SHAPES if _tiled_takes(*s)]
 
 
 @pytest.mark.parametrize("shape,design", _PLAN_CASES)
@@ -355,6 +361,141 @@ def test_narrow_f32_arithmetic_matches_plain(shape):
         assert float((p - q.double()).abs().max()) <= 1e-5 * float(q.abs().max()), i
 
 
+def _tiled_emulated(src, w, a, off, bias, x, dgrad):
+    """tiled_f32's index arithmetic as the kernel orders it (tiled_f32.cuh),
+    in float64: per (pixel tile, 128 output channels), the halo of ``src``
+    (x, or g) in rows of TW + 4 and padded rows + 2 an image, zero outside
+    the image after the activation (forward); thread m's 8 pixels (thread
+    row m // (TW / PC), column group m % (TW / PC)) read at (row + dy,
+    column + dx) of it against the weight as the products read it ([k][tap]
+    [n]: the forward's transposed, the input gradient's flipped); the K
+    channels cut into the cluster's splits and their partials added in rank
+    order; the epilogue's validity, bias or the activation's backward, and
+    the input gradient's (tile, image, channel) partials over the thread
+    rows of each image.  Returns y, or (dx, ws_a)."""
+    b, h, wd, k = src.shape
+    cout, cin = w.shape[2:]
+    n = cin if dgrad else cout
+    t = _gc.tiled_tile(h, wd)
+    pc = 8 if t.tw >= 8 else 4
+    pr, cg = 8 // pc, t.tw // pc
+    hp = _gc._tiled_rows(t.th, t.tw)
+    splits = _gc.tiled_splits(b, h, wd, k, n, _H100_SMS)
+    assert k % (4 * splits) == 0
+    src, w, a, off, bias, x = (None if v is None else v.double()
+                               for v in (src, w, a, off, bias, x))
+    w9 = w.reshape(9, cout, cin)
+    wt = w9.flip(0).permute(1, 0, 2) if dgrad else w9.permute(2, 0, 1)  # [k][tap][n]
+    m = torch.arange(16)
+    trow = m // cg * pr
+    row_ok = trow < t.ni * hp
+    img, yin = torch.where(row_ok, trow // hp, 0), torch.where(row_ok, trow % hp, 0)
+    col0 = m % cg * pc
+    r, c = torch.arange(8) // pc, torch.arange(8) % pc
+    dy, dx = torch.arange(9) // 3, torch.arange(9) % 3
+    hi = img[:, None, None].expand(16, 8, 9)
+    hy = yin[:, None, None] + r[None, :, None] + dy[None, None, :]
+    hx = col0[:, None, None] + c[None, :, None] + dx[None, None, :]
+    assert int(hy.max()) < hp + 2 and int(hx.max()) < t.tw + 4
+    out = torch.zeros(b, h, wd, n, dtype=torch.float64)
+    ws_a = torch.zeros(t.count(b) * t.ni * 2 * cin, dtype=torch.float64)
+    for tile in range(t.count(b)):
+        b0 = tile // (t.tiles_y * t.tiles_x) * t.ni
+        y0 = tile // t.tiles_x % t.tiles_y * t.th
+        x0 = tile % t.tiles_x * t.tw
+        halo = torch.zeros(k, t.ni, hp + 2, t.tw + 4, dtype=torch.float64)
+        for i in range(min(t.ni, b - b0)):
+            for yy in range(max(0, y0 - 1), min(h, y0 - 1 + hp + 2)):
+                for xx in range(max(0, x0 - 1), min(wd, x0 + t.tw + 1)):
+                    v = src[b0 + i, yy, xx]
+                    if not dgrad:
+                        p = v * a[b0 + i] + off[b0 + i]
+                        v = p * torch.sigmoid(p)
+                    halo[:, i, yy - y0 + 1, xx - x0 + 1] = v
+        gathered = halo[:, hi, hy, hx]                         # (k, m, pixel, tap)
+        yy = y0 + yin[:, None] + r[None, :]
+        xx = x0 + col0[:, None] + c[None, :]
+        bb = b0 + img[:, None].expand(16, 8)
+        valid = (row_ok[:, None] & (yin[:, None] + r[None, :] < t.th) & (yy < h) & (xx < wd)
+                 & (bb < b))
+        for n0 in range(0, n, 128):
+            cols = torch.arange(n0, min(n, n0 + 128))
+            kper = k // splits
+            parts = [torch.einsum("kmpt,ktn->mpn", gathered[z * kper:(z + 1) * kper],
+                                  wt[z * kper:(z + 1) * kper][:, :, cols]) for z in range(splits)]
+            acc = sum(parts[1:], parts[0])
+            red = torch.zeros(2, 16, len(cols), dtype=torch.float64)
+            for mi in range(16):
+                for pi in range(8):
+                    if not valid[mi, pi]:
+                        continue
+                    at = (int(bb[mi, pi]), int(yy[mi, pi]), int(xx[mi, pi]))
+                    if dgrad:
+                        xv, av, ov = x[at][cols], a[at[0]][cols], off[at[0]][cols]
+                        p = xv * av + ov
+                        s = torch.sigmoid(p)
+                        dp = acc[mi, pi] * s * (1 + p * (1 - s))
+                        out[at][cols] = dp * av
+                        red[0, mi] += dp * xv
+                        red[1, mi] += dp
+                    else:
+                        out[at][cols] = acc[mi, pi] + bias[cols]
+            if dgrad:
+                for i in range(t.ni):
+                    if b0 + i >= b:
+                        continue
+                    mine = [mi for mi in range(16) if row_ok[mi] and int(img[mi]) == i]
+                    for q in range(2):
+                        at = ((tile * t.ni + i) * 2 + q) * cin
+                        ws_a[at + cols] = sum(red[q, mi] for mi in mine)
+    return (out, ws_a) if dgrad else out
+
+
+# (B, H, W, Cin, Cout): 8-column threads over 4 rows of 32; 2 whole 8x8
+# images a tile with a ragged batch; 4-wide images (two rows a thread, 8 a
+# tile) with a batch of 5 and two 128-channel blocks of the output, the
+# second ragged; 6x6 and 3x3 images (padded columns and rows); 28 columns
+# in 32; 200 columns in two row segments of 128
+_TILED_SHAPES = [(2, 32, 32, 8, 12), (3, 8, 8, 12, 16), (5, 4, 4, 16, 132), (2, 6, 6, 8, 12),
+                 (2, 3, 3, 4, 8), (2, 28, 28, 8, 12), (1, 2, 200, 4, 12)]
+
+
+@pytest.mark.parametrize("shape", _TILED_SHAPES)
+def test_tiled_f32_forward_arithmetic_matches_plain(shape):
+    """tiled_f32's forward index arithmetic (the tiles, the halo's rows and
+    pitch, the threads' pixels and register shifts, the transposed weight,
+    the split of Cin, the epilogue's validity), emulated, against the plain
+    version within 1e-5 of its largest output (float64 against float32)."""
+    b, h, w, cin, cout = shape
+    x, a, off, wt, bias, _ = _case(b, h, w, cin, cout, torch.float32, seed=sum(shape))
+    got = _tiled_emulated(x, wt, a, off, bias, None, dgrad=False)
+    want = _gc.gn_silu_conv3x3_plain(x, a, off, wt, bias)
+    assert float((got - want.double()).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("shape", _TILED_SHAPES)
+def test_tiled_f32_dgrad_arithmetic_matches_plain(shape):
+    """tiled_f32's input gradient (g's halo, the flipped weight, the split
+    of Cout, dx and the (tile, image, channel) partials), emulated, then
+    the partials added in ``grad_plan``'s order: dx, da and doff within
+    1e-5 of the plain gradient's largest element; every partial the plan
+    adds is written and no other."""
+    b, h, w, cin, cout = shape
+    x, a, off, wt, _, g = _case(b, h, w, cin, cout, torch.float32, seed=sum(shape) + 1)
+    dx, ws_a = _tiled_emulated(g, wt, a, off, None, x, dgrad=True)
+    plan = grad_plan(b, h, w, cin, cout, "tiled_f32", _H100_SMS)
+    assert ws_a.numel() == plan.workspace(b, cin, cout)[0]
+    slots = plan.dgrad_slots(b)
+    da = torch.stack([sum(ws_a[(k * plan.dgrad.ni + i) * 2 * cin:][:cin] for k, i in sl)
+                      for sl in slots])
+    doff = torch.stack([sum(ws_a[((k * plan.dgrad.ni + i) * 2 + 1) * cin:][:cin]
+                            for k, i in sl) for sl in slots])
+    want = gn_silu_conv3x3_grad_plain(x, a, off, wt, g, needs=(True, True, True, False, False))
+    for i, (p, q) in enumerate(zip((dx, da, doff), want[:3])):
+        assert p.shape == q.shape, i
+        assert float((p - q.double()).abs().max()) <= 1e-5 * float(q.abs().max()), i
+
+
 def test_narrow_f32_plan_and_buffers():
     """The head's tiles are whole rows of one image, 1,024 pixels at most,
     every pixel once; the whole weight and the g halo fit shared memory at
@@ -406,9 +547,12 @@ def test_wgmma_buffer_sizes(shape, design):
     ((16, 7, 7, 64, 64), torch.bfloat16, "general"),     # 49 pixels a sample
     ((3, 28, 28, 36, 24), torch.bfloat16, "general"),    # Cin % 8
     ((128, 32, 32, 128, 3), torch.float32, "narrow_f32"),  # the output head
-    ((128, 32, 32, 128, 128), torch.float32, "general"),
+    ((128, 32, 32, 128, 128), torch.float32, "tiled_f32"),  # float32, the configs' default
+    ((128, 4, 4, 512, 256), torch.float32, "tiled_f32"),
     ((10, 32, 32, 128, 6), torch.float32, "narrow_f32"),   # learned sigma's head
     ((2, 8, 8, 10, 3), torch.float32, "general"),          # Cin % 4
+    ((2, 8, 8, 10, 16), torch.float32, "general"),         # Cin % 4, wider than the head
+    ((2, 8, 8, 16, 10), torch.float32, "general"),         # Cout % 4
 ])
 def test_conv_grad_design_by_shape(shape, dtype, design):
     b, h, w, cin, cout = shape
@@ -439,13 +583,15 @@ _CARD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 def _card_cases():
     """(B, H, W, Cin, Cout, dtype): the gradient sites in bf16 and float32
-    (the head in float32), the visualization batches 1 and 10 in bf16 with
+    (the head in float32), tiled_f32's float32 signatures of the CIFAR UNet
+    and its ragged shapes, the visualization batches 1 and 10 in bf16 with
     the float32 learned-sigma head."""
     cases = []
     for b, h, w, cin, cout in _GRAD_CONV_SHAPES:
         cases += [(b, h, w, cin, cout, torch.float32)]
         if cout != 3:
             cases += [(b, h, w, cin, cout, torch.bfloat16)]
+    cases += [(*s, torch.float32) for s in _F32_CONV_SHAPES if s not in _GRAD_CONV_SHAPES]
     for batch in (1, 10):
         cases += [(batch, *s, torch.bfloat16) for s in _VIZ_CONV]
         cases += [(batch, 32, 32, 128, 6, torch.float32)]
@@ -462,6 +608,7 @@ def test_card_conv_grad_designs_match_plain(case, card):
     x, a, off, wt, _, g = (t.cuda() for t in _case(b, h, w, cin, cout, dtype, seed=b + cin))
     want = gn_silu_conv3x3_grad_plain(x, a, off, wt, g)
     chosen = conv_grad_design(x, wt)
+    assert chosen == "tiled_f32" or dtype != torch.float32 or cout <= 8
     designs = {chosen, "general"} | ({"wgmma_sync_epilogue", "wgmma_taprow"}
                                      if chosen == "wgmma" else set())
     for design in sorted(designs):
@@ -542,13 +689,14 @@ def test_card_refuses_a_short_activation_buffer(card):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("design", ["general", "wgmma", "wgmma_sync_epilogue", "wgmma_taprow",
-                                    "narrow_f32"])
+                                    "narrow_f32", "tiled_f32"])
 @pytest.mark.parametrize("short", [0, 1, 2])
 def test_card_refuses_a_short_workspace(design, short, card, monkeypatch):
     """A workspace one element shorter than the entry point's own tiling
     fills is refused before any launch, so a plan that drifts from the C
     side raises instead of writing past its end."""
-    dtype, cout = (torch.float32, 3) if design == "narrow_f32" else (torch.bfloat16, 64)
+    dtype, cout = ((torch.float32, 3) if design == "narrow_f32" else
+                   (torch.float32, 64) if design == "tiled_f32" else (torch.bfloat16, 64))
     x, a, off, wt, _, g = (t.cuda() for t in _case(8, 16, 16, 64, cout, dtype, seed=4))
     sized = _gc.GradPlan.workspace
 

@@ -350,11 +350,17 @@ def test_gn_silu_conv_halo_is_zero_after_activation():
     ((128, 32, 32, 128, 3), torch.float32, "narrow_f32"),  # the output head
     ((8, 32, 32, 128, 6), torch.float32, "narrow_f32"),   # learned-sigma head
     ((3, 28, 28, 36, 24), torch.bfloat16, "general"),     # Cin % 8 != 0
-    ((2, 8, 8, 64, 32), torch.float32, "general"),        # a wide float32 conv
+    ((2, 8, 8, 64, 32), torch.float32, "tiled_f32"),      # a wide float32 conv
+    ((128, 32, 32, 128, 128), torch.float32, "tiled_f32"),  # CIFAR in float32, the default
+    ((128, 4, 4, 512, 256), torch.float32, "tiled_f32"),  # 8 whole images a tile
+    ((2, 8, 256, 128, 128), torch.float32, "tiled_f32"),  # row segments
+    ((2, 8, 8, 10, 32), torch.float32, "general"),        # float32 with Cin % 4 != 0
+    ((2, 1, 8, 64, 32), torch.float32, "general"),        # a tile's halo too large
 ])
 def test_conv_design_by_shape(shape, dtype, design):
     """The design each conv call runs: every bf16 shape of the shipped
-    configs takes wgmma, the float32 head the narrow path."""
+    configs takes wgmma, every float32 one tiled_f32, the float32 head the
+    narrow path."""
     b, h, w, cin, cout = shape
     x = torch.empty(b, h, w, cin, dtype=dtype)
     assert conv_design(x, torch.empty(3, 3, cout, cin, dtype=dtype)) == design
@@ -875,6 +881,59 @@ def test_fold_kernel_matches_plain_on_card(card, mode, dtype):
         assert _gn.gn_fold.launches == before + 1
         want = _gn.gn_fold_plain(mom, gamma, beta, 32, 1e-5, **kw)
         torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+
+
+# (B, H, W, Cin, Cout): the CIFAR UNet's 11 float32 signatures (every
+# fused conv of a float32 forward but the head) at batch 128, then ragged
+# ones: 6x6 images (padded rows and columns) with a ragged second block of
+# 128 output channels, MNIST's 28x28 with Cin 36, three rows of 200 columns
+# (two row segments) and one image (a split of Cin 8 ways)
+_F32_CONV_SHAPES = [(128, 32, 32, 128, 128), (128, 32, 32, 256, 128), (128, 32, 32, 384, 128),
+                    (128, 16, 16, 128, 256), (128, 16, 16, 256, 256), (128, 16, 16, 384, 256),
+                    (128, 16, 16, 512, 256), (128, 8, 8, 256, 256), (128, 8, 8, 512, 256),
+                    (128, 4, 4, 256, 256), (128, 4, 4, 512, 256), (5, 6, 6, 12, 132),
+                    (3, 28, 28, 36, 24), (1, 3, 200, 8, 20), (1, 32, 32, 128, 128)]
+
+
+@pytest.mark.gpu
+def test_card_tiled_f32_matches_plain(card):
+    """tiled_f32 at every float32 site signature: selected, against the
+    plain version, the same bits twice, one count a call; ``general`` by
+    name against the plain version too; the folding variant at the CIFAR
+    shapes against its plain version and bit for bit the conv fed
+    ``gn_fold``'s (a, off) of the ranks' mean."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    for b, h, w, cin, cout in _F32_CONV_SHAPES:
+        x = torch.randn(b, h, w, cin, device="cuda", generator=gen)
+        a = 1.0 + 0.1 * torch.randn(b, cin, device="cuda", generator=gen)
+        off = 0.5 * torch.randn(b, cin, device="cuda", generator=gen)
+        wt = torch.randn(3, 3, cout, cin, device="cuda", generator=gen) / (3 * cin ** 0.5)
+        bias = torch.randn(cout, device="cuda", generator=gen)
+        assert conv_design(x, wt) == "tiled_f32", (b, h, w, cin, cout)
+        ref = gn_silu_conv3x3_plain(x, a, off, wt, bias)
+        for design in ("tiled_f32", "general"):
+            before = gn_silu_conv3x3.launches
+            runs = [gn_silu_conv3x3(x, a, off, wt, bias, design=design) for _ in range(2)]
+            torch.cuda.synchronize()
+            assert gn_silu_conv3x3.launches == before + 2
+            assert torch.equal(runs[0], runs[1]), (design, b, h, w, cin, cout)
+            torch.testing.assert_close(runs[0], ref, rtol=_TOL[torch.float32],
+                                       atol=_TOL[torch.float32])
+        if b != 128:
+            continue
+        gamma = 1.0 + 0.1 * torch.randn(cin, device="cuda", generator=gen)
+        beta = 0.1 * torch.randn(cin, device="cuda", generator=gen)
+        mom = _slab_sum(x + 0.3)
+        args = (x, mom, 2, gamma, beta, 32, 1e-5, wt, bias)
+        assert conv_design(x, wt, 32) == "tiled_f32"
+        runs = [_gc.gn_silu_conv3x3_fold(*args) for _ in range(2)]
+        ref = _gc.gn_silu_conv3x3_fold_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(runs[0], runs[1])
+        torch.testing.assert_close(runs[0], ref, rtol=0,
+                                   atol=_TOL[torch.float32] * max(1.0, float(ref.abs().max())))
+        ao = _gn.gn_fold(mom / 2, gamma, beta, 32, 1e-5)
+        assert torch.equal(runs[0], gn_silu_conv3x3(x, ao[0], ao[1], wt, bias))
 
 
 # (B, H, W, Cin, Cout, groups): the folding conv's designs at slab-like
